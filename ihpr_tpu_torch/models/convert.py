@@ -1,0 +1,109 @@
+"""Weights for the port's PoseNet: the JAX package's initialization scheme
+from a ``torch.Generator``, and conversion of a JAX parameter tree.
+
+Layout mapping from the JAX (flax) tree:
+
+- conv kernel (kh, kw, in, out) -> (out, in, kh, kw);
+- deconv kernel (kh, kw, in, out) -> (in, out, kh, kw) with the spatial
+  taps flipped back (torch's transposed conv correlates where
+  ``lax.conv_transpose`` convolves);
+- BatchNorm scale/bias -> weight/bias, batch_stats mean/var ->
+  running_mean/running_var;
+- final conv kernel (1, 1, C, J*D) -> (C, J*D), bias (J*D,) as is.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+from ihpr_tpu_torch.config import Config
+from ihpr_tpu_torch.models.head import FinalConv
+from ihpr_tpu_torch.models.resnet import BN, RESNET_SPECS
+
+# Std of a standard normal truncated to [-2, 2]; flax's lecun_normal divides
+# by it so the truncated draw keeps variance 1 / fan_in.
+_TRUNC_STD = 0.87962566103423978
+
+
+def init_state_dict(
+    model: nn.Module, generator: torch.Generator, init_std: float = 0.001
+) -> Dict[str, torch.Tensor]:
+    """fp32 CPU state_dict for ``model`` drawn from ``generator`` with the
+    JAX package's scheme: convs lecun-normal (truncated at 2 std), deconvs
+    and the final conv normal(``init_std``), zero final bias, BN scale 1,
+    bias 0, running mean 0, running var 1."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def normal(shape, std):
+        return torch.empty(shape).normal_(0.0, std, generator=generator)
+
+    for name, mod in model.named_modules():
+        p = f"{name}."
+        if isinstance(mod, nn.ConvTranspose2d):
+            sd[p + "weight"] = normal(mod.weight.shape, init_std)
+        elif isinstance(mod, nn.Conv2d):
+            fan_in = math.prod(mod.weight.shape[1:])
+            std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+            sd[p + "weight"] = nn.init.trunc_normal_(
+                torch.empty(mod.weight.shape), 0.0, std, -2 * std, 2 * std, generator=generator
+            )
+        elif isinstance(mod, FinalConv):
+            sd[p + "weight"] = normal(mod.weight.shape, init_std)
+            sd[p + "bias"] = torch.zeros(mod.bias.shape)
+        elif isinstance(mod, BN):
+            c = mod.weight.shape[0]
+            sd[p + "weight"] = torch.ones(c)
+            sd[p + "bias"] = torch.zeros(c)
+            sd[p + "running_mean"] = torch.zeros(c)
+            sd[p + "running_var"] = torch.ones(c)
+    return sd
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(a, np.float32)))
+
+
+def from_jax_params(
+    params: Mapping, batch_stats: Mapping, cfg: Config
+) -> Dict[str, torch.Tensor]:
+    """JAX PoseNet ``params`` / ``batch_stats`` (nested dicts of arrays) ->
+    the port's fp32 PoseNet ``state_dict``."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def walk(prefix: str, p: Mapping, s: Mapping):
+        for name, sub in p.items():
+            key = f"{prefix}{name}"
+            if "BatchNorm_0" in sub:
+                bp, bs = sub["BatchNorm_0"], s[name]["BatchNorm_0"]
+                sd[key + ".weight"] = _t(bp["scale"])
+                sd[key + ".bias"] = _t(bp["bias"])
+                sd[key + ".running_mean"] = _t(bs["mean"])
+                sd[key + ".running_var"] = _t(bs["var"])
+            elif name == "final":
+                sd[key + ".weight"] = _t(np.asarray(sub["kernel"])[0, 0])
+                sd[key + ".bias"] = _t(sub["bias"])
+            elif name.startswith("deconv"):
+                k = np.asarray(sub["kernel"])[::-1, ::-1]
+                sd[key + ".weight"] = _t(k.transpose(2, 3, 0, 1))
+            elif "kernel" in sub:
+                sd[key + ".weight"] = _t(np.asarray(sub["kernel"]).transpose(3, 2, 0, 1))
+            else:
+                walk(key + ".", sub, s.get(name, {}))
+
+    stem = np.asarray(params["backbone"]["conv1"]["kernel"])
+    if stem.shape[:3] != (7, 7, 3):
+        raise ValueError(f"stem kernel {stem.shape} is not 7x7x3 (s2d_stem is not ported)")
+    _, depths, _ = RESNET_SPECS[cfg.model.resnet_type]
+    blocks = [k for k in params["backbone"] if k.startswith("layer")]
+    if len(blocks) != sum(depths):
+        raise ValueError(
+            f"{len(blocks)} residual blocks in params, ResNet-{cfg.model.resnet_type} has {sum(depths)}"
+        )
+    walk("backbone.", params["backbone"], batch_stats["backbone"])
+    walk("head.", params["head"], batch_stats["head"])
+    return sd

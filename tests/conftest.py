@@ -130,3 +130,7 @@ def coco_root(tmp_path):
     return root
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips with a reason on a host without one"
+    )
