@@ -5,11 +5,16 @@ package never imports):
 
     config    — frozen dataclass configs and the named CONFIGS
     data      — skeletons, bbox geometry, patch affines, native warp binding,
-                the finalize_patch device tail
+                the finalize_patch device tail, synthetic datasets, the
+                host-warp BatchLoader and its prefetch to the device
     ops       — plain integral soft-argmax; the fused final-conv + integral
-                op with its hand-written CUDA kernel (ops/csrc)
-    models    — ResNet backbone, deconv head, PoseNet, weight conversion
-    engine    — PoseServer (batched serving with flip-test)
+                op (autograd Function) with its hand-written CUDA kernels,
+                K1 forward and K2 backward (ops/csrc); the L1 loss
+    models    — ResNet backbone, deconv head, PoseNet (fp32 parameters,
+                train-mode BN), weight conversion
+    parallel  — the single-GPU train step, optimizer and schedule
+    engine    — PoseServer (batched serving with flip-test), Trainer
+    train     — the training CLI (python -m ihpr_tpu_torch.train)
 """
 
 __version__ = "0.1.0"

@@ -1,5 +1,6 @@
 """Joint-set definitions for H36M / MPII / COCO (the port's copy of
-``ihpr_tpu.data.skeletons``: same names, joint orders and flip pairs)."""
+``ihpr_tpu.data.skeletons``: same names, joint orders and flip pairs, and
+the name-based remap between joint sets)."""
 
 from __future__ import annotations
 
@@ -96,3 +97,18 @@ def get_skeleton(name: str) -> Skeleton:
     if name not in _REGISTRY:
         raise KeyError(f"unknown dataset {name!r}; available: {sorted(_REGISTRY)}")
     return _REGISTRY[name]
+
+
+def transform_joint_to_other_db(
+    src_joint: np.ndarray, src: Skeleton, dst: Skeleton
+) -> np.ndarray:
+    """Remap joints (..., J_src, C) from src order into dst order by name;
+    joints missing in src are zero (reference
+    ``common/utils/pose_utils.py:transform_joint_to_other_db``)."""
+    out_shape = src_joint.shape[:-2] + (dst.joint_num, src_joint.shape[-1])
+    out = np.zeros(out_shape, dtype=src_joint.dtype)
+    src_index = {n: i for i, n in enumerate(src.joints_name)}
+    for j, name in enumerate(dst.joints_name):
+        if name in src_index:
+            out[..., j, :] = src_joint[..., src_index[name], :]
+    return out

@@ -22,7 +22,7 @@ from ihpr_tpu_torch.config import Config
 from ihpr_tpu_torch.data import geometry, native, skeletons
 from ihpr_tpu_torch.data.augment import finalize_patch
 from ihpr_tpu_torch.data.warp import gen_trans_np
-from ihpr_tpu_torch.models.pose_net import PoseNet, build_pose_net
+from ihpr_tpu_torch.models.pose_net import PoseNet, build_pose_net, inference_copy
 
 
 @dataclasses.dataclass
@@ -41,17 +41,21 @@ class PoseServer:
         flip_test: Optional[bool] = None,
         device: Union[str, torch.device] = "cpu",
     ):
-        """``model_or_state``: a ``PoseNet`` (moved to ``device``) or a
-        state_dict for ``build_pose_net(cfg)``'s model."""
+        """``model_or_state``: a ``PoseNet`` or a state_dict for
+        ``build_pose_net(cfg)``'s model. The server runs its own frozen copy
+        on ``device``, with the conv weights cast to the compute dtype once
+        (``pose_net.inference_copy``); the model passed in is left as it
+        is."""
         self.cfg = cfg
         self.device = torch.device(device)
         self.skeleton = skeletons.get_skeleton(cfg.data.testset)
         joints = self.skeleton.joint_num
         if isinstance(model_or_state, PoseNet):
-            self.model = model_or_state.to(self.device).eval()
+            model = model_or_state
         else:
-            self.model = build_pose_net(cfg, joints, device=self.device)
-            self.model.load_state_dict(model_or_state)
+            model = build_pose_net(cfg, joints, device=self.device)
+            model.load_state_dict(model_or_state)
+        self.model = inference_copy(model).to(self.device)
         if self.model.joint_num != joints:
             raise ValueError(
                 f"model has {self.model.joint_num} joints, {cfg.data.testset} has {joints}"

@@ -2,10 +2,11 @@
 counterpart of ``ihpr_tpu.models.head.DeconvHead``.
 
 3 x [ConvTranspose2d(4, stride 2, padding 1) + BN + ReLU], then a final
-1x1 conv C -> J*D. The final conv's weight is held as a (C, J*D) matrix in
-the compute dtype, and its bias in the compute dtype too (the JAX head
-casts both before the fused op), so the fused kernel reads them as they
-are and the plain logits path multiplies by the same values.
+1x1 conv C -> J*D. Every weight is an fp32 master, as in the JAX head; the
+deconvs cast theirs to the compute dtype per call, and the final conv's
+(C, J*D) weight and (J*D,) bias are cast to the compute dtype before the
+fused op or the plain logits matmul (``head.py:143-148``), so autograd
+returns fp32 gradients through the casts.
 """
 
 from __future__ import annotations
@@ -19,12 +20,29 @@ from ihpr_tpu_torch.ops.fused_head_integral import fused_final_conv_integral
 
 
 class FinalConv(nn.Module):
-    """1x1 conv as a (C, J*D) weight matrix and a (J*D,) bias."""
+    """1x1 conv as an fp32 (C, J*D) weight matrix and an fp32 (J*D,) bias."""
 
-    def __init__(self, cin: int, cout: int, dtype: torch.dtype, device=None):
+    def __init__(self, cin: int, cout: int, device=None):
         super().__init__()
-        self.weight = nn.Parameter(torch.zeros(cin, cout, dtype=dtype, device=device))
-        self.bias = nn.Parameter(torch.zeros(cout, dtype=dtype, device=device))
+        self.weight = nn.Parameter(torch.zeros(cin, cout, dtype=torch.float32, device=device))
+        self.bias = nn.Parameter(torch.zeros(cout, dtype=torch.float32, device=device))
+
+
+class Deconv(nn.ConvTranspose2d):
+    """ConvTranspose2d(4, stride 2, padding 1), bias-free, with an fp32
+    master weight cast to ``compute_dtype`` on each call."""
+
+    def __init__(self, cin: int, cout: int, compute_dtype: torch.dtype, device=None):
+        super().__init__(
+            cin, cout, 4, stride=2, padding=1, bias=False, dtype=torch.float32, device=device
+        )
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv_transpose2d(
+            x, self.weight.to(self.compute_dtype), None, self.stride, self.padding,
+            self.output_padding, self.groups, self.dilation,
+        )
 
 
 class DeconvHead(nn.Module):
@@ -41,17 +59,14 @@ class DeconvHead(nn.Module):
     ):
         super().__init__()
         self.num_layers = num_layers
+        self.dtype = dtype
         self.fp32_logits = fp32_logits
         for i in range(num_layers):
             self.add_module(
-                f"deconv{i + 1}",
-                nn.ConvTranspose2d(
-                    cin if i == 0 else features, features, 4, stride=2, padding=1,
-                    bias=False, dtype=dtype, device=device,
-                ),
+                f"deconv{i + 1}", Deconv(cin if i == 0 else features, features, dtype, device)
             )
             self.add_module(f"bn{i + 1}", BN(features, bn_mode, dtype, device=device))
-        self.final = FinalConv(features, out_channels, dtype, device)
+        self.final = FinalConv(features, out_channels, device)
 
     def features(self, x: torch.Tensor) -> torch.Tensor:
         """(B, C_in, h, w) -> (B, H, W, C) penultimate features. With
@@ -65,9 +80,9 @@ class DeconvHead(nn.Module):
         """mode='logits': (B, H, W, J*D) heatmap logits. mode='coords':
         (B, J, 3) voxel coords through the fused final-conv + integral op."""
         feat = self.features(x)
+        kernel = self.final.weight.to(self.dtype)
+        bias = self.final.bias.to(self.dtype)
         if mode == "coords":
-            return fused_final_conv_integral(
-                feat, self.final.weight, self.final.bias, joint_num, depth_dim
-            )
-        logits = torch.matmul(feat, self.final.weight) + self.final.bias
+            return fused_final_conv_integral(feat, kernel, bias, joint_num, depth_dim)
+        logits = torch.matmul(feat, kernel) + bias
         return logits.to(torch.float32) if self.fp32_logits else logits

@@ -9,13 +9,14 @@ NHWC input permuted to NCHW already has those strides).
 from __future__ import annotations
 
 import contextlib
+import copy
 
 import torch
 from torch import nn
 
 from ihpr_tpu_torch.config import Config
-from ihpr_tpu_torch.models.head import DeconvHead
-from ihpr_tpu_torch.models.resnet import ResNetBackbone
+from ihpr_tpu_torch.models.head import Deconv, DeconvHead
+from ihpr_tpu_torch.models.resnet import Conv, ResNetBackbone
 from ihpr_tpu_torch.ops.integral import soft_argmax_3d
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -25,7 +26,9 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 def _precision_scope(matmul_precision):
     """``"highest"``: TF32 off for cuDNN convs and for matmuls while the
     block runs, restored after, so one model's setting does not leak into
-    the process."""
+    the process. A training step runs its ``backward()`` inside the block
+    too (``PoseNet.precision``), as JAX's ``precision="highest"`` covers
+    the VJP."""
     if matmul_precision != "highest":
         yield
         return
@@ -68,18 +71,24 @@ class PoseNet(nn.Module):
             device,
         )
 
+    def precision(self):
+        """Context manager holding this model's matmul precision; wrap a
+        forward and its ``backward()`` in it (forward calls also enter it
+        themselves)."""
+        return _precision_scope(self.matmul_precision)
+
     def _features(self, x: torch.Tensor) -> torch.Tensor:
         return self.backbone(x.permute(0, 3, 1, 2))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) image -> (B, H/4, W/4, J*D) heatmap logits."""
-        with _precision_scope(self.matmul_precision):
+        with self.precision():
             return self.head(self._features(x))
 
     def coords(self, x: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) image -> (B, J, 3) voxel coords (x, y, z) through the
         fused final-conv + integral op: the logits volume is never written."""
-        with _precision_scope(self.matmul_precision):
+        with self.precision():
             return self.head(
                 self._features(x), "coords", self.joint_num, self.depth_dim
             )
@@ -97,10 +106,13 @@ def build_pose_net(
     joint_num: int | None = None,
     device="cpu",
     generator: torch.Generator | None = None,
+    trainable: bool = False,
 ) -> PoseNet:
-    """Eval-mode PoseNet for ``cfg`` on ``device``, initialized the way the
-    JAX package initializes (``models.convert.init_state_dict``) from
-    ``generator``, or from ``torch.Generator().manual_seed(cfg.seed)``."""
+    """PoseNet for ``cfg`` on ``device`` with fp32 parameters, initialized
+    the way the JAX package initializes (``models.convert.init_state_dict``)
+    from ``generator``, or from ``torch.Generator().manual_seed(cfg.seed)``.
+    Frozen in eval mode, or in train mode with gradients when
+    ``trainable``."""
     from ihpr_tpu_torch.models.convert import init_state_dict
 
     m = cfg.model
@@ -121,7 +133,7 @@ def build_pose_net(
             bn_mode=m.bn_mode,
             matmul_precision=m.matmul_precision,
         )
-    model = model.to_empty(device=device).eval().requires_grad_(False)
+    model = model.to_empty(device=device).train(trainable).requires_grad_(trainable)
     for mod in model.modules():
         if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):
             mod.weight.data = mod.weight.data.contiguous(memory_format=torch.channels_last)
@@ -129,3 +141,18 @@ def build_pose_net(
         generator = torch.Generator().manual_seed(cfg.seed)
     model.load_state_dict(init_state_dict(model, generator, m.head_final_init_std))
     return model
+
+
+def inference_copy(model: PoseNet) -> PoseNet:
+    """A frozen eval-mode copy of ``model`` whose conv, deconv and final-conv
+    parameters are stored in the compute dtype, cast once here: each
+    forward's per-call cast is then a no-op, so serving launches no cast
+    kernels. ``model`` itself is left as it is."""
+    frozen = copy.deepcopy(model).eval().requires_grad_(False)
+    for mod in frozen.modules():
+        if isinstance(mod, (Conv, Deconv)):
+            mod.weight.data = mod.weight.data.to(mod.compute_dtype)
+    final = frozen.head.final
+    for p in (final.weight, final.bias):
+        p.data = p.data.to(frozen.head.dtype)
+    return frozen

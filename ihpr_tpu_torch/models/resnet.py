@@ -1,12 +1,13 @@
 """ResNet backbone (torchvision v1.5: the stride sits on the Bottleneck's
-3x3 conv), eval only, counterpart of ``ihpr_tpu.models.resnet``.
+3x3 conv), counterpart of ``ihpr_tpu.models.resnet``.
 
-Tensors are NCHW in ``channels_last`` memory format. Conv weights are held
-in the compute dtype (one rounding of the fp32 master, as the JAX package
-casts its fp32 params per call); BatchNorm parameters and running
-statistics stay fp32. Module names follow the JAX parameter tree
-(``layer{stage}_{i}.conv1``, ``down_bn``, ...), so ``models.convert`` maps
-one onto the other by name.
+Tensors are NCHW in ``channels_last`` memory format. Every parameter is an
+fp32 master, as in the JAX package (``param_dtype=float32``); each conv
+casts its weight to the compute dtype per call (autograd returns the fp32
+gradient through the cast). BatchNorm parameters and running statistics
+are fp32 and BatchNorm follows ``nn.Module.train()``/``eval()``. Module
+names follow the JAX parameter tree (``layer{stage}_{i}.conv1``,
+``down_bn``, ...), so ``models.convert`` maps one onto the other by name.
 """
 
 from __future__ import annotations
@@ -30,14 +31,23 @@ BN_MODES = ("flax", "lean")
 
 
 class BN(nn.Module):
-    """Eval-mode BatchNorm on running statistics, in one of two arithmetics:
+    """BatchNorm in one of two arithmetics:
 
     - ``"flax"``: ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in fp32,
       then cast to ``dtype`` (flax ``nn.BatchNorm``);
     - ``"lean"``: ``mul = scale * rsqrt(var + eps)`` and
       ``add = bias - mean * scale * rsqrt(var + eps)`` computed in fp32, both
       cast to ``dtype``, then ``x * mul + add`` in ``dtype`` (``_LeanBN``).
+
+    In train mode both normalize with the batch statistics, taken in fp32
+    over (N, H, W) as ``mean = E[x]`` and the biased ``var = max(E[x^2] -
+    mean^2, 0)``, with gradients through both, and update the running
+    statistics as ``momentum * old + (1 - momentum) * batch`` (flax momentum
+    0.9; the running variance gets the biased variance too). In eval mode
+    they normalize with the running statistics.
     """
+
+    momentum = 0.9  # flax momentum: the share of the old running statistic
 
     def __init__(self, channels: int, mode: str, dtype: torch.dtype, eps: float = 1e-5, device=None):
         super().__init__()
@@ -52,23 +62,50 @@ class BN(nn.Module):
         self.register_buffer("running_mean", torch.zeros(channels, **f32))
         self.register_buffer("running_var", torch.ones(channels, **f32))
 
+    def _batch_stats(self, x: torch.Tensor):
+        xf = x.to(torch.float32)
+        mean = xf.mean(dim=(0, 2, 3))
+        var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        return mean, var
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        rstd = torch.rsqrt(self.running_var + self.eps)
+        if self.training:
+            mean, var = self._batch_stats(x)
+        else:
+            mean, var = self.running_mean, self.running_var
+        rstd = torch.rsqrt(var + self.eps)
         if self.mode == "lean":
             mul = (self.weight * rstd).to(self.dtype)
-            add = (self.bias - self.running_mean * self.weight * rstd).to(self.dtype)
+            add = (self.bias - mean * self.weight * rstd).to(self.dtype)
             # One rounding of x*mul + add, as XLA's fused multiply-add gives.
             return torch.addcmul(add[:, None, None], x.to(self.dtype), mul[:, None, None])
         mul = rstd * self.weight
-        y = (x.to(torch.float32) - self.running_mean[:, None, None]) * mul[:, None, None]
+        y = (x.to(torch.float32) - mean[:, None, None]) * mul[:, None, None]
         return (y + self.bias[:, None, None]).to(self.dtype)
 
 
-def _conv(cin: int, cout: int, kernel: int, stride: int, dtype, device) -> nn.Conv2d:
-    return nn.Conv2d(
-        cin, cout, kernel, stride=stride, padding=kernel // 2, bias=False,
-        dtype=dtype, device=device,
-    )
+class Conv(nn.Conv2d):
+    """Bias-free conv with an fp32 master weight, cast to ``compute_dtype``
+    on each call (a no-op once the weight is stored in that dtype, as in
+    ``pose_net.inference_copy``)."""
+
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int, compute_dtype, device=None):
+        super().__init__(
+            cin, cout, kernel, stride=stride, padding=kernel // 2, bias=False,
+            dtype=torch.float32, device=device,
+        )
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, self.weight.to(self.compute_dtype), None)
+
+
+def _conv(cin: int, cout: int, kernel: int, stride: int, dtype, device) -> Conv:
+    return Conv(cin, cout, kernel, stride, dtype, device)
 
 
 class BasicBlock(nn.Module):
@@ -127,7 +164,7 @@ class ResNetBackbone(nn.Module):
         block_cls = BasicBlock if kind == "basic" else Bottleneck
         self.dtype = dtype
         self.out_features = 512 * expansion
-        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False, dtype=dtype, device=device)
+        self.conv1 = Conv(3, 64, 7, 2, dtype, device)
         self.bn1 = BN(64, bn_mode, dtype, device=device)
         self.block_names = []
         cin = 64

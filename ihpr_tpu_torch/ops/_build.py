@@ -3,7 +3,8 @@
 Each ``ops/csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, ``build/kernels/lib<name>.so``
 under the repository root, and loaded with ctypes. The build runs at first
-use and again whenever the source is newer than the library; it writes a
+use and again whenever the source or a shared ``csrc/*.cuh`` header is
+newer than the library; it writes a
 temporary file and renames it into place, so concurrent builders never
 load a half-written library. ``nvcc``'s ``-Xptxas -v`` report (registers,
 shared memory, spills) is kept beside the library as ``lib<name>.log``.
@@ -11,6 +12,7 @@ shared memory, spills) is kept beside the library as ``lib<name>.log``.
 
 from __future__ import annotations
 
+import concurrent.futures as cf
 import ctypes
 import functools
 import os
@@ -35,11 +37,12 @@ def nvcc() -> str:
 
 
 def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library is up to date; return
-    the library's path."""
+    """Compile ``csrc/<name>.cu`` unless its library is newer than the
+    source and every header under ``csrc/``; return the library's path."""
     src = CSRC / f"{name}.cu"
     lib = BUILD_DIR / f"lib{name}.so"
-    if lib.exists() and lib.stat().st_mtime >= src.stat().st_mtime:
+    newest = max(p.stat().st_mtime for p in (src, *CSRC.glob("*.cuh")))
+    if lib.exists() and lib.stat().st_mtime >= newest:
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
@@ -52,6 +55,13 @@ def build(name: str) -> Path:
     (BUILD_DIR / f"lib{name}.log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, lib)
     return lib
+
+
+def build_all(names) -> list:
+    """``build`` several kernels at once, one ``nvcc`` process each."""
+    names = list(names)
+    with cf.ThreadPoolExecutor(max(1, len(names))) as pool:
+        return list(pool.map(build, names))
 
 
 @functools.cache

@@ -44,164 +44,14 @@
 // 2 MB because its CTAs are adjacent in launch order), and shared-memory
 // fragment traffic, since each warp reloads W's fragments for every
 // 16-row slab. Fewer re-reads (several joints per CTA) and wgmma/TMA are
-// the next steps.
+// the next steps. The tile loader and fragment code live in
+// fused_head_common.cuh, shared with the backward (K2).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "fused_head_common.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRows = kWarps * 16;  // feature rows per tile
-constexpr int kCols = 64;           // depth bins per CTA (D <= kCols)
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-
-template <typename T>
-struct Elem;
-template <>
-struct Elem<__nv_bfloat16> {
-  static constexpr int kPad = 8;  // 16 bytes: conflict-free ldmatrix rows
-  static __device__ __forceinline__ __nv_bfloat16 zero() { return __float2bfloat16(0.f); }
-  static __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-};
-template <>
-struct Elem<float> {
-  static constexpr int kPad = 4;
-  static __device__ __forceinline__ float zero() { return 0.f; }
-  static __device__ __forceinline__ float to_float(float v) { return v; }
-};
-
-__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_1() { asm volatile("cp.async.wait_group 1;\n" ::); }
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// This thread's share of a tile copy: 16-byte chunk (r, c) of the tile,
-// then every kThreads-th chunk after it, walked without divisions.
-struct TileWalk {
-  int r, c, dr, dc, chunks;
-  __device__ TileWalk(int C, int elem_bytes) {
-    chunks = C * elem_bytes / 16;
-    r = threadIdx.x / chunks;
-    c = threadIdx.x - r * chunks;
-    dr = kThreads / chunks;
-    dc = kThreads - dr * chunks;
-  }
-};
-
-// Copy rows [row0, row0 + kRows) of one sample's (hw, C) features into
-// shared memory (row pitch P elements). Rows past hw repeat row hw - 1;
-// their logits are masked out.
-template <typename T>
-__device__ __forceinline__ void load_tile(T* dst, const T* feat_b, int row0, int hw, int C, int P,
-                                          const TileWalk& w) {
-  for (int r = w.r, c = w.c; r < kRows;) {
-    const int gr = min(row0 + r, hw - 1);
-    cp_async16(reinterpret_cast<char*>(dst + r * P) + c * 16,
-               reinterpret_cast<const char*>(feat_b + (size_t)gr * C) + c * 16);
-    r += w.dr, c += w.dc;
-    if (c >= w.chunks) c -= w.chunks, ++r;
-  }
-}
-
-// The A fragment (16 rows x 16 k) and the W fragments (64 columns x 16 k)
-// of one k-step, by ldmatrix. Matrices: A (rows 0-7 | 8-15) x (k 0-7 | 8-15);
-// W (n-tile 2np | 2np+1) x (k 0-7 | 8-15).
-__device__ __forceinline__ void load_frags(uint32_t (&af)[4], uint32_t (&bf)[kCols / 16][4],
-                                           const __nv_bfloat16* a_row, const __nv_bfloat16* b_row,
-                                           int k0, int P, int D) {
-  ldmatrix_x4(af, a_row + k0);
-#pragma unroll
-  for (int np = 0; np < kCols / 16; ++np)
-    if (np * 16 < D) ldmatrix_x4(bf[np], b_row + np * 16 * P + k0);
-}
-
-__device__ __forceinline__ void mma_frags(float (&acc)[kCols / 8][4], const uint32_t (&af)[4],
-                                          const uint32_t (&bf)[kCols / 16][4], int D) {
-#pragma unroll
-  for (int np = 0; np < kCols / 16; ++np) {
-    if (np * 16 < D) {
-      mma_bf16(acc[2 * np], af, bf[np][0], bf[np][1]);
-      mma_bf16(acc[2 * np + 1], af, bf[np][2], bf[np][3]);
-    }
-  }
-}
-
-// acc[nt][e] += A(16 rows of this warp) x Wt(64 columns), in the mma.sync
-// accumulator layout: element e of n-tile nt is row g + 8*(e >> 1), column
-// nt*8 + 2*tig + (e & 1), with g = lane / 4 and tig = lane % 4. The next
-// k-step's fragments are loaded before this one's mma, so the tensor cores
-// do not wait on shared memory.
-__device__ __forceinline__ void tile_matmul(float (&acc)[kCols / 8][4], const __nv_bfloat16* a,
-                                            const __nv_bfloat16* wt, int C, int P, int D,
-                                            int lane) {
-  const int mi = lane >> 3, rr = lane & 7;
-  const __nv_bfloat16* a_row = a + (rr + (mi & 1) * 8) * P + (mi >> 1) * 8;
-  const __nv_bfloat16* b_row = wt + ((mi >> 1) * 8 + rr) * P + (mi & 1) * 8;
-  uint32_t af0[4], bf0[kCols / 16][4], af1[4], bf1[kCols / 16][4];
-  load_frags(af0, bf0, a_row, b_row, 0, P, D);
-  for (int k0 = 0; k0 < C; k0 += 32) {
-    if (k0 + 16 < C) load_frags(af1, bf1, a_row, b_row, k0 + 16, P, D);
-    mma_frags(acc, af0, bf0, D);
-    if (k0 + 32 < C) load_frags(af0, bf0, a_row, b_row, k0 + 32, P, D);
-    if (k0 + 16 < C) mma_frags(acc, af1, bf1, D);
-  }
-}
-
-// fp32: plain FMAs in the same accumulator layout, reading 4 k at a time.
-__device__ __forceinline__ void tile_matmul(float (&acc)[kCols / 8][4], const float* a,
-                                            const float* wt, int C, int P, int D, int lane) {
-  const int g = lane >> 2, tig = lane & 3;
-  const float* a_lo = a + g * P;
-  const float* a_hi = a + (g + 8) * P;
-  for (int k = 0; k < C; k += 4) {
-    const float4 x0 = *reinterpret_cast<const float4*>(a_lo + k);
-    const float4 x1 = *reinterpret_cast<const float4*>(a_hi + k);
-#pragma unroll
-    for (int nt = 0; nt < kCols / 8; ++nt) {
-      if (nt * 8 < D) {
-        const float4 w0 = *reinterpret_cast<const float4*>(wt + (nt * 8 + 2 * tig) * P + k);
-        const float4 w1 = *reinterpret_cast<const float4*>(wt + (nt * 8 + 2 * tig + 1) * P + k);
-        float(&o)[4] = acc[nt];
-        o[0] = fmaf(x0.w, w0.w, fmaf(x0.z, w0.z, fmaf(x0.y, w0.y, fmaf(x0.x, w0.x, o[0]))));
-        o[1] = fmaf(x0.w, w1.w, fmaf(x0.z, w1.z, fmaf(x0.y, w1.y, fmaf(x0.x, w1.x, o[1]))));
-        o[2] = fmaf(x1.w, w0.w, fmaf(x1.z, w0.z, fmaf(x1.y, w0.y, fmaf(x1.x, w0.x, o[2]))));
-        o[3] = fmaf(x1.w, w1.w, fmaf(x1.z, w1.z, fmaf(x1.y, w1.y, fmaf(x1.x, w1.x, o[3]))));
-      }
-    }
-  }
-}
+using namespace fhi;
 
 // Online softmax state, logits in base-2 units (u = v * log2 e).
 struct Stats {

@@ -1,15 +1,22 @@
-"""Fused final 1x1 conv + integral soft-argmax, forward.
+"""Fused final 1x1 conv + integral soft-argmax, forward and backward.
 
 The head's last op is a 1x1 conv C -> J*D followed by the volumetric
 soft-argmax. Fused, the (B, H*W, J*D) logits volume never reaches device
-memory: the CUDA kernel ``csrc/fused_head_integral_fwd.cu`` (the port of
-``ihpr_tpu/ops/fused_head_integral.py:_fwd_kernel``; its header says how)
-forms each logits tile in registers and folds it straight into per-joint
-online softmax statistics.
+memory, in either direction:
 
-Routing: a CUDA tensor goes to the kernel, which launches or raises; a CPU
-tensor goes to the plain PyTorch version in this module, which is also
-what the kernel is held against on the card. Nothing falls back from one
+- K1, ``csrc/fused_head_integral_fwd.cu`` (the port of
+  ``ihpr_tpu/ops/fused_head_integral.py:_fwd_kernel``), forms each logits
+  tile in registers and folds it straight into per-joint online softmax
+  statistics: coords, and the per-joint max m and normalizer s;
+- K2, ``csrc/fused_head_integral_bwd.cu`` (the port of ``_bwd_kernel``),
+  recomputes the logits from m and s and contracts dv at once into dfeat,
+  dW and db.
+
+``FusedHeadIntegral`` is the autograd Function around the pair, and
+``fused_final_conv_integral`` routes through it. Routing: a CUDA tensor
+goes to the kernels, which launch or raise; a CPU tensor goes to the plain
+PyTorch versions in this module (``plain``, ``plain_bwd``), which are also
+what the kernels are held against on the card. Nothing falls back from one
 to the other.
 """
 
@@ -24,12 +31,20 @@ import torch
 from ihpr_tpu_torch.ops import _build
 
 _LIB = "fused_head_integral_fwd"
-_MAX_DEPTH = 64  # depth bins one CTA holds (kCols in the kernel)
+_BWD_LIB = "fused_head_integral_bwd"
+_MAX_DEPTH = 64  # depth bins one CTA holds (kCols in the kernels)
 _MAX_SMEM = 232448  # bytes of shared memory a block may use on Hopper
 
-# Kernel launches since the count was last set to 0; the wrapper adds one
-# per launch and nothing else touches it.
+# Launches of K1 (``launches``) and K2 (``bwd_launches``) since the count
+# was last set to 0; each wrapper adds one per launch and nothing else
+# touches them.
 launches = 0
+bwd_launches = 0
+
+
+def _acc_dtype(t: torch.Tensor) -> torch.dtype:
+    """fp32 accumulation, or fp64 for fp64 inputs (gradient checks)."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
 
 
 def plain(
@@ -38,19 +53,21 @@ def plain(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version. feat (B, HW, C), kernel (C, J*D), bias (J*D,)
     -> coords (B, J, 3), per-joint max m (B, J) and normalizer
-    s = sum exp(v - m) (B, J), all fp32. Products of bf16 values are exact
-    in fp32, so upcasting first equals fp32 accumulation."""
+    s = sum exp(v - m) (B, J), all fp32 (fp64 for fp64 inputs). Products of
+    bf16 values are exact in fp32, so upcasting first equals fp32
+    accumulation."""
     b, hw, _ = feat.shape
-    v = feat.float() @ kernel.float() + bias.float()  # (B, HW, J*D)
+    acc = _acc_dtype(feat)
+    v = feat.to(acc) @ kernel.to(acc) + bias.to(acc)  # (B, HW, J*D)
     v = v.reshape(b, hw, joint_num, depth_dim).permute(0, 2, 1, 3)  # (B, J, HW, D)
     m = v.amax(dim=(2, 3))
     e = torch.exp(v - m[..., None, None])
     s = e.sum(dim=(2, 3))
     p = e / s[..., None, None]
     rows = torch.arange(hw, device=feat.device)
-    x = (rows % width).float()
-    y = torch.div(rows, width, rounding_mode="floor").float()
-    z = torch.arange(depth_dim, device=feat.device, dtype=torch.float32)
+    x = (rows % width).to(acc)
+    y = torch.div(rows, width, rounding_mode="floor").to(acc)
+    z = torch.arange(depth_dim, device=feat.device, dtype=acc)
     p_rows = p.sum(-1)  # (B, J, HW)
     coords = torch.stack(
         [(p_rows * x).sum(-1), (p_rows * y).sum(-1), (p.sum(2) * z).sum(-1)], dim=-1
@@ -70,6 +87,53 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def fold_bwd_rows(
+    m: torch.Tensor, s: torch.Tensor, coords: torch.Tensor, g: torch.Tensor
+) -> torch.Tensor:
+    """Per-joint backward constants, (B, J, 8) fp32: m + log s (the softmax
+    normalizer folded into the exp argument, so p = exp(v - row0); s == 0
+    gives +inf and p = 0), gx, gy, gz, cx, cy, cz, 0. The port of
+    ``integral_pallas.fold_bwd_rows`` with K1's per-joint m and s, so the
+    rows are per joint where the TPU's are per lane."""
+    log_s = torch.where(s > 0, torch.log(s), torch.full_like(s, float("inf")))
+    g = g.to(m.dtype)
+    return torch.stack(
+        [m + log_s, g[..., 0], g[..., 1], g[..., 2],
+         coords[..., 0], coords[..., 1], coords[..., 2], torch.zeros_like(m)],
+        dim=-1,
+    ).contiguous()
+
+
+def plain_bwd(
+    feat: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
+    m: torch.Tensor, s: torch.Tensor, coords: torch.Tensor, g: torch.Tensor,
+    joint_num: int, depth_dim: int, width: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the backward, rounded as the JAX kernel
+    rounds: dv in fp32; dvc = dv in kernel's dtype feeds both contractions,
+    each accumulated in fp32; dfeat (B, HW, C) in feat's dtype, dW (C, J*D)
+    in kernel's dtype, db (J*D,) summed from the fp32 dv, in bias's dtype
+    (fp64 throughout for fp64 inputs)."""
+    b, hw, c = feat.shape
+    jd = joint_num * depth_dim
+    acc = _acc_dtype(feat)
+    row0, gx, gy, gz, cx, cy, cz, _ = fold_bwd_rows(m, s, coords, g).unbind(-1)  # (B, J)
+    v = feat.to(acc) @ kernel.to(acc) + bias.to(acc)  # (B, HW, J*D)
+    p = torch.exp(v.view(b, hw, joint_num, depth_dim) - row0[:, None, :, None])
+    rows = torch.arange(hw, device=feat.device)
+    x = (rows % width).to(acc)[None, :, None]
+    y = torch.div(rows, width, rounding_mode="floor").to(acc)[None, :, None]
+    z = torch.arange(depth_dim, device=feat.device, dtype=acc)
+    tx = gx[:, None] * (x - cx[:, None]) + gy[:, None] * (y - cy[:, None])  # (B, HW, J)
+    tz = gz[..., None] * (z - cz[..., None])  # (B, J, D)
+    dv = (p * (tx[..., None] + tz[:, None])).view(b, hw, jd)
+    dvc = dv.to(kernel.dtype).to(acc)
+    dfeat = (dvc @ kernel.to(acc).t()).to(feat.dtype)
+    dw = (feat.to(acc).reshape(b * hw, c).t() @ dvc.view(b * hw, jd)).to(kernel.dtype)
+    db = dv.sum(dim=(0, 1)).to(bias.dtype)
+    return dfeat, dw, db
+
+
 def _check(feat, kernel, bias, joint_num, depth_dim, width):
     b, hw, c = feat.shape
     jd = joint_num * depth_dim
@@ -83,14 +147,9 @@ def _check(feat, kernel, bias, joint_num, depth_dim, width):
     return b, hw, c
 
 
-def kernel_stats(
-    feat: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
-    joint_num: int, depth_dim: int, width: int,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The CUDA kernel on the same contract as ``plain``. Launches on the
-    current stream without synchronizing; raises on any input the kernel
-    does not take and on a refused launch."""
-    global launches
+def _check_kernel_inputs(feat, kernel, bias, joint_num, depth_dim, width):
+    """What both kernels require of feat, kernel and bias; returns
+    (B, HW, C, is_bf16)."""
     b, hw, c = _check(feat, kernel, bias, joint_num, depth_dim, width)
     tensors = (feat, kernel, bias)
     if not all(t.is_cuda and t.device == feat.device for t in tensors):
@@ -111,8 +170,19 @@ def kernel_stats(
         raise ValueError(f"depth_dim={depth_dim} must be in [1, {_MAX_DEPTH}]")
     if not (1 <= b <= 65535 and joint_num >= 1 and hw >= 1):
         raise ValueError(f"batch {b} must be in [1, 65535], J and H*W >= 1")
+    return b, hw, c, int(feat.dtype == torch.bfloat16)
+
+
+def kernel_stats(
+    feat: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
+    joint_num: int, depth_dim: int, width: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K1 on the same contract as ``plain``. Launches on the current stream
+    without synchronizing; raises on any input the kernel does not take and
+    on a refused launch."""
+    global launches
+    b, hw, c, is_bf16 = _check_kernel_inputs(feat, kernel, bias, joint_num, depth_dim, width)
     lib = _lib()
-    is_bf16 = int(feat.dtype == torch.bfloat16)
     smem = lib.ihpr_fused_head_integral_fwd_smem(c, is_bf16)
     if smem > _MAX_SMEM:
         raise ValueError(f"C={c} needs {smem} bytes of shared memory (> {_MAX_SMEM})")
@@ -133,6 +203,95 @@ def kernel_stats(
     return coords, m, s
 
 
+@functools.cache
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load(_BWD_LIB)
+    lib.ihpr_fused_head_integral_bwd_smem.restype = ctypes.c_size_t
+    lib.ihpr_fused_head_integral_bwd_smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.ihpr_fused_head_integral_bwd_max_channels.restype = ctypes.c_int
+    lib.ihpr_fused_head_integral_bwd_max_channels.argtypes = []
+    lib.ihpr_fused_head_integral_bwd.restype = ctypes.c_int
+    lib.ihpr_fused_head_integral_bwd.argtypes = (
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    )
+    return lib
+
+
+def kernel_bwd(
+    feat: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
+    m: torch.Tensor, s: torch.Tensor, coords: torch.Tensor, g: torch.Tensor,
+    joint_num: int, depth_dim: int, width: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2 on the same contract as ``plain_bwd``. Checks feat, kernel and
+    bias as ``kernel_stats`` does, and m, s (B, J), coords, g (B, J, 3) as
+    fp32 contiguous tensors on the same device. Launches on the current
+    stream without synchronizing; raises on any input the kernel does not
+    take and on a refused launch."""
+    global bwd_launches
+    b, hw, c, is_bf16 = _check_kernel_inputs(feat, kernel, bias, joint_num, depth_dim, width)
+    for name, t, shape in (("m", m, (b, joint_num)), ("s", s, (b, joint_num)),
+                           ("coords", coords, (b, joint_num, 3)), ("g", g, (b, joint_num, 3))):
+        if tuple(t.shape) != shape or t.dtype != torch.float32:
+            raise ValueError(f"{name} is {t.dtype}{tuple(t.shape)}: need float32{shape}")
+        if t.device != feat.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {feat.device}")
+    lib = _bwd_lib()
+    max_c = lib.ihpr_fused_head_integral_bwd_max_channels()
+    if c > max_c:
+        raise ValueError(f"C={c} is more than the backward's {max_c} channels")
+    smem = lib.ihpr_fused_head_integral_bwd_smem(c, is_bf16)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"C={c} needs {smem} bytes of shared memory (> {_MAX_SMEM})")
+    jd = joint_num * depth_dim
+    rows = fold_bwd_rows(m, s, coords, g)
+    f32 = dict(dtype=torch.float32, device=feat.device)
+    wt = torch.empty((jd, c), dtype=feat.dtype, device=feat.device)
+    part = torch.empty((b, joint_num, c, _MAX_DEPTH), **f32)
+    dbpart = torch.empty((b, joint_num, _MAX_DEPTH), **f32)
+    dfeat = torch.empty_like(feat)
+    dw = torch.empty_like(kernel)
+    db = torch.empty_like(bias)
+    with torch.cuda.device(feat.device):
+        err = lib.ihpr_fused_head_integral_bwd(
+            feat.data_ptr(), kernel.data_ptr(), bias.data_ptr(), rows.data_ptr(),
+            wt.data_ptr(), part.data_ptr(), dbpart.data_ptr(),
+            dfeat.data_ptr(), dw.data_ptr(), db.data_ptr(),
+            b, hw, width, c, joint_num, depth_dim, is_bf16,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"{_BWD_LIB} launch failed: CUDA error {err}")
+    bwd_launches += 1
+    return dfeat, dw, db
+
+
+class FusedHeadIntegral(torch.autograd.Function):
+    """coords = fused final conv + integral of (feat, kernel, bias): K1
+    forward and K2 backward on CUDA tensors, ``plain`` and ``plain_bwd`` on
+    CPU tensors. Saves feat, kernel, bias, m, s and coords for the backward;
+    nothing when no input needs a gradient or ``grad_enabled`` (the caller's
+    ``torch.is_grad_enabled()``: the forward itself runs with grad off) is
+    False, as under ``no_grad`` and ``inference_mode``."""
+
+    @staticmethod
+    def forward(ctx, feat, kernel, bias, joint_num: int, depth_dim: int, width: int,
+                grad_enabled: bool):
+        run = kernel_stats if feat.is_cuda else plain
+        coords, m, s = run(feat, kernel, bias, joint_num, depth_dim, width)
+        if grad_enabled and any(ctx.needs_input_grad[:3]):
+            ctx.save_for_backward(feat, kernel, bias, m, s, coords)
+            ctx.dims = (joint_num, depth_dim, width)
+        return coords
+
+    @staticmethod
+    def backward(ctx, g):
+        feat, kernel, bias, m, s, coords = ctx.saved_tensors
+        run = kernel_bwd if feat.is_cuda else plain_bwd
+        grads = run(feat, kernel, bias, m, s, coords, g.to(m.dtype).contiguous(), *ctx.dims)
+        return (*(d if need else None for d, need in zip(grads, ctx.needs_input_grad)),
+                None, None, None, None)
+
+
 def fused_final_conv_integral(
     features: torch.Tensor,
     kernel: torch.Tensor,
@@ -141,15 +300,19 @@ def fused_final_conv_integral(
     depth_dim: int,
 ) -> torch.Tensor:
     """(B, H, W, C) head features + (C, J*D) final-conv weight + (J*D,) bias
-    -> (B, J, 3) voxel coords (x, y, z), fp32. CUDA tensors run the kernel;
-    CPU tensors run ``plain``."""
+    -> (B, J, 3) voxel coords (x, y, z), fp32, differentiable in all three
+    tensors through ``FusedHeadIntegral``: CUDA tensors run K1/K2, CPU
+    tensors ``plain``/``plain_bwd``."""
     b, h, w, c = features.shape
     if features.is_cuda:
         if not features.is_contiguous():
             raise ValueError("features must be contiguous (B, H, W, C) on the kernel path")
-        return kernel_stats(features.view(b, h * w, c), kernel, bias, joint_num, depth_dim, w)[0]
-    if features.device.type != "cpu":
+        feat = features.view(b, h * w, c)
+    elif features.device.type == "cpu":
+        feat = features.reshape(b, h * w, c)
+        _check(feat, kernel, bias, joint_num, depth_dim, w)
+    else:
         raise ValueError(f"no fused head integral for device {features.device}")
-    feat = features.reshape(b, h * w, c)
-    _check(feat, kernel, bias, joint_num, depth_dim, w)
-    return plain(feat, kernel, bias, joint_num, depth_dim, w)[0]
+    return FusedHeadIntegral.apply(
+        feat, kernel, bias, joint_num, depth_dim, w, torch.is_grad_enabled()
+    )

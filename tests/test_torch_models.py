@@ -203,3 +203,23 @@ def test_seeded_init_is_reproducible():
     # lecun-normal: std ~ 1/sqrt(fan_in) for the stem (fan_in 3*7*7)
     std = float(a["backbone.conv1.weight"].std())
     assert abs(std - (1 / 147) ** 0.5) < 0.02
+
+
+def test_bf16_config_keeps_fp32_master_weights():
+    """A bf16 config holds fp32 parameters, as the JAX package does
+    (param_dtype=float32, cast per call): state_dict() after
+    from_jax_params equals the JAX fp32 tree exactly."""
+    jcfg = jax_tiny_cfg(compute_dtype="bfloat16", bn_mode="lean", fp32_logits=False)
+    _, params, stats = jax_pose_weights(jcfg)
+    cfg = to_port_cfg(jcfg)
+    sd = from_jax_params(params, stats, cfg)
+    model = build_pose_net(cfg)
+    model.load_state_dict(sd)
+    out = model.state_dict()
+    assert set(out) == set(sd)
+    for k, v in out.items():
+        assert v.dtype == torch.float32 and torch.equal(v, sd[k]), k
+    np.testing.assert_array_equal(
+        out["backbone.conv1.weight"].numpy(), params["backbone"]["conv1"]["kernel"].transpose(3, 2, 0, 1)
+    )
+    np.testing.assert_array_equal(out["head.final.weight"].numpy(), params["head"]["final"]["kernel"][0, 0])
