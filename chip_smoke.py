@@ -3,8 +3,8 @@
     python3 chip_smoke.py
 
 1. Prints the environment: torch, CUDA, nvcc, the card's name and power limit.
-2. Builds every CUDA kernel of the serving and training paths from
-   ihpr_tpu_torch/ops/csrc, one nvcc per source, all at once.
+2. Builds every CUDA kernel of the serving, training, heatmap and eval
+   paths from ihpr_tpu_torch/ops/csrc, one nvcc per source, all at once.
 3. K1 (fused head forward): holds it against its plain PyTorch version on
    the card, at the serving shapes and at edge cases, and times both with
    CUDA events (median of repeated launches, in turns).
@@ -12,20 +12,35 @@
    shape in bf16 and fp32, at J=17, H*W=96*72, all-equal logits and a soft
    peak (checked against float64 on the host), checks that two runs give
    bitwise-equal dW, and times both at the flagship training batch.
-5. Serves the flagship config h36m3d_r50 (ResNet-50, 256x256, 18 joints,
+5. K3/K4 (integral over a logits volume, forward and backward): hold them
+   against plain / plain_bwd in bf16 and fp32 at J=18/D=64, J=17, D=1,
+   H*W=96*72, all-equal logits (the centre), a one-hot peak and a soft peak
+   (against float64), on an fp32 volume past 2^31 bytes, and two runs
+   bitwise equal; time both at (128, 4096, 1152) in bf16 and fp32.
+6. Serves the flagship config h36m3d_r50 (ResNet-50, 256x256, 18 joints,
    64 depth bins, bf16, flip-test) at max_batch 32 with seeded random
    weights: predict_patches, predict (native warp) and predict_stream.
-6. Trains h36m3d_r50 at full width and depth (batch 128, lean BN in train
+7. Trains h36m3d_r50 at full width and depth (batch 128, lean BN in train
    mode) through the Trainer on synthetic H36M+MPII: a few warm-up steps,
    then a counted epoch of TRAIN_STEPS steps; the head gradients of one
    step against plain_bwd on the same saved inputs; the loss falling over
    10 steps on one repeated batch; device ms per step (CUDA events),
    host-clock img/s and the loader's host ms per batch.
+8. The heatmap-logits path: h36m3d_r50 at batch 128 takes an optimizer
+   step through model(x) -> soft_argmax_from_heatmap -> loss (K3 forward,
+   K4 backward), coords and dv against plain on the same logits, device ms
+   per step; again with fp32_logits at batch 32.
+9. The fused op on shapes K1/K2 do not take (C=72, D=80): fp32 logits and
+   K3/K4, forward and backward, against the plain fused op.
+10. Evaluates h36m3d_r50 through the Tester (300 synthetic H36M test
+    samples, batch 128, the last batch padded, flip-test): MPJPE and the
+    result files; one batch's coords against plain; host-clock img/s and
+    the loader's ms per batch. Then mpii2d_r50 (D=1, PCKh) on 64 samples.
 
-In 5 and 6 the kernels' launch counters are set to 0 just before the path
+In 6-10 the kernels' launch counters are set to 0 just before the path
 runs and read just after; each kernel of the path must have launched as
-often as the path dispatched it. Outputs are checked for shape and
-finiteness and against the plain versions.
+often as the path dispatched it, and the others not at all. Outputs are
+checked for shape and finiteness and against the plain versions.
 
 Prints one JSON line of kernel results, the card's name and power limit,
 and last {"ok": true, "device": {...}}. Any failure raises and exits
@@ -34,11 +49,14 @@ non-zero; so does a host without CUDA.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -49,9 +67,15 @@ TOL_VOXEL = 5e-4  # kernel vs plain coords: same operands, fp32 accumulation
 # dv before both contractions and every result once (2^-8), after fp32 sums
 # taken in another order; fp32 differs only by ex2.approx and sum order.
 TOL_BWD = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+# The no-plan route's fp32 gradients against autograd through the plain
+# fused op: dW and db sum dv over 8 x 4096 rows and cancel to near 0, so
+# the sum order alone moves them by ~6e-5 of their largest (two fp32
+# orders on a CPU).
+TOL_NOPLAN_GRAD = 3e-4
 MAX_BATCH = 32
 TRAIN_BATCH = 128  # h36m3d_r50's batch_size_per_device
 TRAIN_STEPS = 5  # counted steps of the train phase
+EVAL_SAMPLES = 300  # not a multiple of the eval batch (128): the last is padded
 SEED = 0
 
 
@@ -261,6 +285,135 @@ def k2_phase(fhi, gpu: str):
     return max(errs), timing[torch.bfloat16]
 
 
+def _volume(b, hw, jd, dtype, seed, std=5.0):
+    """Logits of std ~5: peaked heatmaps, coordinates away from the centre."""
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn(b, hw, jd, generator=g) * std).to("cuda", dtype)
+
+
+def check_volume(iv, vol, j, d, w, label, expect=None):
+    """K3 vs plain (coords within TOL_VOXEL, m exact, s to 1e-4) and K4 vs
+    plain_bwd (dv within TOL_BWD of its largest magnitude) on the card.
+    Returns the largest |coords diff| and |dv diff|."""
+    coords, m, s = iv.kernel_stats(vol, j, d, w)
+    want = iv.plain(vol, j, d, w)
+    g = torch.randn(vol.shape[0], j, 3, generator=torch.Generator().manual_seed(7)).cuda()
+    dv = iv.kernel_bwd(vol, m, s, coords, g, j, d, w)
+    dv_ref = iv.plain_bwd(vol, m, s, coords, g, j, d, w)
+    torch.cuda.synchronize()
+    err = float((coords - want[0]).abs().max())
+    if not (err <= TOL_VOXEL and torch.isfinite(coords).all()):
+        raise AssertionError(f"K3 {label}: coords differ from plain by {err} voxel (> {TOL_VOXEL})")
+    torch.testing.assert_close(m, want[1], atol=0, rtol=0)
+    torch.testing.assert_close(s, want[2], atol=0, rtol=1e-4)
+    if expect is not None and float((coords - expect).abs().max()) > 1e-3:
+        raise AssertionError(f"K3 {label}: coords {float((coords - expect).abs().max())} from the answer")
+    dv_err = float((dv.float() - dv_ref.float()).abs().max())
+    scale = float(dv_ref.float().abs().max())
+    if dv.dtype != vol.dtype or not (scale > 0 and dv_err <= TOL_BWD[vol.dtype] * scale):
+        raise AssertionError(f"K4 {label}: {dv.dtype} dv {dv_err} from plain_bwd (max {scale})")
+    print(f"K3/K4 {label}: max|dcoords| {err:.3g} voxel, max|ddv|/max|dv| {dv_err / scale:.2e}")
+    return err, dv_err
+
+
+def _volume_soft_peak(iv, dtype):
+    """A logit of 5 over a flat floor at one voxel of joint 5: its coords
+    and dv against float64 on the host."""
+    b, h, w, j, d = 2, 64, 64, 18, 64
+    r0, z0, j0 = 1234, 17, 5
+    vol = torch.zeros(b, h * w, j * d, device="cuda", dtype=dtype)
+    vol[:, r0, j0 * d + z0] = 5.0
+    g = torch.randn(b, j, 3, generator=torch.Generator().manual_seed(8)).cuda()
+    coords, m, s = iv.kernel_stats(vol, j, d, w)
+    dv = iv.kernel_bwd(vol, m, s, coords, g, j, d, w)
+    p = torch.softmax(vol.double().cpu().view(b, h * w, j, d)[:, :, j0].reshape(b, -1), -1).view(b, h * w, d)
+    rows = torch.arange(h * w)
+    x, y, z = (rows % w).double(), (rows // w).double(), torch.arange(d).double()
+    c64 = torch.stack([(p.sum(-1) * x).sum(-1), (p.sum(-1) * y).sum(-1), (p.sum(1) * z).sum(-1)], -1)
+    gj = g[:, j0].double().cpu()
+    dv64 = p * (gj[:, 0, None, None] * (x[:, None] - c64[:, 0, None, None])
+                + gj[:, 1, None, None] * (y[:, None] - c64[:, 1, None, None])
+                + gj[:, 2, None, None] * (z - c64[:, 2, None, None]))
+    err = float((coords[:, j0].double().cpu() - c64).abs().max())
+    dv_err = float((dv.double().cpu().view(b, h * w, j, d)[:, :, j0] - dv64).abs().max())
+    scale = float(dv64.abs().max())
+    # fp32 coords sum p * x over 262,144 near-equal p: 1e-3 voxel from
+    # float64 (plain lands 9e-4 from it on a CPU), which enters dv through
+    # x - cx: fp32 dv within 5e-4 of its largest (plain: 1.0e-4).
+    dv_tol = {torch.bfloat16: TOL_BWD[torch.bfloat16], torch.float32: 5e-4}[dtype]
+    if not (err <= 1e-3 and dv_err <= dv_tol * scale):
+        raise AssertionError(f"K3/K4 soft peak {dtype}: coords {err}, dv {dv_err} (max {scale}) from float64")
+    print(f"K3/K4 soft peak (logit 5 over a flat floor), {str(dtype)[6:]}: coords vs float64 "
+          f"{err:.3g} voxel, dv |diff|/max {dv_err / scale:.2e}")
+    return err
+
+
+def volume_phase(iv, gpu: str):
+    """K3/K4 vs plain at the heatmap path's shapes and edge cases, bitwise
+    determinism, the fp32 flagship volume (2.42 GB, past 2^31 bytes), and
+    both timed at (128, 4096, 1152) in bf16 and fp32."""
+    hw, w, d = 64 * 64, 64, 64
+    errs, dv_errs = [], []
+
+    def add(res):
+        errs.append(res[0])
+        dv_errs.append(res[1])
+
+    for dtype in (torch.bfloat16, torch.float32):
+        add(check_volume(iv, _volume(16, hw, 18 * d, dtype, SEED), 18, d, w, f"J=18 D=64 {str(dtype)[6:]}"))
+    add(check_volume(iv, _volume(16, hw, 17 * d, torch.bfloat16, 1), 17, d, w, "J=17 (COCO skeleton)"))
+    add(check_volume(iv, _volume(16, hw, 16, torch.bfloat16, 2), 16, 1, w, "D=1, J=16 (2D configs)"))
+    add(check_volume(iv, _volume(16, hw, 17, torch.float32, 2), 17, 1, w, "D=1, J=17 fp32 (one-lane loads)"))
+    add(check_volume(iv, _volume(16, 96 * 72, 18 * d, torch.bfloat16, 3), 18, d, 72, "H*W = 96*72"))
+    centre = torch.tensor([(w - 1) / 2, (hw // w - 1) / 2, (d - 1) / 2], device="cuda").expand(4, 18, 3)
+    flat = torch.zeros(4, hw, 18 * d, device="cuda", dtype=torch.bfloat16)
+    add(check_volume(iv, flat, 18, d, w, "all-equal logits -> centre", expect=centre))
+    r0, z0, j0 = 1234, 17, 5
+    flat[:, r0, j0 * d + z0] = 100.0
+    expect = centre.clone()
+    expect[:, j0] = torch.tensor([r0 % w, r0 // w, z0], dtype=torch.float32, device="cuda")
+    add(check_volume(iv, flat, 18, d, w, "one-hot peak -> its voxel", expect=expect))
+    for dtype in (torch.bfloat16, torch.float32):
+        errs.append(_volume_soft_peak(iv, dtype))
+    vol = _volume(16, hw, 18 * d, torch.bfloat16, 4)
+    first, again = iv.kernel_stats(vol, 18, d, w), iv.kernel_stats(vol, 18, d, w)
+    g = torch.randn(16, 18, 3, generator=torch.Generator().manual_seed(9)).cuda()
+    args = (vol, first[1], first[2], first[0], g, 18, d, w)
+    if not (all(torch.equal(a, b) for a, b in zip(first, again))
+            and torch.equal(iv.kernel_bwd(*args), iv.kernel_bwd(*args))):
+        raise AssertionError("K3/K4 are not deterministic: two runs differ")
+    print("K3/K4 two runs on the same inputs: coords, m, s and dv bitwise equal")
+
+    timing = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        vol = _volume(TRAIN_BATCH, hw, 18 * d, dtype, 10)
+        size = vol.numel() * vol.element_size()
+        if dtype == torch.float32:
+            if size <= 2**31:
+                raise AssertionError(f"the fp32 flagship volume is {size} bytes")
+            add(check_volume(iv, vol, 18, d, w, f"fp32 flagship volume, {size} bytes (> 2^31)"))
+        coords, m, s = iv.kernel_stats(vol, 18, d, w)
+        g = torch.randn(TRAIN_BATCH, 18, 3, generator=torch.Generator().manual_seed(11)).cuda()
+        bwd = (vol, m, s, coords, g, 18, d, w)
+        runs = {"k3": (lambda: iv.kernel_stats(vol, 18, d, w), []),
+                "plain": (lambda: iv.plain(vol, 18, d, w), []),
+                "k4": (lambda: iv.kernel_bwd(*bwd), []),
+                "plain_bwd": (lambda: iv.plain_bwd(*bwd), [])}
+        for name in ("plain", "k3", "k3", "plain", "plain_bwd", "k4", "k4", "plain_bwd"):  # in turns
+            fn, out = runs[name]
+            out.append(_cuda_ms(fn, 20 if name.startswith("k") else 2, reps=3))
+        timing[dtype] = {k: statistics.median(v[1]) for k, v in runs.items()}
+        t = timing[dtype]
+        print(f"K3 {str(dtype)[6:]} ({TRAIN_BATCH}, {hw}, {18 * d}): kernel {t['k3']:.4f} ms "
+              f"({size / t["k3"] / 1e6:.1f} GB/s read), plain {t['plain']:.4f} ms  [{gpu}]")
+        print(f"K4 {str(dtype)[6:]} ({TRAIN_BATCH}, {hw}, {18 * d}): kernel {t['k4']:.4f} ms "
+              f"({2 * size / t["k4"] / 1e6:.1f} GB/s read+write), plain_bwd {t['plain_bwd']:.4f} ms  [{gpu}]")
+        del vol, runs, bwd, coords, m, s
+        torch.cuda.empty_cache()
+    t = timing[torch.bfloat16]
+    return max(errs), max(dv_errs), (t["k3"], t["plain"]), (t["k4"], t["plain_bwd"])
+
+
 def _peak_heatmaps(model, image: torch.Tensor, gen: torch.Generator):
     """Redraw the final conv so the heatmap logits have std ~4: the random
     init's head gives near-flat heatmaps, whose coordinates all sit at the
@@ -273,15 +426,15 @@ def _peak_heatmaps(model, image: torch.Tensor, gen: torch.Generator):
         w.copy_(torch.randn(w.shape, generator=gen) * std)
 
 
-def _reference_coords(server, patches: np.ndarray, fhi, finalize_patch) -> np.ndarray:
-    """The server's flip-test coords for one max_batch chunk, recomputed on
-    the card with the fused op's plain version on the same head features."""
-    cfg, model = server.cfg, server.model
+def _reference_coords(cfg, model, flip_perm, patches: np.ndarray, fhi) -> np.ndarray:
+    """Flip-test coords of a batch of uint8 patches, recomputed on the card
+    with the fused op's plain version on the same head features."""
+    from ihpr_tpu_torch.data.augment import finalize_patch
+
     n = len(patches)
-    chunk = np.concatenate([patches, np.repeat(patches[-1:], MAX_BATCH - n, 0)])
     with torch.inference_mode():
         image = finalize_patch(
-            torch.from_numpy(chunk).cuda(), torch.ones(MAX_BATCH, 3, device="cuda"), cfg.data
+            torch.from_numpy(patches).cuda(), torch.ones(n, 3, device="cuda"), cfg.data
         )
         both = torch.cat([image, image.flip(2)])
         feat = model.head.features(model.backbone(both.permute(0, 3, 1, 2)))
@@ -290,10 +443,10 @@ def _reference_coords(server, patches: np.ndarray, fhi, finalize_patch) -> np.nd
             feat.reshape(bb, h * w, c), model.head.final.weight, model.head.final.bias,
             model.joint_num, model.depth_dim, w,
         )[0]
-        cf = coords[MAX_BATCH:].clone()
+        cf = coords[n:].clone()
         cf[..., 0] = cfg.data.output_shape[1] - 1.0 - cf[..., 0]
-        out = (coords[:MAX_BATCH] + cf[:, server.flip_perm]) * 0.5
-    return out[:n].cpu().numpy()
+        out = (coords[:n] + cf[:, flip_perm]) * 0.5
+    return out.cpu().numpy()
 
 
 def serve_phase(fhi, gpu: str):
@@ -346,7 +499,9 @@ def serve_phase(fhi, gpu: str):
             raise AssertionError("predict / predict_stream gave a malformed result")
     if [len(s) for s in stream] != [1 + k % 3 for k in range(4)]:
         raise AssertionError("predict_stream lost or reordered results")
-    ref = _reference_coords(server, patches[64:], fhi, finalize_patch)
+    tail = patches[64:]  # the last dispatch, padded as the server pads it
+    chunk = np.concatenate([tail, np.repeat(tail[-1:], MAX_BATCH - len(tail), 0)])
+    ref = _reference_coords(cfg, server.model, server.flip_perm, chunk, fhi)[: len(tail)]
     serve_err = float(np.abs(voxels[64:] - ref).max())
     spread = float(np.abs(voxels - voxels.mean()).max())
     if not (serve_err <= 2 * TOL_VOXEL and spread > 1.0):
@@ -453,12 +608,244 @@ def train_phase(fhi, gpu: str):
     return k1, k2, head_err
 
 
+def _counts(fhi, iv):
+    return fhi.launches, fhi.bwd_launches, iv.launches, iv.bwd_launches
+
+
+def _zero_counts(fhi, iv):
+    fhi.launches = fhi.bwd_launches = iv.launches = iv.bwd_launches = 0
+
+
+def heatmap_phase(fhi, iv, gpu: str):
+    """The heatmap-logits path at full width: h36m3d_r50 (lean BN in train
+    mode) takes optimizer steps through model(x) -> soft_argmax_from_heatmap
+    -> loss. One counted step must launch K3 and K4 once each and K1/K2 not
+    at all; its coords and the heatmap's gradient (K4's dv) are held
+    against plain / plain_bwd on the same logits. Batch 128 with bf16
+    logits, then batch 32 with fp32 logits. Returns (K3, K4) launches and
+    the largest coords and dv differences."""
+    from ihpr_tpu_torch.config import get_config
+    from ihpr_tpu_torch.data.augment import finalize_patch
+    from ihpr_tpu_torch.data.datasets import build_dataset
+    from ihpr_tpu_torch.data.pipeline import BatchLoader, WarpedHostBatch, prefetch_to_device
+    from ihpr_tpu_torch.models.pose_net import build_pose_net
+    from ihpr_tpu_torch.ops.loss import joint_location_loss
+    from ihpr_tpu_torch.parallel.train_step import make_optimizer
+
+    base = get_config("h36m3d_r50")
+    loader = BatchLoader([build_dataset("Human36M", "train", base, "synthetic", TRAIN_BATCH)],
+                         base, TRAIN_BATCH, num_workers=8, seed=SEED)
+    try:
+        host = next(loader.epoch(0))
+    finally:
+        loader.close()
+    k3 = k4 = 0
+    errs, dv_errs = [], []
+    for fp32_logits, bsz in ((False, TRAIN_BATCH), (True, TRAIN_BATCH // 4)):
+        cfg = base.replace(model=dataclasses.replace(base.model, fp32_logits=fp32_logits))
+        gen = torch.Generator().manual_seed(SEED)
+        model = build_pose_net(cfg, device="cuda", generator=gen, trainable=True)
+        opt, _ = make_optimizer(model, cfg, steps_per_epoch=10)
+        hb = WarpedHostBatch(**{f.name: getattr(host, f.name)[:bsz] for f in dataclasses.fields(host)})
+        batch, _ = next(prefetch_to_device(iter([hb]), "cuda"))
+        labels = (batch["joint_img"], batch["joint_vis"], batch["joints_have_depth"])
+        j, d = model.joint_num, model.depth_dim
+        with torch.no_grad():
+            _peak_heatmaps(model, finalize_patch(batch["patch"], batch["color_scale"], cfg.data), gen)
+
+        def step(keep=None):
+            image = finalize_patch(batch["patch"], batch["color_scale"], cfg.data)
+            opt.zero_grad(set_to_none=True)
+            with model.precision():
+                hm = model(image)
+                if keep is not None:
+                    hm.retain_grad()
+                    keep.append(hm)
+                coords = iv.soft_argmax_from_heatmap(hm, j, d)
+                loss = joint_location_loss(coords, *labels)
+                loss.backward()
+            opt.step()
+            return coords.detach(), loss.detach()
+
+        step()  # warm-up: cuDNN plans, kernel load
+        torch.cuda.synchronize()
+
+        # --- the main path, counted: one heatmap-path train step ---
+        _zero_counts(fhi, iv)
+        keep = []
+        coords, loss = step(keep)
+        torch.cuda.synchronize()
+        counts = _counts(fhi, iv)
+        # -----------------------------------------------------------
+        if counts != (0, 0, 1, 1):
+            raise AssertionError(f"heatmap step launched K1/K2/K3/K4 {counts} times, want (0, 0, 1, 1)")
+        k3, k4 = k3 + counts[2], k4 + counts[3]
+        hm = keep[0]
+        vol = hm.detach().view(bsz, -1, j * d)
+        if vol.dtype != (torch.float32 if fp32_logits else torch.bfloat16):
+            raise AssertionError(f"heatmap is {vol.dtype} with fp32_logits={fp32_logits}")
+        want, m, s = iv.plain(vol, j, d, hm.shape[2])
+        err = float((coords - want).abs().max())
+        spread = float((want - want.mean()).abs().max())
+        cot = coords.clone().requires_grad_()
+        (g,) = torch.autograd.grad(joint_location_loss(cot, *labels), cot)
+        dv_ref = iv.plain_bwd(vol, m, s, coords, g, j, d, hm.shape[2])
+        dv = hm.grad.view_as(vol)
+        dv_err = float((dv.float() - dv_ref.float()).abs().max())
+        scale = float(dv_ref.float().abs().max())
+        if not (err <= TOL_VOXEL and spread > 1.0 and math.isfinite(float(loss))):
+            raise AssertionError(f"heatmap step coords {err} voxel from plain (spread {spread}), loss {loss}")
+        if dv.dtype != vol.dtype or not dv_err <= TOL_BWD[vol.dtype] * scale:
+            raise AssertionError(f"heatmap step dv {dv_err} from plain_bwd (max {scale})")
+        errs.append(err)
+        dv_errs.append(dv_err)
+        del keep, hm, vol, dv, dv_ref
+        step_ms = _cuda_ms(step, 2, reps=1)
+        print(f"heatmap path, h36m3d_r50 batch {bsz}, {'fp32' if fp32_logits else 'bf16'} logits: one step "
+              f"launched K3 {counts[2]}, K4 {counts[3]}, K1/K2 0; coords vs plain {err:.3g} voxel "
+              f"(spread {spread:.3g}), dv vs plain_bwd |diff|/max {dv_err / scale:.2e}; loss "
+              f"{float(loss):.4f}; device {step_ms:.3f} ms/step, {bsz / step_ms * 1e3:.1f} img/s "
+              f"(CUDA events)  [{gpu}]")
+        del model, opt, batch
+        torch.cuda.empty_cache()
+    return k3, k4, max(errs), max(dv_errs)
+
+
+def noplan_phase(fhi, iv):
+    """fused_final_conv_integral on heads K1/K2 do not take (C=72, not a
+    multiple of 16; D=80, more than 64 bins): fp32 logits, then K3/K4,
+    forward and backward, against autograd through the fused op's plain
+    version. Returns (K3, K4) launches and the largest coords difference."""
+    b, h, w, j = 8, 64, 64, 18
+    k3 = k4 = 0
+    errs = []
+    for c, d in ((72, 64), (256, 80)):
+        feat, kernel, bias = _head_inputs(b, h * w, c, j * d, torch.float32, 12)
+        if fhi.fused_supported(c, d, feat.dtype):
+            raise AssertionError(f"C={c}, D={d} should have no K1/K2 plan")
+        leaves = [feat.view(b, h, w, c).clone().requires_grad_(),
+                  kernel.clone().requires_grad_(), bias.clone().requires_grad_()]
+        g = torch.randn(b, j, 3, generator=torch.Generator().manual_seed(13)).cuda()
+        # --- the main path, counted ---
+        _zero_counts(fhi, iv)
+        coords = fhi.fused_final_conv_integral(*leaves, j, d)
+        coords.backward(g)
+        torch.cuda.synchronize()
+        counts = _counts(fhi, iv)
+        # ------------------------------
+        if counts != (0, 0, 1, 1):
+            raise AssertionError(f"no-plan C={c} D={d} launched K1/K2/K3/K4 {counts} times")
+        k3, k4 = k3 + counts[2], k4 + counts[3]
+        ref_leaves = [t.clone().requires_grad_() for t in (feat, kernel, bias)]
+        ref = fhi.plain(*ref_leaves, j, d, w)[0]
+        ref.backward(g)
+        err = float((coords.detach() - ref.detach()).abs().max())
+        if not (err <= TOL_VOXEL and float((ref.detach() - ref.detach().mean()).abs().max()) > 1.0):
+            raise AssertionError(f"no-plan C={c} D={d}: coords {err} voxel from plain")
+        rel = []
+        for name, a, r in zip(("dfeat", "dW", "db"), leaves, ref_leaves):
+            diff = float((a.grad.reshape(r.grad.shape) - r.grad).abs().max())
+            scale = float(r.grad.abs().max())
+            if not diff <= TOL_NOPLAN_GRAD * scale:
+                raise AssertionError(f"no-plan C={c} D={d} {name}: {diff} from plain (max {scale})")
+            rel.append(f"{name} {diff / scale:.2e}")
+        errs.append(err)
+        print(f"no-plan route C={c} D={d} (fp32, B={b}): K3 {counts[2]}, K4 {counts[3]}, K1/K2 0; "
+              f"coords vs plain {err:.3g} voxel; grads |diff|/max " + ", ".join(rel))
+    return k3, k4, max(errs)
+
+
+def eval_phase(fhi, iv, gpu: str):
+    """The Tester on h36m3d_r50 (EVAL_SAMPLES synthetic H36M test samples,
+    batch 128, the last padded, flip-test) and on mpii2d_r50 (64 samples,
+    D=1, PCKh), seeded weights with peaked heatmaps: K1 launches once per
+    eval batch and nothing else launches; every row of the predictions
+    that ``evaluate`` scored (the padded last batch's included) against the
+    fused op's plain version on the loader's batches; metrics finite; the
+    result files written. Returns K1 launches and the largest coords
+    difference."""
+    from ihpr_tpu_torch.config import get_config
+    from ihpr_tpu_torch.data import skeletons
+    from ihpr_tpu_torch.data.augment import finalize_patch
+    from ihpr_tpu_torch.data.datasets import build_dataset
+    from ihpr_tpu_torch.data.pipeline import prefetch_to_device
+    from ihpr_tpu_torch.engine.tester import Tester
+    from ihpr_tpu_torch.models.pose_net import build_pose_net
+
+    k1, errs = 0, []
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, n, key, files in (
+            ("h36m3d_r50", EVAL_SAMPLES, "MPJPE total",
+             ("metrics_Human36M.json", "preds_Human36M.npy", "bbox_root_pose_h36m_output.json")),
+            ("mpii2d_r50", 64, "PCKh@0.5", ("metrics_MPII.json", "preds_MPII.npy", "pred.mat")),
+        ):
+            cfg = get_config(name).replace(output_dir=f"{tmp}/{name}")
+            gen = torch.Generator().manual_seed(SEED)
+            model = build_pose_net(cfg, device="cuda", generator=gen)
+            dataset = build_dataset(cfg.data.testset, "test", cfg, "synthetic", n)
+            tester = Tester(cfg, dataset=dataset, state=model, num_workers=8, device="cuda")
+            try:
+                host = list(tester.loader.epoch())
+                batch, _ = next(prefetch_to_device(iter(host[:1]), "cuda"))
+                with torch.inference_mode():
+                    image = finalize_patch(batch["patch"], batch["color_scale"], cfg.data)
+                _peak_heatmaps(tester.model, image, gen)
+                tester.eval_step(batch)  # warm-up: cuDNN plans
+                torch.cuda.synchronize()
+                scored = []
+
+                def predict_and_keep(predict=tester.predict_voxels):
+                    scored.append(predict())
+                    return scored[-1]
+
+                tester.predict_voxels = predict_and_keep  # keeps what evaluate scores
+
+                # --- the main path, counted: Tester.evaluate ---
+                _zero_counts(fhi, iv)
+                t0 = time.perf_counter()
+                metrics = tester.evaluate()
+                t_eval = time.perf_counter() - t0
+                counts = _counts(fhi, iv)
+                # -----------------------------------------------
+                batches = len(tester.loader)
+                if counts != (batches, 0, 0, 0):
+                    raise AssertionError(f"{name} eval launched K1/K2/K3/K4 {counts}, want ({batches}, 0, 0, 0)")
+                k1 += counts[0]
+                (vox,) = scored
+                perm = torch.as_tensor(skeletons.get_skeleton(cfg.data.testset).flip_permutation(), device="cuda")
+                ref = np.full_like(vox, np.nan)
+                for hb in host:
+                    ref[hb.sample_idx] = _reference_coords(cfg, tester.model, perm, hb.patch, fhi)
+                err = float(np.abs(vox - ref).max())
+                spread = float(np.abs(ref - ref.mean()).max())
+                if not (vox.shape == (n, tester.dataset.joint_num, 3) and err <= 2 * TOL_VOXEL and spread > 1.0):
+                    raise AssertionError(f"{name} eval coords {vox.shape}, {err} voxel from plain (spread {spread})")
+                errs.append(err)
+                missing = [f for f in files if not os.path.exists(f"{cfg.output_dir}/result/{f}")]
+                if not math.isfinite(metrics[key]) or missing:
+                    raise AssertionError(f"{name} eval: {key} {metrics[key]}, missing {missing}")
+                print(f"eval {name}: {n} samples in {batches} batches of {cfg.eval.batch_size_per_device} "
+                      f"(flip-test {cfg.eval.flip_test}), K1 launches {counts[0]}; {key} "
+                      f"{metrics[key]:.2f}; all {n} scored rows vs plain {err:.3g} voxel (spread {spread:.3g}); "
+                      f"wrote {', '.join(files)}")
+                wait = tester.loader_wait_s
+                print(f"eval {name}: Tester.evaluate {t_eval:.3f} s, {n / t_eval:.1f} img/s (host clock, "
+                      f"loader included); waiting on the loader {wait * 1e3 / batches:.3f} ms per batch, "
+                      f"{wait / t_eval:.2f} of the evaluate wall time  [{gpu}]")
+            finally:
+                tester.close()
+            del model, tester
+            torch.cuda.empty_cache()
+    return k1, max(errs)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run", file=sys.stderr)
         return 1
     from ihpr_tpu_torch.ops import _build
     from ihpr_tpu_torch.ops import fused_head_integral as fhi
+    from ihpr_tpu_torch.ops import integral_volume as iv
 
     gpu = _gpu_line()
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
@@ -467,20 +854,28 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # plain fp32 versions are true fp32
 
     t0 = time.perf_counter()
-    libs = _build.build_all([fhi._LIB, fhi._BWD_LIB])
+    libs = _build.build_all([fhi._LIB, fhi._BWD_LIB, iv._FWD_LIB, iv._BWD_LIB])
     print(f"build: {', '.join(lib.name for lib in libs)} in {time.perf_counter() - t0:.2f} s")
     for lib in libs:
         print(lib.with_suffix(".log").read_text().strip())
 
     k1_err, (k1_ms, k1_plain) = kernel_phase(fhi, gpu)
     k2_err, (k2_ms, k2_plain) = k2_phase(fhi, gpu)
+    k3_err, k4_err, (k3_ms, k3_plain), (k4_ms, k4_plain) = volume_phase(iv, gpu)
     serve_k1 = serve_phase(fhi, gpu)
     train_k1, train_k2, head_err = train_phase(fhi, gpu)
+    hm_k3, hm_k4, hm_err, hm_dv_err = heatmap_phase(fhi, iv, gpu)
+    np_k3, np_k4, np_err = noplan_phase(fhi, iv)
+    eval_k1, eval_err = eval_phase(fhi, iv, gpu)
     kernels = [
-        (fhi._LIB, "ihpr_tpu/ops/fused_head_integral.py:133", serve_k1 + train_k1, k1_err,
-         k1_ms, k1_plain),
+        (fhi._LIB, "ihpr_tpu/ops/fused_head_integral.py:133", serve_k1 + train_k1 + eval_k1,
+         max(k1_err, eval_err), k1_ms, k1_plain),
         (fhi._BWD_LIB, "ihpr_tpu/ops/fused_head_integral.py:153", train_k2,
          max(k2_err, head_err), k2_ms, k2_plain),
+        (iv._FWD_LIB, "ihpr_tpu/ops/integral_pallas.py:201", hm_k3 + np_k3,
+         max(k3_err, hm_err, np_err), k3_ms, k3_plain),
+        (iv._BWD_LIB, "ihpr_tpu/ops/integral_pallas.py:239", hm_k4 + np_k4,
+         max(k4_err, hm_dv_err), k4_ms, k4_plain),
     ]
     print(json.dumps({"kernels": [{
         "name": name,

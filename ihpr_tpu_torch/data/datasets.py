@@ -1,4 +1,5 @@
-"""Synthetic pose datasets, counterpart of the synthetic part of
+"""Synthetic pose datasets and the datasets' evaluators, counterpart of the
+synthetic part and the ``evaluate_*`` functions of
 ``ihpr_tpu.data.datasets``.
 
 The repository holds no real dataset, so the port carries only the
@@ -19,12 +20,13 @@ from __future__ import annotations
 import dataclasses
 import warnings
 import zlib
-from typing import List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
 from ihpr_tpu_torch.config import Config
-from ihpr_tpu_torch.data import skeletons
+from ihpr_tpu_torch.data import geometry, skeletons
+from ihpr_tpu_torch.data.coco import keypoint_ap
 
 
 @dataclasses.dataclass
@@ -47,6 +49,92 @@ H36M_ACTIONS = (
     "Posing", "Purchases", "Sitting", "SittingDown", "Smoking", "Waiting",
     "WalkDog", "Walking", "WalkTogether",
 )
+
+
+def evaluate_h36m(
+    preds_mm: np.ndarray, samples: Sequence[dict], protocol: int = 2
+) -> Dict[str, float]:
+    """Per-action and total MPJPE (protocol 2) or PA-MPJPE (protocol 1).
+    preds_mm: (N, J, 3) camera-space mm, not root-aligned: root alignment
+    happens here (reference Human36M.evaluate)."""
+    skel = skeletons.H36M
+    ej = list(skel.eval_joints)
+    per_action: Dict[str, List[float]] = {a: [] for a in H36M_ACTIONS}
+    all_err: List[float] = []
+    for pred, sample in zip(preds_mm, samples):
+        gt = sample["joint_cam"] if "joint_cam" in sample else _sample_joint_cam(sample)
+        pred_rel = pred - pred[skel.root_idx]
+        gt_rel = gt - gt[skel.root_idx]
+        p, g = pred_rel[ej], gt_rel[ej]
+        if protocol == 1:
+            p = geometry.rigid_align(p, g)
+        err = float(np.sqrt(((p - g) ** 2).sum(-1)).mean())
+        all_err.append(err)
+        act = sample.get("action")
+        if act in per_action:
+            per_action[act].append(err)
+    out = {f"MPJPE {a}": float(np.mean(v)) for a, v in per_action.items() if v}
+    out["MPJPE total"] = float(np.mean(all_err))
+    return out
+
+
+def _sample_joint_cam(sample: dict) -> np.ndarray:
+    ji = sample["joint_img"]
+    px = ji.copy()
+    px[:, 2] = ji[:, 2] + sample["root_z"]
+    return geometry.pixel2cam(px, sample["f"], sample["c"])
+
+
+# Standard MPII PCKh headbox scaling (the official eval's SC_BIAS): the
+# normalizer is 0.6 * headbox diagonal, approximating head segment length.
+MPII_SC_BIAS = 0.6
+
+
+def evaluate_mpii_pckh(
+    preds_px: np.ndarray, samples: Sequence[dict], thresh: float = 0.5
+) -> Dict[str, float]:
+    """PCKh@0.5 with the per-joint breakdown. The normalizer is the official
+    ``SC_BIAS * headbox diagonal`` where a sample carries ``head_box``
+    (x1, y1, x2, y2), else the Head-Neck segment length (an approximation
+    of the official metric)."""
+    skel = skeletons.MPII
+    head_idx = skel.joints_name.index("Head")
+    neck_idx = skel.joints_name.index("Neck")
+    j = skel.joint_num
+    correct = np.zeros(j)
+    total = np.zeros(j)
+    for pred, sample in zip(preds_px, samples):
+        gt = sample["joint_img"][:, :2]
+        vis = sample["joint_vis"] > 0
+        if "head_box" in sample:
+            x1, y1, x2, y2 = np.asarray(sample["head_box"], np.float64)
+            head_size = MPII_SC_BIAS * float(np.hypot(x2 - x1, y2 - y1))
+        else:
+            head_size = np.linalg.norm(gt[head_idx] - gt[neck_idx])
+        if head_size < 1e-3:
+            continue
+        d = np.linalg.norm(pred[:, :2] - gt, axis=-1)
+        correct += ((d <= thresh * head_size) & vis).astype(np.float64)
+        total += vis.astype(np.float64)
+    out = {
+        f"PCKh@0.5 {name}": float(correct[i] / total[i])
+        for i, name in enumerate(skel.joints_name)
+        if total[i] > 0
+    }
+    out["PCKh@0.5"] = float(correct.sum() / max(total.sum(), 1))
+    return out
+
+
+def evaluate_mscoco(preds_px: np.ndarray, samples: Sequence[dict]) -> Dict[str, float]:
+    """OKS keypoint AP via the numpy COCOeval port."""
+    gts, dts = [], []
+    for i, (pred, sample) in enumerate(zip(preds_px, samples)):
+        img_id = sample.get("image_id", i)
+        gt_k = np.concatenate([sample["joint_img"][:, :2], sample["joint_vis"][:, None]], 1)
+        gts.append(dict(image_id=img_id, keypoints=gt_k, area=sample["area"]))
+        dt_k = np.concatenate([pred[:, :2], np.ones((pred.shape[0], 1))], 1)
+        dts.append(dict(image_id=img_id, keypoints=dt_k, score=1.0))
+    return keypoint_ap(gts, dts)
 
 
 def _bbox_from_joints(jp: np.ndarray, margin: float = 1.2) -> np.ndarray:

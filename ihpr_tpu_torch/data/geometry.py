@@ -1,11 +1,30 @@
-"""Bbox and coordinate geometry on the host (numpy); the port's copy of the
-serving helpers in ``ihpr_tpu.data.geometry``."""
+"""Camera, bbox and alignment geometry on the host (numpy); the port's copy
+of ``ihpr_tpu.data.geometry`` (reference ``common/utils/pose_utils.py``)."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import numpy as np
+
+
+def cam2pixel(cam_coord: np.ndarray, f: Sequence[float], c: Sequence[float]) -> np.ndarray:
+    """(N, 3) camera-space mm -> (N, 3) [u px, v px, Z mm]."""
+    x = cam_coord[..., 0] / cam_coord[..., 2] * f[0] + c[0]
+    y = cam_coord[..., 1] / cam_coord[..., 2] * f[1] + c[1]
+    return np.stack([x, y, cam_coord[..., 2]], axis=-1)
+
+
+def pixel2cam(pixel_coord: np.ndarray, f: Sequence[float], c: Sequence[float]) -> np.ndarray:
+    """(N, 3) [u, v, Z mm] -> (N, 3) camera-space mm."""
+    x = (pixel_coord[..., 0] - c[0]) / f[0] * pixel_coord[..., 2]
+    y = (pixel_coord[..., 1] - c[1]) / f[1] * pixel_coord[..., 2]
+    return np.stack([x, y, pixel_coord[..., 2]], axis=-1)
+
+
+def world2cam(world: np.ndarray, R: np.ndarray, t: np.ndarray) -> np.ndarray:
+    """(N, 3) world mm -> camera mm via x_cam = R @ (x_world) + t."""
+    return world @ R.T + t.reshape(1, 3)
 
 
 def process_bbox(
@@ -61,3 +80,28 @@ def warp_coord_to_original(
     xy = np.concatenate([xy, ones], axis=1) @ trans_inv.T  # (J, 2)
     z = z_voxel_to_mm(coords_voxel[:, 2], bbox_3d_z, depth_dim) + root_z
     return np.concatenate([xy, z[:, None]], axis=1)
+
+
+def rigid_transform_3d(A: np.ndarray, B: np.ndarray):
+    """Similarity transform (scale c, rotation R, translation t) minimizing
+    ||c*A@R.T + t - B||, with reflection correction: the Procrustes
+    alignment of H36M protocol 1. Returns (c, R, t)."""
+    assert A.shape == B.shape and A.shape[1] == 3
+    n = A.shape[0]
+    mu_a, mu_b = A.mean(0), B.mean(0)
+    Ac, Bc = A - mu_a, B - mu_b
+    var_a = (Ac**2).sum() / n
+    H = Ac.T @ Bc / n
+    U, S, Vt = np.linalg.svd(H)
+    d = np.sign(np.linalg.det(U @ Vt))
+    D = np.diag([1.0, 1.0, d])
+    R = Vt.T @ D @ U.T
+    c = float(np.trace(np.diag(S) @ D) / var_a)
+    t = mu_b - c * R @ mu_a
+    return c, R, t
+
+
+def rigid_align(A: np.ndarray, B: np.ndarray) -> np.ndarray:
+    """Align A onto B with the similarity transform (PA-MPJPE preprocessing)."""
+    c, R, t = rigid_transform_3d(A, B)
+    return c * A @ R.T + t

@@ -1,15 +1,16 @@
-"""Host input pipeline for training: shuffled batches warped on the host,
-and a prefetch to the device. Counterpart of the host-warp path of
-``ihpr_tpu.data.pipeline`` (``BatchLoader._epoch_host_warp`` and
-``prefetch_to_device``), single process.
+"""Host input pipeline: batches warped on the host, and a prefetch to the
+device. Counterpart of the host-warp path of ``ihpr_tpu.data.pipeline``
+(``BatchLoader._epoch_host_warp`` and ``prefetch_to_device``), single
+process.
 
 Per batch, the host draws the augmentation (scale, rotation, flip, colour)
 from a ``RandomState`` seeded by (seed, epoch, batch index), builds the
 patch affines, warps every image with the native C++ warp
 (``data/native.py``), and maps the joints into heatmap voxels. The device
-only runs ``finalize_patch`` (colour scale + normalize) in the train step.
-The draws, affines and joint transforms are the JAX package's, so both
-loaders give the same batches for the same seed and datasets.
+only runs ``finalize_patch`` (colour scale + normalize). In evaluation
+(``train=False``) there is no shuffle and no augmentation. The draws,
+affines and joint transforms are the JAX package's, so both loaders give
+the same batches for the same seed and datasets.
 """
 
 from __future__ import annotations
@@ -50,22 +51,27 @@ class WarpedHostBatch:
 
 
 class BatchLoader:
-    """Shuffled training epochs over one or more datasets, with joint order
-    unified onto the primary (first) dataset's skeleton (reference
-    ``common/base.py:Trainer._make_batch_generator``); the last partial
-    batch is dropped, as the JAX loader does in training."""
+    """Epochs over one or more datasets, with joint order unified onto the
+    primary (first) dataset's skeleton (reference
+    ``common/base.py:Trainer._make_batch_generator``). ``train``: shuffled,
+    augmented, the last partial batch dropped. ``train=False``: natural
+    order, no augmentation, and the last batch kept, padded to full size by
+    repeating its last sample; ``sample_idx`` says which sample each row
+    is."""
 
     def __init__(
         self,
         datasets: Sequence[PoseDataset],
         cfg: Config,
         batch_size: int,
+        train: bool = True,
         num_workers: int = 8,
         seed: int = 0,
     ):
         self.datasets = list(datasets)
         self.cfg = cfg
         self.batch_size = batch_size
+        self.train = train
         self.seed = seed
         self.primary = self.datasets[0].skeleton
         self._pool = cf.ThreadPoolExecutor(num_workers) if num_workers > 0 else None
@@ -88,7 +94,8 @@ class BatchLoader:
         return self.primary.joint_num
 
     def __len__(self):
-        return len(self.index) // self.batch_size
+        n = len(self.index)
+        return n // self.batch_size if self.train else -(-n // self.batch_size)
 
     def close(self):
         """Stop the image-loading threads."""
@@ -118,10 +125,14 @@ class BatchLoader:
 
     def _batch_selection(self, epoch_idx: int) -> Iterator[np.ndarray]:
         order = np.arange(len(self.index))
-        np.random.RandomState(self.seed + epoch_idx).shuffle(order)
+        if self.train:
+            np.random.RandomState(self.seed + epoch_idx).shuffle(order)
         bs = self.batch_size
         for b in range(len(self)):
-            yield order[b * bs : (b + 1) * bs]
+            sel = order[b * bs : (b + 1) * bs]
+            if len(sel) < bs:  # pad the final batch by repeating its last sample
+                sel = np.concatenate([sel, np.full(bs - len(sel), sel[-1])])
+            yield sel
 
     def _load_entry_image(self, entry) -> np.ndarray:
         di, si, _ = entry
@@ -147,7 +158,7 @@ class BatchLoader:
 
             # Augmentation draws (reference get_aug_config distributions).
             rng = np.random.RandomState((self.seed * 1000003 + epoch_idx * 131071 + bi) % (2**31))
-            if d.use_aug:
+            if self.train and d.use_aug:
                 scale = 1.0 + d.scale_factor * np.clip(rng.randn(b), -1, 1)
                 rot_all = d.rot_factor * np.clip(rng.randn(b), -2, 2)
                 rot = np.where(rng.rand(b) <= d.rot_prob, rot_all, 0.0)

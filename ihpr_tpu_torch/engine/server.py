@@ -23,6 +23,7 @@ from ihpr_tpu_torch.data import geometry, native, skeletons
 from ihpr_tpu_torch.data.augment import finalize_patch
 from ihpr_tpu_torch.data.warp import gen_trans_np
 from ihpr_tpu_torch.models.pose_net import PoseNet, build_pose_net, inference_copy
+from ihpr_tpu_torch.parallel.train_step import flip_test_coords
 
 
 @dataclasses.dataclass
@@ -72,13 +73,7 @@ class PoseServer:
         image = finalize_patch(patch_u8, color_scale, self.cfg.data)
         if not self.flip_test:
             return self.model.coords(image)
-        # One 2B dispatch: the image and its W-flip.
-        b = image.shape[0]
-        both = self.model.coords(torch.cat([image, image.flip(2)], dim=0))
-        coords, cf = both[:b], both[b:]
-        x = self.cfg.data.output_shape[1] - 1.0 - cf[..., 0]
-        cf = torch.cat([x[..., None], cf[..., 1:]], dim=-1)[:, self.flip_perm]
-        return (coords + cf) * 0.5
+        return flip_test_coords(self.model, image, self.flip_perm, self.cfg.data.output_shape[1])
 
     def submit_patches(self, patches_u8: np.ndarray) -> torch.Tensor:
         """Submit ONE chunk: (B <= max_batch, in_h, in_w, 3) uint8 -> (B, J, 3)

@@ -17,6 +17,7 @@ from torch import nn
 from ihpr_tpu_torch.config import Config
 from ihpr_tpu_torch.models.head import Deconv, DeconvHead
 from ihpr_tpu_torch.models.resnet import Conv, ResNetBackbone
+from ihpr_tpu_torch.ops.fused_head_integral import no_tf32
 from ihpr_tpu_torch.ops.integral import soft_argmax_3d
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -24,21 +25,15 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 @contextlib.contextmanager
 def _precision_scope(matmul_precision):
-    """``"highest"``: TF32 off for cuDNN convs and for matmuls while the
-    block runs, restored after, so one model's setting does not leak into
-    the process. A training step runs its ``backward()`` inside the block
-    too (``PoseNet.precision``), as JAX's ``precision="highest"`` covers
-    the VJP."""
+    """``"highest"``: TF32 off (``no_tf32``) while the block runs, so one
+    model's setting does not leak into the process. A training step runs
+    its ``backward()`` inside the block too (``PoseNet.precision``), as
+    JAX's ``precision="highest"`` covers the VJP."""
     if matmul_precision != "highest":
         yield
         return
-    cuda_mm, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
-    prev = cuda_mm.allow_tf32, cudnn.allow_tf32
-    cuda_mm.allow_tf32, cudnn.allow_tf32 = False, False
-    try:
+    with no_tf32():
         yield
-    finally:
-        cuda_mm.allow_tf32, cudnn.allow_tf32 = prev
 
 
 class PoseNet(nn.Module):

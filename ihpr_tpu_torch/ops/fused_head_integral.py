@@ -12,27 +12,34 @@ memory, in either direction:
   recomputes the logits from m and s and contracts dv at once into dfeat,
   dW and db.
 
-``FusedHeadIntegral`` is the autograd Function around the pair, and
-``fused_final_conv_integral`` routes through it. Routing: a CUDA tensor
-goes to the kernels, which launch or raise; a CPU tensor goes to the plain
-PyTorch versions in this module (``plain``, ``plain_bwd``), which are also
-what the kernels are held against on the card. Nothing falls back from one
-to the other.
+``FusedHeadIntegral`` is the autograd Function around the pair.
+``fused_final_conv_integral`` picks its route from the shapes alone
+(``fused_supported``), before anything launches: shapes K1/K2 take go
+through ``FusedHeadIntegral``; any other shape forms the fp32 logits volume
+with a plain matmul and runs the standalone integral, K3/K4
+(``integral_volume.SoftArgmaxVolume``), as JAX does when ``_pad_plan``
+finds no tiling. On either route a CUDA tensor goes to the kernels, which
+launch or raise; a CPU tensor goes to the plain PyTorch versions
+(``plain``, ``plain_bwd``), which are also what the kernels are held
+against on the card. Nothing falls back from one to the other.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from typing import Tuple
 
 import torch
 
-from ihpr_tpu_torch.ops import _build
+from ihpr_tpu_torch.ops import _build, integral_volume
+from ihpr_tpu_torch.ops.integral_volume import _acc_dtype, fold_bwd_rows
 
 _LIB = "fused_head_integral_fwd"
 _BWD_LIB = "fused_head_integral_bwd"
 _MAX_DEPTH = 64  # depth bins one CTA holds (kCols in the kernels)
+_MAX_CHANNELS = 256  # channels K2's register accumulators hold (kMaxC)
 _MAX_SMEM = 232448  # bytes of shared memory a block may use on Hopper
 
 # Launches of K1 (``launches``) and K2 (``bwd_launches``) since the count
@@ -42,9 +49,19 @@ launches = 0
 bwd_launches = 0
 
 
-def _acc_dtype(t: torch.Tensor) -> torch.dtype:
-    """fp32 accumulation, or fp64 for fp64 inputs (gradient checks)."""
-    return torch.float64 if t.dtype == torch.float64 else torch.float32
+def fused_supported(channels: int, depth_dim: int, dtype: torch.dtype) -> bool:
+    """Whether K1 and K2 take a head of ``channels`` features, ``depth_dim``
+    bins and ``dtype``: bf16 or fp32, C a multiple of 16 up to K2's 256
+    channels, D <= 64. A pure predicate on shapes, the counterpart of JAX's
+    ``fused_supported`` / ``_pad_plan``; J and H*W are free. Up to 256
+    channels both kernels' shared memory fits a Hopper block (the most, K2
+    in fp32 at C=256, is 218,624 bytes)."""
+    return (
+        dtype in (torch.bfloat16, torch.float32)
+        and channels % 16 == 0
+        and 16 <= channels <= _MAX_CHANNELS
+        and 1 <= depth_dim <= _MAX_DEPTH
+    )
 
 
 def plain(
@@ -56,23 +73,9 @@ def plain(
     s = sum exp(v - m) (B, J), all fp32 (fp64 for fp64 inputs). Products of
     bf16 values are exact in fp32, so upcasting first equals fp32
     accumulation."""
-    b, hw, _ = feat.shape
     acc = _acc_dtype(feat)
     v = feat.to(acc) @ kernel.to(acc) + bias.to(acc)  # (B, HW, J*D)
-    v = v.reshape(b, hw, joint_num, depth_dim).permute(0, 2, 1, 3)  # (B, J, HW, D)
-    m = v.amax(dim=(2, 3))
-    e = torch.exp(v - m[..., None, None])
-    s = e.sum(dim=(2, 3))
-    p = e / s[..., None, None]
-    rows = torch.arange(hw, device=feat.device)
-    x = (rows % width).to(acc)
-    y = torch.div(rows, width, rounding_mode="floor").to(acc)
-    z = torch.arange(depth_dim, device=feat.device, dtype=acc)
-    p_rows = p.sum(-1)  # (B, J, HW)
-    coords = torch.stack(
-        [(p_rows * x).sum(-1), (p_rows * y).sum(-1), (p.sum(2) * z).sum(-1)], dim=-1
-    )
-    return coords, m, s
+    return integral_volume.plain(v, joint_num, depth_dim, width)
 
 
 @functools.cache
@@ -85,23 +88,6 @@ def _lib() -> ctypes.CDLL:
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     )
     return lib
-
-
-def fold_bwd_rows(
-    m: torch.Tensor, s: torch.Tensor, coords: torch.Tensor, g: torch.Tensor
-) -> torch.Tensor:
-    """Per-joint backward constants, (B, J, 8) fp32: m + log s (the softmax
-    normalizer folded into the exp argument, so p = exp(v - row0); s == 0
-    gives +inf and p = 0), gx, gy, gz, cx, cy, cz, 0. The port of
-    ``integral_pallas.fold_bwd_rows`` with K1's per-joint m and s, so the
-    rows are per joint where the TPU's are per lane."""
-    log_s = torch.where(s > 0, torch.log(s), torch.full_like(s, float("inf")))
-    g = g.to(m.dtype)
-    return torch.stack(
-        [m + log_s, g[..., 0], g[..., 1], g[..., 2],
-         coords[..., 0], coords[..., 1], coords[..., 2], torch.zeros_like(m)],
-        dim=-1,
-    ).contiguous()
 
 
 def plain_bwd(
@@ -117,16 +103,8 @@ def plain_bwd(
     b, hw, c = feat.shape
     jd = joint_num * depth_dim
     acc = _acc_dtype(feat)
-    row0, gx, gy, gz, cx, cy, cz, _ = fold_bwd_rows(m, s, coords, g).unbind(-1)  # (B, J)
     v = feat.to(acc) @ kernel.to(acc) + bias.to(acc)  # (B, HW, J*D)
-    p = torch.exp(v.view(b, hw, joint_num, depth_dim) - row0[:, None, :, None])
-    rows = torch.arange(hw, device=feat.device)
-    x = (rows % width).to(acc)[None, :, None]
-    y = torch.div(rows, width, rounding_mode="floor").to(acc)[None, :, None]
-    z = torch.arange(depth_dim, device=feat.device, dtype=acc)
-    tx = gx[:, None] * (x - cx[:, None]) + gy[:, None] * (y - cy[:, None])  # (B, HW, J)
-    tz = gz[..., None] * (z - cz[..., None])  # (B, J, D)
-    dv = (p * (tx[..., None] + tz[:, None])).view(b, hw, jd)
+    dv = integral_volume.plain_dv(v, m, s, coords, g, joint_num, depth_dim, width)
     dvc = dv.to(kernel.dtype).to(acc)
     dfeat = (dvc @ kernel.to(acc).t()).to(feat.dtype)
     dw = (feat.to(acc).reshape(b * hw, c).t() @ dvc.view(b * hw, jd)).to(kernel.dtype)
@@ -147,10 +125,9 @@ def _check(feat, kernel, bias, joint_num, depth_dim, width):
     return b, hw, c
 
 
-def _check_kernel_inputs(feat, kernel, bias, joint_num, depth_dim, width):
-    """What both kernels require of feat, kernel and bias; returns
-    (B, HW, C, is_bf16)."""
-    b, hw, c = _check(feat, kernel, bias, joint_num, depth_dim, width)
+def _check_cuda_tensors(feat, kernel, bias):
+    """Device, dtype and layout every CUDA route requires of feat, kernel
+    and bias."""
     tensors = (feat, kernel, bias)
     if not all(t.is_cuda and t.device == feat.device for t in tensors):
         raise ValueError("feat, kernel and bias must be CUDA tensors on one device")
@@ -162,6 +139,13 @@ def _check_kernel_inputs(feat, kernel, bias, joint_num, depth_dim, width):
         )
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("feat, kernel and bias must be contiguous")
+
+
+def _check_kernel_inputs(feat, kernel, bias, joint_num, depth_dim, width):
+    """What both kernels require of feat, kernel and bias; returns
+    (B, HW, C, is_bf16)."""
+    b, hw, c = _check(feat, kernel, bias, joint_num, depth_dim, width)
+    _check_cuda_tensors(feat, kernel, bias)
     if feat.data_ptr() % 16:
         raise ValueError("feat must be 16-byte aligned")
     if c % 16:
@@ -292,6 +276,52 @@ class FusedHeadIntegral(torch.autograd.Function):
                 None, None, None, None)
 
 
+@contextlib.contextmanager
+def no_tf32():
+    """TF32 off for matmuls and cuDNN convs while the block runs, restored
+    after, so the setting does not leak into the rest of the process."""
+    cuda_mm, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    prev = cuda_mm.allow_tf32, cudnn.allow_tf32
+    cuda_mm.allow_tf32, cudnn.allow_tf32 = False, False
+    try:
+        yield
+    finally:
+        cuda_mm.allow_tf32, cudnn.allow_tf32 = prev
+
+
+class _Logits(torch.autograd.Function):
+    """v = feat @ kernel + bias (B, HW, J*D), accumulated in fp32 (fp64 for
+    fp64 inputs) from the operands as given, TF32 off in both directions:
+    the no-plan route's final conv, which JAX computes outside any kernel as
+    ``jnp.dot(..., preferred_element_type=float32)``. bf16 products are
+    exact in fp32, so upcasting first equals fp32 accumulation. Gradients
+    come back in each operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, feat, kernel, bias):
+        acc = _acc_dtype(feat)
+        with no_tf32():
+            v = feat.to(acc) @ kernel.to(acc) + bias.to(acc)
+        ctx.save_for_backward(feat, kernel)
+        ctx.bias_dtype = bias.dtype
+        return v
+
+    @staticmethod
+    def backward(ctx, dv):
+        feat, kernel = ctx.saved_tensors
+        b, hw, c = feat.shape
+        need = ctx.needs_input_grad
+        dfeat = dw = db = None
+        with no_tf32():
+            if need[0]:
+                dfeat = (dv @ kernel.to(dv.dtype).t()).to(feat.dtype)
+            if need[1]:
+                dw = (feat.to(dv.dtype).reshape(b * hw, c).t() @ dv.reshape(b * hw, -1)).to(kernel.dtype)
+        if need[2]:
+            db = dv.sum(dim=(0, 1)).to(ctx.bias_dtype)
+        return dfeat, dw, db
+
+
 def fused_final_conv_integral(
     features: torch.Tensor,
     kernel: torch.Tensor,
@@ -301,18 +331,26 @@ def fused_final_conv_integral(
 ) -> torch.Tensor:
     """(B, H, W, C) head features + (C, J*D) final-conv weight + (J*D,) bias
     -> (B, J, 3) voxel coords (x, y, z), fp32, differentiable in all three
-    tensors through ``FusedHeadIntegral``: CUDA tensors run K1/K2, CPU
-    tensors ``plain``/``plain_bwd``."""
+    tensors. Shapes ``fused_supported`` admits run ``FusedHeadIntegral``
+    (K1/K2 on CUDA tensors); any other shape forms the fp32 logits
+    (``_Logits``) and runs ``integral_volume.SoftArgmaxVolume`` (K3/K4 on
+    CUDA tensors). CPU tensors take the same route through the plain
+    versions."""
     b, h, w, c = features.shape
     if features.is_cuda:
         if not features.is_contiguous():
             raise ValueError("features must be contiguous (B, H, W, C) on the kernel path")
+        _check_cuda_tensors(features, kernel, bias)
         feat = features.view(b, h * w, c)
     elif features.device.type == "cpu":
         feat = features.reshape(b, h * w, c)
-        _check(feat, kernel, bias, joint_num, depth_dim, w)
     else:
         raise ValueError(f"no fused head integral for device {features.device}")
-    return FusedHeadIntegral.apply(
-        feat, kernel, bias, joint_num, depth_dim, w, torch.is_grad_enabled()
+    _check(feat, kernel, bias, joint_num, depth_dim, w)
+    if fused_supported(c, depth_dim, features.dtype):
+        return FusedHeadIntegral.apply(
+            feat, kernel, bias, joint_num, depth_dim, w, torch.is_grad_enabled()
+        )
+    return integral_volume.soft_argmax_volume(
+        _Logits.apply(feat, kernel, bias), joint_num, depth_dim, w
     )

@@ -1,4 +1,5 @@
-"""The single-GPU train step, counterpart of ``ihpr_tpu.parallel.train_step``.
+"""The single-GPU train and eval steps, counterpart of
+``ihpr_tpu.parallel.train_step``.
 
 One step: ``finalize_patch`` on the host-warped uint8 patch (colour scale,
 clip, ImageNet normalize), ``PoseNet.coords`` in train mode (batch-stat BN;
@@ -18,12 +19,13 @@ scales apply at ``count >= boundary``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import torch
 from torch.optim.lr_scheduler import LambdaLR
 
 from ihpr_tpu_torch.config import Config
+from ihpr_tpu_torch.data import skeletons
 from ihpr_tpu_torch.data.augment import finalize_patch
 from ihpr_tpu_torch.models.pose_net import PoseNet
 from ihpr_tpu_torch.ops.loss import joint_location_loss, joint_location_loss_components
@@ -145,3 +147,45 @@ def make_train_step(
         return metrics
 
     return step
+
+
+def flip_test_coords(
+    model: PoseNet, image: torch.Tensor, flip_perm: Sequence[int] | torch.Tensor, out_w: int
+) -> torch.Tensor:
+    """The reference's flip-test: ``model.coords`` of the (B, H, W, 3) images
+    and their W-mirrors as one 2B forward; the mirrored coords are remapped
+    (x -> out_w - 1 - x, then the joints' flip permutation) and averaged
+    with the plain ones. -> (B, J, 3). JAX interleaves the two halves for
+    shard locality; per-sample results do not depend on the order, so one
+    device concatenates."""
+    b = image.shape[0]
+    both = model.coords(torch.cat([image, image.flip(2)], dim=0))
+    coords, cf = both[:b], both[b:]
+    x = out_w - 1.0 - cf[..., 0]
+    cf = torch.cat([x[..., None], cf[..., 1:]], dim=-1)[:, flip_perm]
+    return (coords + cf) * 0.5
+
+
+def make_eval_step(
+    model: PoseNet, cfg: Config
+) -> Callable[[Dict[str, torch.Tensor]], Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+    """Returns ``eval_step(batch) -> (coords, joint_img, joint_vis)``:
+    ``finalize_patch``, then (B, J, 3) voxel coords of ``model`` (in eval
+    mode, e.g. ``pose_net.inference_copy``) through ``PoseNet.coords``, with
+    the reference's flip-test averaging when ``cfg.eval.flip_test``.
+    ``batch`` as the train step's, from ``pipeline.prefetch_to_device``.
+    Runs under ``inference_mode``."""
+    skel = skeletons.get_skeleton(cfg.data.testset)
+    flip_perm = torch.as_tensor(skel.flip_permutation())
+    out_w = cfg.data.output_shape[1]
+
+    @torch.inference_mode()
+    def eval_step(batch: Dict[str, torch.Tensor]):
+        image = finalize_patch(batch["patch"], batch["color_scale"], cfg.data)
+        if cfg.eval.flip_test:
+            coords = flip_test_coords(model, image, flip_perm.to(image.device), out_w)
+        else:
+            coords = model.coords(image)
+        return coords, batch["joint_img"], batch["joint_vis"]
+
+    return eval_step

@@ -224,3 +224,199 @@ def test_autograd_runs_k1_and_k2(cuda):
     want = fhi.kernel_bwd(feat, kernel, bias, m, s, coords.detach(), g, j, d, w)
     for leaf, ref in zip(leaves, want):
         assert torch.equal(leaf.grad.reshape(ref.shape), ref)
+
+
+# --- K3/K4: the standalone integral over a logits volume -----------------------
+
+from ihpr_tpu_torch.ops import integral_volume as iv  # noqa: E402
+
+# (B, H, W, J, D): J*D = 128; J=18, D=16; ragged 9x7 with J=17 (J*D*2 bytes
+# 16-aligned); D=1 with J=16 (32-byte rows); J=17, D=1 (34-byte rows: the
+# one-lane path); J=18, D=80 (more bins than K1 takes); 96x72.
+VOL_SHAPES = [(2, 16, 16, 4, 32), (2, 16, 16, 18, 16), (3, 9, 7, 17, 64), (2, 8, 8, 16, 1),
+              (2, 8, 8, 17, 1), (2, 8, 8, 18, 80), (2, 96, 72, 18, 64)]
+VOL_IDS = ["aligned", "j18d16", "ragged", "d1", "j17d1", "d80", "96x72"]
+# dv relative to its largest magnitude: bf16 rounds every dv once (2^-8)
+# after fp32 arithmetic that differs only by ex2.approx and the order of
+# sums in m and s; fp32 by those alone.
+DV_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+
+
+def _volume(shape, device, dtype, seed=6, std=5.0):
+    """Logits of std ~5: peaked, so coordinates sit away from the centre."""
+    b, h, w, j, d = shape
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn(b, h * w, j * d, generator=g) * std).to(device, dtype)
+
+
+def _check_stats(got, want):
+    torch.testing.assert_close(got[0], want[0], atol=5e-4, rtol=0)
+    torch.testing.assert_close(got[1], want[1], atol=0, rtol=0)  # the max is exact
+    torch.testing.assert_close(got[2], want[2], atol=0, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("shape", VOL_SHAPES, ids=VOL_IDS)
+def test_volume_kernels_match_plain(cuda, shape, dtype):
+    b, h, w, j, d = shape
+    vol = _volume(shape, cuda, dtype)
+    before = (iv.launches, iv.bwd_launches)
+    got = iv.kernel_stats(vol, j, d, w)
+    want = iv.plain(vol, j, d, w)
+    torch.cuda.synchronize()
+    _check_stats(got, want)
+    centre = torch.tensor([(w - 1) / 2, (h - 1) / 2, (d - 1) / 2], device=cuda)
+    assert float((want[0] - centre).abs().max()) > 1.0  # peaked, not flat
+    g = torch.randn(b, j, 3, generator=torch.Generator().manual_seed(1)).to(cuda)
+    dv = iv.kernel_bwd(vol, *got[1:], got[0], g, j, d, w)
+    ref = iv.plain_bwd(vol, *got[1:], got[0], g, j, d, w)
+    assert (iv.launches, iv.bwd_launches) == (before[0] + 1, before[1] + 1)
+    assert dv.dtype == vol.dtype and dv.shape == vol.shape
+    scale = float(ref.float().abs().max())
+    assert float((dv.float() - ref.float()).abs().max()) <= DV_TOL[dtype] * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_volume_kernels_edge_logits(cuda, dtype):
+    """All-equal logits give the volume centre; a one-hot peak gives its
+    voxel; a soft peak (logit 5 over a flat floor, p spread everywhere)
+    against float64 on the host, coords and dv."""
+    b, h, w, j, d = 2, 64, 64, 18, 64
+    centre = torch.tensor([(w - 1) / 2, (h - 1) / 2, (d - 1) / 2], device=cuda)
+    flat = torch.zeros(b, h * w, j * d, device=cuda, dtype=dtype)
+    torch.testing.assert_close(iv.kernel_stats(flat, j, d, w)[0], centre.expand(b, j, 3), atol=1e-3, rtol=0)
+    r0, z0, j0 = 1234, 17, 5
+    peak = flat.clone()
+    peak[:, r0, j0 * d + z0] = 100.0
+    expect = centre.expand(b, j, 3).clone()
+    expect[:, j0] = torch.tensor([r0 % w, r0 // w, z0], dtype=torch.float32, device=cuda)
+    torch.testing.assert_close(iv.kernel_stats(peak, j, d, w)[0], expect, atol=1e-3, rtol=0)
+
+    soft = flat.clone()
+    soft[:, r0, j0 * d + z0] = 5.0
+    g = torch.randn(b, j, 3, generator=torch.Generator().manual_seed(2)).to(cuda)
+    coords, m, s = iv.kernel_stats(soft, j, d, w)
+    dv = iv.kernel_bwd(soft, m, s, coords, g, j, d, w)
+    v64 = soft.double().cpu().view(b, h * w, j, d)[:, :, j0]  # (B, HW, D)
+    p = torch.softmax(v64.reshape(b, -1), -1).view(b, h * w, d)
+    rows = torch.arange(h * w)
+    x, y, z = (rows % w).double(), (rows // w).double(), torch.arange(d).double()
+    c64 = torch.stack([(p.sum(-1) * x).sum(-1), (p.sum(-1) * y).sum(-1), (p.sum(1) * z).sum(-1)], -1)
+    assert float((c64 - expect[:, j0].double().cpu()).abs().max()) > 1.0  # soft, not a one-hot
+    torch.testing.assert_close(coords[:, j0].double().cpu(), c64, atol=5e-4, rtol=0)
+    gj = g[:, j0].double().cpu()
+    dv64 = p * (gj[:, 0, None, None] * (x[:, None] - c64[:, 0, None, None])
+                + gj[:, 1, None, None] * (y[:, None] - c64[:, 1, None, None])
+                + gj[:, 2, None, None] * (z - c64[:, 2, None, None]))
+    got = dv.double().cpu().view(b, h * w, j, d)[:, :, j0]
+    assert float((got - dv64).abs().max()) <= DV_TOL[dtype] * float(dv64.abs().max())
+
+
+@pytest.mark.cuda
+def test_volume_kernels_are_deterministic(cuda):
+    shape = (8, 64, 64, 18, 64)
+    vol = _volume(shape, cuda, torch.bfloat16)
+    first = iv.kernel_stats(vol, 18, 64, 64)
+    second = iv.kernel_stats(vol, 18, 64, 64)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    g = torch.randn(8, 18, 3, generator=torch.Generator().manual_seed(3)).to(cuda)
+    args = (vol, first[1], first[2], first[0], g, 18, 64, 64)
+    assert torch.equal(iv.kernel_bwd(*args), iv.kernel_bwd(*args))
+
+
+@pytest.mark.cuda
+def test_volume_kernels_past_2gib(cuda):
+    """The fp32 flagship volume (128, 4096, 1152) is 2.42 GB: byte offsets
+    pass 2^31, so the kernels index with 64 bits."""
+    b, h, w, j, d = 128, 64, 64, 18, 64
+    vol = _volume((b, h, w, j, d), cuda, torch.float32)
+    assert vol.numel() * vol.element_size() > 2**31
+    got = iv.kernel_stats(vol, j, d, w)
+    _check_stats(got, iv.plain(vol, j, d, w))
+    g = torch.randn(b, j, 3, generator=torch.Generator().manual_seed(4)).to(cuda)
+    dv = iv.kernel_bwd(vol, got[1], got[2], got[0], g, j, d, w)
+    ref = iv.plain_bwd(vol, got[1], got[2], got[0], g, j, d, w)
+    assert float((dv - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_volume_kernels_unaligned_base(cuda):
+    """A volume that starts 2 bytes past a 16-byte boundary takes one-lane
+    loads; the result still matches plain."""
+    b, h, w, j, d = 2, 16, 16, 18, 16
+    buf = torch.empty(b * h * w * j * d + 1, device=cuda, dtype=torch.bfloat16)
+    vol = buf[1:].view(b, h * w, j * d)
+    vol.copy_(_volume((b, h, w, j, d), cuda, torch.bfloat16))
+    assert vol.data_ptr() % 16 and vol.is_contiguous()
+    _check_stats(iv.kernel_stats(vol, j, d, w), iv.plain(vol, j, d, w))
+
+
+@pytest.mark.cuda
+def test_volume_kernels_reject_what_they_do_not_take(cuda):
+    vol = _volume((2, 16, 16, 4, 32), cuda, torch.bfloat16)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        iv.kernel_stats(vol.half(), 4, 32, 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        iv.kernel_stats(vol.transpose(0, 1).contiguous().transpose(0, 1), 4, 32, 16)
+    with pytest.raises(ValueError, match="J\\*D"):
+        iv.kernel_stats(vol, 4, 31, 16)
+    with pytest.raises(ValueError, match="width"):
+        iv.kernel_stats(vol, 4, 32, 15)
+    with pytest.raises(ValueError, match="CUDA"):
+        iv.kernel_stats(vol.cpu(), 4, 32, 16)
+    coords, m, s = iv.kernel_stats(vol, 4, 32, 16)
+    with pytest.raises(ValueError, match="float32"):
+        iv.kernel_bwd(vol, m.double(), s, coords, torch.zeros_like(coords), 4, 32, 16)
+
+
+@pytest.mark.cuda
+def test_heatmap_autograd_runs_k3_and_k4(cuda):
+    """soft_argmax_from_heatmap on a CUDA heatmap that needs a gradient runs
+    K3 forward and K4 backward, once each, and its gradient is K4's."""
+    b, h, w, j, d = 2, 16, 16, 18, 16
+    vol = _volume((b, h, w, j, d), cuda, torch.bfloat16)
+    hm = vol.view(b, h, w, j * d).clone().requires_grad_()
+    iv.launches = iv.bwd_launches = fhi.launches = fhi.bwd_launches = 0
+    coords = iv.soft_argmax_from_heatmap(hm, j, d)
+    g = torch.randn_like(coords)
+    coords.backward(g)
+    assert (iv.launches, iv.bwd_launches, fhi.launches, fhi.bwd_launches) == (1, 1, 0, 0)
+    _, m, s = iv.kernel_stats(vol, j, d, w)
+    assert torch.equal(hm.grad.view(b, h * w, j * d), iv.kernel_bwd(vol, m, s, coords.detach(), g, j, d, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c, d", [(72, 16), (128, 80)], ids=["c72", "d80"])
+def test_fused_op_without_a_plan_runs_k3_and_k4(cuda, c, d):
+    """Shapes K1/K2 do not take (C not a multiple of 16, D > 64) form the
+    fp32 logits and run K3/K4; K1/K2 do not launch. Coords against the
+    fused op's plain version, gradients against autograd through it."""
+    b, h, w, j = 2, 16, 16, 18
+    feat, kernel, bias = _head_inputs((b, h, w, c, j, d), cuda, torch.float32)
+    assert not fhi.fused_supported(c, d, torch.float32)
+    leaves = [t.clone().requires_grad_() for t in (feat.view(b, h, w, c), kernel, bias)]
+    iv.launches = iv.bwd_launches = fhi.launches = fhi.bwd_launches = 0
+    coords = fhi.fused_final_conv_integral(*leaves, j, d)
+    g = torch.randn_like(coords)
+    coords.backward(g)
+    assert (iv.launches, iv.bwd_launches, fhi.launches, fhi.bwd_launches) == (1, 1, 0, 0)
+    ref_leaves = [t.clone().requires_grad_() for t in (feat, kernel, bias)]
+    ref = fhi.plain(*ref_leaves, j, d, w)[0]
+    ref.backward(g)
+    torch.testing.assert_close(coords, ref, atol=5e-4, rtol=0)
+    for leaf, r in zip(leaves, ref_leaves):
+        scale = float(r.grad.abs().max())
+        assert float((leaf.grad.reshape(r.grad.shape) - r.grad).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+def test_fused_supported_shapes_fit_shared_memory(cuda):
+    """Every channel count fused_supported admits fits K1's and K2's shared
+    memory, in both dtypes, so the predicate needs no size check."""
+    for is_bf16 in (0, 1):
+        for c in range(16, 257, 16):
+            assert fhi._lib().ihpr_fused_head_integral_fwd_smem(c, is_bf16) <= fhi._MAX_SMEM
+            assert fhi._bwd_lib().ihpr_fused_head_integral_bwd_smem(c, is_bf16) <= fhi._MAX_SMEM
+    assert fhi._bwd_lib().ihpr_fused_head_integral_bwd_max_channels() == fhi._MAX_CHANNELS

@@ -118,14 +118,16 @@ def test_fused_autograd_matches_autograd_through_plain():
 
 
 def test_fused_autograd_gradcheck_float64():
+    """FusedHeadIntegral itself (fp64 routes fused_final_conv_integral to
+    the no-plan path, which test_torch_integral.py gradchecks)."""
     b, h, w, c, j, d = 2, 3, 4, 8, 3, 5
     rng = np.random.RandomState(15)
     leaves = [
         torch.from_numpy(rng.randn(*shape) * scale).requires_grad_()
-        for shape, scale in (((b, h, w, c), 0.5), ((c, j * d), 1.0), ((j * d,), 0.1))
+        for shape, scale in (((b, h * w, c), 0.5), ((c, j * d), 1.0), ((j * d,), 0.1))
     ]
     assert torch.autograd.gradcheck(
-        lambda f, k, bb: fhi.fused_final_conv_integral(f, k, bb, j, d), leaves
+        lambda f, k, bb: fhi.FusedHeadIntegral.apply(f, k, bb, j, d, w, True), leaves
     )
 
 
