@@ -3,8 +3,9 @@
     python3 chip_smoke.py
 
 1. Prints the environment: torch, CUDA, nvcc, the card's name and power limit.
-2. Builds every CUDA kernel of the serving, training, heatmap and eval
-   paths from ihpr_tpu_torch/ops/csrc, one nvcc per source, all at once.
+2. Builds every CUDA kernel (K1-K8) of the serving, training, fused-train,
+   heatmap and eval paths from ihpr_tpu_torch/ops/csrc, one nvcc per
+   source, all at once.
 3. K1 (fused head forward): holds it against its plain PyTorch version on
    the card, at the serving shapes and at edge cases, and times both with
    CUDA events (median of repeated launches, in turns).
@@ -17,6 +18,13 @@
    H*W=96*72, all-equal logits (the centre), a one-hot peak and a soft peak
    (against float64), on an fp32 volume past 2^31 bytes, and two runs
    bitwise equal; time both at (128, 4096, 1152) in bf16 and fp32.
+5b. K1/K2's library composition (cuBLAS final conv + K3/K4), a yardstick.
+5c. K5/K6 (fused 1x1 conv + BN statistics) and K7/K8 (fused 3x3 conv + BN
+   statistics), forward and backward: against plain / plain_bwd at every
+   shape of the flagship fused step (bf16) and at edge cases (fp32, M = 1,
+   K = N = 8, a 24x18 and a 5x3 plane), two runs bitwise equal; kernel,
+   plain and library (cuBLAS / cuDNN in bf16 + sums) times, summed over
+   one step's launches beside the step's bound.
 6. Serves the flagship config h36m3d_r50 (ResNet-50, 256x256, 18 joints,
    64 depth bins, bf16, flip-test) at max_batch 32 with seeded random
    weights: predict_patches, predict (native warp) and predict_stream.
@@ -26,6 +34,12 @@
    step against plain_bwd on the same saved inputs; the loss falling over
    10 steps on one repeated batch; device ms per step (CUDA events),
    host-clock img/s and the loader's host ms per batch.
+7b. Trains h36m3d_r50 with fused_1x1 and fused_conv3 through the Trainer
+   (batch 128): K5/K6 16 and K7/K8 5 launches per step, K1/K2 one; one
+   launch of each of K5-K8 in those steps against plain on its saved
+   inputs; device ms per step and peak memory with the flags on and off
+   (the H100 A/B, in turns); a fused_1x1-alone step (K5/K6 26 each); the
+   loss falling over 10 steps on one repeated batch.
 8. The heatmap-logits path: h36m3d_r50 at batch 128 takes an optimizer
    step through model(x) -> soft_argmax_from_heatmap -> loss (K3 forward,
    K4 backward), coords and dv against plain on the same logits, device ms
@@ -608,12 +622,14 @@ def train_phase(fhi, gpu: str):
     return k1, k2, head_err
 
 
-def _counts(fhi, iv):
-    return fhi.launches, fhi.bwd_launches, iv.launches, iv.bwd_launches
+def _counts(*mods):
+    """(launches, bwd_launches) of each kernel module, in order."""
+    return tuple(c for mod in mods for c in (mod.launches, mod.bwd_launches))
 
 
-def _zero_counts(fhi, iv):
-    fhi.launches = fhi.bwd_launches = iv.launches = iv.bwd_launches = 0
+def _zero_counts(*mods):
+    for mod in mods:
+        mod.launches = mod.bwd_launches = 0
 
 
 def heatmap_phase(fhi, iv, gpu: str):
@@ -839,13 +855,439 @@ def eval_phase(fhi, iv, gpu: str):
     return k1, max(errs)
 
 
+# --- K5-K8: the conv + BN-statistics kernels -----------------------------------
+
+# One h36m3d_r50 train step at batch 128 with both fused flags (256x256 input,
+# bf16): the 1x1 route's launches of K5/K6, (M, K, N, prologue, launches), and
+# the conv3 route's K7/K8 shape (B, H, W, C, N) with its launches.
+MM_STEP = (
+    (524288, 64, 64, False, 1),    # layer1_0 conv1
+    (524288, 256, 64, False, 2),   # layer1_1, layer1_2 conv1
+    (524288, 64, 256, True, 3),    # layer1_* conv3 (bn2 prologue)
+    (524288, 256, 128, False, 1),  # layer2_0 conv1
+    (131072, 512, 128, False, 3),  # layer2_1 ... layer2_3 conv1
+    (131072, 128, 512, True, 4),   # layer2_* conv3
+    (131072, 512, 256, False, 1),  # layer3_0 conv1
+    (32768, 256, 1024, True, 1),   # layer3_0 conv3
+)
+CONV_STEP = ((128, 16, 16, 256, 256), 5)  # layer3_1 ... layer3_5 conv2
+# Peak rates of one H100 SXM (NVIDIA's data sheet, dense) for the bounds.
+PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12
+PEAK_HBM_BYTES = 3.35e12
+
+
+def _bound(flops: float, nbytes: float, dtype=torch.bfloat16):
+    """(least ms, what bounds it) for work of ``flops`` operations in
+    ``dtype`` moving ``nbytes`` bytes."""
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _bn_work(x_shape, k, n, taps, item):
+    """(fwd flops, fwd bytes, bwd flops, bwd bytes) of K5/K7 and K6/K8: each
+    input read once and each output written once (mul/add and the (N,)
+    statistics are noise); the backward's two products (dx and dw)."""
+    m = math.prod(x_shape)
+    prod = 2 * m * k * n * taps
+    fwd_bytes = (m * k + taps * k * n + m * n) * item
+    bwd_bytes = (m * k + taps * k * n + 2 * m * n + m * k) * item + taps * k * n * 4
+    return prod, fwd_bytes, 2 * prod, bwd_bytes
+
+
+def _bn_inputs(x_shape, k, n, taps, dtype, prologue, seed):
+    """x, w ((K, N) or (9, K, N)), mul, add, dy, ds1, ds2 on the card, with
+    the statistics' cotangents of the size a BN backward gives them."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(*x_shape, k, generator=g).to("cuda", dtype)
+    w = (torch.randn(taps, k, n, generator=g) / (taps * k) ** 0.5).to("cuda", dtype)
+    mul = (torch.rand(k, generator=g) + 0.5).cuda() if prologue else None
+    add = (torch.randn(k, generator=g) * 0.2).cuda() if prologue else None
+    dy = torch.randn(*x_shape, n, generator=g).to("cuda", dtype)
+    ds1 = (torch.randn(n, generator=g) * 0.1).cuda()
+    ds2 = (torch.randn(n, generator=g) * 0.01).cuda()
+    return x, (w[0] if taps == 1 else w), mul, add, dy, ds1, ds2
+
+
+def compare_bn(label, names, got, want, dtype, rows):
+    """Kernel results against plain ones on the same inputs: y and dx
+    within one bf16 step of |plain| (fp32: 1e-4 of the largest, since cuDNN
+    may take a Winograd or FFT algorithm for the plain conv); s1 within
+    1e-4 of its Cauchy-Schwarz bound sqrt(rows * s2) and s2 within 1e-4
+    relative (fp32 sums of the same accumulator in another order); dw,
+    dmul, dadd within TOL_BWD of their largest. Returns {name: max|diff|}."""
+    plain = dict(zip(names, want))
+    errs, rel = {}, []
+    for name, a, b in zip(names, got, want):
+        if b is None:
+            if a is not None:
+                raise AssertionError(f"{label} {name}: kernel gave a result where plain gives None")
+            continue
+        if a.dtype != b.dtype or a.shape != b.shape or not torch.isfinite(a).all():
+            raise AssertionError(f"{label} {name}: {a.dtype}{tuple(a.shape)} vs {b.dtype}{tuple(b.shape)}")
+        diff = (a.double() - b.double()).abs()
+        scale = float(b.double().abs().max())
+        if name in ("y", "dx") and dtype == torch.bfloat16:
+            ok = bool((diff <= 2.0**-7 * b.double().abs() + 1e-6 * scale).all())
+        elif name == "s1":
+            scale = float((rows * plain["s2"].double()).sqrt().max())
+            ok = float(diff.max()) <= 1e-4 * scale
+        elif name == "s2":
+            ok = float(diff.max()) <= 1e-4 * scale
+        else:
+            ok = float(diff.max()) <= TOL_BWD[dtype] * scale
+        if not ok:
+            raise AssertionError(f"{label} {name}: max|diff| {float(diff.max())} (scale {scale})")
+        errs[name] = float(diff.max())
+        rel.append(f"{name} {errs[name] / scale if scale else 0.0:.1e}")
+    print(f"{label}: |diff|/scale " + ", ".join(rel))
+    return errs
+
+
+FWD_NAMES, BWD_NAMES = ("y", "s1", "s2"), ("dx", "dw", "dmul", "dadd")
+
+
+def check_bn(mod, args, label):
+    """Both kernels against the plain versions on the same inputs (the
+    backward takes the plain forward's y). Returns max |y diff|, |dx diff|."""
+    x, w, mul, add, dy, ds1, ds2 = args
+    want = mod.plain(x, w, mul, add)
+    bwd = (x, w, mul, add, want[0], dy, ds1, ds2)
+    got = (*mod.kernel_fwd(x, w, mul, add), *mod.kernel_bwd(*bwd))
+    torch.cuda.synchronize()
+    rows = want[0].numel() // want[0].shape[-1]
+    errs = compare_bn(label, FWD_NAMES + BWD_NAMES, got, (*want, *mod.plain_bwd(*bwd)), x.dtype, rows)
+    return errs["y"], errs["dx"]
+
+
+def _library_mm(x, w, mul, add, dy, ds1, ds2):
+    """The same two functions through cuBLAS in x's dtype (torch.matmul)
+    and elementwise PyTorch: a yardstick only, the port never calls it."""
+    pre = x if mul is None else torch.addcmul(add.to(x.dtype), x, mul.to(x.dtype))
+    a = x if mul is None else torch.relu(pre)
+    y = a @ w
+
+    def fwd():
+        yf = (a @ w).float()
+        return yf.sum(0), (yf * yf).sum(0)
+
+    def bwd():
+        gc = (dy.float() + ds1 + 2 * y.float() * ds2).to(x.dtype)
+        da = gc @ w.t()
+        if mul is not None:
+            t = da * (pre > 0)
+            return t * mul.to(x.dtype), a.t() @ gc, (t * x).float().sum(0), t.float().sum(0)
+        return da, a.t() @ gc
+
+    return fwd, bwd
+
+
+def _library_conv(x, w9, mul, add, dy, ds1, ds2):
+    """The same through cuDNN in x's dtype (conv2d and its two backward
+    convolutions) and elementwise PyTorch: a yardstick only."""
+    import torch.nn.functional as F
+
+    c, n = w9.shape[1], w9.shape[2]
+    wt = w9.reshape(3, 3, c, n).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    xn = x.permute(0, 3, 1, 2)
+    pre = xn if mul is None else torch.addcmul(add.to(x.dtype)[:, None, None], xn, mul.to(x.dtype)[:, None, None])
+    a = xn if mul is None else torch.relu(pre)
+    y = F.conv2d(a, wt, padding=1)
+    gn = dy.permute(0, 3, 1, 2)
+
+    def fwd():
+        yf = F.conv2d(a, wt, padding=1).float()
+        return yf.sum((0, 2, 3)), (yf * yf).sum((0, 2, 3))
+
+    def bwd():
+        gc = (gn.float() + ds1[:, None, None] + 2 * y.float() * ds2[:, None, None]).to(x.dtype)
+        da = torch.nn.grad.conv2d_input(a.shape, wt, gc, padding=1)
+        dw = torch.nn.grad.conv2d_weight(a, wt.shape, gc, padding=1)
+        if mul is not None:
+            t = da * (pre > 0)
+            return (t * mul.to(x.dtype)[:, None, None], dw, (t * xn).float().sum((0, 2, 3)),
+                    t.float().sum((0, 2, 3)))
+        return da, dw
+
+    return fwd, bwd
+
+
+def _time_bn(mod, args, library):
+    """Device ms of the kernels, the plain versions and the library
+    composition, forward and backward, on the same inputs, in turns."""
+    x, w, mul, add, dy, ds1, ds2 = args
+    y = mod.kernel_fwd(x, w, mul, add)[0]
+    lib_fwd, lib_bwd = library(*args)
+    runs = {
+        "kernel_fwd": (lambda: mod.kernel_fwd(x, w, mul, add), 10, []),
+        "kernel_bwd": (lambda: mod.kernel_bwd(x, w, mul, add, y, dy, ds1, ds2), 10, []),
+        "plain_fwd": (lambda: mod.plain(x, w, mul, add), 2, []),
+        "plain_bwd": (lambda: mod.plain_bwd(x, w, mul, add, y, dy, ds1, ds2), 2, []),
+        "library_fwd": (lib_fwd, 10, []),
+        "library_bwd": (lib_bwd, 10, []),
+    }
+    for kind in ("fwd", "bwd"):
+        for name in ("plain", "kernel", "library", "library", "kernel", "plain"):  # in turns
+            fn, n, out = runs[f"{name}_{kind}"]
+            out.append(_cuda_ms(fn, n, reps=2))
+    return {k: statistics.median(v[2]) for k, v in runs.items()}
+
+
+def bn_kernel_phase(mm, cb, gpu: str):
+    """K5/K6 and K7/K8 against their plain versions at every shape of the
+    flagship fused step (bf16, with the prologue where the step has it) and
+    at edge cases (fp32, M = 1, K = N = 8, the R152 stage-3 plane, B = 1);
+    two runs bitwise equal; each timed (kernel, plain, library) and summed
+    over one step's launches. Returns, per kernel name, (max |y or dx
+    diff|, step ms, step plain ms, step library ms, step bound ms, bound by)."""
+    errs = {k: 0.0 for k in ("k5", "k6", "k7", "k8")}
+    step = {k: [0.0, 0.0, 0.0, 0.0, 0.0] for k in ("k5", "k6", "k7", "k8")}  # ms, plain, library, ops, bytes
+
+    def add_step(kf, kb, t, work, launches):
+        for key, kind, flops, nbytes in ((kf, "fwd", work[0], work[1]), (kb, "bwd", work[2], work[3])):
+            acc = step[key]
+            acc[0] += launches * t[f"kernel_{kind}"]
+            acc[1] += launches * t[f"plain_{kind}"]
+            acc[2] += launches * t[f"library_{kind}"]
+            acc[3] += launches * flops
+            acc[4] += launches * nbytes
+
+    for i, (m, k, n, prologue, launches) in enumerate(MM_STEP):
+        args = _bn_inputs((m,), k, n, 1, torch.bfloat16, prologue, SEED + i)
+        ey, edx = check_bn(mm, args, f"K5/K6 ({m}, {k}) x ({k}, {n}){' +prologue' if prologue else ''}")
+        errs["k5"], errs["k6"] = max(errs["k5"], ey), max(errs["k6"], edx)
+        t = _time_bn(mm, args, _library_mm)
+        work = _bn_work((m,), k, n, 1, 2)
+        add_step("k5", "k6", t, work, launches)
+        print(f"K5/K6 ({m}, {k}) x ({k}, {n}) bf16 x{launches}/step: fwd kernel {t['kernel_fwd']:.4f} ms "
+              f"(bound {_bound(work[0], work[1])[0]:.4f}), plain {t['plain_fwd']:.4f}, cuBLAS+sums "
+              f"{t['library_fwd']:.4f}; bwd kernel {t['kernel_bwd']:.4f} (bound "
+              f"{_bound(work[2], work[3])[0]:.4f}), plain {t['plain_bwd']:.4f}, cuBLAS "
+              f"{t['library_bwd']:.4f}  [{gpu}]")
+        del args
+    for dtype, shape, prologue in ((torch.float32, (4096, 256, 128), True), (torch.bfloat16, (1, 8, 8), True),
+                                   (torch.float32, (1, 8, 8), False), (torch.bfloat16, (1000, 24, 40), True)):
+        m, k, n = shape
+        args = _bn_inputs((m,), k, n, 1, dtype, prologue, SEED + 20)
+        ey, edx = check_bn(mm, args, f"K5/K6 {str(dtype)[6:]} ({m}, {k}) x ({k}, {n})")
+        errs["k5"], errs["k6"] = max(errs["k5"], ey), max(errs["k6"], edx)
+
+    (b, h, w, c, n), launches = CONV_STEP
+    for dtype in (torch.bfloat16, torch.float32):
+        args = _bn_inputs((b, h, w), c, n, 9, dtype, True, SEED + 30)
+        ey, edx = check_bn(cb, args, f"K7/K8 {str(dtype)[6:]} ({b}, {h}, {w}, {c}) x (9, {c}, {n})")
+        errs["k7"], errs["k8"] = max(errs["k7"], ey), max(errs["k8"], edx)
+        if dtype == torch.bfloat16:
+            t = _time_bn(cb, args, _library_conv)
+            work = _bn_work((b, h, w), c, n, 9, 2)
+            add_step("k7", "k8", t, work, launches)
+            print(f"K7/K8 ({b}, {h}, {w}, {c}) x (9, {c}, {n}) bf16 x{launches}/step: fwd kernel "
+                  f"{t['kernel_fwd']:.4f} ms ({work[0] / t['kernel_fwd'] / 1e9:.1f} TFLOP/s, bound "
+                  f"{_bound(work[0], work[1])[0]:.4f}), plain {t['plain_fwd']:.4f}, cuDNN+sums "
+                  f"{t['library_fwd']:.4f}; bwd kernel {t['kernel_bwd']:.4f} ({work[2] / t['kernel_bwd'] / 1e9:.1f} "
+                  f"TFLOP/s, bound {_bound(work[2], work[3])[0]:.4f}), plain {t['plain_bwd']:.4f}, cuDNN "
+                  f"{t['library_bwd']:.4f}  [{gpu}]")
+        del args
+    for shape, prologue in (((2, 24, 18, 256, 256), True), ((1, 16, 16, 64, 64), False), ((1, 5, 3, 8, 16), True)):
+        b, h, w, c, n = shape
+        args = _bn_inputs((b, h, w), c, n, 9, torch.bfloat16, prologue, SEED + 40)
+        ey, edx = check_bn(cb, args, f"K7/K8 bf16 ({b}, {h}, {w}, {c}) x (9, {c}, {n})")
+        errs["k7"], errs["k8"] = max(errs["k7"], ey), max(errs["k8"], edx)
+
+    for mod, label, shape, taps in ((mm, "K5/K6", (8192,), 1), (cb, "K7/K8", (8, 16, 16), 9)):
+        x, w, mul, add, dy, ds1, ds2 = _bn_inputs(shape, 256, 256, taps, torch.bfloat16, True, SEED + 50)
+        first, again = mod.kernel_fwd(x, w, mul, add), mod.kernel_fwd(x, w, mul, add)
+        bwd = (x, w, mul, add, first[0], dy, ds1, ds2)
+        if not all(torch.equal(a, b) for a, b in zip((*first, *mod.kernel_bwd(*bwd)),
+                                                     (*again, *mod.kernel_bwd(*bwd)))):
+            raise AssertionError(f"{label} are not deterministic: two runs differ")
+        print(f"{label} two runs on the same inputs: y, s1, s2, dx, dw, dmul, dadd bitwise equal")
+    torch.cuda.empty_cache()
+    out = {}
+    for key in ("k5", "k6", "k7", "k8"):
+        ms, plain_ms, lib_ms, flops, nbytes = step[key]
+        bound_ms, bound_by = _bound(flops, nbytes)
+        out[key] = (errs[key], ms, plain_ms, lib_ms, bound_ms, bound_by)
+        print(f"{key.upper()} per flagship step: kernel {ms:.4f} ms, plain {plain_ms:.4f}, library "
+              f"{lib_ms:.4f}, bound {bound_ms:.4f} ({bound_by})  [{gpu}]")
+    return out
+
+
+class _FirstLaunch:
+    """Wraps a kernel wrapper: keeps clones of the inputs and outputs of
+    its first launch that ``want(args)`` accepts, and adds nothing else (the
+    wrapper itself counts the launch)."""
+
+    def __init__(self, fn, want):
+        self.fn, self.want, self.saved = fn, want, None
+
+    def __call__(self, *args):
+        out = self.fn(*args)
+        if self.saved is None and self.want(args):
+            clone = lambda t: None if t is None else t.detach().clone()  # noqa: E731
+            self.saved = ([clone(a) for a in args], [clone(o) for o in out])
+        return out
+
+
+def fused_train_phase(fhi, iv, mm, cb, gpu: str):
+    """h36m3d_r50 with fused_1x1 and fused_conv3 trains through the Trainer
+    at batch 128 (the main path, counted): K5/K6 16 and K7/K8 5 launches
+    per step, K1/K2 one. One launch of each of K5-K8 in those steps is held
+    against the plain versions on its saved inputs. Then the H100 A/B:
+    device ms per step and peak memory with the flags on and off (the same
+    model, in turns), a fused_1x1-alone step (K5/K6 26 each), and the loss
+    falling over 10 steps on one repeated batch. Returns the main path's
+    K5-K8 launches (the fused_1x1 step's included) and the saved launches'
+    largest differences."""
+    from ihpr_tpu_torch.config import get_config
+    from ihpr_tpu_torch.data.pipeline import prefetch_to_device
+    from ihpr_tpu_torch.engine.trainer import Trainer
+    from ihpr_tpu_torch.models.resnet import Bottleneck
+
+    base = get_config("h36m3d_r50")
+    cfg = base.replace(model=dataclasses.replace(base.model, fused_1x1=True, fused_conv3=True))
+    trainer = Trainer(cfg, data_root="synthetic", synthetic_size=384, num_workers=8, device="cuda")
+    blocks = [m for m in trainer.model.modules() if isinstance(m, Bottleneck)]
+
+    def set_flags(f1, f3):
+        for blk in blocks:
+            blk.fused_1x1, blk.fused_conv3 = f1, f3
+
+    wrapped = {}
+    try:
+        batch, _ = next(prefetch_to_device(trainer.loader.epoch(99, 1), "cuda"))
+        for _ in range(2):  # warm-up: kernel loads, cuDNN plans
+            trainer.lean_step_fn(batch)
+        torch.cuda.synchronize()
+        with_prologue = lambda args: args[2] is not None  # noqa: E731
+        for mod, name in ((mm, "kernel_fwd"), (mm, "kernel_bwd"), (cb, "kernel_fwd"), (cb, "kernel_bwd")):
+            wrapped[mod, name] = _FirstLaunch(getattr(mod, name), with_prologue)
+            setattr(mod, name, wrapped[mod, name])
+
+        # --- the main path, counted: one epoch of TRAIN_STEPS fused steps ---
+        trainer.cap_steps_per_epoch(TRAIN_STEPS)
+        n0 = len(trainer.losses)
+        _zero_counts(fhi, iv, mm, cb)
+        trainer.train(trainer.start_epoch + 1)
+        torch.cuda.synchronize()
+        counts = _counts(fhi, iv, mm, cb)
+        # ---------------------------------------------------------------------
+        for (mod, name), w in wrapped.items():
+            setattr(mod, name, w.fn)
+        want = tuple(TRAIN_STEPS * k for k in (1, 1, 0, 0, 16, 16, 5, 5))
+        if counts != want:
+            raise AssertionError(f"fused train steps launched K1-K8 {counts} times, want {want}")
+        losses = [float(x) for x in trainer.losses[n0:]]
+        if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"fused train losses {losses}")
+        print(f"fused train: {TRAIN_STEPS} steps through Trainer.train, launches K1-K8 {counts}; "
+              f"losses {', '.join(f'{x:.4f}' for x in losses)}")
+
+        errs = {}
+        for label, mod in (("K5/K6", mm), ("K7/K8", cb)):
+            (f_args, f_out), (b_args, b_out) = wrapped[mod, "kernel_fwd"].saved, wrapped[mod, "kernel_bwd"].saved
+            dtype, rows = f_args[0].dtype, f_out[0].numel() // f_out[0].shape[-1]
+            errs[label] = (
+                compare_bn(f"{label[:2]}, one launch of a counted step", FWD_NAMES, f_out,
+                           mod.plain(*f_args), dtype, rows)["y"],
+                compare_bn(f"{label[3:]}, one launch of a counted step", BWD_NAMES, b_out,
+                           mod.plain_bwd(*b_args), dtype, rows)["dx"],
+            )
+
+        step = lambda: trainer.lean_step_fn(batch)  # noqa: E731
+        timing, peak = {"fused": [], "unfused": []}, {}
+        for name in ("fused", "unfused", "unfused", "fused"):  # in turns
+            set_flags(name == "fused", name == "fused")
+            torch.cuda.reset_peak_memory_stats()
+            timing[name].append(_cuda_ms(step, 3, reps=1))
+            peak[name] = torch.cuda.max_memory_allocated() / 2**30
+        fused_ms, unfused_ms = (statistics.median(timing[k]) for k in ("fused", "unfused"))
+        print(f"fused train A/B, h36m3d_r50 batch {TRAIN_BATCH}: fused_1x1 + fused_conv3 {fused_ms:.3f} ms/step "
+              f"({TRAIN_BATCH / fused_ms * 1e3:.1f} img/s, peak {peak['fused']:.2f} GiB), unfused "
+              f"{unfused_ms:.3f} ms/step ({TRAIN_BATCH / unfused_ms * 1e3:.1f} img/s, peak "
+              f"{peak['unfused']:.2f} GiB) (CUDA events, same model, in turns)  [{gpu}]")
+
+        set_flags(True, False)
+        trainer.lean_step_fn(batch)  # warm-up of the stage-3 1x1 shapes
+        torch.cuda.synchronize()
+        # --- the main path, counted: one fused_1x1-alone step ---
+        _zero_counts(fhi, iv, mm, cb)
+        trainer.lean_step_fn(batch)
+        torch.cuda.synchronize()
+        alone = _counts(fhi, iv, mm, cb)
+        # --------------------------------------------------------
+        if alone != (1, 1, 0, 0, 26, 26, 0, 0):
+            raise AssertionError(f"a fused_1x1 step launched K1-K8 {alone} times")
+        alone_ms = _cuda_ms(step, 3, reps=1)
+        print(f"fused_1x1 alone: one step launched K1-K8 {alone}; {alone_ms:.3f} ms/step (CUDA events)  [{gpu}]")
+
+        set_flags(True, True)
+        falling = [float(trainer.lean_step_fn(batch)["loss"]) for _ in range(10)]
+        if not (all(math.isfinite(x) for x in falling) and falling[-1] < falling[0]):
+            raise AssertionError(f"fused loss does not fall on one repeated batch: {falling}")
+        print(f"fused train: 10 steps on one repeated batch, loss {falling[0]:.4f} -> {falling[-1]:.4f}")
+    finally:
+        for (mod, name), w in wrapped.items():
+            setattr(mod, name, w.fn)
+        trainer.close()
+    launches = tuple(c + a for c, a in zip(counts[4:], alone[4:]))
+    return launches, errs
+
+
+def head_library_phase(fhi, iv, gpu: str):
+    """The library composition beside K1 and K2 (a yardstick only): the
+    final conv as one cuBLAS addmm, then K3 (K1's function); K4 on those
+    logits, then dfeat and dW as two cuBLAS matmuls (K2's). At K1's serving
+    shape (64, 4096, 256) and K2's training shape (128, 4096, 256), bf16."""
+    hw, w, c, j, d = 64 * 64, 64, 256, 18, 64
+    out = []
+    for b in (2 * MAX_BATCH, TRAIN_BATCH):
+        feat, kernel, bias = _head_inputs(b, hw, c, j * d, torch.bfloat16, SEED)
+        flat = feat.view(-1, c)
+        logits = torch.addmm(bias, flat, kernel).view(b, hw, j * d)
+        coords, m, s = iv.kernel_stats(logits, j, d, w)
+        g = torch.randn(b, j, 3, generator=torch.Generator().manual_seed(SEED)).cuda()
+
+        def fwd():
+            return iv.kernel_stats(torch.addmm(bias, flat, kernel).view(b, hw, j * d), j, d, w)
+
+        def bwd():
+            dv = iv.kernel_bwd(logits, m, s, coords, g, j, d, w).view(-1, j * d)
+            return dv @ kernel.t(), flat.t() @ dv, dv.float().sum(0)
+
+        out.append(_cuda_ms(fwd if b == 2 * MAX_BATCH else bwd, 5, reps=3))
+        del feat, flat, logits
+    torch.cuda.empty_cache()
+    print(f"K1's library composition (cuBLAS addmm + K3) at (64, 4096, 256): {out[0]:.4f} ms; K2's (K4 + two "
+          f"cuBLAS matmuls) at (128, 4096, 256): {out[1]:.4f} ms  [{gpu}]")
+    return out
+
+
+def head_bounds():
+    """(ms, bound_by) of K1 at (64, 4096, 256) x (256, 1152), K2 at (128, 4096,
+    256) (three products: the logits recomputed, dfeat, dW), K3 and K4 at
+    the (128, 4096, 1152) volume; bf16, ~5 fp32 operations per logit for the
+    softmax terms."""
+    hw, c, jd = 64 * 64, 256, 18 * 64
+    serve, train = 2 * MAX_BATCH, TRAIN_BATCH
+    k1 = _bound(2 * serve * hw * c * jd, (serve * hw * c + c * jd) * 2)
+    k2 = _bound(3 * 2 * train * hw * c * jd, (2 * train * hw * c + 2 * c * jd) * 2)
+    vol = train * hw * jd
+    k3 = max(_bound(5 * vol, 0, torch.float32), _bound(0, 2 * vol))
+    k4 = max(_bound(5 * vol, 0, torch.float32), _bound(0, 4 * vol))
+    return k1, k2, k3, k4
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run", file=sys.stderr)
         return 1
     from ihpr_tpu_torch.ops import _build
+    from ihpr_tpu_torch.ops import conv_bn as cb
     from ihpr_tpu_torch.ops import fused_head_integral as fhi
     from ihpr_tpu_torch.ops import integral_volume as iv
+    from ihpr_tpu_torch.ops import matmul_bn as mm
 
     gpu = _gpu_line()
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
@@ -854,29 +1296,43 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # plain fp32 versions are true fp32
 
     t0 = time.perf_counter()
-    libs = _build.build_all([fhi._LIB, fhi._BWD_LIB, iv._FWD_LIB, iv._BWD_LIB])
+    libs = _build.build_all([fhi._LIB, fhi._BWD_LIB, iv._FWD_LIB, iv._BWD_LIB,
+                             mm._FWD_LIB, mm._BWD_LIB, cb._FWD_LIB, cb._BWD_LIB])
     print(f"build: {', '.join(lib.name for lib in libs)} in {time.perf_counter() - t0:.2f} s")
     for lib in libs:
         print(lib.with_suffix(".log").read_text().strip())
 
     k1_err, (k1_ms, k1_plain) = kernel_phase(fhi, gpu)
     k2_err, (k2_ms, k2_plain) = k2_phase(fhi, gpu)
+    k1_lib, k2_lib = head_library_phase(fhi, iv, gpu)
     k3_err, k4_err, (k3_ms, k3_plain), (k4_ms, k4_plain) = volume_phase(iv, gpu)
+    bn = bn_kernel_phase(mm, cb, gpu)
     serve_k1 = serve_phase(fhi, gpu)
     train_k1, train_k2, head_err = train_phase(fhi, gpu)
+    (k5_n, k6_n, k7_n, k8_n), fused_errs = fused_train_phase(fhi, iv, mm, cb, gpu)
     hm_k3, hm_k4, hm_err, hm_dv_err = heatmap_phase(fhi, iv, gpu)
     np_k3, np_k4, np_err = noplan_phase(fhi, iv)
     eval_k1, eval_err = eval_phase(fhi, iv, gpu)
+    b1, b2, b3, b4 = head_bounds()
     kernels = [
         (fhi._LIB, "ihpr_tpu/ops/fused_head_integral.py:133", serve_k1 + train_k1 + eval_k1,
-         max(k1_err, eval_err), k1_ms, k1_plain),
+         max(k1_err, eval_err), k1_ms, k1_plain, *b1, k1_lib),
         (fhi._BWD_LIB, "ihpr_tpu/ops/fused_head_integral.py:153", train_k2,
-         max(k2_err, head_err), k2_ms, k2_plain),
+         max(k2_err, head_err), k2_ms, k2_plain, *b2, k2_lib),
         (iv._FWD_LIB, "ihpr_tpu/ops/integral_pallas.py:201", hm_k3 + np_k3,
-         max(k3_err, hm_err, np_err), k3_ms, k3_plain),
+         max(k3_err, hm_err, np_err), k3_ms, k3_plain, *b3, None),
         (iv._BWD_LIB, "ihpr_tpu/ops/integral_pallas.py:239", hm_k4 + np_k4,
-         max(k4_err, hm_dv_err), k4_ms, k4_plain),
+         max(k4_err, hm_dv_err), k4_ms, k4_plain, *b4, None),
     ]
+    for (name, replaces, key, launches), err in zip(
+        ((mm._FWD_LIB, "ihpr_tpu/ops/matmul_bn.py:127", "k5", k5_n),
+         (mm._BWD_LIB, "ihpr_tpu/ops/matmul_bn.py:151", "k6", k6_n),
+         (cb._FWD_LIB, "ihpr_tpu/ops/conv_bn.py:150", "k7", k7_n),
+         (cb._BWD_LIB, "ihpr_tpu/ops/conv_bn.py:177", "k8", k8_n)),
+        (*fused_errs["K5/K6"], *fused_errs["K7/K8"]),
+    ):
+        phase_err, ms, plain_ms, lib_ms, bound_ms, bound_by = bn[key]
+        kernels.append((name, replaces, launches, max(phase_err, err), ms, plain_ms, bound_ms, bound_by, lib_ms))
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
@@ -886,7 +1342,10 @@ def main() -> int:
         "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,
-    } for name, replaces, launches, err, ms, plain_ms in kernels]}))
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": library_ms,
+    } for name, replaces, launches, err, ms, plain_ms, bound_ms, bound_by, library_ms in kernels]}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

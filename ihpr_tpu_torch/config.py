@@ -6,8 +6,8 @@ packages. The copy exists because importing ``ihpr_tpu`` pulls in JAX;
 the port imports neither.
 
 Fields that select code paths the port does not have (``s2d_stem``,
-``block_remat``, ``fused_1x1``, ``fused_conv3``) are kept for parity of the
-dataclass, and the port's model builder rejects a config that turns one on.
+``block_remat``) are kept for parity of the dataclass, and the port's model
+builder rejects a config that turns one on.
 """
 
 from __future__ import annotations
@@ -45,8 +45,11 @@ class ModelConfig:
     bn_mode: str = "flax"
     block_remat: bool = False  # not ported (training only)
     remat_policy: str = "full"
-    fused_1x1: bool = False  # not ported
-    fused_conv3: bool = False  # not ported
+    # Train-mode lean-BN Bottlenecks on JAX's fused routes: conv1/conv3 with
+    # the BN statistics in the matmul (ops/matmul_bn.py, K5/K6); conv2 with
+    # the bn1 apply and bn2 statistics (ops/conv_bn.py, K7/K8).
+    fused_1x1: bool = False
+    fused_conv3: bool = False
 
 
 @dataclasses.dataclass(frozen=True)

@@ -49,12 +49,16 @@ class PoseNet(nn.Module):
         bn_mode: str = "flax",
         matmul_precision=None,
         device=None,
+        fused_1x1: bool = False,
+        fused_conv3: bool = False,
     ):
         super().__init__()
         self.joint_num = joint_num
         self.depth_dim = depth_dim
         self.matmul_precision = matmul_precision
-        self.backbone = ResNetBackbone(resnet_type, compute_dtype, bn_mode, device)
+        self.backbone = ResNetBackbone(
+            resnet_type, compute_dtype, bn_mode, device, fused_1x1, fused_conv3
+        )
         self.head = DeconvHead(
             self.backbone.out_features,
             joint_num * depth_dim,
@@ -111,7 +115,7 @@ def build_pose_net(
     from ihpr_tpu_torch.models.convert import init_state_dict
 
     m = cfg.model
-    for flag in ("s2d_stem", "block_remat", "fused_1x1", "fused_conv3"):
+    for flag in ("s2d_stem", "block_remat"):
         if getattr(m, flag):
             raise ValueError(f"ModelConfig.{flag} is not ported to ihpr_tpu_torch")
     if m.compute_dtype not in _DTYPES:
@@ -127,6 +131,8 @@ def build_pose_net(
             fp32_logits=m.fp32_logits,
             bn_mode=m.bn_mode,
             matmul_precision=m.matmul_precision,
+            fused_1x1=m.fused_1x1,
+            fused_conv3=m.fused_conv3,
         )
     model = model.to_empty(device=device).train(trainable).requires_grad_(trainable)
     for mod in model.modules():

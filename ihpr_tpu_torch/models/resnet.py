@@ -8,6 +8,11 @@ gradient through the cast). BatchNorm parameters and running statistics
 are fp32 and BatchNorm follows ``nn.Module.train()``/``eval()``. Module
 names follow the JAX parameter tree (``layer{stage}_{i}.conv1``,
 ``down_bn``, ...), so ``models.convert`` maps one onto the other by name.
+
+A Bottleneck in train mode with lean BN can take one of JAX's two fused
+routes (``fused_1x1``: conv1/conv3 through ``ops.matmul_bn``, K5/K6;
+``fused_conv3``: conv2 through ``ops.conv_bn``, K7/K8), chosen by JAX's own
+shape predicates, so the port fuses exactly the blocks JAX fuses.
 """
 
 from __future__ import annotations
@@ -15,6 +20,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ihpr_tpu_torch.ops import conv_bn, matmul_bn
 
 # resnet_type -> (block kind, stage depths, channel expansion)
 RESNET_SPECS = {
@@ -62,28 +69,44 @@ class BN(nn.Module):
         self.register_buffer("running_mean", torch.zeros(channels, **f32))
         self.register_buffer("running_var", torch.ones(channels, **f32))
 
-    def _batch_stats(self, x: torch.Tensor):
-        xf = x.to(torch.float32)
-        mean = xf.mean(dim=(0, 2, 3))
-        var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor):
         with torch.no_grad():
             m = self.momentum
             self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
             self.running_var.copy_(m * self.running_var + (1 - m) * var)
+
+    def _batch_stats(self, x: torch.Tensor):
+        xf = x.to(torch.float32)
+        mean = xf.mean(dim=(0, 2, 3))
+        var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+        self._update_running(mean, var)
         return mean, var
+
+    def from_sums(self, s1: torch.Tensor, s2: torch.Tensor, count: float):
+        """Train-mode BN from precomputed per-channel sums (JAX's ``_SumBN``):
+        the fp32 (mul, add) of the folded normalize, from mean = s1 / count
+        and the biased var = max(s2 / count - mean^2, 0); the running
+        statistics are updated as in ``forward``."""
+        mean = s1 / count
+        var = (s2 / count - mean * mean).clamp_min(0.0)
+        self._update_running(mean, var)
+        return self._fold(mean, var)
+
+    def _fold(self, mean: torch.Tensor, var: torch.Tensor):
+        """The lean normalize as one per-channel fp32 (mul, add) pair."""
+        rstd = torch.rsqrt(var + self.eps)
+        return self.weight * rstd, self.bias - mean * self.weight * rstd
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             mean, var = self._batch_stats(x)
         else:
             mean, var = self.running_mean, self.running_var
-        rstd = torch.rsqrt(var + self.eps)
         if self.mode == "lean":
-            mul = (self.weight * rstd).to(self.dtype)
-            add = (self.bias - mean * self.weight * rstd).to(self.dtype)
+            mul, add = (t.to(self.dtype)[:, None, None] for t in self._fold(mean, var))
             # One rounding of x*mul + add, as XLA's fused multiply-add gives.
-            return torch.addcmul(add[:, None, None], x.to(self.dtype), mul[:, None, None])
-        mul = rstd * self.weight
+            return torch.addcmul(add, x.to(self.dtype), mul)
+        mul = torch.rsqrt(var + self.eps) * self.weight
         y = (x.to(torch.float32) - mean[:, None, None]) * mul[:, None, None]
         return (y + self.bias[:, None, None]).to(self.dtype)
 
@@ -108,10 +131,23 @@ def _conv(cin: int, cout: int, kernel: int, stride: int, dtype, device) -> Conv:
     return Conv(cin, cout, kernel, stride, dtype, device)
 
 
+def _rows(t: torch.Tensor) -> torch.Tensor:
+    """(B, C, H, W) in channels_last -> its (B*H*W, C) rows, without a copy
+    (``view`` raises if one would be needed)."""
+    return t.permute(0, 2, 3, 1).view(-1, t.shape[1])
+
+
+def _nchw(rows: torch.Tensor, b: int, h: int, w: int) -> torch.Tensor:
+    """(B*H*W, C) rows -> (B, C, H, W) in channels_last, a view."""
+    return rows.view(b, h, w, -1).permute(0, 3, 1, 2)
+
+
 class BasicBlock(nn.Module):
     expansion = 1
 
-    def __init__(self, cin: int, features: int, stride: int, dtype, bn_mode: str, device=None):
+    def __init__(self, cin: int, features: int, stride: int, dtype, bn_mode: str, device=None,
+                 fused_1x1: bool = False, fused_conv3: bool = False):
+        # No 1x1 convs to fuse: the flags are accepted and ignored, as in JAX.
         super().__init__()
         self.conv1 = _conv(cin, features, 3, stride, dtype, device)
         self.bn1 = BN(features, bn_mode, dtype, device=device)
@@ -129,10 +165,19 @@ class BasicBlock(nn.Module):
 
 
 class Bottleneck(nn.Module):
+    """torchvision v1.5 Bottleneck. In train mode with lean BN it routes as
+    JAX's ``Bottleneck.__call__`` does: ``fused_conv3`` first (stride 1,
+    ``conv_bn.profitable`` and ``conv_bn.supported``), then ``fused_1x1``
+    (``matmul_bn.supported`` for conv1), else the plain path. The
+    parameters and buffers are the same on every route."""
+
     expansion = 4
 
-    def __init__(self, cin: int, features: int, stride: int, dtype, bn_mode: str, device=None):
+    def __init__(self, cin: int, features: int, stride: int, dtype, bn_mode: str, device=None,
+                 fused_1x1: bool = False, fused_conv3: bool = False):
         super().__init__()
+        self.features, self.stride, self.bn_mode = features, stride, bn_mode
+        self.fused_1x1, self.fused_conv3 = fused_1x1, fused_conv3
         out = features * 4
         self.conv1 = _conv(cin, features, 1, 1, dtype, device)
         self.bn1 = BN(features, bn_mode, dtype, device=device)
@@ -144,19 +189,77 @@ class Bottleneck(nn.Module):
             self.down_conv = _conv(cin, out, 1, stride, dtype, device)
             self.down_bn = BN(out, bn_mode, dtype, device=device)
 
+    def _route(self, x: torch.Tensor) -> str:
+        if self.bn_mode != "lean" or not self.training:
+            return "plain"
+        b, cin, h, w = x.shape
+        e, itemsize = self.features, self.conv1.compute_dtype.itemsize
+        if (self.fused_conv3 and self.stride == 1 and conv_bn.profitable(e, e)
+                and conv_bn.supported(b, h, w, e, e, 1, itemsize)):
+            return "conv3"
+        if self.fused_1x1 and matmul_bn.supported(b * h * w, cin, e, itemsize):
+            return "1x1"
+        return "plain"
+
     def forward(self, x):
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = F.relu(self.bn2(self.conv2(y)))
-        y = self.bn3(self.conv3(y))
+        route = self._route(x)
+        if route == "1x1":
+            y = self._fused_1x1(x)
+        elif route == "conv3":
+            y = self._fused_conv3(x)
+        else:
+            y = F.relu(self.bn1(self.conv1(x)))
+            y = F.relu(self.bn2(self.conv2(y)))
+            y = self.bn3(self.conv3(y))
         residual = self.down_bn(self.down_conv(x)) if hasattr(self, "down_conv") else x
         return F.relu(y + residual)
+
+    def _fused_1x1(self, x):
+        """JAX's ``_fused_call``: conv1 and conv3 as ``fused_matmul_bn``
+        (conv3 with the bn2-apply + ReLU prologue), bn1/bn3 from the
+        kernels' sums, bn2's sums from the conv2 output upcast to fp32.
+        Returns bn3's output, before the residual."""
+        dt = self.conv1.compute_dtype
+        b, _, h, w = x.shape
+        y1, s1, s2 = matmul_bn.fused_matmul_bn(_rows(x.to(dt)), self.conv1.weight.to(dt)[:, :, 0, 0].t())
+        mul1, add1 = self.bn1.from_sums(s1, s2, float(y1.shape[0]))
+        a1 = torch.relu(torch.addcmul(add1.to(dt), y1, mul1.to(dt)))
+        c2 = self.conv2(_nchw(a1, b, h, w))
+        b2, _, h2, w2 = c2.shape
+        c2f = c2.to(torch.float32)
+        m2 = float(b2 * h2 * w2)
+        mul2, add2 = self.bn2.from_sums(c2f.sum((0, 2, 3)), (c2f * c2f).sum((0, 2, 3)), m2)
+        y3, s1, s2 = matmul_bn.fused_matmul_bn(
+            _rows(c2), self.conv3.weight.to(dt)[:, :, 0, 0].t(), mul2, add2
+        )
+        mul3, add3 = self.bn3.from_sums(s1, s2, m2)
+        return _nchw(torch.addcmul(add3.to(dt), y3, mul3.to(dt)), b2, h2, w2)
+
+    def _fused_conv3(self, x):
+        """JAX's ``_fused3_call``: conv2 as ``fused_conv3x3_bn`` with the
+        bn1-apply + ReLU prologue, bn1's sums from the conv1 output upcast
+        to fp32, bn2 from the kernel's sums; conv3 and bn3 plain. Returns
+        bn3's output, before the residual."""
+        dt = self.conv1.compute_dtype
+        b, _, h, w = x.shape
+        c1 = self.conv1(x)
+        c1f = c1.to(torch.float32)
+        m1 = float(b * h * w)
+        mul1, add1 = self.bn1.from_sums(c1f.sum((0, 2, 3)), (c1f * c1f).sum((0, 2, 3)), m1)
+        c2, s1, s2 = conv_bn.fused_conv3x3_bn(
+            c1.permute(0, 2, 3, 1), self.conv2.weight.to(dt).permute(2, 3, 1, 0), mul1, add1
+        )
+        mul2, add2 = self.bn2.from_sums(s1, s2, m1)
+        a2 = torch.relu(torch.addcmul(add2.to(dt), c2, mul2.to(dt)))
+        return self.bn3(self.conv3(a2.permute(0, 3, 1, 2)))
 
 
 class ResNetBackbone(nn.Module):
     """(B, 3, H, W) image -> (B, C, H/32, W/32) features, C = 512 for
     ResNet-18/34 and 2048 for 50/101/152."""
 
-    def __init__(self, resnet_type: int, dtype: torch.dtype, bn_mode: str, device=None):
+    def __init__(self, resnet_type: int, dtype: torch.dtype, bn_mode: str, device=None,
+                 fused_1x1: bool = False, fused_conv3: bool = False):
         super().__init__()
         if resnet_type not in RESNET_SPECS:
             raise ValueError(f"resnet_type {resnet_type} not in {sorted(RESNET_SPECS)}")
@@ -172,7 +275,8 @@ class ResNetBackbone(nn.Module):
             for i in range(depth):
                 stride = 2 if (stage > 0 and i == 0) else 1
                 name = f"layer{stage + 1}_{i}"
-                self.add_module(name, block_cls(cin, width, stride, dtype, bn_mode, device))
+                self.add_module(name, block_cls(cin, width, stride, dtype, bn_mode, device,
+                                                fused_1x1, fused_conv3))
                 self.block_names.append(name)
                 cin = width * expansion
 

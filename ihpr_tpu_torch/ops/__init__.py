@@ -1,6 +1,7 @@
 """Ops: the integral soft-argmax (plain, and over a logits volume through
-K3/K4), the fused head kernels (K1/K2) and the loss; the counterpart of
-``ihpr_tpu.ops``."""
+K3/K4), the fused head kernels (K1/K2), the fused conv + BN-statistics
+kernels (K5-K8: ``matmul_bn``, ``conv_bn``) and the loss; the counterpart
+of ``ihpr_tpu.ops``."""
 
 from ihpr_tpu_torch.ops.integral import soft_argmax_3d
 from ihpr_tpu_torch.ops.integral_volume import soft_argmax_3d_fused

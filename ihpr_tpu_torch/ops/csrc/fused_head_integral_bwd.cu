@@ -72,67 +72,6 @@ using namespace fhi;
 constexpr int kMaxC = 256;             // channels the register accumulators hold
 constexpr int kRowVals = 8;            // per (b, j): m + log s, gx, gy, gz, cx, cy, cz, 0
 
-// acc[nt][e] += A(16 x K) * B(K x 8*NT) in the mma.sync accumulator layout
-// (row g + 8*(e >> 1), column nt*8 + 2*tig + (e & 1)), bf16 operands from
-// shared memory. A(m, k) is a[m*lda + k], or a[k*lda + m] when A_T; B(k, n)
-// is b[n*ldb + k], or b[k*ldb + n] when B_T. K is a multiple of 16; n-tile
-// pairs at or past n_lim are skipped.
-template <int NT, bool A_T, bool B_T>
-__device__ __forceinline__ void warp_mma(float (&acc)[NT][4], const __nv_bfloat16* a, int lda,
-                                         const __nv_bfloat16* b, int ldb, int K, int n_lim,
-                                         int lane) {
-  // ldmatrix x4: lane groups of 8 address the rows of matrices 0-3.
-  // A fragment: (m 0-7, k 0-7), (m 8-15, k 0-7), (m 0-7, k 8-15), (m 8-15, k 8-15).
-  // B fragment pair: (k 0-7 | 8-15) of n-tile 2np, then of n-tile 2np+1.
-  const int mi = lane >> 3, rr = lane & 7;
-  const __nv_bfloat16* a_ptr = A_T ? a + (rr + (mi >> 1) * 8) * lda + (mi & 1) * 8
-                                   : a + (rr + (mi & 1) * 8) * lda + (mi >> 1) * 8;
-  const __nv_bfloat16* b_ptr = B_T ? b + (rr + (mi & 1) * 8) * ldb + (mi >> 1) * 8
-                                   : b + ((mi >> 1) * 8 + rr) * ldb + (mi & 1) * 8;
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    uint32_t af[4];
-    if (A_T)
-      ldmatrix_x4_trans(af, a_ptr + k0 * lda);
-    else
-      ldmatrix_x4(af, a_ptr + k0);
-#pragma unroll
-    for (int np = 0; np < NT / 2; ++np) {
-      if (np * 16 < n_lim) {
-        uint32_t bf[4];
-        if (B_T)
-          ldmatrix_x4_trans(bf, b_ptr + k0 * ldb + np * 16);
-        else
-          ldmatrix_x4(bf, b_ptr + np * 16 * ldb + k0);
-        mma_bf16(acc[2 * np], af, bf[0], bf[1]);
-        mma_bf16(acc[2 * np + 1], af, bf[2], bf[3]);
-      }
-    }
-  }
-}
-
-// fp32: the same contract with plain FMAs.
-template <int NT, bool A_T, bool B_T>
-__device__ __forceinline__ void warp_mma(float (&acc)[NT][4], const float* a, int lda,
-                                         const float* b, int ldb, int K, int n_lim, int lane) {
-  const int g = lane >> 2, tig = lane & 3;
-  for (int k = 0; k < K; ++k) {
-    const float a_lo = A_T ? a[k * lda + g] : a[g * lda + k];
-    const float a_hi = A_T ? a[k * lda + g + 8] : a[(g + 8) * lda + k];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      if (nt * 8 < n_lim) {
-        const int n = nt * 8 + 2 * tig;
-        const float b0 = B_T ? b[k * ldb + n] : b[n * ldb + k];
-        const float b1 = B_T ? b[k * ldb + n + 1] : b[(n + 1) * ldb + k];
-        acc[nt][0] = fmaf(a_lo, b0, acc[nt][0]);
-        acc[nt][1] = fmaf(a_lo, b1, acc[nt][1]);
-        acc[nt][2] = fmaf(a_hi, b0, acc[nt][2]);
-        acc[nt][3] = fmaf(a_hi, b1, acc[nt][3]);
-      }
-    }
-  }
-}
-
 // Per-column constants of joint j for depth bin z (one thread per z):
 // cb = bias - (m + log s), -inf past D (so p = 0 there); tz = gz (z - cz).
 template <typename T>

@@ -420,3 +420,148 @@ def test_fused_supported_shapes_fit_shared_memory(cuda):
             assert fhi._lib().ihpr_fused_head_integral_fwd_smem(c, is_bf16) <= fhi._MAX_SMEM
             assert fhi._bwd_lib().ihpr_fused_head_integral_bwd_smem(c, is_bf16) <= fhi._MAX_SMEM
     assert fhi._bwd_lib().ihpr_fused_head_integral_bwd_max_channels() == fhi._MAX_CHANNELS
+
+
+# --- K5-K8: the conv + BN-statistics kernels ------------------------------------
+
+from ihpr_tpu_torch.models import resnet  # noqa: E402
+from ihpr_tpu_torch.ops import conv_bn, matmul_bn  # noqa: E402
+
+
+def _bn_inputs(x_shape, k, n, taps, device, dtype, prologue, seed=5):
+    """x, w (taps, K, N), mul, add, y-shaped cotangents dy, ds1, ds2."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(*x_shape, k, generator=g)
+    w = torch.randn(taps, k, n, generator=g) / (taps * k) ** 0.5
+    mul = torch.rand(k, generator=g) + 0.5 if prologue else None
+    add = torch.randn(k, generator=g) * 0.2 if prologue else None
+    dy = torch.randn(*x_shape, n, generator=g)
+    ds1, ds2 = torch.randn(n, generator=g) * 0.1, torch.randn(n, generator=g) * 0.01
+    f32 = dict(device=device, dtype=torch.float32)
+    return (x.to(device, dtype), w.to(device, dtype), None if mul is None else mul.to(**f32),
+            None if add is None else add.to(**f32), dy.to(device, dtype), ds1.to(**f32), ds2.to(**f32))
+
+
+def _close_bn(got, want, dtype, label):
+    """y and dx: bf16 within one bf16 step (the fp32 sums differ in order,
+    which can move one rounding), fp32 within 1e-4 of the largest (cuDNN
+    may take a Winograd or FFT algorithm for the plain conv); s1 within
+    1e-4 of its
+    Cauchy-Schwarz bound sqrt(M s2) and s2 within 1e-4 relative (fp32 sums
+    of the same accumulator); dw, dmul, dadd within 1e-2 (bf16) / 1e-4
+    (fp32) of each result's largest, as for K2."""
+    bf16 = dtype == torch.bfloat16
+    rel = 1e-2 if bf16 else 1e-4
+    for name, a, b in zip(("y", "s1", "s2", "dx", "dw", "dmul", "dadd"), got, want):
+        if b is None:
+            assert a is None, name
+            continue
+        assert a.dtype == b.dtype and a.shape == b.shape, (label, name)
+        a, b = a.double(), b.double()
+        assert torch.isfinite(a).all(), (label, name)
+        err = (a - b).abs()
+        if name in ("y", "dx") and bf16:
+            assert bool((err <= 2.0**-7 * b.abs() + 1e-6 * b.abs().max()).all()), (label, name)
+        elif name == "s1":
+            m = got[0][..., 0].numel()
+            assert float(err.max()) <= 1e-4 * float((m * want[2].double()).sqrt().max()), (label, name)
+        elif name == "s2":
+            assert float(err.max()) <= 1e-4 * float(b.abs().max()), (label, name)
+        else:
+            assert float(err.max()) <= rel * float(b.abs().max()), (label, name)
+
+
+def _run_bn(mod, x, w, mul, add, dy, ds1, ds2):
+    """(y, s1, s2, dx, dw, dmul, dadd) of the kernels and of the plain
+    versions on the same inputs; the backward takes the plain forward's y."""
+    w_op = w[0] if mod is matmul_bn else w
+    y, s1, s2 = mod.plain(x, w_op, mul, add)
+    plain = (y, s1, s2, *mod.plain_bwd(x, w_op, mul, add, y, dy, ds1, ds2))
+    f0, b0 = mod.launches, mod.bwd_launches
+    fwd = mod.kernel_fwd(x, w_op, mul, add)
+    bwd = mod.kernel_bwd(x, w_op, mul, add, y, dy, ds1, ds2)
+    torch.cuda.synchronize()
+    assert (mod.launches, mod.bwd_launches) == (f0 + 1, b0 + 1)
+    return (*fwd, *bwd), plain
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("prologue", [False, True], ids=["plain", "prologue"])
+@pytest.mark.parametrize("shape", [(1, 8, 8), (1000, 24, 40), (4160, 64, 256), (2051, 256, 72)],
+                         ids=["m1_k8_n8", "ragged", "k64_n256", "k256_n72"])
+def test_matmul_bn_kernels_match_plain(cuda, shape, prologue, dtype):
+    m, k, n = shape
+    got, want = _run_bn(matmul_bn, *_bn_inputs((m,), k, n, 1, cuda, dtype, prologue))
+    _close_bn(got, want, dtype, shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("prologue", [False, True], ids=["plain", "prologue"])
+@pytest.mark.parametrize("shape", [(1, 5, 3, 8, 16), (3, 7, 9, 32, 24), (2, 24, 18, 256, 256), (1, 16, 16, 64, 64)],
+                         ids=["w3", "ragged", "r152_stage3", "b1"])
+def test_conv_bn_kernels_match_plain(cuda, shape, prologue, dtype):
+    b, h, w, c, n = shape
+    got, want = _run_bn(conv_bn, *_bn_inputs((b, h, w), c, n, 9, cuda, dtype, prologue))
+    _close_bn(got, want, dtype, shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mod", [matmul_bn, conv_bn], ids=["k5_k6", "k7_k8"])
+def test_bn_kernels_are_deterministic(cuda, mod):
+    x_shape, taps = ((4096,), 1) if mod is matmul_bn else ((4, 16, 16), 9)
+    x, w, mul, add, dy, ds1, ds2 = _bn_inputs(x_shape, 128, 128, taps, cuda, torch.bfloat16, True)
+    w_op = w[0] if mod is matmul_bn else w
+    first = mod.kernel_fwd(x, w_op, mul, add)
+    again = mod.kernel_fwd(x, w_op, mul, add)
+    args = (x, w_op, mul, add, first[0], dy, ds1, ds2)
+    grads, grads_again = mod.kernel_bwd(*args), mod.kernel_bwd(*args)
+    assert all(torch.equal(a, b) for a, b in zip((*first, *grads), (*again, *grads_again)))
+
+
+@pytest.mark.cuda
+def test_bn_kernels_reject_what_they_do_not_take(cuda):
+    x, w, mul, add, *_ = _bn_inputs((64,), 16, 16, 1, cuda, torch.bfloat16, True)
+    before = matmul_bn.launches
+    with pytest.raises(ValueError, match="multiples of 8"):
+        matmul_bn.kernel_fwd(x[:, :12].contiguous(), w[0][:12].contiguous())
+    with pytest.raises(ValueError, match="bfloat16"):
+        matmul_bn.kernel_fwd(x, w[0].float())
+    with pytest.raises(ValueError, match="contiguous"):
+        matmul_bn.kernel_fwd(x.t().contiguous().t(), w[0])
+    with pytest.raises(ValueError, match="mul and add"):
+        matmul_bn.kernel_fwd(x, w[0], mul, None)
+    with pytest.raises(ValueError, match="CUDA"):
+        matmul_bn.kernel_fwd(x.cpu(), w[0].cpu())
+    assert matmul_bn.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", [(True, False), (False, True)], ids=["fused_1x1", "fused_conv3"])
+def test_bottleneck_routes_run_the_kernels(cuda, flags, monkeypatch):
+    """A train-mode lean-BN Bottleneck on each fused route launches its
+    kernels, forward and backward, and agrees with the same block on the
+    plain route (fp32 with TF32 off, so the same arithmetic; 1e-3 of the
+    output's largest and 1e-2 of each gradient's largest, after BN over 128
+    values)."""
+    monkeypatch.setenv("IHPR_CONV3_MIN_CH", "64")
+    torch.manual_seed(0)
+    blocks = [resnet.Bottleneck(256, 64, 1, torch.float32, "lean", cuda, *f).train()
+              .to(memory_format=torch.channels_last) for f in (flags, (False, False))]
+    blocks[1].load_state_dict(blocks[0].state_dict())
+    x = torch.randn(2, 8, 8, 256, device=cuda).permute(0, 3, 1, 2)
+    mod = matmul_bn if flags[0] else conv_bn
+    f0, b0 = mod.launches, mod.bwd_launches
+    outs = []
+    with fhi.no_tf32():
+        for block in blocks:
+            out = block(x)
+            (out * out).sum().backward()
+            outs.append(out.detach())
+    torch.cuda.synchronize()
+    per_block = 2 if flags[0] else 1
+    assert (mod.launches - f0, mod.bwd_launches - b0) == (per_block, per_block)
+    assert float((outs[0] - outs[1]).abs().max()) <= 1e-3 * float(outs[1].abs().max())
+    for (name, p), q in zip(blocks[0].named_parameters(), blocks[1].parameters()):
+        assert float((p.grad - q.grad).abs().max()) <= 1e-2 * float(q.grad.abs().max()), name

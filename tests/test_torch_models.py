@@ -181,7 +181,7 @@ def test_from_jax_params_covers_every_weight():
 
 def test_build_pose_net_rejects_unported_options():
     base = tconfig.get_config("h36m3d_r50")
-    for flag in ("s2d_stem", "fused_1x1", "fused_conv3", "block_remat"):
+    for flag in ("s2d_stem", "block_remat"):
         cfg = base.replace(model=dataclasses.replace(base.model, **{flag: True}))
         with pytest.raises(ValueError, match=flag):
             build_pose_net(cfg)
