@@ -3,9 +3,9 @@
     python3 chip_smoke.py
 
 1. Prints the environment: torch, CUDA, nvcc, the card's name and power limit.
-2. Builds every CUDA kernel (K1-K8) of the serving, training, fused-train,
-   heatmap and eval paths from ihpr_tpu_torch/ops/csrc, one nvcc per
-   source, all at once.
+2. Builds every CUDA kernel (K1-K8 of the serving, training, fused-train,
+   heatmap and eval paths; P1/P2 of the probe tools) from
+   ihpr_tpu_torch/ops/csrc, one nvcc per source, all at once.
 3. K1 (fused head forward): holds it against its plain PyTorch version on
    the card, at the serving shapes and at edge cases, and times both with
    CUDA events (median of repeated launches, in turns).
@@ -50,9 +50,18 @@
     samples, batch 128, the last batch padded, flip-test): MPJPE and the
     result files; one batch's coords against plain; host-clock img/s and
     the loader's ms per batch. Then mpii2d_r50 (D=1, PCKh) on 64 samples.
+11. P1, the exp-pass probe (ihpr_tpu_torch.tools.exp_probe): its main
+    times all six modes on the (128, 4096, 1152) fp32 volume and checks the
+    read floor (0.721 ms at 3.35 TB/s); every mode's partials and token
+    against plain (read bitwise, bexpsum 1e-2, the others 1e-5 relative),
+    two runs bitwise equal; plain expsum and torch.sum over the blocks.
+12. P2, the tiled matmul probe (ihpr_tpu_torch.tools.mxu_int8_probe): its
+    main times cuBLAS bf16 / torch._int_mm, every tile of the kernel in bf16
+    and int8 at 4096^3 and the conv9 / cuDNN pair; every tile against
+    plain_mm at 4096^3 (int8 bitwise, bf16 1e-4 of max|plain|).
 
-In 6-10 the kernels' launch counters are set to 0 just before the path
-runs and read just after; each kernel of the path must have launched as
+In 6-12 the kernels' launch counters are set to 0 just before the path
+runs and read just after (in 11-12 the path is the tool's main); each kernel of the path must have launched as
 often as the path dispatched it, and the others not at all. Outputs are
 checked for shape and finiteness and against the plain versions.
 
@@ -1279,6 +1288,112 @@ def head_bounds():
     return k1, k2, k3, k4
 
 
+# --- P1/P2: the probe tools (ihpr_tpu_torch.tools) ---------------------------------
+
+EXP_ITERS = 30  # passes per mode in exp_probe's timing
+MM_ITERS = 20  # calls per phase in mxu_int8_probe's timing
+MM_SIZE = 4096  # M = N = K of mxu_int8_probe's products
+PROBE_CONV = (64, 64, 64, 256)  # (B, H, W, C) of its conv9 / convref pair
+# exp_probe partials and token against plain, relative (read: bitwise): fp32
+# sums in another order and ex2.approx; bexpsum rounds each exp's argument
+# to bf16 before ex2.
+TOL_EXP = {"sum": 1e-5, "maxsum": 1e-5, "expsum": 1e-5, "exp2sum": 1e-5, "bexpsum": 1e-2}
+
+
+def exp_probe_phase(ep, gpu: str):
+    """P1 on the (128, 4096, 1152) fp32 volume (2.416 GB). The probe path,
+    counted: the tool's entry ``main`` times all six modes (CUDA events)
+    and checks the read floor. Then, on a new volume, every mode's partials
+    and token against plain (read bitwise, the reductions within TOL_EXP),
+    two runs bitwise equal, and the plain expsum and the library sum
+    (``torch.sum`` over the blocks) timed. Returns (launches, expsum's max
+    |diff|, expsum ms, plain ms, library ms, bound ms)."""
+    # --- the probe path, counted: exp_probe.main ---
+    ep.launches = 0
+    results = ep.main(["--iters", str(EXP_ITERS), "--device", "cuda"])
+    torch.cuda.synchronize()
+    launches = ep.launches
+    # -----------------------------------------------
+    if launches != len(ep.MODES) * ep.ROUNDS * (EXP_ITERS + 1):
+        raise AssertionError(f"exp_probe.main launched the kernel {launches} times")
+    x = ep.make_volume("cuda", SEED + 1)
+    nbytes = x.numel() * x.element_size()
+    errs = {}
+    for mode in ep.MODES:
+        got, again, want = ep.kernel(x, mode), ep.kernel(x, mode), ep.plain(x, mode)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, a) for g, a in zip(got, again)):
+            raise AssertionError(f"exp_probe {mode}: two runs differ")
+        rel = 0.0
+        for g, w in zip(got, want):
+            if g.shape != w.shape or not torch.isfinite(g).all():
+                raise AssertionError(f"exp_probe {mode}: {tuple(g.shape)} vs {tuple(w.shape)}, finite "
+                                     f"{bool(torch.isfinite(g).all())}")
+            if mode == "read":
+                if not torch.equal(g, w):
+                    raise AssertionError("exp_probe read: partials or token differ from plain")
+                continue
+            rel = max(rel, float(((g - w).abs() / w.abs()).max()))
+            if rel > TOL_EXP[mode]:
+                raise AssertionError(f"exp_probe {mode}: {rel} relative from plain (> {TOL_EXP[mode]})")
+        errs[mode] = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        print(f"exp_probe {mode}: partials {tuple(got[0].shape)} and token vs plain max|diff| {errs[mode]:.3g} "
+              f"({'bitwise' if mode == 'read' else f'{rel:.2e} relative'}), two runs bitwise equal")
+        del got, again, want
+    blocks = x.view(ep.B * ep.NCHUNK, -1)
+    plain_ms = _cuda_ms(lambda: ep.plain(x, "expsum"), 2, reps=3)
+    library_ms = _cuda_ms(lambda: blocks.sum(1), 10, reps=3)
+    bound_ms = ep.read_floor_ms(nbytes)
+    print(f"exp_probe at ({ep.B}, {ep.NCHUNK * ep.CHUNK}, {ep.LANES}) fp32: expsum {results['expsum']:.4f} ms, "
+          f"sum {results['sum']:.4f}, read {results['read']:.4f} (bound {bound_ms:.4f}, bytes); plain expsum "
+          f"{plain_ms:.4f} ms; torch.sum over the blocks {library_ms:.4f} ms  [{gpu}]")
+    del x, blocks
+    torch.cuda.empty_cache()
+    return launches, errs["expsum"], results["expsum"], plain_ms, library_ms, bound_ms
+
+
+def probe_mm_phase(pm, gpu: str):
+    """P2 at M = N = K = 4096. The probe path, counted: the tool's entry
+    ``main`` times the library products, every tile of the kernel in bf16
+    and int8, and the conv9 / convref pair. Then every tile against
+    plain_mm at 4096^3 (int8 bitwise, bf16 within 1e-4 of max|plain|) and
+    plain_mm timed. Returns (launches, bf16 max |diff|, best bf16 tile ms,
+    plain ms, cuBLAS bf16 ms, bound ms, bound by)."""
+    size = MM_SIZE
+    # --- the probe path, counted: mxu_int8_probe.main ---
+    pm.launches = 0
+    results = pm.main(["--iters", str(MM_ITERS), "--size", str(size), "--device", "cuda",
+                       "--conv", *map(str, PROBE_CONV)])
+    torch.cuda.synchronize()
+    launches = pm.launches
+    # ----------------------------------------------------
+    tiles = sum(len(t) for t in pm.TILES.values())
+    if launches != tiles * (MM_ITERS + 1):
+        raise AssertionError(f"mxu_int8_probe.main launched the kernel {launches} times")
+    rng = np.random.RandomState(SEED)
+    errs, plain_ms = {}, {}
+    for dtype in (torch.bfloat16, torch.int8):
+        a, b = (t.cuda() for t in pm._mats(rng, size, size, size, dtype))
+        errs[dtype] = pm.check_tiles(a, b)
+        plain_ms[dtype] = _cuda_ms(lambda: pm.plain_mm(a, b), 2, reps=3)
+        tag = pm.TAGS[dtype]
+        best = min((k for k in results if k.startswith(f"pallas_{tag}_")), key=results.get)
+        print(f"probe_mm {tag} {size}^3: every tile vs plain_mm max|diff| {errs[dtype]:.3g}"
+              f"{' (bitwise)' if dtype == torch.int8 else ''}; best tile {best[len(tag) + 8:]} "
+              f"{results[best]:.4f} ms, library {results[f'dot_{tag}']:.4f} ms, plain {plain_ms[dtype]:.4f} ms, "
+              f"bound {2 * size**3 / pm.PEAK[dtype] * 1e3:.4f} ms (operations)  [{gpu}]")
+        del a, b
+    cb_, ch, cw, cc = PROBE_CONV
+    conv_bound = 2 * cb_ * ch * cw * cc * cc * 9 / PEAK_BF16_FLOPS * 1e3
+    print(f"probe_mm conv {PROBE_CONV} x (3, 3, {cc}, {cc}): conv9 bf16 {results['conv9_bf16']:.4f} ms, "
+          f"int8 {results['conv9_int8']:.4f} ms; convref bf16 (cuDNN) {results['convref_bf16']:.4f} ms; "
+          f"bf16 bound {conv_bound:.4f} ms  [{gpu}]")
+    torch.cuda.empty_cache()
+    bound_ms, bound_by = _bound(2 * size**3, (2 * size * size * 2 + size * size * 4))
+    return (launches, errs[torch.bfloat16], results["pallas_bf16"], plain_ms[torch.bfloat16],
+            results["dot_bf16"], bound_ms, bound_by)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run", file=sys.stderr)
@@ -1288,6 +1403,8 @@ def main() -> int:
     from ihpr_tpu_torch.ops import fused_head_integral as fhi
     from ihpr_tpu_torch.ops import integral_volume as iv
     from ihpr_tpu_torch.ops import matmul_bn as mm
+    from ihpr_tpu_torch.tools import exp_probe as ep
+    from ihpr_tpu_torch.tools import mxu_int8_probe as pm
 
     gpu = _gpu_line()
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
@@ -1297,7 +1414,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     libs = _build.build_all([fhi._LIB, fhi._BWD_LIB, iv._FWD_LIB, iv._BWD_LIB,
-                             mm._FWD_LIB, mm._BWD_LIB, cb._FWD_LIB, cb._BWD_LIB])
+                             mm._FWD_LIB, mm._BWD_LIB, cb._FWD_LIB, cb._BWD_LIB, ep._LIB, pm._LIB])
     print(f"build: {', '.join(lib.name for lib in libs)} in {time.perf_counter() - t0:.2f} s")
     for lib in libs:
         print(lib.with_suffix(".log").read_text().strip())
@@ -1313,6 +1430,8 @@ def main() -> int:
     hm_k3, hm_k4, hm_err, hm_dv_err = heatmap_phase(fhi, iv, gpu)
     np_k3, np_k4, np_err = noplan_phase(fhi, iv)
     eval_k1, eval_err = eval_phase(fhi, iv, gpu)
+    p1 = exp_probe_phase(ep, gpu)
+    p2 = probe_mm_phase(pm, gpu)
     b1, b2, b3, b4 = head_bounds()
     kernels = [
         (fhi._LIB, "ihpr_tpu/ops/fused_head_integral.py:133", serve_k1 + train_k1 + eval_k1,
@@ -1333,6 +1452,10 @@ def main() -> int:
     ):
         phase_err, ms, plain_ms, lib_ms, bound_ms, bound_by = bn[key]
         kernels.append((name, replaces, launches, max(phase_err, err), ms, plain_ms, bound_ms, bound_by, lib_ms))
+    p1_n, p1_err, p1_ms, p1_plain, p1_lib, p1_bound = p1
+    kernels.append((ep._LIB, "tools/exp_probe.py:44", p1_n, p1_err, p1_ms, p1_plain, p1_bound, "bytes", p1_lib))
+    p2_n, p2_err, p2_ms, p2_plain, p2_lib, p2_bound, p2_by = p2
+    kernels.append((pm._LIB, "tools/mxu_int8_probe.py:110", p2_n, p2_err, p2_ms, p2_plain, p2_bound, p2_by, p2_lib))
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

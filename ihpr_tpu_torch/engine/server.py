@@ -40,7 +40,7 @@ class PoseServer:
         model_or_state: Union[PoseNet, Mapping[str, torch.Tensor]],
         max_batch: int = 16,
         flip_test: Optional[bool] = None,
-        device: Union[str, torch.device] = "cpu",
+        device: Union[str, torch.device] = "cuda",
     ):
         """``model_or_state``: a ``PoseNet`` or a state_dict for
         ``build_pose_net(cfg)``'s model. The server runs its own frozen copy

@@ -103,7 +103,7 @@ class PoseNet(nn.Module):
 def build_pose_net(
     cfg: Config,
     joint_num: int | None = None,
-    device="cpu",
+    device="cuda",
     generator: torch.Generator | None = None,
     trainable: bool = False,
 ) -> PoseNet:

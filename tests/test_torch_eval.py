@@ -55,7 +55,7 @@ def setup():
     Human36M test split (the same samples from the same seed)."""
     jcfg, cfg = _cfgs(matmul_precision="highest")
     jmodel, params, stats = jax_pose_weights(jcfg, seed=6)
-    model = build_pose_net(cfg)
+    model = build_pose_net(cfg, device="cpu")
     model.load_state_dict(from_jax_params(params, stats, cfg))
     jds = jdatasets.build_dataset("Human36M", "test", jcfg, "synthetic", N_TEST)
     tds = datasets.build_dataset("Human36M", "test", cfg, "synthetic", N_TEST)
@@ -243,7 +243,7 @@ def test_tester_writes_mpii_and_coco_artifacts(tmp_path):
             output_dir=str(tmp_path / name),
         )
         cfg = to_port_cfg(jcfg)
-        model = build_pose_net(cfg, skeletons.get_skeleton(name).joint_num)
+        model = build_pose_net(cfg, skeletons.get_skeleton(name).joint_num, device="cpu")
         dataset = datasets.build_dataset(name, "test", cfg, "synthetic", 6)
         tester = ttester.Tester(cfg, dataset=dataset, state=model, num_workers=0, device="cpu")
         try:

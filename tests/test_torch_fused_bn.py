@@ -338,10 +338,10 @@ def test_fused_flags_keep_the_state_dict(monkeypatch):
 
     monkeypatch.setattr(convert, "init_state_dict", lambda model, *a: model.state_dict())
     base = tconfig.get_config("h36m3d_r50")
-    plain = {k: v.shape for k, v in build_pose_net(base).state_dict().items()}
+    plain = {k: v.shape for k, v in build_pose_net(base, device="cpu").state_dict().items()}
     for flags in ({"fused_1x1": True}, {"fused_conv3": True}, {"fused_1x1": True, "fused_conv3": True}):
         cfg = base.replace(model=dataclasses.replace(base.model, **flags))
-        got = build_pose_net(cfg).state_dict()
+        got = build_pose_net(cfg, device="cpu").state_dict()
         assert {k: v.shape for k, v in got.items()} == plain, flags
 
 
@@ -370,7 +370,7 @@ def test_from_jax_params_loads_a_fused_jax_init(fused_r50):
     _SumBN tree is the plain tree) loads into the fused port model."""
     jcfg, params, stats = fused_r50
     cfg = to_port_cfg(jcfg)
-    model = build_pose_net(cfg)
+    model = build_pose_net(cfg, device="cpu")
     sd = from_jax_params(params, stats, cfg)
     model.load_state_dict(sd)
     assert set(sd) == set(model.state_dict())

@@ -565,3 +565,88 @@ def test_bottleneck_routes_run_the_kernels(cuda, flags, monkeypatch):
     assert float((outs[0] - outs[1]).abs().max()) <= 1e-3 * float(outs[1].abs().max())
     for (name, p), q in zip(blocks[0].named_parameters(), blocks[1].parameters()):
         assert float((p.grad - q.grad).abs().max()) <= 1e-2 * float(q.grad.abs().max()), name
+
+
+# --- P1/P2: the probe kernels (ihpr_tpu_torch.tools) -----------------------------
+
+from ihpr_tpu_torch.tools import exp_probe, mxu_int8_probe  # noqa: E402
+
+# Partials and token relative to plain's: fp32 sums of the same values in
+# another order and ex2.approx within ~2 ulp; bexpsum rounds each exp's
+# argument to bf16 (2^-9 of ~9, so ~2% a term, unbiased) before ex2.
+PROBE_TOL = {"sum": 1e-5, "maxsum": 1e-5, "expsum": 1e-5, "exp2sum": 1e-5, "bexpsum": 1e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", exp_probe.MODES)
+def test_exp_probe_kernel_matches_plain(cuda, mode):
+    """Every mode at (2, 3*256, 1152): read bitwise, the reductions within
+    PROBE_TOL of plain; two runs bitwise equal."""
+    x = exp_probe.make_volume(cuda, 3, (2, 3 * 256, 1152))
+    before = exp_probe.launches
+    got = exp_probe.kernel(x, mode)
+    assert exp_probe.launches == before + 1
+    want = exp_probe.plain(x, mode)
+    again = exp_probe.kernel(x, mode)
+    torch.cuda.synchronize()
+    for g, w, a in zip(got, want, again):
+        assert g.shape == w.shape and g.dtype == torch.float32 and torch.equal(g, a)
+        if mode == "read":
+            assert torch.equal(g, w)
+        else:
+            torch.testing.assert_close(g, w, rtol=PROBE_TOL[mode], atol=0)
+
+
+@pytest.mark.cuda
+def test_exp_probe_read_floor_on_the_card(cuda):
+    """The flagship volume's read is no faster than its bytes at 3.35 TB/s
+    (``run`` checks it), and the guard raises on a read time 100x faster."""
+    x = exp_probe.make_volume(cuda, 0)
+    nbytes = x.numel() * 4
+    results = exp_probe.run(x, iters=3)
+    assert results["read"] >= exp_probe.read_floor_ms(nbytes)
+    with pytest.raises(RuntimeError, match="elided"):
+        exp_probe.check_read_floor(results["read"] / 100, nbytes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8], ids=["bf16", "int8"])
+@pytest.mark.parametrize("shape", [(1024, 1024, 1024), (512, 768, 1280)], ids=["1024", "512x768x1280"])
+def test_probe_mm_kernel_matches_plain(cuda, shape, dtype):
+    """Every tile against plain_mm: int8 bitwise, bf16 within 1e-4 of
+    max|plain| (fp32 sums of exact bf16 products in another order)."""
+    m, n, k = shape
+    a, b = (t.to(cuda) for t in mxu_int8_probe._mats(np.random.RandomState(0), m, n, k, dtype))
+    before = mxu_int8_probe.launches
+    mxu_int8_probe.check_tiles(a, b)
+    assert mxu_int8_probe.launches == before + len(mxu_int8_probe.TILES[dtype])
+
+
+@pytest.mark.cuda
+def test_probe_wrappers_reject_what_they_do_not_take(cuda):
+    x = exp_probe.make_volume(cuda, 0, (2, 512, 1152))
+    before = exp_probe.launches
+    with pytest.raises(ValueError, match="float32"):
+        exp_probe.kernel(x.double(), "sum")
+    with pytest.raises(ValueError, match="contiguous"):
+        exp_probe.kernel(x.transpose(1, 2).contiguous().transpose(1, 2), "sum")
+    with pytest.raises(ValueError, match="blocks"):
+        exp_probe.kernel(x[:, :500].contiguous(), "sum")
+    with pytest.raises(ValueError, match="CUDA"):
+        exp_probe.kernel(x.cpu(), "sum")
+    with pytest.raises(ValueError, match="mode"):
+        exp_probe.kernel(x, "logsumexp")
+    assert exp_probe.launches == before
+    a, b = (t.to(cuda) for t in mxu_int8_probe._mats(np.random.RandomState(0), 256, 256, 256, torch.bfloat16))
+    before = mxu_int8_probe.launches
+    with pytest.raises(ValueError, match="not in the bf16 list"):
+        mxu_int8_probe.kernel_mm(a, b, 128, 128, 64)
+    with pytest.raises(ValueError, match="multiple of the tile"):
+        mxu_int8_probe.kernel_mm(a[:200].contiguous(), b, 128, 128, 32)
+    with pytest.raises(ValueError, match="both bfloat16 or both int8"):
+        mxu_int8_probe.kernel_mm(a.float(), b.float(), 128, 128, 32)
+    with pytest.raises(ValueError, match="contiguous"):
+        mxu_int8_probe.kernel_mm(a.t(), b, 128, 128, 32)
+    with pytest.raises(ValueError, match="CUDA"):
+        mxu_int8_probe.kernel_mm(a.cpu(), b.cpu(), 128, 128, 32)
+    assert mxu_int8_probe.launches == before

@@ -84,7 +84,7 @@ def jax_pose_weights(jcfg, seed=0):
 
 def port_model(jcfg, params, stats):
     cfg = to_port_cfg(jcfg)
-    model = build_pose_net(cfg)
+    model = build_pose_net(cfg, device="cpu")
     model.load_state_dict(from_jax_params(params, stats, cfg))
     return model
 
@@ -170,7 +170,7 @@ def test_from_jax_params_covers_every_weight():
     _, params, stats = jax_pose_weights(jcfg)
     cfg = to_port_cfg(jcfg)
     sd = from_jax_params(params, stats, cfg)
-    model = build_pose_net(cfg)
+    model = build_pose_net(cfg, device="cpu")
     assert set(sd) == set(model.state_dict())
     for k, v in model.state_dict().items():
         assert sd[k].shape == v.shape, k
@@ -184,17 +184,17 @@ def test_build_pose_net_rejects_unported_options():
     for flag in ("s2d_stem", "block_remat"):
         cfg = base.replace(model=dataclasses.replace(base.model, **{flag: True}))
         with pytest.raises(ValueError, match=flag):
-            build_pose_net(cfg)
+            build_pose_net(cfg, device="cpu")
     cfg = base.replace(model=dataclasses.replace(base.model, bn_mode="lean16"))
     with pytest.raises(ValueError, match="lean16"):
-        build_pose_net(cfg)
+        build_pose_net(cfg, device="cpu")
 
 
 def test_seeded_init_is_reproducible():
     cfg = tconfig.get_config("h36m3d_r50").replace(
         model=tconfig.ModelConfig(resnet_type=18), data=tconfig.DataConfig(**TINY_DATA)
     )
-    model = build_pose_net(cfg)
+    model = build_pose_net(cfg, device="cpu")
     a = init_state_dict(model, torch.Generator().manual_seed(0))
     b = init_state_dict(model, torch.Generator().manual_seed(0))
     c = init_state_dict(model, torch.Generator().manual_seed(1))
@@ -213,7 +213,7 @@ def test_bf16_config_keeps_fp32_master_weights():
     _, params, stats = jax_pose_weights(jcfg)
     cfg = to_port_cfg(jcfg)
     sd = from_jax_params(params, stats, cfg)
-    model = build_pose_net(cfg)
+    model = build_pose_net(cfg, device="cpu")
     model.load_state_dict(sd)
     out = model.state_dict()
     assert set(out) == set(sd)

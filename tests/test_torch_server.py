@@ -34,7 +34,8 @@ def servers(request, weights):
     cfg = to_port_cfg(jcfg)
     jax_srv = JaxPoseServer(jcfg, params, stats, max_batch=MAX_BATCH, flip_test=request.param)
     srv = PoseServer(
-        cfg, from_jax_params(params, stats, cfg), max_batch=MAX_BATCH, flip_test=request.param
+        cfg, from_jax_params(params, stats, cfg), max_batch=MAX_BATCH, flip_test=request.param,
+        device="cpu",
     )
     return jax_srv, srv
 
@@ -105,3 +106,16 @@ def test_predict_stream_matches_sequential(servers):
         for ra, rb in zip(a, b):
             np.testing.assert_allclose(ra.coords_voxel, rb.coords_voxel, atol=1e-6)
             np.testing.assert_allclose(ra.coords_img, rb.coords_img, atol=1e-5)
+
+
+def test_entry_points_default_to_the_card():
+    """PoseServer and build_pose_net run on the card unless the caller asks
+    for the CPU, as the Trainer and the Tester do."""
+    import inspect
+
+    from ihpr_tpu_torch.engine.tester import Tester
+    from ihpr_tpu_torch.engine.trainer import Trainer
+    from ihpr_tpu_torch.models.pose_net import build_pose_net
+
+    for entry in (PoseServer, build_pose_net, Trainer, Tester):
+        assert inspect.signature(entry).parameters["device"].default == "cuda", entry

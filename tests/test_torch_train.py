@@ -316,7 +316,7 @@ def _port_step(cfg, params, stats, batch):
     """One port train step from the JAX weights: loss, grad norm, every
     parameter's gradient, the state after the step, and the coords the
     model gave before it (train mode, on a copy)."""
-    model = build_pose_net(cfg, trainable=True)
+    model = build_pose_net(cfg, device="cpu", trainable=True)
     model.load_state_dict(from_jax_params(params, stats, cfg))
     with torch.no_grad():
         coords = copy.deepcopy(model).coords(_finalize(batch, cfg))
@@ -439,7 +439,7 @@ def test_highest_precision_covers_the_backward():
         optim=jconfig.OptimConfig(batch_size_per_device=2)
     )
     cfg = to_port_cfg(jcfg)
-    model = build_pose_net(cfg, trainable=True)
+    model = build_pose_net(cfg, device="cpu", trainable=True)
     flags = []
     model.backbone.conv1.weight.register_hook(
         lambda g: flags.append((torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32))
@@ -459,7 +459,7 @@ def test_highest_precision_covers_the_backward():
 
 def test_inference_copy_casts_once_and_leaves_the_model():
     cfg = to_port_cfg(jax_tiny_cfg(compute_dtype="bfloat16", bn_mode="lean", fp32_logits=False))
-    model = build_pose_net(cfg, trainable=True)
+    model = build_pose_net(cfg, device="cpu", trainable=True)
     frozen = inference_copy(model)
     assert frozen.backbone.conv1.weight.dtype == torch.bfloat16
     assert frozen.head.final.weight.dtype == torch.bfloat16
