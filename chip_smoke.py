@@ -6,19 +6,23 @@
 2. Builds every CUDA kernel (K1-K8 of the serving, training, fused-train,
    heatmap and eval paths; P1/P2 of the probe tools) from
    ihpr_tpu_torch/ops/csrc, one nvcc per source, all at once.
-3. K1 (fused head forward): holds it against its plain PyTorch version on
-   the card, at the serving shapes and at edge cases, and times both with
-   CUDA events (median of repeated launches, in turns).
-4. K2 (fused head backward): holds it against plain_bwd at a training
-   shape in bf16 and fp32, at J=17, H*W=96*72, all-equal logits and a soft
+3. K1 (fused head forward, bf16): holds it against its plain PyTorch
+   version on the card, at the serving shapes and at edge cases (J=17,
+   H*W=96*72, D=1, all-equal logits, a one-hot peak), and times both with
+   CUDA events (median of repeated launches, in turns) at the
+   serving dispatch (B=64) and at the train batch (B=128).
+4. K2 (fused head backward, bf16): holds it against plain_bwd at a
+   training shape, at J=17, H*W=96*72, D=1, all-equal logits and a soft
    peak (checked against float64 on the host), checks that two runs give
-   bitwise-equal dW, and times both at the flagship training batch.
+   bitwise-equal dfeat, dW and db, and times both at the train batch, with
+   each of its four launches' device time (torch.profiler).
 5. K3/K4 (integral over a logits volume, forward and backward): hold them
    against plain / plain_bwd in bf16 and fp32 at J=18/D=64, J=17, D=1,
    H*W=96*72, all-equal logits (the centre), a one-hot peak and a soft peak
    (against float64), on an fp32 volume past 2^31 bytes, and two runs
    bitwise equal; time both at (128, 4096, 1152) in bf16 and fp32.
-5b. K1/K2's library composition (cuBLAS final conv + K3/K4), a yardstick.
+5b. K1/K2's library composition (cuBLAS final conv + K3/K4), a yardstick,
+   at K1's two batches and K2's.
 5c. K5/K6 (fused 1x1 conv + BN statistics) and K7/K8 (fused 3x3 conv + BN
    statistics), forward and backward: against plain / plain_bwd at every
    shape of the flagship fused step (bf16) and at edge cases (fp32, M = 1,
@@ -44,12 +48,15 @@
    step through model(x) -> soft_argmax_from_heatmap -> loss (K3 forward,
    K4 backward), coords and dv against plain on the same logits, device ms
    per step; again with fp32_logits at batch 32.
-9. The fused op on shapes K1/K2 do not take (C=72, D=80): fp32 logits and
-   K3/K4, forward and backward, against the plain fused op.
+9. The fused op on heads K1/K2 do not take (C=72, D=80, and fp32 heads,
+   the flagship's C=256, D=64 included): fp32 logits and K3/K4, forward
+   and backward, against the plain fused op; the fp32 flagship head's
+   forward (B=64) and backward (B=128) times on this route.
 10. Evaluates h36m3d_r50 through the Tester (300 synthetic H36M test
     samples, batch 128, the last batch padded, flip-test): MPJPE and the
     result files; one batch's coords against plain; host-clock img/s and
-    the loader's ms per batch. Then mpii2d_r50 (D=1, PCKh) on 64 samples.
+    the loader's ms per batch. Then mpii2d_r50 (D=1, PCKh, an fp32 head:
+    logits + K3) on 64 samples.
 11. P1, the exp-pass probe (ihpr_tpu_torch.tools.exp_probe): its main
     times all six modes on the (128, 4096, 1152) fp32 volume and checks the
     read floor (0.721 ms at 3.35 TB/s); every mode's partials and token
@@ -86,9 +93,10 @@ import numpy as np
 import torch
 
 TOL_VOXEL = 5e-4  # kernel vs plain coords: same operands, fp32 accumulation
-# K2 vs plain_bwd, relative to each result's largest magnitude: bf16 rounds
-# dv before both contractions and every result once (2^-8), after fp32 sums
-# taken in another order; fp32 differs only by ex2.approx and sum order.
+# Backward kernels vs plain_bwd, relative to each result's largest
+# magnitude: bf16 rounds dv before the contractions and every result once
+# (2^-8), after fp32 sums taken in another order; fp32 (K4, K6, K8) differs
+# only in sum order and, in K4, ex2.approx.
 TOL_BWD = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 # The no-plan route's fp32 gradients against autograd through the plain
 # fused op: dW and db sum dv over 8 x 4096 rows and cancel to near 0, so
@@ -151,13 +159,16 @@ def check_kernel(fhi, feat, kernel, bias, j, d, w, expect=None):
 
 
 def kernel_phase(fhi, gpu: str):
-    """K1 vs plain at the serving shapes and edge cases; times at the
-    flagship dispatch (2 x 32 flip-test samples, 64x64 heatmap, C=256)."""
+    """K1 vs plain at the serving shapes and edge cases; kernel and plain
+    times at the flagship dispatch (2 x 32 flip-test samples, 64x64
+    heatmap, C=256) and at the train batch (128), bf16, with TFLOP/s and
+    the share of the bound. Returns the largest |coords diff| and, per
+    batch, (kernel ms, plain ms)."""
     b, hw, w, c, d = 2 * MAX_BATCH, 64 * 64, 64, 256, 64
     errs = []
     timing = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        args = _head_inputs(b, hw, c, 18 * d, dtype, SEED)
+    for bsz in (b, TRAIN_BATCH):
+        args = _head_inputs(bsz, hw, c, 18 * d, torch.bfloat16, SEED)
         errs.append(check_kernel(fhi, *args, 18, d, w))
         runs = {"plain": (lambda: fhi.plain(*args, 18, d, w), []),
                 "kernel": (lambda: fhi.kernel_stats(*args, 18, d, w), [])}
@@ -165,17 +176,23 @@ def kernel_phase(fhi, gpu: str):
             fn, out = runs[name]
             out.append(_cuda_ms(fn, 10 if name == "kernel" else 3, reps=3))
         plain_ms, kernel_ms = runs["plain"][1], runs["kernel"][1]
-        timing[dtype] = (statistics.median(kernel_ms), statistics.median(plain_ms))
-        flops = 2 * b * hw * c * 18 * d
+        timing[bsz] = (statistics.median(kernel_ms), statistics.median(plain_ms))
+        flops = 2 * bsz * hw * c * 18 * d
+        bound = k1_bound(bsz)[0]
         print(
-            f"K1 {str(dtype)[6:]} ({b}, {hw}, {c}) x ({c}, {18 * d}): kernel "
-            f"{timing[dtype][0]:.4f} ms ({flops / timing[dtype][0] / 1e9:.1f} TFLOP/s), plain "
-            f"{timing[dtype][1]:.4f} ms, max|dcoords| {errs[-1]:.3g} voxel  [{gpu}]"
+            f"K1 bf16 ({bsz}, {hw}, {c}) x ({c}, {18 * d}): kernel {timing[bsz][0]:.4f} ms "
+            f"({flops / timing[bsz][0] / 1e9:.1f} TFLOP/s; bound {bound:.4f} ms, "
+            f"{bound / timing[bsz][0]:.3f} of it), plain {timing[bsz][1]:.4f} ms, "
+            f"max|dcoords| {errs[-1]:.3g} voxel  [{gpu}]"
         )
+        del args, runs
+    torch.cuda.empty_cache()
     errs.append(check_kernel(fhi, *_head_inputs(b, hw, c, 17 * d, torch.bfloat16, 1), 17, d, w))
     print(f"K1 J=17 (COCO skeleton): max|dcoords| {errs[-1]:.3g} voxel")
     errs.append(check_kernel(fhi, *_head_inputs(b, 96 * 72, c, 18 * d, torch.bfloat16, 2), 18, d, 72))
     print(f"K1 H*W = 96*72: max|dcoords| {errs[-1]:.3g} voxel")
+    errs.append(check_kernel(fhi, *_head_inputs(b, hw, c, 16, torch.bfloat16, 4), 16, 1, w))
+    print(f"K1 D=1, J=16 (a 2D config's head in bf16): max|dcoords| {errs[-1]:.3g} voxel")
     # All-equal logits: every coordinate is the volume centre.
     feat, kernel, bias = (torch.zeros_like(t) for t in _head_inputs(4, hw, c, 18 * d, torch.bfloat16, 3))
     centre = torch.tensor([(w - 1) / 2, (hw // w - 1) / 2, (d - 1) / 2], device="cuda")
@@ -189,7 +206,7 @@ def kernel_phase(fhi, gpu: str):
     expect[:, j0] = torch.tensor([r0 % w, r0 // w, z0], dtype=torch.float32, device="cuda")
     errs.append(check_kernel(fhi, feat, kernel, bias, 18, d, w, expect=expect))
     print(f"K1 one-hot peak -> its voxel: max|dcoords| {errs[-1]:.3g} voxel")
-    return max(errs), timing[torch.bfloat16]
+    return max(errs), timing
 
 
 def _bwd_inputs(fhi, b, hw, c, j, d, w, dtype, seed):
@@ -225,11 +242,13 @@ def check_bwd(fhi, args, j, d, w, tol, label, want=None):
     return worst, got
 
 
-def _soft_peak_check(fhi, dtype):
+def _soft_peak_check(fhi):
     """A logit of 5 over a flat floor at one voxel (p spread over the whole
     volume, dv nonzero everywhere): dW's column for that voxel against
-    float64 on the host from the same dtype-rounded inputs."""
+    float64 on the host from the same bf16-rounded inputs, within 2e-2 of
+    its largest."""
     b, h, w, c, j, d = 2, 64, 64, 256, 18, 64
+    dtype = torch.bfloat16
     r0, z0, j0 = 1234, 17, 5
     gen = torch.Generator().manual_seed(9)
     feat = (torch.randn(b, h * w, c, generator=gen) * 0.05).to(dtype)
@@ -252,34 +271,32 @@ def _soft_peak_check(fhi, dtype):
     coords, m, s = fhi.kernel_stats(feat_c, kernel_c, bias_c, j, d, w)
     _, dw, _ = fhi.kernel_bwd(feat_c, kernel_c, bias_c, m, s, coords, g.cuda(), j, d, w)
     col = dw[:, j0 * d + z0].double().cpu()
-    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
     err, scale = float((col - ref).abs().max()), float(ref.abs().max())
-    if not (scale > 1e-3 and err <= tol * scale):
-        raise AssertionError(f"K2 soft peak {dtype}: dW column {err} from float64 (max {scale})")
-    print(f"K2 soft peak (logit 5 over a flat floor), {str(dtype)[6:]}: dW column vs float64 "
-          f"|diff|/max {err / scale:.2e}")
+    if not (scale > 1e-3 and err <= 2e-2 * scale):
+        raise AssertionError(f"K2 soft peak: dW column {err} from float64 (max {scale})")
+    print(f"K2 soft peak (logit 5 over a flat floor), bf16: dW column vs float64 |diff|/max {err / scale:.2e}")
     return err
 
 
 def k2_phase(fhi, gpu: str):
     """K2 vs plain_bwd at a training shape (B=16, 64x64, C=256, J=18, D=64)
-    and edge cases; bitwise determinism of dW; times at B=128."""
+    and edge cases; bitwise determinism of dfeat, dW and db; kernel and
+    plain_bwd times at B=128 with TFLOP/s and the share of the bound."""
     hw, w, c, d = 64 * 64, 64, 256, 64
-    errs = []
-    for dtype in (torch.bfloat16, torch.float32):
-        args = _bwd_inputs(fhi, 16, hw, c, 18, d, w, dtype, SEED)
-        err, got = check_bwd(fhi, args, 18, d, w, TOL_BWD[dtype], f"train shape {str(dtype)[6:]}")
-        errs.append(err)
-        if dtype == torch.bfloat16:
-            again = fhi.kernel_bwd(*args, 18, d, w)
-            if not all(torch.equal(a, b) for a, b in zip(got, again)):
-                raise AssertionError("K2 is not deterministic: two runs differ")
-            print("K2 two runs on the same inputs: dfeat, dW, db bitwise equal")
     bf16 = TOL_BWD[torch.bfloat16]
+    args = _bwd_inputs(fhi, 16, hw, c, 18, d, w, torch.bfloat16, SEED)
+    err, got = check_bwd(fhi, args, 18, d, w, bf16, "train shape bf16")
+    errs = [err]
+    again = fhi.kernel_bwd(*args, 18, d, w)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError("K2 is not deterministic: two runs differ")
+    print("K2 two runs on the same inputs: dfeat, dW, db bitwise equal")
     errs.append(check_bwd(fhi, _bwd_inputs(fhi, 16, hw, c, 17, d, w, torch.bfloat16, 1), 17, d, w,
                           bf16, "J=17 (COCO skeleton)")[0])
     errs.append(check_bwd(fhi, _bwd_inputs(fhi, 16, 96 * 72, c, 18, d, 72, torch.bfloat16, 2),
                           18, d, 72, bf16, "H*W = 96*72")[0])
+    errs.append(check_bwd(fhi, _bwd_inputs(fhi, 16, hw, c, 16, 1, w, torch.bfloat16, 5), 16, 1, w,
+                          bf16, "D=1, J=16 (a 2D config's head in bf16)")[0])
     feat, kernel, bias, m, s, coords, g = _bwd_inputs(fhi, 4, hw, c, 18, d, w, torch.bfloat16, 3)
     feat, kernel, bias = (torch.zeros_like(t) for t in (feat, kernel, bias))
     coords, m, s = fhi.kernel_stats(feat, kernel, bias, 18, d, w)
@@ -287,25 +304,31 @@ def k2_phase(fhi, gpu: str):
                           "all-equal logits (db only: feat = W = 0)",
                           want=(torch.zeros_like(feat), torch.zeros_like(kernel),
                                 fhi.plain_bwd(feat, kernel, bias, m, s, coords, g, 18, d, w)[2]))[0])
-    for dtype in (torch.bfloat16, torch.float32):
-        errs.append(_soft_peak_check(fhi, dtype))
+    errs.append(_soft_peak_check(fhi))
 
-    timing = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        args = _bwd_inputs(fhi, TRAIN_BATCH, hw, c, 18, d, w, dtype, 4)
-        runs = {"plain": (lambda: fhi.plain_bwd(*args, 18, d, w), []),
-                "kernel": (lambda: fhi.kernel_bwd(*args, 18, d, w), [])}
-        for name in ("plain", "kernel", "kernel", "plain"):  # in turns
-            fn, out = runs[name]
-            out.append(_cuda_ms(fn, 3 if name == "kernel" and dtype == torch.bfloat16 else 1, reps=3))
-        timing[dtype] = (statistics.median(runs["kernel"][1]), statistics.median(runs["plain"][1]))
-        flops = 4 * 2 * TRAIN_BATCH * hw * c * 18 * d
-        print(f"K2 {str(dtype)[6:]} ({TRAIN_BATCH}, {hw}, {c}) x ({c}, {18 * d}): kernel "
-              f"{timing[dtype][0]:.4f} ms ({flops / timing[dtype][0] / 1e9:.1f} TFLOP/s over its "
-              f"4 matmuls), plain_bwd {timing[dtype][1]:.4f} ms  [{gpu}]")
+    args = _bwd_inputs(fhi, TRAIN_BATCH, hw, c, 18, d, w, torch.bfloat16, 4)
+    runs = {"plain": (lambda: fhi.plain_bwd(*args, 18, d, w), []),
+            "kernel": (lambda: fhi.kernel_bwd(*args, 18, d, w), [])}
+    for name in ("plain", "kernel", "kernel", "plain"):  # in turns
+        fn, out = runs[name]
+        out.append(_cuda_ms(fn, 5 if name == "kernel" else 1, reps=3))
+    kernel_ms, plain_ms = statistics.median(runs["kernel"][1]), statistics.median(runs["plain"][1])
+    flops = 4 * 2 * TRAIN_BATCH * hw * c * 18 * d
+    bound = k2_bound(TRAIN_BATCH)[0]
+    print(f"K2 bf16 ({TRAIN_BATCH}, {hw}, {c}) x ({c}, {18 * d}): kernel {kernel_ms:.4f} ms "
+          f"({flops / kernel_ms / 1e9:.1f} TFLOP/s over its 4 products; bound {bound:.4f} ms, "
+          f"{bound / kernel_ms:.3f} of it), plain_bwd {plain_ms:.4f} ms  [{gpu}]")
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fhi.kernel_bwd(*args, 18, d, w)
+        torch.cuda.synchronize()
+    names = ("transpose_kernel", "dfeat_kernel", "dw_kernel", "reduce_kernel")  # one call's launches
+    parts = [f"{k} {e.self_device_time_total / e.count / 1e3:.4f} ms"
+             for e in prof.key_averages() for k in names if k in e.key]
+    print(f"K2's launches per call (torch.profiler, 3 calls): {', '.join(parts) or 'not measured'}  [{gpu}]")
     del args, runs
     torch.cuda.empty_cache()
-    return max(errs), timing[torch.bfloat16]
+    return max(errs), (kernel_ms, plain_ms)
 
 
 def _volume(b, hw, jd, dtype, seed, std=5.0):
@@ -599,7 +622,6 @@ def train_phase(fhi, gpu: str):
 
         # --- the main path, counted: one epoch of TRAIN_STEPS steps ---
         trainer.cap_steps_per_epoch(TRAIN_STEPS)
-        n0 = len(trainer.losses)
         fhi.launches = fhi.bwd_launches = 0
         t0 = time.perf_counter()
         trainer.train(trainer.start_epoch + 1)
@@ -607,7 +629,7 @@ def train_phase(fhi, gpu: str):
         t_epoch = time.perf_counter() - t0
         k1, k2 = fhi.launches, fhi.bwd_launches
         # ---------------------------------------------------------------
-        losses = [float(x) for x in trainer.losses[n0:]]
+        losses = [float(x) for x in trainer.losses]  # the epoch's losses
         if (k1, k2) != (TRAIN_STEPS, TRAIN_STEPS):
             raise AssertionError(f"K1/K2 launched {k1}/{k2} times in {TRAIN_STEPS} train steps")
         if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
@@ -736,15 +758,18 @@ def heatmap_phase(fhi, iv, gpu: str):
     return k3, k4, max(errs), max(dv_errs)
 
 
-def noplan_phase(fhi, iv):
+def noplan_phase(fhi, iv, gpu: str):
     """fused_final_conv_integral on heads K1/K2 do not take (C=72, not a
-    multiple of 16; D=80, more than 64 bins): fp32 logits, then K3/K4,
-    forward and backward, against autograd through the fused op's plain
-    version. Returns (K3, K4) launches and the largest coords difference."""
+    multiple of 16; D=80, more than 64 bins; the flagship head C=256, D=64
+    in fp32): fp32 logits, then K3/K4, forward and backward, against
+    autograd through the fused op's plain version. Then the fp32 flagship
+    head's times on this route: the forward at (64, 4096, 256), the backward
+    at (128, 4096, 256). Returns (K3, K4) launches and the largest coords
+    difference."""
     b, h, w, j = 8, 64, 64, 18
     k3 = k4 = 0
     errs = []
-    for c, d in ((72, 64), (256, 80)):
+    for c, d in ((72, 64), (256, 80), (256, 64)):
         feat, kernel, bias = _head_inputs(b, h * w, c, j * d, torch.float32, 12)
         if fhi.fused_supported(c, d, feat.dtype):
             raise AssertionError(f"C={c}, D={d} should have no K1/K2 plan")
@@ -777,18 +802,37 @@ def noplan_phase(fhi, iv):
         errs.append(err)
         print(f"no-plan route C={c} D={d} (fp32, B={b}): K3 {counts[2]}, K4 {counts[3]}, K1/K2 0; "
               f"coords vs plain {err:.3g} voxel; grads |diff|/max " + ", ".join(rel))
+    del feat, kernel, bias, leaves, ref_leaves, coords, ref
+
+    c, d = 256, 64
+    feat, kernel, bias = _head_inputs(2 * MAX_BATCH, h * w, c, j * d, torch.float32, SEED)
+    with torch.no_grad():
+        fwd_ms = _cuda_ms(lambda: fhi.fused_final_conv_integral(feat.view(-1, h, w, c), kernel, bias, j, d),
+                          5, reps=3)
+    feat, kernel, bias = _head_inputs(TRAIN_BATCH, h * w, c, j * d, torch.float32, SEED)
+    leaves = [feat.view(-1, h, w, c).requires_grad_(), kernel.requires_grad_(), bias.requires_grad_()]
+    coords = fhi.fused_final_conv_integral(*leaves, j, d)
+    g = torch.randn(TRAIN_BATCH, j, 3, generator=torch.Generator().manual_seed(13)).cuda()
+    bwd_ms = _cuda_ms(lambda: torch.autograd.grad(coords, leaves, g, retain_graph=True), 3, reps=3)
+    print(f"fp32 flagship head on the no-plan route (fp32 cuBLAS, TF32 off, + K3/K4): forward "
+          f"({2 * MAX_BATCH}, {h * w}, {c}) {fwd_ms:.4f} ms, backward ({TRAIN_BATCH}, {h * w}, {c}) "
+          f"{bwd_ms:.4f} ms; the scalar fp32 K1/K2 this route replaces took 14.228 / 123.332 ms at "
+          f"these shapes (NVIDIA H100 80GB HBM3, 700 W)  [{gpu}]")
+    del feat, kernel, bias, leaves, coords
+    torch.cuda.empty_cache()
     return k3, k4, max(errs)
 
 
 def eval_phase(fhi, iv, gpu: str):
     """The Tester on h36m3d_r50 (EVAL_SAMPLES synthetic H36M test samples,
-    batch 128, the last padded, flip-test) and on mpii2d_r50 (64 samples,
-    D=1, PCKh), seeded weights with peaked heatmaps: K1 launches once per
-    eval batch and nothing else launches; every row of the predictions
-    that ``evaluate`` scored (the padded last batch's included) against the
+    batch 128, the last padded, flip-test; a bf16 head: K1) and on
+    mpii2d_r50 (64 samples, D=1, PCKh; an fp32 head: logits + K3), seeded
+    weights with peaked heatmaps: the head's kernel launches once per eval
+    batch and nothing else launches; every row of the predictions that
+    ``evaluate`` scored (the padded last batch's included) against the
     fused op's plain version on the loader's batches; metrics finite; the
-    result files written. Returns K1 launches and the largest coords
-    difference."""
+    result files written. Returns K1 and K3 launches and the largest coords
+    difference on each route (K1's, K3's)."""
     from ihpr_tpu_torch.config import get_config
     from ihpr_tpu_torch.data import skeletons
     from ihpr_tpu_torch.data.augment import finalize_patch
@@ -797,12 +841,13 @@ def eval_phase(fhi, iv, gpu: str):
     from ihpr_tpu_torch.engine.tester import Tester
     from ihpr_tpu_torch.models.pose_net import build_pose_net
 
-    k1, errs = 0, []
+    k1 = k3 = 0
+    errs = {"K1": [], "K3": []}
     with tempfile.TemporaryDirectory() as tmp:
-        for name, n, key, files in (
-            ("h36m3d_r50", EVAL_SAMPLES, "MPJPE total",
+        for name, route, n, key, files in (
+            ("h36m3d_r50", "K1", EVAL_SAMPLES, "MPJPE total",
              ("metrics_Human36M.json", "preds_Human36M.npy", "bbox_root_pose_h36m_output.json")),
-            ("mpii2d_r50", 64, "PCKh@0.5", ("metrics_MPII.json", "preds_MPII.npy", "pred.mat")),
+            ("mpii2d_r50", "K3", 64, "PCKh@0.5", ("metrics_MPII.json", "preds_MPII.npy", "pred.mat")),
         ):
             cfg = get_config(name).replace(output_dir=f"{tmp}/{name}")
             gen = torch.Generator().manual_seed(SEED)
@@ -833,9 +878,11 @@ def eval_phase(fhi, iv, gpu: str):
                 counts = _counts(fhi, iv)
                 # -----------------------------------------------
                 batches = len(tester.loader)
-                if counts != (batches, 0, 0, 0):
-                    raise AssertionError(f"{name} eval launched K1/K2/K3/K4 {counts}, want ({batches}, 0, 0, 0)")
-                k1 += counts[0]
+                head = tester.model.head
+                want = (batches, 0, 0, 0) if route == "K1" else (0, 0, batches, 0)
+                if counts != want:
+                    raise AssertionError(f"{name} eval launched K1/K2/K3/K4 {counts}, want {want}")
+                k1, k3 = k1 + counts[0], k3 + counts[2]
                 (vox,) = scored
                 perm = torch.as_tensor(skeletons.get_skeleton(cfg.data.testset).flip_permutation(), device="cuda")
                 ref = np.full_like(vox, np.nan)
@@ -845,12 +892,13 @@ def eval_phase(fhi, iv, gpu: str):
                 spread = float(np.abs(ref - ref.mean()).max())
                 if not (vox.shape == (n, tester.dataset.joint_num, 3) and err <= 2 * TOL_VOXEL and spread > 1.0):
                     raise AssertionError(f"{name} eval coords {vox.shape}, {err} voxel from plain (spread {spread})")
-                errs.append(err)
+                errs[route].append(err)
                 missing = [f for f in files if not os.path.exists(f"{cfg.output_dir}/result/{f}")]
                 if not math.isfinite(metrics[key]) or missing:
                     raise AssertionError(f"{name} eval: {key} {metrics[key]}, missing {missing}")
                 print(f"eval {name}: {n} samples in {batches} batches of {cfg.eval.batch_size_per_device} "
-                      f"(flip-test {cfg.eval.flip_test}), K1 launches {counts[0]}; {key} "
+                      f"(flip-test {cfg.eval.flip_test}), {str(head.dtype)[6:]} head, K1 launches "
+                      f"{counts[0]}, K3 {counts[2]}; {key} "
                       f"{metrics[key]:.2f}; all {n} scored rows vs plain {err:.3g} voxel (spread {spread:.3g}); "
                       f"wrote {', '.join(files)}")
                 wait = tester.loader_wait_s
@@ -861,7 +909,7 @@ def eval_phase(fhi, iv, gpu: str):
                 tester.close()
             del model, tester
             torch.cuda.empty_cache()
-    return k1, max(errs)
+    return k1, k3, max(errs["K1"]), max(errs["K3"])
 
 
 # --- K5-K8: the conv + BN-statistics kernels -----------------------------------
@@ -1176,7 +1224,6 @@ def fused_train_phase(fhi, iv, mm, cb, gpu: str):
 
         # --- the main path, counted: one epoch of TRAIN_STEPS fused steps ---
         trainer.cap_steps_per_epoch(TRAIN_STEPS)
-        n0 = len(trainer.losses)
         _zero_counts(fhi, iv, mm, cb)
         trainer.train(trainer.start_epoch + 1)
         torch.cuda.synchronize()
@@ -1187,7 +1234,7 @@ def fused_train_phase(fhi, iv, mm, cb, gpu: str):
         want = tuple(TRAIN_STEPS * k for k in (1, 1, 0, 0, 16, 16, 5, 5))
         if counts != want:
             raise AssertionError(f"fused train steps launched K1-K8 {counts} times, want {want}")
-        losses = [float(x) for x in trainer.losses[n0:]]
+        losses = [float(x) for x in trainer.losses]  # the epoch's losses
         if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
             raise AssertionError(f"fused train losses {losses}")
         print(f"fused train: {TRAIN_STEPS} steps through Trainer.train, launches K1-K8 {counts}; "
@@ -1246,46 +1293,65 @@ def fused_train_phase(fhi, iv, mm, cb, gpu: str):
 
 def head_library_phase(fhi, iv, gpu: str):
     """The library composition beside K1 and K2 (a yardstick only): the
-    final conv as one cuBLAS addmm, then K3 (K1's function); K4 on those
-    logits, then dfeat and dW as two cuBLAS matmuls (K2's). At K1's serving
-    shape (64, 4096, 256) and K2's training shape (128, 4096, 256), bf16."""
+    final conv as one cuBLAS addmm, then K3 (K1's function) at K1's serving
+    shape (64, 4096, 256) and at the train batch (128, 4096, 256); K4 on
+    those logits, then dfeat and dW as two cuBLAS matmuls (K2's function)
+    at the train batch; bf16. Returns (K1's at 64, K1's at 128, K2's)."""
     hw, w, c, j, d = 64 * 64, 64, 256, 18, 64
     out = []
     for b in (2 * MAX_BATCH, TRAIN_BATCH):
         feat, kernel, bias = _head_inputs(b, hw, c, j * d, torch.bfloat16, SEED)
         flat = feat.view(-1, c)
-        logits = torch.addmm(bias, flat, kernel).view(b, hw, j * d)
-        coords, m, s = iv.kernel_stats(logits, j, d, w)
-        g = torch.randn(b, j, 3, generator=torch.Generator().manual_seed(SEED)).cuda()
 
         def fwd():
             return iv.kernel_stats(torch.addmm(bias, flat, kernel).view(b, hw, j * d), j, d, w)
 
-        def bwd():
-            dv = iv.kernel_bwd(logits, m, s, coords, g, j, d, w).view(-1, j * d)
-            return dv @ kernel.t(), flat.t() @ dv, dv.float().sum(0)
+        out.append(_cuda_ms(fwd, 5, reps=3))
+        if b == TRAIN_BATCH:
+            logits = torch.addmm(bias, flat, kernel).view(b, hw, j * d)
+            coords, m, s = iv.kernel_stats(logits, j, d, w)
+            g = torch.randn(b, j, 3, generator=torch.Generator().manual_seed(SEED)).cuda()
 
-        out.append(_cuda_ms(fwd if b == 2 * MAX_BATCH else bwd, 5, reps=3))
-        del feat, flat, logits
+            def bwd():
+                dv = iv.kernel_bwd(logits, m, s, coords, g, j, d, w).view(-1, j * d)
+                return dv @ kernel.t(), flat.t() @ dv, dv.float().sum(0)
+
+            out.append(_cuda_ms(bwd, 5, reps=3))
+            del logits
+        del feat, flat
     torch.cuda.empty_cache()
-    print(f"K1's library composition (cuBLAS addmm + K3) at (64, 4096, 256): {out[0]:.4f} ms; K2's (K4 + two "
-          f"cuBLAS matmuls) at (128, 4096, 256): {out[1]:.4f} ms  [{gpu}]")
-    return out
+    print(f"K1's library composition (cuBLAS addmm + K3): {out[0]:.4f} ms at ({2 * MAX_BATCH}, {hw}, {c}), "
+          f"{out[1]:.4f} ms at ({TRAIN_BATCH}, {hw}, {c}); K2's (K4 + two cuBLAS matmuls) at "
+          f"({TRAIN_BATCH}, {hw}, {c}): {out[2]:.4f} ms  [{gpu}]")
+    return tuple(out)
+
+
+_HEAD = (64 * 64, 256, 18 * 64)  # the flagship head's (H*W, C, J*D)
+
+
+def k1_bound(b):
+    """(ms, bound_by) of K1 at (b, 4096, 256) x (256, 1152), bf16: the logits
+    product against reading feat and W once."""
+    hw, c, jd = _HEAD
+    return _bound(2 * b * hw * c * jd, (b * hw * c + c * jd) * 2)
+
+
+def k2_bound(b):
+    """(ms, bound_by) of K2 at (b, 4096, 256): three products (the logits
+    recomputed, dfeat, dW) against reading feat and W and writing dfeat
+    and dW once."""
+    hw, c, jd = _HEAD
+    return _bound(3 * 2 * b * hw * c * jd, (2 * b * hw * c + 2 * c * jd) * 2)
 
 
 def head_bounds():
-    """(ms, bound_by) of K1 at (64, 4096, 256) x (256, 1152), K2 at (128, 4096,
-    256) (three products: the logits recomputed, dfeat, dW), K3 and K4 at
-    the (128, 4096, 1152) volume; bf16, ~5 fp32 operations per logit for the
-    softmax terms."""
-    hw, c, jd = 64 * 64, 256, 18 * 64
-    serve, train = 2 * MAX_BATCH, TRAIN_BATCH
-    k1 = _bound(2 * serve * hw * c * jd, (serve * hw * c + c * jd) * 2)
-    k2 = _bound(3 * 2 * train * hw * c * jd, (2 * train * hw * c + 2 * c * jd) * 2)
-    vol = train * hw * jd
+    """(ms, bound_by) of K1 at the serving shape (64, 4096, 256), K2 at the
+    train batch (128, 4096, 256), K3 and K4 at the (128, 4096, 1152) volume;
+    ~5 fp32 operations per logit for the softmax terms."""
+    vol = TRAIN_BATCH * _HEAD[0] * _HEAD[2]
     k3 = max(_bound(5 * vol, 0, torch.float32), _bound(0, 2 * vol))
     k4 = max(_bound(5 * vol, 0, torch.float32), _bound(0, 4 * vol))
-    return k1, k2, k3, k4
+    return k1_bound(2 * MAX_BATCH), k2_bound(TRAIN_BATCH), k3, k4
 
 
 # --- P1/P2: the probe tools (ihpr_tpu_torch.tools) ---------------------------------
@@ -1419,27 +1485,32 @@ def main() -> int:
     for lib in libs:
         print(lib.with_suffix(".log").read_text().strip())
 
-    k1_err, (k1_ms, k1_plain) = kernel_phase(fhi, gpu)
+    k1_err, k1_times = kernel_phase(fhi, gpu)
+    k1_ms, k1_plain = k1_times[2 * MAX_BATCH]  # the serving shape, as b1 and k1_lib
     k2_err, (k2_ms, k2_plain) = k2_phase(fhi, gpu)
-    k1_lib, k2_lib = head_library_phase(fhi, iv, gpu)
+    k1_lib, k1_lib_train, k2_lib = head_library_phase(fhi, iv, gpu)
+    (k1_train_ms, _), b1_train = k1_times[TRAIN_BATCH], k1_bound(TRAIN_BATCH)[0]
+    print(f"K1 at the train batch ({TRAIN_BATCH}, 4096, 256): kernel {k1_train_ms:.4f} ms, library "
+          f"{k1_lib_train:.4f} ms, bound {b1_train:.4f} ms; K1 + K2 per train step {k1_train_ms + k2_ms:.4f} "
+          f"ms against the library's {k1_lib_train + k2_lib:.4f} ms  [{gpu}]")
     k3_err, k4_err, (k3_ms, k3_plain), (k4_ms, k4_plain) = volume_phase(iv, gpu)
     bn = bn_kernel_phase(mm, cb, gpu)
     serve_k1 = serve_phase(fhi, gpu)
     train_k1, train_k2, head_err = train_phase(fhi, gpu)
     (k5_n, k6_n, k7_n, k8_n), fused_errs = fused_train_phase(fhi, iv, mm, cb, gpu)
     hm_k3, hm_k4, hm_err, hm_dv_err = heatmap_phase(fhi, iv, gpu)
-    np_k3, np_k4, np_err = noplan_phase(fhi, iv)
-    eval_k1, eval_err = eval_phase(fhi, iv, gpu)
+    np_k3, np_k4, np_err = noplan_phase(fhi, iv, gpu)
+    eval_k1, eval_k3, eval_k1_err, eval_k3_err = eval_phase(fhi, iv, gpu)
     p1 = exp_probe_phase(ep, gpu)
     p2 = probe_mm_phase(pm, gpu)
     b1, b2, b3, b4 = head_bounds()
     kernels = [
         (fhi._LIB, "ihpr_tpu/ops/fused_head_integral.py:133", serve_k1 + train_k1 + eval_k1,
-         max(k1_err, eval_err), k1_ms, k1_plain, *b1, k1_lib),
+         max(k1_err, eval_k1_err), k1_ms, k1_plain, *b1, k1_lib),
         (fhi._BWD_LIB, "ihpr_tpu/ops/fused_head_integral.py:153", train_k2,
          max(k2_err, head_err), k2_ms, k2_plain, *b2, k2_lib),
-        (iv._FWD_LIB, "ihpr_tpu/ops/integral_pallas.py:201", hm_k3 + np_k3,
-         max(k3_err, hm_err, np_err), k3_ms, k3_plain, *b3, None),
+        (iv._FWD_LIB, "ihpr_tpu/ops/integral_pallas.py:201", hm_k3 + np_k3 + eval_k3,
+         max(k3_err, hm_err, np_err, eval_k3_err), k3_ms, k3_plain, *b3, None),
         (iv._BWD_LIB, "ihpr_tpu/ops/integral_pallas.py:239", hm_k4 + np_k4,
          max(k4_err, hm_dv_err), k4_ms, k4_plain, *b4, None),
     ]

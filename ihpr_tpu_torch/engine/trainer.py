@@ -4,8 +4,10 @@
 Builds the train datasets (synthetic only in the port), the host-warp
 ``BatchLoader``, a trainable ``PoseNet`` and its optimizer, then runs
 epochs of ``make_train_step``: the full-metrics step at log points, the
-loss-only step between them. Every step's loss stays on the device in
-``losses``; the loop reads metrics on the host only at log points.
+loss-only step between them. The current epoch's losses stay on the
+device in ``losses`` (cleared when the next epoch starts, so a long run
+holds one epoch of them); the loop reads metrics on the host only at log
+points.
 Checkpoints, resume, the host-RSS watchdog and the profiler window of the
 JAX trainer are not ported.
 """
@@ -66,7 +68,7 @@ class Trainer:
         self.model = build_pose_net(cfg, self.loader.joint_num, device=self.device, trainable=True)
         self.max_steps: Optional[int] = None  # set by cap_steps_per_epoch
         self.start_epoch = 0
-        self.losses: List[torch.Tensor] = []  # every step's loss, on the device
+        self.losses: List[torch.Tensor] = []  # the current epoch's losses, on the device
         self._make_steps()
 
     def _make_steps(self):
@@ -94,6 +96,7 @@ class Trainer:
         end_epoch = end_epoch or self.cfg.optim.end_epoch
         for epoch in range(self.start_epoch, end_epoch):
             batches = prefetch_to_device(self.loader.epoch(epoch, self.max_steps), self.device)
+            self.losses = []
             window_start, window_steps = time.perf_counter(), 0
             for itr, (batch, _) in enumerate(batches):
                 log_step = itr % _LOG_EVERY == 0 or itr == self.steps_per_epoch - 1
@@ -110,7 +113,7 @@ class Trainer:
                         "epoch %d/%d itr %d/%d: lr %.2e loss %.4f |g| %.3f err xy %.2f z %.2f vox "
                         "%.1f ms/itr %.1f img/s",
                         epoch, end_epoch, itr, self.steps_per_epoch,
-                        self.lr_sched(self.state.step - 1), vals["loss"], vals["grad_norm"],
+                        self.lr_sched(self.state.step), vals["loss"], vals["grad_norm"],
                         vals["err_xy_voxels"], vals["err_z_voxels"], itr_time * 1e3,
                         self.batch_size / max(itr_time, 1e-9),
                     )

@@ -1,8 +1,9 @@
 // Device helpers shared by the fused head kernels (K1 forward,
 // fused_head_integral_fwd.cu; K2 backward, fused_head_integral_bwd.cu) and
 // the conv + BN-statistics kernels (K5-K8, conv_bn_common.cuh): element
-// traits, cp.async tile loads, ldmatrix/mma.sync fragments, the warp-level
-// logits matmul of K1/K2 and the general warp matmul warp_mma.
+// traits, base-2 exp, cp.async, ldmatrix/mma.sync fragments and the warp
+// matmul warp_mma of K5-K8, and the weight transpose of K1/K2. K1/K2's
+// wgmma/TMA machinery is in hopper.cuh.
 
 #pragma once
 
@@ -14,8 +15,6 @@ namespace fhi {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kRows = kWarps * 16;  // feature rows per tile
-constexpr int kCols = 64;           // depth bins per CTA (D <= kCols)
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -59,8 +58,6 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_1() { asm volatile("cp.async.wait_group 1;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -84,102 +81,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// This thread's share of a tile copy: 16-byte chunk (r, c) of the tile,
-// then every kThreads-th chunk after it, walked without divisions.
-struct TileWalk {
-  int r, c, dr, dc, chunks;
-  __device__ TileWalk(int C, int elem_bytes) {
-    chunks = C * elem_bytes / 16;
-    r = threadIdx.x / chunks;
-    c = threadIdx.x - r * chunks;
-    dr = kThreads / chunks;
-    dc = kThreads - dr * chunks;
-  }
-};
-
-// Copy rows [row0, row0 + kRows) of a (rows, C) matrix into shared memory
-// (row pitch P elements). Rows at or past `end` repeat row end - 1; callers
-// mask what they compute from them.
-template <typename T>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, int row0, int end, int C, int P,
-                                          const TileWalk& w) {
-  for (int r = w.r, c = w.c; r < kRows;) {
-    const int gr = min(row0 + r, end - 1);
-    cp_async16(reinterpret_cast<char*>(dst + r * P) + c * 16,
-               reinterpret_cast<const char*>(src + (size_t)gr * C) + c * 16);
-    r += w.dr, c += w.dc;
-    if (c >= w.chunks) c -= w.chunks, ++r;
-  }
-}
-
-// The A fragment (16 rows x 16 k) and the W fragments (64 columns x 16 k)
-// of one k-step, by ldmatrix. Matrices: A (rows 0-7 | 8-15) x (k 0-7 | 8-15);
-// W (n-tile 2np | 2np+1) x (k 0-7 | 8-15).
-__device__ __forceinline__ void load_frags(uint32_t (&af)[4], uint32_t (&bf)[kCols / 16][4],
-                                           const __nv_bfloat16* a_row, const __nv_bfloat16* b_row,
-                                           int k0, int P, int D) {
-  ldmatrix_x4(af, a_row + k0);
-#pragma unroll
-  for (int np = 0; np < kCols / 16; ++np)
-    if (np * 16 < D) ldmatrix_x4(bf[np], b_row + np * 16 * P + k0);
-}
-
-__device__ __forceinline__ void mma_frags(float (&acc)[kCols / 8][4], const uint32_t (&af)[4],
-                                          const uint32_t (&bf)[kCols / 16][4], int D) {
-#pragma unroll
-  for (int np = 0; np < kCols / 16; ++np) {
-    if (np * 16 < D) {
-      mma_bf16(acc[2 * np], af, bf[np][0], bf[np][1]);
-      mma_bf16(acc[2 * np + 1], af, bf[np][2], bf[np][3]);
-    }
-  }
-}
-
-// acc[nt][e] += A(16 rows of this warp) x Wt(64 columns), in the mma.sync
-// accumulator layout: element e of n-tile nt is row g + 8*(e >> 1), column
-// nt*8 + 2*tig + (e & 1), with g = lane / 4 and tig = lane % 4. The next
-// k-step's fragments are loaded before this one's mma, so the tensor cores
-// do not wait on shared memory.
-__device__ __forceinline__ void tile_matmul(float (&acc)[kCols / 8][4], const __nv_bfloat16* a,
-                                            const __nv_bfloat16* wt, int C, int P, int D,
-                                            int lane) {
-  const int mi = lane >> 3, rr = lane & 7;
-  const __nv_bfloat16* a_row = a + (rr + (mi & 1) * 8) * P + (mi >> 1) * 8;
-  const __nv_bfloat16* b_row = wt + ((mi >> 1) * 8 + rr) * P + (mi & 1) * 8;
-  uint32_t af0[4], bf0[kCols / 16][4], af1[4], bf1[kCols / 16][4];
-  load_frags(af0, bf0, a_row, b_row, 0, P, D);
-  for (int k0 = 0; k0 < C; k0 += 32) {
-    if (k0 + 16 < C) load_frags(af1, bf1, a_row, b_row, k0 + 16, P, D);
-    mma_frags(acc, af0, bf0, D);
-    if (k0 + 32 < C) load_frags(af0, bf0, a_row, b_row, k0 + 32, P, D);
-    if (k0 + 16 < C) mma_frags(acc, af1, bf1, D);
-  }
-}
-
-// fp32: plain FMAs in the same accumulator layout, reading 4 k at a time.
-__device__ __forceinline__ void tile_matmul(float (&acc)[kCols / 8][4], const float* a,
-                                            const float* wt, int C, int P, int D, int lane) {
-  const int g = lane >> 2, tig = lane & 3;
-  const float* a_lo = a + g * P;
-  const float* a_hi = a + (g + 8) * P;
-  for (int k = 0; k < C; k += 4) {
-    const float4 x0 = *reinterpret_cast<const float4*>(a_lo + k);
-    const float4 x1 = *reinterpret_cast<const float4*>(a_hi + k);
-#pragma unroll
-    for (int nt = 0; nt < kCols / 8; ++nt) {
-      if (nt * 8 < D) {
-        const float4 w0 = *reinterpret_cast<const float4*>(wt + (nt * 8 + 2 * tig) * P + k);
-        const float4 w1 = *reinterpret_cast<const float4*>(wt + (nt * 8 + 2 * tig + 1) * P + k);
-        float(&o)[4] = acc[nt];
-        o[0] = fmaf(x0.w, w0.w, fmaf(x0.z, w0.z, fmaf(x0.y, w0.y, fmaf(x0.x, w0.x, o[0]))));
-        o[1] = fmaf(x0.w, w1.w, fmaf(x0.z, w1.z, fmaf(x0.y, w1.y, fmaf(x0.x, w1.x, o[1]))));
-        o[2] = fmaf(x1.w, w0.w, fmaf(x1.z, w0.z, fmaf(x1.y, w0.y, fmaf(x1.x, w0.x, o[2]))));
-        o[3] = fmaf(x1.w, w1.w, fmaf(x1.z, w1.z, fmaf(x1.y, w1.y, fmaf(x1.x, w1.x, o[3]))));
-      }
-    }
-  }
 }
 
 // acc[nt][e] += A(16 x K) * B(K x 8*NT) in the mma.sync accumulator layout
@@ -241,6 +142,31 @@ __device__ __forceinline__ void warp_mma(float (&acc)[NT][4], const float* a, in
       }
     }
   }
+}
+
+// W (C, JD) -> Wt (JD, C), bf16: a joint's D columns of the final conv
+// become D rows whose pitch (2C bytes) TMA can copy, whatever J*D is.
+// Blocks of 32x8 threads over 32x32 tiles.
+__global__ void transpose_kernel(const __nv_bfloat16* __restrict__ w, __nv_bfloat16* __restrict__ wt,
+                                 int C, int JD) {
+  __shared__ __align__(4) unsigned char raw[32 * 33 * sizeof(__nv_bfloat16)];
+  __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(raw);  // [32][33]
+  const int n0 = blockIdx.x * 32, k0 = blockIdx.y * 32;
+  for (int i = threadIdx.y; i < 32; i += 8) {
+    const int k = k0 + i, n = n0 + threadIdx.x;
+    if (k < C && n < JD) tile[i * 33 + threadIdx.x] = w[(size_t)k * JD + n];
+  }
+  __syncthreads();
+  for (int i = threadIdx.y; i < 32; i += 8) {
+    const int n = n0 + i, k = k0 + threadIdx.x;
+    if (n < JD && k < C) wt[(size_t)n * C + k] = tile[threadIdx.x * 33 + i];
+  }
+}
+
+inline cudaError_t transpose(const __nv_bfloat16* w, __nv_bfloat16* wt, int C, int JD,
+                             cudaStream_t stream) {
+  transpose_kernel<<<dim3((JD + 31) / 32, (C + 31) / 32), dim3(32, 8), 0, stream>>>(w, wt, C, JD);
+  return cudaGetLastError();
 }
 
 }  // namespace fhi

@@ -6,16 +6,21 @@ memory, in either direction:
 
 - K1, ``csrc/fused_head_integral_fwd.cu`` (the port of
   ``ihpr_tpu/ops/fused_head_integral.py:_fwd_kernel``), forms each logits
-  tile in registers and folds it straight into per-joint online softmax
-  statistics: coords, and the per-joint max m and normalizer s;
+  tile in registers (wgmma on TMA-loaded tiles) and folds it straight into
+  per-joint online softmax statistics: coords, and the per-joint max m and
+  normalizer s;
 - K2, ``csrc/fused_head_integral_bwd.cu`` (the port of ``_bwd_kernel``),
   recomputes the logits from m and s and contracts dv at once into dfeat,
   dW and db.
 
+Both take bf16 heads only. fp32 heads take the no-plan route below: the
+tensor cores' fp32 input is TF32, which would break ``"highest"``, and
+scalar fp32 kernels were slower than cuBLAS in fp32 plus K3/K4.
+
 ``FusedHeadIntegral`` is the autograd Function around the pair.
 ``fused_final_conv_integral`` picks its route from the shapes alone
-(``fused_supported``), before anything launches: shapes K1/K2 take go
-through ``FusedHeadIntegral``; any other shape forms the fp32 logits volume
+(``fused_supported``), before anything launches: heads K1/K2 take go
+through ``FusedHeadIntegral``; any other head forms the fp32 logits volume
 with a plain matmul and runs the standalone integral, K3/K4
 (``integral_volume.SoftArgmaxVolume``), as JAX does when ``_pad_plan``
 finds no tiling. On either route a CUDA tensor goes to the kernels, which
@@ -38,7 +43,7 @@ from ihpr_tpu_torch.ops.integral_volume import _acc_dtype, fold_bwd_rows
 
 _LIB = "fused_head_integral_fwd"
 _BWD_LIB = "fused_head_integral_bwd"
-_MAX_DEPTH = 64  # depth bins one CTA holds (kCols in the kernels)
+_MAX_DEPTH = 64  # depth bins of one joint's slab (kBox in csrc/hopper.cuh)
 _MAX_CHANNELS = 256  # channels K2's register accumulators hold (kMaxC)
 _MAX_SMEM = 232448  # bytes of shared memory a block may use on Hopper
 
@@ -51,13 +56,12 @@ bwd_launches = 0
 
 def fused_supported(channels: int, depth_dim: int, dtype: torch.dtype) -> bool:
     """Whether K1 and K2 take a head of ``channels`` features, ``depth_dim``
-    bins and ``dtype``: bf16 or fp32, C a multiple of 16 up to K2's 256
-    channels, D <= 64. A pure predicate on shapes, the counterpart of JAX's
+    bins and ``dtype``: bf16, C a multiple of 16 up to K2's 256 channels,
+    D <= 64. A pure predicate on shapes, the counterpart of JAX's
     ``fused_supported`` / ``_pad_plan``; J and H*W are free. Up to 256
-    channels both kernels' shared memory fits a Hopper block (the most, K2
-    in fp32 at C=256, is 218,624 bytes)."""
+    channels both kernels' shared memory fits a Hopper block."""
     return (
-        dtype in (torch.bfloat16, torch.float32)
+        dtype == torch.bfloat16
         and channels % 16 == 0
         and 16 <= channels <= _MAX_CHANNELS
         and 1 <= depth_dim <= _MAX_DEPTH
@@ -82,10 +86,10 @@ def plain(
 def _lib() -> ctypes.CDLL:
     lib = _build.load(_LIB)
     lib.ihpr_fused_head_integral_fwd_smem.restype = ctypes.c_size_t
-    lib.ihpr_fused_head_integral_fwd_smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.ihpr_fused_head_integral_fwd_smem.argtypes = [ctypes.c_int]
     lib.ihpr_fused_head_integral_fwd.restype = ctypes.c_int
     lib.ihpr_fused_head_integral_fwd.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     )
     return lib
 
@@ -143,9 +147,11 @@ def _check_cuda_tensors(feat, kernel, bias):
 
 def _check_kernel_inputs(feat, kernel, bias, joint_num, depth_dim, width):
     """What both kernels require of feat, kernel and bias; returns
-    (B, HW, C, is_bf16)."""
+    (B, HW, C)."""
     b, hw, c = _check(feat, kernel, bias, joint_num, depth_dim, width)
     _check_cuda_tensors(feat, kernel, bias)
+    if feat.dtype != torch.bfloat16:
+        raise ValueError(f"K1/K2 take bfloat16 heads, not {feat.dtype} (fp32 heads take the no-plan route)")
     if feat.data_ptr() % 16:
         raise ValueError("feat must be 16-byte aligned")
     if c % 16:
@@ -154,7 +160,7 @@ def _check_kernel_inputs(feat, kernel, bias, joint_num, depth_dim, width):
         raise ValueError(f"depth_dim={depth_dim} must be in [1, {_MAX_DEPTH}]")
     if not (1 <= b <= 65535 and joint_num >= 1 and hw >= 1):
         raise ValueError(f"batch {b} must be in [1, 65535], J and H*W >= 1")
-    return b, hw, c, int(feat.dtype == torch.bfloat16)
+    return b, hw, c
 
 
 def kernel_stats(
@@ -165,20 +171,21 @@ def kernel_stats(
     without synchronizing; raises on any input the kernel does not take and
     on a refused launch."""
     global launches
-    b, hw, c, is_bf16 = _check_kernel_inputs(feat, kernel, bias, joint_num, depth_dim, width)
+    b, hw, c = _check_kernel_inputs(feat, kernel, bias, joint_num, depth_dim, width)
     lib = _lib()
-    smem = lib.ihpr_fused_head_integral_fwd_smem(c, is_bf16)
+    smem = lib.ihpr_fused_head_integral_fwd_smem(c)
     if smem > _MAX_SMEM:
         raise ValueError(f"C={c} needs {smem} bytes of shared memory (> {_MAX_SMEM})")
     opts = dict(dtype=torch.float32, device=feat.device)
     coords = torch.empty((b, joint_num, 3), **opts)
     m = torch.empty((b, joint_num), **opts)
     s = torch.empty((b, joint_num), **opts)
+    wt = torch.empty((joint_num * depth_dim, c), dtype=feat.dtype, device=feat.device)
     with torch.cuda.device(feat.device):
         err = lib.ihpr_fused_head_integral_fwd(
-            feat.data_ptr(), kernel.data_ptr(), bias.data_ptr(),
+            feat.data_ptr(), kernel.data_ptr(), bias.data_ptr(), wt.data_ptr(),
             coords.data_ptr(), m.data_ptr(), s.data_ptr(),
-            b, hw, width, c, joint_num, depth_dim, is_bf16,
+            b, hw, width, c, joint_num, depth_dim,
             torch.cuda.current_stream().cuda_stream,
         )
     if err:
@@ -191,9 +198,11 @@ def kernel_stats(
 def _bwd_lib() -> ctypes.CDLL:
     lib = _build.load(_BWD_LIB)
     lib.ihpr_fused_head_integral_bwd_smem.restype = ctypes.c_size_t
-    lib.ihpr_fused_head_integral_bwd_smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.ihpr_fused_head_integral_bwd_smem.argtypes = [ctypes.c_int]
     lib.ihpr_fused_head_integral_bwd_max_channels.restype = ctypes.c_int
     lib.ihpr_fused_head_integral_bwd_max_channels.argtypes = []
+    lib.ihpr_fused_head_integral_bwd_partials.restype = ctypes.c_int
+    lib.ihpr_fused_head_integral_bwd_partials.argtypes = [ctypes.c_int] * 3
     lib.ihpr_fused_head_integral_bwd.restype = ctypes.c_int
     lib.ihpr_fused_head_integral_bwd.argtypes = (
         [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
@@ -212,7 +221,7 @@ def kernel_bwd(
     stream without synchronizing; raises on any input the kernel does not
     take and on a refused launch."""
     global bwd_launches
-    b, hw, c, is_bf16 = _check_kernel_inputs(feat, kernel, bias, joint_num, depth_dim, width)
+    b, hw, c = _check_kernel_inputs(feat, kernel, bias, joint_num, depth_dim, width)
     for name, t, shape in (("m", m, (b, joint_num)), ("s", s, (b, joint_num)),
                            ("coords", coords, (b, joint_num, 3)), ("g", g, (b, joint_num, 3))):
         if tuple(t.shape) != shape or t.dtype != torch.float32:
@@ -223,24 +232,25 @@ def kernel_bwd(
     max_c = lib.ihpr_fused_head_integral_bwd_max_channels()
     if c > max_c:
         raise ValueError(f"C={c} is more than the backward's {max_c} channels")
-    smem = lib.ihpr_fused_head_integral_bwd_smem(c, is_bf16)
+    smem = lib.ihpr_fused_head_integral_bwd_smem(c)
     if smem > _MAX_SMEM:
         raise ValueError(f"C={c} needs {smem} bytes of shared memory (> {_MAX_SMEM})")
     jd = joint_num * depth_dim
     rows = fold_bwd_rows(m, s, coords, g)
     f32 = dict(dtype=torch.float32, device=feat.device)
     wt = torch.empty((jd, c), dtype=feat.dtype, device=feat.device)
-    part = torch.empty((b, joint_num, c, _MAX_DEPTH), **f32)
-    dbpart = torch.empty((b, joint_num, _MAX_DEPTH), **f32)
-    dfeat = torch.empty_like(feat)
-    dw = torch.empty_like(kernel)
-    db = torch.empty_like(bias)
     with torch.cuda.device(feat.device):
+        parts = lib.ihpr_fused_head_integral_bwd_partials(b, hw, joint_num)
+        part = torch.empty((parts, joint_num, c, _MAX_DEPTH), **f32)
+        dbpart = torch.empty((parts, joint_num, _MAX_DEPTH), **f32)
+        dfeat = torch.empty_like(feat)
+        dw = torch.empty_like(kernel)
+        db = torch.empty_like(bias)
         err = lib.ihpr_fused_head_integral_bwd(
             feat.data_ptr(), kernel.data_ptr(), bias.data_ptr(), rows.data_ptr(),
             wt.data_ptr(), part.data_ptr(), dbpart.data_ptr(),
             dfeat.data_ptr(), dw.data_ptr(), db.data_ptr(),
-            b, hw, width, c, joint_num, depth_dim, is_bf16,
+            b, hw, width, c, joint_num, depth_dim, parts,
             torch.cuda.current_stream().cuda_stream,
         )
     if err:
@@ -331,11 +341,11 @@ def fused_final_conv_integral(
 ) -> torch.Tensor:
     """(B, H, W, C) head features + (C, J*D) final-conv weight + (J*D,) bias
     -> (B, J, 3) voxel coords (x, y, z), fp32, differentiable in all three
-    tensors. Shapes ``fused_supported`` admits run ``FusedHeadIntegral``
-    (K1/K2 on CUDA tensors); any other shape forms the fp32 logits
-    (``_Logits``) and runs ``integral_volume.SoftArgmaxVolume`` (K3/K4 on
-    CUDA tensors). CPU tensors take the same route through the plain
-    versions."""
+    tensors. Heads ``fused_supported`` admits (bf16) run
+    ``FusedHeadIntegral`` (K1/K2 on CUDA tensors); any other head, fp32
+    included, forms the fp32 logits (``_Logits``) and runs
+    ``integral_volume.SoftArgmaxVolume`` (K3/K4 on CUDA tensors). CPU
+    tensors take the same route through the plain versions."""
     b, h, w, c = features.shape
     if features.is_cuda:
         if not features.is_contiguous():

@@ -189,12 +189,43 @@ def test_fused_op_without_a_plan_gradcheck_float64():
     assert torch.autograd.gradcheck(lambda f, k, bb: fhi.fused_final_conv_integral(f, k, bb, j, d), leaves)
 
 
+# (B, H, W, C, J, D) that K1/K2 take in bf16: in fp32 they go the no-plan route.
+FP32_HEADS = [(2, 16, 16, 128, 4, 32), (2, 16, 16, 128, 18, 16)]
+
+
+@pytest.mark.parametrize("shape", FP32_HEADS, ids=["aligned", "padded"])
+def test_fp32_head_takes_the_no_plan_route_and_matches_jax(shape):
+    """An fp32 head of a shape K1/K2 take in bf16 forms fp32 logits and runs
+    the standalone integral (K3/K4 on the card), as fused_supported says:
+    coords within 2e-3 voxel of JAX's fused_final_conv_integral (its fused
+    kernel, in interpret mode) on the same weights, gradients within 1e-4
+    of each one's largest, the no-plan bound."""
+    b, h, w, c, j, d = shape
+    feat, kernel, bias = _head(shape, seed=15)
+    g = np.random.RandomState(16).randn(b, j, 3).astype(np.float32)
+    ref, vjp = jax.vjp(lambda f, k, bb: jax_fused(f, k, bb, j, d), *map(jnp.asarray, (feat, kernel, bias)))
+    ref_grads = [np.asarray(x) for x in vjp(jnp.asarray(g))]
+    ref = np.asarray(ref)
+    assert _away_from_centre(ref, (b, h, w, j, d))
+
+    assert fhi.fused_supported(c, d, torch.bfloat16) and not fhi.fused_supported(c, d, torch.float32)
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (feat, kernel, bias)]
+    coords = fhi.fused_final_conv_integral(*leaves, j, d)
+    assert "SoftArgmaxVolume" in type(coords.grad_fn).__name__  # the route taken
+    np.testing.assert_allclose(coords.detach().numpy(), ref, atol=2e-3)
+    grads = torch.autograd.grad(coords, leaves, torch.from_numpy(g))
+    for name, got, want in zip(("feat", "kernel", "bias"), grads, ref_grads):
+        assert got.shape == want.shape, name
+        assert np.abs(got.numpy() - want).max() <= 1e-4 * np.abs(want).max(), name
+
+
 def test_fused_supported_mirrors_the_kernels_limits():
     assert fhi.fused_supported(256, 64, torch.bfloat16)
-    assert fhi.fused_supported(16, 1, torch.float32)
+    assert fhi.fused_supported(16, 1, torch.bfloat16)
+    assert not fhi.fused_supported(16, 1, torch.float32)  # fp32 heads: logits + K3/K4
     assert not fhi.fused_supported(72, 64, torch.bfloat16)  # C % 16
-    assert not fhi.fused_supported(272, 64, torch.float32)  # more than K2's 256 channels
-    assert not fhi.fused_supported(256, 65, torch.float32)  # D > 64
+    assert not fhi.fused_supported(272, 64, torch.bfloat16)  # more than K2's 256 channels
+    assert not fhi.fused_supported(256, 65, torch.bfloat16)  # D > 64
     assert not fhi.fused_supported(256, 64, torch.float16)  # a dtype the kernels do not take
 
 

@@ -7,13 +7,17 @@ GPU host, where tests/conftest.py (which imports JAX) is left out:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
 
 from ihpr_tpu_torch.config import DataConfig, ModelConfig, get_config
 from ihpr_tpu_torch.models.pose_net import build_pose_net
+from ihpr_tpu_torch.ops import _build
 from ihpr_tpu_torch.ops import fused_head_integral as fhi
+from ihpr_tpu_torch.ops import integral_volume as iv
 
 
 @pytest.fixture()
@@ -32,19 +36,69 @@ def _head_inputs(shape, device, dtype, seed=4):
     return tuple(t.to(device, dtype) for t in (feat, kernel, bias))
 
 
+# --- the wgmma operand modes K1/K2 build on (csrc/hopper_selftest.cu) ------------
+
+
+def _selftest(a, b, mode, k, n):
+    """D (64 x n, fp32) of hopper_selftest.cu's one-tile GEMM in ``mode``."""
+    lib = _build.load("hopper_selftest")
+    lib.ihpr_hopper_selftest.restype = ctypes.c_int
+    lib.ihpr_hopper_selftest.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    out = torch.empty(64, n, device=a.device)
+    err = lib.ihpr_hopper_selftest(a.data_ptr(), b.data_ptr(), out.data_ptr(), mode, k, n,
+                                   torch.cuda.current_stream().cuda_stream)
+    assert err == 0, f"hopper_selftest mode {mode}: error {err}"
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "mode, k, n",
+    [(0, 64, 64), (0, 256, 64), (0, 256, 192), (1, 128, 64), (2, 64, 64), (2, 256, 64),
+     (3, 64, 64), (3, 128, 64)],
+    ids=["kmajor_ab", "kmajor_ab_k256", "kmajor_n192", "mnmajor_b", "mmajor_a",
+         "mmajor_a_k256", "regs_a_mnmajor_b", "regs_a_mnmajor_b_k128"],
+)
+def test_wgmma_descriptor_modes_match_matmul(cuda, mode, k, n):
+    """Each operand layout of hopper.cuh that K1/K2 issue (K-major A and
+    B; MN-major B; M-major A; A from registers with MN-major B) through
+    TMA, 128-byte swizzled tiles and wgmma, against torch.matmul in fp32 on
+    the same bf16 values: products are exact, so only the sum order differs
+    (1e-5 of the largest)."""
+    g = torch.Generator().manual_seed(mode * 1000 + k + n)
+    a = torch.randn(64, k, generator=g).to(cuda, torch.bfloat16)
+    b = torch.randn(k, n, generator=g).to(cuda, torch.bfloat16)
+    a_arg = a.t().contiguous() if mode == 2 else a
+    b_arg = b.t().contiguous() if mode == 0 else b
+    got = _selftest(a_arg, b_arg, mode, k, n)
+    want = a.float() @ b.float()
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+# --- K1: the fused head forward ---------------------------------------------------
+
+HEAD_SHAPES = [(2, 16, 16, 128, 4, 32), (2, 16, 16, 128, 18, 16), (3, 9, 7, 64, 17, 64),
+               (2, 8, 8, 256, 16, 1), (2, 8, 8, 80, 5, 24), (2, 6, 5, 16, 3, 64)]
+HEAD_IDS = ["aligned", "j18d16", "ragged", "d1", "c80", "c16"]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
-@pytest.mark.parametrize(
-    "shape",
-    [(2, 16, 16, 128, 4, 32), (2, 16, 16, 128, 18, 16), (3, 9, 7, 64, 17, 64), (2, 8, 8, 256, 16, 1)],
-    ids=["aligned", "j18d16", "ragged", "d1"],
-)
+@pytest.mark.parametrize("shape", HEAD_SHAPES, ids=HEAD_IDS)
 def test_kernel_matches_plain(cuda, shape, dtype):
     """Both sides accumulate in fp32 from the same operands: 5e-4 voxel on
-    coords, 1e-4 on the max logit, 1e-4 relative on the normalizer."""
+    coords, 1e-4 on the max logit, 1e-4 relative on the normalizer. fp32
+    heads raise: they take the no-plan route."""
     b, h, w, c, j, d = shape
     feat, kernel, bias = _head_inputs(shape, cuda, dtype)
     before = fhi.launches
+    if dtype == torch.float32:
+        assert not fhi.fused_supported(c, d, dtype)
+        with pytest.raises(ValueError, match="bfloat16"):
+            fhi.kernel_stats(feat, kernel, bias, j, d, w)
+        assert fhi.launches == before
+        return
     got = fhi.kernel_stats(feat, kernel, bias, j, d, w)
     assert fhi.launches == before + 1
     want = fhi.plain(feat, kernel, bias, j, d, w)
@@ -70,9 +124,10 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
 
 @pytest.mark.cuda
 def test_pose_net_coords_run_the_kernel(cuda):
-    """PoseNet.coords on the card goes through the kernel (the counter
-    moves) and agrees with coords_plain on the same fp32 weights, TF32 off:
-    2e-3 voxel, the end-to-end bar."""
+    """PoseNet.coords of an fp32 model on the card goes through the no-plan
+    route's kernel, K3 (its counter moves, K1's does not), and agrees with
+    coords_plain on the same fp32 weights, TF32 off: 2e-3 voxel, the
+    end-to-end bar."""
     cfg = get_config("h36m3d_r50_fp32").replace(
         model=ModelConfig(resnet_type=18, matmul_precision="highest"),
         data=DataConfig(trainset=("Human36M",), input_shape=(64, 64), output_shape=(16, 16), depth_dim=16),
@@ -84,9 +139,9 @@ def test_pose_net_coords_run_the_kernel(cuda):
         rms = float(feat.pow(2).mean().sqrt())
         c = feat.shape[-1]
         model.head.final.weight.normal_(0.0, 5.0 / (rms * c**0.5))  # logits std ~5
-        fhi.launches = 0
+        fhi.launches = iv.launches = 0
         coords = model.coords(x)
-        assert fhi.launches == 1
+        assert (fhi.launches, iv.launches) == (0, 1)
         plain = model.coords_plain(x)
     assert float((plain - plain.mean()).abs().max()) > 1.0  # peaked, not flat
     torch.testing.assert_close(coords, plain, atol=2e-3, rtol=0)
@@ -94,14 +149,10 @@ def test_pose_net_coords_run_the_kernel(cuda):
 
 # --- K2: the fused head backward --------------------------------------------
 
-BWD_SHAPES = [(2, 16, 16, 128, 4, 32), (2, 16, 16, 128, 18, 16), (3, 9, 7, 64, 17, 64),
-              (2, 8, 8, 256, 16, 1)]
-BWD_IDS = ["aligned", "j18d16", "ragged", "d1"]
-# Relative to each result's largest magnitude. bf16: dfeat, dW and db are
-# rounded to bf16 (2^-8 relative) after fp32 sums taken in another order,
-# and dv is rounded to bf16 before both contractions, so one-ulp flips are
-# expected; fp32: ex2.approx against exp and the sum order only.
-BWD_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+# Relative to each result's largest magnitude: dfeat, dW and db are rounded
+# to bf16 (2^-8 relative) after fp32 sums taken in another order, and dv is
+# rounded to bf16 before both contractions, so one-ulp flips are expected.
+BWD_TOL = 1e-2
 
 
 def _bwd_inputs(shape, device, dtype, seed=5):
@@ -131,11 +182,18 @@ def _db_atol(g, h, w, d):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
-@pytest.mark.parametrize("shape", BWD_SHAPES, ids=BWD_IDS)
+@pytest.mark.parametrize("shape", HEAD_SHAPES, ids=HEAD_IDS)
 def test_bwd_kernel_matches_plain(cuda, shape, dtype):
     h, w, j, d = shape[1], shape[2], shape[4], shape[5]
-    args = _bwd_inputs(shape, cuda, dtype)
     before = fhi.bwd_launches
+    if dtype == torch.float32:  # fp32 heads take the no-plan route
+        args = _bwd_inputs(shape, cuda, torch.bfloat16)
+        fp32 = [t.float() for t in args[:3]] + list(args[3:])
+        with pytest.raises(ValueError, match="bfloat16"):
+            fhi.kernel_bwd(*fp32, j, d, w)
+        assert fhi.bwd_launches == before
+        return
+    args = _bwd_inputs(shape, cuda, dtype)
     got = fhi.kernel_bwd(*args, j, d, w)
     assert fhi.bwd_launches == before + 1
     want = fhi.plain_bwd(*args, j, d, w)
@@ -143,13 +201,13 @@ def test_bwd_kernel_matches_plain(cuda, shape, dtype):
     for name, a, b in zip(("dfeat", "dW", "db"), got, want):
         assert a.dtype == b.dtype and a.shape == b.shape, name
         atol = _db_atol(args[-1], h, w, d) if name == "db" else 0.0
-        _assert_rel_close(a, b, BWD_TOL[dtype], name, atol)
+        _assert_rel_close(a, b, BWD_TOL, name, atol)
 
 
 @pytest.mark.cuda
 def test_bwd_kernel_is_deterministic(cuda):
-    """dW and db are per-CTA partials reduced in sample order, with no
-    atomics: two runs on the same inputs agree bit for bit."""
+    """dW and db are per-warpgroup partials reduced in a fixed order, with
+    no atomics: two runs on the same inputs agree bit for bit."""
     shape = (8, 32, 32, 256, 18, 64)
     args = _bwd_inputs(shape, cuda, torch.bfloat16)
     first = fhi.kernel_bwd(*args, 18, 64, 32)
@@ -164,8 +222,16 @@ def test_bwd_kernel_soft_peak_against_float64(cuda, dtype):
     """A logit of 5 over a flat floor at one voxel: p is spread over the
     volume and dv is nonzero everywhere (a hard one-hot gives dv ~ 0, which
     any kernel passes). dW's column for that voxel against float64 on the
-    host, from the same (dtype-rounded) inputs."""
+    host, from the same bf16-rounded inputs. fp32 heads raise: they take
+    the no-plan route."""
     b, h, w, c, j, d = 2, 16, 16, 64, 4, 32
+    if dtype == torch.float32:
+        z = torch.zeros(b, j, device=cuda)
+        feat, kernel, bias = _head_inputs((b, h, w, c, j, d), cuda, dtype)
+        with pytest.raises(ValueError, match="bfloat16"):
+            fhi.kernel_bwd(feat, kernel, bias, z, z + 1, z[..., None].expand(b, j, 3).contiguous(),
+                           z[..., None].expand(b, j, 3).contiguous(), j, d, w)
+        return
     r0, z0, j0 = 77, 9, 2
     gen = torch.Generator().manual_seed(7)
     feat = (torch.randn(b, h * w, c, generator=gen) * 0.05).to(dtype)
@@ -191,7 +257,7 @@ def test_bwd_kernel_soft_peak_against_float64(cuda, dtype):
     _, dw, _ = fhi.kernel_bwd(feat_c, kernel_c, bias_c, m, s, coords_k, g.to(cuda), j, d, w)
     col = dw[:, j0 * d + z0].double().cpu()
     assert float(ref_col.abs().max()) > 1e-3  # the peak column is not ~0
-    _assert_rel_close(col, ref_col, 2e-2 if dtype == torch.bfloat16 else 1e-4, "dW peak column")
+    _assert_rel_close(col, ref_col, 2e-2, "dW peak column")
 
 
 @pytest.mark.cuda
@@ -227,8 +293,6 @@ def test_autograd_runs_k1_and_k2(cuda):
 
 
 # --- K3/K4: the standalone integral over a logits volume -----------------------
-
-from ihpr_tpu_torch.ops import integral_volume as iv  # noqa: E402
 
 # (B, H, W, J, D): J*D = 128; J=18, D=16; ragged 9x7 with J=17 (J*D*2 bytes
 # 16-aligned); D=1 with J=16 (32-byte rows); J=17, D=1 (34-byte rows: the
@@ -414,11 +478,11 @@ def test_fused_op_without_a_plan_runs_k3_and_k4(cuda, c, d):
 @pytest.mark.cuda
 def test_fused_supported_shapes_fit_shared_memory(cuda):
     """Every channel count fused_supported admits fits K1's and K2's shared
-    memory, in both dtypes, so the predicate needs no size check."""
-    for is_bf16 in (0, 1):
-        for c in range(16, 257, 16):
-            assert fhi._lib().ihpr_fused_head_integral_fwd_smem(c, is_bf16) <= fhi._MAX_SMEM
-            assert fhi._bwd_lib().ihpr_fused_head_integral_bwd_smem(c, is_bf16) <= fhi._MAX_SMEM
+    memory, so the predicate needs no size check."""
+    for c in range(16, 257, 16):
+        assert fhi.fused_supported(c, 64, torch.bfloat16)
+        assert fhi._lib().ihpr_fused_head_integral_fwd_smem(c) <= fhi._MAX_SMEM
+        assert fhi._bwd_lib().ihpr_fused_head_integral_bwd_smem(c) <= fhi._MAX_SMEM
     assert fhi._bwd_lib().ihpr_fused_head_integral_bwd_max_channels() == fhi._MAX_CHANNELS
 
 

@@ -16,6 +16,7 @@ magnitude of the reference unless said otherwise.
 
 import copy
 import dataclasses
+import logging
 
 import jax
 import jax.numpy as jnp
@@ -106,7 +107,7 @@ def test_fused_autograd_matches_autograd_through_plain():
     arrays = _head_inputs(PADDED, seed=13)
     g = torch.from_numpy(np.random.RandomState(14).randn(b, j, 3).astype(np.float32))
     leaves = [torch.from_numpy(a).requires_grad_() for a in arrays]
-    coords = fhi.fused_final_conv_integral(*leaves, j, d)
+    coords = fhi.FusedHeadIntegral.apply(leaves[0].reshape(b, h * w, c), *leaves[1:], j, d, w, True)
     fused = torch.autograd.grad(coords, leaves, g)
     ref_leaves = [torch.from_numpy(a).requires_grad_() for a in arrays]
     ref = torch.autograd.grad(
@@ -136,13 +137,19 @@ def test_fused_saves_nothing_without_grad(monkeypatch):
     orig = torch.autograd.function.FunctionCtx.save_for_backward
     monkeypatch.setattr(torch.autograd.function.FunctionCtx, "save_for_backward",
                         lambda self, *t: (saved.append(len(t)), orig(self, *t)))
+    b, h, w, c, j, d = ALIGNED
     feat, kernel, bias = (torch.from_numpy(a).requires_grad_() for a in _head_inputs(ALIGNED))
+    feat = feat.reshape(b, h * w, c)
+
+    def run():  # FusedHeadIntegral as bf16 heads reach it (fp32 heads take the no-plan route)
+        return fhi.FusedHeadIntegral.apply(feat, kernel, bias, j, d, w, torch.is_grad_enabled())
+
     with torch.no_grad():
-        fhi.fused_final_conv_integral(feat, kernel, bias, *ALIGNED[4:])
+        run()
     with torch.inference_mode():
-        fhi.fused_final_conv_integral(feat, kernel, bias, *ALIGNED[4:])
+        run()
     assert saved == []
-    fhi.fused_final_conv_integral(feat, kernel, bias, *ALIGNED[4:])
+    run()
     assert saved == [6]
 
 
@@ -533,28 +540,67 @@ def test_batch_loader_matches_jax():
     assert idx.shape == (4,)
 
 
-def test_trainer_takes_steps_with_a_falling_loss():
-    """Three steps of the Trainer on the CPU (flagship dtypes at a tiny
-    size) on one fixed batch of four synthetic samples: finite, falling
-    loss; the step counter and the loss history follow."""
+def _tiny_trainer(samples, **optim):
+    """A Trainer on the CPU (flagship dtypes at a tiny size) over a fixed
+    set of synthetic samples, batch 4, no augmentation; ``optim`` overrides
+    fields of the optimizer config. Returns (trainer, JAX config)."""
     jcfg = jax_tiny_cfg(compute_dtype="bfloat16", bn_mode="lean", fp32_logits=False)
-    cfg = to_port_cfg(jcfg).replace(
-        data=dataclasses.replace(to_port_cfg(jcfg).data, use_aug=False),
-        optim=dataclasses.replace(to_port_cfg(jcfg).optim, batch_size_per_device=4, lr=1e-2),
-    )
+    jcfg = jcfg.replace(optim=dataclasses.replace(jcfg.optim, batch_size_per_device=4, **optim))
+    cfg = to_port_cfg(jcfg)
+    cfg = cfg.replace(data=dataclasses.replace(cfg.data, use_aug=False))
     ds = datasets.PoseDataset(
         "Human36M", skeletons.H36M,
-        datasets.make_synthetic(skeletons.H36M, 4, seed=0, img_size=200), is_train=True,
+        datasets.make_synthetic(skeletons.H36M, samples, seed=0, img_size=200), is_train=True,
     )
-    trainer = Trainer(cfg, datasets=[ds], num_workers=0, device="cpu")
+    return Trainer(cfg, datasets=[ds], num_workers=0, device="cpu"), jcfg
+
+
+def test_trainer_takes_steps_with_a_falling_loss():
+    """Three one-step epochs of the Trainer on one fixed batch of four
+    synthetic samples: finite, falling loss; the step counter follows, and
+    ``losses`` holds the current epoch's loss after each."""
+    trainer, _ = _tiny_trainer(4, lr=1e-2)
+    losses = []
     try:
         assert trainer.steps_per_epoch == 1
-        state = trainer.train(3)
+        for end in (1, 2, 3):
+            state = trainer.train(end)
+            assert len(trainer.losses) == 1
+            losses += [float(x) for x in trainer.losses]
     finally:
         trainer.close()
-    losses = [float(x) for x in trainer.losses]
     assert state.step == 3 and len(losses) == 3
     assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+
+
+def test_trainer_losses_hold_one_epoch():
+    """Two epochs of two steps leave the second epoch's two losses, not all
+    four: the history does not grow with the run."""
+    trainer, _ = _tiny_trainer(8)
+    try:
+        assert trainer.steps_per_epoch == 2
+        state = trainer.train(2)
+    finally:
+        trainer.close()
+    assert state.step == 4 and len(trainer.losses) == 2
+    assert all(np.isfinite(float(x)) for x in trainer.losses)
+
+
+def test_trainer_logs_the_jax_learning_rate_at_a_decay_boundary(caplog):
+    """The log line's lr is the schedule at the step count after the
+    update, as the JAX trainer logs it: with a decay after epoch 1 of one
+    step, the first line already shows the decayed rate."""
+    trainer, jcfg = _tiny_trainer(4, lr=1e-3, lr_dec_epoch=(1,))
+    caplog.set_level(logging.INFO, logger="ihpr_tpu_torch.engine.trainer")
+    try:
+        trainer.train(2)
+    finally:
+        trainer.close()
+    logged = [r.args[4] for r in caplog.records if r.msg.startswith("epoch %d/%d itr")]
+    ref = jax_lr_schedule(jcfg, trainer.steps_per_epoch)
+    want = [float(ref(step)) for step in (1, 2)]
+    assert want[0] < jcfg.optim.lr  # step 1 is past the boundary
+    np.testing.assert_allclose(logged, want, rtol=1e-6)
 
 
 def test_train_cli_rejects_what_is_not_ported():
