@@ -26,9 +26,11 @@
 5c. K5/K6 (fused 1x1 conv + BN statistics) and K7/K8 (fused 3x3 conv + BN
    statistics), forward and backward: against plain / plain_bwd at every
    shape of the flagship fused step (bf16) and at edge cases (fp32, M = 1,
-   K = N = 8, a 24x18 and a 5x3 plane), two runs bitwise equal; kernel,
-   plain and library (cuBLAS / cuDNN in bf16 + sums) times, summed over
-   one step's launches beside the step's bound.
+   K = N = 8, a 24x18 and a 5x3 plane; for K7/K8's tiles C = 200, N = 136,
+   the flagship plane at B = 1 and a 3x5 plane), two runs bitwise equal;
+   kernel, plain and library (cuBLAS / cuDNN in bf16 + sums) times, summed
+   over one step's launches beside the step's bound; each sub-launch of one
+   bf16 K7 and one K8 call (torch.profiler) beside its own bound.
 6. Serves the flagship config h36m3d_r50 (ResNet-50, 256x256, 18 joints,
    64 depth bins, bf16, flip-test) at max_batch 32 with seeded random
    weights: predict_patches, predict (native warp) and predict_stream.
@@ -41,9 +43,11 @@
 7b. Trains h36m3d_r50 with fused_1x1 and fused_conv3 through the Trainer
    (batch 128): K5/K6 16 and K7/K8 5 launches per step, K1/K2 one; one
    launch of each of K5-K8 in those steps against plain on its saved
-   inputs; device ms per step and peak memory with the flags on and off
-   (the H100 A/B, in turns); a fused_1x1-alone step (K5/K6 26 each); the
-   loss falling over 10 steps on one repeated batch.
+   inputs; a fused_1x1-alone step (K5/K6 26 each); device ms per step and
+   peak memory with both flags, fused_1x1 alone and unfused (the H100 A/B,
+   in turns, medians of three rounds), and each one's device-busy time and
+   K5-K8 share (torch.profiler); the loss falling over 10 steps on one
+   repeated batch.
 8. The heatmap-logits path: h36m3d_r50 at batch 128 takes an optimizer
    step through model(x) -> soft_argmax_from_heatmap -> loss (K3 forward,
    K4 backward), coords and dv against plain on the same logits, device ms
@@ -1091,10 +1095,83 @@ def _time_bn(mod, args, library):
     return {k: statistics.median(v[2]) for k, v in runs.items()}
 
 
+def _launch_ms(fn, calls: int = 3) -> dict:
+    """{kernel name: device ms per launch} of the CUDA kernels fn launches,
+    averaged over ``calls`` calls (torch.profiler's key_averages; fn runs
+    once before, as a warm-up)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / e.count / 1e3 for e in prof.key_averages() if e.self_device_time_total > 0}
+
+
+def _host_us(fn, n: int = 50) -> float:
+    """Host time to enqueue one call of fn, in us (median of 3 runs of n
+    calls), with the card kept busy (torch.cuda._sleep) so that no call
+    waits on it."""
+    fn()
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(5e8))
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        times.append((time.perf_counter() - t0) / n * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def conv_breakdown(cb, args, gpu: str):
+    """Where one bf16 K7 call and one K8 call spend their time: each
+    sub-launch's device ms (torch.profiler, 3 calls) beside its own bound,
+    with TFLOP/s for the products and GB/s for the passes over memory; their
+    sum beside the wrapper's host time to enqueue one call."""
+    x, w9, mul, add, dy, ds1, ds2 = args
+    m, c, n = x.numel() // x.shape[-1], x.shape[-1], w9.shape[-1]
+    conv = 2.0 * m * c * n * 9  # flops of one of the three products
+    y = cb.kernel_fwd(x, w9, mul, add)[0]
+    # (kernel name, label, launches per call, flops, bytes) in launch order.
+    work = {
+        "K7": [("prep_kernel", "prologue pass a", 1, 0, 4 * m * c),
+               ("gemm_kernel<true", "y GEMM + s1/s2 partials", 1, conv, 2 * (m * c + m * n + 9 * c * n)),
+               ("reduce_rows", "s1/s2 reduce", 1, 0, 0)],
+        "K8": [("prep_kernel", "gc + prologue pass", 1, 0, 4 * m * c + 6 * m * n),
+               ("gemm_kernel<false", "da GEMM + prologue backward", 1, conv, 2 * (m * n + 2 * m * c + 9 * c * n)),
+               ("dw_kernel", "dw GEMM partials", 1, conv, 2 * (m * c + m * n)),
+               ("reduce_rows", "dmul/dadd + dw reduces", 2, 0, 0)],
+    }
+    calls = {"K7": lambda: cb.kernel_fwd(x, w9, mul, add),
+             "K8": lambda: cb.kernel_bwd(x, w9, mul, add, y, dy, ds1, ds2)}
+    for key, fn in calls.items():
+        per_launch = _launch_ms(fn)
+        parts, device_ms = [], 0.0
+        for frag, label, per_call, flops, nbytes in work[key]:
+            hits = [t for name, t in per_launch.items() if frag in name]
+            if len(hits) != 1:
+                raise AssertionError(f"{key}: no single {frag} among the profiled kernels {sorted(per_launch)}")
+            ms = hits[0] * per_call
+            device_ms += ms
+            if flops:
+                bound = _bound(flops, nbytes)[0]
+                parts.append(f"{label} {ms:.4f} ms ({flops / ms / 1e9:.0f} TFLOP/s, {bound / ms:.2f} of its bound)")
+            elif nbytes:
+                parts.append(f"{label} {ms:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s, {nbytes / PEAK_HBM_BYTES * 1e3 / ms:.2f} "
+                             f"of its bound)")
+            else:
+                parts.append(f"{label} {ms:.4f} ms")
+        print(f"{key} bf16 {tuple(x.shape)} x {tuple(w9.shape)}, one call's launches: {'; '.join(parts)}; device "
+              f"{device_ms:.4f} ms in all, the wrapper's host enqueue {_host_us(fn):.1f} us per call  [{gpu}]")
+
+
 def bn_kernel_phase(mm, cb, gpu: str):
     """K5/K6 and K7/K8 against their plain versions at every shape of the
     flagship fused step (bf16, with the prologue where the step has it) and
-    at edge cases (fp32, M = 1, K = N = 8, the R152 stage-3 plane, B = 1);
+    at edge cases (fp32, M = 1, K = N = 8, the R152 stage-3 plane, B = 1,
+    and the bf16 K7/K8 tiles' edges); K7/K8's sub-launches at the flagship;
     two runs bitwise equal; each timed (kernel, plain, library) and summed
     over one step's launches. Returns, per kernel name, (max |y or dx
     diff|, step ms, step plain ms, step library ms, step bound ms, bound by)."""
@@ -1145,8 +1222,13 @@ def bn_kernel_phase(mm, cb, gpu: str):
                   f"{t['library_fwd']:.4f}; bwd kernel {t['kernel_bwd']:.4f} ({work[2] / t['kernel_bwd'] / 1e9:.1f} "
                   f"TFLOP/s, bound {_bound(work[2], work[3])[0]:.4f}), plain {t['plain_bwd']:.4f}, cuDNN "
                   f"{t['library_bwd']:.4f}  [{gpu}]")
+            conv_breakdown(cb, args, gpu)
         del args
-    for shape, prologue in (((2, 24, 18, 256, 256), True), ((1, 16, 16, 64, 64), False), ((1, 5, 3, 8, 16), True)):
+    # Edges: W = 18 and 3 (boxes run past the image), no prologue, C and N
+    # not multiples of 64, the flagship plane at B = 1, an image narrower
+    # than a box.
+    for shape, prologue in (((2, 24, 18, 256, 256), True), ((1, 16, 16, 64, 64), False), ((1, 5, 3, 8, 16), True),
+                            ((5, 16, 16, 200, 136), True), ((1, 16, 16, 256, 256), True), ((2, 3, 5, 64, 64), True)):
         b, h, w, c, n = shape
         args = _bn_inputs((b, h, w), c, n, 9, torch.bfloat16, prologue, SEED + 40)
         ey, edx = check_bn(cb, args, f"K7/K8 bf16 ({b}, {h}, {w}, {c}) x (9, {c}, {n})")
@@ -1191,12 +1273,13 @@ def fused_train_phase(fhi, iv, mm, cb, gpu: str):
     """h36m3d_r50 with fused_1x1 and fused_conv3 trains through the Trainer
     at batch 128 (the main path, counted): K5/K6 16 and K7/K8 5 launches
     per step, K1/K2 one. One launch of each of K5-K8 in those steps is held
-    against the plain versions on its saved inputs. Then the H100 A/B:
-    device ms per step and peak memory with the flags on and off (the same
-    model, in turns), a fused_1x1-alone step (K5/K6 26 each), and the loss
-    falling over 10 steps on one repeated batch. Returns the main path's
-    K5-K8 launches (the fused_1x1 step's included) and the saved launches'
-    largest differences."""
+    against the plain versions on its saved inputs. A fused_1x1-alone step
+    (counted: K5/K6 26 each). Then the H100 A/B: device ms per step and
+    peak memory with both flags, fused_1x1 alone and unfused (the same
+    model, in turns, medians of three rounds) with each one's device-busy
+    time, and the loss falling over 10 steps on one repeated batch. Returns
+    the main path's K5-K8 launches (the fused_1x1 step's included) and the
+    saved launches' largest differences."""
     from ihpr_tpu_torch.config import get_config
     from ihpr_tpu_torch.data.pipeline import prefetch_to_device
     from ihpr_tpu_torch.engine.trainer import Trainer
@@ -1251,19 +1334,6 @@ def fused_train_phase(fhi, iv, mm, cb, gpu: str):
                            mod.plain_bwd(*b_args), dtype, rows)["dx"],
             )
 
-        step = lambda: trainer.lean_step_fn(batch)  # noqa: E731
-        timing, peak = {"fused": [], "unfused": []}, {}
-        for name in ("fused", "unfused", "unfused", "fused"):  # in turns
-            set_flags(name == "fused", name == "fused")
-            torch.cuda.reset_peak_memory_stats()
-            timing[name].append(_cuda_ms(step, 3, reps=1))
-            peak[name] = torch.cuda.max_memory_allocated() / 2**30
-        fused_ms, unfused_ms = (statistics.median(timing[k]) for k in ("fused", "unfused"))
-        print(f"fused train A/B, h36m3d_r50 batch {TRAIN_BATCH}: fused_1x1 + fused_conv3 {fused_ms:.3f} ms/step "
-              f"({TRAIN_BATCH / fused_ms * 1e3:.1f} img/s, peak {peak['fused']:.2f} GiB), unfused "
-              f"{unfused_ms:.3f} ms/step ({TRAIN_BATCH / unfused_ms * 1e3:.1f} img/s, peak "
-              f"{peak['unfused']:.2f} GiB) (CUDA events, same model, in turns)  [{gpu}]")
-
         set_flags(True, False)
         trainer.lean_step_fn(batch)  # warm-up of the stage-3 1x1 shapes
         torch.cuda.synchronize()
@@ -1275,8 +1345,40 @@ def fused_train_phase(fhi, iv, mm, cb, gpu: str):
         # --------------------------------------------------------
         if alone != (1, 1, 0, 0, 26, 26, 0, 0):
             raise AssertionError(f"a fused_1x1 step launched K1-K8 {alone} times")
-        alone_ms = _cuda_ms(step, 3, reps=1)
-        print(f"fused_1x1 alone: one step launched K1-K8 {alone}; {alone_ms:.3f} ms/step (CUDA events)  [{gpu}]")
+        print(f"fused_1x1 alone: one step launched K1-K8 {alone}")
+
+        # The A/B: the same model with both flags, fused_1x1 alone and
+        # unfused, in turns (the order reversed every other round), three
+        # rounds of three steps each; medians.
+        step = lambda: trainer.lean_step_fn(batch)  # noqa: E731
+        flags = {"both flags": (True, True), "fused_1x1 alone": (True, False), "unfused": (False, False)}
+        timing, peak = {k: [] for k in flags}, {}
+        for rnd in range(3):
+            for name in (flags if rnd % 2 == 0 else reversed(flags)):
+                set_flags(*flags[name])
+                torch.cuda.reset_peak_memory_stats()
+                timing[name].append(_cuda_ms(step, 3, reps=1))
+                peak[name] = torch.cuda.max_memory_allocated() / 2**30
+        for name, ts in timing.items():
+            ms = statistics.median(ts)
+            print(f"fused train A/B, h36m3d_r50 batch {TRAIN_BATCH}, {name}: {ms:.3f} ms/step median of "
+                  f"{', '.join(f'{t:.3f}' for t in ts)} ({TRAIN_BATCH / ms * 1e3:.1f} img/s, peak {peak[name]:.2f} "
+                  f"GiB) (CUDA events, same model, in turns)  [{gpu}]")
+        # What the device does in one step of each: busy time (the kernels'
+        # device time, one stream), against the median above, and K5-K8's share.
+        for name, f in flags.items():
+            set_flags(*f)
+            step()
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                step()
+                torch.cuda.synchronize()
+            kinds = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
+            busy = sum(e.self_device_time_total for e in kinds) / 1e3
+            fused = sum(e.self_device_time_total for e in kinds if e.key.split("::")[0].split()[-1] in ("c3", "cbn")) / 1e3
+            ms = statistics.median(timing[name])
+            print(f"fused train profile, {name}: device busy {busy:.3f} ms per step, idle share {1 - busy / ms:.3f} "
+                  f"of the median; K5-K8 kernels {fused:.3f} ms; largest: "
+                  + "; ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f}" for e in kinds[:3]) + f"  [{gpu}]")
 
         set_flags(True, True)
         falling = [float(trainer.lean_step_fn(batch)["loss"]) for _ in range(10)]

@@ -10,33 +10,44 @@ backward: the counterpart of ``ihpr_tpu/ops/conv_bn.py``.
 x is NHWC (B, H, W, C) and w HWIO (3, 3, C, N), as in JAX; the kernels
 take w as (9, C, N) in the tap order t = (dy+1)*3 + (dx+1).
 
-- K7, ``csrc/conv_bn_fwd.cu`` (the port of ``_fwd_kernel``): the conv as
-  nine shifted matmuls (zero outside the image: the SAME padding) with the
-  prologue and the statistics epilogue;
-- K8, ``csrc/conv_bn_bwd.cu`` (the port of ``_bwd_kernel``): per tap
-  ``dw_t = shift_t(a)^T gc`` and ``da = sum_t shift_{-t}(gc) w_t^T``, with
-  g folded and rounded as in K6.
+- K7, ``csrc/conv_bn_fwd.cu`` (the port of ``_fwd_kernel``): the conv with
+  the prologue and the statistics epilogue;
+- K8, ``csrc/conv_bn_bwd.cu`` (the port of ``_bwd_kernel``): g folded and
+  rounded as in K6, ``da = sum_t shift_{-t}(gc) w_t^T`` with the
+  prologue's backward, and per tap ``dw_t = shift_t(a)^T gc``.
 
-They share ``csrc/conv_bn_common.cuh`` and the ctypes launchers of
-``ops/matmul_bn.py``. ``FusedConv3x3BN`` is the autograd Function: a CUDA
-tensor goes to the kernels, which launch or raise; a CPU tensor goes to
-``plain`` / ``plain_bwd``. ``supported`` and ``profitable`` are JAX's route
-predicates, copied; as in ``matmul_bn`` they pick the Bottleneck blocks
-that take the fused route and do not gate the kernels, which take any B,
-H, W and C, N multiples of 8.
+The route inside each library is chosen by dtype. bf16 takes the Hopper
+kernels of ``csrc/conv3_hopper.cuh``: one elementwise pass writes a (and,
+backward, gc) to scratch, then TMA reads each tap as a shifted 4-D box
+(zero outside the image: the SAME padding) and wgmma multiplies. fp32 takes
+v1's FMA kernels of ``csrc/conv_bn_common.cuh`` (shared with K5/K6):
+wgmma has no fp32 mode, and TF32 would not be fp32. Neither route is a
+fallback for the other; no failure is caught.
+
+``FusedConv3x3BN`` is the autograd Function: a CUDA tensor goes to the
+kernels, which launch or raise; a CPU tensor goes to ``plain`` /
+``plain_bwd``. ``kernel_fwd`` and ``kernel_bwd`` count one launch per call,
+however many CUDA kernels the call runs. ``supported`` and ``profitable``
+are JAX's route predicates, copied; as in ``matmul_bn`` they pick the
+Bottleneck blocks that take the fused route and do not gate the kernels,
+which take any B, H, W and C, N multiples of 8.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import os
 
 import torch
 import torch.nn.functional as F
 
-from ihpr_tpu_torch.ops import matmul_bn
+from ihpr_tpu_torch.ops import _build
 from ihpr_tpu_torch.ops.fused_head_integral import no_tf32
 from ihpr_tpu_torch.ops.integral_volume import _acc_dtype
-from ihpr_tpu_torch.ops.matmul_bn import _VMEM_BUDGET, fold_g, prologue, prologue_bwd
+from ihpr_tpu_torch.ops.matmul_bn import (
+    _VMEM_BUDGET, _ptr, _stream, check_cotangents, check_kernel_inputs, fold_g, prologue, prologue_bwd,
+)
 
 _FWD_LIB = "conv_bn_fwd"
 _BWD_LIB = "conv_bn_bwd"
@@ -139,24 +150,103 @@ def _rows(t: torch.Tensor) -> torch.Tensor:
     return t.view(-1, t.shape[-1])
 
 
+@functools.cache
+def _fwd_lib() -> ctypes.CDLL:
+    lib = _build.load(_FWD_LIB)
+    lib.ihpr_conv_bn_fwd_partials.restype = ctypes.c_int
+    lib.ihpr_conv_bn_fwd_partials.argtypes = [ctypes.c_int] * 5
+    lib.ihpr_conv_bn_fwd.restype = ctypes.c_int
+    lib.ihpr_conv_bn_fwd.argtypes = (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] + [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    )
+    return lib
+
+
+@functools.cache
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load(_BWD_LIB)
+    lib.ihpr_conv_bn_bwd_dx_partials.restype = ctypes.c_int
+    lib.ihpr_conv_bn_bwd_dx_partials.argtypes = [ctypes.c_int] * 5
+    lib.ihpr_conv_bn_bwd_dw_partials.restype = ctypes.c_int
+    lib.ihpr_conv_bn_bwd_dw_partials.argtypes = [ctypes.c_int] * 6
+    lib.ihpr_conv_bn_bwd.restype = ctypes.c_int
+    lib.ihpr_conv_bn_bwd.argtypes = (
+        [ctypes.c_void_p] * 13 + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    )
+    return lib
+
+
+def _prologue_scratch(x2, mul):
+    """The (M, C) bf16 buffer the bf16 route writes a = relu(x*mul + add)
+    into; None without the prologue (a is x) and in fp32 (whose kernels
+    recompute a)."""
+    return torch.empty_like(x2) if mul is not None and x2.dtype == torch.bfloat16 else None
+
+
 def kernel_fwd(x: torch.Tensor, w9: torch.Tensor, mul=None, add=None):
-    """K7 on the same contract as ``plain``."""
+    """K7 on the same contract as ``plain``. Launches on the current stream
+    without synchronizing; raises on any input it does not take and on a
+    refused launch."""
     global launches
     b, h, w, _ = x.shape
-    y, s1, s2 = matmul_bn.launch_fwd(_FWD_LIB, _rows(x), w9, mul, add, h, w)
+    x2 = _rows(x)
+    m, k, n, is_bf16 = check_kernel_inputs(x2, w9, mul, add)
+    if w9.shape[0] != 9:
+        raise ValueError(f"w9 {tuple(w9.shape)} is not (9, C, N)")
+    lib = _fwd_lib()
+    parts = lib.ihpr_conv_bn_fwd_partials(b, h, w, n, is_bf16)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    part = torch.empty((parts, 2, n), **f32)
+    a = _prologue_scratch(x2, mul)
+    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    s = torch.empty((2, n), **f32)
+    with torch.cuda.device(x.device):
+        err = lib.ihpr_conv_bn_fwd(
+            x2.data_ptr(), w9.data_ptr(), _ptr(mul), _ptr(add), _ptr(a), y.data_ptr(), part.data_ptr(),
+            parts, s.data_ptr(), b, h, w, k, n, is_bf16, _stream(),
+        )
+    if err:
+        raise RuntimeError(f"{_FWD_LIB} launch failed: CUDA error {err}")
     launches += 1
-    return y.view(b, h, w, -1), s1, s2
+    return y.view(b, h, w, n), s[0], s[1]
 
 
 def kernel_bwd(x, w9, mul, add, y, dy, ds1, ds2):
-    """K8 on the same contract as ``plain_bwd`` (dw in fp32)."""
+    """K8 on the same contract as ``plain_bwd`` (dw in fp32). Launches on
+    the current stream without synchronizing; raises on any input it does
+    not take and on a refused launch."""
     global bwd_launches
-    _, h, w, _ = x.shape
-    dx, dw, dmul, dadd = matmul_bn.launch_bwd(
-        _BWD_LIB, _rows(x), w9, mul, add, _rows(y), _rows(dy), ds1, ds2, h, w
-    )
+    b, h, w, _ = x.shape
+    x2 = _rows(x)
+    m, k, n, is_bf16 = check_kernel_inputs(x2, w9, mul, add)
+    if w9.shape[0] != 9:
+        raise ValueError(f"w9 {tuple(w9.shape)} is not (9, C, N)")
+    y2, dy2 = _rows(y), _rows(dy)
+    ds = check_cotangents(x2, y2, dy2, ds1, ds2, n)
+    lib = _bwd_lib()
+    f32 = dict(dtype=torch.float32, device=x.device)
+    a = _prologue_scratch(x2, mul)
+    gc = torch.empty_like(y2)
+    dx = torch.empty_like(x2)
+    dw = torch.empty((9, k, n), **f32)
+    dmd = torch.empty((2, k), **f32)
+    with torch.cuda.device(x.device):  # dw's partial count follows this card's SM count
+        parts_x = lib.ihpr_conv_bn_bwd_dx_partials(b, h, w, k, is_bf16)
+        parts_w = lib.ihpr_conv_bn_bwd_dw_partials(b, h, w, k, n, is_bf16)
+        part_x = torch.empty((parts_x, 2, k), **f32)
+        part_w = torch.empty((parts_w, 9, k, n), **f32)
+        err = lib.ihpr_conv_bn_bwd(
+            x2.data_ptr(), w9.data_ptr(), _ptr(mul), _ptr(add), y2.data_ptr(), dy2.data_ptr(),
+            ds.data_ptr(), _ptr(a), gc.data_ptr(), dx.data_ptr(), dw.data_ptr(), dmd.data_ptr(),
+            part_x.data_ptr(), parts_x, part_w.data_ptr(), parts_w, b, h, w, k, n, is_bf16, _stream(),
+        )
+    if err:
+        raise RuntimeError(f"{_BWD_LIB} launch failed: CUDA error {err}")
     bwd_launches += 1
-    return dx.view(x.shape), dw, dmul, dadd
+    dx = dx.view(x.shape)
+    if mul is None:
+        return dx, dw, None, None
+    return dx, dw, dmd[0], dmd[1]
 
 
 class FusedConv3x3BN(torch.autograd.Function):

@@ -1,13 +1,15 @@
-// Conv + BatchNorm-statistics kernels for Hopper (sm_90a), shared by
-//   K5 matmul_bn_fwd.cu   (replaces ihpr_tpu/ops/matmul_bn.py:_fwd_kernel)
-//   K6 matmul_bn_bwd.cu   (replaces ihpr_tpu/ops/matmul_bn.py:_bwd_kernel)
-//   K7 conv_bn_fwd.cu     (replaces ihpr_tpu/ops/conv_bn.py:_fwd_kernel)
-//   K8 conv_bn_bwd.cu     (replaces ihpr_tpu/ops/conv_bn.py:_bwd_kernel)
+// Conv + BatchNorm-statistics kernels (mma.sync and FMA) for Hopper (sm_90a), used by
+//   K5 matmul_bn_fwd.cu   (replaces ihpr_tpu/ops/matmul_bn.py:_fwd_kernel), bf16 and fp32
+//   K6 matmul_bn_bwd.cu   (replaces ihpr_tpu/ops/matmul_bn.py:_bwd_kernel), bf16 and fp32
+//   K7 conv_bn_fwd.cu     (replaces ihpr_tpu/ops/conv_bn.py:_fwd_kernel), fp32 only
+//   K8 conv_bn_bwd.cu     (replaces ihpr_tpu/ops/conv_bn.py:_bwd_kernel), fp32 only
+// bf16 K7/K8 run the TMA + wgmma kernels of conv3_hopper.cuh, which also take
+// reduce_rows, load2 and the fp32 partial counts from here.
 //
 // What they compute. Rows are pixels: x (M, K) row-major, the NHWC
 // activation of B images of H x W (M = B*H*W) or any (M, K) matrix. A 1x1
 // conv (K5/K6, TAPS = 1) is y = a @ w with w (K, N); a stride-1 SAME 3x3 conv
-// (K7/K8, TAPS = 9) is y = sum_t shift_t(a) @ w_t with w (9, K, N) in HWIO
+// (fp32 K7/K8, TAPS = 9) is y = sum_t shift_t(a) @ w_t with w (9, K, N) in HWIO
 // tap order t = (dy+1)*3 + (dx+1), where shift_t(a)[p] is a at pixel
 // (i+dy, j+dx) of p's image and 0 outside it (the SAME padding). With the
 // prologue, a = relu(x*mul + add) in fp32 rounded to x's dtype, else a = x.
@@ -43,12 +45,13 @@
 //
 // What bounds them on an H100. At the flagship shapes the 1x1s are bandwidth
 // bound (stage-1 conv1, (524288, 256) x (256, 64): 335 MB, ~100 us at
-// 3.35 TB/s, 17 GFLOP) and the 3x3 is compute bound ((128, 16, 16, 256) x
-// (9, 256, 256): 38.7 GFLOP, ~39 us at 989 TFLOP/s). This first version uses
-// mma.sync from shared memory and recomputes the 3x3's prologue once per
-// tap, so it reaches neither: wgmma + TMA, larger warp tiles and one
-// prologue per element are the next steps. The backward also writes gc
-// (M x N) once and reads it twice where the TPU kernel forms g in VMEM.
+// 3.35 TB/s, 17 GFLOP). This version uses mma.sync from shared memory
+// (P2 measured that route's ceiling at 253 TFLOP/s, issue-bound), 64 x 64
+// CTA tiles and 4 stages within 48 KB of static shared memory, so K5/K6
+// reach neither bound; wgmma + TMA as in conv3_hopper.cuh is their next
+// step. fp32 operands have no tensor-core mode that stays fp32 and run on
+// the FMA units (67 TFLOP/s peak). The backward also writes gc (M x N)
+// once and reads it twice where the TPU kernel forms g in VMEM.
 
 #pragma once
 

@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks of the fused head kernels K1/K2
-// (fused_head_integral_fwd.cu, fused_head_integral_bwd.cu): TMA tensor maps
-// and loads, mbarriers, wgmma shared-memory descriptors and the wgmma
-// shapes those kernels issue, warpgroup register reallocation and named
-// barriers. Everything here is plain PTX; no library kernel is called.
+// (fused_head_integral_fwd.cu, fused_head_integral_bwd.cu) and the bf16 3x3
+// conv kernels K7/K8 (conv3_hopper.cuh): TMA tensor maps (2-D, 3-D, and the
+// 4-D NHWC map whose shifted boxes make a 3x3 conv's taps) and loads,
+// mbarriers, wgmma shared-memory descriptors and the wgmma shapes those
+// kernels issue, warpgroup register reallocation and named barriers.
+// Everything here is plain PTX; no library kernel is called.
 //
 // Shared-memory tiles are 64 bf16 wide (128 bytes a row) with the 128-byte
 // swizzle that TMA writes (16-byte chunk i of row r lands at chunk i ^ (r % 8)),
@@ -11,7 +13,10 @@
 //            k-step s (16 columns) at tile + 32 s bytes;
 //   MN-major (rows are K, the 64 columns are M or N): desc_sw128(tile, lbo, 1024),
 //            k-step s (16 rows) at tile + 2048 s bytes; lbo is the distance to
-//            the next 64-wide block along M or N (unused for a 64-wide operand).
+//            the next 64-wide block along M or N (unused for a 64-wide operand;
+//            a 256-wide B is four 64-row boxes, lbo = 8192).
+// A wider K-major B is its 64-row boxes stacked (256 rows for n256), same
+// descriptor.
 // tests/test_torch_kernels.py holds each mode against torch.matmul through
 // hopper_selftest.cu.
 
@@ -49,7 +54,7 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor of `rank` dimensions (dims innermost first, byte strides of
+// A bf16 tensor of `rank` (2-4) dimensions (dims innermost first, byte strides of
 // dimensions 1.. in strides) read in boxes of 64 x box[1] (x box[2]) with the
 // 128-byte swizzle. Elements outside dims read as 0. Returns 0, or the
 // CUresult of the encoding (cudaErrorSymbolNotFound without the entry point).
@@ -57,7 +62,7 @@ inline int make_tmap(CUtensorMap* map, const void* base, int rank, const uint64_
                      const uint64_t* strides, const uint32_t* box) {
   EncodeTiled fn = encode_tiled();
   if (!fn) return (int)cudaErrorSymbolNotFound;
-  const cuuint32_t elem[3] = {1, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
                         const_cast<void*>(base), reinterpret_cast<const cuuint64_t*>(dims),
                         reinterpret_cast<const cuuint64_t*>(strides),
@@ -84,6 +89,20 @@ inline int tmap_batched(CUtensorMap* map, const void* base, uint64_t batch, uint
   const uint64_t dims[3] = {cols, rows, batch}, strides[2] = {cols * 2, cols * rows * 2};
   const uint32_t box[3] = {kBox, kBox, 1};
   return make_tmap(map, base, 3, dims, strides, box);
+}
+
+// An NHWC (batch, height, width, channels) bf16 tensor in boxes of 64
+// channels x bw columns x bh rows x 1 image: one box lands as a 64-row tile
+// (bw * bh = 64, row r = pixel (r / bw, r % bw) of the box) with the 128-byte
+// swizzle. A box may start at negative or past-the-end coordinates: every
+// pixel or channel outside the tensor reads 0, which is a 3x3 conv's SAME
+// padding. channels % 8 == 0 (TMA's 16-byte pitch).
+inline int tmap_nhwc(CUtensorMap* map, const void* base, uint64_t batch, uint64_t height,
+                     uint64_t width, uint64_t channels, uint32_t bw, uint32_t bh) {
+  const uint64_t dims[4] = {channels, width, height, batch};
+  const uint64_t strides[3] = {channels * 2, width * channels * 2, height * width * channels * 2};
+  const uint32_t box[4] = {kBox, bw, bh, 1};
+  return make_tmap(map, base, 4, dims, strides, box);
 }
 
 // --- device: barriers, TMA -------------------------------------------------------
@@ -143,6 +162,16 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Box at (c0, c1, c2, c3), innermost first; coordinates may be negative.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 
@@ -248,6 +277,49 @@ __device__ __forceinline__ void mma_ss_n192(float (&d)[96], uint64_t da, uint64_
         "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
         "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
         "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// d (m64 x n256) += A (smem, descriptor da) * B (smem, descriptor db);
+// TA / TB: 1 when that operand is MN-major (transposed), 0 when K-major.
+template <int TA, int TB>
+__device__ __forceinline__ void mma_ss_n256(float (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87,"
+      "%88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103,"
+      "%104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119,"
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 

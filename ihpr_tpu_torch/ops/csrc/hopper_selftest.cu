@@ -1,14 +1,18 @@
-// A one-tile GEMM per operand mode of hopper.cuh, for the card tests: it
-// holds each descriptor layout K1/K2 use against torch.matmul before the
-// kernels build on it (tests/test_torch_kernels.py). Not on any model path.
+// One-tile checks of hopper.cuh's building blocks, for the card tests: each
+// descriptor layout K1/K2 and K7/K8 issue, held against torch.matmul, and
+// the 4-D NHWC box K7/K8 read their taps with, held against a slice of the
+// zero-padded tensor, before the kernels build on them
+// (tests/test_torch_kernels.py). Not on any model path.
 //
 //   D (64 x N, fp32) = A (64 x K) * B (K x N), K = 64, 128, 192 or 256, bf16.
-//   mode 0: A K-major (a = A, 64 x K), B K-major (b = B^T, N x K); N = 64 or
-//           192 (K1's logits; K2's with N = 64)
-//   mode 1: A K-major, B MN-major (b = B, K x 64)
-//   mode 2: A M-major (a = A^T, K x 64), B MN-major (K2's dW = feat^T dv)
-//   mode 3: A from registers (a = A), B MN-major (K2's dfeat = dv W_j^T)
-// Operands come in by TMA into 128-byte-swizzled tiles, as in K1/K2.
+//   mode 0: A K-major (a = A, 64 x K), B K-major (b = B^T, N x K); N = 64,
+//           192 (K1's logits; K2's with N = 64) or 256 (K8's da)
+//   mode 1: A K-major, B MN-major (b = B, K x N); N = 64 or 256 (K7's y)
+//   mode 2: A M-major (a = A^T, K x 64), B MN-major; N = 64 (K2's dW =
+//           feat^T dv) or 256 (K8's dw)
+//   mode 3: A from registers (a = A), B MN-major, N = 64 (K2's dfeat = dv W_j^T)
+// Operands come in by TMA into 128-byte-swizzled tiles, as in the kernels;
+// an MN-major B of N = 256 is four 64-column boxes 8192 bytes apart.
 
 #include "hopper.cuh"
 
@@ -27,6 +31,11 @@ template <>
 struct Acc<192> {
   template <int TA, int TB>
   static __device__ void ss(float (&d)[96], uint64_t a, uint64_t b) { mma_ss_n192<TA, TB>(d, a, b); }
+};
+template <>
+struct Acc<256> {
+  template <int TA, int TB>
+  static __device__ void ss(float (&d)[128], uint64_t a, uint64_t b) { mma_ss_n256<TA, TB>(d, a, b); }
 };
 
 template <int N>
@@ -52,7 +61,8 @@ __global__ void __launch_bounds__(128)
     for (int kb = 0; kb < nkb; ++kb) {
       if (!a_reg) tma_load_2d(a_s + kb * kBoxBytes, &amap, bar, a_mn ? 0 : kb * kBox, a_mn ? kb * kBox : 0);
       if (b_mn) {
-        tma_load_2d(b_s + kb * kBoxBytes, &bmap, bar, 0, kb * kBox);
+        for (int nb = 0; nb < N / kBox; ++nb)
+          tma_load_2d(b_s + (kb * (N / kBox) + nb) * kBoxBytes, &bmap, bar, nb * kBox, kb * kBox);
       } else {
         for (int nb = 0; nb < N / kBox; ++nb)
           tma_load_2d(b_s + kb * N * 128 + nb * kBoxBytes, &bmap, bar, kb * kBox, nb * kBox);
@@ -86,7 +96,7 @@ __global__ void __launch_bounds__(128)
   for (int s = 0; s < 4 * kBox / 16; ++s) {
     if (s >= K / 16) break;
     const int kb = s >> 2, q = s & 3;
-    const uint64_t db = b_mn ? desc_sw128(b_s + kb * kBoxBytes + q * 2048, kBoxBytes, 1024)
+    const uint64_t db = b_mn ? desc_sw128(b_s + kb * N * 128 + q * 2048, kBoxBytes, 1024)
                              : desc_sw128(b_s + kb * N * 128 + q * 32, 16, 1024);
     if (a_reg) {
       if constexpr (N == 64) mma_rs_n64(d, f[s], db);
@@ -121,6 +131,29 @@ int launch(const CUtensorMap& am, const CUtensorMap& bm, const void* a, float* o
   return (int)cudaGetLastError();
 }
 
+// The box of `map` at (c0, c1, c2, c3), unswizzled: out[r * 64 + c] is
+// channel c of the box's row r.
+__global__ void __launch_bounds__(128)
+    tma4d_kernel(const __grid_constant__ CUtensorMap map, __nv_bfloat16* __restrict__ out, int c0,
+                 int c1, int c2, int c3) {
+  __shared__ __align__(1024) unsigned char tile[kBoxBytes];
+  __shared__ uint64_t bar;
+  if (threadIdx.x == 0) {
+    mbar_init(&bar, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_arrive_expect_tx(&bar, kBoxBytes);
+    tma_load_4d(tile, &map, &bar, c0, c1, c2, c3);
+  }
+  mbar_wait(&bar, 0);
+  for (int e = threadIdx.x; e < kBox * kBox; e += blockDim.x) {
+    const int r = e / kBox, c = e % kBox;
+    out[e] = *reinterpret_cast<const __nv_bfloat16*>(tile + r * 128 + (((c >> 3) ^ (r & 7)) << 4) + (c & 7) * 2);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -131,14 +164,32 @@ extern "C" {
 int ihpr_hopper_selftest(const void* a, const void* b, float* out, int mode, int K, int N,
                          void* stream) {
   if (mode < 0 || mode > 3 || K % kBox || K < kBox || K > 4 * kBox) return -1;
-  if ((N != 64 && mode != 0) || (N != 64 && N != 192)) return -1;
+  if (!(N == 64 || (N == 192 && mode == 0) || (N == 256 && mode < 3))) return -1;
   const bool a_mn = mode == 2, b_mn = mode >= 1;
   CUtensorMap am, bm;
   int err = tmap_matrix(&am, a, a_mn ? K : 64, a_mn ? 64 : K);
   if (!err) err = tmap_matrix(&bm, b, b_mn ? K : N, b_mn ? N : K);
   if (err) return err;
   auto st = static_cast<cudaStream_t>(stream);
-  return N == 64 ? launch<64>(am, bm, a, out, mode, K, st) : launch<192>(am, bm, a, out, mode, K, st);
+  if (N == 64) return launch<64>(am, bm, a, out, mode, K, st);
+  return N == 192 ? launch<192>(am, bm, a, out, mode, K, st) : launch<256>(am, bm, a, out, mode, K, st);
+}
+
+// a (batch, height, width, channels) bf16, contiguous, 16-byte aligned;
+// out (64, 64) bf16: the box of tmap_nhwc(a, ..., bw, bh) at channel c0,
+// column j0, row i0 of image b (any of them may lie outside a). Returns 0,
+// a CUresult of the encoding or the cudaError_t of the launch; -1 for bw *
+// bh != 64 or channels % 8 != 0.
+int ihpr_hopper_selftest_tma4d(const void* a, void* out, int batch, int height, int width,
+                               int channels, int bw, int bh, int c0, int j0, int i0, int b,
+                               void* stream) {
+  if (bw * bh != kBox || bw < 1 || channels % 8) return -1;
+  CUtensorMap map;
+  const int err = tmap_nhwc(&map, a, batch, height, width, channels, bw, bh);
+  if (err) return err;
+  tma4d_kernel<<<1, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+      map, static_cast<__nv_bfloat16*>(out), c0, j0, i0, b);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -14,7 +14,8 @@ the counterpart of ``ihpr_tpu/ops/matmul_bn.py``.
   rounded y), rounds g to x's dtype, recomputes ``a`` from x and returns
   dx, dw (fp32), dmul and dadd.
 
-Both share ``csrc/conv_bn_common.cuh`` with K7/K8 (``ops/conv_bn.py``).
+Both share ``csrc/conv_bn_common.cuh`` with the fp32 route of K7/K8
+(``ops/conv_bn.py``, which also takes ``check_kernel_inputs`` from here).
 ``FusedMatmulBN`` is the autograd Function around the pair: a CUDA tensor
 goes to the kernels, which launch or raise; a CPU tensor goes to the plain
 versions here (``plain``, ``plain_bwd``), which are also what the kernels
@@ -148,7 +149,7 @@ def plain_bwd(x, w, mul, add, y, dy, ds1, ds2):
     return dx, dw, dmul, dadd
 
 
-# --- the kernels (shared with ops/conv_bn.py) -----------------------------------
+# --- the kernels ----------------------------------------------------------------
 
 
 def _ptr(t):
@@ -161,7 +162,7 @@ def _stream():
 
 def check_kernel_inputs(x2, w3, mul, add):
     """What K5-K8 require of x (M, K), w (TAPS, K, N) and the prologue's
-    mul/add; returns (M, K, N, is_bf16)."""
+    mul/add; returns (M, K, N, is_bf16). Shared with ``ops/conv_bn.py``."""
     if not (x2.is_cuda and w3.is_cuda and x2.device == w3.device):
         raise ValueError("x and w must be CUDA tensors on one device")
     if x2.dtype not in (torch.bfloat16, torch.float32) or w3.dtype != x2.dtype:
@@ -182,99 +183,89 @@ def check_kernel_inputs(x2, w3, mul, add):
     return m, k, n, int(x2.dtype == torch.bfloat16)
 
 
-@functools.cache
-def _fwd_lib(name: str) -> ctypes.CDLL:
-    lib = _build.load(name)
-    groups = getattr(lib, f"ihpr_{name}_groups")
-    groups.restype, groups.argtypes = ctypes.c_int, [ctypes.c_int] * 2
-    fn = getattr(lib, f"ihpr_{name}")
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    return lib
-
-
-def launch_fwd(name: str, x2, w3, mul, add, height: int, width: int):
-    """The forward kernel ``name`` on x (M, K) and w (TAPS, K, N): returns
-    y (M, N) in x's dtype, s1 and s2 (N,) fp32. Launches on the current
-    stream without synchronizing; raises on any input the kernel does not
-    take and on a refused launch."""
-    m, k, n, is_bf16 = check_kernel_inputs(x2, w3, mul, add)
-    lib = _fwd_lib(name)
-    f32 = dict(dtype=torch.float32, device=x2.device)
-    part = torch.empty((getattr(lib, f"ihpr_{name}_groups")(m, n), 2, n), **f32)
-    y = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
-    s = torch.empty((2, n), **f32)
-    with torch.cuda.device(x2.device):
-        err = getattr(lib, f"ihpr_{name}")(
-            x2.data_ptr(), w3.data_ptr(), _ptr(mul), _ptr(add), y.data_ptr(), part.data_ptr(),
-            s.data_ptr(), m, height, width, k, n, is_bf16, _stream(),
-        )
-    if err:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    return y, s[0], s[1]
-
-
-@functools.cache
-def _bwd_lib(name: str) -> ctypes.CDLL:
-    lib = _build.load(name)
-    for suffix, nargs in (("dx_groups", 2), ("dw_groups", 3)):
-        f = getattr(lib, f"ihpr_{name}_{suffix}")
-        f.restype, f.argtypes = ctypes.c_int, [ctypes.c_int] * nargs
-    fn = getattr(lib, f"ihpr_{name}")
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    return lib
-
-
-def launch_bwd(name: str, x2, w3, mul, add, y2, dy2, ds1, ds2, height: int, width: int):
-    """The backward kernel ``name``: x (M, K), w (TAPS, K, N), y and dy
-    (M, N), ds1 and ds2 (N,) fp32 -> dx (M, K) in x's dtype, dw (TAPS, K, N)
-    fp32, and dmul, dadd (K,) fp32 (None without mul). Launches on the
-    current stream without synchronizing; raises on any input the kernel
-    does not take and on a refused launch."""
-    m, k, n, is_bf16 = check_kernel_inputs(x2, w3, mul, add)
+def check_cotangents(x2, y2, dy2, ds1, ds2, n: int) -> torch.Tensor:
+    """What K6/K8 require of y and dy (M, N) beside x (M, K), and of ds1,
+    ds2 (N,); returns ds = [ds1; ds2] (2, N), as the kernels take it."""
+    m = x2.shape[0]
     for label, t in (("y", y2), ("dy", dy2)):
         if t.shape != (m, n) or t.dtype != x2.dtype or t.device != x2.device or not t.is_contiguous():
             raise ValueError(f"{label} must be contiguous {x2.dtype} ({m}, {n}) on {x2.device}")
     ds = torch.stack([ds1, ds2])
     if ds.dtype != torch.float32 or ds.shape != (2, n) or ds.device != x2.device:
         raise ValueError(f"ds1/ds2 must be float32 ({n},) on {x2.device}")
-    taps = w3.shape[0]
-    lib = _bwd_lib(name)
-    f32 = dict(dtype=torch.float32, device=x2.device)
-    part_x = torch.empty((getattr(lib, f"ihpr_{name}_dx_groups")(m, k), 2, k), **f32)
-    part_w = torch.empty((getattr(lib, f"ihpr_{name}_dw_groups")(m, k, n), taps, k, n), **f32)
-    gc = torch.empty_like(y2)
-    dx = torch.empty_like(x2)
-    dw = torch.empty((taps, k, n), **f32)
-    dmd = torch.empty((2, k), **f32)
-    with torch.cuda.device(x2.device):
-        err = getattr(lib, f"ihpr_{name}")(
-            x2.data_ptr(), w3.data_ptr(), _ptr(mul), _ptr(add), y2.data_ptr(), dy2.data_ptr(),
-            ds.data_ptr(), gc.data_ptr(), dx.data_ptr(), dw.data_ptr(), dmd.data_ptr(),
-            part_x.data_ptr(), part_w.data_ptr(), m, height, width, k, n, is_bf16, _stream(),
-        )
-    if err:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    if mul is None:
-        return dx, dw, None, None
-    return dx, dw, dmd[0], dmd[1]
+    return ds
+
+
+@functools.cache
+def _fwd_lib() -> ctypes.CDLL:
+    lib = _build.load(_FWD_LIB)
+    lib.ihpr_matmul_bn_fwd_groups.restype = ctypes.c_int
+    lib.ihpr_matmul_bn_fwd_groups.argtypes = [ctypes.c_int] * 2
+    lib.ihpr_matmul_bn_fwd.restype = ctypes.c_int
+    lib.ihpr_matmul_bn_fwd.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    return lib
+
+
+@functools.cache
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load(_BWD_LIB)
+    for suffix, nargs in (("dx_groups", 2), ("dw_groups", 3)):
+        f = getattr(lib, f"ihpr_matmul_bn_bwd_{suffix}")
+        f.restype, f.argtypes = ctypes.c_int, [ctypes.c_int] * nargs
+    lib.ihpr_matmul_bn_bwd.restype = ctypes.c_int
+    lib.ihpr_matmul_bn_bwd.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    return lib
 
 
 def kernel_fwd(x: torch.Tensor, w: torch.Tensor, mul=None, add=None):
-    """K5 on the same contract as ``plain``."""
+    """K5 on the same contract as ``plain``: x (M, K), w (K, N). Launches on
+    the current stream without synchronizing; raises on any input the
+    kernel does not take and on a refused launch."""
     global launches
-    out = launch_fwd(_FWD_LIB, x, w.unsqueeze(0), mul, add, 1, 1)
+    m, k, n, is_bf16 = check_kernel_inputs(x, w.unsqueeze(0), mul, add)
+    lib = _fwd_lib()
+    f32 = dict(dtype=torch.float32, device=x.device)
+    part = torch.empty((lib.ihpr_matmul_bn_fwd_groups(m, n), 2, n), **f32)
+    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    s = torch.empty((2, n), **f32)
+    with torch.cuda.device(x.device):
+        err = lib.ihpr_matmul_bn_fwd(
+            x.data_ptr(), w.data_ptr(), _ptr(mul), _ptr(add), y.data_ptr(), part.data_ptr(),
+            s.data_ptr(), m, 1, 1, k, n, is_bf16, _stream(),
+        )
+    if err:
+        raise RuntimeError(f"{_FWD_LIB} launch failed: CUDA error {err}")
     launches += 1
-    return out
+    return y, s[0], s[1]
 
 
 def kernel_bwd(x, w, mul, add, y, dy, ds1, ds2):
-    """K6 on the same contract as ``plain_bwd`` (dw in fp32)."""
+    """K6 on the same contract as ``plain_bwd`` (dw in fp32). Launches on
+    the current stream without synchronizing; raises on any input the
+    kernel does not take and on a refused launch."""
     global bwd_launches
-    dx, dw, dmul, dadd = launch_bwd(_BWD_LIB, x, w.unsqueeze(0), mul, add, y, dy, ds1, ds2, 1, 1)
+    m, k, n, is_bf16 = check_kernel_inputs(x, w.unsqueeze(0), mul, add)
+    ds = check_cotangents(x, y, dy, ds1, ds2, n)
+    lib = _bwd_lib()
+    f32 = dict(dtype=torch.float32, device=x.device)
+    part_x = torch.empty((lib.ihpr_matmul_bn_bwd_dx_groups(m, k), 2, k), **f32)
+    part_w = torch.empty((lib.ihpr_matmul_bn_bwd_dw_groups(m, k, n), k, n), **f32)
+    gc = torch.empty_like(y)
+    dx = torch.empty_like(x)
+    dw = torch.empty((k, n), **f32)
+    dmd = torch.empty((2, k), **f32)
+    with torch.cuda.device(x.device):
+        err = lib.ihpr_matmul_bn_bwd(
+            x.data_ptr(), w.data_ptr(), _ptr(mul), _ptr(add), y.data_ptr(), dy.data_ptr(),
+            ds.data_ptr(), gc.data_ptr(), dx.data_ptr(), dw.data_ptr(), dmd.data_ptr(),
+            part_x.data_ptr(), part_w.data_ptr(), m, 1, 1, k, n, is_bf16, _stream(),
+        )
+    if err:
+        raise RuntimeError(f"{_BWD_LIB} launch failed: CUDA error {err}")
     bwd_launches += 1
-    return dx, dw[0], dmul, dadd
+    if mul is None:
+        return dx, dw, None, None
+    return dx, dw, dmd[0], dmd[1]
 
 
 class FusedMatmulBN(torch.autograd.Function):

@@ -188,6 +188,19 @@ def test_kernels_take_cuda_tensors_only():
     assert matmul_bn.launches == conv_bn.launches == 0
 
 
+def test_conv_bn_kernel_bwd_takes_cuda_tensors_only():
+    """K8's launcher raises on CPU tensors before it asks the library for
+    scratch sizes or counts a launch."""
+    x, w, mul, add = (torch.from_numpy(a) for a in _conv_inputs(1, 4, 4, 8, 8, True, seed=6))
+    w9 = w.reshape(9, 8, 8).contiguous()
+    y = dy = torch.zeros(1, 4, 4, 8)
+    ds = torch.zeros(8)
+    conv_bn.bwd_launches = 0
+    with pytest.raises(ValueError, match="CUDA"):
+        conv_bn.kernel_bwd(x, w9, mul, add, y, dy, ds, ds)
+    assert conv_bn.bwd_launches == 0
+
+
 # --- the route predicates --------------------------------------------------------------
 
 

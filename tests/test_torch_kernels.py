@@ -12,6 +12,7 @@ import ctypes
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from ihpr_tpu_torch.config import DataConfig, ModelConfig, get_config
 from ihpr_tpu_torch.models.pose_net import build_pose_net
@@ -56,16 +57,18 @@ def _selftest(a, b, mode, k, n):
 @pytest.mark.parametrize(
     "mode, k, n",
     [(0, 64, 64), (0, 256, 64), (0, 256, 192), (1, 128, 64), (2, 64, 64), (2, 256, 64),
-     (3, 64, 64), (3, 128, 64)],
+     (3, 64, 64), (3, 128, 64), (0, 256, 256), (1, 256, 256), (2, 128, 256)],
     ids=["kmajor_ab", "kmajor_ab_k256", "kmajor_n192", "mnmajor_b", "mmajor_a",
-         "mmajor_a_k256", "regs_a_mnmajor_b", "regs_a_mnmajor_b_k128"],
+         "mmajor_a_k256", "regs_a_mnmajor_b", "regs_a_mnmajor_b_k128", "kmajor_n256",
+         "mnmajor_b_n256", "mmajor_a_n256"],
 )
 def test_wgmma_descriptor_modes_match_matmul(cuda, mode, k, n):
-    """Each operand layout of hopper.cuh that K1/K2 issue (K-major A and
-    B; MN-major B; M-major A; A from registers with MN-major B) through
-    TMA, 128-byte swizzled tiles and wgmma, against torch.matmul in fp32 on
-    the same bf16 values: products are exact, so only the sum order differs
-    (1e-5 of the largest)."""
+    """Each operand layout of hopper.cuh that K1/K2 and K7/K8 issue (K-major
+    A and B; MN-major B; M-major A; A from registers with MN-major B; the
+    n256 shapes of K7's y, K8's da and K8's dw) through TMA, 128-byte
+    swizzled tiles and wgmma, against torch.matmul in fp32 on the same bf16
+    values: products are exact, so only the sum order differs (1e-5 of the
+    largest)."""
     g = torch.Generator().manual_seed(mode * 1000 + k + n)
     a = torch.randn(64, k, generator=g).to(cuda, torch.bfloat16)
     b = torch.randn(k, n, generator=g).to(cuda, torch.bfloat16)
@@ -74,6 +77,43 @@ def test_wgmma_descriptor_modes_match_matmul(cuda, mode, k, n):
     got = _selftest(a_arg, b_arg, mode, k, n)
     want = a.float() @ b.float()
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def _tma4d(a, bw, bh, c0, j0, i0, b):
+    """The (64, 64) box of hopper.cuh's 4-D NHWC map of a at (channel c0,
+    column j0, row i0, image b), unswizzled (hopper_selftest.cu)."""
+    lib = _build.load("hopper_selftest")
+    fn = lib.ihpr_hopper_selftest_tma4d
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    out = torch.empty(64, 64, device=a.device, dtype=torch.bfloat16)
+    err = fn(a.data_ptr(), out.data_ptr(), *a.shape, bw, bh, c0, j0, i0, b,
+             torch.cuda.current_stream().cuda_stream)
+    assert err == 0, f"tma4d: error {err}"
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape, bw", [((2, 5, 7, 72), 8), ((3, 16, 16, 256), 16)], ids=["ragged_w8", "flagship_w16"])
+def test_tma4d_shifted_boxes_match_padded_slices(cuda, shape, bw):
+    """The 4-D NHWC box K7/K8 read their taps with (tmap_nhwc +
+    tma_load_4d) at the four image corners shifted one pixel outwards
+    (negative coordinates included), wholly past the image, and at the last
+    channel block (past C at C = 72): bitwise the matching slice of the
+    zero-padded tensor, the 3x3 conv's SAME padding."""
+    bh = 64 // bw
+    nb, h, w, c = shape
+    a = torch.randn(*shape, generator=torch.Generator().manual_seed(7)).to(cuda, torch.bfloat16)
+    pad = 64
+    padded = F.pad(a, (0, 64, pad, pad, pad, pad))
+    corners = [(-1, -1), (-1, w - bw + 1), (h - bh + 1, -1), (h - bh + 1, w - bw + 1), (h, w)]
+    for b in (0, nb - 1):
+        for i0, j0 in corners:
+            for c0 in (0, (c - 1) // 64 * 64):
+                got = _tma4d(a, bw, bh, c0, j0, i0, b)
+                want = padded[b, pad + i0:pad + i0 + bh, pad + j0:pad + j0 + bw, c0:c0 + 64]
+                assert torch.equal(got, want.reshape(64, 64)), (b, i0, j0, c0)
 
 
 # --- K1: the fused head forward ---------------------------------------------------
@@ -563,9 +603,14 @@ def test_matmul_bn_kernels_match_plain(cuda, shape, prologue, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
 @pytest.mark.parametrize("prologue", [False, True], ids=["plain", "prologue"])
-@pytest.mark.parametrize("shape", [(1, 5, 3, 8, 16), (3, 7, 9, 32, 24), (2, 24, 18, 256, 256), (1, 16, 16, 64, 64)],
-                         ids=["w3", "ragged", "r152_stage3", "b1"])
+@pytest.mark.parametrize("shape", [(1, 5, 3, 8, 16), (3, 7, 9, 32, 24), (2, 24, 18, 256, 256), (1, 16, 16, 64, 64),
+                                   (5, 16, 16, 200, 136), (1, 16, 16, 256, 256), (2, 3, 5, 64, 64)],
+                         ids=["w3", "ragged", "r152_stage3", "b1", "c200_n136", "flagship_b1", "narrow"])
 def test_conv_bn_kernels_match_plain(cuda, shape, prologue, dtype):
+    """K7/K8 against plain at shapes that cut the bf16 route's tiles: C and
+    N not multiples of 64 (c200_n136), the flagship plane at B = 1, an
+    image narrower than a box (narrow: 5 x 3 in 8 x 8 boxes), W = 18 and 3
+    (boxes that run past the image); fp32 takes the FMA route."""
     b, h, w, c, n = shape
     got, want = _run_bn(conv_bn, *_bn_inputs((b, h, w), c, n, 9, cuda, dtype, prologue))
     _close_bn(got, want, dtype, shape)
