@@ -29,8 +29,9 @@
    K = N = 8, a 24x18 and a 5x3 plane; for K7/K8's tiles C = 200, N = 136,
    the flagship plane at B = 1 and a 3x5 plane), two runs bitwise equal;
    kernel, plain and library (cuBLAS / cuDNN in bf16 + sums) times, summed
-   over one step's launches beside the step's bound; each sub-launch of one
-   bf16 K7 and one K8 call (torch.profiler) beside its own bound.
+   over one step's launches beside the step's bound; K6 at each shape with
+   its bytes, its share of the bound and its sub-launches (torch.profiler);
+   each sub-launch of one bf16 K7 and one K8 call beside its own bound.
 6. Serves the flagship config h36m3d_r50 (ResNet-50, 256x256, 18 joints,
    64 depth bins, bf16, flip-test) at max_batch 32 with seeded random
    weights: predict_patches, predict (native warp) and predict_stream.
@@ -69,7 +70,9 @@
 12. P2, the tiled matmul probe (ihpr_tpu_torch.tools.mxu_int8_probe): its
     main times cuBLAS bf16 / torch._int_mm, every tile of the kernel in bf16
     and int8 at 4096^3 and the conv9 / cuDNN pair; every tile against
-    plain_mm at 4096^3 (int8 bitwise, bf16 1e-4 of max|plain|).
+    plain_mm at 4096^3 (int8 bitwise, bf16 1e-4 of max|plain|), its rate,
+    share of the bound and ratio to the library; the int8 transpose's share
+    of one call (torch.profiler).
 
 In 6-12 the kernels' launch counters are set to 0 just before the path
 runs and read just after (in 11-12 the path is the tool's main); each kernel of the path must have launched as
@@ -1108,6 +1111,12 @@ def _launch_ms(fn, calls: int = 3) -> dict:
     return {e.key: e.self_device_time_total / e.count / 1e3 for e in prof.key_averages() if e.self_device_time_total > 0}
 
 
+def _kernel_label(name: str) -> str:
+    """A profiler kernel name without its return type, anonymous namespace
+    and arguments."""
+    return name.removeprefix("void ").replace("(anonymous namespace)::", "").split("(")[0]
+
+
 def _host_us(fn, n: int = 50) -> float:
     """Host time to enqueue one call of fn, in us (median of 3 runs of n
     calls), with the card kept busy (torch.cuda._sleep) so that no call
@@ -1194,14 +1203,25 @@ def bn_kernel_phase(mm, cb, gpu: str):
         t = _time_bn(mm, args, _library_mm)
         work = _bn_work((m,), k, n, 1, 2)
         add_step("k5", "k6", t, work, launches)
+        bwd_bound = _bound(work[2], work[3])[0]
         print(f"K5/K6 ({m}, {k}) x ({k}, {n}) bf16 x{launches}/step: fwd kernel {t['kernel_fwd']:.4f} ms "
               f"(bound {_bound(work[0], work[1])[0]:.4f}), plain {t['plain_fwd']:.4f}, cuBLAS+sums "
               f"{t['library_fwd']:.4f}; bwd kernel {t['kernel_bwd']:.4f} (bound "
-              f"{_bound(work[2], work[3])[0]:.4f}), plain {t['plain_bwd']:.4f}, cuBLAS "
+              f"{bwd_bound:.4f}), plain {t['plain_bwd']:.4f}, cuBLAS "
               f"{t['library_bwd']:.4f}  [{gpu}]")
-        del args
+        x, w, mul, add, dy, ds1, ds2 = args
+        y = mm.kernel_fwd(x, w, mul, add)[0]
+        parts = _launch_ms(lambda: mm.kernel_bwd(x, w, mul, add, y, dy, ds1, ds2))
+        print(f"K6 ({m}, {k}) x ({k}, {n}){' +prologue' if prologue else ''}: {t['kernel_bwd']:.4f} ms, "
+              f"{work[3] / 1e6:.1f} MB, {bwd_bound / t['kernel_bwd']:.2f} of its bound; sub-launches "
+              + "; ".join(f"{_kernel_label(name)} {ms:.4f} ms" for name, ms in parts.items())
+              + f" (device {sum(parts.values()):.4f})  [{gpu}]")
+        del args, x, w, mul, add, dy, ds1, ds2, y
+    # Edges: M below a tile, K and N off the 64-grid, and K or N within one
+    # box with the other past 256 (bf16 K6 takes two kernels there).
     for dtype, shape, prologue in ((torch.float32, (4096, 256, 128), True), (torch.bfloat16, (1, 8, 8), True),
-                                   (torch.float32, (1, 8, 8), False), (torch.bfloat16, (1000, 24, 40), True)):
+                                   (torch.float32, (1, 8, 8), False), (torch.bfloat16, (1000, 24, 40), True),
+                                   (torch.bfloat16, (300, 64, 512), True), (torch.bfloat16, (300, 512, 64), False)):
         m, k, n = shape
         args = _bn_inputs((m,), k, n, 1, dtype, prologue, SEED + 20)
         ey, edx = check_bn(mm, args, f"K5/K6 {str(dtype)[6:]} ({m}, {k}) x ({k}, {n})")
@@ -1374,7 +1394,7 @@ def fused_train_phase(fhi, iv, mm, cb, gpu: str):
                 torch.cuda.synchronize()
             kinds = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
             busy = sum(e.self_device_time_total for e in kinds) / 1e3
-            fused = sum(e.self_device_time_total for e in kinds if e.key.split("::")[0].split()[-1] in ("c3", "cbn")) / 1e3
+            fused = sum(e.self_device_time_total for e in kinds if e.key.split("::")[0].split()[-1] in ("c3", "cbn", "mbh")) / 1e3
             ms = statistics.median(timing[name])
             print(f"fused train profile, {name}: device busy {busy:.3f} ms per step, idle share {1 - busy / ms:.3f} "
                   f"of the median; K5-K8 kernels {fused:.3f} ms; largest: "
@@ -1545,11 +1565,27 @@ def probe_mm_phase(pm, gpu: str):
         errs[dtype] = pm.check_tiles(a, b)
         plain_ms[dtype] = _cuda_ms(lambda: pm.plain_mm(a, b), 2, reps=3)
         tag = pm.TAGS[dtype]
+        bound = 2 * size**3 / pm.PEAK[dtype] * 1e3
+        lib_ms = results[f"dot_{tag}"]
+        lib_name = "torch._int_mm" if dtype == torch.int8 else "cuBLAS"
+        for bm, bn, bk in pm.TILES[dtype]:
+            ms = results[f"pallas_{tag}_{bm}x{bn}x{bk}"]
+            print(f"probe_mm {tag} tile ({bm}, {bn}, {bk}): {ms:.4f} ms, {2 * size**3 / ms / 1e9:.1f} "
+                  f"T{'OP' if dtype == torch.int8 else 'FLOP'}/s, {bound / ms:.2f} of the bound, "
+                  f"{ms / lib_ms:.2f}x {lib_name} ({lib_ms:.4f} ms)  [{gpu}]")
         best = min((k for k in results if k.startswith(f"pallas_{tag}_")), key=results.get)
+        if dtype == torch.int8:  # the share of B's transpose in one call of the best tile
+            bm, bn, bk = map(int, best[len(tag) + 8:].split("x"))
+            parts = _launch_ms(lambda: pm.kernel_mm(a, b, bm, bn, bk), calls=5)
+            transpose = sum(t for n, t in parts.items() if "transpose" in n)
+            print(f"probe_mm int8 {best[len(tag) + 8:]}, one call's launches: "
+                  + "; ".join(f"{_kernel_label(name)} {t:.4f} ms" for name, t in parts.items())
+                  + (f"; the transpose {transpose / sum(parts.values()):.2f} of the call's device time"
+                     if transpose else "; the profiler recorded no transpose launch") + f"  [{gpu}]")
         print(f"probe_mm {tag} {size}^3: every tile vs plain_mm max|diff| {errs[dtype]:.3g}"
               f"{' (bitwise)' if dtype == torch.int8 else ''}; best tile {best[len(tag) + 8:]} "
-              f"{results[best]:.4f} ms, library {results[f'dot_{tag}']:.4f} ms, plain {plain_ms[dtype]:.4f} ms, "
-              f"bound {2 * size**3 / pm.PEAK[dtype] * 1e3:.4f} ms (operations)  [{gpu}]")
+              f"{results[best]:.4f} ms, library {lib_ms:.4f} ms, plain {plain_ms[dtype]:.4f} ms, "
+              f"bound {bound:.4f} ms (operations)  [{gpu}]")
         del a, b
     cb_, ch, cw, cc = PROBE_CONV
     conv_bound = 2 * cb_ * ch * cw * cc * cc * 9 / PEAK_BF16_FLOPS * 1e3

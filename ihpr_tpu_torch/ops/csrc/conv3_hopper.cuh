@@ -112,8 +112,6 @@ struct Geo {
   }
 };
 
-__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
-
 // Ranges of 64-pixel tiles the dw kernel splits the pixels into: about one
 // CTA per SM of `sms`, at least one range, at most one tile per range.
 inline int dw_ranges(const Geo& g, int K, int N, int sms) {
@@ -123,12 +121,6 @@ inline int dw_ranges(const Geo& g, int K, int N, int sms) {
 }
 
 // --- the ring ------------------------------------------------------------------
-
-__device__ __forceinline__ unsigned char* smem_base() {
-  extern __shared__ unsigned char smem_raw[];
-  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
-                                          ~uintptr_t(1023));
-}
 
 // Producer (one thread): fills stage s % kStages with load(stage, bar, s)
 // once every consumer warp has freed it.
@@ -478,13 +470,6 @@ __global__ void __launch_bounds__(kCtaThreads, 1)
 }
 
 // --- launchers ---------------------------------------------------------------------------
-
-inline int sm_count() {
-  int device = 0, sms = 132;
-  if (cudaGetDevice(&device) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  return sms;
-}
 
 template <bool FWD, bool APPLY>
 int launch_gemm(const CUtensorMap& amap, const CUtensorMap& wmap, const Geo& g, int K, int ncols,

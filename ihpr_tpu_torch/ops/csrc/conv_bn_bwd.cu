@@ -23,7 +23,7 @@ int ihpr_conv_bn_bwd_dx_partials(int B, int H, int W, int K, int is_bf16) {
 // current device (bf16: ranges of pixel tiles, one dw CTA per SM's share).
 int ihpr_conv_bn_bwd_dw_partials(int B, int H, int W, int K, int N, int is_bf16) {
   if (!is_bf16) return cbn::dw_groups(B * H * W, K, N, 9);
-  return c3::dw_ranges(c3::Geo(B, H, W), K, N, c3::sm_count());
+  return c3::dw_ranges(c3::Geo(B, H, W), K, N, hopper::sm_count());
 }
 
 // x (B, H, W, K) NHWC; w (9, K, N); y, dy (B, H, W, N): contiguous, all

@@ -1,10 +1,11 @@
 // Conv + BatchNorm-statistics kernels (mma.sync and FMA) for Hopper (sm_90a), used by
 //   K5 matmul_bn_fwd.cu   (replaces ihpr_tpu/ops/matmul_bn.py:_fwd_kernel), bf16 and fp32
-//   K6 matmul_bn_bwd.cu   (replaces ihpr_tpu/ops/matmul_bn.py:_bwd_kernel), bf16 and fp32
+//   K6 matmul_bn_bwd.cu   (replaces ihpr_tpu/ops/matmul_bn.py:_bwd_kernel), fp32 only
 //   K7 conv_bn_fwd.cu     (replaces ihpr_tpu/ops/conv_bn.py:_fwd_kernel), fp32 only
 //   K8 conv_bn_bwd.cu     (replaces ihpr_tpu/ops/conv_bn.py:_bwd_kernel), fp32 only
-// bf16 K7/K8 run the TMA + wgmma kernels of conv3_hopper.cuh, which also take
-// reduce_rows, load2 and the fp32 partial counts from here.
+// bf16 K6 runs the TMA + wgmma kernels of matmul_bn_hopper.cuh and bf16 K7/K8
+// those of conv3_hopper.cuh; both take reduce_rows (and the fp32 routes' partial
+// counts) from here, conv3_hopper.cuh also load2.
 //
 // What they compute. Rows are pixels: x (M, K) row-major, the NHWC
 // activation of B images of H x W (M = B*H*W) or any (M, K) matrix. A 1x1
@@ -46,11 +47,11 @@
 // What bounds them on an H100. At the flagship shapes the 1x1s are bandwidth
 // bound (stage-1 conv1, (524288, 256) x (256, 64): 335 MB, ~100 us at
 // 3.35 TB/s, 17 GFLOP). This version uses mma.sync from shared memory
-// (P2 measured that route's ceiling at 253 TFLOP/s, issue-bound), 64 x 64
-// CTA tiles and 4 stages within 48 KB of static shared memory, so K5/K6
-// reach neither bound; wgmma + TMA as in conv3_hopper.cuh is their next
+// (P2's v1 measured that route's ceiling at 253 TFLOP/s, issue-bound), 64 x
+// 64 CTA tiles and 4 stages within 48 KB of static shared memory, so bf16 K5
+// reaches neither bound; wgmma + TMA as in matmul_bn_hopper.cuh is its next
 // step. fp32 operands have no tensor-core mode that stays fp32 and run on
-// the FMA units (67 TFLOP/s peak). The backward also writes gc (M x N)
+// the FMA units (67 TFLOP/s peak). The fp32 backward also writes gc (M x N)
 // once and reads it twice where the TPU kernel forms g in VMEM.
 
 #pragma once
@@ -500,6 +501,11 @@ int launch_fwd(const void* x, const void* w, const float* mul, const float* add,
              : launch_fwd_t<float, TAPS, false>(x, w, mul, add, y, part, s, g, K, N, st);
 }
 
+// x (M, K), w (TAPS, K, N), y, dy (M, N): T. mul, add (K,) fp32 or null (APPLY
+// without). ds (2, N) fp32 = [ds1; ds2]. Scratch: gc (M, N) T, part_x
+// (tile_groups(M, K), 2, K) and part_w (dw_groups(M, K, N, TAPS), TAPS, K, N)
+// fp32. Out: dx (M, K) T, dw (TAPS, K, N) fp32, dmd (2, K) fp32 = [dmul;
+// dadd] (with APPLY only).
 template <typename T, int TAPS, bool APPLY>
 int launch_bwd_t(const void* x, const void* w, const float* mul, const float* add, const void* y,
                  const void* dy, const float* ds, void* gc, void* dx, float* dw, float* dmd,
@@ -533,27 +539,6 @@ int launch_bwd_t(const void* x, const void* w, const float* mul, const float* ad
   const int cols = TAPS * K * N;
   reduce_rows<<<ceil_div(cols, 32), dim3(32, 8), 0, st>>>(part_w, gw, cols, dw);
   return (int)cudaGetLastError();
-}
-
-// x (M, K), w (TAPS, K, N), y, dy (M, N): T. mul, add (K,) fp32 or null. ds
-// (2, N) fp32 = [ds1; ds2]. Scratch: gc (M, N) T, part_x (tile_groups(M, K),
-// 2, K) and part_w (dw_groups(M, K, N, TAPS), TAPS, K, N) fp32. Out: dx (M, K)
-// T, dw (TAPS, K, N) fp32, dmd (2, K) fp32 = [dmul; dadd] (with mul only).
-template <int TAPS>
-int launch_bwd(const void* x, const void* w, const float* mul, const float* add, const void* y,
-               const void* dy, const float* ds, void* gc, void* dx, float* dw, float* dmd,
-               float* part_x, float* part_w, Geom g, int K, int N, int is_bf16,
-               cudaStream_t st) {
-  using bf = __nv_bfloat16;
-  if (is_bf16)
-    return mul ? launch_bwd_t<bf, TAPS, true>(x, w, mul, add, y, dy, ds, gc, dx, dw, dmd, part_x,
-                                              part_w, g, K, N, st)
-               : launch_bwd_t<bf, TAPS, false>(x, w, mul, add, y, dy, ds, gc, dx, dw, dmd, part_x,
-                                               part_w, g, K, N, st);
-  return mul ? launch_bwd_t<float, TAPS, true>(x, w, mul, add, y, dy, ds, gc, dx, dw, dmd, part_x,
-                                               part_w, g, K, N, st)
-             : launch_bwd_t<float, TAPS, false>(x, w, mul, add, y, dy, ds, gc, dx, dw, dmd, part_x,
-                                                part_w, g, K, N, st);
 }
 
 }  // namespace cbn

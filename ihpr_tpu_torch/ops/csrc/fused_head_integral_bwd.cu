@@ -142,9 +142,7 @@ __global__ void __launch_bounds__(kCtaThreads, 1)
     dfeat_kernel(const __grid_constant__ CUtensorMap fmap, const __grid_constant__ CUtensorMap wmap,
                  const __nv_bfloat16* __restrict__ bias, const float* __restrict__ rows,
                  __nv_bfloat16* __restrict__ dfeat, int hw, int width, int C, int J, int D) {
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* base = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* base = smem_base();
   const DfeatLayout L(C);
   const int nkb = L.nkb;
   unsigned char* feat_s = base;  // [2 warpgroups][nkb][64 rows]
@@ -271,9 +269,7 @@ __global__ void __launch_bounds__(kCtaThreads, 1)
               const __nv_bfloat16* __restrict__ bias, const float* __restrict__ rows,
               float* __restrict__ part, float* __restrict__ dbpart, int batch, int hw, int width,
               int C, int J, int D) {
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* base = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* base = smem_base();
   const DwLayout L(C);
   const int nkb = L.nkb;
   unsigned char* w_s = base;              // [nkb][64 rows of Wt_j]
@@ -456,9 +452,7 @@ int ihpr_fused_head_integral_bwd_max_channels() { return kMaxC; }
 // of the dW kernel, with as many (joint, range) CTAs as the card has SMs
 // (one wave), at least one range and at most one tile per range.
 int ihpr_fused_head_integral_bwd_partials(int batch, int hw, int J) {
-  int device = 0, sms = 132;
-  if (cudaGetDevice(&device) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const int sms = hopper::sm_count();
   const long long tiles = (long long)batch * ((hw + kBox - 1) / kBox);
   return 2 * (int)std::max(1LL, std::min<long long>(sms / J, tiles));
 }

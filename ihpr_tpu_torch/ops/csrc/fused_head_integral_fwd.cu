@@ -105,9 +105,7 @@ __global__ void __launch_bounds__(kCtaThreads, 1)
                                    float* __restrict__ coords, float* __restrict__ m_out,
                                    float* __restrict__ s_out, int hw, int width, int C, int J,
                                    int D) {
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* base = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* base = smem_base();
   const Layout L(C);
   const int nkb = L.nkb;
   unsigned char* w_s = base;

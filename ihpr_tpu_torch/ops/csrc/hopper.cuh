@@ -1,22 +1,30 @@
 // Hopper (sm_90a) building blocks of the fused head kernels K1/K2
-// (fused_head_integral_fwd.cu, fused_head_integral_bwd.cu) and the bf16 3x3
-// conv kernels K7/K8 (conv3_hopper.cuh): TMA tensor maps (2-D, 3-D, and the
-// 4-D NHWC map whose shifted boxes make a 3x3 conv's taps) and loads,
-// mbarriers, wgmma shared-memory descriptors and the wgmma shapes those
-// kernels issue, warpgroup register reallocation and named barriers.
-// Everything here is plain PTX; no library kernel is called.
+// (fused_head_integral_fwd.cu, fused_head_integral_bwd.cu), the bf16 conv +
+// BN-statistics kernels K6 (matmul_bn_hopper.cuh) and K7/K8
+// (conv3_hopper.cuh), and the matmul probe P2 (probe_mm.cu): TMA tensor maps
+// (bf16 or 8-bit; 2-D, 3-D, and the 4-D NHWC map whose shifted boxes make a
+// 3x3 conv's taps) and loads, mbarriers, wgmma shared-memory descriptors and
+// the wgmma shapes those kernels issue (bf16 -> fp32, s8 -> s32), warpgroup
+// register reallocation and named barriers. Everything here is plain PTX; no
+// library kernel is called.
 //
-// Shared-memory tiles are 64 bf16 wide (128 bytes a row) with the 128-byte
-// swizzle that TMA writes (16-byte chunk i of row r lands at chunk i ^ (r % 8)),
-// and start 1024-byte aligned. One such tile serves wgmma both ways:
+// Shared-memory tiles are 64 rows of 128 bytes (64 bf16 or 128 int8) with
+// the 128-byte swizzle that TMA writes (16-byte chunk i of row r lands at
+// chunk i ^ (r % 8)), and start 1024-byte aligned. One bf16 tile serves
+// wgmma both ways:
 //   K-major  (rows are M or N, the 64 columns are K): desc_sw128(tile, 16, 1024),
 //            k-step s (16 columns) at tile + 32 s bytes;
 //   MN-major (rows are K, the 64 columns are M or N): desc_sw128(tile, lbo, 1024),
 //            k-step s (16 rows) at tile + 2048 s bytes; lbo is the distance to
 //            the next 64-wide block along M or N (unused for a 64-wide operand;
-//            a 256-wide B is four 64-row boxes, lbo = 8192).
+//            a 128- or 256-wide B is two or four 64-row boxes, lbo = 8192).
 // A wider K-major B is its 64-row boxes stacked (256 rows for n256), same
-// descriptor.
+// descriptor. An int8 tile is K-major only (8-bit wgmma takes no transposed
+// operand); its k-step (32 int8) is the same 32 bytes.
+// A kernel may rewrite a tile in place between the TMA load and the wgmma
+// that reads it: byte (r, 16 i + b) of the tile holds column 8 (i ^ (r % 8))
+// + b / 2 of row r (bf16), and the writes are ordered before the wgmma by
+// fence_proxy_async and a barrier.
 // tests/test_torch_kernels.py holds each mode against torch.matmul through
 // hopper_selftest.cu.
 
@@ -30,6 +38,17 @@
 namespace hopper {
 
 // --- host: TMA tensor maps -----------------------------------------------------
+
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// SMs of the current device (132 on an H100 SXM where the query fails): the
+// kernels' persistent grids and partial counts follow it.
+inline int sm_count() {
+  int device = 0, sms = 132;
+  if (cudaGetDevice(&device) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  return sms;
+}
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -54,16 +73,18 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor of `rank` (2-4) dimensions (dims innermost first, byte strides of
-// dimensions 1.. in strides) read in boxes of 64 x box[1] (x box[2]) with the
-// 128-byte swizzle. Elements outside dims read as 0. Returns 0, or the
-// CUresult of the encoding (cudaErrorSymbolNotFound without the entry point).
+// A tensor of `rank` (2-4) dimensions of bf16 or (type UINT8) 8-bit elements
+// (dims innermost first, byte strides of dimensions 1.. in strides) read in
+// boxes of 128 bytes x box[1] (x box[2]) with the 128-byte swizzle. Elements
+// outside dims read as 0. Returns 0, or the CUresult of the encoding
+// (cudaErrorSymbolNotFound without the entry point).
 inline int make_tmap(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
-                     const uint64_t* strides, const uint32_t* box) {
+                     const uint64_t* strides, const uint32_t* box,
+                     CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   EncodeTiled fn = encode_tiled();
   if (!fn) return (int)cudaErrorSymbolNotFound;
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
+  const CUresult r = fn(map, type, (cuuint32_t)rank,
                         const_cast<void*>(base), reinterpret_cast<const cuuint64_t*>(dims),
                         reinterpret_cast<const cuuint64_t*>(strides),
                         reinterpret_cast<const cuuint32_t*>(box), elem,
@@ -80,6 +101,14 @@ inline int tmap_matrix(CUtensorMap* map, const void* base, uint64_t rows, uint64
   const uint64_t dims[2] = {cols, rows}, strides[1] = {cols * 2};
   const uint32_t box[2] = {kBox, kBox};
   return make_tmap(map, base, 2, dims, strides, box);
+}
+
+// A row-major (rows, cols) int8 matrix in boxes of 128 columns x 64 rows
+// (the same 8192-byte swizzled tile); cols % 16 == 0.
+inline int tmap_matrix_s8(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols) {
+  const uint64_t dims[2] = {cols, rows}, strides[1] = {cols};
+  const uint32_t box[2] = {2 * kBox, kBox};
+  return make_tmap(map, base, 2, dims, strides, box, CU_TENSOR_MAP_DATA_TYPE_UINT8);
 }
 
 // A (batch, rows, cols) bf16 tensor in 64 x 64 x 1 boxes: a box that runs
@@ -106,6 +135,14 @@ inline int tmap_nhwc(CUtensorMap* map, const void* base, uint64_t batch, uint64_
 }
 
 // --- device: barriers, TMA -------------------------------------------------------
+
+// The dynamic shared memory rounded up to 1024 bytes, the 128-byte
+// swizzle's alignment (launches ask for 1024 bytes more than they use).
+__device__ __forceinline__ unsigned char* smem_base() {
+  extern __shared__ unsigned char smem_raw[];
+  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                          ~uintptr_t(1023));
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -175,8 +212,28 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// Stores the 2-D box at smem to (c0, c1) of `map`; elements outside the
+// tensor are not written. Tracked by this thread's bulk groups.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* smem, int c0, int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(smem_u32(smem)), "r"(c0), "r"(c1)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+// Waits until at most N of this thread's bulk groups still read shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// Waits until at most N of this thread's bulk groups are incomplete.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // Orders this thread's generic-proxy shared-memory writes before later
-// async-proxy reads (wgmma operands written with st.shared).
+// async-proxy reads (wgmma operands written with st.shared, TMA stores).
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
@@ -221,6 +278,11 @@ __device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+template <int N>
+__device__ __forceinline__ void fence_acc(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
 
 // The accumulator of an m64nN wgmma, per thread (warp w of the warpgroup,
 // lane l, g = l / 4, tig = l % 4): d[4 i + e] is row 16 w + g + 8 (e >> 1),
@@ -242,6 +304,33 @@ __device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t da, uint64_t
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// d (m64 x n128) += A (smem, descriptor da) * B (smem, descriptor db);
+// TA / TB: 1 when that operand is MN-major (transposed), 0 when K-major.
+template <int TA, int TB>
+__device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
@@ -321,6 +410,86 @@ __device__ __forceinline__ void mma_ss_n256(float (&d)[128], uint64_t da, uint64
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// d (m64 x nN) += A * B for N = 64, 128 or 256.
+template <int N, int TA, int TB>
+__device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t da, uint64_t db) {
+  static_assert(N == 64 || N == 128 || N == 256, "wgmma width");
+  if constexpr (N == 64)
+    mma_ss_n64<TA, TB>(d, da, db);
+  else if constexpr (N == 128)
+    mma_ss_n128<TA, TB>(d, da, db);
+  else
+    mma_ss_n256<TA, TB>(d, da, db);
+}
+
+// d (m64 x n128, s32) += A (smem, descriptor da) * B (smem, descriptor db), s8
+// operands, both K-major (8-bit wgmma has no transposed mode).
+__device__ __forceinline__ void mma_s8_n128(int (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d (m64 x n256, s32) += A (smem, descriptor da) * B (smem, descriptor db), s8
+// operands, both K-major (8-bit wgmma has no transposed mode).
+__device__ __forceinline__ void mma_s8_n256(int (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87,"
+      "%88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103,"
+      "%104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119,"
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+        "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "l"(da), "l"(db), "r"(1));
 }
 
 // d (m64 x n64) += A (registers, the m16n8k16 A fragment of each warp's

@@ -5,229 +5,191 @@
 // pallas_mm): a tiled product with the K loop innermost and an fp32 or int32
 // accumulator.
 //
-// Design. A CTA of 8 warps computes one (BM, BN) tile of C; each warp owns a
-// (BM / WARPS_M, BN / WARPS_N) sub-tile as m16n8 accumulator fragments in
-// registers (the TPU kernel's scratch accumulator). The K loop stages
-// BK-deep slices of A and B in shared memory through a ring of kStages
-// cp.async buffers (16-byte copies; the copies of the next kStages - 1 slices
-// stay in flight; one barrier per slice). Rows are padded by 16 bytes, so the
-// 8 rows one ldmatrix reads fall in distinct banks. Fragments come from
-// ldmatrix and feed mma.sync:
-//   bf16: m16n8k16 (fp32 accumulation); B's fragments by ldmatrix.trans from
-//         the (K, N) slice as it lies in memory;
-//   int8: m16n8k32 (s32 accumulation, exact). ldmatrix moves 16-bit units and
-//         cannot transpose bytes, so B is first transposed to (N, K) by
-//         transpose_kernel (N*K bytes read and written, 32 MB at 4096^2, in
-//         the same call) and its fragments are read like A's.
-// Either way a k-step covers 32 bytes of each row, so A's fragment addressing
-// is the same in both types. M, N and K must be multiples of the tile (the
-// TPU kernel asserts the same); nothing is masked.
-//
-// The tiles. The TPU tiles (512 x 512 x 1024 and larger) are sized for 16 MB
-// of VMEM; a CTA here has 227 KB of shared memory and 255 registers a
-// thread. The list below keeps the accumulator at 64-128 registers a thread
-// and 4 stages within ~123 KB: 128x128 (two CTAs fit an SM), 128x256 and
-// 256x128 (64x64 warp tiles, the most reuse of each fragment mma.sync
-// allows), and 64x128 with a 128-byte slice (short M tiles, more CTAs).
-// bk is 32 bf16 or 64 int8 values, so a stage moves the same bytes in both
-// types (128 bf16 / 128 int8 for the 64x128 tile). A tile that is not in the
-// list is refused (cudaErrorInvalidValue).
-//
 // What bounds it on an H100. At M = N = K = 4096 the product is 137.4 GFLOP
-// (or TOP): 0.139 ms at 989 TFLOP/s bf16 and 0.069 ms at 1,979 TOP/s int8.
-// mma.sync issues from registers fed by ldmatrix and reaches well under the
-// wgmma peak; this simple version is the floor a wgmma + TMA kernel starts
-// from.
+// (or TOP): 0.139 ms at 989 TFLOP/s bf16 and 0.069 ms at 1,979 TOP/s int8,
+// against 96 MB of operands and C (0.029 ms at 3.35 TB/s): the tensor cores
+// bound it. v1 (mma.sync fed by ldmatrix from a cp.async ring, 8 warps)
+// was issue-bound at 253 TFLOP/s bf16 and 418 TOP/s int8.
+//
+// Design (v2), the usual Hopper GEMM:
+//   - a CTA of one producer warpgroup and two consumer warpgroups computes
+//     one (BM, BN) tile of C; the tiles are walked in groups of 8 row tiles
+//     per column sweep, so the CTAs in flight share A's and B's panels in L2;
+//   - the producer (one thread) keeps a ring of TMA loads in flight, 192 KB
+//     deep (4 stages of 48 KB or 6 of 32 KB), each stage one 128-byte-deep
+//     k-block: 64 bf16 or 128 int8 values of every row, in 64-row boxes with
+//     the 128-byte swizzle (hopper.cuh). One box geometry serves both types;
+//   - each consumer warpgroup owns BM / 2 rows of the tile: wgmma m64nBNk16
+//     (bf16, fp32 accumulation) or m64nBNk32 (s8, s32 accumulation, exact) on
+//     each stage, the products of one stage in flight while the next is
+//     waited for; setmaxnreg gives the consumers the registers of the
+//     accumulator (BN / 2 or, for BM = 256, 2 x 64 a thread);
+//   - bf16: B (K, N) is read in place as wgmma's MN-major B. 8-bit wgmma
+//     takes K-major operands only, so int8 B is first transposed to (N, K)
+//     by transpose_kernel in the same call (N*K bytes read and written, 32
+//     MB at 4096^2) and read K-major;
+//   - the epilogue stores C straight from the accumulator (64 MB at 4096^2,
+//     ~0.02 ms at 3.35 TB/s), not overlapped with the next tile's loads (no
+//     persistent CTAs).
+// M, N and K must be multiples of the tile (the TPU kernel asserts the
+// same); nothing is masked.
+//
+// The tiles: (BM, BN, bk) = (128, 256), (256, 128) and (128, 128) with bk =
+// 64 bf16 / 128 int8 (one 128-byte k-block per stage). A tile that is not in
+// the list is refused (cudaErrorInvalidValue).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kStages = 4;
-constexpr int kPad = 16;  // bytes added to every shared-memory row
+using namespace hopper;
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
+constexpr int kThreads = 384;           // producer warpgroup + two consumer warpgroups
+constexpr int kRingBytes = 192 * 1024;  // the TMA ring
+constexpr int kGroup = 8;               // row tiles per column sweep
 
-// The two element types: the mma, and where B's slice comes from.
+// The two element types: how B lies in shared memory and which wgmma runs.
+// a is one 64-row box of A; b the stage's BN / 64 boxes of B; ks the k-step
+// (32 bytes of the 128-byte k-block).
 struct Bf16 {
   using Acc = float;
-  static constexpr int kSize = 2;
-  static __device__ __forceinline__ void mma(Acc (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                             uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  static constexpr int kElems = 64;  // elements in a 128-byte k-block
+  template <int BN>
+  static __device__ __forceinline__ void mma(float (&d)[BN / 2], const unsigned char* a,
+                                             const unsigned char* b, int ks) {
+    mma_ss<BN, 0, 1>(d, desc_sw128(a + ks * 32, 16, 1024), desc_sw128(b + ks * 2048, kBoxBytes, 1024));
   }
 };
 struct Int8 {
   using Acc = int;
-  static constexpr int kSize = 1;
-  static __device__ __forceinline__ void mma(Acc (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                             uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-};
-
-// Shared-memory bytes of one stage. A: BM rows of BK elements. B: bf16 keeps
-// (BK, BN) as in memory; int8 (BN, BK) from the transposed copy.
-template <class T, int BM, int BN, int BK>
-struct Smem {
-  static constexpr int kRowA = BK * T::kSize + kPad;
-  static constexpr int kRowB = (T::kSize == 2 ? BN * 2 : BK) + kPad;
-  static constexpr int kRowsB = T::kSize == 2 ? BK : BN;
-  static constexpr int kA = BM * kRowA, kB = kRowsB * kRowB;
-  static constexpr int kStage = kA + kB;
-  static constexpr int kTotal = kStages * kStage;
-};
-
-// Copy a ROWS x BYTES block (row pitch ld bytes in memory, pitch in shared
-// memory) as 16-byte chunks, chunk i = tid, tid + kThreads, ...
-template <int ROWS, int BYTES>
-__device__ __forceinline__ void load_block(char* dst, int pitch, const char* src, size_t ld) {
-  constexpr int kPer = BYTES / 16;
-  static_assert((ROWS * kPer) % kThreads == 0, "a tile is a whole number of chunks per thread");
-#pragma unroll
-  for (int j = 0; j < ROWS * kPer / kThreads; ++j) {
-    const int i = threadIdx.x + j * kThreads, r = i / kPer, c = (i - r * kPer) * 16;
-    cp_async16(dst + r * pitch + c, src + r * ld + c);
-  }
-}
-
-template <class T, int BM, int BN, int BK, int WARPS_M, int WARPS_N>
-__global__ void __launch_bounds__(kThreads, 1)
-    mm_kernel(const char* __restrict__ a, const char* __restrict__ b, typename T::Acc* __restrict__ c,
-              int N, int K) {
-  static_assert(WARPS_M * WARPS_N * 32 == kThreads, "8 warps");
-  using S = Smem<T, BM, BN, BK>;
-  constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N, MT = WM / 16, NT = WN / 8;
-  constexpr int kStepBytes = 32, kSteps = BK * T::kSize / kStepBytes;
-  static_assert(NT % 2 == 0 && kSteps >= 1, "ldmatrix x4 covers two n-tiles");
-  extern __shared__ __align__(16) char smem[];
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = (warp / WARPS_N) * WM, wn = (warp % WARPS_N) * WN;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int k_tiles = K / BK;
-  const size_t lda = (size_t)K * T::kSize;                      // bytes per row of A
-  const size_t ldb = T::kSize == 2 ? (size_t)N * 2 : (size_t)K;  // of B (bf16) or B^T (int8)
-  const char* a_blk = a + (size_t)m0 * lda;
-  const char* b_blk = T::kSize == 2 ? b + (size_t)n0 * 2 : b + (size_t)n0 * ldb;
-
-  auto issue = [&](int kt, int buf) {
-    char* st = smem + buf * S::kStage;
-    load_block<BM, BK * T::kSize>(st, S::kRowA, a_blk + (size_t)kt * BK * T::kSize, lda);
-    if constexpr (T::kSize == 2)
-      load_block<BK, BN * 2>(st + S::kA, S::kRowB, b_blk + (size_t)kt * BK * ldb, ldb);
+  static constexpr int kElems = 128;
+  template <int BN>
+  static __device__ __forceinline__ void mma(int (&d)[BN / 2], const unsigned char* a,
+                                             const unsigned char* b, int ks) {
+    const uint64_t da = desc_sw128(a + ks * 32, 16, 1024), db = desc_sw128(b + ks * 32, 16, 1024);
+    if constexpr (BN == 128)
+      mma_s8_n128(d, da, db);
     else
-      load_block<BN, BK>(st + S::kA, S::kRowB, b_blk + (size_t)kt * BK, ldb);
-  };
-
-  typename T::Acc acc[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0;
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < k_tiles) issue(s, s);
-    cp_async_commit();
+      mma_s8_n256(d, da, db);
   }
+};
 
-  // ldmatrix x4: lane l addresses row (l & 7) of matrix (l >> 3).
-  const int mi = lane >> 3, rr = lane & 7;
-  for (int kt = 0; kt < k_tiles; ++kt) {
-    cp_async_wait<kStages - 2>();  // slice kt has landed
-    __syncthreads();               // ... for every thread; slice kt - 1's buffer is free
-    if (kt + kStages - 1 < k_tiles) issue(kt + kStages - 1, (kt + kStages - 1) % kStages);
-    cp_async_commit();
+template <int BM, int BN>
+struct Ring {
+  static constexpr int kStageBytes = (BM + BN) / kBox * kBoxBytes;
+  static constexpr int kStages = kRingBytes / kStageBytes;
+  static constexpr int kSmem = 1024 + kStages * kStageBytes + 2 * kStages * 8;
+};
 
-    const char* As = smem + (kt % kStages) * S::kStage;
-    const char* Bs = As + S::kA;
-#pragma unroll
-    for (int ks = 0; ks < kSteps; ++ks) {
-      // A: matrices (m 0-7 | 8-15) x (bytes 0-15 | 16-31) of the k-step.
-      uint32_t af[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-        ldmatrix_x4(af[mt], As + (wm + mt * 16 + (mi & 1) * 8 + rr) * S::kRowA + ks * kStepBytes +
-                                (mi >> 1) * 16);
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        uint32_t bf[4];  // b0, b1 of n-tile 2np, then of 2np + 1
-        if constexpr (T::kSize == 2)  // (k 0-7 | 8-15) x (n 0-7 | 8-15), transposed on the way
-          ldmatrix_x4_trans(bf, Bs + (ks * 16 + (mi & 1) * 8 + rr) * S::kRowB +
-                                    (wn + np * 16 + (mi >> 1) * 8) * 2);
-        else  // B^T rows (n 0-7 | 8-15) x (bytes 0-15 | 16-31)
-          ldmatrix_x4(bf, Bs + (wn + np * 16 + (mi >> 1) * 8 + rr) * S::kRowB + ks * kStepBytes +
-                              (mi & 1) * 16);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          T::mma(acc[mt][2 * np], af[mt], bf[0], bf[1]);
-          T::mma(acc[mt][2 * np + 1], af[mt], bf[2], bf[3]);
+// amap: A (M, K); bmap: bf16 B (K, N) or int8 B^T (N, K); all in 64-row x
+// 128-byte boxes. One CTA per (BM, BN) tile of c (M, N).
+template <class T, int BM, int BN>
+__global__ void __launch_bounds__(kThreads, 1)
+    mm_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap bmap,
+              typename T::Acc* __restrict__ c, int M, int N, int K) {
+  using R = Ring<BM, BN>;
+  constexpr int kMt = BM / 128;  // m64 blocks of each consumer warpgroup
+  unsigned char* ring = smem_base();
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + R::kStages * R::kStageBytes);
+  uint64_t* empty = full + R::kStages;
+
+  const int tiles_m = M / BM, tiles_n = N / BN;
+  const int in_group = kGroup * tiles_n, first_m = blockIdx.x / in_group * kGroup;
+  const int rows = min(tiles_m - first_m, kGroup), q = blockIdx.x % in_group;
+  const int m0 = (first_m + q % rows) * BM, n0 = q / rows * BN;
+  const int steps = K / T::kElems;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < R::kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid < 128) {  // producer warpgroup: one thread issues every load
+    setmaxnreg_dec<40>();
+    if (tid == 0) {
+      for (int s = 0; s < steps; ++s) {
+        const int st = s % R::kStages, k0 = s * T::kElems;
+        unsigned char* stage = ring + st * R::kStageBytes;
+        mbar_wait(&empty[st], ((s / R::kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[st], R::kStageBytes);
+        for (int i = 0; i < BM / kBox; ++i)
+          tma_load_2d(stage + i * kBoxBytes, &amap, &full[st], k0, m0 + i * kBox);
+        unsigned char* b = stage + BM / kBox * kBoxBytes;
+        for (int i = 0; i < BN / kBox; ++i) {
+          if (T::kElems == 64)  // bf16 B: 64 k rows x 64 columns n, MN-major
+            tma_load_2d(b + i * kBoxBytes, &bmap, &full[st], n0 + i * kBox, k0);
+          else  // int8 B^T: 64 rows n x 128 bytes k, K-major
+            tma_load_2d(b + i * kBoxBytes, &bmap, &full[st], k0, n0 + i * kBox);
         }
       }
     }
+    return;
   }
-  cp_async_wait<0>();
 
-  // Fragment element e of (mt, nt): row g + 8 * (e >> 1), column 2 * tig + (e & 1).
-  const int g = lane >> 2, tig = lane & 3;
+  setmaxnreg_inc<232>();
+  const int ctid = tid - 128, wg = ctid >> 7, wq = (ctid >> 5) & 3;
+  const int lane = tid & 31, gq = lane >> 2, tig = lane & 3;
+  typename T::Acc acc[kMt][BN / 2];
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
+  for (int mt = 0; mt < kMt; ++mt)
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
+    for (int i = 0; i < BN / 2; ++i) acc[mt][i] = 0;
+  for (int s = 0; s < steps; ++s) {
+    const int st = s % R::kStages;
+    const unsigned char* stage = ring + st * R::kStageBytes;
+    mbar_wait(&full[st], (s / R::kStages) & 1);
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const size_t row = m0 + wm + mt * 16 + g + 8 * h;
-        const int col = n0 + wn + nt * 8 + 2 * tig;
-        typename T::Acc* out = c + row * N + col;
-        out[0] = acc[mt][nt][2 * h];
-        out[1] = acc[mt][nt][2 * h + 1];
+    for (int mt = 0; mt < kMt; ++mt) fence_acc(acc[mt]);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+      for (int mt = 0; mt < kMt; ++mt)
+        T::template mma<BN>(acc[mt], stage + (wg * kMt + mt) * kBoxBytes, stage + BM / kBox * kBoxBytes, ks);
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous stage's products are done ...
+#pragma unroll
+    for (int mt = 0; mt < kMt; ++mt) fence_acc(acc[mt]);
+    if (s > 0 && lane == 0) mbar_arrive(&empty[(s - 1) % R::kStages]);  // ... so its slot is free
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int mt = 0; mt < kMt; ++mt) fence_acc(acc[mt]);
+
+  // Accumulator element 4 i + e: row 16 wq + gq + 8 (e >> 1), column 8 i + 2 tig + (e & 1).
+#pragma unroll
+  for (int mt = 0; mt < kMt; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const size_t row = m0 + (wg * kMt + mt) * kBox + wq * 16 + gq + 8 * h;
+      typename T::Acc* out = c + row * N + n0 + 2 * tig;
+#pragma unroll
+      for (int i = 0; i < BN / 8; ++i) {
+        if constexpr (T::kElems == 64)
+          *reinterpret_cast<float2*>(out + 8 * i) = make_float2(acc[mt][4 * i + 2 * h], acc[mt][4 * i + 2 * h + 1]);
+        else
+          *reinterpret_cast<int2*>(out + 8 * i) = make_int2(acc[mt][4 * i + 2 * h], acc[mt][4 * i + 2 * h + 1]);
       }
+    }
 }
 
 // bt (N, K) = b (K, N)^T, int8, by 64 x 64 tiles through shared memory; K and N
 // are multiples of 64. Each thread moves 4-byte words: 4 reads of b's rows,
 // then 4 bytes of one column packed into one word of bt's row.
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(256)
     transpose_kernel(const uint8_t* __restrict__ b, uint8_t* __restrict__ bt, int K, int N) {
   __shared__ uint32_t tile[64][64 / 4 + 1];  // [k][n / 4]
   const int k0 = blockIdx.y * 64, n0 = blockIdx.x * 64;
-  for (int i = threadIdx.x; i < 64 * 16; i += kThreads) {
+  for (int i = threadIdx.x; i < 64 * 16; i += blockDim.x) {
     const int r = i / 16, w = i % 16;
     tile[r][w] = *reinterpret_cast<const uint32_t*>(b + (size_t)(k0 + r) * N + n0 + 4 * w);
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < 64 * 16; i += kThreads) {
+  for (int i = threadIdx.x; i < 64 * 16; i += blockDim.x) {
     const int n = i / 16, w = i % 16;  // bt row n0 + n, bytes k0 + 4w ... + 3
     uint32_t v = 0;
 #pragma unroll
@@ -236,29 +198,31 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <class T, int BM, int BN, int BK, int WARPS_M, int WARPS_N>
+template <class T, int BM, int BN>
 int launch(const void* a, const void* b, void* c, int M, int N, int K, cudaStream_t stream) {
-  auto kern = mm_kernel<T, BM, BN, BK, WARPS_M, WARPS_N>;
-  constexpr int smem = Smem<T, BM, BN, BK>::kTotal;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  kern<<<dim3(N / BN, M / BM), kThreads, smem, stream>>>(
-      static_cast<const char*>(a), static_cast<const char*>(b), static_cast<typename T::Acc*>(c), N, K);
+  CUtensorMap amap, bmap;
+  int err = T::kElems == 64 ? tmap_matrix(&amap, a, M, K) : tmap_matrix_s8(&amap, a, M, K);
+  if (!err) err = T::kElems == 64 ? tmap_matrix(&bmap, b, K, N) : tmap_matrix_s8(&bmap, b, N, K);
+  if (err) return err;
+  auto kern = mm_kernel<T, BM, BN>;
+  constexpr int smem = Ring<BM, BN>::kSmem;
+  const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<(M / BM) * (N / BN), kThreads, smem, stream>>>(amap, bmap, static_cast<typename T::Acc*>(c), M, N, K);
   return (int)cudaGetLastError();
 }
 
-// The tile list: (bm, bn) with bk = 32 bf16 / 64 int8, and 64 x 128 with bk =
-// 64 bf16 / 128 int8; warps 2 x 4 except 256 x 128 (4 x 2). Returns
+// The tile list, (bm, bn) with bk = one 128-byte k-block. Returns
 // cudaErrorInvalidValue, and launches nothing, for a tile not in the list.
 template <class T>
 int dispatch(const void* a, const void* b, void* c, int M, int N, int K, int bm, int bn, int bk,
              cudaStream_t st, bool launch_it = true) {
-  constexpr int k1 = 64 / T::kSize, k2 = 128 / T::kSize;
   int (*fn)(const void*, const void*, void*, int, int, int, cudaStream_t) = nullptr;
-  if (bm == 128 && bn == 128 && bk == k1) fn = launch<T, 128, 128, k1, 2, 4>;
-  if (bm == 128 && bn == 256 && bk == k1) fn = launch<T, 128, 256, k1, 2, 4>;
-  if (bm == 256 && bn == 128 && bk == k1) fn = launch<T, 256, 128, k1, 4, 2>;
-  if (bm == 64 && bn == 128 && bk == k2) fn = launch<T, 64, 128, k2, 2, 4>;
+  if (bk == T::kElems) {
+    if (bm == 128 && bn == 256) fn = launch<T, 128, 256>;
+    if (bm == 256 && bn == 128) fn = launch<T, 256, 128>;
+    if (bm == 128 && bn == 128) fn = launch<T, 128, 128>;
+  }
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   return launch_it ? fn(a, b, c, M, N, K, st) : 0;
 }
@@ -270,16 +234,17 @@ extern "C" {
 // c (M, N) = a (M, K) @ b (K, N), row-major and contiguous, 16-byte aligned:
 // bf16 -> fp32 (is_int8 = 0), or int8 -> int32 with bt (N, K) int8 scratch
 // for B's transpose. M, N, K multiples of the tile (bm, bn, bk), which must
-// be in the list above. Returns the first cudaError_t of the launches (0 on
-// success; cudaErrorInvalidValue for a tile not in the list).
+// be in the list above. Returns the first error of the launches (0 on
+// success; cudaErrorInvalidValue for a tile not in the list; a CUresult of
+// a tensor-map encoding).
 int ihpr_probe_mm(const void* a, const void* b, void* bt, void* c, int M, int N, int K, int is_int8,
                   int bm, int bn, int bk, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   if (!is_int8) return dispatch<Bf16>(a, b, c, M, N, K, bm, bn, bk, st);
   const int known = dispatch<Int8>(a, bt, c, M, N, K, bm, bn, bk, st, false);
   if (known != 0) return known;
-  transpose_kernel<<<dim3(N / 64, K / 64), kThreads, 0, st>>>(static_cast<const uint8_t*>(b),
-                                                             static_cast<uint8_t*>(bt), K, N);
+  transpose_kernel<<<dim3(N / 64, K / 64), 256, 0, st>>>(static_cast<const uint8_t*>(b),
+                                                        static_cast<uint8_t*>(bt), K, N);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return dispatch<Int8>(a, bt, c, M, N, K, bm, bn, bk, st);

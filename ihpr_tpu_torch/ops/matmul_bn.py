@@ -12,10 +12,17 @@ the counterpart of ``ihpr_tpu/ops/matmul_bn.py``.
 - K6, ``csrc/matmul_bn_bwd.cu`` (the port of ``_bwd_kernel``), folds the
   statistics' cotangents into ``g = dy + ds1 + 2*y*ds2`` (with the saved,
   rounded y), rounds g to x's dtype, recomputes ``a`` from x and returns
-  dx, dw (fp32), dmul and dadd.
+  dx, dw (fp32), dmul and dadd. In bf16 it runs the TMA + wgmma kernels of
+  ``csrc/matmul_bn_hopper.cuh``, which form gc, and a, in shared memory from
+  the tiles they load, so neither reaches device memory: one kernel where
+  K and N are at most 256 and dw fits a warpgroup's registers (K x N up to
+  128 x 128 after rounding each up to 64, 128 or 256), else a dx kernel
+  and a dw kernel; in fp32 the
+  FMA kernels of ``csrc/conv_bn_common.cuh``.
 
-Both share ``csrc/conv_bn_common.cuh`` with the fp32 route of K7/K8
-(``ops/conv_bn.py``, which also takes ``check_kernel_inputs`` from here).
+K5 and fp32 K6 share ``csrc/conv_bn_common.cuh`` with the fp32 route of
+K7/K8 (``ops/conv_bn.py``, which also takes ``check_kernel_inputs`` from
+here).
 ``FusedMatmulBN`` is the autograd Function around the pair: a CUDA tensor
 goes to the kernels, which launch or raise; a CPU tensor goes to the plain
 versions here (``plain``, ``plain_bwd``), which are also what the kernels
@@ -209,11 +216,13 @@ def _fwd_lib() -> ctypes.CDLL:
 @functools.cache
 def _bwd_lib() -> ctypes.CDLL:
     lib = _build.load(_BWD_LIB)
-    for suffix, nargs in (("dx_groups", 2), ("dw_groups", 3)):
+    for suffix, nargs in (("dx_partials", 4), ("dw_partials", 4)):
         f = getattr(lib, f"ihpr_matmul_bn_bwd_{suffix}")
         f.restype, f.argtypes = ctypes.c_int, [ctypes.c_int] * nargs
     lib.ihpr_matmul_bn_bwd.restype = ctypes.c_int
-    lib.ihpr_matmul_bn_bwd.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.ihpr_matmul_bn_bwd.argtypes = (
+        [ctypes.c_void_p] * 12 + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    )
     return lib
 
 
@@ -248,17 +257,19 @@ def kernel_bwd(x, w, mul, add, y, dy, ds1, ds2):
     ds = check_cotangents(x, y, dy, ds1, ds2, n)
     lib = _bwd_lib()
     f32 = dict(dtype=torch.float32, device=x.device)
-    part_x = torch.empty((lib.ihpr_matmul_bn_bwd_dx_groups(m, k), 2, k), **f32)
-    part_w = torch.empty((lib.ihpr_matmul_bn_bwd_dw_groups(m, k, n), k, n), **f32)
-    gc = torch.empty_like(y)
+    gc = None if is_bf16 else torch.empty_like(y)  # bf16 forms gc in shared memory
     dx = torch.empty_like(x)
     dw = torch.empty((k, n), **f32)
     dmd = torch.empty((2, k), **f32)
-    with torch.cuda.device(x.device):
+    with torch.cuda.device(x.device):  # bf16 partial counts follow this card's SM count
+        parts_x = lib.ihpr_matmul_bn_bwd_dx_partials(m, k, n, is_bf16)
+        parts_w = lib.ihpr_matmul_bn_bwd_dw_partials(m, k, n, is_bf16)
+        part_x = torch.empty((parts_x, 2, k), **f32)
+        part_w = torch.empty((parts_w, k, n), **f32)
         err = lib.ihpr_matmul_bn_bwd(
             x.data_ptr(), w.data_ptr(), _ptr(mul), _ptr(add), y.data_ptr(), dy.data_ptr(),
-            ds.data_ptr(), gc.data_ptr(), dx.data_ptr(), dw.data_ptr(), dmd.data_ptr(),
-            part_x.data_ptr(), part_w.data_ptr(), m, 1, 1, k, n, is_bf16, _stream(),
+            ds.data_ptr(), _ptr(gc), dx.data_ptr(), dw.data_ptr(), dmd.data_ptr(),
+            part_x.data_ptr(), parts_x, part_w.data_ptr(), parts_w, m, k, n, is_bf16, _stream(),
         )
     if err:
         raise RuntimeError(f"{_BWD_LIB} launch failed: CUDA error {err}")

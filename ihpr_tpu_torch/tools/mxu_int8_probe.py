@@ -7,8 +7,9 @@ against bf16 at the same shape:
 
   dot      the library products at M = N = K = 4096: ``torch.matmul`` (bf16)
            and ``torch._int_mm`` (int8), where the TPU probe had XLA's dot
-  pallas   ``pallas_mm``: the tiled kernel ``ops/csrc/probe_mm.cu`` (cp.async
-           ring, ldmatrix, mma.sync) at each tile of TILES, and the best
+  pallas   ``pallas_mm``: the tiled kernel ``ops/csrc/probe_mm.cu`` (TMA ring,
+           one producer and two consumer warpgroups, wgmma bf16 / s8; int8 B
+           transposed in the same call) at each tile of TILES, and the best
   conv9    a 3x3 SAME conv as 9 shifted (B*H*W, C) @ (C, C) library products
            at (64, 64, 64, 256) x (3, 3, 256, 256)
   convref  cuDNN's ``F.conv2d`` (channels_last) at the same shape; there is no
@@ -42,11 +43,12 @@ from ihpr_tpu_torch.tools import device_line, time_ms
 _LIB = "probe_mm"
 TAGS = {torch.bfloat16: "bf16", torch.int8: "int8"}
 _ACC = {torch.bfloat16: torch.float32, torch.int8: torch.int32}
-# (bm, bn, bk) of the kernel's tile list (csrc/probe_mm.cu's note says why);
-# int8 slices are twice as deep, so a stage moves the same bytes.
+# (bm, bn, bk) of the kernel's tile list (csrc/probe_mm.cu's note says why):
+# bk is one 128-byte k-block, 64 bf16 or 128 int8 values, so a stage moves
+# the same bytes in both types.
 TILES = {
-    torch.bfloat16: ((128, 128, 32), (128, 256, 32), (256, 128, 32), (64, 128, 64)),
-    torch.int8: ((128, 128, 64), (128, 256, 64), (256, 128, 64), (64, 128, 128)),
+    torch.bfloat16: ((128, 256, 64), (256, 128, 64), (128, 128, 64)),
+    torch.int8: ((128, 256, 128), (256, 128, 128), (128, 128, 128)),
 }
 # Dense peaks of one H100 SXM (NVIDIA's data sheet), operations per second.
 PEAK = {torch.bfloat16: 989e12, torch.int8: 1979e12}
@@ -121,7 +123,7 @@ def pallas_mm(m: int, n: int, k: int, dtype, bm: int = 128, bn: int = 128, bk: i
     CUDA tensors and ``plain_mm`` on CPU tensors. The name and signature are
     the TPU probe's."""
     if bk is None:
-        bk = 64 if dtype == torch.int8 else 32
+        bk = 128 if dtype == torch.int8 else 64
     assert m % bm == 0 and n % bn == 0 and k % bk == 0
 
     def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -121,6 +121,41 @@ def test_fused_matmul_bn_matches_jax(dtype, shape, prologue):
         np.testing.assert_allclose(g, r, atol=5e-2, rtol=5e-4)
 
 
+# (K, N, prologue) of every K5/K6 launch of the flagship fused train step
+# (chip_smoke.py's MM_STEP).
+MM_STEP_KN = [(64, 64, False), (256, 64, False), (64, 256, True), (256, 128, False), (512, 128, False),
+              (128, 512, True), (512, 256, False), (256, 1024, True)]
+
+
+@pytest.mark.parametrize("k, n, prologue", MM_STEP_KN, ids=[f"k{k}_n{n}" for k, n, _ in MM_STEP_KN])
+def test_matmul_bn_bwd_matches_jax_at_step_shapes(k, n, prologue):
+    """The backward the card's K6 is held to (``plain_bwd``) against JAX's
+    ``_bwd_call`` (its Pallas kernel in interpret mode) at every (K, N,
+    prologue) of the flagship fused step, bf16, M = 264 (not a multiple of
+    256), on the same x, w, mul, add, y (JAX's forward), dy, ds1, ds2: dx,
+    dw, dmul and dadd within 1e-2 of each result's largest (the module's
+    bf16 bound)."""
+    m = 264
+    x, w, *mul_add = _mm_inputs(m, k, n, prologue, seed=k + n)
+    mul_add = mul_add or [None, None]
+    dy, ds1, ds2 = _cotangents((m, n), n, seed=2)
+    jx, jw, jdy = (jnp.asarray(a, jnp.bfloat16) for a in (x, w, dy))
+    jmul, jadd = (None if a is None else jnp.asarray(a) for a in mul_add)
+    jy = jmatmul_bn._fwd_call(jx, jw, jmul, jadd)[0]
+    want = jmatmul_bn._bwd_call(jx, jw, jmul, jadd, jy, jdy, jnp.asarray(ds1), jnp.asarray(ds2))
+    bf16 = lambda a: torch.from_numpy(np.asarray(jnp.asarray(a, jnp.float32))).to(torch.bfloat16)  # noqa: E731
+    mul_add = [None if a is None else torch.from_numpy(a) for a in mul_add]
+    got = matmul_bn.plain_bwd(bf16(jx), bf16(jw), *mul_add, bf16(jy), bf16(jdy), torch.from_numpy(ds1),
+                              torch.from_numpy(ds2))
+    assert got[0].dtype == torch.bfloat16 and got[1].dtype == torch.float32
+    for name, g, w in zip(("dx", "dw", "dmul", "dadd"), got, want):
+        if w is None:
+            assert g is None, name
+            continue
+        assert tuple(g.shape) == tuple(w.shape), name
+        assert _rel_err(g.float().numpy(), np.asarray(jnp.asarray(w, jnp.float32))) <= 1e-2, name
+
+
 @pytest.mark.parametrize("prologue", [False, True], ids=["plain", "prologue"])
 def test_fused_matmul_bn_gradcheck_float64(prologue):
     leaves = [torch.from_numpy(a.astype(np.float64)).requires_grad_()

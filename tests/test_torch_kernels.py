@@ -40,13 +40,16 @@ def _head_inputs(shape, device, dtype, seed=4):
 # --- the wgmma operand modes K1/K2 build on (csrc/hopper_selftest.cu) ------------
 
 
-def _selftest(a, b, mode, k, n):
-    """D (64 x n, fp32) of hopper_selftest.cu's one-tile GEMM in ``mode``."""
+def _selftest(a, b, mode, k, n, sa=None, sb=None):
+    """D (64 x n, fp32) of hopper_selftest.cu's one-tile GEMM in ``mode``,
+    the tiles of a and b first scaled in shared memory by sa and sb at
+    their columns where given."""
     lib = _build.load("hopper_selftest")
     lib.ihpr_hopper_selftest.restype = ctypes.c_int
-    lib.ihpr_hopper_selftest.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.ihpr_hopper_selftest.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     out = torch.empty(64, n, device=a.device)
-    err = lib.ihpr_hopper_selftest(a.data_ptr(), b.data_ptr(), out.data_ptr(), mode, k, n,
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    err = lib.ihpr_hopper_selftest(a.data_ptr(), b.data_ptr(), ptr(sa), ptr(sb), out.data_ptr(), mode, k, n,
                                    torch.cuda.current_stream().cuda_stream)
     assert err == 0, f"hopper_selftest mode {mode}: error {err}"
     torch.cuda.synchronize()
@@ -55,28 +58,66 @@ def _selftest(a, b, mode, k, n):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "mode, k, n",
-    [(0, 64, 64), (0, 256, 64), (0, 256, 192), (1, 128, 64), (2, 64, 64), (2, 256, 64),
-     (3, 64, 64), (3, 128, 64), (0, 256, 256), (1, 256, 256), (2, 128, 256)],
+    "mode, k, n, scaled",
+    [(0, 64, 64, False), (0, 256, 64, False), (0, 256, 192, False), (1, 128, 64, False), (2, 64, 64, False),
+     (2, 256, 64, False), (3, 64, 64, False), (3, 128, 64, False), (0, 256, 256, False), (1, 256, 256, False),
+     (2, 128, 256, False), (0, 128, 128, False), (1, 256, 128, False), (2, 64, 128, False),
+     (0, 128, 64, True), (0, 64, 256, True), (2, 64, 128, True), (2, 128, 256, True), (1, 128, 128, True)],
     ids=["kmajor_ab", "kmajor_ab_k256", "kmajor_n192", "mnmajor_b", "mmajor_a",
          "mmajor_a_k256", "regs_a_mnmajor_b", "regs_a_mnmajor_b_k128", "kmajor_n256",
-         "mnmajor_b_n256", "mmajor_a_n256"],
+         "mnmajor_b_n256", "mmajor_a_n256", "kmajor_n128", "mnmajor_b_n128", "mmajor_a_n128",
+         "rewritten_kmajor_ab", "rewritten_kmajor_n256", "rewritten_mmajor_a_n128",
+         "rewritten_mmajor_a_n256", "rewritten_mnmajor_b_n128"],
 )
-def test_wgmma_descriptor_modes_match_matmul(cuda, mode, k, n):
-    """Each operand layout of hopper.cuh that K1/K2 and K7/K8 issue (K-major
-    A and B; MN-major B; M-major A; A from registers with MN-major B; the
-    n256 shapes of K7's y, K8's da and K8's dw) through TMA, 128-byte
-    swizzled tiles and wgmma, against torch.matmul in fp32 on the same bf16
-    values: products are exact, so only the sum order differs (1e-5 of the
-    largest)."""
-    g = torch.Generator().manual_seed(mode * 1000 + k + n)
+def test_wgmma_descriptor_modes_match_matmul(cuda, mode, k, n, scaled):
+    """Each operand layout of hopper.cuh that K1/K2, K6, K7/K8 and P2 issue
+    (K-major A and B; MN-major B; M-major A; A from registers with MN-major
+    B; the n128 and n256 shapes of K6's da and dw, K7's y, K8's da and dw and
+    P2's bf16 tiles) through TMA, 128-byte swizzled tiles and wgmma, against
+    torch.matmul in fp32 on the same bf16 values: products are exact, so
+    only the sum order differs (1e-5 of the largest). ``rewritten``: the
+    tiles are first rewritten in place in shared memory (each element times
+    a power of two at its column, as K6 forms gc and relu(x*mul + add) in the
+    tiles TMA brought in), so a column taken from the wrong swizzled chunk
+    or a missing proxy fence shows."""
+    g = torch.Generator().manual_seed(mode * 1000 + k + n + scaled)
     a = torch.randn(64, k, generator=g).to(cuda, torch.bfloat16)
     b = torch.randn(k, n, generator=g).to(cuda, torch.bfloat16)
     a_arg = a.t().contiguous() if mode == 2 else a
     b_arg = b.t().contiguous() if mode == 0 else b
-    got = _selftest(a_arg, b_arg, mode, k, n)
+    sa = sb = None
+    if scaled:  # powers of two: the rescaled bf16 values stay exact
+        sa = (2.0 ** torch.randint(-2, 3, (a_arg.shape[1],), generator=g)).to(cuda)
+        sa[::7] = -sa[::7]
+        sb = (2.0 ** torch.randint(-2, 3, (b_arg.shape[1],), generator=g)).to(cuda)
+        a_arg_scaled, b_arg_scaled = a_arg.float() * sa, b_arg.float() * sb
+        a = a_arg_scaled.t() if mode == 2 else a_arg_scaled
+        b = b_arg_scaled.t() if mode == 0 else b_arg_scaled
+    got = _selftest(a_arg, b_arg, mode, k, n, sa, sb)
     want = a.float() @ b.float()
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k, n", [(128, 128), (256, 128), (128, 256), (256, 256)],
+                         ids=["k128_n128", "k256_n128", "k128_n256", "k256_n256"])
+def test_wgmma_s8_matches_int_products(cuda, k, n):
+    """P2's int8 operand mode: a (64, k) and b^T (n, k) int8 over the full
+    range -128 ... 127 through uint8 TMA maps, 128-byte swizzled K-major
+    tiles and wgmma m64nNk32 s8 -> s32, bitwise against the float64 product
+    of the same integers (exact: |sum| < 2^53)."""
+    lib = _build.load("hopper_selftest")
+    fn = lib.ihpr_hopper_selftest_s8
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    g = torch.Generator().manual_seed(k + n)
+    a = torch.randint(-128, 128, (64, k), generator=g, dtype=torch.int8).to(cuda)
+    bt = torch.randint(-128, 128, (n, k), generator=g, dtype=torch.int8).to(cuda)
+    out = torch.empty(64, n, dtype=torch.int32, device=cuda)
+    err = fn(a.data_ptr(), bt.data_ptr(), out.data_ptr(), k, n, torch.cuda.current_stream().cuda_stream)
+    assert err == 0, f"hopper_selftest s8: error {err}"
+    torch.cuda.synchronize()
+    assert torch.equal(out, (a.double() @ bt.double().t()).to(torch.int32))
 
 
 def _tma4d(a, bw, bh, c0, j0, i0, b):
@@ -592,9 +633,22 @@ def _run_bn(mod, x, w, mul, add, dy, ds1, ds2):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
 @pytest.mark.parametrize("prologue", [False, True], ids=["plain", "prologue"])
-@pytest.mark.parametrize("shape", [(1, 8, 8), (1000, 24, 40), (4160, 64, 256), (2051, 256, 72)],
-                         ids=["m1_k8_n8", "ragged", "k64_n256", "k256_n72"])
+@pytest.mark.parametrize("shape", [(1, 8, 8), (1000, 24, 40), (4160, 64, 256), (2051, 256, 72), (4097, 256, 128),
+                                   (40, 128, 512), (300, 256, 1024), (333, 128, 128), (333, 120, 64), (333, 56, 128),
+                                   (333, 200, 64), (300, 64, 512), (300, 512, 64)],
+                         ids=["m1_k8_n8", "ragged", "k64_n256", "k256_n72", "flagship_ragged_m", "m40_k128_n512",
+                              "k256_n1024", "k128_n128", "k120_n64", "k56_n128", "k200_n64", "k64_n512", "k512_n64"])
 def test_matmul_bn_kernels_match_plain(cuda, shape, prologue, dtype):
+    """K5/K6 against plain; bf16 K6 takes its TMA + wgmma kernels at every
+    shape: M = 1 and M = 40 (below one 128-row tile), a ragged M with a
+    flagship (K, N), K and N that are not multiples of 64 (ragged, k256_n72),
+    the flagship's widest N (k256_n1024: 256-column chunks of N and 128-row
+    tiles of K in dw). Between them the shapes run every instantiated bf16
+    kernel at a ragged M: the one-pass kernel at each (KW, NW) of (64, 64),
+    (64, 128), (128, 64), (128, 128), (64, 256) and (256, 64), and the dx
+    and dw kernels at widths 64, 128 and 256 (k64_n512 and k512_n64: one of
+    K and N within one 64-wide box, the other past 256, which take two
+    kernels)."""
     m, k, n = shape
     got, want = _run_bn(matmul_bn, *_bn_inputs((m,), k, n, 1, cuda, dtype, prologue))
     _close_bn(got, want, dtype, shape)
@@ -749,13 +803,17 @@ def test_probe_wrappers_reject_what_they_do_not_take(cuda):
     a, b = (t.to(cuda) for t in mxu_int8_probe._mats(np.random.RandomState(0), 256, 256, 256, torch.bfloat16))
     before = mxu_int8_probe.launches
     with pytest.raises(ValueError, match="not in the bf16 list"):
-        mxu_int8_probe.kernel_mm(a, b, 128, 128, 64)
+        mxu_int8_probe.kernel_mm(a, b, 128, 128, 32)
+    with pytest.raises(ValueError, match="not in the bf16 list"):
+        mxu_int8_probe.kernel_mm(a, b, 128, 128, 128)
+    with pytest.raises(ValueError, match="not in the int8 list"):
+        mxu_int8_probe.kernel_mm(a.to(torch.int8), b.to(torch.int8), 128, 128, 64)
     with pytest.raises(ValueError, match="multiple of the tile"):
-        mxu_int8_probe.kernel_mm(a[:200].contiguous(), b, 128, 128, 32)
+        mxu_int8_probe.kernel_mm(a[:200].contiguous(), b, 128, 128, 64)
     with pytest.raises(ValueError, match="both bfloat16 or both int8"):
-        mxu_int8_probe.kernel_mm(a.float(), b.float(), 128, 128, 32)
+        mxu_int8_probe.kernel_mm(a.float(), b.float(), 128, 128, 64)
     with pytest.raises(ValueError, match="contiguous"):
-        mxu_int8_probe.kernel_mm(a.t(), b, 128, 128, 32)
+        mxu_int8_probe.kernel_mm(a.t(), b, 128, 128, 64)
     with pytest.raises(ValueError, match="CUDA"):
-        mxu_int8_probe.kernel_mm(a.cpu(), b.cpu(), 128, 128, 32)
+        mxu_int8_probe.kernel_mm(a.cpu(), b.cpu(), 128, 128, 64)
     assert mxu_int8_probe.launches == before
