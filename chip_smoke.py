@@ -25,13 +25,15 @@
    at K1's two batches and K2's.
 5c. K5/K6 (fused 1x1 conv + BN statistics) and K7/K8 (fused 3x3 conv + BN
    statistics), forward and backward: against plain / plain_bwd at every
-   shape of the flagship fused step (bf16) and at edge cases (fp32, M = 1,
-   K = N = 8, a 24x18 and a 5x3 plane; for K7/K8's tiles C = 200, N = 136,
+   shape of the flagship fused step and of a fused_1x1-alone step (bf16)
+   and at edge cases (fp32, M = 1, M = 40, K = N = 8, K = 2048 and 1000 with
+   N <= 128, a 24x18 and a 5x3 plane; for K7/K8's tiles C = 200, N = 136,
    the flagship plane at B = 1 and a 3x5 plane), two runs bitwise equal;
    kernel, plain and library (cuBLAS / cuDNN in bf16 + sums) times, summed
-   over one step's launches beside the step's bound; K6 at each shape with
-   its bytes, its share of the bound and its sub-launches (torch.profiler);
-   each sub-launch of one bf16 K7 and one K8 call beside its own bound.
+   over each step's launches beside the step's bound; K5 and K6 at each
+   shape with their bytes, share of the bound and sub-launches
+   (torch.profiler), and their device time summed over each step; each
+   sub-launch of one bf16 K7 and one K8 call beside its own bound.
 6. Serves the flagship config h36m3d_r50 (ResNet-50, 256x256, 18 joints,
    64 depth bins, bf16, flip-test) at max_batch 32 with seeded random
    weights: predict_patches, predict (native warp) and predict_stream.
@@ -82,10 +84,17 @@ checked for shape and finiteness and against the plain versions.
 Prints one JSON line of kernel results, the card's name and power limit,
 and last {"ok": true, "device": {...}}. Any failure raises and exits
 non-zero; so does a host without CUDA.
+
+    python3 chip_smoke.py --only bn fused
+
+builds the kernels and runs only the named phases (bn: 5c; fused: 7b), for
+timing one tree's K5-K8 against another's: copy this file into a checkout
+of the other tree and run it there. It prints no JSON lines.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import math
@@ -921,18 +930,20 @@ def eval_phase(fhi, iv, gpu: str):
 
 # --- K5-K8: the conv + BN-statistics kernels -----------------------------------
 
-# One h36m3d_r50 train step at batch 128 with both fused flags (256x256 input,
-# bf16): the 1x1 route's launches of K5/K6, (M, K, N, prologue, launches), and
-# the conv3 route's K7/K8 shape (B, H, W, C, N) with its launches.
+# One h36m3d_r50 train step at batch 128 (256x256 input, bf16): the 1x1
+# route's shapes of K5/K6, (M, K, N, prologue, launches with both fused
+# flags, launches with fused_1x1 alone), and the conv3 route's K7/K8 shape
+# (B, H, W, C, N) with its launches (both flags).
 MM_STEP = (
-    (524288, 64, 64, False, 1),    # layer1_0 conv1
-    (524288, 256, 64, False, 2),   # layer1_1, layer1_2 conv1
-    (524288, 64, 256, True, 3),    # layer1_* conv3 (bn2 prologue)
-    (524288, 256, 128, False, 1),  # layer2_0 conv1
-    (131072, 512, 128, False, 3),  # layer2_1 ... layer2_3 conv1
-    (131072, 128, 512, True, 4),   # layer2_* conv3
-    (131072, 512, 256, False, 1),  # layer3_0 conv1
-    (32768, 256, 1024, True, 1),   # layer3_0 conv3
+    (524288, 64, 64, False, 1, 1),    # layer1_0 conv1
+    (524288, 256, 64, False, 2, 2),   # layer1_1, layer1_2 conv1
+    (524288, 64, 256, True, 3, 3),    # layer1_* conv3 (bn2 prologue)
+    (524288, 256, 128, False, 1, 1),  # layer2_0 conv1
+    (131072, 512, 128, False, 3, 3),  # layer2_1 ... layer2_3 conv1
+    (131072, 128, 512, True, 4, 4),   # layer2_* conv3
+    (131072, 512, 256, False, 1, 1),  # layer3_0 conv1
+    (32768, 256, 1024, True, 1, 6),   # layer3_0 conv3 (fused_1x1 alone: layer3_1 ... 3_5 too)
+    (32768, 1024, 256, False, 0, 5),  # layer3_1 ... layer3_5 conv1 (fused_1x1 alone)
 )
 CONV_STEP = ((128, 16, 16, 256, 256), 5)  # layer3_1 ... layer3_5 conv2
 # Peak rates of one H100 SXM (NVIDIA's data sheet, dense) for the bounds.
@@ -1101,14 +1112,20 @@ def _time_bn(mod, args, library):
 def _launch_ms(fn, calls: int = 3) -> dict:
     """{kernel name: device ms per launch} of the CUDA kernels fn launches,
     averaged over ``calls`` calls (torch.profiler's key_averages; fn runs
-    once before, as a warm-up)."""
+    once before, as a warm-up). A profile that caught no kernel, as one in
+    ten did on the card, is taken again, at most three times in all."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total / e.count / 1e3 for e in prof.key_averages() if e.self_device_time_total > 0}
+    for _ in range(3):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        ms = {e.key: e.self_device_time_total / e.count / 1e3 for e in prof.key_averages()
+              if e.self_device_time_total > 0}
+        if ms:
+            break
+    return ms
 
 
 def _kernel_label(name: str) -> str:
@@ -1178,50 +1195,69 @@ def conv_breakdown(cb, args, gpu: str):
 
 def bn_kernel_phase(mm, cb, gpu: str):
     """K5/K6 and K7/K8 against their plain versions at every shape of the
-    flagship fused step (bf16, with the prologue where the step has it) and
-    at edge cases (fp32, M = 1, K = N = 8, the R152 stage-3 plane, B = 1,
-    and the bf16 K7/K8 tiles' edges); K7/K8's sub-launches at the flagship;
-    two runs bitwise equal; each timed (kernel, plain, library) and summed
-    over one step's launches. Returns, per kernel name, (max |y or dx
-    diff|, step ms, step plain ms, step library ms, step bound ms, bound by)."""
+    flagship fused step and of a fused_1x1-alone step (bf16, with the
+    prologue where the step has it) and at edge cases (fp32, M = 1, M = 40,
+    K = N = 8, K5's streamed w, the R152 stage-3 plane, B = 1, and the bf16
+    K7/K8 tiles' edges); K5's and K6's sub-launches at each 1x1 shape,
+    K7/K8's at the flagship; two runs bitwise equal; each timed (kernel,
+    plain, library) and summed over each step's launches. Returns, per
+    kernel name, (max |y or dx diff|, step ms, step plain ms, step library
+    ms, step bound ms, bound by) of the step with both flags."""
     errs = {k: 0.0 for k in ("k5", "k6", "k7", "k8")}
     step = {k: [0.0, 0.0, 0.0, 0.0, 0.0] for k in ("k5", "k6", "k7", "k8")}  # ms, plain, library, ops, bytes
+    alone = {k: [0.0, 0.0, 0.0, 0.0, 0.0] for k in ("k5", "k6")}  # the same over a fused_1x1-alone step
 
-    def add_step(kf, kb, t, work, launches):
+    def add_step(sums, kf, kb, t, work, launches):
         for key, kind, flops, nbytes in ((kf, "fwd", work[0], work[1]), (kb, "bwd", work[2], work[3])):
-            acc = step[key]
+            acc = sums[key]
             acc[0] += launches * t[f"kernel_{kind}"]
             acc[1] += launches * t[f"plain_{kind}"]
             acc[2] += launches * t[f"library_{kind}"]
             acc[3] += launches * flops
             acc[4] += launches * nbytes
 
-    for i, (m, k, n, prologue, launches) in enumerate(MM_STEP):
+    device = {k: [0.0, 0.0] for k in ("k5", "k6")}  # device ms (torch.profiler) per step: both flags, alone
+
+    def sub_launches(key, fn, launches, alone_launches):
+        parts = _launch_ms(fn)
+        ms = sum(parts.values())
+        device[key][0] += launches * ms
+        device[key][1] += alone_launches * ms
+        return "; ".join(f"{_kernel_label(name)} {t:.4f} ms" for name, t in parts.items()) + f" (device {ms:.4f})"
+
+    for i, (m, k, n, prologue, launches, alone_launches) in enumerate(MM_STEP):
+        shape = f"({m}, {k}) x ({k}, {n}){' +prologue' if prologue else ''}"
         args = _bn_inputs((m,), k, n, 1, torch.bfloat16, prologue, SEED + i)
-        ey, edx = check_bn(mm, args, f"K5/K6 ({m}, {k}) x ({k}, {n}){' +prologue' if prologue else ''}")
+        ey, edx = check_bn(mm, args, f"K5/K6 {shape}")
         errs["k5"], errs["k6"] = max(errs["k5"], ey), max(errs["k6"], edx)
         t = _time_bn(mm, args, _library_mm)
         work = _bn_work((m,), k, n, 1, 2)
-        add_step("k5", "k6", t, work, launches)
-        bwd_bound = _bound(work[2], work[3])[0]
-        print(f"K5/K6 ({m}, {k}) x ({k}, {n}) bf16 x{launches}/step: fwd kernel {t['kernel_fwd']:.4f} ms "
-              f"(bound {_bound(work[0], work[1])[0]:.4f}), plain {t['plain_fwd']:.4f}, cuBLAS+sums "
+        add_step(step, "k5", "k6", t, work, launches)
+        add_step(alone, "k5", "k6", t, work, alone_launches)
+        fwd_bound, bwd_bound = _bound(work[0], work[1])[0], _bound(work[2], work[3])[0]
+        print(f"K5/K6 ({m}, {k}) x ({k}, {n}) bf16 x{launches}/step (x{alone_launches} with fused_1x1 alone): fwd "
+              f"kernel {t['kernel_fwd']:.4f} ms (bound {fwd_bound:.4f}), plain {t['plain_fwd']:.4f}, cuBLAS+sums "
               f"{t['library_fwd']:.4f}; bwd kernel {t['kernel_bwd']:.4f} (bound "
               f"{bwd_bound:.4f}), plain {t['plain_bwd']:.4f}, cuBLAS "
               f"{t['library_bwd']:.4f}  [{gpu}]")
         x, w, mul, add, dy, ds1, ds2 = args
+        print(f"K5 {shape}: {t['kernel_fwd']:.4f} ms, {work[1] / 1e6:.1f} MB, {fwd_bound / t['kernel_fwd']:.2f} of "
+              f"its bound; sub-launches {sub_launches('k5', lambda: mm.kernel_fwd(x, w, mul, add), launches, alone_launches)}"
+              f"  [{gpu}]")
         y = mm.kernel_fwd(x, w, mul, add)[0]
-        parts = _launch_ms(lambda: mm.kernel_bwd(x, w, mul, add, y, dy, ds1, ds2))
-        print(f"K6 ({m}, {k}) x ({k}, {n}){' +prologue' if prologue else ''}: {t['kernel_bwd']:.4f} ms, "
-              f"{work[3] / 1e6:.1f} MB, {bwd_bound / t['kernel_bwd']:.2f} of its bound; sub-launches "
-              + "; ".join(f"{_kernel_label(name)} {ms:.4f} ms" for name, ms in parts.items())
-              + f" (device {sum(parts.values()):.4f})  [{gpu}]")
+        print(f"K6 {shape}: {t['kernel_bwd']:.4f} ms, {work[3] / 1e6:.1f} MB, {bwd_bound / t['kernel_bwd']:.2f} of "
+              f"its bound; sub-launches "
+              f"{sub_launches('k6', lambda: mm.kernel_bwd(x, w, mul, add, y, dy, ds1, ds2), launches, alone_launches)}"
+              f"  [{gpu}]")
         del args, x, w, mul, add, dy, ds1, ds2, y
-    # Edges: M below a tile, K and N off the 64-grid, and K or N within one
-    # box with the other past 256 (bf16 K6 takes two kernels there).
+    # Edges: M below a tile, K and N off the 64-grid, K or N within one box
+    # with the other past 256 (bf16 K6 takes two kernels there), and K x N
+    # too large for K5 to keep w in shared memory at widths 64 and 128.
     for dtype, shape, prologue in ((torch.float32, (4096, 256, 128), True), (torch.bfloat16, (1, 8, 8), True),
                                    (torch.float32, (1, 8, 8), False), (torch.bfloat16, (1000, 24, 40), True),
-                                   (torch.bfloat16, (300, 64, 512), True), (torch.bfloat16, (300, 512, 64), False)):
+                                   (torch.bfloat16, (40, 128, 512), True), (torch.bfloat16, (300, 64, 512), True),
+                                   (torch.bfloat16, (300, 512, 64), False), (torch.bfloat16, (333, 2048, 40), False),
+                                   (torch.bfloat16, (333, 1000, 120), True)):
         m, k, n = shape
         args = _bn_inputs((m,), k, n, 1, dtype, prologue, SEED + 20)
         ey, edx = check_bn(mm, args, f"K5/K6 {str(dtype)[6:]} ({m}, {k}) x ({k}, {n})")
@@ -1235,7 +1271,7 @@ def bn_kernel_phase(mm, cb, gpu: str):
         if dtype == torch.bfloat16:
             t = _time_bn(cb, args, _library_conv)
             work = _bn_work((b, h, w), c, n, 9, 2)
-            add_step("k7", "k8", t, work, launches)
+            add_step(step, "k7", "k8", t, work, launches)
             print(f"K7/K8 ({b}, {h}, {w}, {c}) x (9, {c}, {n}) bf16 x{launches}/step: fwd kernel "
                   f"{t['kernel_fwd']:.4f} ms ({work[0] / t['kernel_fwd'] / 1e9:.1f} TFLOP/s, bound "
                   f"{_bound(work[0], work[1])[0]:.4f}), plain {t['plain_fwd']:.4f}, cuDNN+sums "
@@ -1268,8 +1304,15 @@ def bn_kernel_phase(mm, cb, gpu: str):
         ms, plain_ms, lib_ms, flops, nbytes = step[key]
         bound_ms, bound_by = _bound(flops, nbytes)
         out[key] = (errs[key], ms, plain_ms, lib_ms, bound_ms, bound_by)
-        print(f"{key.upper()} per flagship step: kernel {ms:.4f} ms, plain {plain_ms:.4f}, library "
+        dev = f" (device {device[key][0]:.4f} by torch.profiler)" if key in device else ""
+        print(f"{key.upper()} per flagship step: kernel {ms:.4f} ms{dev}, plain {plain_ms:.4f}, library "
               f"{lib_ms:.4f}, bound {bound_ms:.4f} ({bound_by})  [{gpu}]")
+    for key in ("k5", "k6"):
+        ms, plain_ms, lib_ms, flops, nbytes = alone[key]
+        bound_ms, bound_by = _bound(flops, nbytes)
+        print(f"{key.upper()} per fused_1x1-alone step ({sum(r[5] for r in MM_STEP)} launches): kernel {ms:.4f} ms "
+              f"(device {device[key][1]:.4f} by torch.profiler), plain {plain_ms:.4f}, library {lib_ms:.4f}, bound "
+              f"{bound_ms:.4f} ({bound_by})  [{gpu}]")
     return out
 
 
@@ -1598,7 +1641,11 @@ def probe_mm_phase(pm, gpu: str):
             results["dot_bf16"], bound_ms, bound_by)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description="Smoke run of ihpr_tpu_torch on one NVIDIA GPU.")
+    parser.add_argument("--only", nargs="+", choices=("bn", "fused"),
+                        help="build the kernels and run only these phases (no JSON lines)")
+    only = parser.parse_args(argv).only
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run", file=sys.stderr)
         return 1
@@ -1622,6 +1669,12 @@ def main() -> int:
     print(f"build: {', '.join(lib.name for lib in libs)} in {time.perf_counter() - t0:.2f} s")
     for lib in libs:
         print(lib.with_suffix(".log").read_text().strip())
+    if only:
+        phases = {"bn": lambda: bn_kernel_phase(mm, cb, gpu), "fused": lambda: fused_train_phase(fhi, iv, mm, cb, gpu)}
+        for name in only:
+            phases[name]()
+        print(gpu)
+        return 0
 
     k1_err, k1_times = kernel_phase(fhi, gpu)
     k1_ms, k1_plain = k1_times[2 * MAX_BATCH]  # the serving shape, as b1 and k1_lib

@@ -158,42 +158,6 @@ __device__ __forceinline__ void consume(float (&acc)[128], unsigned char* ring, 
   fence_acc(acc);
 }
 
-// Column sums of one accumulator chunk: u (v) holds this thread's sum of
-// the first (second) quantity over its two rows for columns 8 i + 2 tig + q.
-// Summed over the warp's 8 row groups and staged per warp in red.
-__device__ __forceinline__ void stage_colsums(float* red, int warp, int i, int lane, float u0,
-                                              float u1, float v0, float v1) {
-#pragma unroll
-  for (int o = 4; o < 32; o <<= 1) {
-    u0 += __shfl_xor_sync(0xffffffffu, u0, o);
-    u1 += __shfl_xor_sync(0xffffffffu, u1, o);
-    v0 += __shfl_xor_sync(0xffffffffu, v0, o);
-    v1 += __shfl_xor_sync(0xffffffffu, v1, o);
-  }
-  if (lane < 4) {
-    const int c = 8 * i + 2 * lane;
-    red[(warp * 2) * kCols + c] = u0;
-    red[(warp * 2) * kCols + c + 1] = u1;
-    red[(warp * 2 + 1) * kCols + c] = v0;
-    red[(warp * 2 + 1) * kCols + c + 1] = v1;
-  }
-}
-
-// The 8 consumer warps' staged sums, added in warp order, into the partial
-// row part[tile] = [first (ncols); second (ncols)], columns col0 + ctid.
-__device__ __forceinline__ void write_colsums(const float* red, int ctid, float* __restrict__ part,
-                                              int tile, int col0, int ncols) {
-  named_barrier(1, kConsumerThreads);
-  const int c = col0 + ctid;
-  if (c < ncols) {
-    float u = red[ctid], v = red[kCols + ctid];
-    for (int w = 1; w < 8; ++w) u += red[(w * 2) * kCols + ctid], v += red[(w * 2 + 1) * kCols + ctid];
-    float* out = part + (size_t)tile * 2 * ncols + c;
-    out[0] = u;
-    out[ncols] = v;
-  }
-}
-
 // --- 1. the elementwise pass ------------------------------------------------------
 
 // a = bf16(relu(x*mul + add)) over a_vecs vectors of 8 (rows of C), and
@@ -201,11 +165,6 @@ __device__ __forceinline__ void write_colsums(const float* red, int ctid, float*
 // [ds1; ds2]. fp32 with each multiply and add rounded apart, as the plain
 // versions (no contraction into FMAs). Each thread walks its vectors with
 // a fixed stride, carrying its channel index instead of dividing.
-__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
-  const float4 lo = __ldg(reinterpret_cast<const float4*>(p)), hi = __ldg(reinterpret_cast<const float4*>(p) + 1);
-  v[0] = lo.x, v[1] = lo.y, v[2] = lo.z, v[3] = lo.w, v[4] = hi.x, v[5] = hi.y, v[6] = hi.z, v[7] = hi.w;
-}
-
 __global__ void prep_kernel(const bf16* __restrict__ x, const float* __restrict__ mul,
                             const float* __restrict__ add, bf16* __restrict__ a, size_t a_vecs,
                             int C, const bf16* __restrict__ dy, const bf16* __restrict__ y,
@@ -366,6 +325,7 @@ __global__ void __launch_bounds__(kCtaThreads, 1)
           xr[ii][h] = ok[h] && c < ncols ? __ldg(reinterpret_cast<const unsigned int*>(x + p[h] * ncols + c)) : 0u;
       }
     }
+    float sums[8];  // two chunks' u, v for stage_colsums
 #pragma unroll
     for (int ii = 0; ii < 8; ++ii) {
       const int i = i8 + ii, cl = 8 * i + 2 * tig, c = col0 + cl;
@@ -389,10 +349,14 @@ __global__ void __launch_bounds__(kCtaThreads, 1)
         }
         fhi::Elem<bf16>::store2(out + p[h] * ncols + c, v0, v1);
       }
-      if (FWD || APPLY) stage_colsums(red, warp, i, lane, u[0], u[1], v[0], v[1]);
+      if (FWD || APPLY) {
+        const int o = 4 * (ii & 1);
+        sums[o] = u[0], sums[o + 1] = u[1], sums[o + 2] = v[0], sums[o + 3] = v[1];
+        if (ii & 1) stage_colsums(red, kCols, warp, i - 1, lane, sums);
+      }
     }
   }
-  if (FWD || APPLY) write_colsums(red, ctid, part, tile, col0, ncols);
+  if (FWD || APPLY) write_colsums(red, kCols, ctid, part, tile, col0, ncols);
 }
 
 // --- 4. dw partials -------------------------------------------------------------------

@@ -1,11 +1,11 @@
-// Conv + BatchNorm-statistics kernels (mma.sync and FMA) for Hopper (sm_90a), used by
-//   K5 matmul_bn_fwd.cu   (replaces ihpr_tpu/ops/matmul_bn.py:_fwd_kernel), bf16 and fp32
-//   K6 matmul_bn_bwd.cu   (replaces ihpr_tpu/ops/matmul_bn.py:_bwd_kernel), fp32 only
-//   K7 conv_bn_fwd.cu     (replaces ihpr_tpu/ops/conv_bn.py:_fwd_kernel), fp32 only
-//   K8 conv_bn_bwd.cu     (replaces ihpr_tpu/ops/conv_bn.py:_bwd_kernel), fp32 only
-// bf16 K6 runs the TMA + wgmma kernels of matmul_bn_hopper.cuh and bf16 K7/K8
-// those of conv3_hopper.cuh; both take reduce_rows (and the fp32 routes' partial
-// counts) from here, conv3_hopper.cuh also load2.
+// Conv + BatchNorm-statistics kernels (FMA) for Hopper (sm_90a), fp32 operands, used by
+//   K5 matmul_bn_fwd.cu   (replaces ihpr_tpu/ops/matmul_bn.py:_fwd_kernel)
+//   K6 matmul_bn_bwd.cu   (replaces ihpr_tpu/ops/matmul_bn.py:_bwd_kernel)
+//   K7 conv_bn_fwd.cu     (replaces ihpr_tpu/ops/conv_bn.py:_fwd_kernel)
+//   K8 conv_bn_bwd.cu     (replaces ihpr_tpu/ops/conv_bn.py:_bwd_kernel)
+// bf16 K5/K6 run the TMA + wgmma kernels of matmul_bn_hopper.cuh and bf16
+// K7/K8 those of conv3_hopper.cuh; both take reduce_rows (and the fp32
+// routes' partial counts) from here.
 //
 // What they compute. Rows are pixels: x (M, K) row-major, the NHWC
 // activation of B images of H x W (M = B*H*W) or any (M, K) matrix. A 1x1
@@ -41,18 +41,12 @@
 // cp.async, in a ring of stages<T>() buffers (the copies of the next
 // stages - 1 steps stay in flight; one barrier per step), applies the
 // prologue in place (each thread to the chunks it copied), and runs
-// ldmatrix + mma.sync m16n8k16 (bf16, fp32 accumulation; fp32 operands take
-// plain FMAs in the same layout).
+// plain FMAs in the mma.sync m16n8k16 layout (fhi::warp_mma).
 //
-// What bounds them on an H100. At the flagship shapes the 1x1s are bandwidth
-// bound (stage-1 conv1, (524288, 256) x (256, 64): 335 MB, ~100 us at
-// 3.35 TB/s, 17 GFLOP). This version uses mma.sync from shared memory
-// (P2's v1 measured that route's ceiling at 253 TFLOP/s, issue-bound), 64 x
-// 64 CTA tiles and 4 stages within 48 KB of static shared memory, so bf16 K5
-// reaches neither bound; wgmma + TMA as in matmul_bn_hopper.cuh is its next
-// step. fp32 operands have no tensor-core mode that stays fp32 and run on
-// the FMA units (67 TFLOP/s peak). The fp32 backward also writes gc (M x N)
-// once and reads it twice where the TPU kernel forms g in VMEM.
+// What bounds them on an H100. fp32 operands have no tensor-core mode that
+// stays fp32 and run on the FMA units (67 TFLOP/s peak). The fp32 backward
+// also writes gc (M x N) once and reads it twice where the TPU kernel forms
+// g in VMEM.
 
 #pragma once
 
@@ -154,9 +148,6 @@ __device__ __forceinline__ void prologue_tile(T* dst, int pitch, int r0, const G
   }
 }
 
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
 __device__ __forceinline__ float2 load2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
 }
@@ -475,6 +466,8 @@ __global__ void __launch_bounds__(kThreads)
 
 // ---- launchers -----------------------------------------------------------------
 
+// x (M, K), w (TAPS, K, N), y (M, N): all T; mul, add (K,) fp32 or null (no
+// prologue). part (tile_groups(M, N), 2, N) fp32 scratch; s (2, N) fp32 out.
 template <typename T, int TAPS, bool APPLY>
 int launch_fwd_t(const void* x, const void* w, const float* mul, const float* add, void* y,
                  float* part, float* s, Geom g, int K, int N, cudaStream_t st) {
@@ -486,19 +479,6 @@ int launch_fwd_t(const void* x, const void* w, const float* mul, const float* ad
   if (err != cudaSuccess) return (int)err;
   reduce_rows<<<ceil_div(2 * N, 32), dim3(32, 8), 0, st>>>(part, groups, 2 * N, s);
   return (int)cudaGetLastError();
-}
-
-// x (M, K), w (TAPS, K, N), y (M, N): all T; mul, add (K,) fp32 or null (no
-// prologue). part (tile_groups(M, N), 2, N) fp32 scratch; s (2, N) fp32 out.
-template <int TAPS>
-int launch_fwd(const void* x, const void* w, const float* mul, const float* add, void* y,
-               float* part, float* s, Geom g, int K, int N, int is_bf16, cudaStream_t st) {
-  using bf = __nv_bfloat16;
-  if (is_bf16)
-    return mul ? launch_fwd_t<bf, TAPS, true>(x, w, mul, add, y, part, s, g, K, N, st)
-               : launch_fwd_t<bf, TAPS, false>(x, w, mul, add, y, part, s, g, K, N, st);
-  return mul ? launch_fwd_t<float, TAPS, true>(x, w, mul, add, y, part, s, g, K, N, st)
-             : launch_fwd_t<float, TAPS, false>(x, w, mul, add, y, part, s, g, K, N, st);
 }
 
 // x (M, K), w (TAPS, K, N), y, dy (M, N): T. mul, add (K,) fp32 or null (APPLY

@@ -1,11 +1,12 @@
 // Hopper (sm_90a) building blocks of the fused head kernels K1/K2
 // (fused_head_integral_fwd.cu, fused_head_integral_bwd.cu), the bf16 conv +
-// BN-statistics kernels K6 (matmul_bn_hopper.cuh) and K7/K8
+// BN-statistics kernels K5/K6 (matmul_bn_hopper.cuh) and K7/K8
 // (conv3_hopper.cuh), and the matmul probe P2 (probe_mm.cu): TMA tensor maps
 // (bf16 or 8-bit; 2-D, 3-D, and the 4-D NHWC map whose shifted boxes make a
 // 3x3 conv's taps) and loads, mbarriers, wgmma shared-memory descriptors and
 // the wgmma shapes those kernels issue (bf16 -> fp32, s8 -> s32), warpgroup
-// register reallocation and named barriers. Everything here is plain PTX; no
+// register reallocation and named barriers, and the fixed-order column sums
+// of an accumulator (K5's and K7's s1/s2). Everything here is plain PTX; no
 // library kernel is called.
 //
 // Shared-memory tiles are 64 rows of 128 bytes (64 bf16 or 128 int8) with
@@ -230,6 +231,12 @@ __device__ __forceinline__ void bulk_wait_read() {
 template <int N>
 __device__ __forceinline__ void bulk_wait() {
   asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Eight fp32 values from p (16-byte aligned), through the read-only cache.
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  const float4 lo = __ldg(reinterpret_cast<const float4*>(p)), hi = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  v[0] = lo.x, v[1] = lo.y, v[2] = lo.z, v[3] = lo.w, v[4] = hi.x, v[5] = hi.y, v[6] = hi.z, v[7] = hi.w;
 }
 
 // Orders this thread's generic-proxy shared-memory writes before later
@@ -508,6 +515,48 @@ __device__ __forceinline__ void mma_rs_n64(float (&d)[32], const uint32_t (&a)[4
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// --- device: column sums of wgmma accumulators (K5's and K7's s1/s2) ----------------
+
+// Column sums of chunks i and i + 1 (8 columns each) of an m64 accumulator:
+// a[4 h + e] holds this thread's sum over its two rows, for chunk i + h at
+// columns 8 (i + h) + 2 tig (+1), of the first quantity (e = 0, 1) and the
+// second (e = 2, 3). A reduce-scatter over the warp's 8 row groups (7
+// shuffles, in a fixed order) leaves lane 4 g + tig with value g of the 8,
+// which it writes (ADD: adds) to the warp's slot red[(2 warp + q) cols + c]
+// of its quantity q and column c.
+template <bool ADD = false>
+__device__ __forceinline__ void stage_colsums(float* red, int cols, int warp, int i, int lane,
+                                              const float (&a)[8]) {
+  const int g = lane >> 2, tig = lane & 3;
+  const bool hi2 = g & 4, hi1 = g & 2, hi0 = g & 1;
+  float b[4], c[2];
+#pragma unroll
+  for (int k = 0; k < 4; ++k)  // keep values 4 hi2 ..., send the others to lane ^ 16
+    b[k] = (hi2 ? a[k + 4] : a[k]) + __shfl_xor_sync(0xffffffffu, hi2 ? a[k] : a[k + 4], 16);
+#pragma unroll
+  for (int k = 0; k < 2; ++k)
+    c[k] = (hi1 ? b[k + 2] : b[k]) + __shfl_xor_sync(0xffffffffu, hi1 ? b[k] : b[k + 2], 8);
+  const float v = (hi0 ? c[1] : c[0]) + __shfl_xor_sync(0xffffffffu, hi0 ? c[0] : c[1], 4);
+  float* slot = red + (2 * warp + ((g >> 1) & 1)) * cols + 8 * (i + (g >> 2)) + 2 * tig + (g & 1);
+  *slot = ADD ? *slot + v : v;
+}
+
+// The staged sums of the 8 consumer warps (256 threads, ctid 0 ... 255),
+// added in warp order, into the partial row part[row] = [first (ncols);
+// second (ncols)], columns col0 + ctid for ctid < cols.
+__device__ __forceinline__ void write_colsums(const float* red, int cols, int ctid, float* __restrict__ part,
+                                              int row, int col0, int ncols) {
+  named_barrier(1, 256);
+  const int c = col0 + ctid;
+  if (ctid < cols && c < ncols) {
+    float u = red[ctid], v = red[cols + ctid];
+    for (int w = 1; w < 8; ++w) u += red[(w * 2) * cols + ctid], v += red[(w * 2 + 1) * cols + ctid];
+    float* out = part + (size_t)row * 2 * ncols + c;
+    out[0] = u;
+    out[ncols] = v;
+  }
 }
 
 }  // namespace hopper

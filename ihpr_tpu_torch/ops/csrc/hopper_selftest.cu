@@ -1,22 +1,23 @@
 // One-tile checks of hopper.cuh's building blocks, for the card tests: each
-// descriptor layout K1/K2, K6, K7/K8 and P2 issue, held against torch.matmul,
-// the in-place rewrite of a swizzled tile that K6 reads with wgmma, the s8
-// wgmma of P2's int8 mode, and the 4-D NHWC box K7/K8 read their taps with,
-// held against a slice of the zero-padded tensor, before the kernels build
-// on them (tests/test_torch_kernels.py). Not on any model path.
+// descriptor layout K1/K2, K5/K6, K7/K8 and P2 issue, held against
+// torch.matmul, the in-place rewrite of a swizzled tile that K5/K6 read with
+// wgmma, the s8 wgmma of P2's int8 mode, and the 4-D NHWC box K7/K8 read
+// their taps with, held against a slice of the zero-padded tensor, before
+// the kernels build on them (tests/test_torch_kernels.py). Not on any model
+// path.
 //
 //   D (64 x N, fp32) = A (64 x K) * B (K x N), K = 64, 128, 192 or 256, bf16.
 //   mode 0: A K-major (a = A, 64 x K), B K-major (b = B^T, N x K); N = 64,
 //           128 (K6's da), 192 (K1's logits; K2's with N = 64) or 256 (K8's
 //           and K6's da)
-//   mode 1: A K-major, B MN-major (b = B, K x N); N = 64, 128 or 256 (K7's
-//           y, P2's bf16 tiles)
+//   mode 1: A K-major, B MN-major (b = B, K x N); N = 64, 128 or 256 (K5's
+//           and K7's y, P2's bf16 tiles)
 //   mode 2: A M-major (a = A^T, K x 64), B MN-major; N = 64 (K2's dW =
 //           feat^T dv), 128 or 256 (K8's and K6's dw)
 //   mode 3: A from registers (a = A), B MN-major, N = 64 (K2's dfeat = dv W_j^T)
 // With sa and sb (modes 0-2), every element of a and b is first multiplied
-// in shared memory by sa / sb at its column of a / b as given, the way K6
-// forms gc and relu(x*mul + add) in the tiles TMA brought in: the column of
+// in shared memory by sa / sb at its column of a / b as given, the way K5/K6
+// form gc and relu(x*mul + add) in the tiles TMA brought in: the column of
 // a swizzled byte is undone from its row, the writes are fenced to the async
 // proxy, and wgmma reads the rewritten tiles.
 //   s8: D (64 x N, s32) = A (64 x K) * B (K x N), int8, K = 128 or 256, N =

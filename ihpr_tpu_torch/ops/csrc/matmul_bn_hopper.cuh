@@ -1,19 +1,54 @@
-// K6, the fused 1x1 conv (matmul) + BatchNorm-statistics backward, in bf16 for
-// Hopper (sm_90a): the kernels of matmul_bn_bwd.cu (replaces
-// ihpr_tpu/ops/matmul_bn.py:_bwd_kernel) for bf16 operands. fp32 operands
-// keep the FMA kernels of conv_bn_common.cuh: wgmma has no fp32 mode, and
-// TF32 would not be fp32.
+// K5 and K6, the fused 1x1 conv (matmul) + BatchNorm statistics forward and
+// backward, in bf16 for Hopper (sm_90a): the kernels of matmul_bn_fwd.cu
+// (replaces ihpr_tpu/ops/matmul_bn.py:_fwd_kernel) and matmul_bn_bwd.cu
+// (replaces ihpr_tpu/ops/matmul_bn.py:_bwd_kernel) for bf16 operands. fp32
+// operands keep the FMA kernels of conv_bn_common.cuh: wgmma has no fp32
+// mode, and TF32 would not be fp32.
 //
-// What it computes. x (M, K), w (K, N), y and dy (M, N) bf16; ds = [ds1; ds2]
-// (2, N) fp32; with the prologue mul, add (K,) fp32 and a = bf16(relu(x*mul +
-// add)) (fp32, the multiply and the add rounded apart, as the plain version),
-// else a = x.
+// What they compute. x (M, K), w (K, N), y and dy (M, N) bf16; ds = [ds1;
+// ds2] (2, N) fp32; with the prologue mul, add (K,) fp32 and a =
+// bf16(relu(x*mul + add)) (fp32, the multiply and the add rounded apart, as
+// the plain version), else a = x.
+//   forward (K5): y = bf16(a @ w) (fp32 accumulation); s1 = colsum(yf),
+//        s2 = colsum(yf^2), from the fp32 accumulator before the cast.
+//   backward (K6):
 //   gc = bf16((dy + ds1) + (2*y)*ds2)  (fp32 from the saved, rounded y);
 //   da = gc @ w^T (fp32); with the prologue t = da * (x*mul + add > 0),
 //        dx = bf16(t*mul), dmul = colsum(t*x), dadd = colsum(t); else dx = bf16(da);
 //   dw = a^T @ gc (fp32).
 //
-// What bounds it on an H100: bytes. Each input read once and each output
+// K5. What bounds it on an H100: bytes. Each input read once and each output
+// written once is 2(MK + MN) + 2KN bytes; the product is 2MKN flops. At the
+// flagship fused step's shapes the bytes take 1.095 ms per step at 3.35
+// TB/s, the flops at most 35 us a call at 989 TFLOP/s. v1 (conv_bn_common.cuh:
+// mma.sync from a cp.async ring, 64 x 64 CTA tiles) read x once per 64
+// columns of N, applied the prologue as often, stored y 4 bytes at a time
+// and ran at 0.23 of the bound per step.
+//
+// Design (v2), 0. fwd_kernel: persistent CTAs, about one per SM, each one
+// chunk of NW = width(N) columns of N (256-wide chunks where N > 256) and a
+// strided set of 128-row tiles; a producer warp issues TMA and each of two
+// consumer warpgroups takes one 64-row box of a tile. A stage is one 64-wide
+// k-block: the tile's two x boxes and, where w's chunk does not stay
+// resident in shared memory, its NW-wide block of w (fwd_plan: w stays
+// where K x NW bf16 fits beside the staging tiles, the sums and two stages).
+// With the prologue each warpgroup rewrites its x box in place into a (rows
+// past M and columns past K zeroed: TMA's zeros would become relu(add)),
+// fences, and runs wgmma m64nNWk16 with a K-major and w MN-major; a stage's
+// products stay in flight while the next stage is waited for and
+// rewritten, then the stage is freed. The ring runs across tiles, so one
+// tile's epilogue overlaps the next tile's loads. Epilogue from the fp32
+// accumulator: y in bf16 through a swizzled 64 x NW staging tile per
+// warpgroup and TMA stores, which clip rows past M and columns past N;
+// s1/s2 added per (warp, column) slot in tile order (hopper.cuh:
+// stage_colsums, a reduce-scatter over the warp's rows); one partial row
+// per CTA, which cbn::reduce_rows adds in a fixed order. HBM bytes: x is
+// read once where N <= 256 (N / 256 times above, the repeats mostly from
+// L2: the CTAs of one tile's chunks run side by side) and y written once,
+// the bound's; a streamed w is re-read from L2, K x NW x 2 bytes per 128
+// rows.
+//
+// K6. What bounds it on an H100: bytes. Each input read once and each output
 // written once is 2(MK + MN) bf16 + 6KN bytes; the products are 4MKN flops.
 // At the flagship fused step's shapes (M = 32768 ... 524288, K, N = 64 ...
 // 1024) the bytes take 2.195 ms per step at 3.35 TB/s, the flops 0.60 ms at
@@ -58,8 +93,8 @@
 //      prologue, and out by TMA store) while warpgroup 1 adds a^T gc to dw
 //      in its registers; each frees the stage when done.
 //   4. cbn::reduce_rows adds the partial rows in a fixed order: dmul/dadd, dw.
-// No atomics and a static schedule: results are bitwise the same from run to
-// run on one card (the partial counts follow its SM count).
+// No atomics and a static schedule (K5 and K6): results are bitwise the same
+// from run to run on one card (the partial counts follow its SM count).
 //
 // HBM bytes per call: one_pass_kernel 2MN + 2MK, the bound's; with two
 // kernels, and the rows that CTAs of other column ranges re-read found in
@@ -69,9 +104,9 @@
 // the bound. Both add the partials (ranges x K x N fp32, written and read
 // once).
 //
-// Shapes: any M >= 1; K and N multiples of 8 (TMA's 16-byte pitch). Rows
-// past M and columns past K or N read TMA's zeros and are masked out of every
-// store and every column sum.
+// Shapes (both): any M >= 1; K and N multiples of 8 (TMA's 16-byte pitch).
+// Rows past M and columns past K or N read TMA's zeros and are masked out of
+// every store and every column sum.
 
 #pragma once
 
@@ -85,11 +120,12 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kCtaThreads = 384;       // producer + two consumer warpgroups
 constexpr int kConsumerThreads = 256;
-constexpr int kTileRows = 2 * kBox;    // rows of a da tile, one box per consumer warpgroup
+constexpr int kTileRows = 2 * kBox;    // rows of a fwd or da tile, one box per consumer warpgroup
 constexpr int kRingCap = 192 * 1024;   // shared memory for the TMA ring
 
 // The wgmma width that covers `cols` output columns, at most 256: the
-// columns of K a da_kernel CTA covers, and of N a dw_kernel CTA covers.
+// columns of N a fwd_kernel or dw_kernel CTA covers, and of K a da_kernel
+// CTA covers.
 // (At most 128 where N > 128, for 48 KB stages in place of 64 or 80 KB, was
 // slower on the card: twice the CTAs re-read their rows from L2.)
 __host__ __device__ constexpr int width(int cols) { return cols <= 64 ? 64 : cols <= 128 ? 128 : 256; }
@@ -104,10 +140,11 @@ struct Ring {
   static constexpr int kBars = 2 * kStages * 8;
 };
 
-// Partial rows of da_kernel's dmul/dadd: CTAs per K range, about one CTA
-// per SM in all, at least one, at most one per 128-row tile.
-inline int dx_groups(int M, int K, int sms) {
-  const int g = sms / cdiv(K, width(K)), tiles = cdiv(M, kTileRows);
+// CTAs per chunk of width(cols) columns (of N in fwd_kernel, of K in
+// da_kernel), each writing one partial row: about one CTA per SM in all, at
+// least one, at most one per 128-row tile.
+inline int row_groups(int M, int cols, int sms) {
+  const int g = sms / cdiv(cols, width(cols)), tiles = cdiv(M, kTileRows);
   return g < 1 ? 1 : (g < tiles ? g : tiles);
 }
 
@@ -116,11 +153,6 @@ inline int dx_groups(int M, int K, int sms) {
 inline int dw_ranges(int M, int K, int N, int sms) {
   const int r = sms / (cdiv(K, 2 * kBox) * cdiv(N, width(N))), tiles = cdiv(M, kBox);
   return r < 1 ? 1 : (r < tiles ? r : tiles);
-}
-
-__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
-  const float4 lo = __ldg(reinterpret_cast<const float4*>(p)), hi = __ldg(reinterpret_cast<const float4*>(p) + 1);
-  v[0] = lo.x, v[1] = lo.y, v[2] = lo.z, v[3] = lo.w, v[4] = hi.x, v[5] = hi.y, v[6] = hi.z, v[7] = hi.w;
 }
 
 // Column of the 16-byte chunk pc of row r of a swizzled box, in elements.
@@ -240,6 +272,236 @@ __device__ __forceinline__ void dx_epilogue(unsigned char* tile, const float (&a
       if (lane < 4) red[cl] += u0, red[cl + 1] += u1, red[W + cl] += v0, red[W + cl + 1] += v1;
     }
   }
+}
+
+// --- 0. the forward: y and the s1/s2 partials ---------------------------------------
+
+constexpr int kSmemCap = 227 * 1024;  // dynamic shared memory one CTA may use
+constexpr int kFwdMaxStages = 8;
+
+// How fwd_kernel lays out its shared memory for (K, N): NW = width(N);
+// whether w's K x NW chunk stays resident (beside a ring of two stages at
+// least); the ring's stages (as many as fit, at most kFwdMaxStages) of
+// stage_bytes each; the bytes to ask for. Besides the ring and w: a 64 x NW
+// y staging tile per consumer warpgroup, the sums [consumer warp][s1,
+// s2][NW] fp32, the barriers, and 1024 bytes of alignment.
+struct FwdPlan {
+  int nw, resident, stages, stage_bytes, smem;
+};
+
+inline FwdPlan fwd_plan(int K, int N) {
+  FwdPlan p;
+  p.nw = width(N);
+  const int fixed = 1024 + 2 * p.nw / kBox * kBoxBytes + 16 * p.nw * 4 + (2 * kFwdMaxStages + 1) * 8;
+  const int x_bytes = 2 * kBoxBytes, wblock = p.nw / kBox * kBoxBytes, w_bytes = cdiv(K, kBox) * wblock;
+  p.resident = fixed + w_bytes + 2 * x_bytes <= kSmemCap;
+  p.stage_bytes = x_bytes + (p.resident ? 0 : wblock);
+  const int room = kSmemCap - fixed - (p.resident ? w_bytes : 0);
+  p.stages = room / p.stage_bytes < kFwdMaxStages ? room / p.stage_bytes : kFwdMaxStages;
+  p.smem = fixed + (p.resident ? w_bytes : 0) + p.stages * p.stage_bytes;
+  return p;
+}
+
+// CTA blockIdx.x = (group, chunk): columns n0 = (blockIdx.x % chunks) * NW
+// of N, 128-row tiles group, group + groups, ... with groups = gridDim.x /
+// chunks. xmap: (M, K); wmap: (K, N); ymap: (M, N); 64 x 64 boxes. A stage
+// holds the tile's two x boxes and, unless RES, the k-block's NW / 64 w
+// boxes; with RES all of w's chunk is loaded once. part (groups, 2, N): the
+// CTA's s1/s2 partial row at its columns.
+template <int NW, bool APPLY, bool RES>
+__global__ void __launch_bounds__(kCtaThreads, 1)
+    fwd_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+               const __grid_constant__ CUtensorMap ymap, const float* __restrict__ mul,
+               const float* __restrict__ add, float* __restrict__ part, int M, int K, int N, int stages) {
+  constexpr int kWb = NW / kBox;  // w boxes of a k-block: 64 rows of K x 64 columns of N each
+  const int nkb = cdiv(K, kBox), stage_bytes = (RES ? 2 : 2 + kWb) * kBoxBytes;
+  unsigned char* ring = smem_base();
+  unsigned char* w_s = ring + stages * stage_bytes;  // resident w: k-block kb at kb * kWb boxes
+  unsigned char* staging = w_s + (RES ? nkb * kWb * kBoxBytes : 0);  // a y tile per consumer warpgroup
+  float* red = reinterpret_cast<float*>(staging + 2 * kWb * kBoxBytes);  // [consumer warp][s1, s2][column]
+  uint64_t* full = reinterpret_cast<uint64_t*>(red + 16 * NW);
+  uint64_t* empty = full + stages;
+  uint64_t* wbar = empty + stages;
+
+  const int chunks = cdiv(N, NW), groups = gridDim.x / chunks;
+  const int group = blockIdx.x / chunks, n0 = (blockIdx.x % chunks) * NW;
+  const int tiles = cdiv(M, kTileRows);
+  const int mine = tiles > group ? (tiles - 1 - group) / groups + 1 : 0;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    mbar_init(wbar, 1);
+    fence_barrier_init();
+  }
+  for (int i = tid; i < 16 * NW; i += kCtaThreads) red[i] = 0.f;
+  __syncthreads();
+
+  if (tid < 128) {  // producer warpgroup: one thread issues every load
+    setmaxnreg_dec<40>();
+    if (tid == 0) {
+      if (RES) {
+        mbar_arrive_expect_tx(wbar, nkb * kWb * kBoxBytes);
+        for (int kb = 0; kb < nkb; ++kb)
+          for (int q = 0; q < kWb; ++q)  // rows k, 64 columns n: MN-major B
+            tma_load_2d(w_s + (kb * kWb + q) * kBoxBytes, &wmap, wbar, n0 + q * kBox, kb * kBox);
+      }
+      int st = 0, phase = 0;
+      for (int i = 0; i < mine; ++i) {
+        const int r0 = (group + i * groups) * kTileRows;
+        for (int kb = 0; kb < nkb; ++kb) {
+          unsigned char* stage = ring + st * stage_bytes;
+          mbar_wait(&empty[st], phase ^ 1);
+          mbar_arrive_expect_tx(&full[st], stage_bytes);
+          for (int h = 0; h < 2; ++h)
+            tma_load_2d(stage + h * kBoxBytes, &xmap, &full[st], kb * kBox, r0 + h * kBox);
+          if (!RES)
+            for (int q = 0; q < kWb; ++q)
+              tma_load_2d(stage + (2 + q) * kBoxBytes, &wmap, &full[st], n0 + q * kBox, kb * kBox);
+          if (++st == stages) st = 0, phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<232>();
+  const int ctid = tid - 128, wg = ctid >> 7, wtid = ctid & 127, warp = ctid >> 5, wq = warp & 3;
+  const int lane = tid & 31, gq = lane >> 2, tig = lane & 3;
+  unsigned char* ytile = staging + wg * kWb * kBoxBytes;
+  // This thread's share of the prologue: chunk pc of rows prow + 16 e of its
+  // warpgroup's x box, all in one column block.
+  const int pc = wtid & 7, prow = wtid >> 3, pcol = chunk_col(prow, pc);
+  float acc[NW / 2];
+  int st = 0, phase = 0, prev = 0;
+  if (RES) mbar_wait(wbar, 0);
+  for (int i = 0; i < mine; ++i) {
+    const int r0 = (group + i * groups) * kTileRows + wg * kBox;  // this warpgroup's rows
+#pragma unroll
+    for (int q = 0; q < NW / 2; ++q) acc[q] = 0.f;
+    for (int kb = 0; kb < nkb; ++kb) {
+      unsigned char* stage = ring + st * stage_bytes;
+      unsigned char* xb = stage + wg * kBoxBytes;
+      const unsigned char* wb = RES ? w_s + kb * kWb * kBoxBytes : stage + 2 * kBoxBytes;
+      mbar_wait(&full[st], phase);
+      if (APPLY) {  // a in place over the x box
+        const int c = kb * kBox + pcol;
+        float m[8], ad[8];
+        if (c < K) load8(mul + c, m), load8(add + c, ad);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = prow + 16 * e;
+          uint4* v = reinterpret_cast<uint4*>(xb + r * 128 + pc * 16);
+          *v = c < K && r0 + r < M ? prologue8(*v, m, ad) : make_uint4(0u, 0u, 0u, 0u);
+        }
+        fence_proxy_async();
+        named_barrier(2 + wg, 128);
+      }
+      fence_acc(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        mma_ss<NW, 0, 1>(acc, desc_sw128(xb + ks * 32, 16, 1024), desc_sw128(wb + ks * 2048, kBoxBytes, 1024));
+      wgmma_commit();
+      // Keep this stage's products in flight while the next stage is
+      // waited for and rewritten; the previous stage's are done: free it.
+      wgmma_wait<1>();
+      fence_acc(acc);
+      if (kb > 0 && lane == 0) mbar_arrive(&empty[prev]);
+      prev = st;
+      if (++st == stages) st = 0, phase ^= 1;
+    }
+    wgmma_wait<0>();
+    fence_acc(acc);
+    if (lane == 0) mbar_arrive(&empty[prev]);
+
+    // Epilogue: y = bf16(acc) into the staging tile (once the last tile's
+    // stores are done reading it) and out by TMA stores, which clip rows
+    // past M and columns past N, one 64-column box at a time; s1/s2 of the
+    // box's columns added to the warp's slots. Rows past M and columns past
+    // N hold exact zeros (a's rows, w's columns), so they add nothing.
+    if (wtid == 0) bulk_wait_read<0>();
+    named_barrier(2 + wg, 128);
+#pragma unroll
+    for (int q = 0; q < kWb; ++q) {
+      unsigned char* box = ytile + q * kBoxBytes;
+#pragma unroll
+      for (int j = 0; j < 8; j += 2) {
+        float sums[8];  // per chunk j, j + 1: colsum(y) at two columns, then colsum(y^2)
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int ci = 8 * q + j + jj;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = wq * 16 + gq + 8 * h;
+            *reinterpret_cast<__nv_bfloat162*>(box + r * 128 + (((j + jj) ^ (r & 7)) << 4) + 4 * tig) =
+                __floats2bfloat162_rn(acc[4 * ci + 2 * h], acc[4 * ci + 2 * h + 1]);
+          }
+          const float d0 = acc[4 * ci], d1 = acc[4 * ci + 1], d2 = acc[4 * ci + 2], d3 = acc[4 * ci + 3];
+          sums[4 * jj] = d0 + d2, sums[4 * jj + 1] = d1 + d3;
+          sums[4 * jj + 2] = d0 * d0 + d2 * d2, sums[4 * jj + 3] = d1 * d1 + d3 * d3;
+        }
+        stage_colsums<true>(red, NW, warp, 8 * q + j, lane, sums);
+      }
+      fence_proxy_async();
+      named_barrier(2 + wg, 128);
+      if (wtid == 0) tma_store_2d(&ymap, box, n0 + q * kBox, r0);
+    }
+    if (wtid == 0) bulk_commit();
+  }
+  if (wtid == 0) bulk_wait<0>();
+  write_colsums(red, NW, ctid, part, group, n0, N);  // the 8 warps' sums in warp order
+}
+
+template <int NW, bool APPLY, bool RES>
+int launch_fwd_k(const FwdPlan& p, const CUtensorMap& xmap, const CUtensorMap& wmap, const CUtensorMap& ymap,
+                 const float* mul, const float* add, float* part, int groups, int M, int K, int N,
+                 cudaStream_t st) {
+  auto kern = fwd_kernel<NW, APPLY, RES>;
+  const cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<groups * cdiv(N, NW), kCtaThreads, p.smem, st>>>(xmap, wmap, ymap, mul, add, part, M, K, N, p.stages);
+  return (int)cudaGetLastError();
+}
+
+template <bool APPLY, bool RES>
+int launch_fwd_w(const FwdPlan& p, const CUtensorMap& xmap, const CUtensorMap& wmap, const CUtensorMap& ymap,
+                 const float* mul, const float* add, float* part, int groups, int M, int K, int N,
+                 cudaStream_t st) {
+  if (p.nw == 64) return launch_fwd_k<64, APPLY, RES>(p, xmap, wmap, ymap, mul, add, part, groups, M, K, N, st);
+  if (p.nw == 128) return launch_fwd_k<128, APPLY, RES>(p, xmap, wmap, ymap, mul, add, part, groups, M, K, N, st);
+  return launch_fwd_k<256, APPLY, RES>(p, xmap, wmap, ymap, mul, add, part, groups, M, K, N, st);
+}
+
+template <bool APPLY>
+int launch_fwd_r(const FwdPlan& p, const CUtensorMap& xmap, const CUtensorMap& wmap, const CUtensorMap& ymap,
+                 const float* mul, const float* add, float* part, int groups, int M, int K, int N,
+                 cudaStream_t st) {
+  return p.resident ? launch_fwd_w<APPLY, true>(p, xmap, wmap, ymap, mul, add, part, groups, M, K, N, st)
+                    : launch_fwd_w<APPLY, false>(p, xmap, wmap, ymap, mul, add, part, groups, M, K, N, st);
+}
+
+// x (M, K), w (K, N), y (M, N) bf16; mul, add (K,) fp32 or both null.
+// Scratch: part (parts, 2, N) fp32 with parts = row_groups(M, N, sms). Out:
+// s (2, N) fp32 = [s1; s2]. Returns 0, a CUresult of a tensor-map encoding
+// or the first cudaError_t of the launches (cudaErrorInvalidValue for a
+// wrong parts).
+inline int launch_fwd(const void* x, const void* w, const float* mul, const float* add, void* y, float* part,
+                      int parts, float* s, int M, int K, int N, cudaStream_t st) {
+  if (parts != row_groups(M, N, sm_count())) return (int)cudaErrorInvalidValue;
+  CUtensorMap xmap, wmap, ymap;
+  int err = tmap_matrix(&xmap, x, M, K);
+  if (!err) err = tmap_matrix(&wmap, w, K, N);
+  if (!err) err = tmap_matrix(&ymap, y, M, N);
+  if (err) return err;
+  const FwdPlan p = fwd_plan(K, N);
+  err = mul ? launch_fwd_r<true>(p, xmap, wmap, ymap, mul, add, part, parts, M, K, N, st)
+            : launch_fwd_r<false>(p, xmap, wmap, ymap, mul, add, part, parts, M, K, N, st);
+  if (err) return err;
+  cbn::reduce_rows<<<cbn::ceil_div(2 * N, 32), dim3(32, 8), 0, st>>>(part, parts, 2 * N, s);
+  return (int)cudaGetLastError();
 }
 
 // --- 1. dx and the dmul/dadd partials ------------------------------------------
@@ -766,7 +1028,7 @@ int launch_one_w(int kw, int nw, const CUtensorMap& xmap, const CUtensorMap& yma
 // Partial rows of one backward call on a card of `sms` SMs: dmul/dadd
 // (parts_x) and dw (parts_w).
 inline int dx_partials(int M, int K, int N, int sms) {
-  return one_pass(K, N) ? one_pass_ranges(M, sms) : dx_groups(M, K, sms);
+  return one_pass(K, N) ? one_pass_ranges(M, sms) : row_groups(M, K, sms);
 }
 inline int dw_partials(int M, int K, int N, int sms) {
   return one_pass(K, N) ? one_pass_ranges(M, sms) : dw_ranges(M, K, N, sms);

@@ -8,7 +8,12 @@ the counterpart of ``ihpr_tpu/ops/matmul_bn.py``.
     s1 = colsum(yf), s2 = colsum(yf * yf)   # fp32, from the accumulator
 
 - K5, ``csrc/matmul_bn_fwd.cu`` (the port of ``_fwd_kernel``), computes y
-  and the statistics in one pass; ``a`` never reaches device memory;
+  and the statistics in one pass; ``a`` never reaches device memory. In
+  bf16 it runs the TMA + wgmma kernel of ``csrc/matmul_bn_hopper.cuh``:
+  persistent CTAs that read x once for N up to 256, keep w in shared
+  memory where it fits, form ``a`` in place in the tiles they load, and
+  store y through staging tiles; in fp32 the FMA kernel of
+  ``csrc/conv_bn_common.cuh``;
 - K6, ``csrc/matmul_bn_bwd.cu`` (the port of ``_bwd_kernel``), folds the
   statistics' cotangents into ``g = dy + ds1 + 2*y*ds2`` (with the saved,
   rounded y), rounds g to x's dtype, recomputes ``a`` from x and returns
@@ -20,7 +25,7 @@ the counterpart of ``ihpr_tpu/ops/matmul_bn.py``.
   and a dw kernel; in fp32 the
   FMA kernels of ``csrc/conv_bn_common.cuh``.
 
-K5 and fp32 K6 share ``csrc/conv_bn_common.cuh`` with the fp32 route of
+fp32 K5/K6 share ``csrc/conv_bn_common.cuh`` with the fp32 route of
 K7/K8 (``ops/conv_bn.py``, which also takes ``check_kernel_inputs`` from
 here).
 ``FusedMatmulBN`` is the autograd Function around the pair: a CUDA tensor
@@ -207,9 +212,11 @@ def check_cotangents(x2, y2, dy2, ds1, ds2, n: int) -> torch.Tensor:
 def _fwd_lib() -> ctypes.CDLL:
     lib = _build.load(_FWD_LIB)
     lib.ihpr_matmul_bn_fwd_groups.restype = ctypes.c_int
-    lib.ihpr_matmul_bn_fwd_groups.argtypes = [ctypes.c_int] * 2
+    lib.ihpr_matmul_bn_fwd_groups.argtypes = [ctypes.c_int] * 3
     lib.ihpr_matmul_bn_fwd.restype = ctypes.c_int
-    lib.ihpr_matmul_bn_fwd.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.ihpr_matmul_bn_fwd.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    )
     return lib
 
 
@@ -234,13 +241,14 @@ def kernel_fwd(x: torch.Tensor, w: torch.Tensor, mul=None, add=None):
     m, k, n, is_bf16 = check_kernel_inputs(x, w.unsqueeze(0), mul, add)
     lib = _fwd_lib()
     f32 = dict(dtype=torch.float32, device=x.device)
-    part = torch.empty((lib.ihpr_matmul_bn_fwd_groups(m, n), 2, n), **f32)
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     s = torch.empty((2, n), **f32)
-    with torch.cuda.device(x.device):
+    with torch.cuda.device(x.device):  # bf16 partial counts follow this card's SM count
+        parts = lib.ihpr_matmul_bn_fwd_groups(m, n, is_bf16)
+        part = torch.empty((parts, 2, n), **f32)
         err = lib.ihpr_matmul_bn_fwd(
-            x.data_ptr(), w.data_ptr(), _ptr(mul), _ptr(add), y.data_ptr(), part.data_ptr(),
-            s.data_ptr(), m, 1, 1, k, n, is_bf16, _stream(),
+            x.data_ptr(), w.data_ptr(), _ptr(mul), _ptr(add), y.data_ptr(), part.data_ptr(), parts,
+            s.data_ptr(), m, k, n, is_bf16, _stream(),
         )
     if err:
         raise RuntimeError(f"{_FWD_LIB} launch failed: CUDA error {err}")

@@ -156,6 +156,36 @@ def test_matmul_bn_bwd_matches_jax_at_step_shapes(k, n, prologue):
         assert _rel_err(g.float().numpy(), np.asarray(jnp.asarray(w, jnp.float32))) <= 1e-2, name
 
 
+# ... and of the conv1 of the 5 blocks a fused_1x1-alone step adds (its conv3
+# is MM_STEP's (256, 1024, True)).
+MM_FWD_KN = MM_STEP_KN + [(1024, 256, False)]
+
+
+@pytest.mark.parametrize("k, n, prologue", MM_FWD_KN, ids=[f"k{k}_n{n}" for k, n, _ in MM_FWD_KN])
+def test_matmul_bn_fwd_matches_jax_at_step_shapes(k, n, prologue):
+    """The forward the card's K5 is held to (``plain``) against JAX's
+    ``_fwd_call`` (its Pallas kernel in interpret mode) at every (K, N,
+    prologue) of the flagship fused step and at the ``fused_1x1``-alone
+    conv1, bf16, M = 264 (not a multiple of 256), on the same x, w, mul,
+    add: y within one bf16 step, s1 and s2 within 1e-4 of their largest (the
+    module's bf16 bounds)."""
+    m = 264
+    x, w, *mul_add = _mm_inputs(m, k, n, prologue, seed=k + n)
+    mul_add = mul_add or [None, None]
+    jx, jw = (jnp.asarray(a, jnp.bfloat16) for a in (x, w))
+    jmul, jadd = (None if a is None else jnp.asarray(a) for a in mul_add)
+    want = [np.asarray(jnp.asarray(a, jnp.float32)) for a in jmatmul_bn._fwd_call(jx, jw, jmul, jadd)]
+    bf16 = lambda a: torch.from_numpy(np.asarray(jnp.asarray(a, jnp.float32))).to(torch.bfloat16)  # noqa: E731
+    mul_add = [None if a is None else torch.from_numpy(a) for a in mul_add]
+    y, s1, s2 = matmul_bn.plain(bf16(jx), bf16(jw), *mul_add)
+    assert y.dtype == torch.bfloat16 and s1.dtype == s2.dtype == torch.float32
+    assert [tuple(t.shape) for t in (y, s1, s2)] == [a.shape for a in want]
+    y, yr = y.float().numpy(), want[0]
+    assert np.all(np.abs(y - yr) <= BF16_STEP * np.abs(yr) + 1e-6)
+    for name, s, sr in (("s1", s1, want[1]), ("s2", s2, want[2])):
+        assert np.abs(s.numpy() - sr).max() <= 1e-4 * np.abs(sr).max(), name
+
+
 @pytest.mark.parametrize("prologue", [False, True], ids=["plain", "prologue"])
 def test_fused_matmul_bn_gradcheck_float64(prologue):
     leaves = [torch.from_numpy(a.astype(np.float64)).requires_grad_()

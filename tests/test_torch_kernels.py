@@ -62,24 +62,28 @@ def _selftest(a, b, mode, k, n, sa=None, sb=None):
     [(0, 64, 64, False), (0, 256, 64, False), (0, 256, 192, False), (1, 128, 64, False), (2, 64, 64, False),
      (2, 256, 64, False), (3, 64, 64, False), (3, 128, 64, False), (0, 256, 256, False), (1, 256, 256, False),
      (2, 128, 256, False), (0, 128, 128, False), (1, 256, 128, False), (2, 64, 128, False),
-     (0, 128, 64, True), (0, 64, 256, True), (2, 64, 128, True), (2, 128, 256, True), (1, 128, 128, True)],
+     (0, 128, 64, True), (0, 64, 256, True), (2, 64, 128, True), (2, 128, 256, True), (1, 128, 128, True),
+     (1, 64, 64, True), (1, 256, 256, True)],
     ids=["kmajor_ab", "kmajor_ab_k256", "kmajor_n192", "mnmajor_b", "mmajor_a",
          "mmajor_a_k256", "regs_a_mnmajor_b", "regs_a_mnmajor_b_k128", "kmajor_n256",
          "mnmajor_b_n256", "mmajor_a_n256", "kmajor_n128", "mnmajor_b_n128", "mmajor_a_n128",
          "rewritten_kmajor_ab", "rewritten_kmajor_n256", "rewritten_mmajor_a_n128",
-         "rewritten_mmajor_a_n256", "rewritten_mnmajor_b_n128"],
+         "rewritten_mmajor_a_n256", "rewritten_mnmajor_b_n128", "rewritten_mnmajor_b",
+         "rewritten_mnmajor_b_n256"],
 )
 def test_wgmma_descriptor_modes_match_matmul(cuda, mode, k, n, scaled):
-    """Each operand layout of hopper.cuh that K1/K2, K6, K7/K8 and P2 issue
-    (K-major A and B; MN-major B; M-major A; A from registers with MN-major
-    B; the n128 and n256 shapes of K6's da and dw, K7's y, K8's da and dw and
-    P2's bf16 tiles) through TMA, 128-byte swizzled tiles and wgmma, against
-    torch.matmul in fp32 on the same bf16 values: products are exact, so
-    only the sum order differs (1e-5 of the largest). ``rewritten``: the
-    tiles are first rewritten in place in shared memory (each element times
-    a power of two at its column, as K6 forms gc and relu(x*mul + add) in the
-    tiles TMA brought in), so a column taken from the wrong swizzled chunk
-    or a missing proxy fence shows."""
+    """Each operand layout of hopper.cuh that K1/K2, K5/K6, K7/K8 and P2
+    issue (K-major A and B; MN-major B; M-major A; A from registers with
+    MN-major B; the n128 and n256 shapes of K5's y, K6's da and dw, K7's y,
+    K8's da and dw and P2's bf16 tiles) through TMA, 128-byte swizzled tiles
+    and wgmma, against torch.matmul in fp32 on the same bf16 values:
+    products are exact, so only the sum order differs (1e-5 of the
+    largest). ``rewritten``: the tiles are first rewritten in place in
+    shared memory (each element times a power of two at its column, as K6
+    forms gc and K5/K6 relu(x*mul + add) in the tiles TMA brought in; K5's
+    y at n64, n128 and n256 reads such an A K-major with B MN-major), so a
+    column taken from the wrong swizzled chunk or a missing proxy fence
+    shows."""
     g = torch.Generator().manual_seed(mode * 1000 + k + n + scaled)
     a = torch.randn(64, k, generator=g).to(cuda, torch.bfloat16)
     b = torch.randn(k, n, generator=g).to(cuda, torch.bfloat16)
@@ -635,20 +639,26 @@ def _run_bn(mod, x, w, mul, add, dy, ds1, ds2):
 @pytest.mark.parametrize("prologue", [False, True], ids=["plain", "prologue"])
 @pytest.mark.parametrize("shape", [(1, 8, 8), (1000, 24, 40), (4160, 64, 256), (2051, 256, 72), (4097, 256, 128),
                                    (40, 128, 512), (300, 256, 1024), (333, 128, 128), (333, 120, 64), (333, 56, 128),
-                                   (333, 200, 64), (300, 64, 512), (300, 512, 64)],
+                                   (333, 200, 64), (300, 64, 512), (300, 512, 64), (333, 1024, 256), (333, 2048, 40),
+                                   (333, 1000, 120)],
                          ids=["m1_k8_n8", "ragged", "k64_n256", "k256_n72", "flagship_ragged_m", "m40_k128_n512",
-                              "k256_n1024", "k128_n128", "k120_n64", "k56_n128", "k200_n64", "k64_n512", "k512_n64"])
+                              "k256_n1024", "k128_n128", "k120_n64", "k56_n128", "k200_n64", "k64_n512", "k512_n64",
+                              "k1024_n256", "k2048_n40", "k1000_n120"])
 def test_matmul_bn_kernels_match_plain(cuda, shape, prologue, dtype):
-    """K5/K6 against plain; bf16 K6 takes its TMA + wgmma kernels at every
-    shape: M = 1 and M = 40 (below one 128-row tile), a ragged M with a
-    flagship (K, N), K and N that are not multiples of 64 (ragged, k256_n72),
-    the flagship's widest N (k256_n1024: 256-column chunks of N and 128-row
-    tiles of K in dw). Between them the shapes run every instantiated bf16
-    kernel at a ragged M: the one-pass kernel at each (KW, NW) of (64, 64),
-    (64, 128), (128, 64), (128, 128), (64, 256) and (256, 64), and the dx
-    and dw kernels at widths 64, 128 and 256 (k64_n512 and k512_n64: one of
-    K and N within one 64-wide box, the other past 256, which take two
-    kernels)."""
+    """K5/K6 against plain; bf16 K5 and K6 take their TMA + wgmma kernels at
+    every shape: M = 1 and M = 40 (below one 128-row tile), a ragged M with
+    a flagship (K, N), K and N that are not multiples of 64 (ragged,
+    k256_n72), the flagship's widest N (k256_n1024: 256-column chunks of N
+    in K5, and 128-row tiles of K in K6's dw) and the conv1 of a
+    ``fused_1x1``-alone step (k1024_n256). Between them the shapes run every
+    instantiated bf16 kernel at a ragged M: K5's at each width 64, 128 and
+    256 with w resident in shared memory and streamed with each k-block
+    (k2048_n40, k1000_n120, k1024_n256: K x width(N) too large to stay);
+    K6's one-pass kernel at each (KW, NW) of (64, 64), (64, 128), (128, 64),
+    (128, 128), (64, 256) and (256, 64), and its dx and dw kernels at widths
+    64, 128 and 256 (k64_n512 and k512_n64: one of K and N within one
+    64-wide box, the other past 256, which take two kernels). fp32 runs
+    v1's FMA kernels."""
     m, k, n = shape
     got, want = _run_bn(matmul_bn, *_bn_inputs((m,), k, n, 1, cuda, dtype, prologue))
     _close_bn(got, want, dtype, shape)
