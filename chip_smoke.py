@@ -43,6 +43,16 @@
    step against plain_bwd on the same saved inputs; the loss falling over
    10 steps on one repeated batch; device ms per step (CUDA events),
    host-clock img/s and the loader's host ms per batch.
+7a. The snapshot lifecycle of h36m3d_r50 (batch 128, synthetic H36M+MPII
+   cut to 4 steps an epoch, cuDNN's deterministic algorithms): two epochs
+   uninterrupted; the same run preempted by the RSS watchdog at itr 1
+   (exit 75, a mid-epoch snapshot) and resumed with continue_train, its
+   K1/K2 counted, ending bitwise equal to the uninterrupted run (weights,
+   BN statistics, Adam moments and counts); the Tester and load_server from
+   a snapshot, bitwise those of the live model; python -m
+   ihpr_tpu_torch.test on the run in a subprocess; a torch.profiler window
+   of the Trainer whose trace names K1's and K2's kernels; the snapshot's
+   size and the save's blocking, background and load times (host clock).
 7b. Trains h36m3d_r50 with fused_1x1 and fused_conv3 through the Trainer
    (batch 128): K5/K6 16 and K7/K8 5 launches per step, K1/K2 one; one
    launch of each of K5-K8 in those steps against plain on its saved
@@ -76,7 +86,8 @@
     share of the bound and ratio to the library; the int8 transpose's share
     of one call (torch.profiler).
 
-In 6-12 the kernels' launch counters are set to 0 just before the path
+In 6-12 (7a: its resumed training, the snapshot Tester and server) the
+kernels' launch counters are set to 0 just before the path
 runs and read just after (in 11-12 the path is the tool's main); each kernel of the path must have launched as
 often as the path dispatched it, and the others not at all. Outputs are
 checked for shape and finiteness and against the plain versions.
@@ -618,7 +629,8 @@ def train_phase(fhi, gpu: str):
     from ihpr_tpu_torch.data.pipeline import prefetch_to_device
     from ihpr_tpu_torch.engine.trainer import Trainer
 
-    cfg = get_config("h36m3d_r50")
+    scratch = tempfile.TemporaryDirectory()  # the Trainer's log and snapshot; removed on return
+    cfg = get_config("h36m3d_r50").replace(output_dir=scratch.name)
     if cfg.optim.batch_size_per_device != TRAIN_BATCH:
         raise AssertionError(f"h36m3d_r50 trains at batch {cfg.optim.batch_size_per_device}")
     t0 = time.perf_counter()
@@ -667,6 +679,198 @@ def train_phase(fhi, gpu: str):
     finally:
         trainer.close()
     return k1, k2, head_err
+
+
+SNAP_SIZE = 256  # synthetic samples per train set: H36M + MPII = 512, 4 steps of 128
+SNAP_TEST = 128  # synthetic H36M test samples of the snapshot Tester: one eval batch
+
+
+def _state_gaps(got: dict, want: dict) -> list:
+    """(name, largest |difference|) of every tensor or count of two
+    ``TrainState.state_dict()``s that are not bitwise equal: the model's
+    weights and BN running statistics, the Adam moments and counts, the
+    schedule's count, the update count."""
+    gaps = [(k, float((got["model"][k].double() - v.double()).abs().max()))
+            for k, v in want["model"].items() if not torch.equal(got["model"][k], v)]
+    for i, st in want["optimizer"]["state"].items():
+        gaps += [(f"optimizer.{i}.{k}", float((got["optimizer"]["state"][i][k].double() - v.double()).abs().max()))
+                 for k, v in st.items() if not torch.equal(got["optimizer"]["state"][i][k], v)]
+    for key, a, b in (("step", got["step"], want["step"]),
+                      ("scheduler", got["scheduler"]["last_epoch"], want["scheduler"]["last_epoch"])):
+        if a != b:
+            gaps.append((key, abs(a - b)))
+    return gaps
+
+
+def snapshot_phase(fhi, gpu: str):
+    """The snapshot lifecycle of h36m3d_r50 at full width (batch 128,
+    synthetic H36M+MPII, 4 steps an epoch), under cuDNN's deterministic
+    algorithms: (a) two epochs uninterrupted; (b) the same run preempted by
+    the RSS watchdog at itr 1 of epoch 0 (exit 75, snapshot_0 with itr 1);
+    (c) resumed with --continue at (epoch 0, skip 2) through both epochs, K1
+    and K2 once per step, its final weights, BN statistics, Adam moments and
+    counts bitwise (a)'s; (d) the Tester from (a)'s snapshot_1 against the
+    Tester of (a)'s model, bitwise, K1 once per eval batch; (e) load_server
+    against PoseServer on (a)'s model, bitwise; (f) ``python -m
+    ihpr_tpu_torch.test`` on (a)'s run in a subprocess; (g) a profile window
+    of (c)'s trainer whose trace names K1's and K2's kernels. Prints the
+    snapshot's size and the save's blocking and background times and the
+    load's. Returns the counted K1 and K2 launches of (c)-(e)."""
+    from ihpr_tpu_torch.config import get_config
+    from ihpr_tpu_torch.data.datasets import build_dataset
+    from ihpr_tpu_torch.engine.checkpoint import CheckpointManager, _host_copy
+    from ihpr_tpu_torch.engine.server import PoseServer, load_server
+    from ihpr_tpu_torch.engine.tester import Tester
+    from ihpr_tpu_torch.engine.trainer import Trainer
+    from ihpr_tpu_torch.utils.hostmem import EX_TEMPFAIL
+
+    base = get_config("h36m3d_r50")
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    with tempfile.TemporaryDirectory() as tmp:
+        run_a, run_b = f"{tmp}/a", f"{tmp}/b"
+
+        def trainer(out, **kw):
+            return Trainer(base.replace(output_dir=out), data_root="synthetic", synthetic_size=SNAP_SIZE,
+                           num_workers=8, device="cuda", **kw)
+
+        try:
+            # (a) uninterrupted
+            t0 = time.perf_counter()
+            ta = trainer(run_a, rss_limit_mb=0)
+            if ta.steps_per_epoch != 4:
+                raise AssertionError(f"snapshot phase: {ta.steps_per_epoch} steps an epoch, want 4")
+            try:
+                ta.train(2)
+            finally:
+                ta.close()
+            want = _host_copy(ta.state.state_dict())
+            if ta.ckpt._epochs_on_disk() != [0, 1]:
+                raise AssertionError(f"(a) left snapshots {ta.ckpt._epochs_on_disk()}")
+            print(f"snapshot (a): 2 epochs of {ta.steps_per_epoch} steps uninterrupted in "
+                  f"{time.perf_counter() - t0:.2f} s, snapshot_0 and snapshot_1 written")
+
+            timing = CheckpointManager(f"{tmp}/timing")
+            block, write, load = [], [], []
+            for e in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                timing.save(e, ta.state)
+                t1 = time.perf_counter()
+                timing.wait()
+                t2 = time.perf_counter()
+                timing.load(e)
+                t3 = time.perf_counter()
+                block.append((t1 - t0) * 1e3)
+                write.append((t2 - t1) * 1e3)
+                load.append((t3 - t2) * 1e3)
+            mb = os.path.getsize(f"{timing.dump_dir}/snapshot_0/state.pt") / 1e6
+            print(f"snapshot: {mb:.1f} MB a snapshot (fp32 weights, BN statistics, Adam moments); save "
+                  f"blocks the loop {statistics.median(block):.1f} ms (host copy), background write "
+                  f"{statistics.median(write):.1f} ms, load {statistics.median(load):.1f} ms (host clock, "
+                  f"medians of 3; blocking {', '.join(f'{x:.1f}' for x in block)}; write "
+                  f"{', '.join(f'{x:.1f}' for x in write)}; load {', '.join(f'{x:.1f}' for x in load)})  [{gpu}]")
+
+            # (b) preempted by the watchdog at itr 1 of epoch 0
+            tb = trainer(run_b, rss_limit_mb=1.0, rss_check_interval_steps=2)
+            try:
+                tb.train(2)
+                raise AssertionError("(b): the watchdog did not preempt")
+            except SystemExit as exc:
+                code = exc.code
+            finally:
+                tb.close()
+            state_b, epoch_b, itr_b = tb.ckpt.load(0)
+            if (code, epoch_b, itr_b, state_b["step"]) != (EX_TEMPFAIL, 0, 1, 2):
+                raise AssertionError(f"(b): exit {code}, snapshot_{epoch_b} itr {itr_b} step {state_b['step']}")
+            print(f"snapshot (b): preempted with exit {code}, snapshot_0 at itr {itr_b} after "
+                  f"{state_b['step']} steps")
+            del tb, state_b
+
+            # (c) resumed mid-epoch; the main path, counted
+            tc = trainer(run_b, continue_train=True, rss_limit_mb=0)
+            if (tc.start_epoch, tc.resume_skip) != (0, 2):
+                raise AssertionError(f"(c) resumed at {(tc.start_epoch, tc.resume_skip)}, want (0, 2)")
+            _zero_counts(fhi)
+            tc.train(2)
+            torch.cuda.synchronize()
+            k1, k2 = fhi.launches, fhi.bwd_launches
+            ran = tc.state.step - 2
+            if (k1, k2) != (ran, ran) or ran != 2 * tc.steps_per_epoch - 2:
+                raise AssertionError(f"(c): K1/K2 launched {k1}/{k2} times in {ran} steps")
+            gaps = _state_gaps(_host_copy(tc.state.state_dict()), want)
+            if gaps:
+                raise AssertionError(f"(c) is not (a) bitwise: {len(gaps)} differ, e.g. {gaps[:8]}")
+            print(f"snapshot (c): resumed at (epoch 0, skip 2), {ran} steps, K1 launches {k1}, K2 {k2}; "
+                  f"weights, BN statistics, Adam moments and counts, step {tc.state.step} bitwise "
+                  f"equal to (a)'s ({len(want['model'])} + {len(want['optimizer']['state'])} x 3 tensors)")
+
+            # (g) a profile window over itr 1-2 of one more epoch
+            prof_dir = f"{tmp}/profile"
+            tc.train(3, profile_dir=prof_dir, profile_steps=(1, 3))
+            tc.close()
+            (trace,) = os.listdir(prof_dir)
+            with open(f"{prof_dir}/{trace}") as f:
+                kernels = {e["name"] for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"}
+            named = {k: [n for n in kernels if k in n] for k in
+                     ("fused_head_integral_fwd_kernel", "dfeat_kernel", "dw_kernel")}
+            if not all(named.values()):
+                raise AssertionError(f"(g): the trace names no {[k for k, v in named.items() if not v]}")
+            print(f"snapshot (g): profile_steps (1, 3) wrote {trace} ({len(kernels)} kernel names), "
+                  f"K1 {_kernel_label(named['fused_head_integral_fwd_kernel'][0])}, K2 "
+                  f"{_kernel_label(named['dfeat_kernel'][0])} and {_kernel_label(named['dw_kernel'][0])}")
+            del tc
+
+            # (d) the Tester from (a)'s snapshot_1
+            cfg_a = base.replace(output_dir=run_a)
+            dataset = build_dataset(base.data.testset, "test", base, "synthetic", SNAP_TEST)
+            live = Tester(cfg_a, dataset=dataset, state=ta.model, num_workers=8, device="cuda")
+            from_snap = Tester(cfg_a, test_epoch=1, dataset=dataset, num_workers=8, device="cuda")
+            try:
+                want_vox = live.predict_voxels()
+                _zero_counts(fhi)
+                got_vox = from_snap.predict_voxels()
+                k1_eval = fhi.launches
+            finally:
+                live.close()
+                from_snap.close()
+            if k1_eval != len(from_snap.loader) or not np.array_equal(got_vox, want_vox):
+                raise AssertionError(f"(d): K1 {k1_eval} for {len(from_snap.loader)} batches, "
+                                     f"{float(np.abs(got_vox - want_vox).max())} voxel from the live model's")
+            print(f"snapshot (d): Tester(test_epoch=1) on {SNAP_TEST} samples, K1 launches {k1_eval}; coords "
+                  f"bitwise those of Tester(state=model) (spread {float(np.abs(want_vox - want_vox.mean()).max()):.3g})")
+
+            # (e) load_server from (a)'s run
+            patches = np.random.RandomState(SEED).randint(0, 256, (2 * MAX_BATCH, *base.data.input_shape, 3))
+            patches = patches.astype(np.uint8)
+            want_srv = PoseServer(base, ta.model, max_batch=MAX_BATCH, device="cuda").predict_patches(patches)
+            served = load_server(base, run_a, max_batch=MAX_BATCH, device="cuda")
+            _zero_counts(fhi)
+            got_srv = served.predict_patches(patches)
+            k1_srv = fhi.launches
+            if k1_srv != 2 or not np.array_equal(got_srv, want_srv):
+                raise AssertionError(f"(e): K1 {k1_srv}, {float(np.abs(got_srv - want_srv).max())} voxel "
+                                     "from PoseServer's")
+            print(f"snapshot (e): load_server predict_patches({len(patches)}) bitwise PoseServer's, "
+                  f"K1 launches {k1_srv}")
+            del served, ta
+        finally:
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+        torch.cuda.empty_cache()
+
+        # (f) the evaluation CLI on (a)'s run, in a subprocess
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "ihpr_tpu_torch.test", "--synthetic", "--output_dir", run_a,
+             "--synthetic_size", "64", "--device", "cuda"],
+            cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True, timeout=600,
+        )
+        printed = proc.stdout.strip().splitlines()[-1:] or [""]
+        if proc.returncode != 0 or "MPJPE" not in printed[0]:
+            raise AssertionError(f"(f): exit {proc.returncode}: {proc.stdout[-1500:]} {proc.stderr[-1500:]}")
+        print(f"snapshot (f): python -m ihpr_tpu_torch.test --synthetic --output_dir <a> --synthetic_size 64 "
+              f"exit 0 in {time.perf_counter() - t0:.1f} s: {printed[0][:160]}")
+    return k1 + k1_eval + k1_srv, k2
 
 
 def _counts(*mods):
@@ -1348,7 +1552,8 @@ def fused_train_phase(fhi, iv, mm, cb, gpu: str):
     from ihpr_tpu_torch.engine.trainer import Trainer
     from ihpr_tpu_torch.models.resnet import Bottleneck
 
-    base = get_config("h36m3d_r50")
+    scratch = tempfile.TemporaryDirectory()  # the Trainer's log and snapshot; removed on return
+    base = get_config("h36m3d_r50").replace(output_dir=scratch.name)
     cfg = base.replace(model=dataclasses.replace(base.model, fused_1x1=True, fused_conv3=True))
     trainer = Trainer(cfg, data_root="synthetic", synthetic_size=384, num_workers=8, device="cuda")
     blocks = [m for m in trainer.model.modules() if isinstance(m, Bottleneck)]
@@ -1688,6 +1893,7 @@ def main(argv=None) -> int:
     bn = bn_kernel_phase(mm, cb, gpu)
     serve_k1 = serve_phase(fhi, gpu)
     train_k1, train_k2, head_err = train_phase(fhi, gpu)
+    snap_k1, snap_k2 = snapshot_phase(fhi, gpu)
     (k5_n, k6_n, k7_n, k8_n), fused_errs = fused_train_phase(fhi, iv, mm, cb, gpu)
     hm_k3, hm_k4, hm_err, hm_dv_err = heatmap_phase(fhi, iv, gpu)
     np_k3, np_k4, np_err = noplan_phase(fhi, iv, gpu)
@@ -1696,9 +1902,9 @@ def main(argv=None) -> int:
     p2 = probe_mm_phase(pm, gpu)
     b1, b2, b3, b4 = head_bounds()
     kernels = [
-        (fhi._LIB, "ihpr_tpu/ops/fused_head_integral.py:133", serve_k1 + train_k1 + eval_k1,
+        (fhi._LIB, "ihpr_tpu/ops/fused_head_integral.py:133", serve_k1 + train_k1 + snap_k1 + eval_k1,
          max(k1_err, eval_k1_err), k1_ms, k1_plain, *b1, k1_lib),
-        (fhi._BWD_LIB, "ihpr_tpu/ops/fused_head_integral.py:153", train_k2,
+        (fhi._BWD_LIB, "ihpr_tpu/ops/fused_head_integral.py:153", train_k2 + snap_k2,
          max(k2_err, head_err), k2_ms, k2_plain, *b2, k2_lib),
         (iv._FWD_LIB, "ihpr_tpu/ops/integral_pallas.py:201", hm_k3 + np_k3 + eval_k3,
          max(k3_err, hm_err, np_err, eval_k3_err), k3_ms, k3_plain, *b3, None),

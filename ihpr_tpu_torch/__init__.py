@@ -12,9 +12,14 @@ package never imports):
                 K1 forward and K2 backward (ops/csrc); the L1 loss
     models    — ResNet backbone, deconv head, PoseNet (fp32 parameters,
                 train-mode BN), weight conversion
-    parallel  — the single-GPU train step, optimizer and schedule
-    engine    — PoseServer (batched serving with flip-test), Trainer
+    parallel  — the single-GPU train step, optimizer and schedule, and the
+                TrainState's state_dict
+    engine    — PoseServer (batched serving with flip-test) and load_server,
+                Trainer (snapshots, resume, the RSS watchdog, a profile
+                window), Tester, CheckpointManager, colorlogger
+    utils     — the output tree, graceful SIGTERM, host-memory helpers
     train     — the training CLI (python -m ihpr_tpu_torch.train)
+    test      — the evaluation CLI (python -m ihpr_tpu_torch.test)
 """
 
 __version__ = "0.1.0"

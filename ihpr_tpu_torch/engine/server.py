@@ -6,7 +6,8 @@ patch (one fixed shape per call), runs ``finalize_patch`` and
 ``PoseNet.coords`` on ``device`` (flip-test as one 2B batch), and maps the
 voxel coords back to original-image pixels and millimetre depth on the
 host. On a CUDA device the forward runs the fused head kernel; there is no
-plain fallback on that path.
+plain fallback on that path. ``load_server`` builds a server from a
+training snapshot.
 """
 
 from __future__ import annotations
@@ -198,3 +199,16 @@ class PoseServer:
                 yield finish(*q.popleft())
         while q:
             yield finish(*q.popleft())
+
+
+def load_server(
+    cfg: Config, snapshot_dir: Optional[str] = None, epoch: Optional[int] = None, **kw
+) -> PoseServer:
+    """A ``PoseServer`` with the weights of a training snapshot (reference
+    ``--test_epoch``): snapshot ``epoch`` (default: the latest) of the run in
+    ``snapshot_dir`` (default: ``cfg.output_dir``). ``kw`` go to
+    ``PoseServer``, which runs on ``device="cuda"`` unless asked otherwise."""
+    from ihpr_tpu_torch.engine.checkpoint import load_snapshot
+
+    state_dict, _ = load_snapshot(snapshot_dir or cfg.output_dir, epoch)
+    return PoseServer(cfg, state_dict["model"], **kw)

@@ -4,17 +4,17 @@ counterpart of ``ihpr_tpu.engine.tester`` on one device.
 Reference: ``common/base.py:Tester`` and ``main/test.py`` (no-grad loop,
 flip-test, predictions gathered, ``db.evaluate``) and the per-dataset
 evaluate (``Human36M.evaluate``: warp back, pixel2cam, root-align,
-per-action MPJPE). Snapshot loading waits for checkpoint/resume, the
-``vis`` overlays for cv2, and the multi-host gather for multi-GPU.
+per-action MPJPE). The model comes from the caller or from a snapshot in
+``cfg.output_dir``; the log goes to ``{output_dir}/log/test_logs.txt``. The
+``vis`` overlays wait for cv2, and the multi-host gather for multi-GPU.
 """
 
 from __future__ import annotations
 
 import json
-import logging
 import os
 import time
-from typing import Dict, Union
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -23,16 +23,17 @@ from ihpr_tpu_torch.config import Config
 from ihpr_tpu_torch.data import geometry
 from ihpr_tpu_torch.data.datasets import (
     PoseDataset,
+    build_dataset,
     evaluate_h36m,
     evaluate_mpii_pckh,
     evaluate_mscoco,
 )
 from ihpr_tpu_torch.data.pipeline import BatchLoader, prefetch_to_device
 from ihpr_tpu_torch.data.warp import gen_trans_np
-from ihpr_tpu_torch.models.pose_net import PoseNet, inference_copy
+from ihpr_tpu_torch.engine.checkpoint import load_snapshot
+from ihpr_tpu_torch.engine.logger import colorlogger
+from ihpr_tpu_torch.models.pose_net import PoseNet, build_pose_net, inference_copy
 from ihpr_tpu_torch.parallel.train_step import TrainState, make_eval_step
-
-logger = logging.getLogger(__name__)
 
 
 def metrics_from_voxel_preds(
@@ -76,26 +77,36 @@ class Tester:
     def __init__(
         self,
         cfg: Config,
-        dataset: PoseDataset,
+        test_epoch: Optional[int] = None,
+        data_root: Optional[str] = None,
+        dataset: Optional[PoseDataset] = None,
         state: Union[TrainState, PoseNet, None] = None,
         num_workers: int = 8,
+        synthetic_size: int = 128,
         device="cuda",
     ):
-        """``dataset``: the test set. ``state``: the trainer's ``TrainState``
-        or a ``PoseNet``; the Tester evaluates a frozen copy
+        """``dataset``: the test set, or None to build ``cfg.data.testset``
+        from ``data_root`` (only "synthetic" is ported; ``synthetic_size``
+        samples). ``state``: the trainer's ``TrainState`` or a ``PoseNet``,
+        or None to load snapshot ``test_epoch`` (default: the latest) from
+        ``cfg.output_dir``. The Tester evaluates a frozen copy
         (``pose_net.inference_copy``) on ``device``."""
-        if state is None:
-            raise ValueError(
-                "Tester needs a TrainState or a PoseNet: loading a snapshot from "
-                "cfg.output_dir arrives with checkpoint/resume"
-            )
         self.cfg = cfg
         self.device = torch.device(device)
+        self.logger = colorlogger(f"{cfg.output_dir}/log", "test_logs.txt")
+        if dataset is None:
+            dataset = build_dataset(cfg.data.testset, "test", cfg, data_root, synthetic_size)
         self.dataset = dataset
         self.loader = BatchLoader(
             [dataset], cfg, cfg.eval.batch_size_per_device, train=False, num_workers=num_workers
         )
-        model = state.model if isinstance(state, TrainState) else state
+        if state is None:
+            state_dict, epoch = load_snapshot(cfg.output_dir, test_epoch)
+            model = build_pose_net(cfg, dataset.joint_num, device=self.device)
+            model.load_state_dict(state_dict["model"])
+            self.logger.info("loaded snapshot_%d", epoch)
+        else:
+            model = state.model if isinstance(state, TrainState) else state
         if model.joint_num != dataset.joint_num:
             raise ValueError(f"model has {model.joint_num} joints, {dataset.name} has {dataset.joint_num}")
         self.model = inference_copy(model).to(self.device)
@@ -142,7 +153,7 @@ class Tester:
         result_dir = f"{cfg.output_dir}/result"
         os.makedirs(result_dir, exist_ok=True)
         for k, v in sorted(metrics.items()):
-            logger.info("%s: %.2f", k, v)
+            self.logger.info("%s: %.2f", k, v)
         with open(f"{result_dir}/metrics_{name}.json", "w") as f:
             json.dump(metrics, f, indent=1)
         np.save(f"{result_dir}/preds_{name}.npy", preds_img)
@@ -181,4 +192,4 @@ class Tester:
                 json.dump(out, f)
         else:
             return
-        logger.info("wrote %s", path)
+        self.logger.info("wrote %s", path)

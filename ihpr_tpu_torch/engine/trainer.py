@@ -1,5 +1,5 @@
-"""Trainer: the epoch loop wiring data -> train step, counterpart of
-``ihpr_tpu.engine.trainer`` on one device.
+"""Trainer: the epoch loop wiring data -> train step -> snapshots, counterpart
+of ``ihpr_tpu.engine.trainer`` on one device.
 
 Builds the train datasets (synthetic only in the port), the host-warp
 ``BatchLoader``, a trainable ``PoseNet`` and its optimizer, then runs
@@ -7,14 +7,18 @@ epochs of ``make_train_step``: the full-metrics step at log points, the
 loss-only step between them. The current epoch's losses stay on the
 device in ``losses`` (cleared when the next epoch starts, so a long run
 holds one epoch of them); the loop reads metrics on the host only at log
-points.
-Checkpoints, resume, the host-RSS watchdog and the profiler window of the
-JAX trainer are not ported.
+points. Snapshots go to ``{output_dir}/model_dump`` in the background
+(``CheckpointManager``), the log to ``{output_dir}/log/train_logs.txt``.
+``continue_train`` resumes from the latest snapshot, mid-epoch included,
+bit for bit. A host-RSS watchdog snapshots and exits with ``EX_TEMPFAIL``
+past its limit, and ``train(profile_dir=...)`` writes a ``torch.profiler``
+trace of a window of steps.
 """
 
 from __future__ import annotations
 
-import logging
+import itertools
+import os
 import time
 from typing import List, Optional, Sequence
 
@@ -24,6 +28,8 @@ from ihpr_tpu_torch.config import Config
 from ihpr_tpu_torch.data import skeletons
 from ihpr_tpu_torch.data.datasets import PoseDataset, build_dataset
 from ihpr_tpu_torch.data.pipeline import BatchLoader, prefetch_to_device
+from ihpr_tpu_torch.engine.checkpoint import CheckpointManager
+from ihpr_tpu_torch.engine.logger import colorlogger
 from ihpr_tpu_torch.models.pose_net import build_pose_net
 from ihpr_tpu_torch.parallel.train_step import (
     TrainState,
@@ -31,8 +37,8 @@ from ihpr_tpu_torch.parallel.train_step import (
     make_lr_schedule,
     make_train_step,
 )
+from ihpr_tpu_torch.utils.hostmem import EX_TEMPFAIL, host_rss_mb, resolve_rss_limit_mb
 
-logger = logging.getLogger(__name__)
 _LOG_EVERY = 50  # steps between full-metrics log lines (the JAX trainer's)
 
 
@@ -41,13 +47,24 @@ class Trainer:
         self,
         cfg: Config,
         data_root: Optional[str] = None,
+        continue_train: bool = False,
         datasets: Optional[Sequence[PoseDataset]] = None,
         num_workers: int = 8,
         synthetic_size: int = 512,
+        rss_limit_mb: Optional[float] = None,
+        rss_check_interval_steps: int = 100,
         device="cuda",
     ):
+        """``rss_limit_mb``: the host-RSS watchdog (``utils/hostmem.py``):
+        None = 80% of MemTotal, 0 disables. Past the limit the loop
+        snapshots and exits with ``EX_TEMPFAIL`` (75) for a ``--continue``
+        relaunch. It checks every ``rss_check_interval_steps`` steps (0 =
+        epoch boundaries only) and at epoch boundaries."""
         self.cfg = cfg
         self.device = torch.device(device)
+        self.rss_limit_mb = resolve_rss_limit_mb(rss_limit_mb)
+        self.rss_check_interval_steps = int(rss_check_interval_steps)
+        self.logger = colorlogger(f"{cfg.output_dir}/log", "train_logs.txt")
         if datasets is None:
             # Secondary datasets render in the primary skeleton's hue space,
             # so joint identity is coded alike across the mix.
@@ -60,16 +77,35 @@ class Trainer:
         self.batch_size = cfg.optim.batch_size_per_device
         self.loader = BatchLoader(datasets, cfg, self.batch_size, num_workers=num_workers, seed=cfg.seed)
         self.steps_per_epoch = len(self.loader)
-        logger.info(
+        self.logger.info(
             "train: %d samples (%s), batch %d, %d steps/epoch, on %s",
             sum(len(d) for d in datasets), "+".join(d.name for d in datasets),
             self.batch_size, self.steps_per_epoch, self.device,
         )
         self.model = build_pose_net(cfg, self.loader.joint_num, device=self.device, trainable=True)
         self.max_steps: Optional[int] = None  # set by cap_steps_per_epoch
-        self.start_epoch = 0
         self.losses: List[torch.Tensor] = []  # the current epoch's losses, on the device
         self._make_steps()
+        self.ckpt = CheckpointManager(cfg.output_dir, keep=cfg.optim.snapshot_keep)
+        self.start_epoch = 0
+        # Batches of start_epoch already consumed by a mid-epoch snapshot
+        # (itr >= 0): the resumed loop replays the epoch's deterministic host
+        # stream and skips the first resume_skip batches.
+        self.resume_skip = 0
+        if continue_train:
+            restored = self.ckpt.load_latest()
+            if restored is not None:
+                state_dict, epoch, itr = restored
+                self.state.load_state_dict(state_dict)
+                if itr >= 0:
+                    self.start_epoch, self.resume_skip = epoch, itr + 1
+                    self.logger.info(
+                        "resumed from snapshot_%d (mid-epoch, itr %d; skipping %d consumed batches)",
+                        epoch, itr, self.resume_skip,
+                    )
+                else:
+                    self.start_epoch = epoch + 1
+                    self.logger.info("resumed from snapshot_%d", epoch)
 
     def _make_steps(self):
         """Optimizer, schedule and step functions for the current epoch
@@ -82,23 +118,101 @@ class Trainer:
 
     def cap_steps_per_epoch(self, n: int):
         """Shrink epochs to n steps (smoke runs). Rebuilds the optimizer and
-        schedule so the decay boundaries follow the capped epoch length."""
+        schedule so the decay boundaries follow the capped epoch length. As
+        in the JAX trainer, after a restore (``--continue --steps N``) this
+        restarts Adam's moments and count and the schedule's count; the
+        update count ``state.step`` stays."""
         self.steps_per_epoch = min(n, self.steps_per_epoch)
         self.max_steps = self.steps_per_epoch
+        step = self.state.step
         self._make_steps()
+        self.state.step = step
 
     def close(self):
         self.loader.close()
 
-    def train(self, end_epoch: Optional[int] = None) -> TrainState:
+    def train(
+        self,
+        end_epoch: Optional[int] = None,
+        profile_dir: Optional[str] = None,
+        profile_steps: tuple = (20, 25),
+    ) -> TrainState:
         """Run epochs [start_epoch, end_epoch) (``cfg.optim.end_epoch`` by
-        default); a later call continues from there."""
+        default); a later call continues from there. ``profile_dir``: a
+        ``torch.profiler`` window over iterations [profile_steps) of the
+        first epoch, written there as a Chrome trace."""
         end_epoch = end_epoch or self.cfg.optim.end_epoch
-        for epoch in range(self.start_epoch, end_epoch):
-            batches = prefetch_to_device(self.loader.epoch(epoch, self.max_steps), self.device)
+        self._profiler = None
+        try:
+            self._epoch_loop(end_epoch, profile_dir, profile_steps)
+        finally:
+            if self._profiler is not None:
+                # Close a window left open by an abnormal exit inside it (an
+                # RSS preempt, SIGTERM), so the trace on disk is usable and a
+                # later train() starts clean.
+                self._stop_profile(profile_dir)
+            # Drain the snapshot in flight on every exit path, the SIGTERM ->
+            # SystemExit unwind of the CLIs (utils/shutdown.py) included.
+            self.ckpt.wait()
+        return self.state
+
+    def _start_profile(self):
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        self._profiler = torch.profiler.profile(activities=activities)
+        self._profiler.start()
+
+    def _stop_profile(self, profile_dir: str):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof, self._profiler = self._profiler, None
+        prof.stop()
+        os.makedirs(profile_dir, exist_ok=True)
+        path = os.path.join(profile_dir, f"trace_step{self.state.step}.json")
+        prof.export_chrome_trace(path)
+        self.logger.info("profile written to %s", path)
+
+    def _rss_check(self, epoch: int, itr: int = -1, already_saved: bool = False):
+        """The watchdog (on one device the vote is local): past the limit,
+        self-preempt before the OOM killer: snapshot (mid-epoch when itr >=
+        0; resume skips the consumed batches), then exit with EX_TEMPFAIL so
+        a supervisor relaunches with --continue (train()'s finally drains
+        the save)."""
+        rss = host_rss_mb()
+        if self.rss_limit_mb is None or rss <= self.rss_limit_mb:
+            return
+        if not already_saved:
+            self.ckpt.save(epoch, self.state, itr=itr)
+        where = f"mid-epoch at itr {itr}" if itr >= 0 else "at the epoch boundary"
+        self.logger.warning(
+            "host RSS %.0f MB, limit %.0f MB (%s): snapshot_%d saved, exiting %d - "
+            "relaunch with --continue",
+            rss, self.rss_limit_mb, where, epoch, EX_TEMPFAIL,
+        )
+        raise SystemExit(EX_TEMPFAIL)
+
+    def _epoch_loop(self, end_epoch: int, profile_dir: Optional[str], profile_steps: tuple):
+        first_epoch = self.start_epoch
+        for epoch in range(first_epoch, end_epoch):
+            host_it = self.loader.epoch(epoch, self.max_steps)
+            start_itr = 0
+            if epoch == first_epoch and self.resume_skip:
+                # Mid-epoch resume: drop the consumed prefix of the epoch's
+                # deterministic host stream before it is staged on the device.
+                host_it = itertools.islice(host_it, self.resume_skip, None)
+                start_itr = self.resume_skip
+            batches = prefetch_to_device(host_it, self.device)
             self.losses = []
             window_start, window_steps = time.perf_counter(), 0
-            for itr, (batch, _) in enumerate(batches):
+            for itr, (batch, _) in enumerate(batches, start=start_itr):
+                if profile_dir and epoch == first_epoch:
+                    # The guard covers both edges: a mid-epoch resume can
+                    # start inside the window, past its first itr.
+                    if itr == profile_steps[0]:
+                        self._start_profile()
+                    elif itr == profile_steps[1] and self._profiler is not None:
+                        self._stop_profile(profile_dir)
                 log_step = itr % _LOG_EVERY == 0 or itr == self.steps_per_epoch - 1
                 metrics = (self.step_fn if log_step else self.lean_step_fn)(batch)
                 self.state.step += 1
@@ -109,7 +223,7 @@ class Trainer:
                     now = time.perf_counter()
                     itr_time = (now - window_start) / window_steps
                     window_start, window_steps = now, 0
-                    logger.info(
+                    self.logger.info(
                         "epoch %d/%d itr %d/%d: lr %.2e loss %.4f |g| %.3f err xy %.2f z %.2f vox "
                         "%.1f ms/itr %.1f img/s",
                         epoch, end_epoch, itr, self.steps_per_epoch,
@@ -117,5 +231,20 @@ class Trainer:
                         vals["err_xy_voxels"], vals["err_z_voxels"], itr_time * 1e3,
                         self.batch_size / max(itr_time, 1e-9),
                     )
-            self.start_epoch = epoch + 1
-        return self.state
+                # The step-granular watchdog; the last itr defers to the
+                # boundary check below, which saves an end-of-epoch snapshot.
+                if (
+                    self.rss_check_interval_steps
+                    and (itr + 1) % self.rss_check_interval_steps == 0
+                    and itr != self.steps_per_epoch - 1
+                ):
+                    self._rss_check(epoch, itr=itr)
+            saved = (epoch + 1) % self.cfg.optim.snapshot_interval == 0 or epoch == end_epoch - 1
+            if saved:
+                self.ckpt.save(epoch, self.state)
+                self.logger.info("saving snapshot_%d (async)", epoch)
+            self.start_epoch, self.resume_skip = epoch + 1, 0
+            if epoch != end_epoch - 1:
+                # itr = -1: the epoch is complete (no second save when the
+                # snapshot interval just wrote this epoch).
+                self._rss_check(epoch, already_saved=saved)

@@ -1,5 +1,6 @@
 """Weights for the port's PoseNet: the JAX package's initialization scheme
-from a ``torch.Generator``, and conversion of a JAX parameter tree.
+from a ``torch.Generator``, and conversion of a JAX parameter tree and of a
+JAX train state (parameters, Adam moments, counts).
 
 Layout mapping from the JAX (flax) tree:
 
@@ -107,3 +108,53 @@ def from_jax_params(
     walk("backbone.", params["backbone"], batch_stats["backbone"])
     walk("head.", params["head"], batch_stats["head"])
     return sd
+
+
+def _optax_states(tree):
+    """The optax state tuples (namedtuples) in an ``opt_state`` tree."""
+    if hasattr(tree, "_fields"):
+        yield tree
+    if isinstance(tree, (tuple, list)):
+        for sub in tree:
+            yield from _optax_states(sub)
+
+
+def from_jax_train_state(
+    params: Mapping, batch_stats: Mapping, opt_state, step, cfg: Config
+) -> Dict:
+    """A JAX ``TrainState``'s trees (numpy, as JAX's ``CheckpointManager``
+    restores them) -> the port's ``TrainState.state_dict()``, so that a JAX
+    snapshot resumes in the port.
+
+    ``opt_state`` is the chain of ``ihpr_tpu.parallel.train_step.make_optimizer``:
+    ``scale_by_adam``'s ``mu`` / ``nu`` / ``count`` become each parameter's
+    ``exp_avg`` / ``exp_avg_sq`` / ``step`` through the parameters' layout map
+    (``from_jax_params``, the deconv tap flip included); the schedule's count
+    becomes ``LambdaLR.last_epoch``; the clip and decay states are empty."""
+    from ihpr_tpu_torch.models.pose_net import build_pose_net
+    from ihpr_tpu_torch.parallel.train_step import create_train_state
+
+    states = list(_optax_states(opt_state))
+    adam = [s for s in states if s._fields == ("count", "mu", "nu")]
+    sched = [s for s in states if s._fields == ("count",)]
+    if len(adam) != 1 or len(sched) != 1:
+        raise ValueError(
+            f"opt_state is not make_optimizer's chain: {[type(s).__name__ for s in states]}"
+        )
+    (adam,), (sched,) = adam, sched
+    model = build_pose_net(cfg, device="cpu", trainable=True)
+    model.load_state_dict(from_jax_params(params, batch_stats, cfg))
+    state = create_train_state(model, cfg, steps_per_epoch=1)
+    mu = from_jax_params(adam.mu, batch_stats, cfg)
+    nu = from_jax_params(adam.nu, batch_stats, cfg)
+    count = float(np.asarray(adam.count))
+    for name, p in model.named_parameters():
+        # torch keeps each moment in its parameter's memory format.
+        state.optimizer.state[p] = {
+            "step": torch.tensor(count, dtype=torch.float32),
+            "exp_avg": torch.empty_like(p).copy_(mu[name]),
+            "exp_avg_sq": torch.empty_like(p).copy_(nu[name]),
+        }
+    state.scheduler.last_epoch = int(np.asarray(sched.count))
+    state.step = int(np.asarray(step))
+    return state.state_dict()

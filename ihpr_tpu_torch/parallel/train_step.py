@@ -106,6 +106,35 @@ class TrainState:
     scheduler: LambdaLR
     step: int = 0  # optimizer updates taken
 
+    def state_dict(self) -> dict:
+        """What a resumed run needs: the model's state_dict (fp32 master
+        weights, BN running statistics), the optimizer's (Adam moments and
+        counts), the schedule's (its count) and the update count. The
+        tensors are the live ones, which the next step updates in place:
+        ``CheckpointManager.save`` copies them."""
+        return {
+            "model": self.model.state_dict(),
+            "optimizer": self.optimizer.state_dict(),
+            "scheduler": self.scheduler.state_dict(),
+            "step": self.step,
+        }
+
+    def load_state_dict(self, state_dict: dict):
+        """Copy ``state_dict`` into this state, onto the model's device. The
+        rate of the next update is this state's schedule at the restored
+        count, as optax's schedule is a function of its count: a snapshot
+        taken with another epoch length, or converted from JAX, resumes on
+        this run's schedule."""
+        self.model.load_state_dict(state_dict["model"])
+        self.optimizer.load_state_dict(state_dict["optimizer"])
+        self.scheduler.load_state_dict(state_dict["scheduler"])
+        count = self.scheduler.last_epoch
+        for group, base, fn in zip(
+            self.optimizer.param_groups, self.scheduler.base_lrs, self.scheduler.lr_lambdas
+        ):
+            group["lr"] = base * fn(count)
+        self.step = int(state_dict["step"])
+
 
 def create_train_state(model: PoseNet, cfg: Config, steps_per_epoch: int) -> TrainState:
     opt, sched = make_optimizer(model, cfg, steps_per_epoch)

@@ -1,0 +1,71 @@
+"""Evaluation CLI of the port, counterpart of the repository's ``test.py``.
+
+    python -m ihpr_tpu_torch.test --config h36m3d_r50 --synthetic [--test_epoch N] [--output_dir D]
+
+evaluates snapshot N (default: the latest) of the run in ``output_dir``
+(default: the config's) on the config's test set, with flip-test, on one
+CUDA device (``--device``), prints the metrics and writes them, the
+predictions and the reference's result files to ``{output_dir}/result``.
+Only synthetic data is ported (``--synthetic_size`` samples). The flags of
+``test.py`` that the port does not have (``--vis``, ``--multihost``,
+``--spatial``) are rejected.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+
+from ihpr_tpu_torch.utils.shutdown import install_graceful_shutdown
+
+_UNPORTED = {"vis": "--vis", "multihost": "--multihost", "spatial": "--spatial"}
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--config", default="h36m3d_r50")
+    ap.add_argument("--data_root", default=None, help="only 'synthetic' is ported")
+    ap.add_argument("--synthetic", action="store_true", help="evaluate on synthetic data")
+    ap.add_argument("--test_epoch", type=int, default=None, help="snapshot epoch (default: latest)")
+    ap.add_argument("--synthetic_size", type=int, default=128)
+    ap.add_argument("--num_workers", type=int, default=8)
+    ap.add_argument("--output_dir", default=None, help="default: the config's output_dir")
+    ap.add_argument("--device", default="cuda")
+    # test.py's flags that the port does not have: accepted, then refused.
+    ap.add_argument("--vis", action="store_true")
+    ap.add_argument("--multihost", action="store_true")
+    ap.add_argument("--spatial", type=int, default=None)
+    args = ap.parse_args(argv)
+    given = [flag for dest, flag in _UNPORTED.items() if getattr(args, dest) not in (None, False)]
+    if given:
+        ap.error(f"{', '.join(given)}: not ported to ihpr_tpu_torch")
+    if not args.synthetic and args.data_root != "synthetic":
+        ap.error("only synthetic data is ported: pass --synthetic")
+    return args
+
+
+def main(argv=None):
+    install_graceful_shutdown()
+    args = parse_args(argv)
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
+
+    from ihpr_tpu_torch.config import get_config
+    from ihpr_tpu_torch.engine.tester import Tester
+
+    cfg = get_config(args.config)
+    if args.output_dir:
+        cfg = cfg.replace(output_dir=args.output_dir)
+    tester = Tester(
+        cfg, test_epoch=args.test_epoch, data_root="synthetic", num_workers=args.num_workers,
+        synthetic_size=args.synthetic_size, device=args.device,
+    )
+    try:
+        metrics = tester.evaluate()
+    finally:
+        tester.close()
+    print(metrics)
+    return metrics
+
+
+if __name__ == "__main__":
+    main()

@@ -1,12 +1,18 @@
 """Training CLI of the port, counterpart of the repository's ``train.py``.
 
     python -m ihpr_tpu_torch.train --config h36m3d_r50 --synthetic --steps 20
+    python -m ihpr_tpu_torch.train --config h36m3d_r50 --synthetic --continue
 
-trains on one CUDA device (``--device``) for 20 steps: one epoch capped at
-20 steps, unless ``--end_epoch`` asks for more epochs. Only synthetic data
-is ported. The flags of ``train.py`` that this slice does not have
-(checkpoints, resume, pretrained backbones, profiling, multi-host and
-sharding, the RSS watchdog) are rejected.
+trains on one CUDA device (``--device``). ``--steps 20`` caps each epoch at
+20 steps and, without ``--end_epoch``, runs one epoch. Snapshots go to
+``{output_dir}/model_dump`` (``--output_dir``, default the config's), and
+``--continue`` resumes from the latest one. Past ``--rss_limit_mb`` of host
+memory the run snapshots and exits with code 75 for a ``--continue``
+relaunch; SIGTERM exits with 143 after the snapshot in flight is written.
+``--profile_dir`` writes a ``torch.profiler`` trace of steps 20-24 of the
+first epoch. Only synthetic data is ported. The flags of ``train.py`` that
+the port does not have (pretrained backbones, multi-host, spatial and
+optimizer-state sharding) are rejected.
 """
 
 from __future__ import annotations
@@ -15,16 +21,13 @@ import argparse
 import dataclasses
 import logging
 
+from ihpr_tpu_torch.utils.shutdown import install_graceful_shutdown
+
 _UNPORTED = {
-    "continue_train": "--continue",
     "pretrained": "--pretrained",
-    "output_dir": "--output_dir",
-    "profile_dir": "--profile_dir",
     "multihost": "--multihost",
     "spatial": "--spatial",
     "shard_opt_state": "--shard_opt_state",
-    "rss_limit_mb": "--rss_limit_mb",
-    "rss_check_steps": "--rss_check_steps",
 }
 
 
@@ -42,16 +45,20 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--synthetic_size", type=int, default=512)
     ap.add_argument("--num_workers", type=int, default=8)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--continue", dest="continue_train", action="store_true",
+                    help="resume from the latest snapshot in output_dir")
+    ap.add_argument("--output_dir", default=None, help="default: the config's output_dir")
+    ap.add_argument("--profile_dir", default=None, help="write a torch.profiler trace here")
+    ap.add_argument("--rss_limit_mb", type=float, default=None,
+                    help="host-RSS watchdog: past it, snapshot and exit 75 "
+                    "(default 80%% of MemTotal, 0 disables)")
+    ap.add_argument("--rss_check_steps", type=int, default=100,
+                    help="check the watchdog every N steps (0: epoch boundaries only)")
     # train.py's flags that the port does not have: accepted, then refused.
-    ap.add_argument("--continue", dest="continue_train", action="store_true")
     ap.add_argument("--pretrained", default=None)
-    ap.add_argument("--output_dir", default=None)
-    ap.add_argument("--profile_dir", default=None)
     ap.add_argument("--multihost", action="store_true")
     ap.add_argument("--spatial", type=int, default=None)
     ap.add_argument("--shard_opt_state", action="store_true")
-    ap.add_argument("--rss_limit_mb", type=float, default=None)
-    ap.add_argument("--rss_check_steps", type=int, default=None)
     args = ap.parse_args(argv)
     given = [flag for dest, flag in _UNPORTED.items() if getattr(args, dest) not in (None, False)]
     if given:
@@ -62,6 +69,7 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def main(argv=None):
+    install_graceful_shutdown()
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
 
@@ -69,6 +77,8 @@ def main(argv=None):
     from ihpr_tpu_torch.engine.trainer import Trainer
 
     cfg = get_config(args.config)
+    if args.output_dir:
+        cfg = cfg.replace(output_dir=args.output_dir)
     kw = {}
     if args.trainset:
         kw["trainset"] = tuple(args.trainset.split(","))
@@ -77,15 +87,18 @@ def main(argv=None):
     if kw:
         cfg = cfg.replace(data=dataclasses.replace(cfg.data, **kw))
     trainer = Trainer(
-        cfg, data_root="synthetic", num_workers=args.num_workers,
-        synthetic_size=args.synthetic_size, device=args.device,
+        cfg, data_root="synthetic", continue_train=args.continue_train,
+        num_workers=args.num_workers, synthetic_size=args.synthetic_size,
+        rss_limit_mb=args.rss_limit_mb, rss_check_interval_steps=args.rss_check_steps,
+        device=args.device,
     )
     try:
         end_epoch = args.end_epoch
         if args.steps is not None:
+            # After a restore this restarts Adam, as JAX's train.py does.
             trainer.cap_steps_per_epoch(args.steps)
             end_epoch = end_epoch or 1
-        trainer.train(end_epoch)
+        trainer.train(end_epoch, profile_dir=args.profile_dir)
     finally:
         trainer.close()
 

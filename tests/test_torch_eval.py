@@ -260,8 +260,10 @@ def test_tester_writes_mpii_and_coco_artifacts(tmp_path):
             )
 
 
-def test_tester_needs_a_state():
+def test_tester_needs_a_state(tmp_path):
+    """Without a state the Tester loads a snapshot from cfg.output_dir; with
+    none there it raises FileNotFoundError, as JAX's Tester does."""
     _, cfg = _cfgs()
     dataset = datasets.build_dataset("Human36M", "test", cfg, "synthetic", 2)
-    with pytest.raises(ValueError, match="checkpoint/resume"):
-        ttester.Tester(cfg, dataset=dataset, state=None, device="cpu")
+    with pytest.raises(FileNotFoundError, match="no snapshot"):
+        ttester.Tester(cfg.replace(output_dir=str(tmp_path)), dataset=dataset, state=None, device="cpu")

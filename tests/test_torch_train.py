@@ -16,7 +16,6 @@ magnitude of the reference unless said otherwise.
 
 import copy
 import dataclasses
-import logging
 
 import jax
 import jax.numpy as jnp
@@ -540,12 +539,14 @@ def test_batch_loader_matches_jax():
     assert idx.shape == (4,)
 
 
-def _tiny_trainer(samples, **optim):
+def _tiny_trainer(samples, output_dir, **optim):
     """A Trainer on the CPU (flagship dtypes at a tiny size) over a fixed
-    set of synthetic samples, batch 4, no augmentation; ``optim`` overrides
-    fields of the optimizer config. Returns (trainer, JAX config)."""
+    set of synthetic samples, batch 4, no augmentation, writing its log and
+    snapshots under ``output_dir``; ``optim`` overrides fields of the
+    optimizer config. Returns (trainer, JAX config)."""
     jcfg = jax_tiny_cfg(compute_dtype="bfloat16", bn_mode="lean", fp32_logits=False)
-    jcfg = jcfg.replace(optim=dataclasses.replace(jcfg.optim, batch_size_per_device=4, **optim))
+    jcfg = jcfg.replace(optim=dataclasses.replace(jcfg.optim, batch_size_per_device=4, **optim),
+                        output_dir=str(output_dir))
     cfg = to_port_cfg(jcfg)
     cfg = cfg.replace(data=dataclasses.replace(cfg.data, use_aug=False))
     ds = datasets.PoseDataset(
@@ -555,11 +556,11 @@ def _tiny_trainer(samples, **optim):
     return Trainer(cfg, datasets=[ds], num_workers=0, device="cpu"), jcfg
 
 
-def test_trainer_takes_steps_with_a_falling_loss():
+def test_trainer_takes_steps_with_a_falling_loss(tmp_path):
     """Three one-step epochs of the Trainer on one fixed batch of four
     synthetic samples: finite, falling loss; the step counter follows, and
     ``losses`` holds the current epoch's loss after each."""
-    trainer, _ = _tiny_trainer(4, lr=1e-2)
+    trainer, _ = _tiny_trainer(4, tmp_path, lr=1e-2)
     losses = []
     try:
         assert trainer.steps_per_epoch == 1
@@ -573,10 +574,10 @@ def test_trainer_takes_steps_with_a_falling_loss():
     assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
 
 
-def test_trainer_losses_hold_one_epoch():
+def test_trainer_losses_hold_one_epoch(tmp_path):
     """Two epochs of two steps leave the second epoch's two losses, not all
     four: the history does not grow with the run."""
-    trainer, _ = _tiny_trainer(8)
+    trainer, _ = _tiny_trainer(8, tmp_path)
     try:
         assert trainer.steps_per_epoch == 2
         state = trainer.train(2)
@@ -586,15 +587,16 @@ def test_trainer_losses_hold_one_epoch():
     assert all(np.isfinite(float(x)) for x in trainer.losses)
 
 
-def test_trainer_logs_the_jax_learning_rate_at_a_decay_boundary(caplog):
+def test_trainer_logs_the_jax_learning_rate_at_a_decay_boundary(caplog, tmp_path):
     """The log line's lr is the schedule at the step count after the
     update, as the JAX trainer logs it: with a decay after epoch 1 of one
     step, the first line already shows the decayed rate."""
-    trainer, jcfg = _tiny_trainer(4, lr=1e-3, lr_dec_epoch=(1,))
-    caplog.set_level(logging.INFO, logger="ihpr_tpu_torch.engine.trainer")
+    trainer, jcfg = _tiny_trainer(4, tmp_path, lr=1e-3, lr_dec_epoch=(1,))
+    trainer.logger.addHandler(caplog.handler)  # the train log does not propagate
     try:
         trainer.train(2)
     finally:
+        trainer.logger.removeHandler(caplog.handler)
         trainer.close()
     logged = [r.args[4] for r in caplog.records if r.msg.startswith("epoch %d/%d itr")]
     ref = jax_lr_schedule(jcfg, trainer.steps_per_epoch)
@@ -606,7 +608,7 @@ def test_trainer_logs_the_jax_learning_rate_at_a_decay_boundary(caplog):
 def test_train_cli_rejects_what_is_not_ported():
     args = train_cli.parse_args(["--config", "h36m3d_r50", "--synthetic", "--steps", "3"])
     assert args.steps == 3 and args.synthetic
-    for flag in (["--continue"], ["--pretrained", "x.msgpack"], ["--multihost"], ["--spatial", "2"]):
+    for flag in (["--pretrained", "x.msgpack"], ["--multihost"], ["--spatial", "2"], ["--shard_opt_state"]):
         with pytest.raises(SystemExit):
             train_cli.parse_args(["--synthetic", *flag])
     with pytest.raises(SystemExit):
