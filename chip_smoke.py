@@ -37,6 +37,13 @@
 6. Serves the flagship config h36m3d_r50 (ResNet-50, 256x256, 18 joints,
    64 depth bins, bf16, flip-test) at max_batch 32 with seeded random
    weights: predict_patches, predict (native warp) and predict_stream.
+6b. Exports that server (ihpr_tpu_torch.engine.export): a fixed-batch
+   and a batch-polymorphic artifact on cuda, each loaded and run by a
+   process that has torch and numpy alone (the poly one at batch 1, 7 and
+   32) and the fixed one by load_exported; every output against eager
+   coords_plain + the flip remap on the card (1e-3 voxel), the distance
+   from the live server's K1 coords, the artifact's MB, export and load
+   seconds and ms per 32-patch flip-test dispatch beside the live server's.
 7. Trains h36m3d_r50 at full width and depth (batch 128, lean BN in train
    mode) through the Trainer on synthetic H36M+MPII: a few warm-up steps,
    then a counted epoch of TRAIN_STEPS steps; the head gradients of one
@@ -53,6 +60,14 @@
    ihpr_tpu_torch.test on the run in a subprocess; a torch.profiler window
    of the Trainer whose trace names K1's and K2's kernels; the snapshot's
    size and the save's blocking, background and load times (host clock).
+7c. h36m3d_r152_384 (ResNet-152, 384x288 input, 96x72x64 heatmaps, bf16)
+   at full depth and width on seeded weights: serves 40 patches at
+   max_batch 32 with flip-test (K1 at H*W = 6912, W = 72, the padded
+   dispatch against the plain head), trains 3 counted steps at batch 32
+   through the Trainer (K2 against plain_bwd on one step's head inputs),
+   device ms per dispatch and per step and peak memory; K1 at (64, 6912,
+   256) and K2 at (32, 6912, 256) timed beside plain, the library
+   composition and the bound.
 7b. Trains h36m3d_r50 with fused_1x1 and fused_conv3 through the Trainer
    (batch 128): K5/K6 16 and K7/K8 5 launches per step, K1/K2 one; one
    launch of each of K5-K8 in those steps against plain on its saved
@@ -86,7 +101,8 @@
     share of the bound and ratio to the library; the int8 transpose's share
     of one call (torch.profiler).
 
-In 6-12 (7a: its resumed training, the snapshot Tester and server) the
+In 6-12 (7a: its resumed training, the snapshot Tester and server; 7c:
+its serving and its training, each counted on its own) the
 kernels' launch counters are set to 0 just before the path
 runs and read just after (in 11-12 the path is the tool's main); each kernel of the path must have launched as
 often as the path dispatched it, and the others not at all. Outputs are
@@ -133,6 +149,7 @@ TOL_NOPLAN_GRAD = 3e-4
 MAX_BATCH = 32
 TRAIN_BATCH = 128  # h36m3d_r50's batch_size_per_device
 TRAIN_STEPS = 5  # counted steps of the train phase
+R152_BATCH = 32  # h36m3d_r152_384's batch_size_per_device
 EVAL_SAMPLES = 300  # not a multiple of the eval batch (128): the last is padded
 SEED = 0
 
@@ -590,7 +607,123 @@ def serve_phase(fhi, gpu: str):
     steady = _cuda_ms(lambda: server.submit_patches(chunk), 10)
     print(f"serve: {MAX_BATCH}-patch flip-test dispatches back to back: {steady:.3f} ms each, "
           f"{MAX_BATCH / steady * 1e3:.1f} img/s (CUDA events)  [{gpu}]")
-    return launches
+    return launches, server
+
+
+# A serving artifact loaded and run by a process that has torch and numpy
+# alone: it cannot import the repository (its working directory is a
+# temporary one and PYTHONPATH is cleared) and asserts it did not.
+_ARTIFACT_CHILD = r"""
+import json, sys, time
+import numpy as np
+import torch
+meta_name, out_dir, patches_path = sys.argv[1:4]
+patches = torch.from_numpy(np.load(patches_path)).cuda()
+ones = torch.ones(len(patches), 3, device="cuda")
+report = {}
+for name, sizes in (("fixed", (len(patches),)), ("poly", (1, 7, len(patches)))):
+    extra = {meta_name: ""}
+    t0 = time.perf_counter()
+    program = torch.export.load(f"{out_dir}/{name}.pt2", extra_files=extra).module()
+    report[name + "_load_s"] = time.perf_counter() - t0
+    if json.loads(extra[meta_name])["matmul_precision"] == "highest":
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    with torch.no_grad():
+        for n in sizes:
+            np.save(f"{out_dir}/{name}_{n}.npy", program(patches[:n], ones[:n]).cpu().numpy())
+        times = []
+        for _ in range(3):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(5):
+                program(patches, ones)
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b) / 5)
+    report[name + "_ms"] = sorted(times)[1]
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("ihpr_tpu_torch", "ihpr_tpu", "jax"))
+assert not leaked, leaked
+print(json.dumps(report))
+"""
+TOL_ARTIFACT = 1e-3  # artifact vs eager coords_plain on the card: the same composition
+TOL_ARTIFACT_K1 = 0.3  # artifact (bf16 logits) vs the live server's K1 (fp32 logits), voxel
+
+
+def export_phase(server, gpu: str):
+    """The serving export on the card, on the serve phase's h36m3d_r50 server
+    (max_batch 32, flip-test): a fixed-batch and a batch-polymorphic artifact
+    exported on cuda and written to files; each loaded and run by a process
+    with torch and numpy alone (the poly one at batch 1, 7 and 32), and the
+    fixed one by load_exported here; every output against eager
+    coords_plain + the flip remap on the same patches (TOL_ARTIFACT), and its
+    distance from the live server's K1 coords printed beside
+    TOL_ARTIFACT_K1. Prints the artifact's MB, export and load seconds, and
+    ms per 32-patch flip-test dispatch of the artifact and of the live
+    server (CUDA events, inputs resident)."""
+    from ihpr_tpu_torch.data.augment import finalize_patch
+    from ihpr_tpu_torch.engine.export import METADATA, export_server, load_exported
+    from ihpr_tpu_torch.parallel.train_step import flip_test_coords
+
+    cfg = server.cfg
+    in_h, in_w = cfg.data.input_shape
+    patches = np.random.RandomState(SEED + 1).randint(0, 256, (MAX_BATCH, in_h, in_w, 3)).astype(np.uint8)
+    dev = torch.from_numpy(patches).cuda()
+    ones = torch.ones(MAX_BATCH, 3, device="cuda")
+
+    def eager(n):
+        with torch.inference_mode():
+            image = finalize_patch(dev[:n], ones[:n], cfg.data)
+            return flip_test_coords(server.model.coords_plain, image, server.flip_perm,
+                                    cfg.data.output_shape[1]).cpu().numpy()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        blobs, export_s = {}, {}
+        for name, batch in (("fixed", None), ("poly", "poly")):
+            t0 = time.perf_counter()
+            blobs[name] = export_server(server, batch=batch)
+            export_s[name] = time.perf_counter() - t0
+            with open(f"{tmp}/{name}.pt2", "wb") as f:
+                f.write(blobs[name])
+        np.save(f"{tmp}/patches.npy", patches)
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        proc = subprocess.run(
+            [sys.executable, "-c", _ARTIFACT_CHILD, METADATA, tmp, f"{tmp}/patches.npy"],
+            cwd=tmp, env=env, capture_output=True, text=True, timeout=600,
+        )
+        if proc.returncode != 0:
+            raise AssertionError(f"the torch-only process failed:\n{proc.stderr[-4000:]}")
+        child = json.loads(proc.stdout.strip().splitlines()[-1])
+        outs = {(name, n): np.load(f"{tmp}/{name}_{n}.npy")
+                for name, sizes in (("fixed", (MAX_BATCH,)), ("poly", (1, 7, MAX_BATCH))) for n in sizes}
+
+    t0 = time.perf_counter()
+    here = load_exported(blobs["fixed"], device="cuda")
+    load_here_s = time.perf_counter() - t0
+    outs[("load_exported", MAX_BATCH)] = here(dev, ones).cpu().numpy()
+    with torch.inference_mode():
+        live = server._forward(dev, ones).cpu().numpy()
+    refs = {n: eager(n) for n in (1, 7, MAX_BATCH)}
+    errs = {}
+    for (name, n), got in outs.items():
+        if got.shape != (n, 18, 3) or not np.isfinite(got).all():
+            raise AssertionError(f"artifact {name} at batch {n}: {got.shape}, finite={np.isfinite(got).all()}")
+        errs[name, n] = float(np.abs(got - refs[n]).max())
+    worst = max(errs.values())
+    if worst > TOL_ARTIFACT:
+        raise AssertionError(f"artifact coords {errs} voxel from eager coords_plain (> {TOL_ARTIFACT})")
+    spread = float(np.abs(live - live.mean()).max())
+    to_k1 = float(np.abs(outs["fixed", MAX_BATCH] - live).max())
+    print("export: " + ", ".join(f"{name} B={n} {e:.3g}" for (name, n), e in errs.items())
+          + f" voxel from eager coords_plain + flip remap (bar {TOL_ARTIFACT}); the torch-only process "
+          f"imported neither ihpr_tpu_torch nor ihpr_tpu")
+    print(f"export: fixed artifact vs the live server's K1 coords {to_k1:.4g} voxel (bf16 logits against "
+          f"K1's fp32 ones; expected up to ~{TOL_ARTIFACT_K1}; coord spread {spread:.3g})")
+    steady = _cuda_ms(lambda: server._forward(dev, ones), 5, reps=3)
+    print(f"export: artifact {len(blobs['fixed']) / 1e6:.1f} MB (poly {len(blobs['poly']) / 1e6:.1f} MB); "
+          f"export {export_s['fixed']:.2f} s (poly {export_s['poly']:.2f} s); load {child['fixed_load_s']:.2f} s "
+          f"(poly {child['poly_load_s']:.2f} s; load_exported here {load_here_s:.2f} s)  [{gpu}]")
+    print(f"export: {MAX_BATCH}-patch flip-test dispatch: artifact {child['fixed_ms']:.3f} ms (poly "
+          f"{child['poly_ms']:.3f} ms), live server {steady:.3f} ms (CUDA events, inputs resident)  [{gpu}]")
 
 
 def _head_grad_check(fhi, trainer, batch):
@@ -679,6 +812,150 @@ def train_phase(fhi, gpu: str):
     finally:
         trainer.close()
     return k1, k2, head_err
+
+
+R152_SERVE_PATCHES = 40  # two dispatches of the r152 server, the second padded
+R152_STEPS = 3  # counted train steps of the r152 phase
+
+
+def r152_head_times(fhi, iv, gpu: str):
+    """K1 at the r152 serving shape (64, 6912, 256) x (256, 1152) and K2 at
+    its train batch (32, 6912, 256), bf16, each beside its plain version, the
+    library composition (cuBLAS final conv + K3, K4 + two cuBLAS matmuls)
+    and its bound, printed."""
+    hw, w, c, j, d = 96 * 72, 72, 256, 18, 64
+    for name, b in (("K1", 2 * MAX_BATCH), ("K2", R152_BATCH)):
+        feat, kernel, bias, m, s, coords, g = _bwd_inputs(fhi, b, hw, c, j, d, w, torch.bfloat16, SEED)
+        flat = feat.view(-1, c)
+        if name == "K1":
+            kern = lambda: fhi.kernel_stats(feat, kernel, bias, j, d, w)  # noqa: E731
+            plain = lambda: fhi.plain(feat, kernel, bias, j, d, w)  # noqa: E731
+            lib = lambda: iv.kernel_stats(torch.addmm(bias, flat, kernel).view(b, hw, j * d), j, d, w)  # noqa: E731
+            bound = k1_bound(b, hw)[0]
+        else:
+            args = (feat, kernel, bias, m, s, coords, g)
+            kern = lambda: fhi.kernel_bwd(*args, j, d, w)  # noqa: E731
+            plain = lambda: fhi.plain_bwd(*args, j, d, w)  # noqa: E731
+            logits = torch.addmm(bias, flat, kernel).view(b, hw, j * d)
+            lc, lm, ls = iv.kernel_stats(logits, j, d, w)
+
+            def lib():
+                dv = iv.kernel_bwd(logits, lm, ls, lc, g, j, d, w).view(-1, j * d)
+                return dv @ kernel.t(), flat.t() @ dv, dv.float().sum(0)
+
+            bound = k2_bound(b, hw)[0]
+        runs = {"plain": (plain, []), "kernel": (kern, []), "library": (lib, [])}
+        for key in ("plain", "kernel", "library", "library", "kernel", "plain"):  # in turns
+            fn, times = runs[key]
+            times.append(_cuda_ms(fn, 5 if key == "kernel" else 2, reps=3))
+        ms, plain_ms, lib_ms = (statistics.median(runs[k][1]) for k in ("kernel", "plain", "library"))
+        print(f"{name} bf16 r152 ({b}, {hw}, {c}) x ({c}, {j * d}): kernel {ms:.4f} ms (bound {bound:.4f} ms, "
+              f"{bound / ms:.3f} of it), plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms  [{gpu}]")
+        del feat, kernel, bias, m, s, coords, g, flat, runs
+        torch.cuda.empty_cache()
+
+
+def r152_phase(fhi, iv, gpu: str):
+    """h36m3d_r152_384 (ResNet-152 at full depth and width, 384x288 input,
+    96x72x64 heatmaps, bf16, lean BN) on seeded weights, its heatmaps peaked:
+    serves R152_SERVE_PATCHES patches at max_batch 32 with flip-test (64
+    images a dispatch; K1 at H*W = 6912, W = 72) and holds the padded
+    dispatch against the plain head on the same features; trains through the
+    Trainer at the config's batch (32) on synthetic data for R152_STEPS
+    counted steps and holds K2 against plain_bwd on one step's head inputs;
+    device ms per train step on a resident batch and per serve dispatch
+    (CUDA events) and peak memory; K1/K2 times at these shapes
+    (r152_head_times). Returns (K1 launches, K2 launches, K1 err, K2 err)."""
+    from ihpr_tpu_torch.config import get_config
+    from ihpr_tpu_torch.data.augment import finalize_patch
+    from ihpr_tpu_torch.data.pipeline import prefetch_to_device
+    from ihpr_tpu_torch.engine.server import PoseServer
+    from ihpr_tpu_torch.engine.trainer import Trainer
+    from ihpr_tpu_torch.models.pose_net import build_pose_net
+
+    scratch = tempfile.TemporaryDirectory()  # the Trainer's log and snapshot; removed on return
+    cfg = get_config("h36m3d_r152_384").replace(output_dir=scratch.name)
+    if cfg.optim.batch_size_per_device != R152_BATCH or cfg.data.output_shape != (96, 72):
+        raise AssertionError(f"h36m3d_r152_384: batch {cfg.optim.batch_size_per_device}, {cfg.data.output_shape}")
+    in_h, in_w = cfg.data.input_shape
+    gen = torch.Generator().manual_seed(SEED)
+    model = build_pose_net(cfg, device="cuda", generator=gen)
+    rng = np.random.RandomState(SEED)
+    patches = rng.randint(0, 256, (R152_SERVE_PATCHES, in_h, in_w, 3)).astype(np.uint8)
+    with torch.inference_mode():
+        image = finalize_patch(torch.from_numpy(patches[:MAX_BATCH]).cuda(),
+                               torch.ones(MAX_BATCH, 3, device="cuda"), cfg.data)
+    _peak_heatmaps(model, image, gen)
+    del image
+    server = PoseServer(cfg, model, max_batch=MAX_BATCH, flip_test=True, device="cuda")
+    del model
+    server.predict_patches(patches[:MAX_BATCH])  # warm-up: cuDNN setup
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # --- the serving path, counted ---
+    fhi.launches = fhi.bwd_launches = 0
+    voxels = server.predict_patches(patches)
+    serve_k1, serve_k2 = fhi.launches, fhi.bwd_launches
+    # ---------------------------------
+    serve_peak = torch.cuda.max_memory_allocated() / 2**30
+    dispatches = math.ceil(R152_SERVE_PATCHES / MAX_BATCH)
+    if (serve_k1, serve_k2) != (dispatches, 0):
+        raise AssertionError(f"r152 serve: K1/K2 launched {serve_k1}/{serve_k2} times for {dispatches} dispatches")
+    if voxels.shape != (R152_SERVE_PATCHES, 18, 3) or not np.isfinite(voxels).all():
+        raise AssertionError(f"r152 serve gave {voxels.shape}, finite={np.isfinite(voxels).all()}")
+    tail = patches[MAX_BATCH:]  # the last dispatch, padded as the server pads it
+    chunk = np.concatenate([tail, np.repeat(tail[-1:], MAX_BATCH - len(tail), 0)])
+    ref = _reference_coords(cfg, server.model, server.flip_perm, chunk, fhi)[: len(tail)]
+    serve_err = float(np.abs(voxels[MAX_BATCH:] - ref).max())
+    spread = float(np.abs(voxels - voxels.mean()).max())
+    if not (serve_err <= 2 * TOL_VOXEL and spread > 1.0):
+        raise AssertionError(f"r152 served coords {serve_err} voxel from plain (spread {spread})")
+    chunk = patches[:MAX_BATCH]
+    serve_ms = _cuda_ms(lambda: server.submit_patches(chunk), 5, reps=3)
+    print(f"r152 serve: predict_patches({R152_SERVE_PATCHES}) -> {voxels.shape}, K1 launches {serve_k1} = "
+          f"dispatches {dispatches}, K2 {serve_k2}; coords vs plain {serve_err:.3g} voxel (bar "
+          f"{2 * TOL_VOXEL}; coord spread {spread:.3g})")
+    print(f"r152 serve: {MAX_BATCH}-patch flip-test dispatch ({2 * MAX_BATCH} images of {in_h}x{in_w}) "
+          f"{serve_ms:.3f} ms back to back (CUDA events); peak memory {serve_peak:.2f} GiB  [{gpu}]")
+    del server
+    torch.cuda.empty_cache()
+
+    trainer = Trainer(cfg, data_root="synthetic", synthetic_size=2 * R152_BATCH, num_workers=8, device="cuda")
+    try:
+        host = trainer.loader.epoch(99, 1)
+        batch, _ = next(prefetch_to_device(host, "cuda"))
+        for _ in range(2):  # warm-up: cuDNN plans
+            trainer.lean_step_fn(batch)
+        torch.cuda.synchronize()
+        head_err = _head_grad_check(fhi, trainer, batch)
+
+        # --- the training path, counted: one epoch of R152_STEPS steps ---
+        trainer.cap_steps_per_epoch(R152_STEPS)
+        fhi.launches = fhi.bwd_launches = 0
+        trainer.train(trainer.start_epoch + 1)
+        torch.cuda.synchronize()
+        train_k1, train_k2 = fhi.launches, fhi.bwd_launches
+        # ------------------------------------------------------------------
+        losses = [float(x) for x in trainer.losses]
+        if (train_k1, train_k2) != (R152_STEPS, R152_STEPS):
+            raise AssertionError(f"r152 train: K1/K2 launched {train_k1}/{train_k2} times in {R152_STEPS} steps")
+        if len(losses) != R152_STEPS or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"r152 train losses {losses}")
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = _cuda_ms(lambda: trainer.lean_step_fn(batch), 3, reps=1)
+        train_peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"r152 train: {R152_STEPS} steps through Trainer.train at batch {R152_BATCH}, K1 launches "
+              f"{train_k1}, K2 launches {train_k2}; losses {', '.join(f'{x:.4f}' for x in losses)}")
+        print(f"r152 train: device {step_ms:.3f} ms/step on one resident batch, "
+              f"{R152_BATCH / step_ms * 1e3:.1f} img/s (CUDA events); peak memory {train_peak:.2f} GiB  [{gpu}]")
+        del batch
+    finally:
+        trainer.close()
+    del trainer
+    torch.cuda.empty_cache()
+    r152_head_times(fhi, iv, gpu)
+    return serve_k1 + train_k1, train_k2, serve_err, head_err
 
 
 SNAP_SIZE = 256  # synthetic samples per train set: H36M + MPII = 512, 4 steps of 128
@@ -1699,18 +1976,18 @@ def head_library_phase(fhi, iv, gpu: str):
 _HEAD = (64 * 64, 256, 18 * 64)  # the flagship head's (H*W, C, J*D)
 
 
-def k1_bound(b):
-    """(ms, bound_by) of K1 at (b, 4096, 256) x (256, 1152), bf16: the logits
+def k1_bound(b, hw=_HEAD[0]):
+    """(ms, bound_by) of K1 at (b, hw, 256) x (256, 1152), bf16: the logits
     product against reading feat and W once."""
-    hw, c, jd = _HEAD
+    _, c, jd = _HEAD
     return _bound(2 * b * hw * c * jd, (b * hw * c + c * jd) * 2)
 
 
-def k2_bound(b):
-    """(ms, bound_by) of K2 at (b, 4096, 256): three products (the logits
+def k2_bound(b, hw=_HEAD[0]):
+    """(ms, bound_by) of K2 at (b, hw, 256): three products (the logits
     recomputed, dfeat, dW) against reading feat and W and writing dfeat
     and dW once."""
-    hw, c, jd = _HEAD
+    _, c, jd = _HEAD
     return _bound(3 * 2 * b * hw * c * jd, (2 * b * hw * c + 2 * c * jd) * 2)
 
 
@@ -1891,9 +2168,12 @@ def main(argv=None) -> int:
           f"ms against the library's {k1_lib_train + k2_lib:.4f} ms  [{gpu}]")
     k3_err, k4_err, (k3_ms, k3_plain), (k4_ms, k4_plain) = volume_phase(iv, gpu)
     bn = bn_kernel_phase(mm, cb, gpu)
-    serve_k1 = serve_phase(fhi, gpu)
+    serve_k1, r50_server = serve_phase(fhi, gpu)
+    export_phase(r50_server, gpu)
+    del r50_server
     train_k1, train_k2, head_err = train_phase(fhi, gpu)
     snap_k1, snap_k2 = snapshot_phase(fhi, gpu)
+    r152_k1, r152_k2, r152_k1_err, r152_k2_err = r152_phase(fhi, iv, gpu)
     (k5_n, k6_n, k7_n, k8_n), fused_errs = fused_train_phase(fhi, iv, mm, cb, gpu)
     hm_k3, hm_k4, hm_err, hm_dv_err = heatmap_phase(fhi, iv, gpu)
     np_k3, np_k4, np_err = noplan_phase(fhi, iv, gpu)
@@ -1902,10 +2182,11 @@ def main(argv=None) -> int:
     p2 = probe_mm_phase(pm, gpu)
     b1, b2, b3, b4 = head_bounds()
     kernels = [
-        (fhi._LIB, "ihpr_tpu/ops/fused_head_integral.py:133", serve_k1 + train_k1 + snap_k1 + eval_k1,
-         max(k1_err, eval_k1_err), k1_ms, k1_plain, *b1, k1_lib),
-        (fhi._BWD_LIB, "ihpr_tpu/ops/fused_head_integral.py:153", train_k2 + snap_k2,
-         max(k2_err, head_err), k2_ms, k2_plain, *b2, k2_lib),
+        (fhi._LIB, "ihpr_tpu/ops/fused_head_integral.py:133",
+         serve_k1 + train_k1 + snap_k1 + r152_k1 + eval_k1,
+         max(k1_err, eval_k1_err, r152_k1_err), k1_ms, k1_plain, *b1, k1_lib),
+        (fhi._BWD_LIB, "ihpr_tpu/ops/fused_head_integral.py:153", train_k2 + snap_k2 + r152_k2,
+         max(k2_err, head_err, r152_k2_err), k2_ms, k2_plain, *b2, k2_lib),
         (iv._FWD_LIB, "ihpr_tpu/ops/integral_pallas.py:201", hm_k3 + np_k3 + eval_k3,
          max(k3_err, hm_err, np_err, eval_k3_err), k3_ms, k3_plain, *b3, None),
         (iv._BWD_LIB, "ihpr_tpu/ops/integral_pallas.py:239", hm_k4 + np_k4,

@@ -74,7 +74,7 @@ class PoseServer:
         image = finalize_patch(patch_u8, color_scale, self.cfg.data)
         if not self.flip_test:
             return self.model.coords(image)
-        return flip_test_coords(self.model, image, self.flip_perm, self.cfg.data.output_shape[1])
+        return flip_test_coords(self.model.coords, image, self.flip_perm, self.cfg.data.output_shape[1])
 
     def submit_patches(self, patches_u8: np.ndarray) -> torch.Tensor:
         """Submit ONE chunk: (B <= max_batch, in_h, in_w, 3) uint8 -> (B, J, 3)
@@ -161,9 +161,12 @@ class PoseServer:
         images: Sequence[np.ndarray],
         bboxes: np.ndarray,
         root_z: Optional[np.ndarray] = None,
+        f: Optional[np.ndarray] = None,
+        c: Optional[np.ndarray] = None,
     ) -> list:
         """Original images + one person bbox per image -> per-person results
-        in original-image pixels and mm depth."""
+        in original-image pixels and mm depth. The camera intrinsics ``f``
+        and ``c`` are accepted and ignored, as in ``ihpr_tpu``'s server."""
         patches, invs = self._preprocess(images, bboxes)
         voxels = self.predict_patches(patches)
         return self._postprocess(voxels, invs, root_z)

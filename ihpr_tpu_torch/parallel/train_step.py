@@ -179,16 +179,21 @@ def make_train_step(
 
 
 def flip_test_coords(
-    model: PoseNet, image: torch.Tensor, flip_perm: Sequence[int] | torch.Tensor, out_w: int
+    coords_fn: Callable[[torch.Tensor], torch.Tensor],
+    image: torch.Tensor,
+    flip_perm: Sequence[int] | torch.Tensor,
+    out_w: int,
 ) -> torch.Tensor:
-    """The reference's flip-test: ``model.coords`` of the (B, H, W, 3) images
-    and their W-mirrors as one 2B forward; the mirrored coords are remapped
+    """The reference's flip-test: ``coords_fn`` of the (B, H, W, 3) images
+    and their W-mirrors as one 2B forward (a model's ``coords``, or its
+    ``coords_plain`` in an exported program, which cannot trace the fused
+    kernel); the mirrored coords are remapped
     (x -> out_w - 1 - x, then the joints' flip permutation) and averaged
     with the plain ones. -> (B, J, 3). JAX interleaves the two halves for
     shard locality; per-sample results do not depend on the order, so one
     device concatenates."""
     b = image.shape[0]
-    both = model.coords(torch.cat([image, image.flip(2)], dim=0))
+    both = coords_fn(torch.cat([image, image.flip(2)], dim=0))
     coords, cf = both[:b], both[b:]
     x = out_w - 1.0 - cf[..., 0]
     cf = torch.cat([x[..., None], cf[..., 1:]], dim=-1)[:, flip_perm]
@@ -212,7 +217,7 @@ def make_eval_step(
     def eval_step(batch: Dict[str, torch.Tensor]):
         image = finalize_patch(batch["patch"], batch["color_scale"], cfg.data)
         if cfg.eval.flip_test:
-            coords = flip_test_coords(model, image, flip_perm.to(image.device), out_w)
+            coords = flip_test_coords(model.coords, image, flip_perm.to(image.device), out_w)
         else:
             coords = model.coords(image)
         return coords, batch["joint_img"], batch["joint_vis"]

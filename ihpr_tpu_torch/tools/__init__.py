@@ -1,6 +1,6 @@
-"""Measurement tools of the port: the counterparts of the JAX package's
-``tools/`` probes that hold a TPU kernel (``tools/`` is a directory of
-scripts there, not a package).
+"""Tools of the port: the counterparts of the JAX package's ``tools/``
+probes that hold a TPU kernel, and of its export CLI (``tools/`` is a
+directory of scripts there, not a package).
 
 - ``exp_probe``: the exp-pass probe (P1). Does the integral's exp pass cost
   anything beyond one read of the (128, 4096, 1152) fp32 volume? Kernel
@@ -9,11 +9,15 @@ scripts there, not a package).
   hand-written tensor-core GEMM get to the card's peaks, next to cuBLAS?
   Kernel ``ops/csrc/probe_mm.cu``.
 
+- ``export_artifact``: a snapshot as a ``torch.export`` serving artifact
+  (``engine/export.py``) plus its JSON sidecar.
+
 Each runs on the card by default and on the CPU (plain versions, host
 clock) with ``--device cpu``:
 
     python -m ihpr_tpu_torch.tools.exp_probe [--iters 30] [--device cuda]
     python -m ihpr_tpu_torch.tools.mxu_int8_probe [--iters 30] [--device cuda] [--check]
+    python -m ihpr_tpu_torch.tools.export_artifact --config C --snapshot_dir D --out F [--device cuda]
 
 Importing a tool touches no CUDA state and parses no arguments.
 """

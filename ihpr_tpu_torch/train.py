@@ -1,10 +1,11 @@
 """Training CLI of the port, counterpart of the repository's ``train.py``.
 
-    python -m ihpr_tpu_torch.train --config h36m3d_r50 --synthetic --steps 20
+    python -m ihpr_tpu_torch.train --config h36m3d_r50 --synthetic --steps 20 --end_epoch 1
     python -m ihpr_tpu_torch.train --config h36m3d_r50 --synthetic --continue
 
 trains on one CUDA device (``--device``). ``--steps 20`` caps each epoch at
-20 steps and, without ``--end_epoch``, runs one epoch. Snapshots go to
+20 steps; the run takes ``--end_epoch`` epochs, the config's
+``optim.end_epoch`` without it, as in ``train.py``. Snapshots go to
 ``{output_dir}/model_dump`` (``--output_dir``, default the config's), and
 ``--continue`` resumes from the latest one. Past ``--rss_limit_mb`` of host
 memory the run snapshots and exits with code 75 for a ``--continue``
@@ -40,7 +41,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--no_aug", action="store_true", help="disable augmentation")
     ap.add_argument("--synthetic", action="store_true", help="train on synthetic data")
     ap.add_argument("--end_epoch", type=int, default=None,
-                    help="default: cfg.optim.end_epoch, or 1 with --steps")
+                    help="default: cfg.optim.end_epoch (with --steps too; pass 1 for one epoch)")
     ap.add_argument("--steps", type=int, default=None, help="cap steps per epoch (smoke runs)")
     ap.add_argument("--synthetic_size", type=int, default=512)
     ap.add_argument("--num_workers", type=int, default=8)
@@ -93,12 +94,10 @@ def main(argv=None):
         device=args.device,
     )
     try:
-        end_epoch = args.end_epoch
         if args.steps is not None:
             # After a restore this restarts Adam, as JAX's train.py does.
             trainer.cap_steps_per_epoch(args.steps)
-            end_epoch = end_epoch or 1
-        trainer.train(end_epoch, profile_dir=args.profile_dir)
+        trainer.train(args.end_epoch, profile_dir=args.profile_dir)
     finally:
         trainer.close()
 

@@ -195,6 +195,49 @@ def test_train_and_test_cli_main(tmp_path, monkeypatch, capsys):
     assert installed == [True] * 3
 
 
+def test_steps_without_end_epoch_hands_train_what_jax_does(tmp_path, monkeypatch):
+    """``--steps 2`` without ``--end_epoch``: the port's train.main caps the
+    epochs at 2 steps and hands Trainer.train the end_epoch that the
+    repository's train.py hands the JAX Trainer (None: the config's
+    optim.end_epoch, 25 epochs of 2 steps), not one epoch."""
+    import importlib.util
+
+    import ihpr_tpu.utils.shutdown as jshutdown
+    from ihpr_tpu import config as jconfig
+    from ihpr_tpu.engine import trainer as jtrainer
+    from ihpr_tpu_torch.engine.trainer import Trainer
+
+    calls = {"port": [], "jax": []}
+    monkeypatch.setitem(tconfig.CONFIGS, "tiny_r18", _tiny_cfg())
+    monkeypatch.setattr(train_cli, "install_graceful_shutdown", lambda: None)
+    monkeypatch.setattr(
+        Trainer, "train", lambda self, end_epoch=None, **kw: calls["port"].append((end_epoch, self.steps_per_epoch))
+    )
+    train_cli.main(["--config", "tiny_r18", "--synthetic", "--device", "cpu", "--output_dir",
+                    str(tmp_path), "--synthetic_size", "16", "--num_workers", "0", "--steps", "2"])
+
+    class JaxTrainerRecorder:  # what train.py calls on the JAX Trainer
+        def __init__(self, cfg, **kw):
+            self.steps_per_epoch = None
+
+        def cap_steps_per_epoch(self, n):
+            self.steps_per_epoch = n
+
+        def train(self, end_epoch=None, **kw):
+            calls["jax"].append((end_epoch, self.steps_per_epoch))
+
+    monkeypatch.setattr(jtrainer, "Trainer", JaxTrainerRecorder)
+    monkeypatch.setattr(jshutdown, "install_graceful_shutdown", lambda: None)
+    spec = importlib.util.spec_from_file_location("jax_train_cli", os.path.join(REPO, "train.py"))
+    jax_cli = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jax_cli)
+    monkeypatch.setattr(sys, "argv", ["train.py", "--config", "h36m3d_r50", "--synthetic", "--steps", "2"])
+    jax_cli.main()
+    assert calls["port"] == calls["jax"] == [(None, 2)]
+    port_epochs = tconfig.get_config("h36m3d_r50").optim.end_epoch
+    assert port_epochs == jconfig.get_config("h36m3d_r50").optim.end_epoch == 25
+
+
 def test_cli_flags_ported_and_refused():
     """train accepts --continue, --output_dir, --profile_dir, --rss_limit_mb
     and --rss_check_steps, and still refuses --pretrained, --multihost,

@@ -14,7 +14,7 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "ihpr_tpu"))
-print(len(names), leaked)
+print(len(names), ",".join(names), leaked)
 """
 
 
@@ -23,6 +23,8 @@ def test_port_imports_no_jax():
         [sys.executable, "-c", _PROBE], cwd=ROOT, capture_output=True, text=True, timeout=120
     )
     assert proc.returncode == 0, proc.stderr
-    count, leaked = proc.stdout.strip().split(" ", 1)
+    count, names, leaked = proc.stdout.strip().split(" ", 2)
     assert int(count) >= 15, proc.stdout  # every module was found and imported
+    for name in ("ihpr_tpu_torch.engine.export", "ihpr_tpu_torch.tools.export_artifact"):
+        assert name in names.split(","), name
     assert leaked == "[]", leaked

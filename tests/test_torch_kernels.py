@@ -164,8 +164,9 @@ def test_tma4d_shifted_boxes_match_padded_slices(cuda, shape, bw):
 # --- K1: the fused head forward ---------------------------------------------------
 
 HEAD_SHAPES = [(2, 16, 16, 128, 4, 32), (2, 16, 16, 128, 18, 16), (3, 9, 7, 64, 17, 64),
-               (2, 8, 8, 256, 16, 1), (2, 8, 8, 80, 5, 24), (2, 6, 5, 16, 3, 64)]
-HEAD_IDS = ["aligned", "j18d16", "ragged", "d1", "c80", "c16"]
+               (2, 8, 8, 256, 16, 1), (2, 8, 8, 80, 5, 24), (2, 6, 5, 16, 3, 64),
+               (2, 96, 72, 256, 18, 64)]
+HEAD_IDS = ["aligned", "j18d16", "ragged", "d1", "c80", "c16", "r152"]  # r152: h36m3d_r152_384's head
 
 
 @pytest.mark.cuda

@@ -90,6 +90,25 @@ def test_predict_full_path_matches_jax(servers):
         np.testing.assert_allclose(a.coords_img[:, 2], b.coords_img[:, 2], atol=0.3)
 
 
+def test_predict_accepts_and_ignores_intrinsics(servers):
+    """predict(images, bboxes, root_z, f=, c=) as JAX's signature has it: the
+    camera intrinsics are accepted and change nothing, in either package."""
+    jax_srv, srv = servers
+    rng = np.random.RandomState(2)
+    images = [rng.randint(0, 256, (160, 200, 3)).astype(np.uint8) for _ in range(2)]
+    bboxes = np.array([[30, 20, 90, 110], [50, 10, 120, 140]], np.float32)
+    root_z = np.full(2, 4500.0)
+    f, c = np.array([[1145.0, 1144.0]] * 2), np.array([[512.5, 515.5]] * 2)
+    plain = srv.predict(images, bboxes, root_z=root_z)
+    given = srv.predict(images, bboxes, root_z, f=f, c=c)
+    ref = jax_srv.predict(images, bboxes, root_z, f=f, c=c)
+    assert len(given) == len(plain) == len(ref) == 2
+    for a, b, r in zip(given, plain, ref):
+        np.testing.assert_array_equal(a.coords_voxel, b.coords_voxel)
+        np.testing.assert_array_equal(a.coords_img, b.coords_img)
+        np.testing.assert_allclose(a.coords_voxel, r.coords_voxel, atol=2e-3)
+
+
 def test_predict_stream_matches_sequential(servers):
     _, srv = servers
     rng = np.random.RandomState(3)
