@@ -12,8 +12,9 @@ package never imports):
                 K1 forward and K2 backward (ops/csrc); the L1 loss
     models    — ResNet backbone, deconv head, PoseNet (fp32 parameters,
                 train-mode BN), weight conversion
-    parallel  — the single-GPU train step, optimizer and schedule, and the
-                TrainState's state_dict
+    parallel  — the train step (DDP on a process group), optimizer (ZeRO-1
+                too) and schedule, the TrainState's state_dict; the data
+                axis over torch.distributed (mesh) and local ranks (launch)
     engine    — PoseServer (batched serving with flip-test) and load_server,
                 Trainer (snapshots, resume, the RSS watchdog, a profile
                 window), Tester, CheckpointManager, colorlogger

@@ -93,7 +93,9 @@ class OptimConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ParallelConfig:
-    """Device layout (not used by the port's single-device serving path)."""
+    """Device layout. ``data_axis_size`` (None: the world size) is checked
+    against the process group (``parallel/mesh.py``); ``shard_opt_state`` is
+    ZeRO-1; a spatial axis is not ported."""
 
     data_axis_size: Optional[int] = None
     data_axis_name: str = "data"

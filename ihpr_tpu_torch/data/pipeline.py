@@ -1,7 +1,6 @@
 """Host input pipeline: batches warped on the host, and a prefetch to the
 device. Counterpart of the host-warp path of ``ihpr_tpu.data.pipeline``
-(``BatchLoader._epoch_host_warp`` and ``prefetch_to_device``), single
-process.
+(``BatchLoader._epoch_host_warp`` and ``prefetch_to_device``).
 
 Per batch, the host draws the augmentation (scale, rotation, flip, colour)
 from a ``RandomState`` seeded by (seed, epoch, batch index), builds the
@@ -11,6 +10,12 @@ only runs ``finalize_patch`` (colour scale + normalize). In evaluation
 (``train=False``) there is no shuffle and no augmentation. The draws,
 affines and joint transforms are the JAX package's, so both loaders give
 the same batches for the same seed and datasets.
+
+Data-parallel, ``batch_size`` is the global batch and rank r of W loads
+rows [r * B/W, (r + 1) * B/W) of each one. Every rank shuffles with the
+same seed and draws the augmentation for the whole global batch before it
+takes its rows, so the W ranks' batches concatenate to the batch of one
+process, bit for bit (JAX ``_batch_selection`` and ``_epoch_host_warp``).
 """
 
 from __future__ import annotations
@@ -57,7 +62,8 @@ class BatchLoader:
     augmented, the last partial batch dropped. ``train=False``: natural
     order, no augmentation, and the last batch kept, padded to full size by
     repeating its last sample; ``sample_idx`` says which sample each row
-    is."""
+    is. ``batch_size`` is the global batch; ``rank`` of ``world`` yields its
+    contiguous share of each."""
 
     def __init__(
         self,
@@ -67,12 +73,17 @@ class BatchLoader:
         train: bool = True,
         num_workers: int = 8,
         seed: int = 0,
+        rank: int = 0,
+        world: int = 1,
     ):
+        if batch_size % world:
+            raise ValueError(f"global batch {batch_size} is not a multiple of the {world} ranks")
         self.datasets = list(datasets)
         self.cfg = cfg
         self.batch_size = batch_size
         self.train = train
         self.seed = seed
+        self.rank, self.world = rank, world
         self.primary = self.datasets[0].skeleton
         self._pool = cf.ThreadPoolExecutor(num_workers) if num_workers > 0 else None
 
@@ -124,15 +135,18 @@ class BatchLoader:
         )
 
     def _batch_selection(self, epoch_idx: int) -> Iterator[np.ndarray]:
+        """This rank's sample positions of each global batch: rows
+        [rank * local, (rank + 1) * local) of it."""
         order = np.arange(len(self.index))
         if self.train:
             np.random.RandomState(self.seed + epoch_idx).shuffle(order)
         bs = self.batch_size
+        local = bs // self.world
         for b in range(len(self)):
             sel = order[b * bs : (b + 1) * bs]
             if len(sel) < bs:  # pad the final batch by repeating its last sample
                 sel = np.concatenate([sel, np.full(bs - len(sel), sel[-1])])
-            yield sel
+            yield sel[self.rank * local : (self.rank + 1) * local]
 
     def _load_entry_image(self, entry) -> np.ndarray:
         di, si, _ = entry
@@ -156,14 +170,17 @@ class BatchLoader:
             samples = [self.datasets[di].samples[si] for di, si, _ in entries]
             img_w = np.asarray([s["img_shape"][1] for s in samples], np.float32)
 
-            # Augmentation draws (reference get_aug_config distributions).
+            # Augmentation draws (reference get_aug_config distributions),
+            # drawn for the global batch gb and sliced to this rank's rows.
             rng = np.random.RandomState((self.seed * 1000003 + epoch_idx * 131071 + bi) % (2**31))
             if self.train and d.use_aug:
-                scale = 1.0 + d.scale_factor * np.clip(rng.randn(b), -1, 1)
-                rot_all = d.rot_factor * np.clip(rng.randn(b), -2, 2)
-                rot = np.where(rng.rand(b) <= d.rot_prob, rot_all, 0.0)
-                flips = (rng.rand(b) <= d.flip_prob).astype(np.int32)
-                colors = rng.uniform(1 - d.color_factor, 1 + d.color_factor, (b, 3)).astype(np.float32)
+                gb = self.batch_size
+                rows = slice(self.rank * b, (self.rank + 1) * b)
+                scale = (1.0 + d.scale_factor * np.clip(rng.randn(gb), -1, 1))[rows]
+                rot_all = d.rot_factor * np.clip(rng.randn(gb), -2, 2)
+                rot = np.where(rng.rand(gb) <= d.rot_prob, rot_all, 0.0)[rows]
+                flips = (rng.rand(gb) <= d.flip_prob).astype(np.int32)[rows]
+                colors = rng.uniform(1 - d.color_factor, 1 + d.color_factor, (gb, 3)).astype(np.float32)[rows]
             else:
                 scale = np.ones(b)
                 rot = np.zeros(b)

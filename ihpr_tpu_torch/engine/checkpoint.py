@@ -12,6 +12,11 @@ No RNG is stored. The JAX snapshot carries ``data_rng``, the key of its
 device-side augmentation; the port's train step draws nothing at random,
 and its data stream is a function of (seed, epoch, batch index) alone
 (``data/pipeline.py:BatchLoader``), so a resumed run replays it exactly.
+
+Data-parallel, every rank calls ``save`` at the same points and only rank
+0 writes; the payload has the single-process format (ZeRO's optimizer state
+is consolidated onto rank 0 first), so a snapshot resumes on any number of
+ranks. Every rank reads the shared directory on ``--continue``.
 """
 
 from __future__ import annotations
@@ -89,7 +94,16 @@ class CheckpointManager:
         mid-epoch snapshot (the RSS watchdog's self-preempt); -1 (the
         default) means the epoch finished. Resume skips the first itr + 1
         batches of that epoch's deterministic stream, so the continued run
-        is bit-identical either way."""
+        is bit-identical either way.
+
+        Data-parallel, call it on every rank at the same point: under ZeRO
+        the optimizer's ``consolidate_state_dict`` (a collective) runs
+        first. Only rank 0 copies and writes."""
+        consolidate = getattr(getattr(state, "optimizer", None), "consolidate_state_dict", None)
+        if consolidate is not None:
+            consolidate(to=0)
+        if _process_index() != 0:
+            return
         self._drain()
         # Prune before the new write, and only down to ``keep``: the write
         # in flight goes to a name that does not match snapshot_\d+, so

@@ -1,12 +1,18 @@
 """Tester: the eval loop with flip-test and the datasets' metrics,
-counterpart of ``ihpr_tpu.engine.tester`` on one device.
+counterpart of ``ihpr_tpu.engine.tester``.
 
 Reference: ``common/base.py:Tester`` and ``main/test.py`` (no-grad loop,
 flip-test, predictions gathered, ``db.evaluate``) and the per-dataset
 evaluate (``Human36M.evaluate``: warp back, pixel2cam, root-align,
 per-action MPJPE). The model comes from the caller or from a snapshot in
 ``cfg.output_dir``; the log goes to ``{output_dir}/log/test_logs.txt``. The
-``vis`` overlays wait for cv2, and the multi-host gather for multi-GPU.
+``vis`` overlays wait for cv2.
+
+Data-parallel (an initialized ``torch.distributed`` group), each rank
+scores its rows of each global batch (``eval.batch_size_per_device`` times
+the world size), and the ranks' coords and sample indices are gathered in
+rank order before they are scattered, so every rank holds every prediction
+and returns the metrics; only rank 0 writes the result files.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from ihpr_tpu_torch.data.warp import gen_trans_np
 from ihpr_tpu_torch.engine.checkpoint import load_snapshot
 from ihpr_tpu_torch.engine.logger import colorlogger
 from ihpr_tpu_torch.models.pose_net import PoseNet, build_pose_net, inference_copy
+from ihpr_tpu_torch.parallel.mesh import all_gather_rows, comm_device, data_parallel
 from ihpr_tpu_torch.parallel.train_step import TrainState, make_eval_step
 
 
@@ -93,12 +100,14 @@ class Tester:
         (``pose_net.inference_copy``) on ``device``."""
         self.cfg = cfg
         self.device = torch.device(device)
+        self.dp = data_parallel(cfg)
         self.logger = colorlogger(f"{cfg.output_dir}/log", "test_logs.txt")
         if dataset is None:
             dataset = build_dataset(cfg.data.testset, "test", cfg, data_root, synthetic_size)
         self.dataset = dataset
         self.loader = BatchLoader(
-            [dataset], cfg, cfg.eval.batch_size_per_device, train=False, num_workers=num_workers
+            [dataset], cfg, cfg.eval.batch_size_per_device * self.dp.world, train=False,
+            num_workers=num_workers, rank=self.dp.rank, world=self.dp.world,
         )
         if state is None:
             state_dict, epoch = load_snapshot(cfg.output_dir, test_epoch)
@@ -118,7 +127,10 @@ class Tester:
     def predict_voxels(self) -> np.ndarray:
         """(N, J, 3) voxel coords of the whole test set, in loader.index
         order. Rows are scattered by the loader's ``sample_idx``, so the
-        padding of the last batch lands on the sample it repeats.
+        padding of the last batch lands on the sample it repeats. On a
+        process group every rank all-gathers the ranks' coords and indices
+        first (rank r holds rows [r*B/W, (r+1)*B/W) of each global batch, so
+        the two gathers line up row for row).
         ``loader_wait_s``: host seconds spent waiting for the next batch
         (warp and copy), while the device has no eval work queued."""
         n = len(self.loader.index)
@@ -134,6 +146,10 @@ class Tester:
                 break
             batch, sample_idx = item
             coords, _, _ = self.eval_step(batch)
+            if self.dp.group is not None:
+                coords = all_gather_rows(coords, self.dp)
+                idx = torch.from_numpy(sample_idx).to(comm_device(self.dp))
+                sample_idx = all_gather_rows(idx, self.dp).cpu().numpy()
             out[sample_idx] = coords.cpu().numpy()
             seen[sample_idx] = True
         if not seen.all():
@@ -144,12 +160,15 @@ class Tester:
         """Predict, score, and write ``result/metrics_<name>.json``,
         ``result/preds_<name>.npy`` (original-image px and mm) and, with
         ``cfg.eval.dump_artifacts``, the reference's result files under
-        ``cfg.output_dir``."""
+        ``cfg.output_dir``. Every rank returns the metrics; only rank 0
+        writes (JAX: process 0)."""
         cfg = self.cfg
         name = self.dataset.name
         metrics, preds_img, samples, preds_cam = metrics_from_voxel_preds(
             cfg, self.loader, self.dataset, self.predict_voxels()
         )
+        if self.dp.rank != 0:
+            return metrics
         result_dir = f"{cfg.output_dir}/result"
         os.makedirs(result_dir, exist_ok=True)
         for k, v in sorted(metrics.items()):

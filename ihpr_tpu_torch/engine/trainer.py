@@ -1,5 +1,5 @@
 """Trainer: the epoch loop wiring data -> train step -> snapshots, counterpart
-of ``ihpr_tpu.engine.trainer`` on one device.
+of ``ihpr_tpu.engine.trainer``.
 
 Builds the train datasets (synthetic only in the port), the host-warp
 ``BatchLoader``, a trainable ``PoseNet`` and its optimizer, then runs
@@ -13,6 +13,14 @@ points. Snapshots go to ``{output_dir}/model_dump`` in the background
 bit for bit. A host-RSS watchdog snapshots and exits with ``EX_TEMPFAIL``
 past its limit, and ``train(profile_dir=...)`` writes a ``torch.profiler``
 trace of a window of steps.
+
+Data-parallel (an initialized ``torch.distributed`` group, one rank per
+process, ``parallel/mesh.py``): the global batch is
+``batch_size_per_device`` times the world size, each rank loads its rows of
+it, the model's BN takes global-batch statistics and DDP sums the
+gradients; img/s counts the global batch. ``--continue`` checks that every
+rank resumes at the same point, and the RSS watchdog is a vote: one rank
+over its limit makes every rank snapshot and exit.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ from ihpr_tpu_torch.data.pipeline import BatchLoader, prefetch_to_device
 from ihpr_tpu_torch.engine.checkpoint import CheckpointManager
 from ihpr_tpu_torch.engine.logger import colorlogger
 from ihpr_tpu_torch.models.pose_net import build_pose_net
+from ihpr_tpu_torch.parallel.mesh import all_gather_rows, any_rank, barrier, comm_device, data_parallel
 from ihpr_tpu_torch.parallel.train_step import (
     TrainState,
     create_train_state,
@@ -59,9 +68,12 @@ class Trainer:
         None = 80% of MemTotal, 0 disables. Past the limit the loop
         snapshots and exits with ``EX_TEMPFAIL`` (75) for a ``--continue``
         relaunch. It checks every ``rss_check_interval_steps`` steps (0 =
-        epoch boundaries only) and at epoch boundaries."""
+        epoch boundaries only) and at epoch boundaries. On a process group
+        ``device`` is this rank's, and every rank must construct its
+        Trainer and call ``train`` alike."""
         self.cfg = cfg
         self.device = torch.device(device)
+        self.dp = data_parallel(cfg)
         self.rss_limit_mb = resolve_rss_limit_mb(rss_limit_mb)
         self.rss_check_interval_steps = int(rss_check_interval_steps)
         self.logger = colorlogger(f"{cfg.output_dir}/log", "train_logs.txt")
@@ -74,15 +86,17 @@ class Trainer:
                               hue_skeleton=primary if i else None)
                 for i, name in enumerate(cfg.data.trainset)
             ]
-        self.batch_size = cfg.optim.batch_size_per_device
-        self.loader = BatchLoader(datasets, cfg, self.batch_size, num_workers=num_workers, seed=cfg.seed)
+        self.batch_size = cfg.optim.batch_size_per_device * self.dp.world  # the global batch
+        self.loader = BatchLoader(datasets, cfg, self.batch_size, num_workers=num_workers, seed=cfg.seed,
+                                  rank=self.dp.rank, world=self.dp.world)
         self.steps_per_epoch = len(self.loader)
         self.logger.info(
-            "train: %d samples (%s), batch %d, %d steps/epoch, on %s",
+            "train: %d samples (%s), global batch %d on %d rank(s), %d steps/epoch, on %s",
             sum(len(d) for d in datasets), "+".join(d.name for d in datasets),
-            self.batch_size, self.steps_per_epoch, self.device,
+            self.batch_size, self.dp.world, self.steps_per_epoch, self.device,
         )
-        self.model = build_pose_net(cfg, self.loader.joint_num, device=self.device, trainable=True)
+        self.model = build_pose_net(cfg, self.loader.joint_num, device=self.device, trainable=True,
+                                    dp=self.dp)
         self.max_steps: Optional[int] = None  # set by cap_steps_per_epoch
         self.losses: List[torch.Tensor] = []  # the current epoch's losses, on the device
         self._make_steps()
@@ -106,14 +120,25 @@ class Trainer:
                 else:
                     self.start_epoch = epoch + 1
                     self.logger.info("resumed from snapshot_%d", epoch)
+            if self.dp.group is not None:
+                # Only rank 0 writes snapshots: a rank that reads another
+                # directory, or an older state of it, would train a diverged
+                # stream. The output_dir must be shared.
+                mine = torch.tensor([[self.start_epoch, self.resume_skip]], device=comm_device(self.dp))
+                points = all_gather_rows(mine, self.dp).tolist()
+                if any(p != points[0] for p in points):
+                    raise RuntimeError(
+                        f"ranks disagree on the resume point (epoch, skipped batches): {points}; "
+                        "--continue needs an output_dir every rank reads"
+                    )
 
     def _make_steps(self):
         """Optimizer, schedule and step functions for the current epoch
         length (the decay boundaries are counted in steps)."""
-        self.state: TrainState = create_train_state(self.model, self.cfg, self.steps_per_epoch)
+        self.state: TrainState = create_train_state(self.model, self.cfg, self.steps_per_epoch, self.dp)
         opt, sched = self.state.optimizer, self.state.scheduler
-        self.step_fn = make_train_step(self.model, opt, self.cfg, scheduler=sched)
-        self.lean_step_fn = make_train_step(self.model, opt, self.cfg, lean=True, scheduler=sched)
+        self.step_fn = make_train_step(self.model, opt, self.cfg, scheduler=sched, dp=self.dp)
+        self.lean_step_fn = make_train_step(self.model, opt, self.cfg, lean=True, scheduler=sched, dp=self.dp)
         self.lr_sched = make_lr_schedule(self.cfg, self.steps_per_epoch)
 
     def cap_steps_per_epoch(self, n: int):
@@ -154,6 +179,9 @@ class Trainer:
             # Drain the snapshot in flight on every exit path, the SIGTERM ->
             # SystemExit unwind of the CLIs (utils/shutdown.py) included.
             self.ckpt.wait()
+        # Every rank returns once rank 0's snapshot is on disk, so what runs
+        # next on any rank (an eval of it, a resume) finds it.
+        barrier(self.dp)
         return self.state
 
     def _start_profile(self):
@@ -174,21 +202,28 @@ class Trainer:
         self.logger.info("profile written to %s", path)
 
     def _rss_check(self, epoch: int, itr: int = -1, already_saved: bool = False):
-        """The watchdog (on one device the vote is local): past the limit,
-        self-preempt before the OOM killer: snapshot (mid-epoch when itr >=
-        0; resume skips the consumed batches), then exit with EX_TEMPFAIL so
-        a supervisor relaunches with --continue (train()'s finally drains
-        the save)."""
+        """The watchdog: past the limit, self-preempt before the OOM killer:
+        snapshot (mid-epoch when itr >= 0; resume skips the consumed
+        batches), then exit with EX_TEMPFAIL so a supervisor relaunches with
+        --continue (train()'s finally drains the save). On a process group
+        the trip is a vote (JAX ``_rss_over_limit``): every rank votes its
+        local RSS against its limit (a rank with the watchdog off votes no)
+        at the same points, and one rank over makes every rank snapshot and
+        exit, since the snapshot's ZeRO consolidation and the next step's
+        collectives need all of them."""
+        if self.rss_limit_mb is None and self.dp.group is None:
+            return
         rss = host_rss_mb()
-        if self.rss_limit_mb is None or rss <= self.rss_limit_mb:
+        if not any_rank(self.rss_limit_mb is not None and rss > self.rss_limit_mb, self.dp):
             return
         if not already_saved:
             self.ckpt.save(epoch, self.state, itr=itr)
         where = f"mid-epoch at itr {itr}" if itr >= 0 else "at the epoch boundary"
+        limit = "off" if self.rss_limit_mb is None else f"{self.rss_limit_mb:.0f} MB"
         self.logger.warning(
-            "host RSS %.0f MB, limit %.0f MB (%s): snapshot_%d saved, exiting %d - "
+            "host RSS %.0f MB, limit %s (tripped on any rank %s): snapshot_%d saved, exiting %d - "
             "relaunch with --continue",
-            rss, self.rss_limit_mb, where, epoch, EX_TEMPFAIL,
+            rss, limit, where, epoch, EX_TEMPFAIL,
         )
         raise SystemExit(EX_TEMPFAIL)
 

@@ -130,7 +130,11 @@ def from_jax_train_state(
     ``scale_by_adam``'s ``mu`` / ``nu`` / ``count`` become each parameter's
     ``exp_avg`` / ``exp_avg_sq`` / ``step`` through the parameters' layout map
     (``from_jax_params``, the deconv tap flip included); the schedule's count
-    becomes ``LambdaLR.last_epoch``; the clip and decay states are empty."""
+    becomes ``LambdaLR.last_epoch``; the clip and decay states are empty.
+    A snapshot of a JAX Trainer on a multi-device mesh converts the same
+    way, with or without ``shard_opt_state``: its manager restores every
+    leaf as a full host array (``device_get``), and the port's snapshot
+    resumes on any number of ranks."""
     from ihpr_tpu_torch.models.pose_net import build_pose_net
     from ihpr_tpu_torch.parallel.train_step import create_train_state
 

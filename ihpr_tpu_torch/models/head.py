@@ -17,6 +17,7 @@ from torch import nn
 
 from ihpr_tpu_torch.models.resnet import BN
 from ihpr_tpu_torch.ops.fused_head_integral import fused_final_conv_integral
+from ihpr_tpu_torch.parallel.mesh import DataParallel
 
 
 class FinalConv(nn.Module):
@@ -56,6 +57,7 @@ class DeconvHead(nn.Module):
         bn_mode: str,
         fp32_logits: bool,
         device=None,
+        dp: DataParallel | None = None,
     ):
         super().__init__()
         self.num_layers = num_layers
@@ -65,7 +67,7 @@ class DeconvHead(nn.Module):
             self.add_module(
                 f"deconv{i + 1}", Deconv(cin if i == 0 else features, features, dtype, device)
             )
-            self.add_module(f"bn{i + 1}", BN(features, bn_mode, dtype, device=device))
+            self.add_module(f"bn{i + 1}", BN(features, bn_mode, dtype, device=device, dp=dp))
         self.final = FinalConv(features, out_channels, device)
 
     def features(self, x: torch.Tensor) -> torch.Tensor:
@@ -78,7 +80,10 @@ class DeconvHead(nn.Module):
 
     def forward(self, x, mode: str = "logits", joint_num=None, depth_dim=None):
         """mode='logits': (B, H, W, J*D) heatmap logits. mode='coords':
-        (B, J, 3) voxel coords through the fused final-conv + integral op."""
+        (B, J, 3) voxel coords through the fused final-conv + integral op.
+        Data-parallel, each rank runs it on its own rows (K1/K2 per rank,
+        JAX's ``_sharded_fused``); the final conv's dW and db are summed
+        over the ranks by the gradient reduction."""
         feat = self.features(x)
         kernel = self.final.weight.to(self.dtype)
         bias = self.final.bias.to(self.dtype)

@@ -19,6 +19,7 @@ from ihpr_tpu_torch.models.head import Deconv, DeconvHead
 from ihpr_tpu_torch.models.resnet import Conv, ResNetBackbone
 from ihpr_tpu_torch.ops.fused_head_integral import no_tf32
 from ihpr_tpu_torch.ops.integral import soft_argmax_3d
+from ihpr_tpu_torch.parallel.mesh import DataParallel
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -51,13 +52,14 @@ class PoseNet(nn.Module):
         device=None,
         fused_1x1: bool = False,
         fused_conv3: bool = False,
+        dp: DataParallel | None = None,
     ):
         super().__init__()
         self.joint_num = joint_num
         self.depth_dim = depth_dim
         self.matmul_precision = matmul_precision
         self.backbone = ResNetBackbone(
-            resnet_type, compute_dtype, bn_mode, device, fused_1x1, fused_conv3
+            resnet_type, compute_dtype, bn_mode, device, fused_1x1, fused_conv3, dp
         )
         self.head = DeconvHead(
             self.backbone.out_features,
@@ -68,6 +70,7 @@ class PoseNet(nn.Module):
             bn_mode,
             fp32_logits,
             device,
+            dp,
         )
 
     def precision(self):
@@ -106,12 +109,15 @@ def build_pose_net(
     device="cuda",
     generator: torch.Generator | None = None,
     trainable: bool = False,
+    dp: DataParallel | None = None,
 ) -> PoseNet:
     """PoseNet for ``cfg`` on ``device`` with fp32 parameters, initialized
     the way the JAX package initializes (``models.convert.init_state_dict``)
     from ``generator``, or from ``torch.Generator().manual_seed(cfg.seed)``.
     Frozen in eval mode, or in train mode with gradients when
-    ``trainable``."""
+    ``trainable``. ``dp`` (``parallel.mesh.DataParallel``, as JAX's
+    ``mesh=``): with world > 1, train-mode BN takes global-batch
+    statistics."""
     from ihpr_tpu_torch.models.convert import init_state_dict
 
     m = cfg.model
@@ -133,6 +139,7 @@ def build_pose_net(
             matmul_precision=m.matmul_precision,
             fused_1x1=m.fused_1x1,
             fused_conv3=m.fused_conv3,
+            dp=dp,
         )
     model = model.to_empty(device=device).train(trainable).requires_grad_(trainable)
     for mod in model.modules():

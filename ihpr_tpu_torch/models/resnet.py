@@ -13,6 +13,14 @@ A Bottleneck in train mode with lean BN can take one of JAX's two fused
 routes (``fused_1x1``: conv1/conv3 through ``ops.matmul_bn``, K5/K6;
 ``fused_conv3``: conv2 through ``ops.conv_bn``, K7/K8), chosen by JAX's own
 shape predicates, so the port fuses exactly the blocks JAX fuses.
+
+Data-parallel (``dp`` of world > 1, ``parallel/mesh.py``): train-mode BN
+takes its statistics over the global batch, as XLA's reductions do under
+JAX's mesh, by one differentiable all-reduce of the local per-channel sums
+(``mesh.AllReduceSum``); its backward sums the statistics' cotangents over
+the ranks, as the transpose of JAX's psum does. The conv3 route stays
+single-device, as in JAX. With no ``dp`` or world 1, BN runs the
+single-process code and no collective.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ihpr_tpu_torch.ops import conv_bn, matmul_bn
+from ihpr_tpu_torch.parallel.mesh import DataParallel, all_reduce_sum
 
 # resnet_type -> (block kind, stage depths, channel expansion)
 RESNET_SPECS = {
@@ -52,12 +61,19 @@ class BN(nn.Module):
     statistics as ``momentum * old + (1 - momentum) * batch`` (flax momentum
     0.9; the running variance gets the biased variance too). In eval mode
     they normalize with the running statistics.
+
+    With ``dp`` of world > 1 the train-mode statistics are the global
+    batch's: the local fp32 sums of x and x^2 (or the sums handed to
+    ``from_sums``) are summed over the ranks by one all-reduce, and the
+    count is the global one.
     """
 
     momentum = 0.9  # flax momentum: the share of the old running statistic
 
-    def __init__(self, channels: int, mode: str, dtype: torch.dtype, eps: float = 1e-5, device=None):
+    def __init__(self, channels: int, mode: str, dtype: torch.dtype, eps: float = 1e-5, device=None,
+                 dp: DataParallel | None = None):
         super().__init__()
+        self.dp = dp
         if mode not in BN_MODES:
             raise ValueError(f"bn_mode {mode!r} is not ported; use one of {BN_MODES}")
         self.mode = mode
@@ -75,10 +91,24 @@ class BN(nn.Module):
             self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
             self.running_var.copy_(m * self.running_var + (1 - m) * var)
 
+    def _synced(self) -> bool:
+        return self.dp is not None and self.dp.world > 1
+
+    def _global_sums(self, s1: torch.Tensor, s2: torch.Tensor):
+        """(s1, s2) summed over the ranks in one all-reduce."""
+        s = all_reduce_sum(torch.cat([s1, s2]), self.dp)
+        return s[: s1.shape[0]], s[s1.shape[0]:]
+
     def _batch_stats(self, x: torch.Tensor):
         xf = x.to(torch.float32)
-        mean = xf.mean(dim=(0, 2, 3))
-        var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+        if self._synced():
+            count = float(xf.numel() // xf.shape[1] * self.dp.world)
+            s1, s2 = self._global_sums(xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)))
+            mean = s1 / count
+            var = (s2 / count - mean * mean).clamp_min(0.0)
+        else:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
         self._update_running(mean, var)
         return mean, var
 
@@ -86,7 +116,13 @@ class BN(nn.Module):
         """Train-mode BN from precomputed per-channel sums (JAX's ``_SumBN``):
         the fp32 (mul, add) of the folded normalize, from mean = s1 / count
         and the biased var = max(s2 / count - mean^2, 0); the running
-        statistics are updated as in ``forward``."""
+        statistics are updated as in ``forward``. Data-parallel, the sums and
+        ``count`` are this rank's and are summed over the ranks first (the
+        psum of JAX's ``matmul_bn._sharded_call``), so K6 and K8 receive the
+        cotangents of the global sums."""
+        if self._synced():
+            s1, s2 = self._global_sums(s1, s2)
+            count = count * self.dp.world
         mean = s1 / count
         var = (s2 / count - mean * mean).clamp_min(0.0)
         self._update_running(mean, var)
@@ -146,16 +182,16 @@ class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, cin: int, features: int, stride: int, dtype, bn_mode: str, device=None,
-                 fused_1x1: bool = False, fused_conv3: bool = False):
+                 fused_1x1: bool = False, fused_conv3: bool = False, dp: DataParallel | None = None):
         # No 1x1 convs to fuse: the flags are accepted and ignored, as in JAX.
         super().__init__()
         self.conv1 = _conv(cin, features, 3, stride, dtype, device)
-        self.bn1 = BN(features, bn_mode, dtype, device=device)
+        self.bn1 = BN(features, bn_mode, dtype, device=device, dp=dp)
         self.conv2 = _conv(features, features, 3, 1, dtype, device)
-        self.bn2 = BN(features, bn_mode, dtype, device=device)
+        self.bn2 = BN(features, bn_mode, dtype, device=device, dp=dp)
         if stride != 1 or cin != features:
             self.down_conv = _conv(cin, features, 1, stride, dtype, device)
-            self.down_bn = BN(features, bn_mode, dtype, device=device)
+            self.down_bn = BN(features, bn_mode, dtype, device=device, dp=dp)
 
     def forward(self, x):
         y = F.relu(self.bn1(self.conv1(x)))
@@ -169,32 +205,36 @@ class Bottleneck(nn.Module):
     JAX's ``Bottleneck.__call__`` does: ``fused_conv3`` first (stride 1,
     ``conv_bn.profitable`` and ``conv_bn.supported``), then ``fused_1x1``
     (``matmul_bn.supported`` for conv1), else the plain path. The
-    parameters and buffers are the same on every route."""
+    parameters and buffers are the same on every route. Data-parallel
+    (world > 1) it never takes the conv3 route (JAX requires
+    ``mesh.size == 1`` for it), and decides ``fused_1x1`` on the local rows,
+    as JAX does on ``m // nshard``."""
 
     expansion = 4
 
     def __init__(self, cin: int, features: int, stride: int, dtype, bn_mode: str, device=None,
-                 fused_1x1: bool = False, fused_conv3: bool = False):
+                 fused_1x1: bool = False, fused_conv3: bool = False, dp: DataParallel | None = None):
         super().__init__()
         self.features, self.stride, self.bn_mode = features, stride, bn_mode
         self.fused_1x1, self.fused_conv3 = fused_1x1, fused_conv3
+        self.world = 1 if dp is None else dp.world
         out = features * 4
         self.conv1 = _conv(cin, features, 1, 1, dtype, device)
-        self.bn1 = BN(features, bn_mode, dtype, device=device)
+        self.bn1 = BN(features, bn_mode, dtype, device=device, dp=dp)
         self.conv2 = _conv(features, features, 3, stride, dtype, device)
-        self.bn2 = BN(features, bn_mode, dtype, device=device)
+        self.bn2 = BN(features, bn_mode, dtype, device=device, dp=dp)
         self.conv3 = _conv(features, out, 1, 1, dtype, device)
-        self.bn3 = BN(out, bn_mode, dtype, device=device)
+        self.bn3 = BN(out, bn_mode, dtype, device=device, dp=dp)
         if stride != 1 or cin != out:
             self.down_conv = _conv(cin, out, 1, stride, dtype, device)
-            self.down_bn = BN(out, bn_mode, dtype, device=device)
+            self.down_bn = BN(out, bn_mode, dtype, device=device, dp=dp)
 
     def _route(self, x: torch.Tensor) -> str:
         if self.bn_mode != "lean" or not self.training:
             return "plain"
         b, cin, h, w = x.shape
         e, itemsize = self.features, self.conv1.compute_dtype.itemsize
-        if (self.fused_conv3 and self.stride == 1 and conv_bn.profitable(e, e)
+        if (self.fused_conv3 and self.world == 1 and self.stride == 1 and conv_bn.profitable(e, e)
                 and conv_bn.supported(b, h, w, e, e, 1, itemsize)):
             return "conv3"
         if self.fused_1x1 and matmul_bn.supported(b * h * w, cin, e, itemsize):
@@ -259,7 +299,7 @@ class ResNetBackbone(nn.Module):
     ResNet-18/34 and 2048 for 50/101/152."""
 
     def __init__(self, resnet_type: int, dtype: torch.dtype, bn_mode: str, device=None,
-                 fused_1x1: bool = False, fused_conv3: bool = False):
+                 fused_1x1: bool = False, fused_conv3: bool = False, dp: DataParallel | None = None):
         super().__init__()
         if resnet_type not in RESNET_SPECS:
             raise ValueError(f"resnet_type {resnet_type} not in {sorted(RESNET_SPECS)}")
@@ -268,7 +308,7 @@ class ResNetBackbone(nn.Module):
         self.dtype = dtype
         self.out_features = 512 * expansion
         self.conv1 = Conv(3, 64, 7, 2, dtype, device)
-        self.bn1 = BN(64, bn_mode, dtype, device=device)
+        self.bn1 = BN(64, bn_mode, dtype, device=device, dp=dp)
         self.block_names = []
         cin = 64
         for stage, (width, depth) in enumerate(zip(_STAGE_WIDTHS, depths)):
@@ -276,7 +316,7 @@ class ResNetBackbone(nn.Module):
                 stride = 2 if (stage > 0 and i == 0) else 1
                 name = f"layer{stage + 1}_{i}"
                 self.add_module(name, block_cls(cin, width, stride, dtype, bn_mode, device,
-                                                fused_1x1, fused_conv3))
+                                                fused_1x1, fused_conv3, dp))
                 self.block_names.append(name)
                 cin = width * expansion
 

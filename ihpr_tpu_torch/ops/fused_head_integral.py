@@ -27,6 +27,14 @@ finds no tiling. On either route a CUDA tensor goes to the kernels, which
 launch or raise; a CPU tensor goes to the plain PyTorch versions
 (``plain``, ``plain_bwd``), which are also what the kernels are held
 against on the card. Nothing falls back from one to the other.
+
+Data-parallel, each rank calls this op on its own rows of the batch: K1/K2
+run per rank on the local (B/W, H*W, C) features, which is the port of
+JAX's ``_sharded_fused`` (``ihpr_tpu/ops/fused_head_integral.py:352``, a
+shard_map over the batch rows). The op is per sample, so nothing here
+changes with the world size; the final conv's dW and db are summed over the
+ranks by ``DistributedDataParallel``'s gradient reduction, as the shard_map
+transpose psums them in JAX.
 """
 
 from __future__ import annotations

@@ -33,6 +33,14 @@ goes to the kernels, which launch or raise; a CPU tensor goes to the plain
 versions here (``plain``, ``plain_bwd``), which are also what the kernels
 are held against on the card.
 
+Data-parallel, each rank runs K5/K6 on its own rows, and the Bottleneck
+hands the local s1, s2 to ``BN.from_sums``, which sums them over the ranks
+in one differentiable all-reduce (``parallel/mesh.py:AllReduceSum``): the
+port of JAX's ``_sharded_call`` (``ihpr_tpu/ops/matmul_bn.py:394``), whose
+shard_map runs the kernel per shard and psums s1, s2. K6 then receives the
+cotangents ds1, ds2 of the global sums, as the transpose of that psum gives
+them. Nothing here changes with the world size.
+
 ``supported`` is JAX's shape predicate, copied with its TPU VMEM budget.
 The port uses it only to pick which Bottleneck blocks take the fused route,
 so that it fuses the blocks JAX fuses (at bf16 the two routes round at

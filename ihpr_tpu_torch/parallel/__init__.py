@@ -1,1 +1,1 @@
-"""Training state and the single-GPU train step."""
+"""Training state, the train and eval steps, and data parallelism over torch.distributed."""

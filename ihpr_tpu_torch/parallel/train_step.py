@@ -1,5 +1,4 @@
-"""The single-GPU train and eval steps, counterpart of
-``ihpr_tpu.parallel.train_step``.
+"""The train and eval steps, counterpart of ``ihpr_tpu.parallel.train_step``.
 
 One step: ``finalize_patch`` on the host-warped uint8 patch (colour scale,
 clip, ImageNet normalize), ``PoseNet.coords`` in train mode (batch-stat BN;
@@ -14,21 +13,38 @@ and ``add_decayed_weights(-wd)`` after it, which subtracts ``wd * p`` from
 every parameter *without* the learning rate. The learning rate of update k
 (counted from 0) is the schedule at k: ``piecewise_constant_schedule``
 scales apply at ``count >= boundary``.
+
+Data-parallel (``dp`` with a process group, ``parallel/mesh.py``), the step
+runs the model through one ``DistributedDataParallel`` per model, which
+averages the gradients over the ranks; the loss is the mean over B*J*3, so
+the average of the ranks' local means is the global loss, as under JAX's
+mesh. ``cfg.parallel.shard_opt_state`` is ZeRO-1 (JAX's ``state_shardings``
+with ``shard_opt_state=True``): ``ZeroOptaxAdam`` keeps the Adam moments of
+each rank's share of the parameters there.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Sequence, Tuple
+import functools
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
+from torch.nn.parallel import DistributedDataParallel
 from torch.optim.lr_scheduler import LambdaLR
 
 from ihpr_tpu_torch.config import Config
 from ihpr_tpu_torch.data import skeletons
 from ihpr_tpu_torch.data.augment import finalize_patch
 from ihpr_tpu_torch.models.pose_net import PoseNet
-from ihpr_tpu_torch.ops.loss import joint_location_loss, joint_location_loss_components
+from ihpr_tpu_torch.ops.loss import (
+    components_from_sums,
+    joint_location_loss,
+    joint_location_loss_components,
+    joint_location_loss_sums,
+)
+from ihpr_tpu_torch.parallel.mesh import DataParallel
 
 
 def make_lr_schedule(cfg: Config, steps_per_epoch: int) -> Callable[[int], float]:
@@ -48,6 +64,13 @@ def make_lr_schedule(cfg: Config, steps_per_epoch: int) -> Callable[[int], float
         return lr
 
     return schedule
+
+
+def _clip_by_global_norm_(grads: List[torch.Tensor], clip_norm: float):
+    """optax ``clip_by_global_norm``: g if |g| < clip else g / |g| * clip,
+    in place, without a host sync."""
+    norm = torch.nn.utils.get_total_norm(grads, norm_type=2.0)
+    torch._foreach_mul_(grads, torch.where(norm < clip_norm, 1.0, clip_norm / norm))
 
 
 class OptaxAdam(torch.optim.Adam):
@@ -76,25 +99,78 @@ class OptaxAdam(torch.optim.Adam):
         if closure is not None:
             raise ValueError("OptaxAdam.step takes no closure")
         if self.clip_norm:
-            grads = self._grads()
-            norm = torch.nn.utils.get_total_norm(grads, norm_type=2.0)
-            # optax: g if |g| < clip else g / |g| * clip, without a host sync.
-            scale = torch.where(norm < self.clip_norm, 1.0, self.clip_norm / norm)
-            torch._foreach_mul_(grads, scale)
+            _clip_by_global_norm_(self._grads(), self.clip_norm)
         if self.decay:
             params = [p for grp in self.param_groups for p in grp["params"] if p.grad is not None]
             torch._foreach_mul_(params, 1.0 - self.decay)
         return super().step()
 
 
-def make_optimizer(model: PoseNet, cfg: Config, steps_per_epoch: int):
-    """(optimizer, scheduler): ``OptaxAdam`` over the model's parameters and
-    a ``LambdaLR`` giving update k the rate ``make_lr_schedule(...)(k)``;
-    call ``scheduler.step()`` after each ``optimizer.step()``."""
-    opt = OptaxAdam(
-        model.parameters(), lr=cfg.optim.lr, clip_norm=cfg.optim.grad_clip_norm,
-        weight_decay=cfg.optim.weight_decay,
-    )
+@functools.cache
+def zero_optax_adam() -> type:
+    """The class ``ZeroOptaxAdam``, made at first use: importing
+    ``torch.distributed.optim`` takes seconds (it imports FSDP), which every
+    process of the port would pay at import."""
+    from torch.distributed.optim import ZeroRedundancyOptimizer
+
+    class ZeroOptaxAdam(ZeroRedundancyOptimizer):
+        """ZeRO-1 over ``OptaxAdam``: each rank keeps the Adam moments of its
+        share of the parameters, steps them, and the updated parameters are
+        broadcast from their owners.
+
+        - The clip uses the global norm of every gradient (all of them, reduced
+          by DDP), taken here before the sharded step: an inner ``OptaxAdam``
+          with ``clip_norm`` would clip by its own shard's norm. The decay stays
+          in the inner optimizers, per shard.
+        - The inner optimizers get the decay through ``functools.partial``, not
+          as a ZeRO default: ZeRO copies its defaults into the inner param
+          groups, where ``weight_decay`` would turn on torch Adam's L2 term.
+        - The learning rate is set on this optimizer's param groups (the
+          ``LambdaLR``), which ZeRO copies into the inner ones at each step.
+        - ``state_dict`` (after ``consolidate_state_dict``, a collective) and
+          ``load_state_dict`` use ``OptaxAdam``'s single-process format, so a
+          snapshot resumes with or without ZeRO, on any world size."""
+
+        def __init__(self, params, lr: float, clip_norm: float | None, weight_decay: float, group):
+            super().__init__(
+                params, functools.partial(OptaxAdam, weight_decay=weight_decay), process_group=group, lr=lr
+            )
+            self.clip_norm = clip_norm
+
+        _grads = OptaxAdam._grads
+        global_norm = OptaxAdam.global_norm
+
+        @torch.no_grad()
+        def step(self, closure=None):
+            if closure is not None:
+                raise ValueError("ZeroOptaxAdam.step takes no closure")
+            if self.clip_norm:
+                _clip_by_global_norm_(self._grads(), self.clip_norm)
+            return super().step()
+
+        def state_dict(self) -> dict:
+            sd = super().state_dict()
+            group = {k: v for k, v in self.optim.param_groups[0].items() if k != "params"}
+            return {"state": sd["state"], "param_groups": [{**group, "params": list(range(len(self._all_params)))}]}
+
+        def load_state_dict(self, state_dict: dict):
+            # ZeRO clears the entries of other ranks' parameters in what it is given.
+            super().load_state_dict({**state_dict, "state": dict(state_dict["state"])})
+
+    return ZeroOptaxAdam
+
+
+def make_optimizer(model: PoseNet, cfg: Config, steps_per_epoch: int, dp: Optional[DataParallel] = None):
+    """(optimizer, scheduler): ``OptaxAdam`` over the model's parameters (or
+    ``ZeroOptaxAdam`` with ``cfg.parallel.shard_opt_state`` on a process
+    group) and a ``LambdaLR`` giving update k the rate
+    ``make_lr_schedule(...)(k)``; call ``scheduler.step()`` after each
+    ``optimizer.step()``."""
+    o = cfg.optim
+    if cfg.parallel.shard_opt_state and dp is not None and dp.group is not None:
+        opt = zero_optax_adam()(model.parameters(), o.lr, o.grad_clip_norm, o.weight_decay, dp.group)
+    else:
+        opt = OptaxAdam(model.parameters(), lr=o.lr, clip_norm=o.grad_clip_norm, weight_decay=o.weight_decay)
     sched = make_lr_schedule(cfg, steps_per_epoch)
     return opt, LambdaLR(opt, lambda k: sched(k) / cfg.optim.lr)
 
@@ -111,7 +187,8 @@ class TrainState:
         weights, BN running statistics), the optimizer's (Adam moments and
         counts), the schedule's (its count) and the update count. The
         tensors are the live ones, which the next step updates in place:
-        ``CheckpointManager.save`` copies them."""
+        ``CheckpointManager.save`` copies them. Under ZeRO, call the
+        optimizer's ``consolidate_state_dict`` on every rank first."""
         return {
             "model": self.model.state_dict(),
             "optimizer": self.optimizer.state_dict(),
@@ -136,13 +213,64 @@ class TrainState:
         self.step = int(state_dict["step"])
 
 
-def create_train_state(model: PoseNet, cfg: Config, steps_per_epoch: int) -> TrainState:
-    opt, sched = make_optimizer(model, cfg, steps_per_epoch)
+def create_train_state(
+    model: PoseNet, cfg: Config, steps_per_epoch: int, dp: Optional[DataParallel] = None
+) -> TrainState:
+    opt, sched = make_optimizer(model, cfg, steps_per_epoch, dp)
     return TrainState(model, opt, sched)
 
 
+class _Coords(torch.nn.Module):
+    """``PoseNet.coords`` as a module's forward, for DDP: DDP sets up its
+    gradient reduction only in its own ``__call__``, so a call of
+    ``ddp.module.coords`` would skip it."""
+
+    def __init__(self, model: PoseNet):
+        super().__init__()
+        self.model = model
+
+    def forward(self, image: torch.Tensor) -> torch.Tensor:
+        return self.model.coords(image)
+
+
+# id(model) -> the one DistributedDataParallel of that model, shared by its
+# step functions (the full and the lean step, and those rebuilt by
+# ``Trainer.cap_steps_per_epoch``): each DDP hooks every parameter.
+_DDP: Dict[int, DistributedDataParallel] = {}
+
+
+def _ddp(model: PoseNet, dp: DataParallel) -> DistributedDataParallel:
+    if id(model) not in _DDP:
+        device = next(model.parameters()).device
+        # No buffer broadcast: the all-reduced BN statistics keep the
+        # running ones equal on every rank.
+        _DDP[id(model)] = DistributedDataParallel(
+            _Coords(model), device_ids=[device.index] if device.type == "cuda" else None,
+            process_group=dp.group, broadcast_buffers=False,
+        )
+    return _DDP[id(model)]
+
+
+def _mean_over_ranks(t: torch.Tensor, dp: Optional[DataParallel]) -> torch.Tensor:
+    if dp is None or dp.group is None:
+        return t
+    t = t.clone()
+    dist.all_reduce(t, group=dp.group)
+    return t / dp.world
+
+
+def _error_components(coords, batch, dp: Optional[DataParallel]):
+    labels = (batch["joint_img"], batch["joint_vis"], batch["joints_have_depth"])
+    if dp is None or dp.group is None:
+        return joint_location_loss_components(coords, *labels)
+    sums = joint_location_loss_sums(coords, *labels)  # ratios: sum the sums
+    dist.all_reduce(sums, group=dp.group)
+    return components_from_sums(sums)
+
+
 def make_train_step(
-    model: PoseNet, optimizer: OptaxAdam, cfg: Config, lean: bool = False, scheduler=None
+    model: PoseNet, optimizer: OptaxAdam, cfg: Config, lean: bool = False, scheduler=None,
+    dp: Optional[DataParallel] = None,
 ) -> Callable[[Dict[str, torch.Tensor]], Dict[str, torch.Tensor]]:
     """Returns ``step(batch) -> metrics``, one update of ``model`` in place.
 
@@ -151,25 +279,30 @@ def make_train_step(
     (B, J, 3), ``joint_vis`` (B, J), ``joints_have_depth`` (B,). Metrics are
     0-dim device tensors (no host sync): ``loss``, and unless ``lean`` also
     ``grad_norm`` (before clipping), ``err_xy_voxels`` and ``err_z_voxels``.
-    ``scheduler.step()`` follows each update when a scheduler is given."""
+    ``scheduler.step()`` follows each update when a scheduler is given.
+
+    ``dp`` with a process group: ``batch`` is this rank's rows, the model
+    runs through its ``DistributedDataParallel``, and the metrics are the
+    global batch's on every rank: the loss averaged over the ranks, the
+    error components from the ranks' summed sums, ``grad_norm`` of the
+    reduced gradients."""
+    coords_fn = _ddp(model, dp) if dp is not None and dp.group is not None else model.coords
 
     def step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         image = finalize_patch(batch["patch"], batch["color_scale"], cfg.data)
         model.train()
         optimizer.zero_grad(set_to_none=True)
         with model.precision():
-            coords = model.coords(image)
+            coords = coords_fn(image)
             loss = joint_location_loss(
                 coords, batch["joint_img"], batch["joint_vis"], batch["joints_have_depth"]
             )
             loss.backward()
-        metrics = {"loss": loss.detach()}
+        metrics = {"loss": _mean_over_ranks(loss.detach(), dp)}
         if not lean:
             metrics["grad_norm"] = optimizer.global_norm()
             with torch.no_grad():
-                metrics["err_xy_voxels"], metrics["err_z_voxels"] = joint_location_loss_components(
-                    coords, batch["joint_img"], batch["joint_vis"], batch["joints_have_depth"]
-                )
+                metrics["err_xy_voxels"], metrics["err_z_voxels"] = _error_components(coords, batch, dp)
         optimizer.step()
         if scheduler is not None:
             scheduler.step()

@@ -6,9 +6,11 @@ evaluates snapshot N (default: the latest) of the run in ``output_dir``
 (default: the config's) on the config's test set, with flip-test, on one
 CUDA device (``--device``), prints the metrics and writes them, the
 predictions and the reference's result files to ``{output_dir}/result``.
-Only synthetic data is ported (``--synthetic_size`` samples). The flags of
-``test.py`` that the port does not have (``--vis``, ``--multihost``,
-``--spatial``) are rejected.
+With ``--multihost`` (under torchrun, as the train CLI) each rank scores
+its rows of each global batch, every rank prints the gathered metrics and
+rank 0 writes the files. Only synthetic data is ported
+(``--synthetic_size`` samples). The flags of ``test.py`` that the port does
+not have (``--vis``, ``--spatial``) are rejected.
 """
 
 from __future__ import annotations
@@ -16,9 +18,11 @@ from __future__ import annotations
 import argparse
 import logging
 
+import torch
+
 from ihpr_tpu_torch.utils.shutdown import install_graceful_shutdown
 
-_UNPORTED = {"vis": "--vis", "multihost": "--multihost", "spatial": "--spatial"}
+_UNPORTED = {"vis": "--vis", "spatial": "--spatial"}
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -31,9 +35,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--num_workers", type=int, default=8)
     ap.add_argument("--output_dir", default=None, help="default: the config's output_dir")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--multihost", action="store_true",
+                    help="join the process group torchrun describes (data-parallel eval)")
     # test.py's flags that the port does not have: accepted, then refused.
     ap.add_argument("--vis", action="store_true")
-    ap.add_argument("--multihost", action="store_true")
     ap.add_argument("--spatial", type=int, default=None)
     args = ap.parse_args(argv)
     given = [flag for dest, flag in _UNPORTED.items() if getattr(args, dest) not in (None, False)]
@@ -51,18 +56,26 @@ def main(argv=None):
 
     from ihpr_tpu_torch.config import get_config
     from ihpr_tpu_torch.engine.tester import Tester
+    from ihpr_tpu_torch.parallel import mesh
 
     cfg = get_config(args.config)
     if args.output_dir:
         cfg = cfg.replace(output_dir=args.output_dir)
-    tester = Tester(
-        cfg, test_epoch=args.test_epoch, data_root="synthetic", num_workers=args.num_workers,
-        synthetic_size=args.synthetic_size, device=args.device,
-    )
+    device = args.device
+    if args.multihost:
+        device = mesh.init_process_group(torch.device(args.device).type)
     try:
-        metrics = tester.evaluate()
+        tester = Tester(
+            cfg, test_epoch=args.test_epoch, data_root="synthetic", num_workers=args.num_workers,
+            synthetic_size=args.synthetic_size, device=device,
+        )
+        try:
+            metrics = tester.evaluate()
+        finally:
+            tester.close()
     finally:
-        tester.close()
+        if args.multihost:
+            torch.distributed.destroy_process_group()
     print(metrics)
     return metrics
 

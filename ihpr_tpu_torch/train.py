@@ -2,8 +2,14 @@
 
     python -m ihpr_tpu_torch.train --config h36m3d_r50 --synthetic --steps 20 --end_epoch 1
     python -m ihpr_tpu_torch.train --config h36m3d_r50 --synthetic --continue
+    python -m torch.distributed.run --standalone --nproc_per_node N -m ihpr_tpu_torch.train \
+        --config h36m3d_r50_dp --synthetic --multihost
 
-trains on one CUDA device (``--device``). ``--steps 20`` caps each epoch at
+trains on one CUDA device (``--device``), or data-parallel with
+``--multihost``: one rank per process, joined from torchrun's environment
+(NCCL on ``cuda:LOCAL_RANK``; gloo with ``--device cpu``), the global batch
+``batch_size_per_device`` times the ranks. ``--shard_opt_state`` shards
+the Adam moments over the ranks (ZeRO-1). ``--steps 20`` caps each epoch at
 20 steps; the run takes ``--end_epoch`` epochs, the config's
 ``optim.end_epoch`` without it, as in ``train.py``. Snapshots go to
 ``{output_dir}/model_dump`` (``--output_dir``, default the config's), and
@@ -12,8 +18,7 @@ memory the run snapshots and exits with code 75 for a ``--continue``
 relaunch; SIGTERM exits with 143 after the snapshot in flight is written.
 ``--profile_dir`` writes a ``torch.profiler`` trace of steps 20-24 of the
 first epoch. Only synthetic data is ported. The flags of ``train.py`` that
-the port does not have (pretrained backbones, multi-host, spatial and
-optimizer-state sharding) are rejected.
+the port does not have (``--pretrained``, ``--spatial``) are rejected.
 """
 
 from __future__ import annotations
@@ -22,14 +27,11 @@ import argparse
 import dataclasses
 import logging
 
+import torch
+
 from ihpr_tpu_torch.utils.shutdown import install_graceful_shutdown
 
-_UNPORTED = {
-    "pretrained": "--pretrained",
-    "multihost": "--multihost",
-    "spatial": "--spatial",
-    "shard_opt_state": "--shard_opt_state",
-}
+_UNPORTED = {"pretrained": "--pretrained", "spatial": "--spatial"}
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -55,11 +57,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                     "(default 80%% of MemTotal, 0 disables)")
     ap.add_argument("--rss_check_steps", type=int, default=100,
                     help="check the watchdog every N steps (0: epoch boundaries only)")
+    ap.add_argument("--multihost", action="store_true",
+                    help="join the process group torchrun describes (data-parallel, one rank a process)")
+    ap.add_argument("--shard_opt_state", action="store_true",
+                    help="ZeRO-1: shard the Adam moments over the ranks")
     # train.py's flags that the port does not have: accepted, then refused.
     ap.add_argument("--pretrained", default=None)
-    ap.add_argument("--multihost", action="store_true")
     ap.add_argument("--spatial", type=int, default=None)
-    ap.add_argument("--shard_opt_state", action="store_true")
     args = ap.parse_args(argv)
     given = [flag for dest, flag in _UNPORTED.items() if getattr(args, dest) not in (None, False)]
     if given:
@@ -75,9 +79,21 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
 
     from ihpr_tpu_torch.config import get_config
+    from ihpr_tpu_torch.parallel import mesh
+
+    device = args.device
+    if args.multihost:
+        device = mesh.init_process_group(torch.device(args.device).type)
+    try:
+        _train(args, get_config(args.config), device)
+    finally:
+        if args.multihost:
+            torch.distributed.destroy_process_group()
+
+
+def _train(args, cfg, device):
     from ihpr_tpu_torch.engine.trainer import Trainer
 
-    cfg = get_config(args.config)
     if args.output_dir:
         cfg = cfg.replace(output_dir=args.output_dir)
     kw = {}
@@ -87,11 +103,13 @@ def main(argv=None):
         kw["use_aug"] = False
     if kw:
         cfg = cfg.replace(data=dataclasses.replace(cfg.data, **kw))
+    if args.shard_opt_state:
+        cfg = cfg.replace(parallel=dataclasses.replace(cfg.parallel, shard_opt_state=True))
     trainer = Trainer(
         cfg, data_root="synthetic", continue_train=args.continue_train,
         num_workers=args.num_workers, synthetic_size=args.synthetic_size,
         rss_limit_mb=args.rss_limit_mb, rss_check_interval_steps=args.rss_check_steps,
-        device=args.device,
+        device=device,
     )
     try:
         if args.steps is not None:

@@ -239,10 +239,10 @@ def test_steps_without_end_epoch_hands_train_what_jax_does(tmp_path, monkeypatch
 
 
 def test_cli_flags_ported_and_refused():
-    """train accepts --continue, --output_dir, --profile_dir, --rss_limit_mb
-    and --rss_check_steps, and still refuses --pretrained, --multihost,
-    --spatial and --shard_opt_state; test refuses --vis, --multihost and
-    --spatial; both refuse a real --data_root."""
+    """train accepts --continue, --output_dir, --profile_dir, --rss_limit_mb,
+    --rss_check_steps, --multihost and --shard_opt_state, and still refuses
+    --pretrained and --spatial; test accepts --multihost and refuses --vis
+    and --spatial; both refuse a real --data_root."""
     args = train_cli.parse_args([
         "--synthetic", "--continue", "--output_dir", "o", "--profile_dir", "p",
         "--rss_limit_mb", "0", "--rss_check_steps", "5",
@@ -250,12 +250,15 @@ def test_cli_flags_ported_and_refused():
     assert (args.continue_train, args.output_dir, args.profile_dir) == (True, "o", "p")
     assert (args.rss_limit_mb, args.rss_check_steps) == (0.0, 5)
     assert train_cli.parse_args(["--synthetic"]).rss_check_steps == 100
-    for flag in (["--pretrained", "x.msgpack"], ["--multihost"], ["--spatial", "2"], ["--shard_opt_state"]):
+    for flag in (["--pretrained", "x.msgpack"], ["--spatial", "2"]):
         with pytest.raises(SystemExit):
             train_cli.parse_args(["--synthetic", *flag])
+    args = train_cli.parse_args(["--synthetic", "--multihost", "--shard_opt_state"])
+    assert args.multihost and args.shard_opt_state
     args = test_cli.parse_args(["--synthetic", "--test_epoch", "3", "--output_dir", "o"])
     assert (args.test_epoch, args.output_dir, args.synthetic_size) == (3, "o", 128)
-    for flag in (["--vis"], ["--multihost"], ["--spatial", "2"]):
+    assert test_cli.parse_args(["--synthetic", "--multihost"]).multihost
+    for flag in (["--vis"], ["--spatial", "2"]):
         with pytest.raises(SystemExit):
             test_cli.parse_args(["--synthetic", *flag])
     for cli in (train_cli, test_cli):

@@ -25,6 +25,7 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stderr
     count, names, leaked = proc.stdout.strip().split(" ", 2)
     assert int(count) >= 15, proc.stdout  # every module was found and imported
-    for name in ("ihpr_tpu_torch.engine.export", "ihpr_tpu_torch.tools.export_artifact"):
+    for name in ("ihpr_tpu_torch.engine.export", "ihpr_tpu_torch.tools.export_artifact",
+                 "ihpr_tpu_torch.parallel.mesh", "ihpr_tpu_torch.parallel.launch"):
         assert name in names.split(","), name
     assert leaked == "[]", leaked

@@ -606,10 +606,14 @@ def test_trainer_logs_the_jax_learning_rate_at_a_decay_boundary(caplog, tmp_path
 
 
 def test_train_cli_rejects_what_is_not_ported():
+    """--pretrained and --spatial are refused; --multihost and
+    --shard_opt_state are ported (tests/test_torch_dp.py runs them)."""
     args = train_cli.parse_args(["--config", "h36m3d_r50", "--synthetic", "--steps", "3"])
     assert args.steps == 3 and args.synthetic
-    for flag in (["--pretrained", "x.msgpack"], ["--multihost"], ["--spatial", "2"], ["--shard_opt_state"]):
+    for flag in (["--pretrained", "x.msgpack"], ["--spatial", "2"]):
         with pytest.raises(SystemExit):
             train_cli.parse_args(["--synthetic", *flag])
+    for flag in ("--multihost", "--shard_opt_state"):
+        assert getattr(train_cli.parse_args(["--synthetic", flag]), flag[2:])
     with pytest.raises(SystemExit):
         train_cli.parse_args(["--data_root", "/data/Human36M"])
