@@ -93,6 +93,23 @@
    Tester on 128 samples: gathered predictions against one process's, the
    same metrics on both ranks, rank 0 alone writing. The ranks' K1, K2, K5
    and K6 launches join the kernels line.
+7e. Data-parallel serving of h36m3d_r50 (max_batch 32, flip-test, seeded
+   peaked weights): two ranks on the one card over gloo (launch.spawn), each
+   serving 40 patches (2 dispatches) and one 5-person predict through
+   PoseServer(dp=, partition="data"); K1 counted per rank (one a dispatch,
+   on the rank's 16 rows), the gathered coords equal on the ranks and
+   against one process's server (bitwise, or within 1e-3 voxel, stated);
+   ms a dispatch a rank (CUDA events) and the gather's share.
+7f. The device warp (the canvas path), selected explicitly while the
+   native warp is available (asserted): one 128-batch (no aug) through
+   make_patch_batch against the host-warp batch (joints 1e-2 voxel, pixels
+   p99 < 0.05, PARITY.md), its ms beside the native warp's; 5 counted
+   Trainer steps on canvas batches with aug (K1/K2 5/5); the Tester on 300
+   samples on canvas batches (K1 3) beside the host path's metrics;
+   PoseServer.predict through the device warp against the native warp's
+   patches.
+7g. python -m ihpr_tpu_torch.tools.serving_bench in a subprocess: exit 0,
+   its phases and JSON line echoed.
 8. The heatmap-logits path: h36m3d_r50 at batch 128 takes an optimizer
    step through model(x) -> soft_argmax_from_heatmap -> loss (K3 forward,
    K4 backward), coords and dv against plain on the same logits, device ms
@@ -120,7 +137,8 @@
 
 In 6-12 (7a: its resumed training, the snapshot Tester and server; 7c:
 its serving and its training, each counted on its own; 7d: each rank's
-steps, fused step and Tester, counted in the rank) the
+steps, fused step and Tester, counted in the rank; 7e: each rank's serving;
+7f: the train steps, the Tester and the server, each on its own) the
 kernels' launch counters are set to 0 just before the path
 runs and read just after (in 11-12 the path is the tool's main); each kernel of the path must have launched as
 often as the path dispatched it, and the others not at all. Outputs are
@@ -133,7 +151,7 @@ non-zero; so does a host without CUDA.
     python3 chip_smoke.py --only bn fused
 
 builds the kernels and runs only the named phases (bn: 5c; fused: 7b; dp:
-7d), for timing one tree's K5-K8 against another's (copy this file into a
+7d; dp-serve: 7e; device-warp: 7f; serving-bench: 7g), for timing one tree's K5-K8 against another's (copy this file into a
 checkout of the other tree and run it there) or trying one phase. It
 prints no JSON lines.
 """
@@ -2560,9 +2578,377 @@ def dp_phase(fhi, iv, mm, cb, gpu: str):
     return launches, errs
 
 
+# --- 7e-7g: data-parallel serving, the device warp, the serving bench ----------
+
+DP_SERVE_RANKS = 2  # two ranks on the one card, over gloo
+DP_SERVE_PATCHES = 40  # two dispatches of max_batch 32, the second padded
+# Gathered coords of two ranks (16 rows a rank and dispatch, 32 with the
+# flip-test's mirrors) against one process's server at the same dispatch
+# (max_batch 16), voxel. Against one process at max_batch 32 the bf16 convs
+# run at another batch, and cuDNN's algorithms for it round otherwise: that
+# gap is printed beside the same gap between the two one-process servers.
+TOL_DP_SERVE = 1e-3
+# The canvas path against the host-warp path (PARITY.md "host-warp vs
+# device-warp paths"): joints, voxel; pixels' p99, normalized units.
+TOL_WARP_JOINTS = 1e-2
+TOL_WARP_P99 = 0.05
+WARP_STEPS = 5  # counted train steps on canvas batches
+
+
+def _serve_inputs(cfg):
+    """Seeded uint8 patches, two frames and a 5-person request, as serve_phase draws them."""
+    in_h, in_w = cfg.data.input_shape
+    rng = np.random.RandomState(SEED)
+    patches = rng.randint(0, 256, (DP_SERVE_PATCHES, in_h, in_w, 3)).astype(np.uint8)
+    images = [rng.randint(0, 256, (480, 640, 3)).astype(np.uint8),
+              rng.randint(0, 256, (720, 1280, 3)).astype(np.uint8)]
+    bboxes = np.array([[100, 80, 200, 300], [300, 50, 180, 360], [10, 10, 400, 450],
+                       [500, 100, 300, 500], [900, 200, 250, 480]], np.float32)
+    return patches, [images[0]] * 2 + [images[1]] * 3, bboxes
+
+
+def _dp_serve_rank(rank: int, world: int, work: str, gpu: str):
+    """One rank of dp_serve_phase on cuda:0 over gloo: a data-parallel
+    PoseServer (partition="data") on the seeded weights; predict_patches of
+    DP_SERVE_PATCHES and one 5-person predict, counted; ms a dispatch (CUDA
+    events) and the gather's share of a dispatch's host time."""
+    from ihpr_tpu_torch.config import get_config
+    from ihpr_tpu_torch.engine.server import PoseServer
+    from ihpr_tpu_torch.ops import fused_head_integral as fhi
+    from ihpr_tpu_torch.parallel.mesh import all_gather_rows, data_parallel
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    inputs = torch.load(f"{work}/inputs.pt", weights_only=False)
+    cfg = get_config("h36m3d_r50")
+    dp = data_parallel()
+    server = PoseServer(cfg, inputs["model"], max_batch=MAX_BATCH, flip_test=True, device="cuda", dp=dp,
+                        partition="data")
+    patches, images, bboxes = inputs["patches"], inputs["images"], inputs["bboxes"]
+    server.predict_patches(patches[:MAX_BATCH])  # warm-up: cuDNN setup, kernel load
+    torch.cuda.synchronize()
+
+    # --- the main path, counted: predict_patches, then predict ---
+    fhi.launches = fhi.bwd_launches = 0
+    voxels = server.predict_patches(patches)
+    k1_patches = fhi.launches
+    results = server.predict(images, bboxes, root_z=np.full(len(bboxes), 4500.0))
+    torch.cuda.synchronize()
+    k1 = fhi.launches
+    # -------------------------------------------------------------
+    chunk = patches[:MAX_BATCH]
+    ms = _cuda_ms(lambda: server.submit_patches(chunk), 5, reps=3)
+    local = server._forward(torch.from_numpy(np.ascontiguousarray(chunk[server._rows])).cuda(), server._ones)
+    torch.cuda.synchronize()
+
+    def host_ms(fn, n=10):
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    dispatch_ms = host_ms(lambda: server.submit_patches(chunk).cpu())
+    gather_ms = host_ms(lambda: all_gather_rows(local, dp).cpu())
+    return {"voxels": voxels, "coords_img": np.stack([r.coords_img for r in results]), "k1": k1,
+            "k1_patches": k1_patches, "ms": ms, "dispatch_ms": dispatch_ms, "gather_ms": gather_ms,
+            "rows": (server._rows.start, server._rows.stop)}
+
+
+def dp_serve_phase(fhi, gpu: str):
+    """Data-parallel serving of h36m3d_r50 (ResNet-50, 256x256, bf16, J=18,
+    D=64, flip-test, max_batch 32) on DP_SERVE_RANKS ranks on the one card
+    over gloo (parallel.launch.spawn; NCCL refuses two ranks on one device),
+    from seeded, peaked weights: each rank serves DP_SERVE_PATCHES patches (2
+    dispatches) and one 5-person predict (1), K1 counted per rank (a launch a
+    dispatch: the rank's 16 rows and their mirrors); the gathered coords the
+    same on both ranks, and against one process's server on the same
+    weights at the ranks' dispatch (max_batch 16; bitwise, or within
+    TOL_DP_SERVE, stated), with the distance from one process at max_batch
+    32 beside the two one-process servers' own distance; ms a dispatch a rank
+    (CUDA events) and the gather's share of a dispatch's host time (two
+    ranks share the card: not a scaling number). Returns the ranks' K1
+    launches."""
+    from ihpr_tpu_torch.config import get_config
+    from ihpr_tpu_torch.data.augment import finalize_patch
+    from ihpr_tpu_torch.engine.server import PoseServer
+    from ihpr_tpu_torch.models.pose_net import build_pose_net
+    from ihpr_tpu_torch.parallel import launch
+
+    cfg = get_config("h36m3d_r50")
+    gen = torch.Generator().manual_seed(SEED)
+    model = build_pose_net(cfg, device="cuda", generator=gen)
+    patches, images, bboxes = _serve_inputs(cfg)
+    with torch.inference_mode():
+        image = finalize_patch(torch.from_numpy(patches[:MAX_BATCH]).cuda(),
+                               torch.ones(MAX_BATCH, 3, device="cuda"), cfg.data)
+    _peak_heatmaps(model, image, gen)
+    root_z = np.full(len(bboxes), 4500.0)
+    want, want_img = {}, {}
+    for mb in (MAX_BATCH // DP_SERVE_RANKS, MAX_BATCH):  # the ranks' dispatch, and one process's
+        one = PoseServer(cfg, model, max_batch=mb, flip_test=True, device="cuda")
+        want[mb] = one.predict_patches(patches)
+        want_img[mb] = np.stack([r.coords_img for r in one.predict(images, bboxes, root_z=root_z)])
+        del one
+        torch.cuda.empty_cache()
+    same = MAX_BATCH // DP_SERVE_RANKS
+    with tempfile.TemporaryDirectory() as work:
+        torch.save({"model": {k: v.detach().cpu() for k, v in model.state_dict().items()}, "patches": patches,
+                    "images": images, "bboxes": bboxes}, f"{work}/inputs.pt")
+        del model
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = launch.spawn(_dp_serve_rank, DP_SERVE_RANKS, "gloo", work, gpu, workdir=work, timeout_s=600)
+        t_spawn = time.perf_counter() - t0
+    dispatches = math.ceil(DP_SERVE_PATCHES / MAX_BATCH)
+    total = dispatches + math.ceil(len(bboxes) / MAX_BATCH)
+    for rank, r in enumerate(ranks):
+        rows = MAX_BATCH // DP_SERVE_RANKS
+        if (r["k1_patches"], r["k1"]) != (dispatches, total) or r["rows"] != (rank * rows, (rank + 1) * rows):
+            raise AssertionError(f"dp-serve rank {rank}: K1 {r['k1_patches']}/{r['k1']} launches for "
+                                 f"{dispatches}/{total} dispatches, rows {r['rows']}")
+        if r["voxels"].shape != want[same].shape or not np.isfinite(r["voxels"]).all():
+            raise AssertionError(f"dp-serve rank {rank}: coords {r['voxels'].shape}, finite "
+                                 f"{np.isfinite(r['voxels']).all()}")
+    if not all(np.array_equal(r["voxels"], ranks[0]["voxels"]) and np.array_equal(r["coords_img"], ranks[0]["coords_img"])
+               for r in ranks):
+        raise AssertionError("dp-serve: the ranks' gathered coords differ")
+    got = ranks[0]["voxels"]
+    err = float(np.abs(got - want[same]).max())
+    spread = float(np.abs(want[same] - want[same].mean()).max())
+    bitwise = np.array_equal(got, want[same]) and np.array_equal(ranks[0]["coords_img"], want_img[same])
+    if not (err <= TOL_DP_SERVE and spread > 1.0):
+        raise AssertionError(f"dp-serve: gathered coords {err} voxel from one process's at max_batch {same} "
+                             f"(spread {spread})")
+    gap, yard = (float(np.abs(a - want[MAX_BATCH]).max()) for a in (got, want[same]))
+    print(f"dp-serve: {DP_SERVE_RANKS} ranks (gloo, one card), max_batch {MAX_BATCH}: predict_patches "
+          f"{DP_SERVE_PATCHES} in {dispatches} dispatches + one 5-person predict; K1 per rank "
+          f"{[r['k1'] for r in ranks]} ({total} dispatches, rows {[r['rows'] for r in ranks]}); "
+          f"gathered coords equal on the ranks, {'bitwise' if bitwise else f'{err:.3g} voxel from'} one "
+          f"process's at max_batch {same}, the ranks' dispatch (spread {spread:.3g}); {gap:.3g} voxel from one "
+          f"process's at max_batch {MAX_BATCH}, whose own distance from max_batch {same} is {yard:.3g} (bf16 "
+          f"convs at another batch); spawn {t_spawn:.1f} s")
+    for rank, r in enumerate(ranks):
+        print(f"dp-serve rank {rank}: {r['ms']:.3f} ms a {MAX_BATCH}-patch flip-test dispatch (CUDA events); "
+              f"host {r['dispatch_ms']:.3f} ms a dispatch read back, of which the gather {r['gather_ms']:.3f} ms "
+              f"({r['gather_ms'] / r['dispatch_ms']:.3f}); two ranks share the card: not a scaling number  [{gpu}]")
+    return sum(r["k1"] for r in ranks)
+
+
+def device_warp_phase(fhi, gpu: str):
+    """The canvas path of h36m3d_r50 at full width (batch 128, synthetic
+    H36M+MPII), selected explicitly (BatchLoader(host_warp=False), and the
+    native warp reported missing to the server) while the native library is
+    there: (a) native.available() on this host, so the main paths stay on the
+    host warp; (b) without augmentation, one batch through both paths:
+    joints within TOL_WARP_JOINTS voxel, pixels' p99 within TOL_WARP_P99
+    (PARITY.md), the device warp's ms a batch (CUDA events) beside the native
+    warp's host ms; (c) WARP_STEPS counted train steps with augmentation
+    through the Trainer on canvas batches: K1/K2 one a step, finite losses,
+    ms a step; (d) the Tester on EVAL_SAMPLES test samples on canvas batches
+    (K1 once a batch) beside the host path's metrics; (e) PoseServer.predict
+    through the device warp: its patches within (b)'s pixel bar of the native
+    warp's, and the coords' distance. Returns K1 and K2 launches."""
+    from ihpr_tpu_torch.config import get_config
+    from ihpr_tpu_torch.data import native, skeletons
+    from ihpr_tpu_torch.data.augment import finalize_patch, make_patch_batch
+    from ihpr_tpu_torch.data.datasets import build_dataset
+    from ihpr_tpu_torch.data.pipeline import BatchLoader, HostBatch, prefetch_to_device
+    from ihpr_tpu_torch.data.warp import gen_trans_np
+    from ihpr_tpu_torch.engine.server import PoseServer
+    from ihpr_tpu_torch.engine.tester import Tester
+    from ihpr_tpu_torch.engine.trainer import Trainer
+    from ihpr_tpu_torch.models.pose_net import build_pose_net
+
+    # (a)
+    if not native.available():
+        raise AssertionError(f"the native warp is unavailable on this host: {native.unavailable_reason()}")
+    print("device-warp (a): native.available() True: the main paths take the host warp; this phase "
+          "selects the canvas path itself")
+
+    # (b) one batch through both paths, no augmentation
+    base = get_config("h36m3d_r50")
+    cfg = base.replace(data=dataclasses.replace(base.data, use_aug=False))
+    in_h, in_w = cfg.data.input_shape
+    primary = skeletons.get_skeleton(cfg.data.trainset[0])
+    sets = [build_dataset(name, "train", cfg, "synthetic", TRAIN_BATCH, hue_skeleton=primary if i else None)
+            for i, name in enumerate(cfg.data.trainset)]
+    kw = dict(num_workers=8, seed=cfg.seed)
+    host_loader = BatchLoader(sets, cfg, TRAIN_BATCH, host_warp=True, **kw)
+    canvas_loader = BatchLoader(sets, cfg, TRAIN_BATCH, host_warp=False, **kw)
+    try:
+        hb = next(host_loader.epoch(0, 1))
+        t0 = time.perf_counter()
+        db = next(canvas_loader.epoch(0, 1))
+        canvas_host_ms = (time.perf_counter() - t0) * 1e3
+        entries = [canvas_loader.index[i] for i in db.sample_idx]
+        frames = [canvas_loader._load_entry_image(e) for e in entries]
+    finally:
+        host_loader.close()
+        canvas_loader.close()
+    if not (isinstance(db, HostBatch) and np.array_equal(hb.sample_idx, db.sample_idx)):
+        raise AssertionError("device-warp (b): the two loaders gave other samples")
+    batch, _ = next(prefetch_to_device(iter([db]), "cuda"))
+    perm = primary.flip_permutation()
+    args = [batch[k] for k in ("canvas", "canvas_origin", "canvas_scale", "bbox", "joints", "joint_vis",
+                               "joints_have_depth")]
+    pb = make_patch_batch(*args, perm, cfg.data, train=False)
+    host_img = finalize_patch(torch.from_numpy(hb.patch).cuda(), torch.from_numpy(hb.color_scale).cuda(), cfg.data)
+    j_err = float(np.abs(pb.joint_img.cpu().numpy() - hb.joint_img).max())
+    p99 = float(np.percentile((pb.image - host_img).abs().cpu().numpy(), 99))
+    vis_equal = np.array_equal(pb.joint_vis.cpu().numpy(), hb.joint_vis)
+    if not (j_err <= TOL_WARP_JOINTS and p99 < TOL_WARP_P99 and vis_equal):
+        raise AssertionError(f"device-warp (b): joints {j_err} voxel, pixel p99 {p99}, vis equal {vis_equal}")
+    warp_ms = _cuda_ms(lambda: make_patch_batch(*args, perm, cfg.data, train=False), 3, reps=3)
+    bbox = canvas_loader._unified[3][db.sample_idx]
+    invs = gen_trans_np(bbox[:, 0] + bbox[:, 2] * 0.5, bbox[:, 1] + bbox[:, 3] * 0.5, bbox[:, 2], bbox[:, 3],
+                        in_w, in_h, 1.0, 0.0, inv=True)
+    flips = np.zeros(len(frames), np.int32)
+    native.warp_batch(frames, invs, flips, in_h, in_w)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        native.warp_batch(frames, invs, flips, in_h, in_w)
+    native_ms = (time.perf_counter() - t0) * 1e3 / 3
+    print(f"device-warp (b): {TRAIN_BATCH} samples (H36M+MPII, no aug), canvas path vs host path: joints "
+          f"{j_err:.3g} voxel (bar {TOL_WARP_JOINTS}), pixels p99 {p99:.3g} (bar {TOL_WARP_P99}), vis equal; "
+          f"canvases {db.canvas.nbytes / 1e6:.1f} MB vs patches {hb.patch.nbytes / 1e6:.1f} MB; {int((db.canvas_scale > 1).sum())} "
+          f"canvases resampled")
+    print(f"device-warp (b): make_patch_batch {warp_ms:.3f} ms a {TRAIN_BATCH}-batch on the card (CUDA events); "
+          f"native warp {native_ms:.3f} ms on {os.cpu_count()} host cores; canvas batch built in "
+          f"{canvas_host_ms:.1f} ms on the host (render + crop)  [{gpu}]")
+    del batch, pb, host_img, args
+
+    # (c) the Trainer on canvas batches, augmentation on
+    scratch = tempfile.TemporaryDirectory()
+    tcfg = base.replace(output_dir=scratch.name)
+    trainer = Trainer(tcfg, data_root="synthetic", synthetic_size=TRAIN_BATCH * 3, num_workers=8, device="cuda")
+    try:
+        trainer.loader.close()
+        trainer.loader = BatchLoader(trainer.loader.datasets, tcfg, trainer.batch_size, num_workers=8,
+                                     seed=tcfg.seed, host_warp=False)
+        trainer.cap_steps_per_epoch(WARP_STEPS)
+        resident, _ = next(prefetch_to_device(trainer.loader.epoch(7, 1), "cuda"))
+        trainer.lean_step_fn(resident, 7, 0)  # warm-up
+        torch.cuda.synchronize()
+
+        # --- the main path, counted: one epoch of WARP_STEPS steps on canvas batches ---
+        fhi.launches = fhi.bwd_launches = 0
+        t0 = time.perf_counter()
+        trainer.train(trainer.start_epoch + 1)
+        torch.cuda.synchronize()
+        t_epoch = time.perf_counter() - t0
+        k1, k2 = fhi.launches, fhi.bwd_launches
+        # ------------------------------------------------------------------------------
+        losses = [float(x) for x in trainer.losses]
+        if (k1, k2) != (WARP_STEPS, WARP_STEPS) or len(losses) != WARP_STEPS or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"device-warp (c): K1/K2 {k1}/{k2} in {WARP_STEPS} steps, losses {losses}")
+        step_ms = _cuda_ms(lambda: trainer.lean_step_fn(resident, 7, 1), 3, reps=1)
+    finally:
+        trainer.close()
+        scratch.cleanup()
+    print(f"device-warp (c): {WARP_STEPS} Trainer steps on canvas batches (aug on, draws from (seed, epoch, "
+          f"step)), K1 {k1}, K2 {k2}; losses {', '.join(f'{x:.4f}' for x in losses)}")
+    print(f"device-warp (c): device {step_ms:.3f} ms a step on one resident canvas batch (CUDA events); host "
+          f"clock {t_epoch * 1e3 / WARP_STEPS:.3f} ms a step, loader included  [{gpu}]")
+    del trainer, resident
+    torch.cuda.empty_cache()
+
+    # (d) the Tester on canvas batches, beside the host path
+    metrics, preds, times = {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ecfg = base.replace(output_dir=tmp)
+        gen = torch.Generator().manual_seed(SEED)
+        dataset = build_dataset(ecfg.data.testset, "test", ecfg, "synthetic", EVAL_SAMPLES)
+        testers = {"host": Tester(ecfg, dataset=dataset, state=build_pose_net(ecfg, device="cuda", generator=gen),
+                                  num_workers=8, device="cuda")}
+        try:
+            hb = next(testers["host"].loader.epoch())
+            with torch.inference_mode():
+                image = finalize_patch(torch.from_numpy(hb.patch).cuda(), torch.from_numpy(hb.color_scale).cuda(),
+                                       ecfg.data)
+            model = testers["host"].model
+            _peak_heatmaps(model, image, gen)
+            testers["canvas"] = Tester(ecfg, dataset=dataset, state=model, num_workers=8, device="cuda")
+            testers["canvas"].loader.close()
+            testers["canvas"].loader = BatchLoader([dataset], ecfg, ecfg.eval.batch_size_per_device, train=False,
+                                                   num_workers=8, host_warp=False)
+            for path, tester in testers.items():
+                scored = []
+                predict = tester.predict_voxels
+                tester.predict_voxels = lambda predict=predict: (scored.append(predict()), scored[-1])[1]
+                fhi.launches = 0
+                t0 = time.perf_counter()
+                metrics[path] = tester.evaluate()
+                times[path] = time.perf_counter() - t0
+                if path == "canvas":
+                    eval_k1, batches = fhi.launches, len(tester.loader)
+                preds[path] = scored[0]
+        finally:
+            for tester in testers.values():
+                tester.close()
+    key = "MPJPE total"
+    gap = float(np.abs(preds["canvas"] - preds["host"]).max())
+    if eval_k1 != batches or not (math.isfinite(metrics["canvas"][key]) and np.isfinite(preds["canvas"]).all()):
+        raise AssertionError(f"device-warp (d): K1 {eval_k1} for {batches} batches, {key} {metrics['canvas'][key]}")
+    print(f"device-warp (d): Tester on {EVAL_SAMPLES} samples, canvas path: K1 {eval_k1} = batches {batches}; "
+          f"{key} {metrics['canvas'][key]:.2f} (host path {metrics['host'][key]:.2f}); predictions at most "
+          f"{gap:.3g} voxel from the host path's")
+    print(f"device-warp (d): Tester.evaluate host path {times['host']:.3f} s, canvas path {times['canvas']:.3f} s "
+          f"(host clock, loader included)  [{gpu}]")
+
+    # (e) the server's device warp
+    _, images, bboxes = _serve_inputs(base)
+    server = PoseServer(base, model, max_batch=MAX_BATCH, flip_test=True, device="cuda")
+    native_patches, _ = server._preprocess(images, bboxes)
+    want = server.predict(images, bboxes)
+    available = native.available
+    native.available = lambda: False
+    try:
+        fhi.launches = 0
+        dev_patches, _ = server._preprocess(images, bboxes)
+        got = server.predict(images, bboxes)
+        serve_k1 = fhi.launches
+    finally:
+        native.available = available
+    ones = torch.ones(len(bboxes), 3, device="cuda")
+    a, b = (finalize_patch(torch.from_numpy(p).cuda(), ones, base.data) for p in (dev_patches, native_patches))
+    p99 = float(np.percentile((a - b).abs().cpu().numpy(), 99))
+    steps = int(np.abs(dev_patches.astype(int) - native_patches.astype(int)).max())
+    coord_gap = max(float(np.abs(g.coords_voxel - w.coords_voxel).max()) for g, w in zip(got, want))
+    dispatches = math.ceil(len(bboxes) / MAX_BATCH)
+    if not (p99 < TOL_WARP_P99 and serve_k1 == dispatches and all(np.isfinite(g.coords_img).all() for g in got)):
+        raise AssertionError(f"device-warp (e): patches p99 {p99} from the native warp's, K1 {serve_k1}")
+    print(f"device-warp (e): PoseServer.predict of 5 people through the device warp (uint8 by truncation): "
+          f"patches within {steps} intensity steps of the native warp's, p99 {p99:.3g} normalized (bar "
+          f"{TOL_WARP_P99}); coords {coord_gap:.3g} voxel from the native path's; K1 {serve_k1}")
+    return k1 + eval_k1 + serve_k1, k2
+
+
+def serving_bench_phase(gpu: str):
+    """``python -m ihpr_tpu_torch.tools.serving_bench`` (h36m3d_r50, max_batch
+    32, 24 chunks, flip-test) in a subprocess: exit 0; its JSON line echoed."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "ihpr_tpu_torch.tools.serving_bench"], cwd=root,
+                          capture_output=True, text=True, timeout=600, env={**os.environ, "PYTHONPATH": root})
+    dt = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"serving_bench exit {proc.returncode}: {proc.stdout[-2000:]} {proc.stderr[-3000:]}")
+    lines = proc.stdout.strip().splitlines()
+    out = json.loads(lines[-1])
+    if out.get("sustained_img_per_s") is None or not all(
+            math.isfinite(v) for v in out.values() if isinstance(v, float)):
+        raise AssertionError(f"serving_bench printed {lines[-1]}")
+    for line in lines[:-1]:
+        print(f"serving-bench: {line}")
+    print(f"serving-bench: exit 0 in {dt:.1f} s; its JSON line: {lines[-1]}")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke run of ihpr_tpu_torch on one NVIDIA GPU.")
-    parser.add_argument("--only", nargs="+", choices=("bn", "fused", "dp"),
+    parser.add_argument("--only", nargs="+", choices=("bn", "fused", "dp", "dp-serve", "device-warp", "serving-bench"),
                         help="build the kernels and run only these phases (no JSON lines)")
     only = parser.parse_args(argv).only
     if not torch.cuda.is_available():
@@ -2590,7 +2976,8 @@ def main(argv=None) -> int:
         print(lib.with_suffix(".log").read_text().strip())
     if only:
         phases = {"bn": lambda: bn_kernel_phase(mm, cb, gpu), "fused": lambda: fused_train_phase(fhi, iv, mm, cb, gpu),
-                  "dp": lambda: dp_phase(fhi, iv, mm, cb, gpu)}
+                  "dp": lambda: dp_phase(fhi, iv, mm, cb, gpu), "dp-serve": lambda: dp_serve_phase(fhi, gpu),
+                  "device-warp": lambda: device_warp_phase(fhi, gpu), "serving-bench": lambda: serving_bench_phase(gpu)}
         for name in only:
             phases[name]()
         print(gpu)
@@ -2614,6 +3001,9 @@ def main(argv=None) -> int:
     r152_k1, r152_k2, r152_k1_err, r152_k2_err = r152_phase(fhi, iv, gpu)
     (k5_n, k6_n, k7_n, k8_n), fused_errs = fused_train_phase(fhi, iv, mm, cb, gpu)
     dp_n, dp_errs = dp_phase(fhi, iv, mm, cb, gpu)
+    dp_serve_k1 = dp_serve_phase(fhi, gpu)
+    warp_k1, warp_k2 = device_warp_phase(fhi, gpu)
+    serving_bench_phase(gpu)
     hm_k3, hm_k4, hm_err, hm_dv_err = heatmap_phase(fhi, iv, gpu)
     np_k3, np_k4, np_err = noplan_phase(fhi, iv, gpu)
     eval_k1, eval_k3, eval_k1_err, eval_k3_err = eval_phase(fhi, iv, gpu)
@@ -2622,9 +3012,9 @@ def main(argv=None) -> int:
     b1, b2, b3, b4 = head_bounds()
     kernels = [
         (fhi._LIB, "ihpr_tpu/ops/fused_head_integral.py:133",
-         serve_k1 + train_k1 + snap_k1 + r152_k1 + eval_k1 + dp_n["K1"],
+         serve_k1 + train_k1 + snap_k1 + r152_k1 + eval_k1 + dp_n["K1"] + dp_serve_k1 + warp_k1,
          max(k1_err, eval_k1_err, r152_k1_err, dp_errs["K1"]), k1_ms, k1_plain, *b1, k1_lib),
-        (fhi._BWD_LIB, "ihpr_tpu/ops/fused_head_integral.py:153", train_k2 + snap_k2 + r152_k2 + dp_n["K2"],
+        (fhi._BWD_LIB, "ihpr_tpu/ops/fused_head_integral.py:153", train_k2 + snap_k2 + r152_k2 + dp_n["K2"] + warp_k2,
          max(k2_err, head_err, r152_k2_err, dp_errs["K2"]), k2_ms, k2_plain, *b2, k2_lib),
         (iv._FWD_LIB, "ihpr_tpu/ops/integral_pallas.py:201", hm_k3 + np_k3 + eval_k3,
          max(k3_err, hm_err, np_err, eval_k3_err), k3_ms, k3_plain, *b3, None),

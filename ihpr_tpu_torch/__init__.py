@@ -5,8 +5,9 @@ package never imports):
 
     config    — frozen dataclass configs and the named CONFIGS
     data      — skeletons, bbox geometry, patch affines, native warp binding,
-                the finalize_patch device tail, synthetic datasets, the
-                host-warp BatchLoader and its prefetch to the device
+                the device warp and make_patch_batch, the finalize_patch
+                device tail, synthetic datasets, the BatchLoader (host-warped
+                patches or canvases) and its prefetch to the device
     ops       — plain integral soft-argmax; the fused final-conv + integral
                 op (autograd Function) with its hand-written CUDA kernels,
                 K1 forward and K2 backward (ops/csrc); the L1 loss
@@ -15,7 +16,8 @@ package never imports):
     parallel  — the train step (DDP on a process group), optimizer (ZeRO-1
                 too) and schedule, the TrainState's state_dict; the data
                 axis over torch.distributed (mesh) and local ranks (launch)
-    engine    — PoseServer (batched serving with flip-test) and load_server,
+    engine    — PoseServer (batched serving with flip-test, data-parallel
+                over ranks) and load_server,
                 Trainer (snapshots, resume, the RSS watchdog, a profile
                 window), Tester, CheckpointManager, colorlogger
     utils     — the output tree, graceful SIGTERM, host-memory helpers

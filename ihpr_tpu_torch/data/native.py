@@ -2,8 +2,11 @@
 
 The same C++ source and shared library the JAX package uses. The library
 is built by ``native/build.sh`` at first use, and rebuilt when ``warp.cc``
-is newer than the ``.so``. The port has no fallback warp: when the library
-cannot be built or loaded, ``warp_batch`` raises.
+is newer than the ``.so``. ``available()`` says whether it could be built
+and loaded, and ``unavailable_reason()`` why not; the loader and the server
+then take the device warp (``data/warp.py:affine_warp_bilinear``), as the
+JAX package does, and log that reason. ``warp_batch`` itself raises when the
+library is missing: it has no fallback.
 """
 
 from __future__ import annotations
@@ -21,8 +24,7 @@ _NATIVE = os.path.join(_ROOT, "native")
 _SO = os.path.join(_NATIVE, "libihprwarp.so")
 
 
-@functools.cache
-def _lib() -> ctypes.CDLL:
+def _build_and_open() -> ctypes.CDLL:
     src = os.path.join(_NATIVE, "warp.cc")
     if not os.path.exists(src):
         raise RuntimeError(f"native warp source missing: {src}")
@@ -48,6 +50,32 @@ def _lib() -> ctypes.CDLL:
         ctypes.c_int,  # ow
     ]
     lib.warp_batch_u8.restype = None
+    return lib
+
+
+@functools.cache
+def _load():
+    """(library, None), or (None, why it could not be built or loaded)."""
+    try:
+        return _build_and_open(), None
+    except (RuntimeError, OSError) as e:
+        return None, f"{type(e).__name__}: {e}"
+
+
+def available() -> bool:
+    """True when the native library was built (or found) and loaded."""
+    return _load()[0] is not None
+
+
+def unavailable_reason() -> str | None:
+    """Why ``available()`` is False (the build's or the load's error), else None."""
+    return _load()[1]
+
+
+def _lib() -> ctypes.CDLL:
+    lib, why = _load()
+    if lib is None:
+        raise RuntimeError(f"the native warp library is unavailable: {why}")
     return lib
 
 

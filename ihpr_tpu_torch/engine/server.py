@@ -6,14 +6,23 @@ patch (one fixed shape per call), runs ``finalize_patch`` and
 ``PoseNet.coords`` on ``device`` (flip-test as one 2B batch), and maps the
 voxel coords back to original-image pixels and millimetre depth on the
 host. On a CUDA device the forward runs the fused head kernel; there is no
-plain fallback on that path. ``load_server`` builds a server from a
-training snapshot.
+plain fallback on that path. Images are cropped by the native warp, or, where
+that library is missing, by the device warp (``data/warp.py``), as JAX's
+server does. ``load_server`` builds a server from a training snapshot.
+
+Data-parallel serving (``dp`` of world W > 1, ``partition="data"``): every
+rank is called with the same requests; each pads a dispatch to
+``max_batch``, runs its rows [r * m/W, (r + 1) * m/W) on its device, and
+``mesh.all_gather_rows`` hands every rank the whole dispatch's coords in
+rank order. JAX's ``partition="spatial"`` (image rows split over the
+devices) is not ported.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import logging
 from typing import Mapping, Optional, Sequence, Union
 
 import numpy as np
@@ -22,9 +31,12 @@ import torch
 from ihpr_tpu_torch.config import Config
 from ihpr_tpu_torch.data import geometry, native, skeletons
 from ihpr_tpu_torch.data.augment import finalize_patch
-from ihpr_tpu_torch.data.warp import gen_trans_np
+from ihpr_tpu_torch.data.warp import affine_warp_bilinear, gen_trans_np
 from ihpr_tpu_torch.models.pose_net import PoseNet, build_pose_net, inference_copy
+from ihpr_tpu_torch.parallel.mesh import DataParallel, all_gather_rows
 from ihpr_tpu_torch.parallel.train_step import flip_test_coords
+
+_log = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass
@@ -42,12 +54,33 @@ class PoseServer:
         max_batch: int = 16,
         flip_test: Optional[bool] = None,
         device: Union[str, torch.device] = "cuda",
+        dp: Optional[DataParallel] = None,
+        partition: str = "spatial",
     ):
         """``model_or_state``: a ``PoseNet`` or a state_dict for
         ``build_pose_net(cfg)``'s model. The server runs its own frozen copy
         on ``device``, with the conv weights cast to the compute dtype once
         (``pose_net.inference_copy``); the model passed in is left as it
-        is."""
+        is.
+
+        ``dp``: this rank's ``parallel.mesh.DataParallel``; None or world 1
+        is one process. At world > 1, ``partition="data"`` serves
+        data-parallel (module docstring) and needs ``max_batch`` divisible by
+        the world; ``"spatial"`` (JAX's default) is not ported and raises."""
+        if partition not in ("spatial", "data"):
+            raise ValueError(f"partition must be 'spatial' or 'data', got {partition!r}")
+        self.dp = dp if dp is not None and dp.world > 1 else None
+        if self.dp is not None:
+            if partition != "data":
+                raise NotImplementedError(
+                    "PoseServer(partition='spatial') over several ranks is not ported to ihpr_tpu_torch; "
+                    "serve data-parallel with partition='data'"
+                )
+            if max_batch % self.dp.world:
+                raise ValueError(
+                    f"data-parallel serving pads every dispatch to max_batch, which must divide over "
+                    f"the ranks ({max_batch} over {self.dp.world})"
+                )
         self.cfg = cfg
         self.device = torch.device(device)
         self.skeleton = skeletons.get_skeleton(cfg.data.testset)
@@ -55,7 +88,7 @@ class PoseServer:
         if isinstance(model_or_state, PoseNet):
             model = model_or_state
         else:
-            model = build_pose_net(cfg, joints, device=self.device)
+            model = build_pose_net(cfg, joints, device=self.device, dp=self.dp)
             model.load_state_dict(model_or_state)
         self.model = inference_copy(model).to(self.device)
         if self.model.joint_num != joints:
@@ -67,7 +100,12 @@ class PoseServer:
         self.max_batch = max_batch
         self.flip_test = cfg.eval.flip_test if flip_test is None else flip_test
         self.flip_perm = torch.as_tensor(self.skeleton.flip_permutation(), device=self.device)
-        self._ones = torch.ones((max_batch, 3), dtype=torch.float32, device=self.device)
+        # This rank's rows of a padded dispatch (all of them on one process).
+        rank, world = (self.dp.rank, self.dp.world) if self.dp is not None else (0, 1)
+        rows = max_batch // world
+        self._rows = slice(rank * rows, (rank + 1) * rows)
+        self._ones = torch.ones((rows, 3), dtype=torch.float32, device=self.device)
+        self._device_warp_logged = False
 
     @torch.inference_mode()
     def _forward(self, patch_u8: torch.Tensor, color_scale: torch.Tensor) -> torch.Tensor:
@@ -79,7 +117,9 @@ class PoseServer:
     def submit_patches(self, patches_u8: np.ndarray) -> torch.Tensor:
         """Submit ONE chunk: (B <= max_batch, in_h, in_w, 3) uint8 -> (B, J, 3)
         voxel coords as a tensor on ``device``, without waiting for the
-        device. Read it with ``.cpu()`` when needed."""
+        device. Read it with ``.cpu()`` when needed. Data-parallel, every
+        rank must submit the same chunk: the gather of the ranks' rows waits
+        for all of them."""
         b = len(patches_u8)
         if b > self.max_batch:
             raise ValueError(f"{b} patches > max_batch {self.max_batch}")
@@ -96,10 +136,13 @@ class PoseServer:
         pad = self.max_batch - b
         if pad:
             chunk = np.concatenate([chunk, np.repeat(chunk[-1:], pad, 0)])
-        patch = torch.from_numpy(chunk)
+        patch = torch.from_numpy(np.ascontiguousarray(chunk[self._rows]))
         if self.device.type == "cuda":
             patch = patch.pin_memory().to(self.device, non_blocking=True)
-        return self._forward(patch, self._ones)[:b]
+        coords = self._forward(patch, self._ones)
+        if self.dp is not None:
+            coords = all_gather_rows(coords, self.dp)
+        return coords[:b]
 
     def predict_patches(self, patches_u8: np.ndarray) -> np.ndarray:
         """(N, in_h, in_w, 3) uint8 patches -> (N, J, 3) voxel coords, in
@@ -112,8 +155,11 @@ class PoseServer:
         return out
 
     def _preprocess(self, images: Sequence[np.ndarray], bboxes: np.ndarray):
-        """bbox aspect fix + native affine crop to the network input.
-        Returns the uint8 patches and the per-person inverse affines."""
+        """bbox aspect fix + affine crop to the network input: the native
+        warp, or where it is unavailable the device warp on ``device`` (the
+        images pasted on a zero canvas of the largest size, the bilinear warp,
+        uint8 by truncation, as JAX's fallback). Returns the uint8 patches
+        and the per-person inverse affines."""
         d = self.cfg.data
         in_h, in_w = d.input_shape
         aspect = in_w / in_h
@@ -132,10 +178,22 @@ class PoseServer:
                 for i in range(len(boxes))
             ]
         )
-        patches = native.warp_batch(
-            list(images), invs, np.zeros(len(boxes), np.int32), in_h, in_w
+        if native.available():
+            patches = native.warp_batch(list(images), invs, np.zeros(len(boxes), np.int32), in_h, in_w)
+            return patches, invs
+        if not self._device_warp_logged:
+            _log.warning("PoseServer: the device warp on %s, since native.available() is False (%s)",
+                         self.device, native.unavailable_reason())
+            self._device_warp_logged = True
+        maxh = max(im.shape[0] for im in images)
+        maxw = max(im.shape[1] for im in images)
+        canvas = np.zeros((len(images), maxh, maxw, 3), np.uint8)
+        for i, im in enumerate(images):
+            canvas[i, : im.shape[0], : im.shape[1]] = im
+        warped = affine_warp_bilinear(
+            torch.from_numpy(canvas).to(self.device), torch.from_numpy(invs).to(self.device), (in_h, in_w)
         )
-        return patches, invs
+        return warped.to(torch.uint8).cpu().numpy(), invs
 
     def _postprocess(
         self, voxels: np.ndarray, invs: np.ndarray, root_z: Optional[np.ndarray]
@@ -210,7 +268,8 @@ def load_server(
     """A ``PoseServer`` with the weights of a training snapshot (reference
     ``--test_epoch``): snapshot ``epoch`` (default: the latest) of the run in
     ``snapshot_dir`` (default: ``cfg.output_dir``). ``kw`` go to
-    ``PoseServer``, which runs on ``device="cuda"`` unless asked otherwise."""
+    ``PoseServer`` (``max_batch``, ``flip_test``, ``device``, ``dp``,
+    ``partition``), which runs on ``device="cuda"`` unless asked otherwise."""
     from ihpr_tpu_torch.engine.checkpoint import load_snapshot
 
     state_dict, _ = load_snapshot(snapshot_dir or cfg.output_dir, epoch)

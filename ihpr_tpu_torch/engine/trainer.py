@@ -1,8 +1,9 @@
 """Trainer: the epoch loop wiring data -> train step -> snapshots, counterpart
 of ``ihpr_tpu.engine.trainer``.
 
-Builds the train datasets (synthetic only in the port), the host-warp
-``BatchLoader``, a trainable ``PoseNet`` and its optimizer, then runs
+Builds the train datasets (synthetic only in the port), the ``BatchLoader``
+(host-warped patches where the native warp library is available, else
+canvases warped on the device, as JAX's), a trainable ``PoseNet`` and its optimizer, then runs
 epochs of ``make_train_step``: the full-metrics step at log points, the
 loss-only step between them. The current epoch's losses stay on the
 device in ``losses`` (cleared when the next epoch starts, so a long run
@@ -249,7 +250,10 @@ class Trainer:
                     elif itr == profile_steps[1] and self._profiler is not None:
                         self._stop_profile(profile_dir)
                 log_step = itr % _LOG_EVERY == 0 or itr == self.steps_per_epoch - 1
-                metrics = (self.step_fn if log_step else self.lean_step_fn)(batch)
+                # A canvas batch's augmentation is drawn for (epoch, updates
+                # taken): JAX's fold_in(fold_in(data_rng, epoch), state.step).
+                aug_key = (epoch, self.state.step) if "canvas" in batch else ()
+                metrics = (self.step_fn if log_step else self.lean_step_fn)(batch, *aug_key)
                 self.state.step += 1
                 self.losses.append(metrics["loss"])
                 window_steps += 1

@@ -1,7 +1,8 @@
 """The train and eval steps, counterpart of ``ihpr_tpu.parallel.train_step``.
 
 One step: ``finalize_patch`` on the host-warped uint8 patch (colour scale,
-clip, ImageNet normalize), ``PoseNet.coords`` in train mode (batch-stat BN;
+clip, ImageNet normalize), or ``make_patch_batch``'s warp and augmentation
+on the device for a canvas batch, ``PoseNet.coords`` in train mode (batch-stat BN;
 the fused head op runs K1 forward and K2 backward on the card), the masked
 L1 loss, ``backward()``, and Adam with the step-decay schedule. The forward
 and the backward both run inside the model's precision scope, so a
@@ -29,6 +30,7 @@ import dataclasses
 import functools
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch.nn.parallel import DistributedDataParallel
@@ -36,7 +38,13 @@ from torch.optim.lr_scheduler import LambdaLR
 
 from ihpr_tpu_torch.config import Config
 from ihpr_tpu_torch.data import skeletons
-from ihpr_tpu_torch.data.augment import finalize_patch
+from ihpr_tpu_torch.data.augment import (
+    PatchBatch,
+    finalize_patch,
+    no_aug_params,
+    patch_batch_from_params,
+    sample_aug_params,
+)
 from ihpr_tpu_torch.models.pose_net import PoseNet
 from ihpr_tpu_torch.ops.loss import (
     components_from_sums,
@@ -259,8 +267,8 @@ def _mean_over_ranks(t: torch.Tensor, dp: Optional[DataParallel]) -> torch.Tenso
     return t / dp.world
 
 
-def _error_components(coords, batch, dp: Optional[DataParallel]):
-    labels = (batch["joint_img"], batch["joint_vis"], batch["joints_have_depth"])
+def _error_components(coords, pb: PatchBatch, dp: Optional[DataParallel]):
+    labels = (pb.joint_img, pb.joint_vis, pb.joints_have_depth)
     if dp is None or dp.group is None:
         return joint_location_loss_components(coords, *labels)
     sums = joint_location_loss_sums(coords, *labels)  # ratios: sum the sums
@@ -268,15 +276,66 @@ def _error_components(coords, batch, dp: Optional[DataParallel]):
     return components_from_sums(sums)
 
 
+def aug_generator(seed: int, epoch: int, step: int) -> torch.Generator:
+    """The CPU generator of a canvas batch's augmentation: update ``step``
+    (counted over the run) of ``epoch`` of a run seeded ``seed``, as JAX's
+    ``fold_in(fold_in(data_rng, epoch), state.step)``. The draws depend on
+    these three numbers alone, so a resumed run, any device and any number
+    of ranks draw the same."""
+    hi, lo = np.random.SeedSequence([seed, epoch, step]).generate_state(2, np.uint32)
+    return torch.Generator().manual_seed(int(hi) << 32 | int(lo))
+
+
+def patch_batch(
+    batch: Dict[str, torch.Tensor],
+    cfg: Config,
+    flip_perm,
+    train: bool,
+    aug_key: Optional[Tuple[int, int]] = None,
+    dp: Optional[DataParallel] = None,
+) -> PatchBatch:
+    """The model's input and labels from either kind of batch of
+    ``pipeline.prefetch_to_device``. A host-warped batch (``patch``) goes
+    through ``finalize_patch``. A canvas batch (``canvas``) is warped on its
+    device by ``patch_batch_from_params``; with ``train`` and
+    ``cfg.data.use_aug``, the augmentation is drawn for the global batch from
+    ``aug_generator(cfg.seed, *aug_key)`` and this rank's rows are taken, so
+    W ranks augment as one process."""
+    if "canvas" not in batch:
+        return PatchBatch(
+            image=finalize_patch(batch["patch"], batch["color_scale"], cfg.data),
+            joint_img=batch["joint_img"],
+            joint_vis=batch["joint_vis"],
+            joints_have_depth=batch["joints_have_depth"],
+        )
+    b = batch["canvas"].shape[0]
+    if train and cfg.data.use_aug:
+        if aug_key is None:
+            raise ValueError("a canvas batch with augmentation needs its (epoch, step)")
+        rank, world = (dp.rank, dp.world) if dp is not None else (0, 1)
+        drawn = sample_aug_params(aug_generator(cfg.seed, *aug_key), b * world, cfg.data)
+        params = tuple(p[rank * b : (rank + 1) * b] for p in drawn)
+    else:
+        params = no_aug_params(b)
+    return patch_batch_from_params(
+        batch["canvas"], batch["canvas_origin"], batch["canvas_scale"], batch["bbox"],
+        batch["joints"], batch["joint_vis"], batch["joints_have_depth"], flip_perm, cfg.data, *params,
+    )
+
+
 def make_train_step(
     model: PoseNet, optimizer: OptaxAdam, cfg: Config, lean: bool = False, scheduler=None,
     dp: Optional[DataParallel] = None,
 ) -> Callable[[Dict[str, torch.Tensor]], Dict[str, torch.Tensor]]:
-    """Returns ``step(batch) -> metrics``, one update of ``model`` in place.
+    """Returns ``step(batch, epoch=None, global_step=None) -> metrics``, one
+    update of ``model`` in place.
 
-    ``batch``: tensors on the model's device from ``pipeline.prefetch_to_device``:
-    ``patch`` (B, H, W, 3) uint8, ``color_scale`` (B, 3), ``joint_img``
-    (B, J, 3), ``joint_vis`` (B, J), ``joints_have_depth`` (B,). Metrics are
+    ``batch``: tensors on the model's device from ``pipeline.prefetch_to_device``,
+    host-warped (``patch`` (B, H, W, 3) uint8, ``color_scale`` (B, 3),
+    ``joint_img`` (B, J, 3), ``joint_vis`` (B, J), ``joints_have_depth``
+    (B,)) or canvases (``HostBatch``'s fields; ``patch_batch``), whose
+    augmentation is drawn for (``epoch``, ``global_step``): the Trainer
+    passes the epoch and the number of updates taken before. Metrics are
     0-dim device tensors (no host sync): ``loss``, and unless ``lean`` also
     ``grad_norm`` (before clipping), ``err_xy_voxels`` and ``err_z_voxels``.
     ``scheduler.step()`` follows each update when a scheduler is given.
@@ -287,22 +346,24 @@ def make_train_step(
     error components from the ranks' summed sums, ``grad_norm`` of the
     reduced gradients."""
     coords_fn = _ddp(model, dp) if dp is not None and dp.group is not None else model.coords
+    flip_perm = skeletons.get_skeleton(cfg.data.trainset[0]).flip_permutation()
 
-    def step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        image = finalize_patch(batch["patch"], batch["color_scale"], cfg.data)
+    def step(
+        batch: Dict[str, torch.Tensor], epoch: Optional[int] = None, global_step: Optional[int] = None
+    ) -> Dict[str, torch.Tensor]:
+        aug_key = None if epoch is None or global_step is None else (epoch, global_step)
+        pb = patch_batch(batch, cfg, flip_perm, train=True, aug_key=aug_key, dp=dp)
         model.train()
         optimizer.zero_grad(set_to_none=True)
         with model.precision():
-            coords = coords_fn(image)
-            loss = joint_location_loss(
-                coords, batch["joint_img"], batch["joint_vis"], batch["joints_have_depth"]
-            )
+            coords = coords_fn(pb.image)
+            loss = joint_location_loss(coords, pb.joint_img, pb.joint_vis, pb.joints_have_depth)
             loss.backward()
         metrics = {"loss": _mean_over_ranks(loss.detach(), dp)}
         if not lean:
             metrics["grad_norm"] = optimizer.global_norm()
             with torch.no_grad():
-                metrics["err_xy_voxels"], metrics["err_z_voxels"] = _error_components(coords, batch, dp)
+                metrics["err_xy_voxels"], metrics["err_z_voxels"] = _error_components(coords, pb, dp)
         optimizer.step()
         if scheduler is not None:
             scheduler.step()
@@ -336,23 +397,23 @@ def flip_test_coords(
 def make_eval_step(
     model: PoseNet, cfg: Config
 ) -> Callable[[Dict[str, torch.Tensor]], Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
-    """Returns ``eval_step(batch) -> (coords, joint_img, joint_vis)``:
-    ``finalize_patch``, then (B, J, 3) voxel coords of ``model`` (in eval
-    mode, e.g. ``pose_net.inference_copy``) through ``PoseNet.coords``, with
-    the reference's flip-test averaging when ``cfg.eval.flip_test``.
-    ``batch`` as the train step's, from ``pipeline.prefetch_to_device``.
-    Runs under ``inference_mode``."""
+    """Returns ``eval_step(batch) -> (coords, joint_img, joint_vis)``: the
+    model's input (``patch_batch``, no augmentation), then (B, J, 3) voxel
+    coords of ``model`` (in eval mode, e.g. ``pose_net.inference_copy``)
+    through ``PoseNet.coords``, with the reference's flip-test averaging when
+    ``cfg.eval.flip_test``. ``batch`` as the train step's, from
+    ``pipeline.prefetch_to_device``. Runs under ``inference_mode``."""
     skel = skeletons.get_skeleton(cfg.data.testset)
     flip_perm = torch.as_tensor(skel.flip_permutation())
     out_w = cfg.data.output_shape[1]
 
     @torch.inference_mode()
     def eval_step(batch: Dict[str, torch.Tensor]):
-        image = finalize_patch(batch["patch"], batch["color_scale"], cfg.data)
+        pb = patch_batch(batch, cfg, flip_perm, train=False)
         if cfg.eval.flip_test:
-            coords = flip_test_coords(model.coords, image, flip_perm.to(image.device), out_w)
+            coords = flip_test_coords(model.coords, pb.image, flip_perm.to(pb.image.device), out_w)
         else:
-            coords = model.coords(image)
-        return coords, batch["joint_img"], batch["joint_vis"]
+            coords = model.coords(pb.image)
+        return coords, pb.joint_img, pb.joint_vis
 
     return eval_step

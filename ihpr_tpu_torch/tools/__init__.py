@@ -11,6 +11,8 @@ directory of scripts there, not a package).
 
 - ``export_artifact``: a snapshot as a ``torch.export`` serving artifact
   (``engine/export.py``) plus its JSON sidecar.
+- ``serving_bench``: ``PoseServer``'s request latency and sustained rate
+  (patch stream, native warp, exported artifact, ``predict_stream``).
 
 Each runs on the card by default and on the CPU (plain versions, host
 clock) with ``--device cpu``:
@@ -18,6 +20,7 @@ clock) with ``--device cpu``:
     python -m ihpr_tpu_torch.tools.exp_probe [--iters 30] [--device cuda]
     python -m ihpr_tpu_torch.tools.mxu_int8_probe [--iters 30] [--device cuda] [--check]
     python -m ihpr_tpu_torch.tools.export_artifact --config C --snapshot_dir D --out F [--device cuda]
+    python -m ihpr_tpu_torch.tools.serving_bench [--config h36m3d_r50] [--max_batch 32] [--chunks 24] [--device cuda]
 
 Importing a tool touches no CUDA state and parses no arguments.
 """

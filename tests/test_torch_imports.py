@@ -26,6 +26,7 @@ def test_port_imports_no_jax():
     count, names, leaked = proc.stdout.strip().split(" ", 2)
     assert int(count) >= 15, proc.stdout  # every module was found and imported
     for name in ("ihpr_tpu_torch.engine.export", "ihpr_tpu_torch.tools.export_artifact",
-                 "ihpr_tpu_torch.parallel.mesh", "ihpr_tpu_torch.parallel.launch"):
+                 "ihpr_tpu_torch.parallel.mesh", "ihpr_tpu_torch.parallel.launch",
+                 "ihpr_tpu_torch.tools.serving_bench"):
         assert name in names.split(","), name
     assert leaked == "[]", leaked

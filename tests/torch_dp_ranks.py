@@ -315,3 +315,42 @@ def resume_ranks(rank, world, cfg, n):
     finally:
         trainer.close()
     return {"start": start, "state": state, "losses": losses}
+
+
+def serve_ranks(rank, world, cfg, model_sd, patches, request, stream, snapshot_dir):
+    """Data-parallel PoseServers (max_batch 8, partition="data") on the same
+    requests on every rank: predict_patches with flip-test on and off, the
+    batch each rank's model forwarded, predict and predict_stream, the
+    refusals, and a load_server of ``snapshot_dir`` with ``dp``."""
+    from ihpr_tpu_torch.engine.server import PoseServer, load_server
+
+    dp = data_parallel()
+    sd = {k: torch.from_numpy(v) for k, v in model_sd.items()}
+    out = {}
+    for flip in (True, False):
+        srv = PoseServer(cfg, sd, max_batch=8, flip_test=flip, device="cpu", dp=dp, partition="data")
+        coords, forwarded = srv.model.coords, []
+        srv.model.coords = lambda x: (forwarded.append(tuple(x.shape)), coords(x))[1]
+        out[f"patches_{flip}"] = srv.predict_patches(patches)
+        out[f"forwarded_{flip}"] = list(forwarded)
+    out["predict"] = [r.coords_img for r in srv.predict(*request)]
+    out["stream"] = [[r.coords_img for r in res] for res in srv.predict_stream(stream)]
+    out["loaded"] = load_server(cfg, snapshot_dir, max_batch=8, flip_test=False, device="cpu", dp=dp,
+                                partition="data").predict_patches(patches)
+    for name, kw, err in (("odd", dict(max_batch=7, partition="data"), ValueError),
+                          ("spatial", dict(max_batch=8), NotImplementedError)):
+        try:
+            PoseServer(cfg, sd, device="cpu", dp=dp, **kw)
+            out[name] = None
+        except err as e:
+            out[name] = str(e)
+    return out
+
+
+def canvas_ranks(rank, world, cfg, batch, aug_key):
+    """This rank's rows of a canvas batch through ``train_step.patch_batch``
+    with augmentation: the draws are the global batch's, sliced."""
+    pb = train_step.patch_batch({k: torch.from_numpy(rows(v, rank, world)) for k, v in batch.items()}, cfg,
+                                skeletons.H36M.flip_permutation(), train=True, aug_key=aug_key,
+                                dp=data_parallel())
+    return {"image": _np(pb.image), "joint_img": _np(pb.joint_img), "joint_vis": _np(pb.joint_vis)}
