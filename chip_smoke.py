@@ -4,8 +4,8 @@
 
 1. Prints the environment: torch, CUDA, nvcc, the card's name and power limit.
 2. Builds every CUDA kernel (K1-K8 of the serving, training, fused-train,
-   heatmap and eval paths; P1/P2 of the probe tools) from
-   ihpr_tpu_torch/ops/csrc, one nvcc per source, all at once.
+   heatmap and eval paths; P1/P2 of the probe tools) and the nvJPEG codec
+   from ihpr_tpu_torch/ops/csrc, one nvcc per source, all at once.
 3. K1 (fused head forward, bf16): holds it against its plain PyTorch
    version on the card, at the serving shapes and at edge cases (J=17,
    H*W=96*72, D=1, all-equal logits, a one-hot peak), and times both with
@@ -110,6 +110,15 @@
    patches.
 7g. python -m ihpr_tpu_torch.tools.serving_bench in a subprocess: exit 0,
    its phases and JSON line echoed.
+7h. The real-data path (real_data_phase): nvJPEG (ihpr_tpu_torch/ops/csrc/
+   nvjpeg_codec.cu, built with the kernels) against libjpeg on the
+   fixture's JPEGs and the loader's batch of that root against the JAX
+   loader's committed patches; a dataset root in the reference's layouts
+   (H36M 1000x1000, MPII 1280x720) encoded on the card, with encode,
+   decode and loader times; the train CLI on it with --pretrained (a
+   seeded torchvision ResNet-50 .pth), K1/K2 counted in the subprocess;
+   the test CLI on its test split (K1 counted), its coordinates against the
+   same frames rendered without JPEG.
 8. The heatmap-logits path: h36m3d_r50 at batch 128 takes an optimizer
    step through model(x) -> soft_argmax_from_heatmap -> loss (K3 forward,
    K4 backward), coords and dv against plain on the same logits, device ms
@@ -138,7 +147,8 @@
 In 6-12 (7a: its resumed training, the snapshot Tester and server; 7c:
 its serving and its training, each counted on its own; 7d: each rank's
 steps, fused step and Tester, counted in the rank; 7e: each rank's serving;
-7f: the train steps, the Tester and the server, each on its own) the
+7f: the train steps, the Tester and the server, each on its own; 7h: the
+train and test CLIs, counted in their subprocesses, and the Tester) the
 kernels' launch counters are set to 0 just before the path
 runs and read just after (in 11-12 the path is the tool's main); each kernel of the path must have launched as
 often as the path dispatched it, and the others not at all. Outputs are
@@ -151,7 +161,7 @@ non-zero; so does a host without CUDA.
     python3 chip_smoke.py --only bn fused
 
 builds the kernels and runs only the named phases (bn: 5c; fused: 7b; dp:
-7d; dp-serve: 7e; device-warp: 7f; serving-bench: 7g), for timing one tree's K5-K8 against another's (copy this file into a
+7d; dp-serve: 7e; device-warp: 7f; serving-bench: 7g; real-data: 7h), for timing one tree's K5-K8 against another's (copy this file into a
 checkout of the other tree and run it there) or trying one phase. It
 prints no JSON lines.
 """
@@ -2784,7 +2794,7 @@ def device_warp_phase(fhi, gpu: str):
         db = next(canvas_loader.epoch(0, 1))
         canvas_host_ms = (time.perf_counter() - t0) * 1e3
         entries = [canvas_loader.index[i] for i in db.sample_idx]
-        frames = [canvas_loader._load_entry_image(e) for e in entries]
+        frames = canvas_loader._load_entry_images(entries)
     finally:
         host_loader.close()
         canvas_loader.close()
@@ -2946,14 +2956,321 @@ def serving_bench_phase(gpu: str):
     print(f"serving-bench: exit 0 in {dt:.1f} s; its JSON line: {lines[-1]}")
 
 
+# --- the real-data path: dataset roots of JPEGs, nvJPEG, --pretrained ----------
+
+REAL_TRAIN = 256  # H36M train samples of the real-data root (S1, 5, 6, 7, 8) ...
+REAL_MPII = 128  # ... and MPII's: 384 = 3 train batches of 128
+REAL_TEST = 128  # H36M test samples (S9, 11): one eval batch
+REAL_SIZE = 1000  # H36M frame side, px (the release's frames are 1000x1000 or 1000x1002)
+REAL_STEPS = 3  # counted steps of the train CLI
+# Steps of the rate loop after the counted run (epochs 1-3 of the root): the
+# Trainer's log window, waited for after its first step and at its end only,
+# so that each batch loads while the step before it runs, as in a long run.
+REAL_RATE_STEPS = 9
+# nvJPEG against libjpeg on the fixture's frames, levels of 255 (as
+# tests/test_torch_jpeg.py; measured on an H100): every channel ~0.5 level
+# lower, 0.59-0.69 levels apart on average per image, up to 67 at the
+# saturated blobs' edges, where the chroma upsampling differs.
+TOL_NVJPEG_MAX = 70
+TOL_NVJPEG_MEAN = 0.75
+# The loader's no-aug patches of those frames (bilinear samples of them)
+# against the JAX loader's: measured max 54, mean 0.7313.
+TOL_PATCH_MAX = 60
+TOL_PATCH_MEAN = 0.8
+# (d) The test CLI's coordinates from the JPEGs against the same frames
+# rendered without JPEG, through one snapshot whose heads were peaked from
+# random weights: such a net amplifies q95's loss, and a joint with two
+# near-equal peaks jumps between them, so the bound is on the mean and the
+# largest gap is printed. Measured: x/y mean 1.98 px, max 55.0 px (at
+# 1000x1000 a voxel is ~5 px); z mean 0.62 mm, max 62.5 mm.
+TOL_REAL_XY = 2.5  # mean, px
+TOL_REAL_Z = 1.0  # mean, mm
+
+_REAL_TRAIN_CHILD = r"""
+import itertools, json, sys, time
+import torch
+import chip_smoke
+from ihpr_tpu_torch import train
+from ihpr_tpu_torch.data.augment import finalize_patch
+from ihpr_tpu_torch.data.pipeline import prefetch_to_device
+from ihpr_tpu_torch.engine.trainer import Trainer
+from ihpr_tpu_torch.models import pretrained
+from ihpr_tpu_torch.ops import fused_head_integral as fhi
+
+argv, pth = json.loads(sys.argv[1]), sys.argv[2]
+real_train, report = Trainer.train, {}
+
+
+def train_and_report(self, *args, **kwargs):
+    want, got = pretrained.read(pth), self.model.backbone.state_dict()
+    report["backbone_is_the_file"] = got.keys() == want.keys() and all(
+        torch.equal(got[k].cpu(), want[k]) for k in got)
+    # Peaked heatmaps (chip_smoke._peak_heatmaps), so that the evaluation's
+    # coordinates depend on the image; the backbone stays the file's.
+    batch, _ = next(prefetch_to_device(self.loader.epoch(0, 1), self.device))
+    self.model.eval()
+    chip_smoke._peak_heatmaps(self.model, finalize_patch(batch["patch"], batch["color_scale"], self.cfg.data),
+                              torch.Generator().manual_seed(chip_smoke.SEED))
+    self.model.train()
+    # The first step is a log step, which the Trainer waits for.
+    ends, step_fn = [], self.step_fn
+
+    def timed(*a, **k):
+        out = step_fn(*a, **k)
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+        return out
+
+    self.step_fn = timed
+    fhi.launches = fhi.bwd_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = real_train(self, *args, **kwargs)
+    report.update(k1=fhi.launches, k2=fhi.bwd_launches, losses=[float(x) for x in self.losses],
+                  first_ms=(ends[0] - t0) * 1e3)
+    # The rate loop, once the snapshot is on disk: the Trainer's steps fed as
+    # its epoch loop feeds them, waited for after the first and at the end;
+    # the host's time in the loader (next batch) and in the step's call.
+    batches = prefetch_to_device(itertools.chain(*(self.loader.epoch(e) for e in (1, 2, 3))), self.device)
+    n, load_s, call_s = 0, 0.0, 0.0
+    while True:
+        t = time.perf_counter()
+        batch = next(batches, None)
+        if batch is None:
+            break
+        u = time.perf_counter()
+        self.lean_step_fn(batch[0])
+        n += 1
+        if n == 1:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+        else:
+            load_s, call_s = load_s + u - t, call_s + time.perf_counter() - u
+    torch.cuda.synchronize()
+    report.update(rate_steps=n, rate_ms=(time.perf_counter() - t1) * 1e3 / (n - 1),
+                  rate_load_ms=load_s * 1e3 / (n - 1), rate_call_ms=call_s * 1e3 / (n - 1),
+                  rate_k1=fhi.launches - report["k1"], rate_k2=fhi.bwd_launches - report["k2"])
+    return out
+
+
+Trainer.train = train_and_report
+train.main(argv)
+print(json.dumps(report))
+"""
+
+_REAL_TEST_CHILD = r"""
+import json, sys
+from ihpr_tpu_torch import test
+from ihpr_tpu_torch.ops import fused_head_integral as fhi
+fhi.launches = fhi.bwd_launches = 0
+metrics = test.main(json.loads(sys.argv[1]))
+print(json.dumps({"k1": fhi.launches, "k2": fhi.bwd_launches, "metrics": metrics}))
+"""
+
+
+def _nvjpeg_vs(got: torch.Tensor, want: np.ndarray):
+    diff = np.abs(got.cpu().numpy().astype(np.int16) - want.astype(np.int16))
+    return int(diff.max()), float(diff.mean())
+
+
+def _child(code: str, *args, timeout: int = 600) -> dict:
+    """Run ``code`` in a fresh interpreter at the repository root; its last
+    line of output is a JSON object."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run([sys.executable, "-c", code, *args], cwd=root, capture_output=True, text=True,
+                          timeout=timeout, env={**os.environ, "PYTHONPATH": root})
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"exit {proc.returncode}: {proc.stdout[-2000:]} {proc.stderr[-3000:]}")
+    return json.loads(lines[-1])
+
+
+def real_data_phase(fhi, gpu: str):
+    """The real-data path on the card. (a) nvJPEG decodes the fixture's
+    JPEGs (tests/data/real_root) against libjpeg's committed pixels, and the
+    loader's no-aug host-warp batch of that root against the JAX loader's
+    committed patches. (b) A dataset root in the reference's layouts at a
+    realistic size (H36M 1000x1000: REAL_TRAIN train samples over S1, 5, 6,
+    7, 8 and REAL_TEST test samples over S9, 11; MPII 1280x720: REAL_MPII),
+    its frames rendered and encoded on the card (materialize_synthetic);
+    encode, decode and loader times. (c) The train CLI's main in a
+    subprocess: --data_root <root> --pretrained <a seeded torchvision
+    ResNet-50 .pth> --steps REAL_STEPS --end_epoch 1, h36m3d_r50 at full width
+    and batch 128: the backbone before step 1 is the file's, the losses
+    finite, K1/K2 once a step; the first step's ms, then ms per step and
+    img/s over REAL_RATE_STEPS more steps (K1/K2 once each) waited for only
+    after the first and at the end, so that each batch loads while the step
+    before it runs. (d) The test CLI's
+    main in a subprocess on the test split (flip-test, K1 once per eval
+    batch): MPJPE; its coordinates against the same samples rendered
+    without JPEG through the same snapshot. Returns K1 and K2 launches."""
+    from ihpr_tpu_torch.config import get_config
+    from ihpr_tpu_torch.data import jpeg, skeletons
+    from ihpr_tpu_torch.data.datasets import PoseDataset, build_dataset, load_h36m, load_mpii, render_synthetic_image
+    from ihpr_tpu_torch.data.pipeline import BatchLoader, _read_bytes, _to_host
+    from ihpr_tpu_torch.engine.tester import Tester, metrics_from_voxel_preds
+    from ihpr_tpu_torch.tools.synthetic_root import write_h36m_root, write_mpii_root, write_torchvision_resnet
+
+    t_phase = time.perf_counter()
+    cfg = get_config("h36m3d_r50")
+    fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", "real_root")
+
+    # (a) the decoder and the loader against libjpeg and the JAX loader
+    pixels = np.load(os.path.join(fixture, "pixels.npz"))
+    blobs = [_read_bytes(os.path.join(fixture, "images", name)) for name in pixels.files]
+    jpeg.launches = 0
+    decoded = jpeg.decode(blobs, "cuda", pixels.files)
+    torch.cuda.synchronize()
+    gaps = [_nvjpeg_vs(img, pixels[name]) for img, name in zip(decoded, pixels.files)]
+    if jpeg.launches != 1 or any(m > TOL_NVJPEG_MAX or a > TOL_NVJPEG_MEAN for m, a in gaps):
+        raise AssertionError(f"real-data (a): {jpeg.launches} decode calls; nvJPEG vs libjpeg (max, mean) {gaps}")
+    print(f"real-data (a): nvJPEG decoded the fixture's {len(blobs)} JPEGs in one call; against libjpeg's pixels "
+          f"max {max(m for m, _ in gaps)} levels (bar {TOL_NVJPEG_MAX}), mean {min(a for _, a in gaps):.4f}-"
+          f"{max(a for _, a in gaps):.4f} per image (bar {TOL_NVJPEG_MEAN})")
+    h36m_fix = load_h36m(fixture, "test", 2, sampling=1)
+    sets = [PoseDataset("Human36M", skeletons.H36M, h36m_fix, True),
+            PoseDataset("MPII", skeletons.MPII, load_mpii(fixture, "train"), True)]
+    loader = BatchLoader(sets, cfg, 6, train=False, num_workers=4, host_warp=True, device="cuda")
+    try:
+        hb = next(loader.epoch(0))
+    finally:
+        loader.close()
+    ref = np.load(os.path.join(fixture, "patches.npz"))
+    p_max, p_mean = _nvjpeg_vs(torch.from_numpy(hb.patch), ref["patch"])
+    if not (np.array_equal(hb.sample_idx, ref["sample_idx"]) and np.array_equal(hb.joint_img, ref["joint_img"])
+            and p_max <= TOL_PATCH_MAX and p_mean <= TOL_PATCH_MEAN):
+        raise AssertionError(f"real-data (a): loader patches vs JAX's: max {p_max}, mean {p_mean}")
+    print(f"real-data (a): the loader's no-aug host-warp batch of the fixture root (nvJPEG + native warp) against "
+          f"the JAX loader's (libjpeg + native warp): joints bitwise, patches max {p_max} levels (bar "
+          f"{TOL_PATCH_MAX}), mean {p_mean:.4f} (bar {TOL_PATCH_MEAN})")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root, run = os.path.join(tmp, "root"), os.path.join(tmp, "run")
+        # (b) the root, encoded on the card; encode, decode and loader times
+        t0 = time.perf_counter()
+        written = write_h36m_root(root, REAL_TRAIN, REAL_TEST, REAL_SIZE, device="cuda")
+        write_mpii_root(root, REAL_MPII, device="cuda")
+        t_root = time.perf_counter() - t0
+        train_files = sorted({s["img_path"] for s in written["train"]})
+        frames = [render_synthetic_image(s) for s in written["train"][:32]]
+        jpeg.encode(frames[:2], 95, "cuda")  # warm-up
+        t0 = time.perf_counter()
+        jpeg.encode(frames, 95, "cuda")
+        enc_ms = (time.perf_counter() - t0) * 1e3 / len(frames)
+        blobs = [_read_bytes(p) for p in train_files[:128]]
+        for blob in blobs[:4]:  # warm-up
+            jpeg.decode([blob], "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for blob in blobs[:32]:
+            jpeg.decode([blob], "cuda")
+        torch.cuda.synchronize()
+        dec1_ms = (time.perf_counter() - t0) * 1e3 / 32
+        batch_ms, back_ms = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            imgs = jpeg.decode(blobs, "cuda")
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            host = _to_host(imgs)
+            batch_ms.append((t1 - t0) * 1e3)
+            back_ms.append((time.perf_counter() - t1) * 1e3)
+        mb = sum(map(len, blobs)) / 2**20
+        print(f"real-data (b): wrote {len(written['train'])} + {len(written['test'])} H36M {REAL_SIZE}x{REAL_SIZE} "
+              f"and {REAL_MPII} MPII 1280x720 frames (render + nvJPEG encode at q95) in {t_root:.2f} s  [{gpu}]")
+        print(f"real-data (b): nvJPEG encode {enc_ms:.3f} ms per {REAL_SIZE}x{REAL_SIZE} frame (host frame in, "
+              f"bytes out); decode {dec1_ms:.3f} ms per frame alone, {statistics.median(batch_ms):.3f} ms per "
+              f"batch of {len(blobs)} ({mb:.1f} MiB of JPEG; {statistics.median(batch_ms) / len(blobs):.3f} ms a "
+              f"frame), copy back to the host (one pinned buffer) {statistics.median(back_ms):.3f} ms  [{gpu}]")
+        del frames, imgs, host
+        train_sets = [build_dataset(name, "train", cfg, root) for name in cfg.data.trainset]
+        rendered = [PoseDataset(d.name, d.skeleton, [{**s, "img_path": None} for s in d.samples], True)
+                    for d in train_sets]
+        loader_ms = {}
+        for label, sets in (("JPEG", train_sets), ("rendered", rendered)):
+            loader = BatchLoader(sets, cfg, TRAIN_BATCH, num_workers=8, seed=cfg.seed, device="cuda")
+            try:
+                t0 = time.perf_counter()
+                n = sum(1 for _ in loader.epoch(0, 3))
+                loader_ms[label] = (time.perf_counter() - t0) * 1e3 / n
+            finally:
+                loader.close()
+        print(f"real-data (b): loader host {loader_ms['JPEG']:.3f} ms per {TRAIN_BATCH}-image train batch from the "
+              f"root's JPEGs (read + nvJPEG + copy back + native warp), {loader_ms['rendered']:.3f} ms from the "
+              f"same samples rendered (H36M {REAL_SIZE}x{REAL_SIZE} + MPII 1280x720)  [{gpu}]")
+
+        # (c) the train CLI with --pretrained
+        pth = os.path.join(tmp, f"resnet{cfg.model.resnet_type}.pth")
+        write_torchvision_resnet(pth, cfg.model.resnet_type, SEED)
+        argv = ["--config", "h36m3d_r50", "--data_root", root, "--pretrained", pth, "--steps", str(REAL_STEPS),
+                "--end_epoch", "1", "--output_dir", run, "--device", "cuda"]
+        t0 = time.perf_counter()
+        rep = _child(_REAL_TRAIN_CHILD, json.dumps(argv), pth)
+        t_train = time.perf_counter() - t0
+        losses, steady = rep["losses"], rep["rate_ms"]
+        rate = (rep["rate_steps"], rep["rate_k1"], rep["rate_k2"])
+        if not (rep["backbone_is_the_file"] and rate == (REAL_RATE_STEPS,) * 3 and (rep["k1"], rep["k2"]) == (REAL_STEPS, REAL_STEPS)
+                and len(losses) == REAL_STEPS and all(map(math.isfinite, losses))):
+            raise AssertionError(f"real-data (c): {rep}")
+        print(f"real-data (c): train --data_root <root> --pretrained <seeded torchvision ResNet-"
+              f"{cfg.model.resnet_type} .pth> --steps "
+              f"{REAL_STEPS}: exit 0 in {t_train:.1f} s; the backbone before step 1 is the file's, bitwise; K1 "
+              f"{rep['k1']}, K2 {rep['k2']} launches; losses {', '.join(f'{x:.4f}' for x in losses)}  [{gpu}]")
+        print(f"real-data (c): host clock, the loader's JPEG batches included: the first step (two batches "
+              f"loaded, cuDNN's plans) {rep['first_ms']:.1f} ms; then {REAL_RATE_STEPS} more steps from epochs 1-3, "
+              f"waited for after the first and at the end only: {steady:.1f} ms a step, "
+              f"{TRAIN_BATCH / steady * 1e3:.1f} img/s; of it on the host {rep['rate_load_ms']:.1f} ms in the "
+              f"loader and {rep['rate_call_ms']:.1f} ms in the step's call  [{gpu}]")
+
+        # (d) the test CLI, and its coordinates against the frames rendered without JPEG
+        t0 = time.perf_counter()
+        rep_t = _child(_REAL_TEST_CHILD, json.dumps(["--config", "h36m3d_r50", "--data_root", root,
+                                                     "--output_dir", run, "--device", "cuda"]))
+        t_test = time.perf_counter() - t0
+        test_set = build_dataset(cfg.data.testset, "test", cfg, root)
+        batches = -(-len(test_set) // cfg.eval.batch_size_per_device)
+        mpjpe = rep_t["metrics"]["MPJPE total"]
+        if (rep_t["k1"], rep_t["k2"]) != (batches, 0) or not math.isfinite(mpjpe):
+            raise AssertionError(f"real-data (d): {rep_t}")
+        print(f"real-data (d): test --data_root <root>: exit 0 in {t_test:.1f} s, {len(test_set)} samples, flip-test, "
+              f"K1 launches {rep_t['k1']}; MPJPE {mpjpe:.2f} mm  [{gpu}]")
+        by_file = {os.path.basename(s["img_path"]): s for s in written["test"]}
+        plain = PoseDataset(test_set.name, test_set.skeleton,
+                            [{**by_file[os.path.basename(s["img_path"])], "img_path": None} for s in test_set.samples],
+                            False)
+        tester = Tester(cfg.replace(output_dir=run), dataset=plain, num_workers=8, device="cuda")
+        try:
+            fhi.launches = 0
+            vox = tester.predict_voxels()
+            k1_plain = fhi.launches
+            _, preds, _, _ = metrics_from_voxel_preds(cfg, tester.loader, test_set, vox)
+        finally:
+            tester.close()
+        cli = np.load(os.path.join(run, "result", "preds_Human36M.npy"))
+        d_xy, d_z = np.abs(cli[..., :2] - preds[..., :2]), np.abs(cli[..., 2] - preds[..., 2])
+        spread = float(np.abs(preds[..., :2] - preds[..., :2].mean((0, 1))).max())
+        if (k1_plain != batches or cli.shape != preds.shape or not np.isfinite(cli).all()
+                or d_xy.mean() > TOL_REAL_XY or d_z.mean() > TOL_REAL_Z):
+            raise AssertionError(f"real-data (d): K1 {k1_plain}, shapes {cli.shape} {preds.shape}, x/y mean "
+                                 f"{d_xy.mean()} px, z mean {d_z.mean()} mm")
+        print(f"real-data (d): the CLI's coordinates against the same samples rendered without JPEG (the same "
+              f"snapshot, K1 {k1_plain}): x/y mean {d_xy.mean():.4f} px (bar {TOL_REAL_XY}), p99 "
+              f"{np.percentile(d_xy, 99):.3f}, max {d_xy.max():.3f}; z mean {d_z.mean():.4f} mm (bar {TOL_REAL_Z}), "
+              f"p99 {np.percentile(d_z, 99):.3f}, max {d_z.max():.3f}; the predictions spread {spread:.1f} px")
+    print(f"real-data: the phase took {time.perf_counter() - t_phase:.1f} s  [{gpu}]")
+    return rep["k1"] + rep["rate_k1"] + rep_t["k1"] + k1_plain, rep["k2"] + rep["rate_k2"]
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke run of ihpr_tpu_torch on one NVIDIA GPU.")
-    parser.add_argument("--only", nargs="+", choices=("bn", "fused", "dp", "dp-serve", "device-warp", "serving-bench"),
+    parser.add_argument("--only", nargs="+",
+                        choices=("bn", "fused", "dp", "dp-serve", "device-warp", "serving-bench", "real-data"),
                         help="build the kernels and run only these phases (no JSON lines)")
     only = parser.parse_args(argv).only
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run", file=sys.stderr)
         return 1
+    from ihpr_tpu_torch.data import jpeg
     from ihpr_tpu_torch.ops import _build
     from ihpr_tpu_torch.ops import conv_bn as cb
     from ihpr_tpu_torch.ops import fused_head_integral as fhi
@@ -2970,14 +3287,15 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     libs = _build.build_all([fhi._LIB, fhi._BWD_LIB, iv._FWD_LIB, iv._BWD_LIB,
-                             mm._FWD_LIB, mm._BWD_LIB, cb._FWD_LIB, cb._BWD_LIB, ep._LIB, pm._LIB])
+                             mm._FWD_LIB, mm._BWD_LIB, cb._FWD_LIB, cb._BWD_LIB, ep._LIB, pm._LIB, jpeg._LIB])
     print(f"build: {', '.join(lib.name for lib in libs)} in {time.perf_counter() - t0:.2f} s")
     for lib in libs:
         print(lib.with_suffix(".log").read_text().strip())
     if only:
         phases = {"bn": lambda: bn_kernel_phase(mm, cb, gpu), "fused": lambda: fused_train_phase(fhi, iv, mm, cb, gpu),
                   "dp": lambda: dp_phase(fhi, iv, mm, cb, gpu), "dp-serve": lambda: dp_serve_phase(fhi, gpu),
-                  "device-warp": lambda: device_warp_phase(fhi, gpu), "serving-bench": lambda: serving_bench_phase(gpu)}
+                  "device-warp": lambda: device_warp_phase(fhi, gpu), "serving-bench": lambda: serving_bench_phase(gpu),
+                  "real-data": lambda: real_data_phase(fhi, gpu)}
         for name in only:
             phases[name]()
         print(gpu)
@@ -3004,6 +3322,7 @@ def main(argv=None) -> int:
     dp_serve_k1 = dp_serve_phase(fhi, gpu)
     warp_k1, warp_k2 = device_warp_phase(fhi, gpu)
     serving_bench_phase(gpu)
+    real_k1, real_k2 = real_data_phase(fhi, gpu)
     hm_k3, hm_k4, hm_err, hm_dv_err = heatmap_phase(fhi, iv, gpu)
     np_k3, np_k4, np_err = noplan_phase(fhi, iv, gpu)
     eval_k1, eval_k3, eval_k1_err, eval_k3_err = eval_phase(fhi, iv, gpu)
@@ -3012,9 +3331,10 @@ def main(argv=None) -> int:
     b1, b2, b3, b4 = head_bounds()
     kernels = [
         (fhi._LIB, "ihpr_tpu/ops/fused_head_integral.py:133",
-         serve_k1 + train_k1 + snap_k1 + r152_k1 + eval_k1 + dp_n["K1"] + dp_serve_k1 + warp_k1,
+         serve_k1 + train_k1 + snap_k1 + r152_k1 + eval_k1 + dp_n["K1"] + dp_serve_k1 + warp_k1 + real_k1,
          max(k1_err, eval_k1_err, r152_k1_err, dp_errs["K1"]), k1_ms, k1_plain, *b1, k1_lib),
-        (fhi._BWD_LIB, "ihpr_tpu/ops/fused_head_integral.py:153", train_k2 + snap_k2 + r152_k2 + dp_n["K2"] + warp_k2,
+        (fhi._BWD_LIB, "ihpr_tpu/ops/fused_head_integral.py:153",
+         train_k2 + snap_k2 + r152_k2 + dp_n["K2"] + warp_k2 + real_k2,
          max(k2_err, head_err, r152_k2_err, dp_errs["K2"]), k2_ms, k2_plain, *b2, k2_lib),
         (iv._FWD_LIB, "ihpr_tpu/ops/integral_pallas.py:201", hm_k3 + np_k3 + eval_k3,
          max(k3_err, hm_err, np_err, eval_k3_err), k3_ms, k3_plain, *b3, None),

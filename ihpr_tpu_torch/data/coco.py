@@ -1,12 +1,13 @@
-"""COCO keypoint evaluation in numpy: object keypoint similarity and
-COCOeval's keypoint AP, the port's copy of ``ihpr_tpu.data.coco``
-(``compute_oks``, ``keypoint_ap``). The annotation index (``COCO``) waits
-with the real dataset loaders."""
+"""The COCO annotation index and COCO keypoint evaluation in numpy, the
+port's copy of ``ihpr_tpu.data.coco``: ``COCO`` (the subset of
+pycocotools' index the loaders use), object keypoint similarity and
+COCOeval's keypoint AP."""
 
 from __future__ import annotations
 
+import json
 from collections import defaultdict
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 
@@ -18,6 +19,43 @@ COCO_KPT_SIGMAS = np.array(
     ],
     np.float32,
 )
+
+
+class COCO:
+    """Read-only index of a COCO-format annotation file or dict, as
+    pycocotools' ``COCO`` orders it: image ids sorted, annotation ids sorted,
+    or in file order per image."""
+
+    def __init__(self, annotation_file: Optional[str] = None, dataset: Optional[dict] = None):
+        if annotation_file is not None:
+            with open(annotation_file) as f:
+                dataset = json.load(f)
+        self.dataset = dataset or {}
+        self.anns: Dict[int, dict] = {}
+        self.imgs: Dict[int, dict] = {}
+        self.cats: Dict[int, dict] = {}
+        self.img_to_anns: Dict[int, List[dict]] = defaultdict(list)
+        for ann in self.dataset.get("annotations", []):
+            self.anns[ann["id"]] = ann
+            self.img_to_anns[ann["image_id"]].append(ann)
+        for img in self.dataset.get("images", []):
+            self.imgs[img["id"]] = img
+        for cat in self.dataset.get("categories", []):
+            self.cats[cat["id"]] = cat
+
+    def get_img_ids(self) -> List[int]:
+        return sorted(self.imgs)
+
+    def get_ann_ids(self, img_ids: Optional[Iterable[int]] = None) -> List[int]:
+        if img_ids is None:
+            return sorted(self.anns)
+        return [a["id"] for i in img_ids for a in self.img_to_anns.get(i, [])]
+
+    def load_anns(self, ids: Iterable[int]) -> List[dict]:
+        return [self.anns[i] for i in ids]
+
+    def load_imgs(self, ids: Iterable[int]) -> List[dict]:
+        return [self.imgs[i] for i in ids]
 
 
 def compute_oks(

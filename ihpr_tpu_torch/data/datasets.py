@@ -1,23 +1,29 @@
-"""Synthetic pose datasets and the datasets' evaluators, counterpart of the
-synthetic part and the ``evaluate_*`` functions of
-``ihpr_tpu.data.datasets``.
+"""Pose datasets and their evaluators, counterpart of
+``ihpr_tpu.data.datasets``: the Human3.6M, MPII and MSCOCO annotation
+loaders (the reference's file layouts), the synthetic dataset, and
+``materialize_synthetic``, which writes synthetic frames as JPEGs so that a
+synthetic set reads like a real one.
 
-The repository holds no real dataset, so the port carries only the
-synthetic one: random but geometrically consistent samples whose images
-are rendered on demand (a Gaussian blob per joint, hue coding the joint,
-radius coding its depth), so a model can learn to localize them. The same
-seed gives the JAX package's samples and pixels exactly (numpy
+The synthetic samples are random but geometrically consistent, and their
+images are rendered on demand (a Gaussian blob per joint, hue coding the
+joint, radius coding its depth), so a model can learn to localize them.
+The same seed gives the JAX package's samples and pixels exactly (numpy
 ``RandomState`` throughout).
 
-Sample dict fields: ``img_path`` (None: synthetic), ``bbox`` (4,) original
-px, ``joint_img`` (J, 3) x, y original px and z root-relative mm,
-``joint_vis`` (J,), ``root_z``, ``f``, ``c``, ``action``, ``area``, and the
-rendering fields (``synth_seed``, ``img_shape``, hue fields).
+Sample dict fields: ``img_path`` (None: synthetic), ``img_shape``,
+``bbox`` (4,) original px, ``joint_img`` (J, 3) x, y original px and z
+root-relative mm, ``joint_vis`` (J,), ``root_z``, ``f``, ``c``,
+``action``; MPII adds ``head_box`` where the annotation has one, MSCOCO
+``image_id`` and ``area``; synthetic samples carry ``area`` and the
+rendering fields (``synth_seed``, hue fields).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
+import os
 import warnings
 import zlib
 from typing import Dict, List, Optional, Sequence
@@ -25,8 +31,8 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from ihpr_tpu_torch.config import Config
-from ihpr_tpu_torch.data import geometry, skeletons
-from ihpr_tpu_torch.data.coco import keypoint_ap
+from ihpr_tpu_torch.data import geometry, jpeg, skeletons
+from ihpr_tpu_torch.data.coco import COCO, keypoint_ap
 
 
 @dataclasses.dataclass
@@ -49,6 +55,91 @@ H36M_ACTIONS = (
     "Posing", "Purchases", "Sitting", "SittingDown", "Smoking", "Waiting",
     "WalkDog", "Walking", "WalkTogether",
 )
+
+# Protocol splits (reference data/Human36M/Human36M.py): protocol 1
+# (PA-MPJPE) trains on S1, 5, 6, 7, 8, 9 and tests on S11; protocol 2
+# (MPJPE) trains on S1, 5, 6, 7, 8 and tests on S9 and S11.
+H36M_TRAIN_SUBJECTS = {1: (1, 5, 6, 7, 8, 9), 2: (1, 5, 6, 7, 8)}
+H36M_TEST_SUBJECTS = {1: (11,), 2: (9, 11)}
+
+
+def load_h36m(root: str, split: str, protocol: int = 2, sampling: Optional[int] = None) -> List[dict]:
+    """Samples of the protocol's ``split`` subjects from the preprocessed
+    annotation release, every ``sampling``-th frame (default 5 for train,
+    64 for test):
+    ``{root}/annotations/Human36M_subject{N}_{data,camera,joint_3d}.json``.
+
+    - data: COCO-style images (``file_name``, ``width``, ``height``,
+      ``cam_idx``, ``frame_idx``, ``subaction_idx``, and ``action_name`` or
+      ``action_idx``) and annotations (``bbox``);
+    - camera: ``{cam_idx: {R, t, f, c}}``;
+    - joint_3d: ``{action_idx: {subaction_idx: {frame_idx: (17, 3)}}}``
+      world mm, or flat ``{image_id: (17, 3)}``.
+
+    17 joints get the Thorax (mid-shoulders) as the 18th; z is made
+    root-relative. Without ``action_name`` the action is
+    ``H36M_ACTIONS[action_idx - 2]``, with one warning per call."""
+    skel = skeletons.H36M
+    subjects = H36M_TRAIN_SUBJECTS[protocol] if split == "train" else H36M_TEST_SUBJECTS[protocol]
+    if sampling is None:
+        sampling = 5 if split == "train" else 64
+    warned = False
+    samples: List[dict] = []
+    for subj in subjects:
+        prefix = os.path.join(root, "annotations", f"Human36M_subject{subj}_")
+        if not os.path.exists(prefix + "data.json"):
+            raise FileNotFoundError(
+                f"H36M annotations not found at {prefix}data.json; point --data_root at "
+                "the preprocessed annotation release or use the synthetic dataset"
+            )
+        with open(prefix + "data.json") as f:
+            db = COCO(dataset=json.load(f))
+        with open(prefix + "camera.json") as f:
+            cameras = json.load(f)
+        with open(prefix + "joint_3d.json") as f:
+            joints_world = json.load(f)
+        for i, img_id in enumerate(db.get_img_ids()):
+            if i % sampling:
+                continue
+            img = db.imgs[img_id]
+            cam = cameras[str(img["cam_idx"])]
+            R, t, f_, c_ = (np.asarray(cam[k], np.float32) for k in ("R", "t", "f", "c"))
+            try:
+                jw = joints_world[str(img["action_idx"])][str(img["subaction_idx"])][str(img["frame_idx"])]
+            except (KeyError, TypeError):
+                jw = joints_world[str(img_id)]
+            jc = geometry.world2cam(np.asarray(jw, np.float32), R, t)
+            if jc.shape[0] == 17:
+                thorax = (jc[11] + jc[14]) * 0.5  # mid-shoulders
+                jc = np.concatenate([jc, thorax[None]], 0)
+            jp = geometry.cam2pixel(jc, f_, c_)
+            root_z = float(jc[skel.root_idx, 2])
+            joint_img = jp.copy()
+            joint_img[:, 2] = jc[:, 2] - root_z  # root-relative mm
+            anns = db.load_anns(db.get_ann_ids([img_id]))
+            bbox = np.asarray(anns[0]["bbox"], np.float32) if anns else _bbox_from_joints(jp)
+            action = img.get("action_name")
+            if action is None:
+                if not warned:
+                    warned = True
+                    warnings.warn(
+                        "H36M annotations lack action_name; deriving the action from action_idx-2 "
+                        "- verify the per-action MPJPE table against the official toolkit.",
+                        stacklevel=2,
+                    )
+                action = H36M_ACTIONS[int(img.get("action_idx", 2)) - 2]
+            samples.append(dict(
+                img_path=os.path.join(root, "images", img["file_name"]),
+                img_shape=(img["height"], img["width"]),
+                bbox=bbox,
+                joint_img=joint_img.astype(np.float32),
+                joint_vis=np.ones(skel.joint_num, np.float32),
+                root_z=root_z,
+                f=f_,
+                c=c_,
+                action=action,
+            ))
+    return samples
 
 
 def evaluate_h36m(
@@ -83,6 +174,60 @@ def _sample_joint_cam(sample: dict) -> np.ndarray:
     px = ji.copy()
     px[:, 2] = ji[:, 2] + sample["root_z"]
     return geometry.pixel2cam(px, sample["f"], sample["c"])
+
+
+def _keypoint_sample(root_images: str, img: dict, ann: dict, joint_num: int) -> dict:
+    """The sample of one COCO-format keypoint annotation (2D: z = 0)."""
+    kpts = np.asarray(ann["keypoints"], np.float32).reshape(-1, 3)
+    joint_img = np.concatenate([kpts[:, :2], np.zeros((joint_num, 1))], 1)
+    return dict(
+        img_path=os.path.join(root_images, img["file_name"]),
+        img_shape=(img["height"], img["width"]),
+        bbox=np.asarray(ann["bbox"], np.float32),
+        joint_img=joint_img.astype(np.float32),
+        joint_vis=(kpts[:, 2] > 0).astype(np.float32),
+        root_z=0.0,
+        f=np.array([1.0, 1.0], np.float32),
+        c=np.array([0.0, 0.0], np.float32),
+        action="",
+    )
+
+
+def load_mpii(root: str, split: str) -> List[dict]:
+    """COCO-format MPII annotations, ``{root}/annotations/{split}.json``
+    (reference data/MPII/MPII.py); annotations with no visible joint are
+    skipped, and ``head_box`` (x1, y1, x2, y2) is kept where present."""
+    db = COCO(os.path.join(root, "annotations", f"{split}.json"))
+    samples: List[dict] = []
+    for ann_id in db.get_ann_ids():
+        ann = db.anns[ann_id]
+        sample = _keypoint_sample(os.path.join(root, "images"), db.imgs[ann["image_id"]], ann,
+                                  skeletons.MPII.joint_num)
+        if sample["joint_vis"].sum() == 0:
+            continue
+        if "head_box" in ann:
+            sample["head_box"] = np.asarray(ann["head_box"], np.float32)
+        samples.append(sample)
+    return samples
+
+
+def load_mscoco(root: str, split: str) -> List[dict]:
+    """COCO person keypoints, ``{root}/annotations/person_keypoints_{split}.json``
+    with images under ``{root}/images/{split}`` (reference
+    data/MSCOCO/MSCOCO.py); crowd and zero-keypoint annotations are
+    skipped."""
+    db = COCO(os.path.join(root, "annotations", f"person_keypoints_{split}.json"))
+    samples: List[dict] = []
+    for ann_id in db.get_ann_ids():
+        ann = db.anns[ann_id]
+        if ann.get("iscrowd", 0) or ann.get("num_keypoints", 0) == 0:
+            continue
+        sample = _keypoint_sample(os.path.join(root, "images", split), db.imgs[ann["image_id"]], ann,
+                                  skeletons.MSCOCO.joint_num)
+        sample["image_id"] = ann["image_id"]
+        sample["area"] = float(ann.get("area", ann["bbox"][2] * ann["bbox"][3]))
+        samples.append(sample)
+    return samples
 
 
 # Standard MPII PCKh headbox scaling (the official eval's SC_BIAS): the
@@ -290,6 +435,57 @@ def render_synthetic_image(sample: dict, sigma: float = 4.0) -> np.ndarray:
     return np.clip(img, 0, 255).astype(np.uint8)
 
 
+# Bump whenever render_synthetic_image's output changes for the same sample
+# dict: it is part of materialize_synthetic's cache key, so a JPEG from an
+# older renderer is never reused. The JAX package's value, since both
+# packages render the same pixels and name a frame alike.
+_RENDERER_VERSION = 2
+
+_ENCODE_CHUNK = 32  # frames rendered and held at once by materialize_synthetic
+
+
+def _synthetic_key(s: dict, quality: int) -> str:
+    """The JAX package's cache key of a synthetic frame: a hash of what
+    determines its pixels (joints, frame size, JPEG quality, renderer
+    version, hue coding)."""
+    hue_mode = s.get("hue_mode", "index")
+    parts = [
+        np.ascontiguousarray(s["joint_img"], np.float32).tobytes(),
+        bytes(str((tuple(s["img_shape"]), quality, _RENDERER_VERSION, hue_mode)), "ascii"),
+    ]
+    if hue_mode == "semantic":
+        parts += [np.asarray(s["hue_class"], np.int32).tobytes(), np.asarray(s["tilt"], np.float32).tobytes(),
+                  str(s["hue_classes_total"]).encode("ascii")]
+    if "hue_idx" in s:
+        parts += [np.asarray(s["hue_idx"], np.int32).tobytes(), str(s["hue_idx_total"]).encode("ascii")]
+    return hashlib.sha1(b"".join(parts)).hexdigest()[:12]
+
+
+def materialize_synthetic(samples: Sequence[dict], out_dir: str, quality: int = 95,
+                          device="cuda") -> List[dict]:
+    """Write each synthetic sample's rendered frame to
+    ``{out_dir}/synth_{synth_seed}_{key}.jpg`` (the JAX package's names and
+    cache key) and return new sample dicts whose ``img_path`` points at it,
+    so that the loader reads the set as it reads a real one. Files already
+    there are reused. Frames are encoded on ``device`` (``jpeg.encode``:
+    nvJPEG on a CUDA device, cv2 on the CPU), ``_ENCODE_CHUNK`` at a time."""
+    os.makedirs(out_dir, exist_ok=True)
+    paths = [os.path.join(out_dir, f"synth_{s['synth_seed']}_{_synthetic_key(s, quality)}.jpg") for s in samples]
+    todo = [i for i, p in enumerate(paths) if not os.path.exists(p)]
+    for lo in range(0, len(todo), _ENCODE_CHUNK):
+        chunk = todo[lo : lo + _ENCODE_CHUNK]
+        blobs = jpeg.encode([render_synthetic_image(samples[i]) for i in chunk], quality, device)
+        for i, blob in zip(chunk, blobs):
+            tmp = f"{paths[i]}.{os.getpid()}.tmp"
+            with open(tmp, "wb") as f:
+                f.write(blob)
+            os.replace(tmp, paths[i])
+    return [{**s, "img_path": p} for s, p in zip(samples, paths)]
+
+
+_LOADERS = {"Human36M": load_h36m, "MPII": load_mpii, "MSCOCO": load_mscoco}
+
+
 def build_dataset(
     name: str,
     split: str,
@@ -298,27 +494,34 @@ def build_dataset(
     synthetic_size: int = 256,
     hue_skeleton: Optional[skeletons.Skeleton] = None,
 ) -> PoseDataset:
-    """The ``name`` dataset's ``split``. Only ``data_root="synthetic"`` is
-    ported: ``synthetic_size`` samples seeded by crc32 of ``name/split``
-    (the JAX package's seed, stable across processes), rendered in
+    """The ``name`` dataset's ``split``, as the JAX package builds it.
+    ``data_root`` is the root of every dataset name (default
+    ``data/{name}``); a root that does not exist raises
+    ``FileNotFoundError``. Human3.6M takes ``cfg.eval.protocol``'s
+    subjects. ``data_root="synthetic"``: ``synthetic_size`` samples seeded
+    by crc32 of ``name/split`` (stable across processes), rendered in
     ``hue_skeleton``'s hue space when the joint names allow it (else a
-    warning and per-dataset hues). Any other root raises: there is no real
-    dataset loader in the port."""
+    warning and per-dataset hues)."""
     skel = skeletons.get_skeleton(name)
-    if data_root != "synthetic":
-        raise ValueError(
-            f"data_root {data_root!r}: ihpr_tpu_torch has no real-dataset loader; "
-            "use data_root='synthetic' (--synthetic)"
+    root = data_root or os.path.join("data", name)
+    if data_root == "synthetic":
+        seed = zlib.crc32(f"{name}/{split}".encode()) % 2**31
+        try:
+            samples = make_synthetic(skel, synthetic_size, seed=seed, hue_skeleton=hue_skeleton)
+        except ValueError as err:
+            warnings.warn(
+                f"synthetic {name}: hue_skeleton unification failed ({err}); falling back "
+                "to per-dataset index hues (joint identity will be coded differently "
+                "across the mixed trainset)"
+            )
+            samples = make_synthetic(skel, synthetic_size, seed=seed)
+    elif not os.path.exists(root):
+        raise FileNotFoundError(
+            f"dataset root {root!r} does not exist; pass --data_root pointing at the {name} "
+            "release, or --synthetic / data_root='synthetic' for blob data"
         )
-    del cfg  # real loaders read cfg.eval.protocol; the synthetic one needs nothing
-    seed = zlib.crc32(f"{name}/{split}".encode()) % 2**31
-    try:
-        samples = make_synthetic(skel, synthetic_size, seed=seed, hue_skeleton=hue_skeleton)
-    except ValueError as err:
-        warnings.warn(
-            f"synthetic {name}: hue_skeleton unification failed ({err}); falling back "
-            "to per-dataset index hues (joint identity will be coded differently "
-            "across the mixed trainset)"
-        )
-        samples = make_synthetic(skel, synthetic_size, seed=seed)
+    elif name == "Human36M":
+        samples = load_h36m(root, split, cfg.eval.protocol)
+    else:
+        samples = _LOADERS[name](root, split)
     return PoseDataset(name=name, skeleton=skel, samples=samples, is_train=split == "train")

@@ -13,6 +13,16 @@ the device. Counterpart of ``ihpr_tpu.data.pipeline``.
   only for people larger than ``canvas_px / span``), and the train and eval
   steps warp and augment on the device (``data/augment.py:make_patch_batch``).
 
+A sample with an ``img_path`` is read from its file: the batch's files are
+read on the loader's threads and decoded together on the loader's
+``device`` (``data/jpeg.py``: nvJPEG on a CUDA device, cv2 on the CPU),
+then copied back to the host for the warp or the canvas crop. On a CUDA
+device the decode and the copy back run on a stream of their own, and the
+loader waits for that stream alone, so a batch's decode does not queue
+behind the train or eval step in flight on PyTorch's current stream. Images are
+RGB, as in the JAX package (PARITY.md deviation #4). A synthetic sample
+(no ``img_path``) is rendered.
+
 In evaluation (``train=False``) there is no shuffle and no augmentation.
 The draws, affines and joint transforms are the JAX package's, so both
 loaders give the same batches for the same seed and datasets.
@@ -28,7 +38,9 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures as cf
+import contextlib
 import dataclasses
+import functools
 import itertools
 import logging
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
@@ -37,7 +49,7 @@ import numpy as np
 import torch
 
 from ihpr_tpu_torch.config import Config
-from ihpr_tpu_torch.data import native, skeletons
+from ihpr_tpu_torch.data import jpeg, native, skeletons
 from ihpr_tpu_torch.data.datasets import PoseDataset, render_synthetic_image
 from ihpr_tpu_torch.data.geometry import process_bbox
 from ihpr_tpu_torch.data.warp import gen_trans_np
@@ -45,11 +57,53 @@ from ihpr_tpu_torch.data.warp import gen_trans_np
 _log = logging.getLogger(__name__)
 
 
-def _load_image(sample: dict) -> np.ndarray:
-    """RGB uint8 image of a synthetic sample (the port has no image decoder)."""
-    if sample.get("img_path") is not None:
-        raise ValueError(f"{sample['img_path']}: real images are not ported; synthetic samples only")
-    return render_synthetic_image(sample)
+def _read_bytes(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def _to_host(images: Sequence[torch.Tensor]) -> List[np.ndarray]:
+    """Tensors -> numpy arrays on the host. CUDA tensors are copied into one
+    pinned buffer, one asynchronous copy each on the current stream, which
+    is then waited for once (a pageable copy each ran at about 1 GB/s on an
+    H100 host, PERF.md)."""
+    if not images or images[0].device.type == "cpu":
+        return [im.numpy() for im in images]
+    buf = torch.empty(sum(im.numel() for im in images), dtype=torch.uint8, pin_memory=True)
+    out, off = [], 0
+    for im in images:
+        dst = buf[off : off + im.numel()].view(im.shape)
+        dst.copy_(im, non_blocking=True)
+        out.append(dst.numpy())
+        off += im.numel()
+    torch.cuda.current_stream(images[0].device).synchronize()
+    return out
+
+
+@functools.cache
+def _decode_stream(device: torch.device) -> torch.cuda.Stream:
+    """The loader's stream on a CUDA device, for the decode and the copy
+    back (one a device, made on first use)."""
+    return torch.cuda.Stream(device)
+
+
+def _load_images(samples: Sequence[dict], device, map_fn=map) -> List[np.ndarray]:
+    """RGB (H, W, 3) uint8 host images of ``samples``: the files of those
+    with an ``img_path`` read, decoded together on ``device`` and brought
+    back to the host; the others rendered. On a CUDA device the decode and
+    the copy back run on ``_decode_stream``. Reads and renders go through
+    ``map_fn`` (the loader passes its thread pool's map)."""
+    files = [s.get("img_path") is not None for s in samples]
+    paths = [s["img_path"] for s, f in zip(samples, files) if f]
+    blobs = list(map_fn(_read_bytes, paths))
+    device = torch.device(device)
+    on_card = device.type == "cuda" and bool(blobs)
+    if on_card and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    with torch.cuda.stream(_decode_stream(device)) if on_card else contextlib.nullcontext():
+        decoded = iter(_to_host(jpeg.decode(blobs, device, paths)))
+    rendered = iter(list(map_fn(render_synthetic_image, [s for s, f in zip(samples, files) if not f])))
+    return [next(decoded) if f else next(rendered) for f in files]
 
 
 def _resize_linear(img: np.ndarray, size: int) -> np.ndarray:
@@ -147,7 +201,7 @@ class BatchLoader:
 
     ``host_warp``: yield ``WarpedHostBatch`` (True) or ``HostBatch`` canvases
     of ``canvas_px`` (False); None takes the host warp where the native
-    library is available."""
+    library is available. ``device`` decodes the samples' image files."""
 
     def __init__(
         self,
@@ -162,6 +216,7 @@ class BatchLoader:
         host_warp: Optional[bool] = None,
         rank: int = 0,
         world: int = 1,
+        device="cuda",
     ):
         if batch_size % world:
             raise ValueError(f"global batch {batch_size} is not a multiple of the {world} ranks")
@@ -174,6 +229,7 @@ class BatchLoader:
         self.seed = seed
         self.drop_last = train if drop_last is None else drop_last
         self.rank, self.world = rank, world
+        self.device = torch.device(device)
         if host_warp is None:
             host_warp = native.available()
             if not host_warp:
@@ -244,14 +300,16 @@ class BatchLoader:
                 sel = np.concatenate([sel, np.full(bs - len(sel), sel[-1])])
             yield sel[self.rank * local : (self.rank + 1) * local]
 
-    def _load_entry_image(self, entry) -> np.ndarray:
-        di, si, _ = entry
-        return _load_image(self.datasets[di].samples[si])
-
     def _map(self, fn, entries) -> list:
         if self._pool is not None:
             return list(self._pool.map(fn, entries))
         return [fn(e) for e in entries]
+
+    def _load_entry_images(self, entries) -> List[np.ndarray]:
+        """The host images of index entries, the batch's files read on the
+        pool and decoded on ``self.device`` in one call."""
+        samples = [self.datasets[di].samples[si] for di, si, _ in entries]
+        return _load_images(samples, self.device, self._map)
 
     def epoch(
         self, epoch_idx: int = 0, max_steps: Optional[int] = None
@@ -260,14 +318,14 @@ class BatchLoader:
         it = self._epoch_host_warp(epoch_idx) if self.host_warp else self._epoch_full(epoch_idx)
         yield from itertools.islice(it, max_steps)
 
-    def _build_sample(self, entry):
-        """(canvas, origin, scale) of one index entry."""
-        return extract_canvas(self._load_entry_image(entry), entry[2], self.canvas_px, self.span)
-
     def _epoch_full(self, epoch_idx: int) -> Iterator[HostBatch]:
         u_joints, u_vis, u_hd, u_bbox = self._unified
         for sel in self._batch_selection(epoch_idx):
-            canvas, origin, cscale = zip(*self._map(self._build_sample, [self.index[i] for i in sel]))
+            entries = [self.index[i] for i in sel]
+            images = self._load_entry_images(entries)
+            canvas, origin, cscale = zip(*self._map(
+                lambda k: extract_canvas(images[k], entries[k][2], self.canvas_px, self.span), range(len(sel))
+            ))
             yield HostBatch(
                 canvas=np.stack(canvas),
                 canvas_origin=np.stack(origin),
@@ -316,8 +374,7 @@ class BatchLoader:
             c_x = np.where(flips, img_w - 1.0 - c_x, c_x)  # reference flip
             invs = gen_trans_np(c_x, c_y, bbox[:, 2], bbox[:, 3], in_w, in_h, scale, rot, inv=True)
             fwds = gen_trans_np(c_x, c_y, bbox[:, 2], bbox[:, 3], in_w, in_h, scale, rot)
-            images = self._map(self._load_entry_image, entries)
-            patches = native.warp_batch(images, invs, flips, in_h, in_w)
+            patches = native.warp_batch(self._load_entry_images(entries), invs, flips, in_h, in_w)
 
             # Joints: flip (x mirror + pair swap), patch affine, voxels.
             joints = u_joints[sel]

@@ -93,8 +93,8 @@ class Tester:
         device="cuda",
     ):
         """``dataset``: the test set, or None to build ``cfg.data.testset``
-        from ``data_root`` (only "synthetic" is ported; ``synthetic_size``
-        samples). ``state``: the trainer's ``TrainState`` or a ``PoseNet``,
+        from ``data_root`` (``datasets.build_dataset``; ``synthetic_size``
+        samples of a synthetic root). ``state``: the trainer's ``TrainState`` or a ``PoseNet``,
         or None to load snapshot ``test_epoch`` (default: the latest) from
         ``cfg.output_dir``. The Tester evaluates a frozen copy
         (``pose_net.inference_copy``) on ``device``."""
@@ -107,7 +107,7 @@ class Tester:
         self.dataset = dataset
         self.loader = BatchLoader(
             [dataset], cfg, cfg.eval.batch_size_per_device * self.dp.world, train=False,
-            num_workers=num_workers, rank=self.dp.rank, world=self.dp.world,
+            num_workers=num_workers, rank=self.dp.rank, world=self.dp.world, device=self.device,
         )
         if state is None:
             state_dict, epoch = load_snapshot(cfg.output_dir, test_epoch)

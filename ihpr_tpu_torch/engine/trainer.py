@@ -1,7 +1,7 @@
 """Trainer: the epoch loop wiring data -> train step -> snapshots, counterpart
 of ``ihpr_tpu.engine.trainer``.
 
-Builds the train datasets (synthetic only in the port), the ``BatchLoader``
+Builds the train datasets (from ``data_root``), the ``BatchLoader``
 (host-warped patches where the native warp library is available, else
 canvases warped on the device, as JAX's), a trainable ``PoseNet`` and its optimizer, then runs
 epochs of ``make_train_step``: the full-metrics step at log points, the
@@ -40,6 +40,7 @@ from ihpr_tpu_torch.data.pipeline import BatchLoader, prefetch_to_device
 from ihpr_tpu_torch.engine.checkpoint import CheckpointManager
 from ihpr_tpu_torch.engine.logger import colorlogger
 from ihpr_tpu_torch.models.pose_net import build_pose_net
+from ihpr_tpu_torch.models.pretrained import load_backbone
 from ihpr_tpu_torch.parallel.mesh import all_gather_rows, any_rank, barrier, comm_device, data_parallel
 from ihpr_tpu_torch.parallel.train_step import (
     TrainState,
@@ -89,7 +90,7 @@ class Trainer:
             ]
         self.batch_size = cfg.optim.batch_size_per_device * self.dp.world  # the global batch
         self.loader = BatchLoader(datasets, cfg, self.batch_size, num_workers=num_workers, seed=cfg.seed,
-                                  rank=self.dp.rank, world=self.dp.world)
+                                  rank=self.dp.rank, world=self.dp.world, device=self.device)
         self.steps_per_epoch = len(self.loader)
         self.logger.info(
             "train: %d samples (%s), global batch %d on %d rank(s), %d steps/epoch, on %s",
@@ -153,6 +154,16 @@ class Trainer:
         step = self.state.step
         self._make_steps()
         self.state.step = step
+
+    def load_pretrained_backbone(self, path: str):
+        """Replace the backbone's parameters and BN statistics, and nothing
+        else, with ImageNet weights (JAX ``Trainer.load_pretrained_backbone``;
+        the reference downloads them from the model zoo). ``path``: a
+        torchvision ResNet ``state_dict`` (``.pth`` / ``.pt``) or the flax
+        msgpack of ``tools/convert_torch_ckpt.py --kind backbone`` (any other
+        name); see ``models/pretrained.py``."""
+        load_backbone(self.model.backbone, path)
+        self.logger.info("loaded pretrained backbone from %s", path)
 
     def close(self):
         self.loader.close()

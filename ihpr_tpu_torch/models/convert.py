@@ -69,11 +69,10 @@ def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(np.asarray(a, np.float32)))
 
 
-def from_jax_params(
-    params: Mapping, batch_stats: Mapping, cfg: Config
-) -> Dict[str, torch.Tensor]:
-    """JAX PoseNet ``params`` / ``batch_stats`` (nested dicts of arrays) ->
-    the port's fp32 PoseNet ``state_dict``."""
+def jax_tree_to_state_dict(prefix: str, params: Mapping, batch_stats: Mapping) -> Dict[str, torch.Tensor]:
+    """A JAX module's ``params`` / ``batch_stats`` subtree -> fp32 tensors
+    under the port's names, each prefixed with ``prefix`` (the layout map
+    of the module docstring)."""
     sd: Dict[str, torch.Tensor] = {}
 
     def walk(prefix: str, p: Mapping, s: Mapping):
@@ -96,18 +95,34 @@ def from_jax_params(
             else:
                 walk(key + ".", sub, s.get(name, {}))
 
-    stem = np.asarray(params["backbone"]["conv1"]["kernel"])
+    walk(prefix, params, batch_stats)
+    return sd
+
+
+def check_stem(backbone_params: Mapping):
+    """Raise unless the JAX stem kernel is the 7x7x3 layout (the
+    space-to-depth stem is not ported)."""
+    stem = np.asarray(backbone_params["conv1"]["kernel"])
     if stem.shape[:3] != (7, 7, 3):
         raise ValueError(f"stem kernel {stem.shape} is not 7x7x3 (s2d_stem is not ported)")
+
+
+def from_jax_params(
+    params: Mapping, batch_stats: Mapping, cfg: Config
+) -> Dict[str, torch.Tensor]:
+    """JAX PoseNet ``params`` / ``batch_stats`` (nested dicts of arrays) ->
+    the port's fp32 PoseNet ``state_dict``."""
+    check_stem(params["backbone"])
     _, depths, _ = RESNET_SPECS[cfg.model.resnet_type]
     blocks = [k for k in params["backbone"] if k.startswith("layer")]
     if len(blocks) != sum(depths):
         raise ValueError(
             f"{len(blocks)} residual blocks in params, ResNet-{cfg.model.resnet_type} has {sum(depths)}"
         )
-    walk("backbone.", params["backbone"], batch_stats["backbone"])
-    walk("head.", params["head"], batch_stats["head"])
-    return sd
+    return {
+        **jax_tree_to_state_dict("backbone.", params["backbone"], batch_stats["backbone"]),
+        **jax_tree_to_state_dict("head.", params["head"], batch_stats["head"]),
+    }
 
 
 def _optax_states(tree):

@@ -8,6 +8,11 @@ newer than the library; it writes a
 temporary file and renames it into place, so concurrent builders never
 load a half-written library. ``nvcc``'s ``-Xptxas -v`` report (registers,
 shared memory, spills) is kept beside the library as ``lib<name>.log``.
+
+A source that calls a library of the CUDA toolkit names it in ``_LIBS``
+(``nvjpeg_codec``: nvJPEG). The build looks for it beside ``nvcc``, links
+it with that directory as the run path, and raises, naming the directories
+it searched, where the toolkit does not have it.
 """
 
 from __future__ import annotations
@@ -27,6 +32,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-lineinfo", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+# Toolkit libraries a source links, by source name.
+_LIBS = {"nvjpeg_codec": ("nvjpeg",)}
 
 
 def nvcc() -> str:
@@ -34,6 +41,21 @@ def nvcc() -> str:
     if not os.path.exists(path):
         raise RuntimeError("nvcc not found (PATH, /usr/local/cuda/bin): cannot build the CUDA kernels")
     return path
+
+
+def _link_flags(name: str) -> list:
+    """``-L``, run path and ``-l`` flags for the toolkit libraries ``name``
+    links; RuntimeError where one is not in the toolkit's library
+    directories."""
+    toolkit = Path(nvcc()).resolve().parents[1]
+    dirs = [toolkit / "lib64", toolkit / "targets" / "x86_64-linux" / "lib"]
+    flags = []
+    for lib in _LIBS.get(name, ()):
+        found = next((d for d in dirs if any(d.glob(f"lib{lib}.so*"))), None)
+        if found is None:
+            raise RuntimeError(f"lib{lib}.so not found in {', '.join(map(str, dirs))}: cannot build {name}")
+        flags += [f"-L{found}", "-Xlinker", f"-rpath={found}", f"-l{lib}"]
+    return flags
 
 
 def build(name: str) -> Path:
@@ -44,10 +66,11 @@ def build(name: str) -> Path:
     newest = max(p.stat().st_mtime for p in (src, *CSRC.glob("*.cuh")))
     if lib.exists() and lib.stat().st_mtime >= newest:
         return lib
+    link = _link_flags(name)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
     proc = subprocess.run(
-        [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)], capture_output=True, text=True
+        [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src), *link], capture_output=True, text=True
     )
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)

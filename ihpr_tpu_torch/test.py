@@ -1,6 +1,7 @@
 """Evaluation CLI of the port, counterpart of the repository's ``test.py``.
 
-    python -m ihpr_tpu_torch.test --config h36m3d_r50 --synthetic [--test_epoch N] [--output_dir D]
+    python -m ihpr_tpu_torch.test --config h36m3d_r50 --data_root /data/root [--test_epoch N] [--output_dir D]
+    python -m ihpr_tpu_torch.test --config h36m3d_r50 --synthetic
 
 evaluates snapshot N (default: the latest) of the run in ``output_dir``
 (default: the config's) on the config's test set, with flip-test, on one
@@ -8,9 +9,11 @@ CUDA device (``--device``), prints the metrics and writes them, the
 predictions and the reference's result files to ``{output_dir}/result``.
 With ``--multihost`` (under torchrun, as the train CLI) each rank scores
 its rows of each global batch, every rank prints the gathered metrics and
-rank 0 writes the files. Only synthetic data is ported
-(``--synthetic_size`` samples). The flags of ``test.py`` that the port does
-not have (``--vis``, ``--spatial``) are rejected.
+rank 0 writes the files. ``--data_root`` is the test set's root in the
+reference's file layout (default ``data/<name>``), its JPEGs decoded on the
+device; ``--synthetic`` evaluates ``--synthetic_size`` rendered samples.
+The flags of ``test.py`` that the port does not have (``--vis``,
+``--spatial``) are rejected.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ _UNPORTED = {"vis": "--vis", "spatial": "--spatial"}
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--config", default="h36m3d_r50")
-    ap.add_argument("--data_root", default=None, help="only 'synthetic' is ported")
+    ap.add_argument("--data_root", default=None, help="dataset root directory (default data/<name>)")
     ap.add_argument("--synthetic", action="store_true", help="evaluate on synthetic data")
     ap.add_argument("--test_epoch", type=int, default=None, help="snapshot epoch (default: latest)")
     ap.add_argument("--synthetic_size", type=int, default=128)
@@ -44,8 +47,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     given = [flag for dest, flag in _UNPORTED.items() if getattr(args, dest) not in (None, False)]
     if given:
         ap.error(f"{', '.join(given)}: not ported to ihpr_tpu_torch")
-    if not args.synthetic and args.data_root != "synthetic":
-        ap.error("only synthetic data is ported: pass --synthetic")
     return args
 
 
@@ -66,7 +67,8 @@ def main(argv=None):
         device = mesh.init_process_group(torch.device(args.device).type)
     try:
         tester = Tester(
-            cfg, test_epoch=args.test_epoch, data_root="synthetic", num_workers=args.num_workers,
+            cfg, test_epoch=args.test_epoch, data_root="synthetic" if args.synthetic else args.data_root,
+            num_workers=args.num_workers,
             synthetic_size=args.synthetic_size, device=device,
         )
         try:

@@ -13,7 +13,6 @@ directory of scripts there, not a package).
   (``engine/export.py``) plus its JSON sidecar.
 - ``serving_bench``: ``PoseServer``'s request latency and sustained rate
   (patch stream, native warp, exported artifact, ``predict_stream``).
-
 Each runs on the card by default and on the CPU (plain versions, host
 clock) with ``--device cpu``:
 
@@ -21,6 +20,11 @@ clock) with ``--device cpu``:
     python -m ihpr_tpu_torch.tools.mxu_int8_probe [--iters 30] [--device cuda] [--check]
     python -m ihpr_tpu_torch.tools.export_artifact --config C --snapshot_dir D --out F [--device cuda]
     python -m ihpr_tpu_torch.tools.serving_bench [--config h36m3d_r50] [--max_batch 32] [--chunks 24] [--device cuda]
+
+``synthetic_root`` has no command line: its functions write a dataset root
+in the reference's file layouts (Human3.6M, MPII) from synthetic samples,
+its JPEGs encoded on the device, and a seeded torchvision ResNet ``.pth``,
+for runs of the real-data path without a dataset or ImageNet weights.
 
 Importing a tool touches no CUDA state and parses no arguments.
 """

@@ -1,5 +1,6 @@
 """Training CLI of the port, counterpart of the repository's ``train.py``.
 
+    python -m ihpr_tpu_torch.train --config h36m3d_r50 --data_root /data/root --pretrained resnet50.pth
     python -m ihpr_tpu_torch.train --config h36m3d_r50 --synthetic --steps 20 --end_epoch 1
     python -m ihpr_tpu_torch.train --config h36m3d_r50 --synthetic --continue
     python -m torch.distributed.run --standalone --nproc_per_node N -m ihpr_tpu_torch.train \
@@ -17,8 +18,13 @@ the Adam moments over the ranks (ZeRO-1). ``--steps 20`` caps each epoch at
 memory the run snapshots and exits with code 75 for a ``--continue``
 relaunch; SIGTERM exits with 143 after the snapshot in flight is written.
 ``--profile_dir`` writes a ``torch.profiler`` trace of steps 20-24 of the
-first epoch. Only synthetic data is ported. The flags of ``train.py`` that
-the port does not have (``--pretrained``, ``--spatial``) are rejected.
+first epoch. ``--data_root`` is the root of every train set, in the
+reference's file layouts (default ``data/<name>``; ``datasets.build_dataset``),
+and its JPEGs are decoded on the device (nvJPEG on a CUDA device);
+``--synthetic`` trains on rendered blobs instead. ``--pretrained`` loads an
+ImageNet backbone, a torchvision ``.pth`` or the flax msgpack of
+``tools/convert_torch_ckpt.py`` (``models/pretrained.py``). ``train.py``'s
+``--spatial`` is not ported and is rejected.
 """
 
 from __future__ import annotations
@@ -31,13 +37,13 @@ import torch
 
 from ihpr_tpu_torch.utils.shutdown import install_graceful_shutdown
 
-_UNPORTED = {"pretrained": "--pretrained", "spatial": "--spatial"}
+_UNPORTED = {"spatial": "--spatial"}
 
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--config", default="h36m3d_r50")
-    ap.add_argument("--data_root", default=None, help="only 'synthetic' is ported")
+    ap.add_argument("--data_root", default=None, help="dataset root directory (default data/<name>)")
     ap.add_argument("--trainset", default=None,
                     help="comma-separated dataset override, e.g. Human36M or Human36M,MPII")
     ap.add_argument("--no_aug", action="store_true", help="disable augmentation")
@@ -61,15 +67,14 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="join the process group torchrun describes (data-parallel, one rank a process)")
     ap.add_argument("--shard_opt_state", action="store_true",
                     help="ZeRO-1: shard the Adam moments over the ranks")
-    # train.py's flags that the port does not have: accepted, then refused.
-    ap.add_argument("--pretrained", default=None)
+    ap.add_argument("--pretrained", default=None,
+                    help="ImageNet backbone: a torchvision .pth, or convert_torch_ckpt.py's msgpack")
+    # train.py's flag that the port does not have: accepted, then refused.
     ap.add_argument("--spatial", type=int, default=None)
     args = ap.parse_args(argv)
     given = [flag for dest, flag in _UNPORTED.items() if getattr(args, dest) not in (None, False)]
     if given:
         ap.error(f"{', '.join(given)}: not ported to ihpr_tpu_torch")
-    if not args.synthetic and args.data_root != "synthetic":
-        ap.error("only synthetic data is ported: pass --synthetic")
     return args
 
 
@@ -106,12 +111,14 @@ def _train(args, cfg, device):
     if args.shard_opt_state:
         cfg = cfg.replace(parallel=dataclasses.replace(cfg.parallel, shard_opt_state=True))
     trainer = Trainer(
-        cfg, data_root="synthetic", continue_train=args.continue_train,
+        cfg, data_root="synthetic" if args.synthetic else args.data_root, continue_train=args.continue_train,
         num_workers=args.num_workers, synthetic_size=args.synthetic_size,
         rss_limit_mb=args.rss_limit_mb, rss_check_interval_steps=args.rss_check_steps,
         device=device,
     )
     try:
+        if args.pretrained:
+            trainer.load_pretrained_backbone(args.pretrained)
         if args.steps is not None:
             # After a restore this restarts Adam, as JAX's train.py does.
             trainer.cap_steps_per_epoch(args.steps)

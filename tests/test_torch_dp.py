@@ -605,14 +605,13 @@ def test_cli_multihost_under_torchrun(tmp_path):
 
 
 def test_cli_flags_ported_and_refused():
-    """--multihost and --shard_opt_state are ported; --spatial and
-    --pretrained (train) and --vis and --spatial (test) are still refused."""
-    args = train_cli.parse_args(["--synthetic", "--multihost", "--shard_opt_state"])
-    assert args.multihost and args.shard_opt_state
+    """--multihost, --shard_opt_state and --pretrained (train) are ported;
+    --spatial (train) and --vis and --spatial (test) are still refused."""
+    args = train_cli.parse_args(["--synthetic", "--multihost", "--shard_opt_state", "--pretrained", "x.msgpack"])
+    assert args.multihost and args.shard_opt_state and args.pretrained == "x.msgpack"
     assert test_cli.parse_args(["--synthetic", "--multihost"]).multihost
-    for flag in (["--pretrained", "x.msgpack"], ["--spatial", "2"]):
-        with pytest.raises(SystemExit):
-            train_cli.parse_args(["--synthetic", *flag])
+    with pytest.raises(SystemExit):
+        train_cli.parse_args(["--synthetic", "--spatial", "2"])
     for flag in (["--vis"], ["--spatial", "2"]):
         with pytest.raises(SystemExit):
             test_cli.parse_args(["--synthetic", *flag])

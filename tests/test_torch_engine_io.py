@@ -240,9 +240,9 @@ def test_steps_without_end_epoch_hands_train_what_jax_does(tmp_path, monkeypatch
 
 def test_cli_flags_ported_and_refused():
     """train accepts --continue, --output_dir, --profile_dir, --rss_limit_mb,
-    --rss_check_steps, --multihost and --shard_opt_state, and still refuses
-    --pretrained and --spatial; test accepts --multihost and refuses --vis
-    and --spatial; both refuse a real --data_root."""
+    --rss_check_steps, --multihost, --shard_opt_state and --pretrained, and
+    still refuses --spatial; test accepts --multihost and refuses --vis and
+    --spatial; both accept a real --data_root."""
     args = train_cli.parse_args([
         "--synthetic", "--continue", "--output_dir", "o", "--profile_dir", "p",
         "--rss_limit_mb", "0", "--rss_check_steps", "5",
@@ -250,9 +250,9 @@ def test_cli_flags_ported_and_refused():
     assert (args.continue_train, args.output_dir, args.profile_dir) == (True, "o", "p")
     assert (args.rss_limit_mb, args.rss_check_steps) == (0.0, 5)
     assert train_cli.parse_args(["--synthetic"]).rss_check_steps == 100
-    for flag in (["--pretrained", "x.msgpack"], ["--spatial", "2"]):
-        with pytest.raises(SystemExit):
-            train_cli.parse_args(["--synthetic", *flag])
+    assert train_cli.parse_args(["--synthetic", "--pretrained", "x.msgpack"]).pretrained == "x.msgpack"
+    with pytest.raises(SystemExit):
+        train_cli.parse_args(["--synthetic", "--spatial", "2"])
     args = train_cli.parse_args(["--synthetic", "--multihost", "--shard_opt_state"])
     assert args.multihost and args.shard_opt_state
     args = test_cli.parse_args(["--synthetic", "--test_epoch", "3", "--output_dir", "o"])
@@ -262,8 +262,8 @@ def test_cli_flags_ported_and_refused():
         with pytest.raises(SystemExit):
             test_cli.parse_args(["--synthetic", *flag])
     for cli in (train_cli, test_cli):
-        with pytest.raises(SystemExit):
-            cli.parse_args(["--data_root", "/data/Human36M"])
+        args = cli.parse_args(["--data_root", "/data/Human36M"])
+        assert (args.data_root, args.synthetic) == ("/data/Human36M", False)
 
 
 def test_rss_preempt_exit_code_reaches_the_shell(tmp_path):

@@ -27,6 +27,8 @@ def test_port_imports_no_jax():
     assert int(count) >= 15, proc.stdout  # every module was found and imported
     for name in ("ihpr_tpu_torch.engine.export", "ihpr_tpu_torch.tools.export_artifact",
                  "ihpr_tpu_torch.parallel.mesh", "ihpr_tpu_torch.parallel.launch",
-                 "ihpr_tpu_torch.tools.serving_bench"):
+                 "ihpr_tpu_torch.tools.serving_bench", "ihpr_tpu_torch.data.jpeg",
+                 "ihpr_tpu_torch.models.pretrained", "ihpr_tpu_torch.utils.msgpack",
+                 "ihpr_tpu_torch.tools.synthetic_root"):
         assert name in names.split(","), name
     assert leaked == "[]", leaked

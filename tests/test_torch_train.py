@@ -509,8 +509,9 @@ def test_synthetic_datasets_match_jax():
             np.testing.assert_array_equal(
                 datasets.render_synthetic_image(a), jdatasets.render_synthetic_image(b)
             )
-    with pytest.raises(ValueError, match="synthetic"):
-        datasets.build_dataset("Human36M", "train", cfg, "data/Human36M")
+    for build, c in ((datasets.build_dataset, cfg), (jdatasets.build_dataset, jcfg)):
+        with pytest.raises(FileNotFoundError, match="synthetic"):  # a real root that is not there
+            build("Human36M", "train", c, "no/such/root")
 
 
 def test_batch_loader_matches_jax():
@@ -606,14 +607,14 @@ def test_trainer_logs_the_jax_learning_rate_at_a_decay_boundary(caplog, tmp_path
 
 
 def test_train_cli_rejects_what_is_not_ported():
-    """--pretrained and --spatial are refused; --multihost and
-    --shard_opt_state are ported (tests/test_torch_dp.py runs them)."""
+    """--spatial is refused; --pretrained, a real --data_root, --multihost
+    and --shard_opt_state are ported (tests/test_torch_dp.py runs the last
+    two, tests/test_torch_datasets.py the first two)."""
     args = train_cli.parse_args(["--config", "h36m3d_r50", "--synthetic", "--steps", "3"])
     assert args.steps == 3 and args.synthetic
-    for flag in (["--pretrained", "x.msgpack"], ["--spatial", "2"]):
-        with pytest.raises(SystemExit):
-            train_cli.parse_args(["--synthetic", *flag])
+    with pytest.raises(SystemExit):
+        train_cli.parse_args(["--synthetic", "--spatial", "2"])
+    assert train_cli.parse_args(["--synthetic", "--pretrained", "x.msgpack"]).pretrained == "x.msgpack"
     for flag in ("--multihost", "--shard_opt_state"):
         assert getattr(train_cli.parse_args(["--synthetic", flag]), flag[2:])
-    with pytest.raises(SystemExit):
-        train_cli.parse_args(["--data_root", "/data/Human36M"])
+    assert train_cli.parse_args(["--data_root", "/data/Human36M"]).data_root == "/data/Human36M"
