@@ -119,6 +119,17 @@
    seeded torchvision ResNet-50 .pth), K1/K2 counted in the subprocess;
    the test CLI on its test split (K1 counted), its coordinates against the
    same frames rendered without JPEG.
+7i. Spatial partitioning of h36m3d_r50 at full width and depth, cut to
+   batch 32 a data index, on ranks that time-share the one card over gloo
+   (spatial_phase): S = 2, D = 1, (a) the flip-test eval step against one
+   process (fp32 "highest" 2e-3 voxel; bf16 within twice one process's
+   bf16 distance from fp32), K3/K4 against plain on a rank's rows'
+   logits, (b) 3 Trainer steps (the first loss against a 1-process
+   Trainer's, K3 and K4 once a step a rank, K1/K2 never, ms a step, the
+   halo exchanges' host share and bytes, peak memory), (c)
+   PoseServer(partition="spatial") on 40 patches against one process's
+   server; D = 2 x S = 2 on four ranks, (d) one step in bf16 and fp32
+   against one process. The ranks' K3/K4 launches join the kernels line.
 8. The heatmap-logits path: h36m3d_r50 at batch 128 takes an optimizer
    step through model(x) -> soft_argmax_from_heatmap -> loss (K3 forward,
    K4 backward), coords and dv against plain on the same logits, device ms
@@ -148,7 +159,9 @@ In 6-12 (7a: its resumed training, the snapshot Tester and server; 7c:
 its serving and its training, each counted on its own; 7d: each rank's
 steps, fused step and Tester, counted in the rank; 7e: each rank's serving;
 7f: the train steps, the Tester and the server, each on its own; 7h: the
-train and test CLIs, counted in their subprocesses, and the Tester) the
+train and test CLIs, counted in their subprocesses, and the Tester; 7i:
+each rank's eval steps, Trainer steps, server and grid step, counted in
+the rank) the
 kernels' launch counters are set to 0 just before the path
 runs and read just after (in 11-12 the path is the tool's main); each kernel of the path must have launched as
 often as the path dispatched it, and the others not at all. Outputs are
@@ -161,7 +174,8 @@ non-zero; so does a host without CUDA.
     python3 chip_smoke.py --only bn fused
 
 builds the kernels and runs only the named phases (bn: 5c; fused: 7b; dp:
-7d; dp-serve: 7e; device-warp: 7f; serving-bench: 7g; real-data: 7h), for timing one tree's K5-K8 against another's (copy this file into a
+7d; dp-serve: 7e; device-warp: 7f; serving-bench: 7g; real-data: 7h;
+spatial: 7i), for timing one tree's K5-K8 against another's (copy this file into a
 checkout of the other tree and run it there) or trying one phase. It
 prints no JSON lines.
 """
@@ -3261,10 +3275,382 @@ def real_data_phase(fhi, gpu: str):
     return rep["k1"] + rep["rate_k1"] + rep_t["k1"] + k1_plain, rep["k2"] + rep["rate_k2"]
 
 
+# --- 7i: spatial partitioning ---------------------------------------------------
+
+SP_RANKS = 2  # (a)-(c): S = 2, D = 1, two ranks on the one card over gloo
+SP_GRID4 = (4, 2)  # (d): four ranks, D = 2 x S = 2
+SP_BATCH = 32  # h36m3d_r50 cut to batch 32 a data index
+SP_STEPS = 3  # counted Trainer steps of (b)
+SP_SIZE = 96  # synthetic samples per train set of (b)'s Trainers: 192, 6 batches of 32
+SP_PATCHES = 40  # (c): two dispatches of max_batch 32, the second padded
+TOL_SP_FP32 = 2e-3  # (a) the fp32 "highest" flip-test eval step on the grid vs one process, voxel
+TOL_SP_LOSS = 1e-3  # (b) the first bf16 step's loss on the grid vs one process's, relative (as TOL_DP_LOSS)
+# bf16 coords on the grid against one process's bf16: within twice one
+# process's own bf16 distance from fp32 (the rule of ROADMAP.md Traps for two
+# bf16 paths): half-height bf16 convs are other cuDNN calls and round otherwise.
+TOL_SP_BF16 = 2.0
+
+
+def _sp_cfg(out: str, spatial: int = 1, fp32: bool = False):
+    """h36m3d_r50 at batch SP_BATCH a data index, on a grid of ``spatial``;
+    with ``fp32`` in fp32 "highest"."""
+    from ihpr_tpu_torch.config import get_config
+
+    cfg = get_config("h36m3d_r50").replace(output_dir=out)
+    model = dataclasses.replace(cfg.model, compute_dtype="float32", matmul_precision="highest") if fp32 else cfg.model
+    return cfg.replace(model=model, optim=dataclasses.replace(cfg.optim, batch_size_per_device=SP_BATCH),
+                       eval=dataclasses.replace(cfg.eval, batch_size_per_device=SP_BATCH),
+                       parallel=dataclasses.replace(cfg.parallel, spatial_axis_size=spatial))
+
+
+class _HaloMeter:
+    """Host time and bytes sent in ``mesh.HaloRows``'s forward and backward
+    while it is installed (each waits for the device at its copy to the host:
+    gloo gathers host tensors)."""
+
+    def __init__(self, mesh):
+        self.mesh, self.s, self.nbytes, self.calls = mesh, 0.0, 0, 0
+        self.orig = (mesh.HaloRows.forward, mesh.HaloRows.backward)
+
+    def __enter__(self):
+        fwd, bwd = self.orig
+
+        def forward(ctx, x, above, below, fill, rows):
+            self.nbytes += (above + below) * x.shape[0] * x.shape[1] * x.shape[3] * x.element_size()
+            return self._timed(fwd, ctx, x, above, below, fill, rows)
+
+        def backward(ctx, g):
+            self.nbytes += (ctx.above + ctx.below) * g.shape[0] * g.shape[1] * g.shape[3] * g.element_size()
+            return self._timed(bwd, ctx, g)
+
+        self.mesh.HaloRows.forward, self.mesh.HaloRows.backward = staticmethod(forward), staticmethod(backward)
+        return self
+
+    def _timed(self, fn, *args):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            self.s += time.perf_counter() - t0
+            self.calls += 1
+
+    def __exit__(self, *exc):
+        self.mesh.HaloRows.forward, self.mesh.HaloRows.backward = (staticmethod(f) for f in self.orig)
+
+
+def _spatial_rank(rank: int, world: int, work: str, gpu: str):
+    """One rank of spatial_phase (a)-(c) on cuda:0 over gloo, S = 2: the
+    flip-test eval step on its rows (bf16 and fp32, K3 counted), K3/K4
+    against plain on its rows' logits, SP_STEPS Trainer steps (counted), ms
+    a step, the halo exchanges' host share and bytes, peak memory; then
+    PoseServer(partition="spatial") on SP_PATCHES patches (counted)."""
+    from ihpr_tpu_torch.engine.server import PoseServer
+    from ihpr_tpu_torch.engine.trainer import Trainer
+    from ihpr_tpu_torch.models.pose_net import build_pose_net, inference_copy
+    from ihpr_tpu_torch.ops import conv_bn as cb
+    from ihpr_tpu_torch.ops import fused_head_integral as fhi
+    from ihpr_tpu_torch.ops import integral_volume as iv
+    from ihpr_tpu_torch.ops import matmul_bn as mm
+    from ihpr_tpu_torch.parallel import mesh
+    from ihpr_tpu_torch.parallel.train_step import make_eval_step
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    inputs = torch.load(f"{work}/inputs.pt", weights_only=False)
+    batch = {k: torch.from_numpy(v[:SP_BATCH]).cuda() for k, v in inputs["batch"].items()}
+    out = {}
+
+    # --- (a) the flip-test eval step on this rank's rows, counted ---
+    for fp32 in (False, True):
+        cfg = _sp_cfg(f"{work}/rank{rank}", SP_RANKS, fp32)
+        dp = mesh.data_parallel(cfg)
+        net = build_pose_net(cfg, device="cuda", dp=dp)
+        net.load_state_dict(inputs["eval_model"])
+        step = make_eval_step(inference_copy(net), cfg)
+        step(batch)  # warm-up
+        torch.cuda.synchronize()
+        _zero_counts(fhi, iv, mm, cb)
+        coords = step(batch)[0]
+        torch.cuda.synchronize()
+        out["eval_fp32" if fp32 else "eval_bf16"] = (coords.cpu().numpy(), _counts(fhi, iv, mm, cb))
+    # ------------------------------------------------------------------
+    cfg = _sp_cfg(f"{work}/rank{rank}", SP_RANKS)
+    dp = mesh.data_parallel(cfg)
+    net = build_pose_net(cfg, device="cuda", dp=dp, trainable=True)
+    net.load_state_dict(inputs["eval_model"])
+    from ihpr_tpu_torch.data.augment import finalize_patch
+
+    with torch.no_grad():
+        image = mesh.row_shard(finalize_patch(batch["patch"], batch["color_scale"], cfg.data), net.rows)
+        hm = net(image).contiguous()
+    b, h, w, c = hm.shape
+    out["volume"] = (b, h * w, c)
+    out["k3_err"], out["k4_err"] = check_volume(iv, hm.view(b, h * w, c), net.joint_num, net.depth_dim, w,
+                                                f"spatial rank {rank}, its rows' logits ({b}, {h * w}, {c})")
+    del net, hm, image
+
+    # --- (b) SP_STEPS Trainer steps, counted ---
+    trainer = Trainer(cfg, data_root="synthetic", synthetic_size=SP_SIZE, num_workers=4, rss_limit_mb=0,
+                      device="cuda")
+    try:
+        trainer.cap_steps_per_epoch(SP_STEPS)
+        torch.cuda.synchronize()
+        _zero_counts(fhi, iv, mm, cb)
+        trainer.train(1)
+        torch.cuda.synchronize()
+        out["counts"] = _counts(fhi, iv, mm, cb)
+        out["losses"] = [float(x) for x in trainer.losses]
+        out["digest"] = _state_digest(trainer.model)
+        # ---------------------------------------------------------------
+        step = lambda: trainer.lean_step_fn(batch)  # noqa: E731
+        torch.cuda.reset_peak_memory_stats()
+        out["ms"] = _cuda_ms(step, 3, reps=2)
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        walls = []
+        with _HaloMeter(mesh) as meter:
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step()
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+        out["halo"] = (meter.s / 3, meter.nbytes / 3, meter.calls / 3, sum(walls) / 3)
+    finally:
+        trainer.close()
+    del trainer
+    torch.cuda.empty_cache()
+
+    # --- (c) PoseServer(partition="spatial"), counted ---
+    server = PoseServer(_sp_cfg(work), inputs["eval_model"], max_batch=MAX_BATCH, flip_test=True, device="cuda",
+                        dp=mesh.data_parallel(), partition="spatial")
+    server.predict_patches(inputs["patches"][:MAX_BATCH])  # warm-up
+    torch.cuda.synchronize()
+    _zero_counts(fhi, iv, mm, cb)
+    out["served"] = server.predict_patches(inputs["patches"])
+    torch.cuda.synchronize()
+    out["serve_counts"] = _counts(fhi, iv, mm, cb)
+    # -----------------------------------------------------------
+    chunk = inputs["patches"][:MAX_BATCH]
+    out["serve_ms"] = _cuda_ms(lambda: server.submit_patches(chunk), 3, reps=2)
+    return out
+
+
+def _spatial4_rank(rank: int, world: int, work: str, gpu: str):
+    """One rank of spatial_phase (d): a D = 2 x S = 2 grid on the one card,
+    one counted train step on its data index's SP_BATCH samples of the
+    64-image batch, from the seeded weights, in bf16 and in fp32
+    "highest"."""
+    from ihpr_tpu_torch.models.pose_net import build_pose_net
+    from ihpr_tpu_torch.ops import conv_bn as cb
+    from ihpr_tpu_torch.ops import fused_head_integral as fhi
+    from ihpr_tpu_torch.ops import integral_volume as iv
+    from ihpr_tpu_torch.ops import matmul_bn as mm
+    from ihpr_tpu_torch.parallel import mesh, train_step
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    inputs = torch.load(f"{work}/inputs.pt", weights_only=False)
+    out = {}
+    for fp32 in (False, True):
+        cfg = _sp_cfg(f"{work}/rank{rank}", SP_GRID4[1], fp32)
+        dp = mesh.data_parallel(cfg)
+        d = dp.data_axis.rank
+        local = {k: torch.from_numpy(v[d * SP_BATCH:(d + 1) * SP_BATCH]).cuda() for k, v in inputs["batch"].items()}
+        model = build_pose_net(cfg, device="cuda", trainable=True, dp=dp)
+        model.load_state_dict(inputs["model"])
+        opt, sched = train_step.make_optimizer(model, cfg, 100, dp)
+        step = train_step.make_train_step(model, opt, cfg, scheduler=sched, dp=dp)
+        torch.cuda.synchronize()
+        # --- (d) the main path, counted: one step ---
+        _zero_counts(fhi, iv, mm, cb)
+        metrics = {k: float(v) for k, v in step(local).items()}
+        torch.cuda.synchronize()
+        counts = _counts(fhi, iv, mm, cb)
+        # -------------------------------------------
+        out["fp32" if fp32 else "bf16"] = {"metrics": metrics, "counts": counts, "digest": _state_digest(model)}
+        del model, opt, step
+        torch.cuda.empty_cache()
+    out["grid"] = (dp.data_axis.rank, dp.data_axis.world, dp.spatial)
+    return out
+
+
+def spatial_phase(fhi, iv, gpu: str):
+    """Spatial partitioning of h36m3d_r50 (ResNet-50, 256x256, bf16, lean BN,
+    J=18, D=64) at full width and depth, cut to batch SP_BATCH a data
+    index, on ranks that time-share the one card over gloo
+    (parallel.launch.spawn). S = 2, D = 1: (a) the flip-test eval step of a
+    32-image batch on seeded, peaked weights, against one process (fp32
+    "highest" within TOL_SP_FP32 voxel, bf16 within TOL_SP_BF16 times one
+    process's own bf16 distance from fp32); K3/K4 against plain on a rank's
+    rows' logits; (b) SP_STEPS Trainer steps (synthetic H36M+MPII), the
+    first step's loss against a 1-process Trainer's, K3 and K4 once a step
+    a rank and K1/K2 never, device ms a step a rank, the halo exchanges'
+    share of a step's host time and their bytes, peak memory; (c)
+    PoseServer(partition="spatial") on SP_PATCHES patches at max_batch 32
+    with flip-test against one process's server (the bf16 rule of (a)).
+    D = 2 x S = 2 on four ranks: (d) one step on a 64-image batch from the
+    peaked weights, its loss against one process's (fp32 "highest" within
+    TOL_DP_FP32's loss bar, bf16 by the rule of (a)). Returns the ranks' K3 and K4 launches and the
+    largest K3/K4-vs-plain differences."""
+    from ihpr_tpu_torch.data import skeletons
+    from ihpr_tpu_torch.data.augment import finalize_patch
+    from ihpr_tpu_torch.data.datasets import build_dataset
+    from ihpr_tpu_torch.data.pipeline import BatchLoader
+    from ihpr_tpu_torch.engine.server import PoseServer
+    from ihpr_tpu_torch.engine.trainer import Trainer
+    from ihpr_tpu_torch.models.pose_net import build_pose_net, inference_copy
+    from ihpr_tpu_torch.parallel import launch
+    from ihpr_tpu_torch.parallel.train_step import make_eval_step, make_optimizer, make_train_step
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        cfg = _sp_cfg(f"{work}/one")
+        gen = torch.Generator().manual_seed(SEED)
+        primary = skeletons.get_skeleton(cfg.data.trainset[0])
+        sets = [build_dataset(name, "train", cfg, "synthetic", SP_SIZE, hue_skeleton=primary if i else None)
+                for i, name in enumerate(cfg.data.trainset)]
+        gb = SP_GRID4[0] // SP_GRID4[1] * SP_BATCH
+        loader = BatchLoader(sets, cfg, gb, num_workers=8, seed=cfg.seed)
+        hb = next(loader.epoch(0, 1))
+        loader.close()
+        batch_np = {f: getattr(hb, f) for f in ("patch", "color_scale", "joint_img", "joint_vis", "joints_have_depth")}
+        batch = {k: torch.from_numpy(v).cuda() for k, v in batch_np.items()}
+        model = build_pose_net(cfg, device="cuda", generator=gen, trainable=True)
+        image = finalize_patch(batch["patch"], batch["color_scale"], cfg.data)
+        with torch.no_grad():
+            _peak_heatmaps(model, image, gen)
+        start = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+        net = build_pose_net(cfg, device="cuda", generator=torch.Generator().manual_seed(SEED))
+        _peak_heatmaps(net, image, gen)
+        eval_sd = {k: v.detach().cpu().clone() for k, v in net.state_dict().items()}
+        patches = np.random.RandomState(SEED).randint(0, 256, (SP_PATCHES, *cfg.data.input_shape, 3)).astype(np.uint8)
+        torch.save({"model": start, "eval_model": eval_sd, "batch": batch_np, "patches": patches},
+                   f"{work}/inputs.pt")
+
+        # One process: the eval step and the server in bf16 and fp32, the
+        # Trainer's first steps, and the 64-image step of (d).
+        half = {k: v[:SP_BATCH] for k, v in batch.items()}
+        want = {}
+        for fp32 in (False, True):
+            c = _sp_cfg(f"{work}/one", 1, fp32)
+            one = build_pose_net(c, device="cuda")
+            one.load_state_dict(eval_sd)
+            want["eval", fp32] = make_eval_step(inference_copy(one), c)(half)[0].cpu().numpy()
+            want["serve", fp32] = PoseServer(c, eval_sd, max_batch=MAX_BATCH, flip_test=True,
+                                             device="cuda").predict_patches(patches)
+            del one
+        ref = Trainer(cfg, data_root="synthetic", synthetic_size=SP_SIZE, num_workers=8, rss_limit_mb=0,
+                      device="cuda")
+        try:
+            ref.cap_steps_per_epoch(SP_STEPS)
+            ref.train(1)
+            want_losses = [float(x) for x in ref.losses]
+        finally:
+            ref.close()
+        del ref
+        opt, sched = make_optimizer(model, cfg, 100)
+        want4 = {False: {k: float(v) for k, v in make_train_step(model, opt, cfg, scheduler=sched)(batch).items()}}
+        del model, net, opt
+        c = _sp_cfg(f"{work}/one", 1, True)
+        model = build_pose_net(c, device="cuda", trainable=True)
+        model.load_state_dict(start)
+        opt, sched = make_optimizer(model, c, 100)
+        want4[True] = {k: float(v) for k, v in make_train_step(model, opt, c, scheduler=sched)(batch).items()}
+        del model, opt, batch, image
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        ranks = launch.spawn(_spatial_rank, SP_RANKS, "gloo", work, gpu, workdir=work)
+        t_ranks = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks4 = launch.spawn(_spatial4_rank, SP_GRID4[0], "gloo", work, gpu, workdir=work)
+        t_ranks4 = time.perf_counter() - t0
+
+    failed = []  # every check runs and prints; the phase raises at its end
+    r0 = ranks[0]
+    for key in ("eval_bf16", "eval_fp32", "served"):
+        if not all(np.array_equal(r[key][0] if key != "served" else r[key], r0[key][0] if key != "served"
+                                  else r0[key]) for r in ranks):
+            failed.append(f"spatial: {key} coords differ between the ranks")
+    own = float(np.abs(want["eval", False] - want["eval", True]).max())
+    err32 = float(np.abs(r0["eval_fp32"][0] - want["eval", True]).max())
+    err16 = float(np.abs(r0["eval_bf16"][0] - want["eval", False]).max())
+    spread = float(np.abs(want["eval", True] - want["eval", True].mean()).max())
+    if not (err32 <= TOL_SP_FP32 and err16 <= TOL_SP_BF16 * own and spread > 1.0):
+        failed.append(f"spatial (a): fp32 {err32} voxel, bf16 {err16} (one process's bf16 from fp32 {own}), "
+                      f"spread {spread}")
+    eval_want = (0, 0, 1, 0, 0, 0, 0, 0)
+    steps_want = (0, 0, SP_STEPS, SP_STEPS, 0, 0, 0, 0)
+    serve_want = (0, 0, 2, 0, 0, 0, 0, 0)
+    for rank, r in enumerate(ranks):
+        if (r["eval_bf16"][1], r["eval_fp32"][1], r["counts"], r["serve_counts"]) != (
+                eval_want, eval_want, steps_want, serve_want):
+            failed.append(f"spatial rank {rank}: launches K1-K8 eval {r['eval_bf16'][1]} / {r['eval_fp32'][1]} "
+                          f"(want {eval_want}), {SP_STEPS} steps {r['counts']} (want {steps_want}), serve "
+                          f"{r['serve_counts']} (want {serve_want})")
+        if abs(r["losses"][0] - want_losses[0]) > TOL_SP_LOSS * abs(want_losses[0]):
+            failed.append(f"spatial (b) rank {rank}: losses {r['losses']}, one process {want_losses}")
+    if len({r["digest"] for r in ranks}) != 1:
+        failed.append("spatial (b): parameters and BN buffers differ between the ranks")
+    own_srv = float(np.abs(want["serve", False] - want["serve", True]).max())
+    err_srv = float(np.abs(r0["served"] - want["serve", False]).max())
+    if not err_srv <= TOL_SP_BF16 * own_srv:
+        failed.append(f"spatial (c): served coords {err_srv} voxel from one process's (its bf16 from fp32 "
+                      f"{own_srv})")
+    own4 = abs(want4[False]["loss"] - want4[True]["loss"])
+    for rank, r in enumerate(ranks4):
+        bf16, fp32 = r["bf16"], r["fp32"]
+        if (bf16["counts"] != (0, 0, 1, 1, 0, 0, 0, 0) or fp32["counts"] != bf16["counts"]
+                or abs(fp32["metrics"]["loss"] - want4[True]["loss"]) > TOL_DP_FP32[0] * abs(want4[True]["loss"])
+                or abs(bf16["metrics"]["loss"] - want4[False]["loss"]) > TOL_SP_BF16 * own4):
+            failed.append(f"spatial (d) rank {rank} (data {r['grid'][0]} of {r['grid'][1]}): loss bf16 "
+                          f"{bf16['metrics']['loss']} / fp32 {fp32['metrics']['loss']}, one process "
+                          f"{want4[False]['loss']} / {want4[True]['loss']}, K1-K8 {bf16['counts']} / {fp32['counts']}")
+    for key in ("bf16", "fp32"):
+        if len({r[key]["digest"] for r in ranks4}) != 1:
+            failed.append(f"spatial (d): {key} parameters and BN buffers differ between the ranks")
+
+    print(f"spatial (a): {SP_RANKS} ranks (S = {SP_RANKS}, D = 1) over gloo on one card, h36m3d_r50 flip-test "
+          f"eval step on {SP_BATCH} images: fp32 \"highest\" {err32:.3g} voxel from one process (bar "
+          f"{TOL_SP_FP32:g}), bf16 {err16:.3g} (bar {TOL_SP_BF16:g} x one process's bf16 from fp32, {own:.3g}); "
+          f"coords spread {spread:.3g}; K3 {[r['eval_bf16'][1][2] for r in ranks]} a rank, K1 0  [{gpu}]")
+    print(f"spatial (a): K3 vs plain {max(r['k3_err'] for r in ranks):.3g} voxel, K4 vs plain_bwd "
+          f"{max(r['k4_err'] for r in ranks):.3g} on a rank's rows' logits {r0['volume']} bf16")
+    print(f"spatial (b): {SP_STEPS} Trainer steps at batch {SP_BATCH} in {t_ranks:.1f} s (the ranks' whole run): "
+          f"losses {', '.join(f'{x:.6f}' for x in r0['losses'])}, one process "
+          f"{', '.join(f'{x:.6f}' for x in want_losses)}; K1-K4 per rank {[r['counts'][:4] for r in ranks]}; "
+          f"parameters and BN buffers bitwise equal on the ranks")
+    for rank, r in enumerate(ranks):
+        halo_s, halo_bytes, halo_calls, wall = r["halo"]
+        print(f"spatial (b) rank {rank}: device {r['ms']:.3f} ms a step (CUDA events), peak {r['peak_gib']:.2f} GiB; "
+              f"halo exchanges {halo_s * 1e3:.3f} ms of host time a step ({halo_s / wall:.3f} of its "
+              f"{wall * 1e3:.3f} ms wall, {halo_calls:.0f} calls), {halo_bytes / 2**20:.3f} MiB sent a step "
+              f"(two ranks share the card; gloo copies through host memory: not a scaling number)  [{gpu}]")
+    print(f"spatial (c): PoseServer(partition=\"spatial\") on {SP_PATCHES} patches at max_batch {MAX_BATCH}, "
+          f"flip-test: {err_srv:.3g} voxel from one process's server (its bf16 from fp32 {own_srv:.3g}), the "
+          f"same on both ranks; K3 {[r['serve_counts'][2] for r in ranks]} a rank, K1 0; "
+          f"{r0['serve_ms']:.3f} ms a dispatch a rank (CUDA events)  [{gpu}]")
+    print(f"spatial (d): D = 2 x S = 2 on {SP_GRID4[0]} ranks in {t_ranks4:.1f} s, one step on {gb} images: fp32 "
+          f"\"highest\" loss {ranks4[0]['fp32']['metrics']['loss']:.6f} against one process's "
+          f"{want4[True]['loss']:.6f} (bar {TOL_DP_FP32[0]:g} relative); bf16 {ranks4[0]['bf16']['metrics']['loss']:.6f} "
+          f"against {want4[False]['loss']:.6f} (bar {TOL_SP_BF16:g} x one process's bf16 from fp32, {own4:.3g}); "
+          f"K3/K4 {[r['bf16']['counts'][2:4] for r in ranks4]} a rank a step; parameters and BN buffers bitwise "
+          f"equal on the ranks")
+    print(f"spatial: the phase took {time.perf_counter() - t_phase:.1f} s  [{gpu}]")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    k3 = sum(r["eval_bf16"][1][2] + r["eval_fp32"][1][2] + r["counts"][2] + r["serve_counts"][2] for r in ranks)
+    k4 = sum(r["counts"][3] for r in ranks)
+    k3 += sum(r[key]["counts"][2] for r in ranks4 for key in ("bf16", "fp32"))
+    k4 += sum(r[key]["counts"][3] for r in ranks4 for key in ("bf16", "fp32"))
+    return k3, k4, max(r["k3_err"] for r in ranks), max(r["k4_err"] for r in ranks)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke run of ihpr_tpu_torch on one NVIDIA GPU.")
     parser.add_argument("--only", nargs="+",
-                        choices=("bn", "fused", "dp", "dp-serve", "device-warp", "serving-bench", "real-data"),
+                        choices=("bn", "fused", "dp", "dp-serve", "device-warp", "serving-bench", "real-data",
+                                 "spatial"),
                         help="build the kernels and run only these phases (no JSON lines)")
     only = parser.parse_args(argv).only
     if not torch.cuda.is_available():
@@ -3295,7 +3681,7 @@ def main(argv=None) -> int:
         phases = {"bn": lambda: bn_kernel_phase(mm, cb, gpu), "fused": lambda: fused_train_phase(fhi, iv, mm, cb, gpu),
                   "dp": lambda: dp_phase(fhi, iv, mm, cb, gpu), "dp-serve": lambda: dp_serve_phase(fhi, gpu),
                   "device-warp": lambda: device_warp_phase(fhi, gpu), "serving-bench": lambda: serving_bench_phase(gpu),
-                  "real-data": lambda: real_data_phase(fhi, gpu)}
+                  "real-data": lambda: real_data_phase(fhi, gpu), "spatial": lambda: spatial_phase(fhi, iv, gpu)}
         for name in only:
             phases[name]()
         print(gpu)
@@ -3323,6 +3709,7 @@ def main(argv=None) -> int:
     warp_k1, warp_k2 = device_warp_phase(fhi, gpu)
     serving_bench_phase(gpu)
     real_k1, real_k2 = real_data_phase(fhi, gpu)
+    sp_k3, sp_k4, sp_k3_err, sp_k4_err = spatial_phase(fhi, iv, gpu)
     hm_k3, hm_k4, hm_err, hm_dv_err = heatmap_phase(fhi, iv, gpu)
     np_k3, np_k4, np_err = noplan_phase(fhi, iv, gpu)
     eval_k1, eval_k3, eval_k1_err, eval_k3_err = eval_phase(fhi, iv, gpu)
@@ -3336,10 +3723,10 @@ def main(argv=None) -> int:
         (fhi._BWD_LIB, "ihpr_tpu/ops/fused_head_integral.py:153",
          train_k2 + snap_k2 + r152_k2 + dp_n["K2"] + warp_k2 + real_k2,
          max(k2_err, head_err, r152_k2_err, dp_errs["K2"]), k2_ms, k2_plain, *b2, k2_lib),
-        (iv._FWD_LIB, "ihpr_tpu/ops/integral_pallas.py:201", hm_k3 + np_k3 + eval_k3,
-         max(k3_err, hm_err, np_err, eval_k3_err), k3_ms, k3_plain, *b3, None),
-        (iv._BWD_LIB, "ihpr_tpu/ops/integral_pallas.py:239", hm_k4 + np_k4,
-         max(k4_err, hm_dv_err), k4_ms, k4_plain, *b4, None),
+        (iv._FWD_LIB, "ihpr_tpu/ops/integral_pallas.py:201", hm_k3 + np_k3 + eval_k3 + sp_k3,
+         max(k3_err, hm_err, np_err, eval_k3_err, sp_k3_err), k3_ms, k3_plain, *b3, None),
+        (iv._BWD_LIB, "ihpr_tpu/ops/integral_pallas.py:239", hm_k4 + np_k4 + sp_k4,
+         max(k4_err, hm_dv_err, sp_k4_err), k4_ms, k4_plain, *b4, None),
     ]
     for (name, replaces, key, launches), err in zip(
         ((mm._FWD_LIB, "ihpr_tpu/ops/matmul_bn.py:127", "k5", k5_n + dp_n["K5"]),

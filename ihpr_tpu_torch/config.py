@@ -93,9 +93,10 @@ class OptimConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ParallelConfig:
-    """Device layout. ``data_axis_size`` (None: the world size) is checked
-    against the process group (``parallel/mesh.py``); ``shard_opt_state`` is
-    ZeRO-1; a spatial axis is not ported."""
+    """Device layout. ``spatial_axis_size`` S splits each sample's image rows
+    over S ranks (a D x S grid, ``parallel/mesh.py``); ``data_axis_size``
+    (None: the world size over S) is checked against the process group;
+    ``shard_opt_state`` is ZeRO-1."""
 
     data_axis_size: Optional[int] = None
     data_axis_name: str = "data"

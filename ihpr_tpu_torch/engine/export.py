@@ -78,7 +78,10 @@ def export_server(server, batch: Union[int, str, None] = None) -> bytes:
     """Serialize ``server``'s inference program, weights baked in, on the
     server's device. ``batch``: an int for a fixed-shape artifact, ``None``
     for ``server.max_batch``, or ``"poly"`` for a batch-polymorphic one
-    (1 to 1024)."""
+    (1 to 1024). A spatial server (``partition="spatial"`` over several
+    ranks) raises: its model sees one rank's rows."""
+    if server.model.rows is not None:
+        raise ValueError("export a one-process server: a spatial server's model holds one rank's rows")
     in_h, in_w = server.cfg.data.input_shape
     dynamic = None
     if batch == "poly":

@@ -10,12 +10,16 @@ plain fallback on that path. Images are cropped by the native warp, or, where
 that library is missing, by the device warp (``data/warp.py``), as JAX's
 server does. ``load_server`` builds a server from a training snapshot.
 
-Data-parallel serving (``dp`` of world W > 1, ``partition="data"``): every
-rank is called with the same requests; each pads a dispatch to
-``max_batch``, runs its rows [r * m/W, (r + 1) * m/W) on its device, and
-``mesh.all_gather_rows`` hands every rank the whole dispatch's coords in
-rank order. JAX's ``partition="spatial"`` (image rows split over the
-devices) is not ported.
+Serving over W > 1 ranks (``dp``): every rank is called with the same
+requests and pads each dispatch to ``max_batch``.
+
+- ``partition="data"``: each rank runs its samples [r * m/W, (r + 1) * m/W)
+  of a dispatch on its device, and ``mesh.all_gather_rows`` hands every
+  rank the whole dispatch's coords in rank order.
+- ``partition="spatial"`` (JAX's default): the ranks split each patch's
+  image rows (a grid of S = W, ``mesh.make_grid``); each rank takes the
+  whole dispatch, keeps its rows, and returns the merged coords
+  (``PoseNet.coords_spatial``: K3 on its rows, not K1).
 """
 
 from __future__ import annotations
@@ -32,8 +36,8 @@ from ihpr_tpu_torch.config import Config
 from ihpr_tpu_torch.data import geometry, native, skeletons
 from ihpr_tpu_torch.data.augment import finalize_patch
 from ihpr_tpu_torch.data.warp import affine_warp_bilinear, gen_trans_np
-from ihpr_tpu_torch.models.pose_net import PoseNet, build_pose_net, inference_copy
-from ihpr_tpu_torch.parallel.mesh import DataParallel, all_gather_rows
+from ihpr_tpu_torch.models.pose_net import PoseNet, build_pose_net, inference_copy, on_grid
+from ihpr_tpu_torch.parallel.mesh import DataParallel, all_gather_rows, make_grid, row_shard
 from ihpr_tpu_torch.parallel.train_step import flip_test_coords
 
 _log = logging.getLogger(__name__)
@@ -63,30 +67,29 @@ class PoseServer:
         (``pose_net.inference_copy``); the model passed in is left as it
         is.
 
-        ``dp``: this rank's ``parallel.mesh.DataParallel``; None or world 1
-        is one process. At world > 1, ``partition="data"`` serves
-        data-parallel (module docstring) and needs ``max_batch`` divisible by
-        the world; ``"spatial"`` (JAX's default) is not ported and raises."""
+        ``dp``: this rank's ``parallel.mesh.DataParallel`` of the world;
+        None or world 1 is one process. At world > 1 (module docstring),
+        ``partition="data"`` needs ``max_batch`` divisible by the world, and
+        ``"spatial"`` the input's rows at stride 32 (ValueError otherwise;
+        build the server on every rank at the same point)."""
         if partition not in ("spatial", "data"):
             raise ValueError(f"partition must be 'spatial' or 'data', got {partition!r}")
         self.dp = dp if dp is not None and dp.world > 1 else None
-        if self.dp is not None:
-            if partition != "data":
-                raise NotImplementedError(
-                    "PoseServer(partition='spatial') over several ranks is not ported to ihpr_tpu_torch; "
-                    "serve data-parallel with partition='data'"
-                )
-            if max_batch % self.dp.world:
-                raise ValueError(
-                    f"data-parallel serving pads every dispatch to max_batch, which must divide over "
-                    f"the ranks ({max_batch} over {self.dp.world})"
-                )
+        self.partition = partition if self.dp is not None else "spatial"
+        if self.dp is not None and partition == "data" and max_batch % self.dp.world:
+            raise ValueError(
+                f"data-parallel serving pads every dispatch to max_batch, which must divide over "
+                f"the ranks ({max_batch} over {self.dp.world})"
+            )
+        if self.dp is not None and partition == "spatial":
+            self.dp = make_grid(DataParallel(self.dp.rank, self.dp.world, self.dp.group), self.dp.world,
+                                cfg.data.input_shape[0])
         self.cfg = cfg
         self.device = torch.device(device)
         self.skeleton = skeletons.get_skeleton(cfg.data.testset)
         joints = self.skeleton.joint_num
         if isinstance(model_or_state, PoseNet):
-            model = model_or_state
+            model = on_grid(model_or_state, cfg, self.dp, self.device)
         else:
             model = build_pose_net(cfg, joints, device=self.device, dp=self.dp)
             model.load_state_dict(model_or_state)
@@ -100,8 +103,9 @@ class PoseServer:
         self.max_batch = max_batch
         self.flip_test = cfg.eval.flip_test if flip_test is None else flip_test
         self.flip_perm = torch.as_tensor(self.skeleton.flip_permutation(), device=self.device)
-        # This rank's rows of a padded dispatch (all of them on one process).
-        rank, world = (self.dp.rank, self.dp.world) if self.dp is not None else (0, 1)
+        # This rank's samples of a padded dispatch (all of them on one
+        # process and under the spatial partition).
+        rank, world = (self.dp.rank, self.dp.world) if self.partition == "data" else (0, 1)
         rows = max_batch // world
         self._rows = slice(rank * rows, (rank + 1) * rows)
         self._ones = torch.ones((rows, 3), dtype=torch.float32, device=self.device)
@@ -109,7 +113,7 @@ class PoseServer:
 
     @torch.inference_mode()
     def _forward(self, patch_u8: torch.Tensor, color_scale: torch.Tensor) -> torch.Tensor:
-        image = finalize_patch(patch_u8, color_scale, self.cfg.data)
+        image = row_shard(finalize_patch(patch_u8, color_scale, self.cfg.data), self.model.rows)
         if not self.flip_test:
             return self.model.coords(image)
         return flip_test_coords(self.model.coords, image, self.flip_perm, self.cfg.data.output_shape[1])
@@ -117,9 +121,9 @@ class PoseServer:
     def submit_patches(self, patches_u8: np.ndarray) -> torch.Tensor:
         """Submit ONE chunk: (B <= max_batch, in_h, in_w, 3) uint8 -> (B, J, 3)
         voxel coords as a tensor on ``device``, without waiting for the
-        device. Read it with ``.cpu()`` when needed. Data-parallel, every
-        rank must submit the same chunk: the gather of the ranks' rows waits
-        for all of them."""
+        device. Read it with ``.cpu()`` when needed. Over several ranks,
+        every rank must submit the same chunk: the gather of the ranks'
+        samples, or the merge of their rows' statistics, waits for all."""
         b = len(patches_u8)
         if b > self.max_batch:
             raise ValueError(f"{b} patches > max_batch {self.max_batch}")
@@ -140,7 +144,7 @@ class PoseServer:
         if self.device.type == "cuda":
             patch = patch.pin_memory().to(self.device, non_blocking=True)
         coords = self._forward(patch, self._ones)
-        if self.dp is not None:
+        if self.partition == "data":
             coords = all_gather_rows(coords, self.dp)
         return coords[:b]
 

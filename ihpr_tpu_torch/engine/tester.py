@@ -12,7 +12,10 @@ Data-parallel (an initialized ``torch.distributed`` group), each rank
 scores its rows of each global batch (``eval.batch_size_per_device`` times
 the world size), and the ranks' coords and sample indices are gathered in
 rank order before they are scattered, so every rank holds every prediction
-and returns the metrics; only rank 0 writes the result files.
+and returns the metrics; only rank 0 writes the result files. On a D x S
+grid (``cfg.parallel.spatial_axis_size``) the batch and the gather run
+over the data axis, so each sample is scored once, and the S peers of a
+data index each run their rows of it (the model is built on the grid).
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ from ihpr_tpu_torch.data.pipeline import BatchLoader, prefetch_to_device
 from ihpr_tpu_torch.data.warp import gen_trans_np
 from ihpr_tpu_torch.engine.checkpoint import load_snapshot
 from ihpr_tpu_torch.engine.logger import colorlogger
-from ihpr_tpu_torch.models.pose_net import PoseNet, build_pose_net, inference_copy
+from ihpr_tpu_torch.models.pose_net import PoseNet, build_pose_net, inference_copy, on_grid
 from ihpr_tpu_torch.parallel.mesh import all_gather_rows, comm_device, data_parallel
 from ihpr_tpu_torch.parallel.train_step import TrainState, make_eval_step
 
@@ -105,20 +108,21 @@ class Tester:
         if dataset is None:
             dataset = build_dataset(cfg.data.testset, "test", cfg, data_root, synthetic_size)
         self.dataset = dataset
+        data = self.dp.data_axis
         self.loader = BatchLoader(
-            [dataset], cfg, cfg.eval.batch_size_per_device * self.dp.world, train=False,
-            num_workers=num_workers, rank=self.dp.rank, world=self.dp.world, device=self.device,
+            [dataset], cfg, cfg.eval.batch_size_per_device * data.world, train=False,
+            num_workers=num_workers, rank=data.rank, world=data.world, device=self.device,
         )
         if state is None:
             state_dict, epoch = load_snapshot(cfg.output_dir, test_epoch)
-            model = build_pose_net(cfg, dataset.joint_num, device=self.device)
+            model = build_pose_net(cfg, dataset.joint_num, device=self.device, dp=self.dp)
             model.load_state_dict(state_dict["model"])
             self.logger.info("loaded snapshot_%d", epoch)
         else:
             model = state.model if isinstance(state, TrainState) else state
         if model.joint_num != dataset.joint_num:
             raise ValueError(f"model has {model.joint_num} joints, {dataset.name} has {dataset.joint_num}")
-        self.model = inference_copy(model).to(self.device)
+        self.model = inference_copy(on_grid(model, cfg, self.dp, self.device)).to(self.device)
         self.eval_step = make_eval_step(self.model, cfg)
 
     def close(self):
@@ -128,9 +132,10 @@ class Tester:
         """(N, J, 3) voxel coords of the whole test set, in loader.index
         order. Rows are scattered by the loader's ``sample_idx``, so the
         padding of the last batch lands on the sample it repeats. On a
-        process group every rank all-gathers the ranks' coords and indices
-        first (rank r holds rows [r*B/W, (r+1)*B/W) of each global batch, so
-        the two gathers line up row for row).
+        process group every rank all-gathers the data axis's coords and
+        indices first (data index d holds rows [d*B/D, (d+1)*B/D) of each
+        global batch, so the two gathers line up row for row; spatial peers
+        hold the same coords).
         ``loader_wait_s``: host seconds spent waiting for the next batch
         (warp and copy), while the device has no eval work queued."""
         n = len(self.loader.index)
@@ -146,10 +151,11 @@ class Tester:
                 break
             batch, sample_idx = item
             coords, _, _ = self.eval_step(batch)
-            if self.dp.group is not None:
-                coords = all_gather_rows(coords, self.dp)
-                idx = torch.from_numpy(sample_idx).to(comm_device(self.dp))
-                sample_idx = all_gather_rows(idx, self.dp).cpu().numpy()
+            data = self.dp.data_axis
+            if data.group is not None:
+                coords = all_gather_rows(coords, data)
+                idx = torch.from_numpy(sample_idx).to(comm_device(data))
+                sample_idx = all_gather_rows(idx, data).cpu().numpy()
             out[sample_idx] = coords.cpu().numpy()
             seen[sample_idx] = True
         if not seen.all():

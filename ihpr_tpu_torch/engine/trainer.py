@@ -88,14 +88,15 @@ class Trainer:
                               hue_skeleton=primary if i else None)
                 for i, name in enumerate(cfg.data.trainset)
             ]
-        self.batch_size = cfg.optim.batch_size_per_device * self.dp.world  # the global batch
+        data = self.dp.data_axis
+        self.batch_size = cfg.optim.batch_size_per_device * data.world  # the global batch
         self.loader = BatchLoader(datasets, cfg, self.batch_size, num_workers=num_workers, seed=cfg.seed,
-                                  rank=self.dp.rank, world=self.dp.world, device=self.device)
+                                  rank=data.rank, world=data.world, device=self.device)
         self.steps_per_epoch = len(self.loader)
         self.logger.info(
-            "train: %d samples (%s), global batch %d on %d rank(s), %d steps/epoch, on %s",
+            "train: %d samples (%s), global batch %d on %d rank(s) (data %d x spatial %d), %d steps/epoch, on %s",
             sum(len(d) for d in datasets), "+".join(d.name for d in datasets),
-            self.batch_size, self.dp.world, self.steps_per_epoch, self.device,
+            self.batch_size, self.dp.world, data.world, self.dp.spatial, self.steps_per_epoch, self.device,
         )
         self.model = build_pose_net(cfg, self.loader.joint_num, device=self.device, trainable=True,
                                     dp=self.dp)

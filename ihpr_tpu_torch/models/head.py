@@ -7,6 +7,10 @@ deconvs cast theirs to the compute dtype per call, and the final conv's
 (C, J*D) weight and (J*D,) bias are cast to the compute dtype before the
 fused op or the plain logits matmul (``head.py:143-148``), so autograd
 returns fp32 gradients through the casts.
+
+Row-sharded (``dp`` of spatial > 1), each deconv takes one row of each
+neighbour (``mesh.halo_rows``, zeros past the image's edges) and runs with
+padding 3 in H, which crops its output to the rank's 2h rows.
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ from torch import nn
 
 from ihpr_tpu_torch.models.resnet import BN
 from ihpr_tpu_torch.ops.fused_head_integral import fused_final_conv_integral
-from ihpr_tpu_torch.parallel.mesh import DataParallel
+from ihpr_tpu_torch.parallel.mesh import DataParallel, halo_rows
 
 
 class FinalConv(nn.Module):
@@ -31,17 +35,26 @@ class FinalConv(nn.Module):
 
 class Deconv(nn.ConvTranspose2d):
     """ConvTranspose2d(4, stride 2, padding 1), bias-free, with an fp32
-    master weight cast to ``compute_dtype`` on each call."""
+    master weight cast to ``compute_dtype`` on each call. ``rows``
+    (``DataParallel.row_axis``): the input is this rank's h rows; with one
+    halo row above and below, output row q of the h + 2 rows, less the
+    padding, is row q - 3 of the rank's output, so padding 3 in H leaves
+    exactly its 2h rows."""
 
-    def __init__(self, cin: int, cout: int, compute_dtype: torch.dtype, device=None):
+    def __init__(self, cin: int, cout: int, compute_dtype: torch.dtype, device=None,
+                 rows: DataParallel | None = None):
         super().__init__(
             cin, cout, 4, stride=2, padding=1, bias=False, dtype=torch.float32, device=device
         )
         self.compute_dtype = compute_dtype
+        self.rows = rows
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        padding = self.padding
+        if self.rows is not None:
+            x, padding = halo_rows(x, 1, 1, 0.0, self.rows), (3, self.padding[1])
         return F.conv_transpose2d(
-            x, self.weight.to(self.compute_dtype), None, self.stride, self.padding,
+            x, self.weight.to(self.compute_dtype), None, self.stride, padding,
             self.output_padding, self.groups, self.dilation,
         )
 
@@ -63,10 +76,9 @@ class DeconvHead(nn.Module):
         self.num_layers = num_layers
         self.dtype = dtype
         self.fp32_logits = fp32_logits
+        rows = dp.row_axis if dp is not None else None
         for i in range(num_layers):
-            self.add_module(
-                f"deconv{i + 1}", Deconv(cin if i == 0 else features, features, dtype, device)
-            )
+            self.add_module(f"deconv{i + 1}", Deconv(cin if i == 0 else features, features, dtype, device, rows))
             self.add_module(f"bn{i + 1}", BN(features, bn_mode, dtype, device=device, dp=dp))
         self.final = FinalConv(features, out_channels, device)
 

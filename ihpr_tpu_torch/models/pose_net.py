@@ -4,6 +4,10 @@
 Public inputs are NHWC ``(B, H, W, 3)`` normalized images, as in the JAX
 package; inside, tensors are NCHW in ``channels_last`` memory format (the
 NHWC input permuted to NCHW already has those strides).
+
+A model built on a grid of spatial > 1 (``dp``, ``parallel/mesh.py``)
+takes this rank's rows of each image (``mesh.row_shard``) and its
+``coords`` are ``coords_spatial``: the whole image's coords on every rank.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from ihpr_tpu_torch.models.head import Deconv, DeconvHead
 from ihpr_tpu_torch.models.resnet import Conv, ResNetBackbone
 from ihpr_tpu_torch.ops.fused_head_integral import no_tf32
 from ihpr_tpu_torch.ops.integral import soft_argmax_3d
+from ihpr_tpu_torch.ops.integral_volume import soft_argmax_row_shards
 from ihpr_tpu_torch.parallel.mesh import DataParallel
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -58,6 +63,7 @@ class PoseNet(nn.Module):
         self.joint_num = joint_num
         self.depth_dim = depth_dim
         self.matmul_precision = matmul_precision
+        self.rows = dp.row_axis if dp is not None else None
         self.backbone = ResNetBackbone(
             resnet_type, compute_dtype, bn_mode, device, fused_1x1, fused_conv3, dp
         )
@@ -89,11 +95,25 @@ class PoseNet(nn.Module):
 
     def coords(self, x: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) image -> (B, J, 3) voxel coords (x, y, z) through the
-        fused final-conv + integral op: the logits volume is never written."""
+        fused final-conv + integral op: the logits volume is never written.
+        On a spatial grid, ``coords_spatial``."""
+        if self.rows is not None:
+            return self.coords_spatial(x)
         with self.precision():
             return self.head(
                 self._features(x), "coords", self.joint_num, self.depth_dim
             )
+
+    def coords_spatial(self, x: torch.Tensor) -> torch.Tensor:
+        """This spatial rank's (B, H/S, W, 3) rows of the images -> the whole
+        images' (B, J, 3) voxel coords, the same on every rank of the row
+        group: the head's logits of the rank's rows, then K3/K4 over them
+        with the ranks' statistics merged (``soft_argmax_row_shards``). The
+        counterpart of JAX's ``coords_plain`` under a ``(data, spatial)``
+        mesh. K1/K2 do not run: the fused op sees only one rank's rows."""
+        with self.precision():
+            hm = self(x)
+        return soft_argmax_row_shards(hm, self.joint_num, self.depth_dim, self.rows)
 
     def coords_plain(self, x: torch.Tensor) -> torch.Tensor:
         """``coords`` via the heatmap logits and the plain soft-argmax."""
@@ -117,7 +137,7 @@ def build_pose_net(
     Frozen in eval mode, or in train mode with gradients when
     ``trainable``. ``dp`` (``parallel.mesh.DataParallel``, as JAX's
     ``mesh=``): with world > 1, train-mode BN takes global-batch
-    statistics."""
+    statistics; with spatial > 1 the model runs on this rank's rows."""
     from ihpr_tpu_torch.models.convert import init_state_dict
 
     m = cfg.model
@@ -149,6 +169,17 @@ def build_pose_net(
         generator = torch.Generator().manual_seed(cfg.seed)
     model.load_state_dict(init_state_dict(model, generator, m.head_final_init_std))
     return model
+
+
+def on_grid(model: PoseNet, cfg: Config, dp, device) -> PoseNet:
+    """``model``, or where ``dp`` splits rows and ``model`` was built for
+    another grid, a model of ``cfg`` built on ``dp`` holding ``model``'s
+    state (the Tester's and the server's spatial copies)."""
+    if dp is None or dp.row_axis == model.rows:
+        return model
+    grid_model = build_pose_net(cfg, model.joint_num, device=device, dp=dp)
+    grid_model.load_state_dict(model.state_dict())
+    return grid_model
 
 
 def inference_copy(model: PoseNet) -> PoseNet:

@@ -21,6 +21,16 @@ JAX's mesh, by one differentiable all-reduce of the local per-channel sums
 the ranks, as the transpose of JAX's psum does. The conv3 route stays
 single-device, as in JAX. With no ``dp`` or world 1, BN runs the
 single-process code and no collective.
+
+Row-sharded (``dp`` of spatial > 1): each rank holds rows of every image.
+A conv of kernel k > 1 and the max-pool first take the rows their windows
+reach past the rank's own (``mesh.halo_rows``; zeros for a conv, -inf for
+the max-pool, past the image's edges) and then run with no padding in H.
+With the port's symmetric ``padding = k // 2`` and stride s, that is
+``padding`` rows above and ``k - s - padding`` below (7x7/2: 3 and 2;
+3x3/1: 1 and 1; 3x3/2 and the max-pool: 1 and 0); a 1x1 conv takes none.
+The convs stay cuDNN calls. BN's arithmetic is unchanged: its count,
+local count times world, is the global (B, H, W) count.
 """
 
 from __future__ import annotations
@@ -30,7 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ihpr_tpu_torch.ops import conv_bn, matmul_bn
-from ihpr_tpu_torch.parallel.mesh import DataParallel, all_reduce_sum
+from ihpr_tpu_torch.parallel.mesh import DataParallel, all_reduce_sum, halo_rows
 
 # resnet_type -> (block kind, stage depths, channel expansion)
 RESNET_SPECS = {
@@ -150,21 +160,30 @@ class BN(nn.Module):
 class Conv(nn.Conv2d):
     """Bias-free conv with an fp32 master weight, cast to ``compute_dtype``
     on each call (a no-op once the weight is stored in that dtype, as in
-    ``pose_net.inference_copy``)."""
+    ``pose_net.inference_copy``). ``rows`` (``DataParallel.row_axis``): the
+    input is this rank's rows, and a kernel of more than one row takes its
+    halo first (module docstring)."""
 
-    def __init__(self, cin: int, cout: int, kernel: int, stride: int, compute_dtype, device=None):
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int, compute_dtype, device=None,
+                 rows: DataParallel | None = None):
         super().__init__(
             cin, cout, kernel, stride=stride, padding=kernel // 2, bias=False,
             dtype=torch.float32, device=device,
         )
         self.compute_dtype = compute_dtype
+        self.rows = rows if kernel > 1 else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._conv_forward(x, self.weight.to(self.compute_dtype), None)
+        w = self.weight.to(self.compute_dtype)
+        if self.rows is None:
+            return self._conv_forward(x, w, None)
+        (k, _), (s, _), (p, pw) = self.kernel_size, self.stride, self.padding
+        x = halo_rows(x, p, k - s - p, 0.0, self.rows)
+        return F.conv2d(x, w, None, self.stride, (0, pw))
 
 
-def _conv(cin: int, cout: int, kernel: int, stride: int, dtype, device) -> Conv:
-    return Conv(cin, cout, kernel, stride, dtype, device)
+def _conv(cin: int, cout: int, kernel: int, stride: int, dtype, device, dp: DataParallel | None = None) -> Conv:
+    return Conv(cin, cout, kernel, stride, dtype, device, dp.row_axis if dp is not None else None)
 
 
 def _rows(t: torch.Tensor) -> torch.Tensor:
@@ -185,9 +204,9 @@ class BasicBlock(nn.Module):
                  fused_1x1: bool = False, fused_conv3: bool = False, dp: DataParallel | None = None):
         # No 1x1 convs to fuse: the flags are accepted and ignored, as in JAX.
         super().__init__()
-        self.conv1 = _conv(cin, features, 3, stride, dtype, device)
+        self.conv1 = _conv(cin, features, 3, stride, dtype, device, dp)
         self.bn1 = BN(features, bn_mode, dtype, device=device, dp=dp)
-        self.conv2 = _conv(features, features, 3, 1, dtype, device)
+        self.conv2 = _conv(features, features, 3, 1, dtype, device, dp)
         self.bn2 = BN(features, bn_mode, dtype, device=device, dp=dp)
         if stride != 1 or cin != features:
             self.down_conv = _conv(cin, features, 1, stride, dtype, device)
@@ -221,7 +240,7 @@ class Bottleneck(nn.Module):
         out = features * 4
         self.conv1 = _conv(cin, features, 1, 1, dtype, device)
         self.bn1 = BN(features, bn_mode, dtype, device=device, dp=dp)
-        self.conv2 = _conv(features, features, 3, stride, dtype, device)
+        self.conv2 = _conv(features, features, 3, stride, dtype, device, dp)
         self.bn2 = BN(features, bn_mode, dtype, device=device, dp=dp)
         self.conv3 = _conv(features, out, 1, 1, dtype, device)
         self.bn3 = BN(out, bn_mode, dtype, device=device, dp=dp)
@@ -307,8 +326,9 @@ class ResNetBackbone(nn.Module):
         block_cls = BasicBlock if kind == "basic" else Bottleneck
         self.dtype = dtype
         self.out_features = 512 * expansion
-        self.conv1 = Conv(3, 64, 7, 2, dtype, device)
+        self.conv1 = _conv(3, 64, 7, 2, dtype, device, dp)
         self.bn1 = BN(64, bn_mode, dtype, device=device, dp=dp)
+        self.rows = dp.row_axis if dp is not None else None
         self.block_names = []
         cin = 64
         for stage, (width, depth) in enumerate(zip(_STAGE_WIDTHS, depths)):
@@ -322,7 +342,10 @@ class ResNetBackbone(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = F.relu(self.bn1(self.conv1(x.to(self.dtype))))
-        x = F.max_pool2d(x, 3, stride=2, padding=1)
+        if self.rows is None:
+            x = F.max_pool2d(x, 3, stride=2, padding=1)
+        else:
+            x = F.max_pool2d(halo_rows(x, 1, 0, float("-inf"), self.rows), 3, stride=2, padding=(0, 1))
         for name in self.block_names:
             x = getattr(self, name)(x)
         return x

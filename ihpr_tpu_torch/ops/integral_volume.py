@@ -20,6 +20,13 @@ to the plain versions here (``plain``, ``plain_bwd``), which are also what
 the kernels are held against on the card. JAX pads the joint axis with
 -1e30 lanes to suit the TPU's 128-lane tiles; the kernels here take any J
 and D, so nothing is padded.
+
+``SoftArgmaxRowShards`` is the same integral over a volume whose rows are
+split over the spatial ranks (``parallel/mesh.py``): K3 on each rank's
+rows, the ranks' (coords, m, s) merged into the whole volume's, and K4 on
+each rank's rows with the whole volume's (m, s). Under a spatial mesh JAX
+takes the plain-XLA soft-argmax (``coords_plain``: ``pallas_call`` has no
+GSPMD rule); this is the same function with the kernels.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from typing import Tuple
 import torch
 
 from ihpr_tpu_torch.ops import _build
+from ihpr_tpu_torch.parallel.mesh import DataParallel, all_gather_rows
 
 _FWD_LIB = "integral_volume_fwd"
 _BWD_LIB = "integral_volume_bwd"
@@ -275,3 +283,72 @@ def soft_argmax_3d_fused(logits: torch.Tensor) -> torch.Tensor:
     b, j, d, h, w = logits.shape
     vol = logits.permute(0, 3, 4, 1, 2).reshape(b, h * w, j * d)
     return soft_argmax_volume(vol, j, d, w)
+
+
+def merge_row_shards(
+    coords: torch.Tensor, m: torch.Tensor, s: torch.Tensor, y0: int, rows: DataParallel
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The whole volume's (coords, m, s) from each spatial rank's over its
+    rows, ``coords`` with y counted from the rank's first row ``y0``. The
+    ranks' (coords + (0, y0, 0), m, s) are all-gathered over ``rows``, then
+    merged in rank order, so every rank holds bitwise the same result:
+    M = max m_r, w_r = s_r exp(m_r - M), S = sum w_r,
+    coords = sum (w_r / S) (coords_r + (0, y0_r, 0)). A rank whose w_r is 0
+    (its mass underflows beside another's) adds nothing, and no NaN."""
+    shifted = coords + torch.tensor([0.0, float(y0), 0.0], dtype=coords.dtype, device=coords.device)
+    stats = torch.cat([shifted, m[..., None], s[..., None]], dim=-1)  # (B, J, 5)
+    parts = all_gather_rows(stats[None], rows)  # (S, B, J, 5)
+    big_m = parts[..., 3].amax(dim=0)
+    w = [torch.where(p[..., 4] > 0, p[..., 4] * torch.exp(p[..., 3] - big_m), 0.0) for p in parts]
+    total = w[0]
+    for wr in w[1:]:
+        total = total + wr
+    merged = torch.zeros_like(coords)
+    for p, wr in zip(parts, w):
+        merged = merged + torch.where(wr[..., None] > 0, (wr / total)[..., None] * p[..., :3], 0.0)
+    return merged, big_m, total
+
+
+class SoftArgmaxRowShards(torch.autograd.Function):
+    """coords of the whole volume from this spatial rank's rows of it, a
+    (B, h*W, J*D) logits volume whose first row is row ``rows.rank * h`` of
+    the image: K3 on the rank's rows (``plain`` on CPU tensors), then
+    ``merge_row_shards``. The backward needs no communication: given the
+    same cotangent g on every rank (the loss is computed on the merged
+    coords), K4 (``plain_bwd``) on the rank's rows with the whole volume's
+    (M, S) and coords - (0, y0, 0) is the rank's rows of the whole volume's
+    dv, since dv = p g . (pos - coords) and K4 takes positions from the
+    rank's first row."""
+
+    @staticmethod
+    def forward(ctx, vol, joint_num: int, depth_dim: int, width: int, rows: DataParallel, grad_enabled: bool):
+        run = kernel_stats if vol.is_cuda else plain
+        local, m, s = run(vol, joint_num, depth_dim, width)
+        y0 = rows.rank * (vol.shape[1] // width)
+        coords, big_m, total = merge_row_shards(local, m, s, y0, rows)
+        if grad_enabled and ctx.needs_input_grad[0]:
+            shift = torch.tensor([0.0, float(y0), 0.0], dtype=coords.dtype, device=coords.device)
+            ctx.save_for_backward(vol, big_m, total, (coords - shift).contiguous())
+            ctx.dims = (joint_num, depth_dim, width)
+        return coords
+
+    @staticmethod
+    def backward(ctx, g):
+        vol, big_m, total, coords = ctx.saved_tensors
+        run = kernel_bwd if vol.is_cuda else plain_bwd
+        dv = run(vol, big_m, total, coords, g.to(big_m.dtype).contiguous(), *ctx.dims)
+        return dv, None, None, None, None, None
+
+
+def soft_argmax_row_shards(
+    heatmap: torch.Tensor, joint_num: int, depth_dim: int, rows: DataParallel
+) -> torch.Tensor:
+    """(B, h, W, J*D) NHWC head logits of this spatial rank's h rows ->
+    (B, J, 3) voxel coords of the whole image, the same on every rank of
+    ``rows``, differentiable through ``SoftArgmaxRowShards``. As
+    ``soft_argmax_from_heatmap``, a CUDA heatmap must be contiguous."""
+    b, h, w, c = heatmap.shape
+    if c != joint_num * depth_dim:
+        raise ValueError(f"heatmap has {c} channels: need J*D = {joint_num}*{depth_dim}")
+    vol = heatmap.view(b, h * w, c) if heatmap.is_cuda else heatmap.reshape(b, h * w, c)
+    return SoftArgmaxRowShards.apply(vol, joint_num, depth_dim, w, rows, torch.is_grad_enabled())

@@ -19,7 +19,12 @@ Data-parallel (``dp`` with a process group, ``parallel/mesh.py``), the step
 runs the model through one ``DistributedDataParallel`` per model, which
 averages the gradients over the ranks; the loss is the mean over B*J*3, so
 the average of the ranks' local means is the global loss, as under JAX's
-mesh. ``cfg.parallel.shard_opt_state`` is ZeRO-1 (JAX's ``state_shardings``
+mesh. On a D x S grid (spatial > 1) each rank keeps its rows of the
+finalized images (``mesh.row_shard``), the model's ``coords`` are
+``coords_spatial`` (K3/K4, as JAX's 2-axis mesh takes ``coords_plain``),
+every spatial peer computes the same loss on the merged coords, and DDP
+sums the gradients over the world and divides by D: each rank's gradient
+is its rows' share of its data index's. ``cfg.parallel.shard_opt_state`` is ZeRO-1 (JAX's ``state_shardings``
 with ``shard_opt_state=True``): ``ZeroOptaxAdam`` keeps the Adam moments of
 each rank's share of the parameters there.
 """
@@ -52,7 +57,7 @@ from ihpr_tpu_torch.ops.loss import (
     joint_location_loss_components,
     joint_location_loss_sums,
 )
-from ihpr_tpu_torch.parallel.mesh import DataParallel
+from ihpr_tpu_torch.parallel.mesh import DataParallel, row_shard
 
 
 def make_lr_schedule(cfg: Config, steps_per_epoch: int) -> Callable[[int], float]:
@@ -229,9 +234,10 @@ def create_train_state(
 
 
 class _Coords(torch.nn.Module):
-    """``PoseNet.coords`` as a module's forward, for DDP: DDP sets up its
-    gradient reduction only in its own ``__call__``, so a call of
-    ``ddp.module.coords`` would skip it."""
+    """``PoseNet.coords`` (``coords_spatial`` on a spatial grid) as a
+    module's forward, for DDP: DDP sets up its gradient reduction only in
+    its own ``__call__``, so a call of ``ddp.module.coords`` would skip
+    it."""
 
     def __init__(self, model: PoseNet):
         super().__init__()
@@ -247,15 +253,28 @@ class _Coords(torch.nn.Module):
 _DDP: Dict[int, DistributedDataParallel] = {}
 
 
+def _sum_over_rows_mean_over_data(state, bucket):
+    """DDP comm hook of a D x S grid: the bucket summed over the world and
+    divided by D. Each rank's gradient is its rows' share of its data
+    index's gradient, so the spatial peers' must be summed, not averaged
+    (DDP's own hook divides by the world: S times too small)."""
+    group, data_size = state
+    grads = bucket.buffer().div_(data_size)
+    return dist.all_reduce(grads, group=group, async_op=True).get_future().then(lambda fut: fut.value()[0])
+
+
 def _ddp(model: PoseNet, dp: DataParallel) -> DistributedDataParallel:
     if id(model) not in _DDP:
         device = next(model.parameters()).device
         # No buffer broadcast: the all-reduced BN statistics keep the
         # running ones equal on every rank.
-        _DDP[id(model)] = DistributedDataParallel(
+        ddp = DistributedDataParallel(
             _Coords(model), device_ids=[device.index] if device.type == "cuda" else None,
             process_group=dp.group, broadcast_buffers=False,
         )
+        if dp.spatial > 1:
+            ddp.register_comm_hook((dp.group, dp.data_axis.world), _sum_over_rows_mean_over_data)
+        _DDP[id(model)] = ddp
     return _DDP[id(model)]
 
 
@@ -299,8 +318,9 @@ def patch_batch(
     through ``finalize_patch``. A canvas batch (``canvas``) is warped on its
     device by ``patch_batch_from_params``; with ``train`` and
     ``cfg.data.use_aug``, the augmentation is drawn for the global batch from
-    ``aug_generator(cfg.seed, *aug_key)`` and this rank's rows are taken, so
-    W ranks augment as one process."""
+    ``aug_generator(cfg.seed, *aug_key)`` and this rank's samples are taken
+    (by its data index: spatial peers draw the same), so W ranks augment as
+    one process."""
     if "canvas" not in batch:
         return PatchBatch(
             image=finalize_patch(batch["patch"], batch["color_scale"], cfg.data),
@@ -312,7 +332,7 @@ def patch_batch(
     if train and cfg.data.use_aug:
         if aug_key is None:
             raise ValueError("a canvas batch with augmentation needs its (epoch, step)")
-        rank, world = (dp.rank, dp.world) if dp is not None else (0, 1)
+        rank, world = (dp.data_axis.rank, dp.data_axis.world) if dp is not None else (0, 1)
         drawn = sample_aug_params(aug_generator(cfg.seed, *aug_key), b * world, cfg.data)
         params = tuple(p[rank * b : (rank + 1) * b] for p in drawn)
     else:
@@ -340,11 +360,11 @@ def make_train_step(
     ``grad_norm`` (before clipping), ``err_xy_voxels`` and ``err_z_voxels``.
     ``scheduler.step()`` follows each update when a scheduler is given.
 
-    ``dp`` with a process group: ``batch`` is this rank's rows, the model
-    runs through its ``DistributedDataParallel``, and the metrics are the
-    global batch's on every rank: the loss averaged over the ranks, the
-    error components from the ranks' summed sums, ``grad_norm`` of the
-    reduced gradients."""
+    ``dp`` with a process group: ``batch`` is this rank's samples (its data
+    index's), the model runs through its ``DistributedDataParallel`` on the
+    rank's rows of the images, and the metrics are the global batch's on
+    every rank: the loss averaged over the data axis, the error components
+    from its summed sums, ``grad_norm`` of the reduced gradients."""
     coords_fn = _ddp(model, dp) if dp is not None and dp.group is not None else model.coords
     flip_perm = skeletons.get_skeleton(cfg.data.trainset[0]).flip_permutation()
 
@@ -356,14 +376,15 @@ def make_train_step(
         model.train()
         optimizer.zero_grad(set_to_none=True)
         with model.precision():
-            coords = coords_fn(pb.image)
+            coords = coords_fn(row_shard(pb.image, model.rows))
             loss = joint_location_loss(coords, pb.joint_img, pb.joint_vis, pb.joints_have_depth)
             loss.backward()
-        metrics = {"loss": _mean_over_ranks(loss.detach(), dp)}
+        data = dp.data_axis if dp is not None else None
+        metrics = {"loss": _mean_over_ranks(loss.detach(), data)}
         if not lean:
             metrics["grad_norm"] = optimizer.global_norm()
             with torch.no_grad():
-                metrics["err_xy_voxels"], metrics["err_z_voxels"] = _error_components(coords, pb, dp)
+                metrics["err_xy_voxels"], metrics["err_z_voxels"] = _error_components(coords, pb, data)
         optimizer.step()
         if scheduler is not None:
             scheduler.step()
@@ -402,7 +423,9 @@ def make_eval_step(
     coords of ``model`` (in eval mode, e.g. ``pose_net.inference_copy``)
     through ``PoseNet.coords``, with the reference's flip-test averaging when
     ``cfg.eval.flip_test``. ``batch`` as the train step's, from
-    ``pipeline.prefetch_to_device``. Runs under ``inference_mode``."""
+    ``pipeline.prefetch_to_device``. A model on a spatial grid takes this
+    rank's rows of the images; the flip mirrors W, so it stays local. Runs
+    under ``inference_mode``."""
     skel = skeletons.get_skeleton(cfg.data.testset)
     flip_perm = torch.as_tensor(skel.flip_permutation())
     out_w = cfg.data.output_shape[1]
@@ -410,10 +433,11 @@ def make_eval_step(
     @torch.inference_mode()
     def eval_step(batch: Dict[str, torch.Tensor]):
         pb = patch_batch(batch, cfg, flip_perm, train=False)
+        image = row_shard(pb.image, model.rows)
         if cfg.eval.flip_test:
-            coords = flip_test_coords(model.coords, pb.image, flip_perm.to(pb.image.device), out_w)
+            coords = flip_test_coords(model.coords, image, flip_perm.to(image.device), out_w)
         else:
-            coords = model.coords(pb.image)
+            coords = model.coords(image)
         return coords, pb.joint_img, pb.joint_vis
 
     return eval_step

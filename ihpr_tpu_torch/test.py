@@ -9,23 +9,25 @@ CUDA device (``--device``), prints the metrics and writes them, the
 predictions and the reference's result files to ``{output_dir}/result``.
 With ``--multihost`` (under torchrun, as the train CLI) each rank scores
 its rows of each global batch, every rank prints the gathered metrics and
-rank 0 writes the files. ``--data_root`` is the test set's root in the
-reference's file layout (default ``data/<name>``), its JPEGs decoded on the
-device; ``--synthetic`` evaluates ``--synthetic_size`` rendered samples.
-The flags of ``test.py`` that the port does not have (``--vis``,
-``--spatial``) are rejected.
+rank 0 writes the files; ``--spatial N`` splits each sample's image rows
+over N of the ranks (``parallel/mesh.py``), each sample scored once.
+``--data_root`` is the test set's root in the reference's file layout
+(default ``data/<name>``), its JPEGs decoded on the device; ``--synthetic``
+evaluates ``--synthetic_size`` rendered samples. ``test.py``'s ``--vis``
+is not ported and is rejected.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 
 import torch
 
 from ihpr_tpu_torch.utils.shutdown import install_graceful_shutdown
 
-_UNPORTED = {"vis": "--vis", "spatial": "--spatial"}
+_UNPORTED = {"vis": "--vis"}
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -40,9 +42,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--multihost", action="store_true",
                     help="join the process group torchrun describes (data-parallel eval)")
-    # test.py's flags that the port does not have: accepted, then refused.
+    ap.add_argument("--spatial", type=int, default=None, metavar="N",
+                    help="shard each sample's image rows over N ranks (a (data, spatial) grid)")
+    # test.py's flag that the port does not have: accepted, then refused.
     ap.add_argument("--vis", action="store_true")
-    ap.add_argument("--spatial", type=int, default=None)
     args = ap.parse_args(argv)
     given = [flag for dest, flag in _UNPORTED.items() if getattr(args, dest) not in (None, False)]
     if given:
@@ -62,6 +65,8 @@ def main(argv=None):
     cfg = get_config(args.config)
     if args.output_dir:
         cfg = cfg.replace(output_dir=args.output_dir)
+    if args.spatial:
+        cfg = cfg.replace(parallel=dataclasses.replace(cfg.parallel, spatial_axis_size=args.spatial))
     device = args.device
     if args.multihost:
         device = mesh.init_process_group(torch.device(args.device).type)

@@ -5,12 +5,17 @@
     python -m ihpr_tpu_torch.train --config h36m3d_r50 --synthetic --continue
     python -m torch.distributed.run --standalone --nproc_per_node N -m ihpr_tpu_torch.train \
         --config h36m3d_r50_dp --synthetic --multihost
+    python -m torch.distributed.run --standalone --nproc_per_node 4 -m ihpr_tpu_torch.train \
+        --config h36m3d_r50 --synthetic --multihost --spatial 2
 
 trains on one CUDA device (``--device``), or data-parallel with
 ``--multihost``: one rank per process, joined from torchrun's environment
 (NCCL on ``cuda:LOCAL_RANK``; gloo with ``--device cpu``), the global batch
 ``batch_size_per_device`` times the ranks. ``--shard_opt_state`` shards
-the Adam moments over the ranks (ZeRO-1). ``--steps 20`` caps each epoch at
+the Adam moments over the ranks (ZeRO-1). ``--spatial N`` splits each
+sample's image rows over N ranks (a D x N grid of the ranks, N dividing
+them and the input's rows at stride 32; ``parallel/mesh.py``), as
+``train.py --spatial`` does over JAX's devices. ``--steps 20`` caps each epoch at
 20 steps; the run takes ``--end_epoch`` epochs, the config's
 ``optim.end_epoch`` without it, as in ``train.py``. Snapshots go to
 ``{output_dir}/model_dump`` (``--output_dir``, default the config's), and
@@ -23,8 +28,9 @@ reference's file layouts (default ``data/<name>``; ``datasets.build_dataset``),
 and its JPEGs are decoded on the device (nvJPEG on a CUDA device);
 ``--synthetic`` trains on rendered blobs instead. ``--pretrained`` loads an
 ImageNet backbone, a torchvision ``.pth`` or the flax msgpack of
-``tools/convert_torch_ckpt.py`` (``models/pretrained.py``). ``train.py``'s
-``--spatial`` is not ported and is rejected.
+``tools/convert_torch_ckpt.py`` (``models/pretrained.py``). Under
+``parallel.launch.spawn`` the process group is already joined: call
+``main`` without ``--multihost``.
 """
 
 from __future__ import annotations
@@ -36,8 +42,6 @@ import logging
 import torch
 
 from ihpr_tpu_torch.utils.shutdown import install_graceful_shutdown
-
-_UNPORTED = {"spatial": "--spatial"}
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -69,13 +73,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="ZeRO-1: shard the Adam moments over the ranks")
     ap.add_argument("--pretrained", default=None,
                     help="ImageNet backbone: a torchvision .pth, or convert_torch_ckpt.py's msgpack")
-    # train.py's flag that the port does not have: accepted, then refused.
-    ap.add_argument("--spatial", type=int, default=None)
-    args = ap.parse_args(argv)
-    given = [flag for dest, flag in _UNPORTED.items() if getattr(args, dest) not in (None, False)]
-    if given:
-        ap.error(f"{', '.join(given)}: not ported to ihpr_tpu_torch")
-    return args
+    ap.add_argument("--spatial", type=int, default=None, metavar="N",
+                    help="shard each sample's image rows over N ranks (a (data, spatial) grid)")
+    return ap.parse_args(argv)
 
 
 def main(argv=None):
@@ -108,8 +108,13 @@ def _train(args, cfg, device):
         kw["use_aug"] = False
     if kw:
         cfg = cfg.replace(data=dataclasses.replace(cfg.data, **kw))
+    par = {}
     if args.shard_opt_state:
-        cfg = cfg.replace(parallel=dataclasses.replace(cfg.parallel, shard_opt_state=True))
+        par["shard_opt_state"] = True
+    if args.spatial:
+        par["spatial_axis_size"] = args.spatial
+    if par:
+        cfg = cfg.replace(parallel=dataclasses.replace(cfg.parallel, **par))
     trainer = Trainer(
         cfg, data_root="synthetic" if args.synthetic else args.data_root, continue_train=args.continue_train,
         num_workers=args.num_workers, synthetic_size=args.synthetic_size,

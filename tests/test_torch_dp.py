@@ -605,25 +605,28 @@ def test_cli_multihost_under_torchrun(tmp_path):
 
 
 def test_cli_flags_ported_and_refused():
-    """--multihost, --shard_opt_state and --pretrained (train) are ported;
-    --spatial (train) and --vis and --spatial (test) are still refused."""
+    """--multihost, --shard_opt_state, --pretrained and --spatial (train) and
+    --multihost and --spatial (test) are ported (tests/test_torch_spatial.py
+    runs --spatial); --vis (test) is still refused."""
     args = train_cli.parse_args(["--synthetic", "--multihost", "--shard_opt_state", "--pretrained", "x.msgpack"])
     assert args.multihost and args.shard_opt_state and args.pretrained == "x.msgpack"
     assert test_cli.parse_args(["--synthetic", "--multihost"]).multihost
+    assert train_cli.parse_args(["--synthetic", "--spatial", "2"]).spatial == 2
+    assert test_cli.parse_args(["--synthetic", "--spatial", "2"]).spatial == 2
     with pytest.raises(SystemExit):
-        train_cli.parse_args(["--synthetic", "--spatial", "2"])
-    for flag in (["--vis"], ["--spatial", "2"]):
-        with pytest.raises(SystemExit):
-            test_cli.parse_args(["--synthetic", *flag])
+        test_cli.parse_args(["--synthetic", "--vis"])
 
 
 def test_data_axis_and_spatial_checks():
-    """data_axis_size None means the world size; another value raises; a
-    spatial axis is not ported. Without a process group the layout is one
-    process."""
+    """data_axis_size None means the world size over the spatial axis;
+    another value raises. Without a process group the layout is one
+    process, where a spatial axis of 2 does not divide the world; an uneven
+    row shard raises too (tests/test_torch_spatial.py runs the grids)."""
     cfg = _cfg()
     assert mesh.data_parallel(cfg) == mesh.SINGLE
     with pytest.raises(ValueError, match="data_axis_size=2"):
         mesh.data_parallel(cfg.replace(parallel=dataclasses.replace(cfg.parallel, data_axis_size=2)))
-    with pytest.raises(NotImplementedError, match="spatial"):
+    with pytest.raises(ValueError, match="does not divide the 1 rank"):
         mesh.data_parallel(cfg.replace(parallel=dataclasses.replace(cfg.parallel, spatial_axis_size=2)))
+    with pytest.raises(ValueError, match="uneven row shards"):
+        mesh.check_row_shards(2, 2, 96)  # 3 rows at stride 32

@@ -607,13 +607,15 @@ def test_trainer_logs_the_jax_learning_rate_at_a_decay_boundary(caplog, tmp_path
 
 
 def test_train_cli_rejects_what_is_not_ported():
-    """--spatial is refused; --pretrained, a real --data_root, --multihost
-    and --shard_opt_state are ported (tests/test_torch_dp.py runs the last
-    two, tests/test_torch_datasets.py the first two)."""
+    """Every flag of train.py is ported now: --pretrained, a real --data_root,
+    --multihost, --shard_opt_state and --spatial (tests/test_torch_dp.py runs
+    the third and fourth, tests/test_torch_datasets.py the first two,
+    tests/test_torch_spatial.py the last); an unknown flag is refused."""
     args = train_cli.parse_args(["--config", "h36m3d_r50", "--synthetic", "--steps", "3"])
     assert args.steps == 3 and args.synthetic
+    assert train_cli.parse_args(["--synthetic", "--spatial", "2"]).spatial == 2
     with pytest.raises(SystemExit):
-        train_cli.parse_args(["--synthetic", "--spatial", "2"])
+        train_cli.parse_args(["--synthetic", "--vis"])
     assert train_cli.parse_args(["--synthetic", "--pretrained", "x.msgpack"]).pretrained == "x.msgpack"
     for flag in ("--multihost", "--shard_opt_state"):
         assert getattr(train_cli.parse_args(["--synthetic", flag]), flag[2:])

@@ -1,4 +1,5 @@
-"""Rank functions for tests/test_torch_dp.py, run by
+"""Rank functions for tests/test_torch_dp.py, test_torch_dp_serve.py and
+test_torch_spatial.py, run by
 ``ihpr_tpu_torch.parallel.launch.spawn`` in processes of their own. This
 module imports torch, numpy and the port only: a rank never imports JAX.
 
@@ -25,7 +26,7 @@ from ihpr_tpu_torch.models import resnet
 from ihpr_tpu_torch.models.pose_net import build_pose_net
 from ihpr_tpu_torch.ops import matmul_bn
 from ihpr_tpu_torch.ops.loss import joint_location_loss
-from ihpr_tpu_torch.parallel import train_step
+from ihpr_tpu_torch.parallel import mesh, train_step
 from ihpr_tpu_torch.parallel.mesh import data_parallel
 
 
@@ -337,12 +338,13 @@ def serve_ranks(rank, world, cfg, model_sd, patches, request, stream, snapshot_d
     out["stream"] = [[r.coords_img for r in res] for res in srv.predict_stream(stream)]
     out["loaded"] = load_server(cfg, snapshot_dir, max_batch=8, flip_test=False, device="cpu", dp=dp,
                                 partition="data").predict_patches(patches)
-    for name, kw, err in (("odd", dict(max_batch=7, partition="data"), ValueError),
-                          ("spatial", dict(max_batch=8), NotImplementedError)):
+    uneven = cfg.replace(data=dataclasses.replace(cfg.data, input_shape=(96, 64), output_shape=(24, 16)))
+    for name, srv_cfg, kw in (("odd", cfg, dict(max_batch=7, partition="data")), ("spatial", cfg, dict(max_batch=8)),
+                              ("spatial_uneven", uneven, dict(max_batch=8))):
         try:
-            PoseServer(cfg, sd, device="cpu", dp=dp, **kw)
+            PoseServer(srv_cfg, sd, device="cpu", dp=dp, **kw)
             out[name] = None
-        except err as e:
+        except ValueError as e:
             out[name] = str(e)
     return out
 
@@ -354,3 +356,194 @@ def canvas_ranks(rank, world, cfg, batch, aug_key):
                                 skeletons.H36M.flip_permutation(), train=True, aug_key=aug_key,
                                 dp=data_parallel())
     return {"image": _np(pb.image), "joint_img": _np(pb.joint_img), "joint_vis": _np(pb.joint_vis)}
+
+
+# --- spatial partitioning (tests/test_torch_spatial.py) ---------------------------------------
+
+
+def _row_axis(rank, world):
+    """The whole world as the spatial axis: S = world, D = 1."""
+    return mesh.DataParallel(rank, world, dist.group.WORLD)
+
+
+def halo_layer_ranks(rank, world, cases):
+    """Each (name, layer kwargs, x, cot) of ``cases``: the layer on this
+    rank's rows of x (B, C, H, W) with its halo, its output, dx and the
+    gradient of its weight summed over the ranks."""
+    from ihpr_tpu_torch.models.head import Deconv
+
+    torch.set_num_threads(1)
+    rows = _row_axis(rank, world)
+    out = {}
+    for name, kind, kw, x, w, cot in cases:
+        h = x.shape[2] // world
+        xl = torch.from_numpy(rows_of(x, rank, world)).contiguous(memory_format=torch.channels_last).requires_grad_()
+        if kind == "pool":
+            layer = None
+            y = torch.nn.functional.max_pool2d(mesh.halo_rows(xl, 1, 0, float("-inf"), rows), 3, 2, (0, 1))
+        else:
+            layer = (Deconv(**kw, rows=rows) if kind == "deconv" else resnet.Conv(**kw, rows=rows))
+            layer.weight.data = torch.from_numpy(w).contiguous(memory_format=torch.channels_last)
+            y = layer(xl)
+        ho = y.shape[2]
+        (y * torch.from_numpy(cot[:, :, rank * ho:(rank + 1) * ho])).sum().backward()
+        res = {"out": _np(y), "dx": _np(xl.grad), "rows_in": h}
+        if layer is not None:
+            gw = layer.weight.grad.clone()
+            dist.all_reduce(gw)
+            res["dw"] = _np(gw)
+        out[name] = res
+    return out
+
+
+def rows_of(a, rank: int, world: int):
+    """This rank's share of axis 2 (the rows of a (B, C, H, W) array)."""
+    n = a.shape[2] // world
+    return a[:, :, rank * n : (rank + 1) * n]
+
+
+def row_integral_ranks(rank, world, cases):
+    """Each (name, vol (B, H*W, J*D), J, D, W, g) of ``cases``: the
+    row-sharded integral on this rank's rows (plain on the CPU): the merged
+    coords, this rank's dv for the cotangent g, its own max m and the merged
+    M."""
+    from ihpr_tpu_torch.ops import integral_volume as iv
+
+    torch.set_num_threads(1)
+    rows = _row_axis(rank, world)
+    out = {}
+    for name, vol, j, d, w, g in cases:
+        n = vol.shape[1] // world
+        local = torch.from_numpy(vol[:, rank * n:(rank + 1) * n]).requires_grad_()
+        coords = iv.SoftArgmaxRowShards.apply(local, j, d, w, rows, True)
+        coords.backward(torch.from_numpy(g))
+        _, m, s = iv.plain(local.detach(), j, d, w)
+        _, big_m, _ = iv.merge_row_shards(torch.zeros_like(coords), m, s, 0, rows)
+        out[name] = {"coords": _np(coords), "dv": _np(local.grad), "m": _np(m), "big_m": _np(big_m)}
+    return out
+
+
+def spatial_step_ranks(rank, world, cfg, model_sd, batch, spatial):
+    """From ``model_sd`` on a (world / spatial) x spatial grid, this rank's
+    samples of ``batch`` (its data index's): the eval-mode loss and the
+    gradients through the model's DDP; the flip-test eval step's coords; one
+    train step's metrics, gradients and BN statistics, and the K3/K4 plain
+    calls of that step."""
+    from ihpr_tpu_torch.ops import integral_volume as iv
+    from ihpr_tpu_torch.models.pose_net import inference_copy
+
+    torch.set_num_threads(1)
+    cfg = cfg.replace(parallel=dataclasses.replace(cfg.parallel, spatial_axis_size=spatial))
+    dp = data_parallel(cfg)
+    data = dp.data_axis
+    sd = {k: torch.from_numpy(v) for k, v in model_sd.items()}
+    local = {k: torch.from_numpy(rows(v, data.rank, data.world)) for k, v in batch.items()}
+    labels = (local["joint_img"], local["joint_vis"], local["joints_have_depth"])
+    model = build_pose_net(cfg, device="cpu", trainable=True, dp=dp)
+    model.load_state_dict(sd)
+    ddp = train_step._ddp(model, dp)
+    model.eval()
+    with model.precision():
+        image = mesh.row_shard(finalize_patch(local["patch"], local["color_scale"], cfg.data), model.rows)
+        eval_loss = joint_location_loss(ddp(image), *labels)
+        eval_loss.backward()
+    out = {"eval_loss": float(eval_loss), "eval_grads": {k: _np(p.grad) for k, p in model.named_parameters()}}
+
+    net = build_pose_net(cfg, device="cpu", dp=dp)
+    net.load_state_dict(sd)
+    coords, _, _ = train_step.make_eval_step(inference_copy(net), cfg)(local)
+    out["eval_coords"] = _np(coords)
+
+    opt, sched = train_step.make_optimizer(model, cfg, 10, dp)
+    step = train_step.make_train_step(model, opt, cfg, scheduler=sched, dp=dp)
+    calls = {"plain": 0, "plain_bwd": 0}
+    originals = {name: getattr(iv, name) for name in calls}
+
+    def counting(name):
+        def call(*a, **kw):
+            calls[name] += 1
+            return originals[name](*a, **kw)
+        return call
+
+    for name in calls:
+        setattr(iv, name, counting(name))
+    try:
+        out["metrics"] = {k: float(v) for k, v in step(local).items()}
+    finally:
+        for name, fn in originals.items():
+            setattr(iv, name, fn)
+    out["k3_k4"] = (calls["plain"], calls["plain_bwd"])
+    out["grads"] = {k: _np(p.grad) for k, p in model.named_parameters()}
+    out["stats"] = {k: _np(v) for k, v in model.state_dict().items() if "running" in k}
+    out["state"] = digest({k: _np(v) for k, v in model.state_dict().items()})
+    if rank:  # rank 0's arrays are compared; the others' by digest
+        for key in ("grads", "eval_grads"):
+            out[key] = digest(out[key])
+    return out
+
+
+def spatial_cli_cfg():
+    """The CLI tests' config, registered as "tiny_spatial": ResNet-18 at
+    64x64, J=18, D=16, fp32 "highest" lean BN, batch 2 a data index."""
+    from ihpr_tpu_torch import config as tconfig
+
+    return tconfig.Config(
+        name="tiny_spatial",
+        model=tconfig.ModelConfig(resnet_type=18, compute_dtype="float32", fp32_logits=True, bn_mode="lean",
+                                  matmul_precision="highest"),
+        data=tconfig.DataConfig(trainset=("Human36M",), testset="Human36M", input_shape=(64, 64),
+                                output_shape=(16, 16), depth_dim=16, use_aug=False),
+        optim=tconfig.OptimConfig(batch_size_per_device=2),
+        eval=tconfig.EvalConfig(batch_size_per_device=2),
+    )
+
+
+def spatial_cli_ranks(rank, world, cfg, out_dir, n_train, n_test):
+    """``train.main`` then ``test.main`` with ``--spatial`` (the ranks'
+    world) on ``cfg`` registered as "tiny_spatial": the trainer's final
+    state (rank 0), the files each rank wrote and what test.main returned."""
+    from ihpr_tpu_torch import config as tconfig
+    from ihpr_tpu_torch import test as test_cli
+    from ihpr_tpu_torch import train as train_cli
+
+    torch.set_num_threads(1)
+    tconfig.CONFIGS["tiny_spatial"] = cfg
+    common = ["--config", "tiny_spatial", "--synthetic", "--device", "cpu", "--num_workers", "0",
+              "--output_dir", out_dir, "--spatial", str(world)]
+    states, written = [], []
+    real_train = Trainer.train
+    save, dump = np.save, ttester.json.dump
+
+    def keeping(self, *a, **kw):
+        state = real_train(self, *a, **kw)
+        states.append(state_np(_host_copy(state.state_dict())))
+        return state
+
+    Trainer.train = keeping
+    ttester.np.save = lambda path, *a, **kw: (written.append(str(path)), save(path, *a, **kw))[1]
+    ttester.json.dump = lambda obj, f, *a, **kw: (written.append(f.name), dump(obj, f, *a, **kw))[1]
+    try:
+        train_cli.main(common + ["--synthetic_size", str(n_train), "--end_epoch", "1", "--rss_limit_mb", "0"])
+        metrics = test_cli.main(common + ["--synthetic_size", str(n_test)])
+    finally:
+        Trainer.train = real_train
+        ttester.np.save, ttester.json.dump = save, dump
+    return {"state": states[0] if rank == 0 else digest(states[0]), "written": written, "metrics": metrics}
+
+
+def spatial_serve_ranks(rank, world, cfg, model_sd, patches):
+    """``PoseServer(dp=, partition="spatial")`` on the same patches on every
+    rank, flip-test on and off, and the image rows each rank's model got."""
+    from ihpr_tpu_torch.engine.server import PoseServer
+
+    torch.set_num_threads(1)
+    sd = {k: torch.from_numpy(v) for k, v in model_sd.items()}
+    out = {}
+    for flip in (True, False):
+        srv = PoseServer(cfg, sd, max_batch=4, flip_test=flip, device="cpu", dp=data_parallel(),
+                         partition="spatial")
+        coords, seen = srv.model.coords, []
+        srv.model.coords = lambda x: (seen.append(tuple(x.shape)), coords(x))[1]
+        out[f"patches_{flip}"] = srv.predict_patches(patches)
+        out[f"forwarded_{flip}"] = seen
+    return out
