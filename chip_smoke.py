@@ -4,8 +4,9 @@
 
 1. Prints the environment: torch, CUDA, nvcc, the card's name and power limit.
 2. Builds every CUDA kernel (K1-K8 of the serving, training, fused-train,
-   heatmap and eval paths; P1/P2 of the probe tools) and the nvJPEG codec
-   from ihpr_tpu_torch/ops/csrc, one nvcc per source, all at once.
+   heatmap and eval paths; P1/P2 of the probe tools; the JPEG colour
+   kernel of the decode) and the nvJPEG codec from ihpr_tpu_torch/ops/csrc,
+   one nvcc per source, all at once.
 3. K1 (fused head forward, bf16): holds it against its plain PyTorch
    version on the card, at the serving shapes and at edge cases (J=17,
    H*W=96*72, D=1, all-equal logits, a one-hot peak), and times both with
@@ -111,14 +112,30 @@
 7g. python -m ihpr_tpu_torch.tools.serving_bench in a subprocess: exit 0,
    its phases and JSON line echoed.
 7h. The real-data path (real_data_phase): nvJPEG (ihpr_tpu_torch/ops/csrc/
-   nvjpeg_codec.cu, built with the kernels) against libjpeg on the
-   fixture's JPEGs and the loader's batch of that root against the JAX
-   loader's committed patches; a dataset root in the reference's layouts
-   (H36M 1000x1000, MPII 1280x720) encoded on the card, with encode,
-   decode and loader times; the train CLI on it with --pretrained (a
-   seeded torchvision ResNet-50 .pth), K1/K2 counted in the subprocess;
-   the test CLI on its test split (K1 counted), its coordinates against the
+   nvjpeg_codec.cu, built with the kernels) decodes the fixture's JPEGs to
+   planes, each plane held against libjpeg's (tests/data/real_root/
+   ycbcr.npz), and the colour kernel (ops/csrc/jpeg_color.cu: libjpeg's
+   upsampling and colour conversion) against its plain version bitwise and
+   against libjpeg's pixels, beside nvJPEG's own RGBI decode; the loader's
+   batch of that root against the JAX loader's committed patches; a
+   dataset root in the reference's layouts (H36M 1000x1000, MPII 1280x720)
+   encoded on the card, with encode, decode (with the colour kernel and
+   with RGBI) and loader times, the colour kernel against its plain
+   version on every frame of a 128-frame batch and on one MPII frame, both
+   timed on that batch and on one frame, and the host's ms a batch in the
+   planes decode's header parse, layout and kernel call; the train CLI on
+   it with --pretrained (a seeded torchvision ResNet-50 .pth), K1/K2 and
+   the colour kernel counted in the subprocess; the test CLI on its test
+   split (K1 and the colour kernel counted), its coordinates against the
    same frames rendered without JPEG.
+7j. The accuracy harness (accuracy_phase): python -m
+   ihpr_tpu_torch.tools.accuracy_loop --preset tiny through its main, cut
+   to 512 / 64 frames and 5 epochs, with its CPU oracle (gap within 1 mm);
+   K3/K4 and the colour kernel counted over the run; img/s and the
+   loader's share of the train loop printed; then the colour kernel
+   against its plain version on 64 of the tool's JPEGs. The kernels line's
+   max_abs_err for the colour kernel is the largest of 7h's and 7j's
+   comparisons.
 7i. Spatial partitioning of h36m3d_r50 at full width and depth, cut to
    batch 32 a data index, on ranks that time-share the one card over gloo
    (spatial_phase): S = 2, D = 1, (a) the flip-test eval step against one
@@ -128,8 +145,10 @@
    Trainer's, K3 and K4 once a step a rank, K1/K2 never, ms a step, the
    halo exchanges' host share and bytes, peak memory), (c)
    PoseServer(partition="spatial") on 40 patches against one process's
-   server; D = 2 x S = 2 on four ranks, (d) one step in bf16 and fp32
-   against one process. The ranks' K3/K4 launches join the kernels line.
+   server, (e) that server exported on each rank, bitwise the one-process
+   server's artifact, both run by a torch-only process to equal coords;
+   D = 2 x S = 2 on four ranks, (d) one step in bf16 and fp32 against one
+   process. The ranks' K3/K4 launches join the kernels line.
 8. The heatmap-logits path: h36m3d_r50 at batch 128 takes an optimizer
    step through model(x) -> soft_argmax_from_heatmap -> loss (K3 forward,
    K4 backward), coords and dv against plain on the same logits, device ms
@@ -159,7 +178,8 @@ In 6-12 (7a: its resumed training, the snapshot Tester and server; 7c:
 its serving and its training, each counted on its own; 7d: each rank's
 steps, fused step and Tester, counted in the rank; 7e: each rank's serving;
 7f: the train steps, the Tester and the server, each on its own; 7h: the
-train and test CLIs, counted in their subprocesses, and the Tester; 7i:
+train and test CLIs, counted in their subprocesses, and the Tester; 7j:
+the accuracy tool's whole run; 7i:
 each rank's eval steps, Trainer steps, server and grid step, counted in
 the rank) the
 kernels' launch counters are set to 0 just before the path
@@ -175,7 +195,7 @@ non-zero; so does a host without CUDA.
 
 builds the kernels and runs only the named phases (bn: 5c; fused: 7b; dp:
 7d; dp-serve: 7e; device-warp: 7f; serving-bench: 7g; real-data: 7h;
-spatial: 7i), for timing one tree's K5-K8 against another's (copy this file into a
+spatial: 7i; accuracy: 7j), for timing one tree's K5-K8 against another's (copy this file into a
 checkout of the other tree and run it there) or trying one phase. It
 prints no JSON lines.
 """
@@ -184,6 +204,8 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import glob
+import hashlib
 import json
 import math
 import os
@@ -2981,16 +3003,21 @@ REAL_STEPS = 3  # counted steps of the train CLI
 # Trainer's log window, waited for after its first step and at its end only,
 # so that each batch loads while the step before it runs, as in a long run.
 REAL_RATE_STEPS = 9
-# nvJPEG against libjpeg on the fixture's frames, levels of 255 (as
-# tests/test_torch_jpeg.py; measured on an H100): every channel ~0.5 level
-# lower, 0.59-0.69 levels apart on average per image, up to 67 at the
-# saturated blobs' edges, where the chroma upsampling differs.
-TOL_NVJPEG_MAX = 70
-TOL_NVJPEG_MEAN = 0.75
+# The card's decode (nvJPEG's planes + the colour kernel) against libjpeg on
+# the fixture's frames, levels of 255 (tests/test_torch_jpeg.py's bars:
+# measured on an H100, RGB max 3, mean 0.0172-0.0186 per image; each plane
+# max 1, mean at most 0.0172; only the IDCTs differ). nvJPEG's own RGBI sat
+# up to 67 levels and 0.59-0.69 on average away: the phase prints it beside.
+TOL_NVJPEG_MAX = 4
+TOL_NVJPEG_MEAN = 0.025
+TOL_NVJPEG_PLANE_MAX = 2
+TOL_NVJPEG_PLANE_MEAN = 0.025
 # The loader's no-aug patches of those frames (bilinear samples of them)
-# against the JAX loader's: measured max 54, mean 0.7313.
-TOL_PATCH_MAX = 60
-TOL_PATCH_MEAN = 0.8
+# against the JAX loader's: measured max 3, mean 0.0194 with the colour
+# kernel (54 and 0.7313 from nvJPEG's RGBI, under bars of 60 and 0.8); the
+# bars are the decode's.
+TOL_PATCH_MAX = TOL_NVJPEG_MAX
+TOL_PATCH_MEAN = TOL_NVJPEG_MEAN
 # (d) The test CLI's coordinates from the JPEGs against the same frames
 # rendered without JPEG, through one snapshot whose heads were peaked from
 # random weights: such a net amplifies q95's loss, and a joint with two
@@ -3010,6 +3037,7 @@ from ihpr_tpu_torch.data.pipeline import prefetch_to_device
 from ihpr_tpu_torch.engine.trainer import Trainer
 from ihpr_tpu_torch.models import pretrained
 from ihpr_tpu_torch.ops import fused_head_integral as fhi
+from ihpr_tpu_torch.ops import jpeg_color
 
 argv, pth = json.loads(sys.argv[1]), sys.argv[2]
 real_train, report = Trainer.train, {}
@@ -3036,7 +3064,7 @@ def train_and_report(self, *args, **kwargs):
         return out
 
     self.step_fn = timed
-    fhi.launches = fhi.bwd_launches = 0
+    fhi.launches = fhi.bwd_launches = jpeg_color.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = real_train(self, *args, **kwargs)
@@ -3063,7 +3091,8 @@ def train_and_report(self, *args, **kwargs):
     torch.cuda.synchronize()
     report.update(rate_steps=n, rate_ms=(time.perf_counter() - t1) * 1e3 / (n - 1),
                   rate_load_ms=load_s * 1e3 / (n - 1), rate_call_ms=call_s * 1e3 / (n - 1),
-                  rate_k1=fhi.launches - report["k1"], rate_k2=fhi.bwd_launches - report["k2"])
+                  rate_k1=fhi.launches - report["k1"], rate_k2=fhi.bwd_launches - report["k2"],
+                  colour=jpeg_color.launches)
     return out
 
 
@@ -3076,9 +3105,10 @@ _REAL_TEST_CHILD = r"""
 import json, sys
 from ihpr_tpu_torch import test
 from ihpr_tpu_torch.ops import fused_head_integral as fhi
-fhi.launches = fhi.bwd_launches = 0
+from ihpr_tpu_torch.ops import jpeg_color
+fhi.launches = fhi.bwd_launches = jpeg_color.launches = 0
 metrics = test.main(json.loads(sys.argv[1]))
-print(json.dumps({"k1": fhi.launches, "k2": fhi.bwd_launches, "metrics": metrics}))
+print(json.dumps({"k1": fhi.launches, "k2": fhi.bwd_launches, "colour": jpeg_color.launches, "metrics": metrics}))
 """
 
 
@@ -3097,6 +3127,88 @@ def _child(code: str, *args, timeout: int = 600) -> dict:
     if proc.returncode != 0 or not lines:
         raise AssertionError(f"exit {proc.returncode}: {proc.stdout[-2000:]} {proc.stderr[-3000:]}")
     return json.loads(lines[-1])
+
+
+def colour_vs_plain(jpeg, jpeg_color, blobs, label: str) -> int:
+    """The colour kernel against its plain version, both on nvJPEG's planes
+    of ``blobs`` on the card, every frame: the largest difference in levels.
+    Fails above 0 (the kernel is libjpeg's integer arithmetic, as plain is).
+    A comparison: the decode's and the kernel's counts are left as they
+    were."""
+    counts = jpeg.launches, jpeg_color.launches
+    planes, layouts = jpeg.decode_planes(blobs, "cuda")
+    rgb = jpeg_color.to_rgb(planes, layouts)
+    jpeg.launches, jpeg_color.launches = counts
+    err = max(int((img.to(torch.int16) - jpeg_color.plain(*jpeg_color.plane_views(planes, lay), lay.hs, lay.vs)
+                   .to(torch.int16)).abs().max()) for img, lay in zip(rgb, layouts))
+    kinds = sorted({(lay.h, lay.w, (lay.hs, lay.vs)) for lay in layouts})
+    print(f"{label}: the colour kernel against its plain version on {len(layouts)} frame(s) (h, w, (hs, vs)) "
+          f"{kinds}: max {err} levels")
+    if err:
+        raise AssertionError(f"{label}: the colour kernel differs from its plain version by {err} levels")
+    return err
+
+
+def colour_times(jpeg, jpeg_color, blobs, mpii_blob: bytes, gpu: str) -> dict:
+    """The colour kernel on the planes of ``blobs`` (a train batch of 128
+    frames) and of its first frame: held against its plain version on every
+    frame of the batch and on one MPII 1280x720 frame (``mpii_blob``),
+    kernel and plain times (CUDA events; plain on the same CUDA planes,
+    frame by frame), its bound (each plane read once, the RGB written once,
+    over the card's memory rate), and the decode with it (nvJPEG's planes +
+    the kernel) against nvJPEG's own RGBI decode, per frame alone and per
+    batch (host clock, waited for), in turns; then the host's share of the
+    planes decode per batch: the start-of-frame parse (``subsampling``), the
+    whole layout (``_layouts``: nvJPEG's image info + the parse) and the
+    kernel's call (its frame table, the pinned copy, the launch). These
+    launches are comparisons and are not counted."""
+    err = max(colour_vs_plain(jpeg, jpeg_color, blobs, "real-data (b) H36M batch"),
+              colour_vs_plain(jpeg, jpeg_color, [mpii_blob], "real-data (b) MPII frame"))
+    planes, layouts = jpeg.decode_planes(blobs, "cuda")
+    out = torch.empty(sum(lay.h * lay.w * 3 for lay in layouts), dtype=torch.uint8, device="cuda")
+    views = [jpeg_color.plane_views(planes, lay) for lay in layouts]
+    res = {}
+    for label, lays in (("frame", layouts[:1]), ("batch", layouts)):
+        nbytes = sum(lay.h * lay.w * 4 + 2 * (lay.chroma_shape[0] * lay.chroma_shape[1]) for lay in lays)
+        res[label] = {
+            "ms": _cuda_ms(lambda: jpeg_color.kernel(planes, lays, out), 20),
+            "plain_ms": _cuda_ms(lambda: [jpeg_color.plain(*v, lay.hs, lay.vs) for v, lay in zip(views, lays)],
+                                 2 if label == "batch" else 10, reps=3),
+            "bound_ms": nbytes / PEAK_HBM_BYTES * 1e3,
+            "frames": len(lays),
+        }
+    decode_ms = {}
+    for label, fn in (("planes+kernel", jpeg.decode), ("RGBI", jpeg.decode_rgbi)) * 2:
+        for n in (1, len(blobs)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3 if n > 1 else 16):
+                fn(blobs[:n], "cuda")
+            torch.cuda.synchronize()
+            decode_ms.setdefault((label, n), []).append((time.perf_counter() - t0) * 1e3 / (3 if n > 1 else 16))
+    codec, host_ms = jpeg._codec(), {}
+    for _ in range(5):
+        for label, fn in (("SOF parse", lambda: [jpeg.subsampling(b) for b in blobs]),
+                          ("_layouts", lambda: jpeg._layouts(codec, blobs, None)),
+                          ("kernel call", lambda: jpeg_color.kernel(planes, layouts, out))):
+            torch.cuda.synchronize()
+            with codec.lock:
+                t0 = time.perf_counter()
+                fn()
+                host_ms.setdefault(label, []).append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    for label, r in res.items():
+        print(f"real-data (b): colour kernel on {r['frames']} {layouts[0].h}x{layouts[0].w} 4:2:0 frame(s): "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms (bytes; "
+              f"{r['bound_ms'] / r['ms']:.2f} of it)  [{gpu}]")
+    print("real-data (b): decode, host clock, two rounds in turns: " + "; ".join(
+        f"{label} {n} frame(s) {', '.join(f'{t:.3f}' for t in ts)} ms" for (label, n), ts in decode_ms.items())
+        + f"  [{gpu}]")
+    print(f"real-data (b): host ms a {len(blobs)}-frame batch of the planes decode, median of 5 (min-max): " + "; ".join(
+        f"{label} {statistics.median(ts):.3f} ({min(ts):.3f}-{max(ts):.3f})" for label, ts in host_ms.items())
+        + f"  [{gpu}]")
+    batch = res["batch"]
+    return {"ms": batch["ms"], "plain_ms": batch["plain_ms"], "bound_ms": batch["bound_ms"], "err": err}
 
 
 def real_data_phase(fhi, gpu: str):
@@ -3123,6 +3235,7 @@ def real_data_phase(fhi, gpu: str):
     from ihpr_tpu_torch.data.datasets import PoseDataset, build_dataset, load_h36m, load_mpii, render_synthetic_image
     from ihpr_tpu_torch.data.pipeline import BatchLoader, _read_bytes, _to_host
     from ihpr_tpu_torch.engine.tester import Tester, metrics_from_voxel_preds
+    from ihpr_tpu_torch.ops import jpeg_color
     from ihpr_tpu_torch.tools.synthetic_root import write_h36m_root, write_mpii_root, write_torchvision_resnet
 
     t_phase = time.perf_counter()
@@ -3131,16 +3244,42 @@ def real_data_phase(fhi, gpu: str):
 
     # (a) the decoder and the loader against libjpeg and the JAX loader
     pixels = np.load(os.path.join(fixture, "pixels.npz"))
+    ycbcr = np.load(os.path.join(fixture, "ycbcr.npz"))
     blobs = [_read_bytes(os.path.join(fixture, "images", name)) for name in pixels.files]
-    jpeg.launches = 0
-    decoded = jpeg.decode(blobs, "cuda", pixels.files)
+    jpeg.launches = jpeg_color.launches = 0
+    planes, layouts = jpeg.decode_planes(blobs, "cuda", pixels.files)
+    decoded = jpeg_color.to_rgb(planes, layouts)
     torch.cuda.synchronize()
+    calls = (jpeg.launches, jpeg_color.launches)
+    host = planes.cpu()
+    colour_err = max(int((img.cpu().to(torch.int16) - jpeg_color.plain(*jpeg_color.plane_views(host, lay), lay.hs,
+                                                                        lay.vs).to(torch.int16)).abs().max())
+                     for img, lay in zip(decoded, layouts))
+    plane_gaps = {name: {key: _nvjpeg_vs(got, ycbcr[f"{name}/{key}"]) for key, got in
+                         zip(("y", "cb", "cr"), jpeg_color.plane_views(host, lay))}
+                  for name, lay in zip(pixels.files, layouts)}
     gaps = [_nvjpeg_vs(img, pixels[name]) for img, name in zip(decoded, pixels.files)]
-    if jpeg.launches != 1 or any(m > TOL_NVJPEG_MAX or a > TOL_NVJPEG_MEAN for m, a in gaps):
-        raise AssertionError(f"real-data (a): {jpeg.launches} decode calls; nvJPEG vs libjpeg (max, mean) {gaps}")
-    print(f"real-data (a): nvJPEG decoded the fixture's {len(blobs)} JPEGs in one call; against libjpeg's pixels "
-          f"max {max(m for m, _ in gaps)} levels (bar {TOL_NVJPEG_MAX}), mean {min(a for _, a in gaps):.4f}-"
-          f"{max(a for _, a in gaps):.4f} per image (bar {TOL_NVJPEG_MEAN})")
+    rgbi_gaps = [_nvjpeg_vs(img, pixels[name]) for img, name in
+                 zip(jpeg.decode_rgbi(blobs, "cuda", pixels.files), pixels.files)]
+    for name, gap, old in zip(pixels.files, gaps, rgbi_gaps):
+        print(f"real-data (a) {name}: planes vs libjpeg's (max, mean levels) "
+              + ", ".join(f"{k} {m} {a:.4f}" for k, (m, a) in plane_gaps[name].items())
+              + f"; RGB vs libjpeg's pixels {gap[0]} {gap[1]:.4f} (nvJPEG's own RGBI {old[0]} {old[1]:.4f})")
+    worst_plane = max((g for gs in plane_gaps.values() for g in gs.values()), key=lambda g: (g[0], g[1]))
+    if (calls != (1, 1) or colour_err != 0
+            or any(m > TOL_NVJPEG_MAX or a > TOL_NVJPEG_MEAN for m, a in gaps)
+            or any(m > TOL_NVJPEG_PLANE_MAX or a > TOL_NVJPEG_PLANE_MEAN
+                   for gs in plane_gaps.values() for m, a in gs.values())
+            or max(m for m, _ in gaps) >= max(m for m, _ in rgbi_gaps)
+            or max(a for _, a in gaps) >= min(a for _, a in rgbi_gaps)):
+        raise AssertionError(f"real-data (a): (decode, colour) calls {calls}; colour kernel vs plain {colour_err}; "
+                             f"RGB vs libjpeg (max, mean) {gaps}, RGBI {rgbi_gaps}; planes {plane_gaps}")
+    print(f"real-data (a): nvJPEG decoded the fixture's {len(blobs)} JPEGs to planes in one call, the colour kernel "
+          f"converted them in one launch, equal to its plain version bitwise; against libjpeg's pixels max "
+          f"{max(m for m, _ in gaps)} levels (bar {TOL_NVJPEG_MAX}), mean {min(a for _, a in gaps):.4f}-"
+          f"{max(a for _, a in gaps):.4f} per image (bar {TOL_NVJPEG_MEAN}); planes at most {worst_plane[0]} "
+          f"(bar {TOL_NVJPEG_PLANE_MAX}); nvJPEG's own RGBI max {max(m for m, _ in rgbi_gaps)}, mean "
+          f"{min(a for _, a in rgbi_gaps):.4f}-{max(a for _, a in rgbi_gaps):.4f}")
     h36m_fix = load_h36m(fixture, "test", 2, sampling=1)
     sets = [PoseDataset("Human36M", skeletons.H36M, h36m_fix, True),
             PoseDataset("MPII", skeletons.MPII, load_mpii(fixture, "train"), True)]
@@ -3163,7 +3302,7 @@ def real_data_phase(fhi, gpu: str):
         # (b) the root, encoded on the card; encode, decode and loader times
         t0 = time.perf_counter()
         written = write_h36m_root(root, REAL_TRAIN, REAL_TEST, REAL_SIZE, device="cuda")
-        write_mpii_root(root, REAL_MPII, device="cuda")
+        mpii = write_mpii_root(root, REAL_MPII, device="cuda")
         t_root = time.perf_counter() - t0
         train_files = sorted({s["img_path"] for s in written["train"]})
         frames = [render_synthetic_image(s) for s in written["train"][:32]]
@@ -3189,6 +3328,8 @@ def real_data_phase(fhi, gpu: str):
             host = _to_host(imgs)
             batch_ms.append((t1 - t0) * 1e3)
             back_ms.append((time.perf_counter() - t1) * 1e3)
+        colour = colour_times(jpeg, jpeg_color, blobs, _read_bytes(mpii[0]["img_path"]), gpu)
+        colour["err"] = max(colour["err"], colour_err)
         mb = sum(map(len, blobs)) / 2**20
         print(f"real-data (b): wrote {len(written['train'])} + {len(written['test'])} H36M {REAL_SIZE}x{REAL_SIZE} "
               f"and {REAL_MPII} MPII 1280x720 frames (render + nvJPEG encode at q95) in {t_root:.2f} s  [{gpu}]")
@@ -3224,12 +3365,14 @@ def real_data_phase(fhi, gpu: str):
         losses, steady = rep["losses"], rep["rate_ms"]
         rate = (rep["rate_steps"], rep["rate_k1"], rep["rate_k2"])
         if not (rep["backbone_is_the_file"] and rate == (REAL_RATE_STEPS,) * 3 and (rep["k1"], rep["k2"]) == (REAL_STEPS, REAL_STEPS)
+                and rep["colour"] == REAL_STEPS + REAL_RATE_STEPS  # one decode a batch
                 and len(losses) == REAL_STEPS and all(map(math.isfinite, losses))):
             raise AssertionError(f"real-data (c): {rep}")
         print(f"real-data (c): train --data_root <root> --pretrained <seeded torchvision ResNet-"
               f"{cfg.model.resnet_type} .pth> --steps "
               f"{REAL_STEPS}: exit 0 in {t_train:.1f} s; the backbone before step 1 is the file's, bitwise; K1 "
-              f"{rep['k1']}, K2 {rep['k2']} launches; losses {', '.join(f'{x:.4f}' for x in losses)}  [{gpu}]")
+              f"{rep['k1']}, K2 {rep['k2']} launches, the colour kernel {rep['colour']} (with the rate loop's); "
+              f"losses {', '.join(f'{x:.4f}' for x in losses)}  [{gpu}]")
         print(f"real-data (c): host clock, the loader's JPEG batches included: the first step (two batches "
               f"loaded, cuDNN's plans) {rep['first_ms']:.1f} ms; then {REAL_RATE_STEPS} more steps from epochs 1-3, "
               f"waited for after the first and at the end only: {steady:.1f} ms a step, "
@@ -3244,10 +3387,10 @@ def real_data_phase(fhi, gpu: str):
         test_set = build_dataset(cfg.data.testset, "test", cfg, root)
         batches = -(-len(test_set) // cfg.eval.batch_size_per_device)
         mpjpe = rep_t["metrics"]["MPJPE total"]
-        if (rep_t["k1"], rep_t["k2"]) != (batches, 0) or not math.isfinite(mpjpe):
+        if (rep_t["k1"], rep_t["k2"], rep_t["colour"]) != (batches, 0, batches) or not math.isfinite(mpjpe):
             raise AssertionError(f"real-data (d): {rep_t}")
         print(f"real-data (d): test --data_root <root>: exit 0 in {t_test:.1f} s, {len(test_set)} samples, flip-test, "
-              f"K1 launches {rep_t['k1']}; MPJPE {mpjpe:.2f} mm  [{gpu}]")
+              f"K1 launches {rep_t['k1']}, the colour kernel {rep_t['colour']}; MPJPE {mpjpe:.2f} mm  [{gpu}]")
         by_file = {os.path.basename(s["img_path"]): s for s in written["test"]}
         plain = PoseDataset(test_set.name, test_set.skeleton,
                             [{**by_file[os.path.basename(s["img_path"])], "img_path": None} for s in test_set.samples],
@@ -3272,7 +3415,74 @@ def real_data_phase(fhi, gpu: str):
               f"{np.percentile(d_xy, 99):.3f}, max {d_xy.max():.3f}; z mean {d_z.mean():.4f} mm (bar {TOL_REAL_Z}), "
               f"p99 {np.percentile(d_z, 99):.3f}, max {d_z.max():.3f}; the predictions spread {spread:.1f} px")
     print(f"real-data: the phase took {time.perf_counter() - t_phase:.1f} s  [{gpu}]")
-    return rep["k1"] + rep["rate_k1"] + rep_t["k1"] + k1_plain, rep["k2"] + rep["rate_k2"]
+    colour["launches"] = rep["colour"] + rep_t["colour"]
+    return rep["k1"] + rep["rate_k1"] + rep_t["k1"] + k1_plain, rep["k2"] + rep["rate_k2"], colour
+
+
+# --- 7j: the accuracy harness -----------------------------------------------------
+
+ACC_TRAIN, ACC_TEST, ACC_EPOCHS = 512, 64, 5  # accuracy_loop --preset tiny cut to 16 steps an epoch
+ACC_COMPARED = 64  # of the tool's JPEGs, decoded after the run to hold the colour kernel against plain
+ACC_EVAL_BATCHES = 2  # the headline and the train-subset eval: one batch of 128 each (the oracle runs on the CPU)
+TOL_ORACLE_MM = 1.0  # the tool's own --oracle_tol_mm
+
+
+def accuracy_phase(fhi, iv, mm, cb, gpu: str):
+    """``python -m ihpr_tpu_torch.tools.accuracy_loop --preset tiny`` cut to
+    ACC_TRAIN / ACC_TEST frames and ACC_EPOCHS epochs, with its oracle,
+    through the tool's main: the synthetic frames rendered and encoded on
+    the card (nvJPEG), decoded there (nvJPEG + the colour kernel), ResNet-18
+    at 128x128 trained in fp32 "highest" (the fp32 head takes the logits and
+    K3/K4, not K1/K2), the Tester's MPJPE, and the trained weights on the
+    CPU (the oracle) within TOL_ORACLE_MM of the card's eval. The bar is set
+    out of reach (5 epochs do not learn the task), so the exit code is the
+    oracle's verdict. K1-K8 and the colour kernel counted over the run;
+    then the colour kernel held against its plain version on ACC_COMPARED
+    of the tool's JPEGs. Returns K3's, K4's and the colour kernel's
+    launches, and the colour kernel's largest difference from plain."""
+    from ihpr_tpu_torch.data import jpeg
+    from ihpr_tpu_torch.data.pipeline import _read_bytes
+    from ihpr_tpu_torch.ops import jpeg_color
+    from ihpr_tpu_torch.tools import accuracy_loop
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        argv = ["--preset", "tiny", "--train_size", str(ACC_TRAIN), "--test_size", str(ACC_TEST), "--end_epoch",
+                str(ACC_EPOCHS), "--mpjpe_bar_mm", "1e9", "--oracle_tol_mm", str(TOL_ORACLE_MM), "--output_dir", out]
+        torch.cuda.synchronize()
+        _zero_counts(fhi, iv, mm, cb)
+        jpeg_color.launches = 0
+        try:
+            accuracy_loop.main(argv)
+            code = 0
+        except SystemExit as exc:
+            code = exc.code
+        torch.cuda.synchronize()
+        counts, colour = _counts(fhi, iv, mm, cb), jpeg_color.launches
+        with open(os.path.join(out, "accuracy_loop.json")) as f:
+            result = json.load(f)
+        frames = sorted(glob.glob(os.path.join(out, "imgs", "*.jpg")))[:ACC_COMPARED]
+        if len(frames) != ACC_COMPARED:
+            raise AssertionError(f"accuracy: {len(frames)} JPEGs under the tool's imgs/, want {ACC_COMPARED} or more")
+        err = colour_vs_plain(jpeg, jpeg_color, [_read_bytes(p) for p in frames], "accuracy: the tool's frames")
+    steps = ACC_TRAIN // 32 * ACC_EPOCHS
+    want = (0, 0, steps + ACC_EVAL_BATCHES, steps, 0, 0, 0, 0)
+    # One decode a batch: the train batches, the two evals' and the oracle's
+    # (its patches are the card loader's).
+    want_colour = steps + ACC_EVAL_BATCHES + 1
+    ours, gap = result["mpjpe_ours_mm"], result["mpjpe_gap_mm"]
+    print(f"accuracy: accuracy_loop --preset tiny --train_size {ACC_TRAIN} --test_size {ACC_TEST} --end_epoch "
+          f"{ACC_EPOCHS}: exit {code}; unseen MPJPE {ours} mm, train subset {result['mpjpe_train_subset_mm']} mm, "
+          f"CPU oracle {result['mpjpe_torch_mm']} mm, gap {gap} mm (bar {TOL_ORACLE_MM}); {result['train_steps']} "
+          f"steps in {result['train_seconds']} s, {result['train_img_per_s']} img/s, the loader's share of the "
+          f"train loop {result['loader_share']}; K1-K8 {counts} (want {want}), the colour kernel {colour} (want "
+          f"{want_colour})  [{gpu}]")
+    if (code != 0 or counts != want or colour != want_colour or result["train_steps"] != steps
+            or not (math.isfinite(ours) and gap <= TOL_ORACLE_MM) or result["gpu"] is None):
+        raise AssertionError(f"accuracy: exit {code}, K1-K8 {counts} (want {want}), colour {colour} (want "
+                             f"{want_colour}), {result}")
+    print(f"accuracy: the phase took {time.perf_counter() - t_phase:.1f} s  [{gpu}]")
+    return counts[2], counts[3], colour, err
 
 
 # --- 7i: spatial partitioning ---------------------------------------------------
@@ -3432,6 +3642,15 @@ def _spatial_rank(rank: int, world: int, work: str, gpu: str):
     # -----------------------------------------------------------
     chunk = inputs["patches"][:MAX_BATCH]
     out["serve_ms"] = _cuda_ms(lambda: server.submit_patches(chunk), 3, reps=2)
+
+    # --- (e) the spatial server's export: the whole-image program ---
+    from ihpr_tpu_torch.engine.export import export_server
+
+    blob = export_server(server)
+    out["export_sha1"] = hashlib.sha1(blob).hexdigest()
+    if rank == 0:
+        with open(f"{work}/spatial.pt2", "wb") as f:
+            f.write(blob)
     return out
 
 
@@ -3474,6 +3693,25 @@ def _spatial4_rank(rank: int, world: int, work: str, gpu: str):
     return out
 
 
+_SPATIAL_ARTIFACT_CHILD = r"""
+import json, sys
+import numpy as np
+import torch
+work = sys.argv[1]
+patches = torch.from_numpy(np.load(f"{work}/export_patches.npy")).cuda()
+ones = torch.ones(len(patches), 3, device="cuda")
+outs = {}
+for name in ("spatial", "one"):
+    program = torch.export.load(f"{work}/{name}.pt2").module()
+    with torch.no_grad():
+        outs[name] = program(patches, ones).cpu().numpy()
+a, b = outs["spatial"], outs["one"]
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("ihpr_tpu_torch", "ihpr_tpu", "jax"))
+print(json.dumps({"equal": bool(np.array_equal(a, b)), "finite": bool(np.isfinite(a).all()), "shape": list(a.shape),
+                  "spread": float(np.abs(a - a.mean()).max()), "leaked": leaked}))
+"""
+
+
 def spatial_phase(fhi, iv, gpu: str):
     """Spatial partitioning of h36m3d_r50 (ResNet-50, 256x256, bf16, lean BN,
     J=18, D=64) at full width and depth, cut to batch SP_BATCH a data
@@ -3487,7 +3725,11 @@ def spatial_phase(fhi, iv, gpu: str):
     a rank and K1/K2 never, device ms a step a rank, the halo exchanges'
     share of a step's host time and their bytes, peak memory; (c)
     PoseServer(partition="spatial") on SP_PATCHES patches at max_batch 32
-    with flip-test against one process's server (the bf16 rule of (a)).
+    with flip-test against one process's server (the bf16 rule of (a));
+    (e) each rank exports that server (engine/export.py: the whole-image
+    program of a one-process copy of its model), bitwise the one-process
+    server's artifact, and a process with torch alone runs both artifacts
+    on MAX_BATCH patches to bitwise equal coords.
     D = 2 x S = 2 on four ranks: (d) one step on a 64-image batch from the
     peaked weights, its loss against one process's (fp32 "highest" within
     TOL_DP_FP32's loss bar, bf16 by the rule of (a)). Returns the ranks' K3 and K4 launches and the
@@ -3496,6 +3738,7 @@ def spatial_phase(fhi, iv, gpu: str):
     from ihpr_tpu_torch.data.augment import finalize_patch
     from ihpr_tpu_torch.data.datasets import build_dataset
     from ihpr_tpu_torch.data.pipeline import BatchLoader
+    from ihpr_tpu_torch.engine.export import export_server
     from ihpr_tpu_torch.engine.server import PoseServer
     from ihpr_tpu_torch.engine.trainer import Trainer
     from ihpr_tpu_torch.models.pose_net import build_pose_net, inference_copy
@@ -3566,6 +3809,20 @@ def spatial_phase(fhi, iv, gpu: str):
         ranks4 = launch.spawn(_spatial4_rank, SP_GRID4[0], "gloo", work, gpu, workdir=work)
         t_ranks4 = time.perf_counter() - t0
 
+        # (e) the ranks' artifacts against the one-process server's, run by a
+        # process with torch alone
+        one_blob = export_server(PoseServer(_sp_cfg(work), eval_sd, max_batch=MAX_BATCH, flip_test=True,
+                                            device="cuda"))
+        with open(f"{work}/one.pt2", "wb") as f:
+            f.write(one_blob)
+        np.save(f"{work}/export_patches.npy", patches[:MAX_BATCH])
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        proc = subprocess.run([sys.executable, "-c", _SPATIAL_ARTIFACT_CHILD, work], cwd=work, env=env,
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"spatial (e): the torch-only process failed:\n{proc.stderr[-4000:]}")
+        art = json.loads(proc.stdout.strip().splitlines()[-1])
+
     failed = []  # every check runs and prints; the phase raises at its end
     r0 = ranks[0]
     for key in ("eval_bf16", "eval_fp32", "served"):
@@ -3609,6 +3866,11 @@ def spatial_phase(fhi, iv, gpu: str):
     for key in ("bf16", "fp32"):
         if len({r[key]["digest"] for r in ranks4}) != 1:
             failed.append(f"spatial (d): {key} parameters and BN buffers differ between the ranks")
+    one_sha1 = hashlib.sha1(one_blob).hexdigest()
+    if ({r["export_sha1"] for r in ranks} != {one_sha1} or not art["equal"] or not art["finite"]
+            or art["shape"] != [MAX_BATCH, 18, 3] or art["leaked"]):
+        failed.append(f"spatial (e): the ranks' artifacts {[r['export_sha1'] for r in ranks]}, one process's "
+                      f"{one_sha1}; the torch-only run {art}")
 
     print(f"spatial (a): {SP_RANKS} ranks (S = {SP_RANKS}, D = 1) over gloo on one card, h36m3d_r50 flip-test "
           f"eval step on {SP_BATCH} images: fp32 \"highest\" {err32:.3g} voxel from one process (bar "
@@ -3636,6 +3898,10 @@ def spatial_phase(fhi, iv, gpu: str):
           f"against {want4[False]['loss']:.6f} (bar {TOL_SP_BF16:g} x one process's bf16 from fp32, {own4:.3g}); "
           f"K3/K4 {[r['bf16']['counts'][2:4] for r in ranks4]} a rank a step; parameters and BN buffers bitwise "
           f"equal on the ranks")
+    print(f"spatial (e): export_server on each of the {SP_RANKS} ranks of PoseServer(partition=\"spatial\"): "
+          f"artifacts bitwise the one-process server's ({len(one_blob) / 1e6:.1f} MB, sha1 {one_sha1[:12]}); a "
+          f"process with torch alone ran both on {MAX_BATCH} patches with flip-test: outputs bitwise equal "
+          f"({art['equal']}), coords spread {art['spread']:.3g} voxel")
     print(f"spatial: the phase took {time.perf_counter() - t_phase:.1f} s  [{gpu}]")
     if failed:
         raise AssertionError("; ".join(failed))
@@ -3650,7 +3916,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke run of ihpr_tpu_torch on one NVIDIA GPU.")
     parser.add_argument("--only", nargs="+",
                         choices=("bn", "fused", "dp", "dp-serve", "device-warp", "serving-bench", "real-data",
-                                 "spatial"),
+                                 "spatial", "accuracy"),
                         help="build the kernels and run only these phases (no JSON lines)")
     only = parser.parse_args(argv).only
     if not torch.cuda.is_available():
@@ -3661,6 +3927,7 @@ def main(argv=None) -> int:
     from ihpr_tpu_torch.ops import conv_bn as cb
     from ihpr_tpu_torch.ops import fused_head_integral as fhi
     from ihpr_tpu_torch.ops import integral_volume as iv
+    from ihpr_tpu_torch.ops import jpeg_color
     from ihpr_tpu_torch.ops import matmul_bn as mm
     from ihpr_tpu_torch.tools import exp_probe as ep
     from ihpr_tpu_torch.tools import mxu_int8_probe as pm
@@ -3673,7 +3940,8 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     libs = _build.build_all([fhi._LIB, fhi._BWD_LIB, iv._FWD_LIB, iv._BWD_LIB,
-                             mm._FWD_LIB, mm._BWD_LIB, cb._FWD_LIB, cb._BWD_LIB, ep._LIB, pm._LIB, jpeg._LIB])
+                             mm._FWD_LIB, mm._BWD_LIB, cb._FWD_LIB, cb._BWD_LIB, ep._LIB, pm._LIB, jpeg._LIB,
+                             jpeg_color._LIB])
     print(f"build: {', '.join(lib.name for lib in libs)} in {time.perf_counter() - t0:.2f} s")
     for lib in libs:
         print(lib.with_suffix(".log").read_text().strip())
@@ -3681,7 +3949,8 @@ def main(argv=None) -> int:
         phases = {"bn": lambda: bn_kernel_phase(mm, cb, gpu), "fused": lambda: fused_train_phase(fhi, iv, mm, cb, gpu),
                   "dp": lambda: dp_phase(fhi, iv, mm, cb, gpu), "dp-serve": lambda: dp_serve_phase(fhi, gpu),
                   "device-warp": lambda: device_warp_phase(fhi, gpu), "serving-bench": lambda: serving_bench_phase(gpu),
-                  "real-data": lambda: real_data_phase(fhi, gpu), "spatial": lambda: spatial_phase(fhi, iv, gpu)}
+                  "real-data": lambda: real_data_phase(fhi, gpu), "spatial": lambda: spatial_phase(fhi, iv, gpu),
+                  "accuracy": lambda: accuracy_phase(fhi, iv, mm, cb, gpu)}
         for name in only:
             phases[name]()
         print(gpu)
@@ -3708,7 +3977,8 @@ def main(argv=None) -> int:
     dp_serve_k1 = dp_serve_phase(fhi, gpu)
     warp_k1, warp_k2 = device_warp_phase(fhi, gpu)
     serving_bench_phase(gpu)
-    real_k1, real_k2 = real_data_phase(fhi, gpu)
+    real_k1, real_k2, colour = real_data_phase(fhi, gpu)
+    acc_k3, acc_k4, acc_colour, acc_colour_err = accuracy_phase(fhi, iv, mm, cb, gpu)
     sp_k3, sp_k4, sp_k3_err, sp_k4_err = spatial_phase(fhi, iv, gpu)
     hm_k3, hm_k4, hm_err, hm_dv_err = heatmap_phase(fhi, iv, gpu)
     np_k3, np_k4, np_err = noplan_phase(fhi, iv, gpu)
@@ -3723,9 +3993,9 @@ def main(argv=None) -> int:
         (fhi._BWD_LIB, "ihpr_tpu/ops/fused_head_integral.py:153",
          train_k2 + snap_k2 + r152_k2 + dp_n["K2"] + warp_k2 + real_k2,
          max(k2_err, head_err, r152_k2_err, dp_errs["K2"]), k2_ms, k2_plain, *b2, k2_lib),
-        (iv._FWD_LIB, "ihpr_tpu/ops/integral_pallas.py:201", hm_k3 + np_k3 + eval_k3 + sp_k3,
+        (iv._FWD_LIB, "ihpr_tpu/ops/integral_pallas.py:201", hm_k3 + np_k3 + eval_k3 + sp_k3 + acc_k3,
          max(k3_err, hm_err, np_err, eval_k3_err, sp_k3_err), k3_ms, k3_plain, *b3, None),
-        (iv._BWD_LIB, "ihpr_tpu/ops/integral_pallas.py:239", hm_k4 + np_k4 + sp_k4,
+        (iv._BWD_LIB, "ihpr_tpu/ops/integral_pallas.py:239", hm_k4 + np_k4 + sp_k4 + acc_k4,
          max(k4_err, hm_dv_err, sp_k4_err), k4_ms, k4_plain, *b4, None),
     ]
     for (name, replaces, key, launches), err in zip(
@@ -3742,6 +4012,11 @@ def main(argv=None) -> int:
     kernels.append((ep._LIB, "tools/exp_probe.py:44", p1_n, p1_err, p1_ms, p1_plain, p1_bound, "bytes", p1_lib))
     p2_n, p2_err, p2_ms, p2_plain, p2_lib, p2_bound, p2_by = p2
     kernels.append((pm._LIB, "tools/mxu_int8_probe.py:110", p2_n, p2_err, p2_ms, p2_plain, p2_bound, p2_by, p2_lib))
+    # No Pallas kernel: the JAX package's libjpeg decode on the host, whose
+    # upsampling and colour conversion the kernel computes.
+    kernels.append((jpeg_color._LIB, "native/warp.cc:379", colour["launches"] + acc_colour,
+                    max(colour["err"], acc_colour_err),
+                    colour["ms"], colour["plain_ms"], colour["bound_ms"], "bytes", None))
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

@@ -1,4 +1,5 @@
-"""JPEG decode and encode: nvJPEG on a CUDA device, cv2 on the CPU.
+"""JPEG decode and encode: nvJPEG and libjpeg's colour arithmetic on a CUDA
+device, cv2 on the CPU.
 
 The JAX package reads a dataset's JPEGs on the host, with libjpeg fused
 into the native warp (``native/warp.cc``) or with ``cv2.imread``
@@ -6,21 +7,28 @@ into the native warp (``native/warp.cc``) or with ``cv2.imread``
 card, so that it needs neither cv2 nor libjpeg beside the CUDA toolkit:
 ``ops/csrc/nvjpeg_codec.cu``, built by ``ops/_build.py`` and linked with
 the CUDA toolkit's nvJPEG, decodes a batch's files in one
-``nvjpegDecodeBatched`` call into interleaved RGB, the JAX package's
-channel order. ``encode`` is its inverse (baseline 4:2:0 at the quality
-asked for, as ``cv2.imwrite`` writes by default), for
-``datasets.materialize_synthetic``.
+``nvjpegDecodeBatched`` call into planar YCbCr at each file's stored
+subsampling (``decode_planes``), and the colour kernel
+(``ops/jpeg_color.py``) upsamples the chroma and converts to interleaved
+RGB, the JAX package's channel order, with libjpeg's integer arithmetic.
+Only nvJPEG's IDCT then stands between the card's pixels and libjpeg's.
+The card takes 4:4:4, 4:2:2, 4:2:0 and grayscale files; any other
+subsampling raises ``ValueError`` naming the file (``subsampling``).
+``encode`` is the inverse (baseline 4:2:0 at the quality asked for, as
+``cv2.imwrite`` writes by default), for ``datasets.materialize_synthetic``.
 
 ``device`` chooses the codec: a CUDA device takes nvJPEG, which builds or
 raises (a toolkit without nvJPEG is an error at build time, naming the
 directories searched); the CPU takes ``cv2.imdecode`` / ``cv2.imencode``,
 the plain version the CPU tests use. Nothing falls back from one to the
-other. The two decoders' IDCTs and chroma upsampling differ by a few levels
-(``chip_smoke.py``'s real-data phase measures the difference on the card).
-Bytes that do not decode raise ``ValueError`` naming the file.
+other. ``decode_rgbi`` is nvJPEG's own upsampling and colour conversion,
+kept only as the baseline the colour kernel is measured against
+(``chip_smoke.py``). Bytes that do not decode raise ``ValueError`` naming
+the file.
 
 ``launches`` and ``encode_launches`` count the nvJPEG decode and encode
-calls (one a batch, one an image) since they were last set to 0.
+calls (one a batch, one an image) since they were last set to 0; the
+colour kernel counts its own (``jpeg_color.launches``).
 """
 
 from __future__ import annotations
@@ -33,7 +41,8 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from ihpr_tpu_torch.ops import _build
+from ihpr_tpu_torch.ops import _build, jpeg_color
+from ihpr_tpu_torch.ops.jpeg_color import GRAY, SAMPLINGS, Layout
 
 _LIB = "nvjpeg_codec"
 
@@ -64,12 +73,12 @@ class _Codec:
         lib.ihpr_jpeg_create.argtypes = [ctypes.POINTER(_P)]
         lib.ihpr_jpeg_destroy.argtypes = [_P]
         lib.ihpr_jpeg_destroy.restype = None
-        lib.ihpr_jpeg_info.argtypes = [_P, ctypes.c_char_p, ctypes.c_size_t,
-                                       ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+        lib.ihpr_jpeg_info.argtypes = [_P, ctypes.c_char_p, ctypes.c_size_t, ctypes.POINTER(ctypes.c_int)]
         lib.ihpr_jpeg_decode_batch.argtypes = [_P, ctypes.c_int, ctypes.POINTER(ctypes.c_char_p),
                                                ctypes.POINTER(ctypes.c_size_t), ctypes.POINTER(_P),
-                                               ctypes.POINTER(ctypes.c_int), _P]
-        lib.ihpr_jpeg_decode_one.argtypes = [_P, ctypes.c_char_p, ctypes.c_size_t, _P, ctypes.c_int, _P]
+                                               ctypes.POINTER(ctypes.c_int), ctypes.c_int, _P]
+        lib.ihpr_jpeg_decode_one.argtypes = [_P, ctypes.c_char_p, ctypes.c_size_t, ctypes.POINTER(_P),
+                                             ctypes.POINTER(ctypes.c_int), ctypes.c_int, _P]
         lib.ihpr_jpeg_encode.argtypes = [_P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                          ctypes.POINTER(ctypes.c_size_t), _P]
         lib.ihpr_jpeg_encode_retrieve.argtypes = [_P, ctypes.c_char_p, ctypes.POINTER(ctypes.c_size_t), _P]
@@ -103,49 +112,150 @@ def _decode_cpu(blobs: Sequence[bytes], names) -> List[torch.Tensor]:
     return out
 
 
+# Start-of-frame markers (SOF0-SOF15 but DHT, JPG and DAC).
+_SOF = frozenset(range(0xC0, 0xD0)) - {0xC4, 0xC8, 0xCC}
+
+
+def subsampling(blob: bytes, name: str = "image") -> tuple:
+    """The frame's chroma subsampling from its start-of-frame header: ``(hs,
+    vs)`` of ``jpeg_color.SAMPLINGS``, or ``jpeg_color.GRAY``. Any other
+    (4:4:0, 4:1:1, CMYK, a chroma plane of its own layout) raises
+    ``ValueError`` naming ``name``: the card's colour kernel has no path
+    for it."""
+    i, n = 2, len(blob)
+    if blob[:2] != b"\xff\xd8":
+        raise ValueError(f"{name}: not a JPEG (no start-of-image marker)")
+    while i + 4 <= n:
+        if blob[i] != 0xFF:
+            raise ValueError(f"{name}: malformed JPEG marker at byte {i}")
+        marker = blob[i + 1]
+        if marker == 0xFF:  # fill byte
+            i += 1
+            continue
+        if marker == 0xDA:
+            break
+        length = int.from_bytes(blob[i + 2 : i + 4], "big")
+        if marker in _SOF:
+            comps = blob[i + 9] if i + 9 < n else 0
+            if i + 11 + 3 * comps > n:
+                raise ValueError(f"{name}: truncated start-of-frame header")
+            factors = [(blob[i + 11 + 3 * k] >> 4, blob[i + 11 + 3 * k] & 15) for k in range(comps)]
+            if comps == 1:
+                return GRAY
+            if comps == 3 and factors[1] == factors[2] and factors[0] == max(factors):
+                (hy, vy), (hc, vc) = factors[0], factors[1]
+                mode = (hy // hc, vy // vc) if hy % hc == 0 and vy % vc == 0 else None
+                if mode in SAMPLINGS.values():
+                    return mode
+            raise ValueError(
+                f"{name}: {comps} components with sampling factors {factors}: the card decodes "
+                f"{', '.join(SAMPLINGS)} and grayscale only"
+            )
+        i += 2 + length
+    raise ValueError(f"{name}: no start-of-frame header before the scan")
+
+
+def _layouts(codec, blobs, names):
+    """Each frame's planes in one flat buffer, from its header: Y, then Cb
+    and Cr at its subsampling (a grayscale frame keeps room for two planes
+    of its own size, which nvJPEG may write and the colour kernel ignores),
+    and the buffer's size in bytes."""
+    info = (ctypes.c_int * 6)()
+    layouts, offset = [], 0
+    for i, blob in enumerate(blobs):
+        err = codec.lib.ihpr_jpeg_info(codec.handle, blob, len(blob), info)
+        if err or info[2] <= 0 or info[3] <= 0:
+            raise ValueError(f"{_name(names, i)}: not a JPEG nvJPEG reads: {_status(err)}")
+        hs, vs = subsampling(blob, _name(names, i))
+        h, w = info[2], info[3]
+        lay = Layout(offset, 0, 0, h, w, hs, vs)
+        ch, cw = lay.chroma_shape if (hs, vs) != GRAY else (h, w)
+        if (hs, vs) != GRAY and (info[4], info[5]) != (ch, cw):
+            raise ValueError(f"{_name(names, i)}: nvJPEG reports a {info[4]}x{info[5]} chroma plane for a {h}x{w} "
+                             f"frame at {(hs, vs)}; libjpeg's is {ch}x{cw}")
+        layouts.append(lay._replace(cb=offset + h * w, cr=offset + h * w + ch * cw))
+        offset += h * w + 2 * ch * cw
+    return layouts, offset
+
+
+def _pitches(lay: Layout) -> List[int]:
+    return [lay.w] + [lay.chroma_shape[1] if (lay.hs, lay.vs) != GRAY else lay.w] * 2
+
+
+def _check_device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"jpeg.decode: no decoder on {device}")
+    return device
+
+
+def _nvjpeg(codec, blobs, names, bases, pitches, rgbi: int, stream):
+    """One ``nvjpegDecodeBatched`` call of ``blobs`` into the planes at
+    ``bases`` (three a frame); on failure, find the file at fault by
+    decoding them one at a time, then raise."""
+    global launches
+    lib, n = codec.lib, len(blobs)
+    planes = (_P * (3 * n))(*bases)
+    rows = (ctypes.c_int * (3 * n))(*pitches)
+    err = lib.ihpr_jpeg_decode_batch(codec.handle, n, (ctypes.c_char_p * n)(*blobs),
+                                     (ctypes.c_size_t * n)(*map(len, blobs)), planes, rows, rgbi, stream)
+    if err:
+        for i, blob in enumerate(blobs):
+            one = lib.ihpr_jpeg_decode_one(codec.handle, blob, len(blob), (_P * 3)(*bases[3 * i : 3 * i + 3]),
+                                           (ctypes.c_int * 3)(*pitches[3 * i : 3 * i + 3]), rgbi, stream)
+            if one:
+                raise ValueError(f"{_name(names, i)}: nvJPEG could not decode it: {_status(one)}")
+        raise RuntimeError(f"nvjpegDecodeBatched of {n} images failed: {_status(err)}")
+    launches += 1
+
+
+def decode_planes(blobs: Sequence[bytes], device, names: Optional[Sequence[str]] = None):
+    """JPEG bytes -> (one flat uint8 tensor on the CUDA ``device`` holding
+    every frame's Y, Cb and Cr planes at its stored subsampling, and each
+    frame's ``jpeg_color.Layout``): one ``nvjpegDecodeBatched`` call on the
+    current stream. ``names`` (one per blob, e.g. file paths) label
+    errors."""
+    device = _check_device(device)
+    codec = _codec()
+    with codec.lock, torch.cuda.device(device):
+        layouts, size = _layouts(codec, blobs, names)
+        planes = torch.empty(size, dtype=torch.uint8, device=device)
+        if layouts:
+            base = planes.data_ptr()
+            _nvjpeg(codec, blobs, names, [base + o for lay in layouts for o in (lay.y, lay.cb, lay.cr)],
+                    [p for lay in layouts for p in _pitches(lay)], 0, torch.cuda.current_stream(device).cuda_stream)
+    return planes, layouts
+
+
 def decode(blobs: Sequence[bytes], device, names: Optional[Sequence[str]] = None) -> List[torch.Tensor]:
     """JPEG bytes -> RGB ``(H, W, 3)`` uint8 tensors on ``device``. On a CUDA
-    device the whole list is one ``nvjpegDecodeBatched`` call on the current
-    stream, into one buffer that the returned tensors view. ``names`` (one
-    per blob, e.g. file paths) label errors."""
-    global launches
+    device: ``decode_planes`` (one nvJPEG call), then one launch of the
+    colour kernel, on the current stream; the returned tensors view one
+    buffer. ``names`` (one per blob, e.g. file paths) label errors."""
     device = torch.device(device)
     if device.type == "cpu":
         return _decode_cpu(blobs, names)
-    if device.type != "cuda":
-        raise ValueError(f"jpeg.decode: no decoder on {device}")
+    _check_device(device)
     if not blobs:
         return []
+    planes, layouts = decode_planes(blobs, device, names)
+    return jpeg_color.to_rgb(planes, layouts)
+
+
+def decode_rgbi(blobs: Sequence[bytes], device, names: Optional[Sequence[str]] = None) -> List[torch.Tensor]:
+    """JPEG bytes -> RGB tensors by nvJPEG's own chroma upsampling and colour
+    conversion (``NVJPEG_OUTPUT_RGBI``), one batched call: the baseline the
+    colour kernel is measured against. The loader never calls it."""
+    device = _check_device(device)
     codec = _codec()
-    lib = codec.lib
-    n = len(blobs)
-    h, w = ctypes.c_int(), ctypes.c_int()
-    sizes = []
     with codec.lock, torch.cuda.device(device):
-        for i, blob in enumerate(blobs):
-            err = lib.ihpr_jpeg_info(codec.handle, blob, len(blob), ctypes.byref(h), ctypes.byref(w))
-            if err or h.value <= 0 or w.value <= 0:
-                raise ValueError(f"{_name(names, i)}: not a JPEG nvJPEG reads: {_status(err)}")
-            sizes.append((h.value, w.value))
-        offsets = np.cumsum([0] + [hh * ww * 3 for hh, ww in sizes])
+        layouts, _ = _layouts(codec, blobs, names)
+        offsets = np.cumsum([0] + [lay.h * lay.w * 3 for lay in layouts])
         flat = torch.empty(int(offsets[-1]), dtype=torch.uint8, device=device)
         base = flat.data_ptr()
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.ihpr_jpeg_decode_batch(
-            codec.handle, n, (ctypes.c_char_p * n)(*blobs), (ctypes.c_size_t * n)(*map(len, blobs)),
-            (_P * n)(*[base + int(o) for o in offsets[:-1]]), (ctypes.c_int * n)(*[ww for _, ww in sizes]),
-            stream,
-        )
-        if err:
-            # Find the file at fault: decode them one at a time, then raise.
-            for i, blob in enumerate(blobs):
-                one = lib.ihpr_jpeg_decode_one(codec.handle, blob, len(blob), base + int(offsets[i]),
-                                               sizes[i][1], stream)
-                if one:
-                    raise ValueError(f"{_name(names, i)}: nvJPEG could not decode it: {_status(one)}")
-            raise RuntimeError(f"nvjpegDecodeBatched of {n} images failed: {_status(err)}")
-        launches += 1
-    return [flat[int(o) : int(o) + hh * ww * 3].view(hh, ww, 3) for o, (hh, ww) in zip(offsets, sizes)]
+        _nvjpeg(codec, blobs, names, [p for o in offsets[:-1] for p in (base + int(o), 0, 0)],
+                [p for lay in layouts for p in (lay.w * 3, 0, 0)], 1, torch.cuda.current_stream(device).cuda_stream)
+    return [flat[int(o) : int(o) + lay.h * lay.w * 3].view(lay.h, lay.w, 3) for o, lay in zip(offsets, layouts)]
 
 
 def encode(images: Sequence, quality: int = 95, device="cuda") -> List[bytes]:

@@ -29,6 +29,10 @@ definition, no ``ihpr_tpu_torch``, no snapshot directory.
   (``METADATA``, one of its ``extra_files``), and ``load_exported``'s
   callable turns TF32 off around each call. Exporting leaves the
   process's flags as it found them.
+- A spatial server (``partition="spatial"`` over several ranks) exports
+  the whole-image program: a one-process copy of its model, the same
+  weights with no grid, as JAX exports ``coords_plain`` under a spatial
+  mesh. Every rank may export it; the artifacts are equal.
 - The program runs on the device it was exported on, or on the one
   ``load_exported`` moves it to, and raises where that device is missing.
   Artifacts are specific to the torch version: export and load with the
@@ -46,6 +50,7 @@ import torch
 from torch import nn
 
 from ihpr_tpu_torch.data.augment import finalize_patch
+from ihpr_tpu_torch.models.pose_net import build_pose_net, inference_copy
 from ihpr_tpu_torch.ops.fused_head_integral import no_tf32
 from ihpr_tpu_torch.parallel.train_step import flip_test_coords
 
@@ -58,9 +63,9 @@ class _ServingProgram(nn.Module):
     head: the module that export traces. It shares the server's frozen
     model and changes nothing in it."""
 
-    def __init__(self, server):
+    def __init__(self, server, model):
         super().__init__()
-        self.model = server.model
+        self.model = model
         self.data = server.cfg.data
         self.flip_test = bool(server.flip_test)
         self.register_buffer("flip_perm", server.flip_perm.clone(), persistent=False)
@@ -74,14 +79,22 @@ class _ServingProgram(nn.Module):
         )
 
 
+def _whole_image_model(server) -> nn.Module:
+    """``server.model``, or where it holds one spatial rank's rows, a frozen
+    one-process copy with its weights (``build_pose_net`` with no grid)."""
+    model = server.model
+    if model.rows is None:
+        return model
+    whole = build_pose_net(server.cfg, model.joint_num, device=server.device)
+    whole.load_state_dict(model.state_dict())
+    return inference_copy(whole)
+
+
 def export_server(server, batch: Union[int, str, None] = None) -> bytes:
     """Serialize ``server``'s inference program, weights baked in, on the
     server's device. ``batch``: an int for a fixed-shape artifact, ``None``
     for ``server.max_batch``, or ``"poly"`` for a batch-polymorphic one
-    (1 to 1024). A spatial server (``partition="spatial"`` over several
-    ranks) raises: its model sees one rank's rows."""
-    if server.model.rows is not None:
-        raise ValueError("export a one-process server: a spatial server's model holds one rank's rows")
+    (1 to 1024). A spatial server exports its model's one-process copy."""
     in_h, in_w = server.cfg.data.input_shape
     dynamic = None
     if batch == "poly":
@@ -110,7 +123,7 @@ def export_server(server, batch: Union[int, str, None] = None) -> bytes:
     # inference_mode, whose tensors export cannot trace.
     with torch.no_grad():
         program = torch.export.export(
-            _ServingProgram(server), example, dynamic_shapes=dynamic, strict=False
+            _ServingProgram(server, _whole_image_model(server)), example, dynamic_shapes=dynamic, strict=False
         )
     buf = io.BytesIO()
     torch.export.save(program, buf, extra_files={METADATA: json.dumps(meta)})

@@ -102,6 +102,9 @@ class Trainer:
                                     dp=self.dp)
         self.max_steps: Optional[int] = None  # set by cap_steps_per_epoch
         self.losses: List[torch.Tensor] = []  # the current epoch's losses, on the device
+        # Host seconds the loop spent waiting for its next batch (decode,
+        # warp, copy), summed over every train() call.
+        self.loader_wait_s = 0.0
         self._make_steps()
         self.ckpt = CheckpointManager(cfg.output_dir, keep=cfg.optim.snapshot_keep)
         self.start_epoch = 0
@@ -178,7 +181,9 @@ class Trainer:
         """Run epochs [start_epoch, end_epoch) (``cfg.optim.end_epoch`` by
         default); a later call continues from there. ``profile_dir``: a
         ``torch.profiler`` window over iterations [profile_steps) of the
-        first epoch, written there as a Chrome trace."""
+        first epoch, written there as a Chrome trace named by the update
+        count it closed at; a window that would end past the first epoch
+        closes at its end."""
         end_epoch = end_epoch or self.cfg.optim.end_epoch
         self._profiler = None
         try:
@@ -187,8 +192,14 @@ class Trainer:
             if self._profiler is not None:
                 # Close a window left open by an abnormal exit inside it (an
                 # RSS preempt, SIGTERM), so the trace on disk is usable and a
-                # later train() starts clean.
-                self._stop_profile(profile_dir)
+                # later train() starts clean. A failure to write the trace
+                # (a full disk) is logged, not raised: it must neither
+                # replace the exit in flight (75 for the supervisor) nor
+                # skip the drain below.
+                try:
+                    self._stop_profile(profile_dir)
+                except Exception:
+                    self.logger.exception("closing the profile window failed; the trace is lost")
             # Drain the snapshot in flight on every exit path, the SIGTERM ->
             # SystemExit unwind of the CLIs (utils/shutdown.py) included.
             self.ckpt.wait()
@@ -213,6 +224,17 @@ class Trainer:
         path = os.path.join(profile_dir, f"trace_step{self.state.step}.json")
         prof.export_chrome_trace(path)
         self.logger.info("profile written to %s", path)
+
+    def _timed(self, batches):
+        """``batches``, adding the host time each ``next`` takes to
+        ``loader_wait_s``."""
+        while True:
+            t0 = time.perf_counter()
+            item = next(batches, None)
+            self.loader_wait_s += time.perf_counter() - t0
+            if item is None:
+                return
+            yield item
 
     def _rss_check(self, epoch: int, itr: int = -1, already_saved: bool = False):
         """The watchdog: past the limit, self-preempt before the OOM killer:
@@ -250,7 +272,7 @@ class Trainer:
                 # deterministic host stream before it is staged on the device.
                 host_it = itertools.islice(host_it, self.resume_skip, None)
                 start_itr = self.resume_skip
-            batches = prefetch_to_device(host_it, self.device)
+            batches = self._timed(prefetch_to_device(host_it, self.device))
             self.losses = []
             window_start, window_steps = time.perf_counter(), 0
             for itr, (batch, _) in enumerate(batches, start=start_itr):
@@ -290,6 +312,10 @@ class Trainer:
                     and itr != self.steps_per_epoch - 1
                 ):
                     self._rss_check(epoch, itr=itr)
+            if self._profiler is not None:
+                # The window ends past the first epoch: close it here, or it
+                # would record every later epoch in host memory.
+                self._stop_profile(profile_dir)
             saved = (epoch + 1) % self.cfg.optim.snapshot_interval == 0 or epoch == end_epoch - 1
             if saved:
                 self.ckpt.save(epoch, self.state)

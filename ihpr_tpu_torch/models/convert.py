@@ -1,6 +1,8 @@
 """Weights for the port's PoseNet: the JAX package's initialization scheme
-from a ``torch.Generator``, and conversion of a JAX parameter tree and of a
-JAX train state (parameters, Adam moments, counts).
+from a ``torch.Generator``, conversion of a JAX parameter tree and of a
+JAX train state (parameters, Adam moments, counts), and the way back: the
+port's weights as numpy trees in flax's layout and names
+(``to_jax_params``), for a JAX Tester to score.
 
 Layout mapping from the JAX (flax) tree:
 
@@ -97,6 +99,54 @@ def jax_tree_to_state_dict(prefix: str, params: Mapping, batch_stats: Mapping) -
 
     walk(prefix, params, batch_stats)
     return sd
+
+
+_BN_LEAVES = {"weight": ("params", "scale"), "bias": ("params", "bias"),
+              "running_mean": ("batch_stats", "mean"), "running_var": ("batch_stats", "var")}
+
+
+def state_dict_to_jax_tree(prefix: str, state_dict: Mapping[str, torch.Tensor]):
+    """The inverse of ``jax_tree_to_state_dict``: the tensors of
+    ``state_dict`` under ``prefix`` -> (``params``, ``batch_stats``), nested
+    dicts of float32 numpy arrays in flax's layout and names (deconv taps
+    flipped back, BN under ``BatchNorm_0``)."""
+    trees = {"params": {}, "batch_stats": {}}
+    keys = [k[len(prefix):] for k in state_dict if k.startswith(prefix)]
+    bns = {k.rsplit(".", 1)[0] for k in keys if k.endswith(".running_mean")}
+
+    def put(tree, path, leaf, value):
+        node = trees[tree]
+        for name in path:
+            node = node.setdefault(name, {})
+        node[leaf] = value
+
+    for key in keys:
+        module, leaf = key.rsplit(".", 1)
+        path = module.split(".")
+        v = state_dict[prefix + key].detach().to("cpu", torch.float32).numpy()
+        if module in bns:
+            if leaf in _BN_LEAVES:
+                tree, name = _BN_LEAVES[leaf]
+                put(tree, path + ["BatchNorm_0"], name, v)
+        elif path[-1] == "final":
+            put("params", path, "kernel" if leaf == "weight" else leaf, v[None, None] if leaf == "weight" else v)
+        elif path[-1].startswith("deconv"):
+            put("params", path, "kernel", np.ascontiguousarray(v.transpose(2, 3, 0, 1)[::-1, ::-1]))
+        else:
+            put("params", path, "kernel", np.ascontiguousarray(v.transpose(2, 3, 1, 0)))
+    return trees["params"], trees["batch_stats"]
+
+
+def to_jax_params(model_or_state_dict) -> tuple:
+    """A port PoseNet (or its ``state_dict``) -> JAX PoseNet ``params`` and
+    ``batch_stats``, numpy trees that ``from_jax_params`` maps back to the
+    same tensors bitwise (float32; a bf16 inference copy's weights widen
+    exactly)."""
+    sd = model_or_state_dict.state_dict() if isinstance(model_or_state_dict, nn.Module) else model_or_state_dict
+    params, stats = {}, {}
+    for part in ("backbone", "head"):
+        params[part], stats[part] = state_dict_to_jax_tree(f"{part}.", sd)
+    return params, stats
 
 
 def check_stem(backbone_params: Mapping):

@@ -13,6 +13,12 @@ directory of scripts there, not a package).
   (``engine/export.py``) plus its JSON sidecar.
 - ``serving_bench``: ``PoseServer``'s request latency and sustained rate
   (patch stream, native warp, exported artifact, ``predict_stream``).
+- ``accuracy_loop``, ``mpii2d_probe``, ``coco_probe``: accuracy evidence.
+  Each trains a preset from scratch on synthetic JPEGs, scores unseen
+  frames through the Tester (MPJPE, PCKh@0.5, OKS AP) against JAX's bar,
+  writes a JSON result and exits 0 or 1 by it; ``accuracy_loop`` also runs
+  the trained weights on the CPU as an oracle. ``_accuracy`` holds what
+  they share.
 Each runs on the card by default and on the CPU (plain versions, host
 clock) with ``--device cpu``:
 
@@ -20,6 +26,13 @@ clock) with ``--device cpu``:
     python -m ihpr_tpu_torch.tools.mxu_int8_probe [--iters 30] [--device cuda] [--check]
     python -m ihpr_tpu_torch.tools.export_artifact --config C --snapshot_dir D --out F [--device cuda]
     python -m ihpr_tpu_torch.tools.serving_bench [--config h36m3d_r50] [--max_batch 32] [--chunks 24] [--device cuda]
+    python -m ihpr_tpu_torch.tools.accuracy_loop [--preset tiny|flagship|r152] [--device cuda] [--output_dir D]
+    python -m ihpr_tpu_torch.tools.mpii2d_probe [--device cuda] [--output_dir D]
+    python -m ihpr_tpu_torch.tools.coco_probe [--device cuda] [--output_dir D]
+
+``train_supervised.sh`` relaunches ``python -m ihpr_tpu_torch.train`` with
+``--continue`` after each exit 75 (the RSS watchdog's) and ends on any
+other code.
 
 ``synthetic_root`` has no command line: its functions write a dataset root
 in the reference's file layouts (Human3.6M, MPII) from synthetic samples,

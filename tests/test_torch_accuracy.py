@@ -1,0 +1,253 @@
+"""The accuracy tools of the port on the CPU: ``models.convert.to_jax_params``,
+``tools/accuracy_loop.py`` at a cut horizon, its trained weights scored by
+JAX's Tester, and the 2-D probes.
+
+- The converter maps a JAX R18 and R50 tree (deconvs included) to the port
+  and back bitwise.
+- ``accuracy_loop.main`` with ``--device cpu --preset tiny --train_size 32
+  --test_size 16`` (1 step an epoch; eval batches of 16, not 128): one
+  unbroken 2-epoch run, and a 1-epoch run resumed with ``--continue`` to
+  2 epochs. Both write JAX's
+  keys and report the oracle gap; a loose bar exits 0, a tight one 1; the
+  resumed run's final snapshot is bitwise the unbroken run's.
+- The unbroken run's weights, carried into flax by ``to_jax_params``,
+  through JAX's ``ihpr_tpu.engine.tester.Tester`` (fp32 "highest", one
+  device) on the same test JPEGs: voxel predictions within 2e-3 voxel of
+  the port's Tester (PARITY's end-to-end bar), MPJPE total within 0.01 mm.
+- ``mpii2d_probe`` and ``coco_probe`` on a ResNet-18 64x64 config
+  registered in ``CONFIGS``, 8 frames, one epoch (the tool's ``PROBE``
+  patched: the command line takes ``--device`` and ``--output_dir``
+  only): each writes its metric and exits by its bar.
+"""
+
+import dataclasses
+import json
+import shutil
+import types
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from ihpr_tpu import config as jconfig
+from ihpr_tpu.data import datasets as jdatasets
+from ihpr_tpu.data import skeletons as jskeletons
+from ihpr_tpu.engine import tester as jtester
+from ihpr_tpu_torch import config as tconfig
+from ihpr_tpu_torch.data import datasets, skeletons
+from ihpr_tpu_torch.engine import tester as ttester
+from ihpr_tpu_torch.engine.checkpoint import CheckpointManager
+from ihpr_tpu_torch.models.convert import from_jax_params, to_jax_params
+from ihpr_tpu_torch.models.pose_net import build_pose_net
+from ihpr_tpu_torch.tools import accuracy_loop, coco_probe, mpii2d_probe
+from ihpr_tpu_torch.utils import shutdown
+from test_torch_models import jax_pose_weights, jax_tiny_cfg, to_port_cfg
+from torch_tmp import free_tmp_path  # noqa: F401  (autouse: frees each passing test's tmp_path)
+
+torch.set_num_threads(1)
+
+CUT = ["--device", "cpu", "--preset", "tiny", "--train_size", "32", "--test_size", "16"]
+EVAL_BATCH = 16  # the preset's 128 would pad each eval of 16 frames to 128
+# Every key JAX's tools/accuracy_loop.py writes (with its oracle, no flip A/B).
+JAX_KEYS = {
+    "preset", "hue_mode", "use_aug", "mixed_mpii_size", "config", "resnet", "input_shape", "depth_dim",
+    "train_size", "test_size", "end_epoch", "train_seconds", "eval_seconds", "mpjpe_bar_mm", "mpjpe_ours_mm",
+    "mpjpe_flip_mm", "mpjpe_train_subset_mm", "metrics_ours", "mpjpe_torch_mm", "mpjpe_gap_mm", "oracle_tol_mm",
+    "oracle_seconds", "metrics_torch",
+}
+
+
+def _leaves(tree):
+    return jax.tree_util.tree_flatten_with_path(tree)[0]
+
+
+@pytest.mark.parametrize("resnet", [18, 50])
+def test_converter_round_trip_is_bitwise(resnet):
+    """A JAX tree (BN statistics, deconvs and final conv redrawn) -> the port
+    -> ``to_jax_params``: the same tree structure and every leaf bitwise,
+    in float32."""
+    jcfg = jax_tiny_cfg()
+    jcfg = jcfg.replace(model=dataclasses.replace(jcfg.model, resnet_type=resnet))
+    _, params, stats = jax_pose_weights(jcfg, seed=resnet)
+    cfg = to_port_cfg(jcfg)
+    model = build_pose_net(cfg, device="cpu")
+    model.load_state_dict(from_jax_params(params, stats, cfg))
+    for want, got in zip((params, stats), to_jax_params(model)):
+        assert jax.tree.structure(got) == jax.tree.structure(want)
+        for (path, a), (_, b) in zip(_leaves(want), _leaves(got)):
+            assert b.dtype == np.float32 and np.array_equal(a, b), jax.tree_util.keystr(path)
+
+
+def _run(tool, argv, monkeypatch) -> int:
+    """``tool.main(argv)``'s exit code, with the SIGTERM handler left alone."""
+    monkeypatch.setattr(shutdown, "install_graceful_shutdown", lambda: None)
+    with pytest.raises(SystemExit) as exc:
+        tool.main(argv)
+    return exc.value.code
+
+
+def _small_eval(preset_config):
+    def small(preset):
+        cfg = preset_config(preset)
+        return cfg.replace(eval=dataclasses.replace(cfg.eval, batch_size_per_device=EVAL_BATCH))
+
+    return small
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """The unbroken run (loose bar) and the resumed one (tight bar):
+    {name: (exit code, its output directory, its JSON)}."""
+    mp = pytest.MonkeyPatch()
+    tmp = tmp_path_factory.mktemp("accuracy")
+    out = {}
+    mp.setattr(accuracy_loop, "preset_config", _small_eval(accuracy_loop.preset_config))
+    try:
+        for name, argv in (
+            ("unbroken", ["--end_epoch", "2", "--mpjpe_bar_mm", "10000"]),
+            ("first", ["--end_epoch", "1", "--mpjpe_bar_mm", "10000"]),
+            ("resumed", ["--end_epoch", "2", "--mpjpe_bar_mm", "1", "--continue"]),
+        ):
+            d = tmp / ("unbroken" if name == "unbroken" else "resumed")
+            code = _run(accuracy_loop, CUT + argv + ["--output_dir", str(d)], mp)
+            with open(d / "accuracy_loop.json") as f:
+                out[name] = (code, d, json.load(f))
+    finally:
+        mp.undo()
+    yield out
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
+def test_accuracy_loop_writes_jax_keys_and_exits_by_its_bar(runs):
+    for name, want_code in (("unbroken", 0), ("resumed", 1)):
+        code, _, result = runs[name]
+        assert code == want_code, name
+        assert JAX_KEYS <= result.keys(), JAX_KEYS - result.keys()
+        assert result["device"] == "cpu" and result["gpu"] is None
+        assert result["end_epoch"] == 2 and result["train_size"] == 32 and result["test_size"] == 16
+        # The oracle is the port on the CPU: here the same computation.
+        assert result["mpjpe_gap_mm"] == 0.0 and result["mpjpe_torch_mm"] == result["mpjpe_ours_mm"]
+        assert 0.0 < result["loader_share"] < 1.0 and result["train_img_per_s"] > 0
+    assert runs["unbroken"][2]["train_steps"] == 2 and runs["resumed"][2]["train_steps"] == 1
+    assert runs["unbroken"][2]["metrics_ours"] == runs["resumed"][2]["metrics_ours"]
+
+
+def test_continue_ends_bitwise_on_the_unbroken_run(runs):
+    got, _, _ = CheckpointManager(str(runs["resumed"][1])).load(1)
+    want, _, _ = CheckpointManager(str(runs["unbroken"][1])).load(1)
+    assert got["step"] == want["step"] == 2
+    for k, v in want["model"].items():
+        assert torch.equal(got["model"][k], v), k
+    for i, s in want["optimizer"]["state"].items():
+        for k, v in s.items():
+            assert torch.equal(got["optimizer"]["state"][i][k], v), (i, k)
+    assert got["scheduler"]["last_epoch"] == want["scheduler"]["last_epoch"]
+
+
+def _jax_cfg(cfg):
+    """The JAX Config with the port Config's field values, on one device."""
+    parts = {
+        f.name: getattr(jconfig, type(getattr(cfg, f.name)).__name__)(**dataclasses.asdict(getattr(cfg, f.name)))
+        for f in dataclasses.fields(cfg)
+        if dataclasses.is_dataclass(getattr(cfg, f.name))
+    }
+    jcfg = jconfig.Config(name=cfg.name, seed=cfg.seed, output_dir=cfg.output_dir, **parts)
+    return jcfg.replace(parallel=dataclasses.replace(jcfg.parallel, data_axis_size=1))
+
+
+def test_jax_tester_scores_the_trained_weights_as_the_port_does(runs, tmp_path):
+    """The trained weights in flax's layout (``to_jax_params``) through JAX's
+    Tester, and the port's Tester on them, on the same 16 test JPEGs:
+    within 2e-3 voxel, MPJPE total within 0.01 mm."""
+    _, out_dir, result = runs["unbroken"]
+    state_dict, _, _ = CheckpointManager(str(out_dir)).load(1)
+    cfg = _small_eval(accuracy_loop.preset_config)("tiny")
+    cfg = cfg.replace(
+        model=dataclasses.replace(cfg.model, matmul_precision="highest"),
+        optim=dataclasses.replace(cfg.optim, end_epoch=2, lr_dec_epoch=(2, 2)),
+        eval=dataclasses.replace(cfg.eval, flip_test=False),
+    )
+    samples = datasets.materialize_synthetic(
+        datasets.make_synthetic(skeletons.H36M, 16, seed=22, img_size=400, easy_depth=True),
+        str(out_dir / "imgs"), device="cpu")
+    model = build_pose_net(cfg, device="cpu")
+    model.load_state_dict(state_dict["model"])
+    tester = ttester.Tester(cfg.replace(output_dir=str(tmp_path / "port")),
+                            dataset=datasets.PoseDataset("Human36M", skeletons.H36M, samples, False),
+                            state=model, num_workers=0, device="cpu")
+    try:
+        vox = tester.predict_voxels()
+        metrics = tester.evaluate()
+    finally:
+        tester.close()
+    assert metrics["MPJPE total"] == pytest.approx(result["mpjpe_ours_mm"], abs=0.005)
+
+    params, stats = to_jax_params(model)
+    jcfg = _jax_cfg(cfg.replace(output_dir=str(tmp_path / "jax")))
+    jax_tester = jtester.Tester(jcfg, dataset=jdatasets.PoseDataset("Human36M", jskeletons.H36M, samples, False),
+                                state=types.SimpleNamespace(params=params, batch_stats=stats), num_workers=0)
+    ref_vox = jax_tester.predict_voxels()
+    ref = jax_tester.evaluate()
+    assert np.abs(ref_vox - ref_vox.mean(axis=1, keepdims=True)).max() > 0.5  # not every joint at one point
+    np.testing.assert_allclose(vox, ref_vox, rtol=0, atol=2e-3)
+    assert abs(metrics["MPJPE total"] - ref["MPJPE total"]) <= 0.01
+
+
+_PROBE_CFGS = {
+    name: tconfig.Config(
+        name=f"tiny_{name}",
+        model=tconfig.ModelConfig(resnet_type=18, matmul_precision="highest"),
+        data=tconfig.DataConfig(trainset=(name,), testset=name, input_shape=(64, 64), output_shape=(16, 16),
+                                depth_dim=1),
+        optim=tconfig.OptimConfig(batch_size_per_device=4),
+        eval=tconfig.EvalConfig(batch_size_per_device=4),
+    )
+    for name in ("MPII", "MSCOCO")
+}
+
+
+@pytest.mark.parametrize("tool, name, key, metric", [
+    (mpii2d_probe, "MPII", "pckh_at_05", "PCKh@0.5"),
+    (coco_probe, "MSCOCO", "oks_ap", "AP"),
+])
+@pytest.mark.parametrize("bar, want_code", [(0.0, 0), (1.5, 1)])
+def test_2d_probe_writes_its_metric_and_exits_by_its_bar(tool, name, key, metric, bar, want_code, tmp_path,
+                                                         monkeypatch):
+    cfg = _PROBE_CFGS[name]
+    monkeypatch.setitem(tconfig.CONFIGS, cfg.name, cfg)
+    monkeypatch.setattr(tool, "PROBE", {**tool.PROBE, "config": cfg.name, "bar": bar, "train_size": 8,
+                                        "test_size": 4, "end_epoch": 1})
+    argv = ["--device", "cpu", "--output_dir", str(tmp_path)]
+    assert _run(tool, argv, monkeypatch) == want_code
+    tool_name = tool.__name__.rsplit(".", 1)[1]
+    with open(tmp_path / f"{tool_name}.json") as f:
+        result = json.load(f)
+    assert 0.0 <= result[key] <= 1.0 and result[key] == round(result["metrics"][metric], 4)
+    assert result["bar"] == bar and result["end_epoch"] == 1 and result["train_steps"] == 2
+    assert {"config", "train_size", "test_size", "train_seconds", "metrics"} <= result.keys()
+    if tool is coco_probe:
+        assert result["artifact"].endswith("result/person_keypoints_result.json")
+
+
+def test_bf16_preset_holds_an_fp32_model_to_the_oracle(tmp_path, monkeypatch):
+    """A bf16 preset's oracle is compared with an eval of the trained weights
+    in a model built in fp32 (the trained model keeps its bf16 compute
+    dtype whatever the config says): on the CPU that eval and the oracle
+    are one computation, so the gap is exactly 0. ``flagship`` cut to
+    ResNet-18 at 64x64 (bf16, lean BN, bf16 logits), 8 frames, one epoch."""
+    tiny = dataclasses.replace(_PROBE_CFGS["MPII"], name="accuracy_bf16")
+    small = tiny.replace(
+        model=tconfig.ModelConfig(resnet_type=18, compute_dtype="bfloat16", fp32_logits=False, bn_mode="lean"),
+        data=tconfig.DataConfig(trainset=("Human36M",), input_shape=(64, 64), output_shape=(16, 16), depth_dim=16,
+                                use_aug=False),
+        optim=tconfig.OptimConfig(batch_size_per_device=4, end_epoch=60, lr_dec_epoch=(45, 55)),
+    )
+    monkeypatch.setattr(accuracy_loop, "preset_config", lambda preset: small)
+    argv = ["--device", "cpu", "--preset", "flagship", "--train_size", "8", "--test_size", "4", "--end_epoch", "1",
+            "--mpjpe_bar_mm", "10000", "--output_dir", str(tmp_path)]
+    assert _run(accuracy_loop, argv, monkeypatch) == 0
+    with open(tmp_path / "accuracy_loop.json") as f:
+        result = json.load(f)
+    assert result["resnet"] == 18 and "mpjpe_ours_fp32_mm" in result
+    assert result["mpjpe_gap_mm"] == 0.0 and result["mpjpe_torch_mm"] == result["mpjpe_ours_fp32_mm"]

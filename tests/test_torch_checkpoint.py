@@ -11,6 +11,7 @@ which rebuilds the optimizer.
 """
 
 import dataclasses
+import shutil
 
 import jax
 import numpy as np
@@ -26,6 +27,7 @@ from ihpr_tpu_torch.engine.trainer import Trainer
 from ihpr_tpu_torch.models.convert import from_jax_params, from_jax_train_state
 from ihpr_tpu_torch.utils.hostmem import EX_TEMPFAIL, resolve_rss_limit_mb
 from test_torch_models import jax_tiny_cfg, to_port_cfg
+from torch_tmp import free_tmp_path  # noqa: F401  (autouse: frees each passing test's tmp_path)
 
 torch.set_num_threads(1)
 
@@ -320,7 +322,7 @@ def test_profile_window_writes_a_trace_and_closes_on_preempt(tmp_path):
 @pytest.fixture(scope="module")
 def jax_snapshot(tmp_path_factory):
     """A JAX Trainer (fp32 "highest", lean BN, 8 samples = 2 steps an epoch,
-    augmentation on) trains epoch 0 and writes snapshot_0. Returns the
+    augmentation on) trains epoch 0 and writes snapshot_0. Yields the
     config, the dataset, the snapshot restored by JAX's CheckpointManager as
     numpy trees, and the JAX run continued (--continue) through epoch 1 with
     the losses of its two steps."""
@@ -353,7 +355,8 @@ def jax_snapshot(tmp_path_factory):
 
     resumed.step_fn, resumed.lean_step_fn = recording(resumed.step_fn), recording(resumed.lean_step_fn)
     final = jax.tree.map(np.asarray, resumed.train(end_epoch=2))
-    return jcfg, jds, restored, final, losses
+    yield jcfg, jds, restored, final, losses
+    shutil.rmtree(out, ignore_errors=True)
 
 
 def _port_from_jax_snapshot(jcfg, restored, out):

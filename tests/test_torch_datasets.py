@@ -41,6 +41,7 @@ from ihpr_tpu_torch.tools.synthetic_root import write_h36m_root, write_torchvisi
 from ihpr_tpu_torch.utils import msgpack
 from test_torch_engine_io import _tiny_cfg
 from test_torch_models import jax_pose_weights, jax_tiny_cfg, to_port_cfg
+from torch_tmp import free_tmp_path  # noqa: F401  (autouse: frees each passing test's tmp_path)
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools"))
 from convert_torch_ckpt import convert_backbone  # noqa: E402

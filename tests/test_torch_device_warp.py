@@ -46,6 +46,7 @@ from ihpr_tpu_torch.models.pose_net import build_pose_net, inference_copy
 from ihpr_tpu_torch.parallel import train_step
 from test_torch_models import jax_pose_weights, jax_tiny_cfg, to_port_cfg
 from test_torch_train import _rel_err, build_jax_model
+from torch_tmp import free_tmp_path  # noqa: F401  (autouse: frees each passing test's tmp_path)
 
 torch.set_num_threads(1)
 

@@ -57,6 +57,7 @@ from ihpr_tpu_torch.utils.hostmem import EX_TEMPFAIL
 from test_torch_fused_bn import _bottleneck_shapes
 from test_torch_models import jax_pose_weights, jax_tiny_cfg, to_port_cfg
 from test_torch_train import _train_batch
+from torch_tmp import free_tmp_path  # noqa: F401  (autouse: frees each passing test's tmp_path)
 
 import torch_dp_ranks as R
 

@@ -30,6 +30,7 @@ from ihpr_tpu_torch.data import skeletons
 from ihpr_tpu_torch.parallel.train_step import create_train_state, patch_batch
 from test_torch_device_warp import _canvas_batch
 from test_torch_models import jax_pose_weights, jax_tiny_cfg, to_port_cfg
+from torch_tmp import free_tmp_path  # noqa: F401  (autouse: frees each passing test's tmp_path)
 
 import torch_dp_ranks as R
 

@@ -36,6 +36,7 @@ from ihpr_tpu_torch.parallel.train_step import create_train_state
 from ihpr_tpu_torch.utils.hostmem import EX_TEMPFAIL, host_rss_mb, host_total_mb, resolve_rss_limit_mb
 from test_torch_eval import N_TEST, _cfgs
 from test_torch_models import jax_pose_weights
+from torch_tmp import free_tmp_path  # noqa: F401  (autouse: frees each passing test's tmp_path)
 
 torch.set_num_threads(1)
 

@@ -31,6 +31,7 @@ from ihpr_tpu_torch.models.pose_net import build_pose_net
 from ihpr_tpu_torch.parallel.train_step import create_train_state
 from ihpr_tpu_torch.tools import export_artifact
 from test_torch_models import jax_pose_weights, jax_tiny_cfg, to_port_cfg
+from torch_tmp import free_tmp_path  # noqa: F401  (autouse: frees each passing test's tmp_path)
 
 torch.set_num_threads(1)
 

@@ -29,6 +29,8 @@ def test_port_imports_no_jax():
                  "ihpr_tpu_torch.parallel.mesh", "ihpr_tpu_torch.parallel.launch",
                  "ihpr_tpu_torch.tools.serving_bench", "ihpr_tpu_torch.data.jpeg",
                  "ihpr_tpu_torch.models.pretrained", "ihpr_tpu_torch.utils.msgpack",
-                 "ihpr_tpu_torch.tools.synthetic_root"):
+                 "ihpr_tpu_torch.tools.synthetic_root", "ihpr_tpu_torch.ops.jpeg_color",
+                 "ihpr_tpu_torch.tools.accuracy_loop", "ihpr_tpu_torch.tools.mpii2d_probe",
+                 "ihpr_tpu_torch.tools.coco_probe", "ihpr_tpu_torch.tools._accuracy"):
         assert name in names.split(","), name
     assert leaked == "[]", leaked

@@ -48,6 +48,7 @@ from ihpr_tpu_torch.ops.loss import joint_location_loss
 from ihpr_tpu_torch.parallel import launch, mesh
 from ihpr_tpu_torch.parallel.train_step import make_optimizer, make_train_step
 from test_torch_models import jax_pose_weights, jax_tiny_cfg, to_port_cfg
+from torch_tmp import free_tmp_path  # noqa: F401  (autouse: frees each passing test's tmp_path)
 
 import torch_dp_ranks as R
 
@@ -215,6 +216,7 @@ def spawned(tmp_path_factory):
                 _, _, _, cfg, model_sd, batch = inputs["step"][name]
                 jobs[world].append((f"step_{name}", "spatial_step_ranks", (cfg, model_sd, batch, spatial)))
     jobs[2].append(("serve", "spatial_serve_ranks", inputs["serve"]))
+    jobs[2].append(("export", "spatial_export_ranks", inputs["serve"]))
     jobs[2].append(("cli", "spatial_cli_ranks", (*inputs["cli"], N_TRAIN, N_TEST)))
     # The two launches and the CLIs under torchrun run at once, each in a
     # store of its own.
@@ -562,16 +564,50 @@ def test_uneven_grid_raises(world, spatial, rows, match):
         mesh.make_grid(mesh.DataParallel(0, world), spatial, rows)
 
 
-def test_spatial_server_refuses_export(spawned):
-    """A spatial server's model runs one rank's rows, so the export, which
-    traces that model alone, refuses it. With S equal to the world the
-    server creates no group, so a DataParallel of world 2 and no group
-    builds one in this process."""
+def _one_process_artifact(cfg, sd, max_batch):
     from ihpr_tpu_torch.engine.export import export_server
 
-    cfg, sd, _ = spawned["inputs"]["serve"]
-    srv = PoseServer(cfg, {k: torch.from_numpy(v) for k, v in sd.items()}, max_batch=4, device="cpu",
-                     dp=mesh.DataParallel(0, 2), partition="spatial")
+    return export_server(PoseServer(cfg, {k: torch.from_numpy(v) for k, v in sd.items()}, max_batch=max_batch,
+                                    flip_test=True, device="cpu"))
+
+
+def test_spatial_server_refuses_export(spawned):
+    """A spatial server's model runs one rank's rows; the export traces a
+    one-process copy of that model, whose artifact is bitwise the
+    one-process server's. With S equal to the world the server creates no
+    group, so a DataParallel of world 2 and no group builds one in this
+    process. The name is the test's original one, from when the export
+    refused a spatial server: it now holds that the export succeeds and
+    is the whole-image program."""
+    from ihpr_tpu_torch.engine.export import export_server
+
+    cfg, sd, patches = spawned["inputs"]["serve"]
+    srv = PoseServer(cfg, {k: torch.from_numpy(v) for k, v in sd.items()}, max_batch=len(patches), device="cpu",
+                     dp=mesh.DataParallel(0, 2), partition="spatial", flip_test=True)
     assert srv.model.rows == mesh.DataParallel(0, 2, None)
-    with pytest.raises(ValueError, match="one-process server"):
-        export_server(srv)
+    assert export_server(srv) == _one_process_artifact(cfg, sd, len(patches))
+
+
+def test_spatial_export_on_two_ranks_is_the_whole_image_program(spawned):
+    """Two gloo ranks each export ``PoseServer(partition="spatial")``: both
+    artifacts are bitwise the one-process server's on the same weights, and
+    their coords agree with JAX's artifact (``ihpr_tpu.engine.export``, the
+    whole-image ``coords_plain``) within 2e-3 voxel, test_torch_export.py's
+    bar, flip-test on."""
+    import hashlib
+
+    from ihpr_tpu.engine.export import export_server as jax_export_server
+    from ihpr_tpu.engine.export import load_exported as jax_load_exported
+    from ihpr_tpu.engine.server import PoseServer as JaxPoseServer
+
+    cfg, sd, patches = spawned["inputs"]["serve"]
+    want = hashlib.sha1(_one_process_artifact(cfg, sd, len(patches))).hexdigest()
+    jcfg = _jcfg(64, data_axis_size=1)
+    _, params, stats = jax_pose_weights(jcfg, seed=8)
+    jax_fn = jax_load_exported(jax_export_server(
+        JaxPoseServer(jcfg, params, stats, max_batch=len(patches), flip_test=True), platforms=("cpu",)))
+    ref = np.asarray(jax_fn(patches, np.ones((len(patches), 3), np.float32)))
+    assert np.abs(ref - 7.5).max() > 0.5
+    for r in spawned[2]["export"]:
+        assert r["sha1"] == want
+        np.testing.assert_allclose(r["coords"], ref, rtol=0, atol=2e-3)

@@ -52,6 +52,7 @@ from ihpr_tpu_torch.parallel.train_step import (
 )
 from test_torch_models import jax_pose_weights, jax_tiny_cfg, to_port_cfg
 from test_torch_ops import ALIGNED, PADDED, _bf16, _head_inputs
+from torch_tmp import free_tmp_path  # noqa: F401  (autouse: frees each passing test's tmp_path)
 
 torch.set_num_threads(1)
 

@@ -547,3 +547,19 @@ def spatial_serve_ranks(rank, world, cfg, model_sd, patches):
         out[f"patches_{flip}"] = srv.predict_patches(patches)
         out[f"forwarded_{flip}"] = seen
     return out
+
+
+def spatial_export_ranks(rank, world, cfg, model_sd, patches):
+    """``export_server`` of ``PoseServer(dp=, partition="spatial")`` on every
+    rank, flip-test on: the artifact's sha1 and its coords on ``patches``."""
+    from ihpr_tpu_torch.engine.export import export_server, load_exported
+    from ihpr_tpu_torch.engine.server import PoseServer
+
+    torch.set_num_threads(1)
+    sd = {k: torch.from_numpy(v) for k, v in model_sd.items()}
+    srv = PoseServer(cfg, sd, max_batch=len(patches), flip_test=True, device="cpu", dp=data_parallel(),
+                     partition="spatial")
+    assert srv.model.rows is not None
+    blob = export_server(srv)
+    coords = load_exported(blob)(patches, np.ones((len(patches), 3), np.float32))
+    return {"sha1": hashlib.sha1(blob).hexdigest(), "coords": _np(coords)}
