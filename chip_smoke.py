@@ -126,8 +126,10 @@
    planes decode's header parse, layout and kernel call; the train CLI on
    it with --pretrained (a seeded torchvision ResNet-50 .pth), K1/K2 and
    the colour kernel counted in the subprocess; the test CLI on its test
-   split (K1 and the colour kernel counted), its coordinates against the
-   same frames rendered without JPEG.
+   split with --vis (K1 and the colour kernel counted, the colour kernel
+   once a batch and once an overlay's frame; the 8 overlays
+   vis/pred_{i}.jpg exist and decode to the frame's size), its
+   coordinates against the same frames rendered without JPEG.
 7j. The accuracy harness (accuracy_phase): python -m
    ihpr_tpu_torch.tools.accuracy_loop --preset tiny through its main, cut
    to 512 / 64 frames and 5 epochs, with its CPU oracle (gap within 1 mm);
@@ -149,6 +151,15 @@
    server's artifact, both run by a torch-only process to equal coords;
    D = 2 x S = 2 on four ranks, (d) one step in bf16 and fp32 against one
    process. The ranks' K3/K4 launches join the kernels line.
+7k. Spatial partitioning on uneven row shards (spatial_uneven_phase),
+   h36m3d_r50 in fp32 "highest" at batch 32: (f) S = 3 on three ranks at
+   256x256 (3/3/2 rows at stride 32): the flip-test eval step against one
+   process (2e-3 voxel), one train step's loss (1e-5 relative), K3 once a
+   rank in eval, K3 and K4 once a rank a step, K3/K4 against plain on each
+   rank's rows, the halo exchanges' share of a step's host time; (g) a
+   1 x 4 grid at 64x64 in eval mode, where ranks 2 and 3 own no stride-32
+   row, against one process. Phase 5's K3/K4 checks also hold that a
+   0-row shard launches neither kernel.
 8. The heatmap-logits path: h36m3d_r50 at batch 128 takes an optimizer
    step through model(x) -> soft_argmax_from_heatmap -> loss (K3 forward,
    K4 backward), coords and dv against plain on the same logits, device ms
@@ -181,7 +192,7 @@ steps, fused step and Tester, counted in the rank; 7e: each rank's serving;
 train and test CLIs, counted in their subprocesses, and the Tester; 7j:
 the accuracy tool's whole run; 7i:
 each rank's eval steps, Trainer steps, server and grid step, counted in
-the rank) the
+the rank; 7k: each rank's eval step and train step, counted in the rank) the
 kernels' launch counters are set to 0 just before the path
 runs and read just after (in 11-12 the path is the tool's main); each kernel of the path must have launched as
 often as the path dispatched it, and the others not at all. Outputs are
@@ -195,7 +206,7 @@ non-zero; so does a host without CUDA.
 
 builds the kernels and runs only the named phases (bn: 5c; fused: 7b; dp:
 7d; dp-serve: 7e; device-warp: 7f; serving-bench: 7g; real-data: 7h;
-spatial: 7i; accuracy: 7j), for timing one tree's K5-K8 against another's (copy this file into a
+spatial: 7i; spatial-uneven: 7k; accuracy: 7j), for timing one tree's K5-K8 against another's (copy this file into a
 checkout of the other tree and run it there) or trying one phase. It
 prints no JSON lines.
 """
@@ -234,6 +245,7 @@ TRAIN_BATCH = 128  # h36m3d_r50's batch_size_per_device
 TRAIN_STEPS = 5  # counted steps of the train phase
 R152_BATCH = 32  # h36m3d_r152_384's batch_size_per_device
 EVAL_SAMPLES = 300  # not a multiple of the eval batch (128): the last is padded
+K1_REPEATS = 500  # launches of K1 on one input, held to be bitwise equal
 SEED = 0
 
 
@@ -275,7 +287,8 @@ def check_kernel(fhi, feat, kernel, bias, j, d, w, expect=None):
     torch.cuda.synchronize()
     err = float((got[0] - want[0]).abs().max())
     if not (err <= TOL_VOXEL and torch.isfinite(got[0]).all()):
-        raise AssertionError(f"coords differ from plain by {err} voxel (> {TOL_VOXEL})")
+        finite = {k: bool(torch.isfinite(v).all()) for k, v in (("K1", got[0]), ("plain", want[0]))}
+        raise AssertionError(f"coords differ from plain by {err} voxel (> {TOL_VOXEL}); all finite: {finite}")
     torch.testing.assert_close(got[1], want[1], atol=1e-4, rtol=1e-5)
     torch.testing.assert_close(got[2], want[2], atol=0, rtol=1e-4)
     if expect is not None:
@@ -285,18 +298,37 @@ def check_kernel(fhi, feat, kernel, bias, j, d, w, expect=None):
     return err
 
 
+def repeat_check(fhi, args, j, d, w, n):
+    """Launch K1 n times on the same inputs, each after a bf16 matmul that
+    leaves other data in shared memory, and count the launches whose
+    coords, m or s differ bitwise from the first's (NaN counts as
+    different). K1 is deterministic, so any count above 0 is a race."""
+    want = fhi.kernel_stats(*args, j, d, w)
+    x = torch.randn(2048, 2048, device="cuda", dtype=torch.bfloat16)
+    bad = torch.zeros((), dtype=torch.int64, device="cuda")
+    for _ in range(n):
+        x @ x
+        got = fhi.kernel_stats(*args, j, d, w)
+        bad += torch.stack([(a != b).any() for a, b in zip(got, want)]).any()
+    return int(bad)
+
+
 def kernel_phase(fhi, gpu: str):
     """K1 vs plain at the serving shapes and edge cases; kernel and plain
     times at the flagship dispatch (2 x 32 flip-test samples, 64x64
     heatmap, C=256) and at the train batch (128), bf16, with TFLOP/s and
-    the share of the bound. Returns the largest |coords diff| and, per
-    batch, (kernel ms, plain ms)."""
+    the share of the bound; K1 repeated at both batches, bitwise. Returns
+    the largest |coords diff| and, per batch, (kernel ms, plain ms)."""
     b, hw, w, c, d = 2 * MAX_BATCH, 64 * 64, 64, 256, 64
     errs = []
     timing = {}
     for bsz in (b, TRAIN_BATCH):
         args = _head_inputs(bsz, hw, c, 18 * d, torch.bfloat16, SEED)
         errs.append(check_kernel(fhi, *args, 18, d, w))
+        differ = repeat_check(fhi, args, 18, d, w, K1_REPEATS)
+        print(f"K1 ({bsz}, {hw}, {c}) repeated: {differ} of {K1_REPEATS} launches differ bitwise from the first")
+        if differ:
+            raise AssertionError(f"K1 at batch {bsz}: {differ} of {K1_REPEATS} repeated launches differ bitwise")
         runs = {"plain": (lambda: fhi.plain(*args, 18, d, w), []),
                 "kernel": (lambda: fhi.kernel_stats(*args, 18, d, w), [])}
         for name in ("plain", "kernel", "kernel", "plain") * 2:  # in turns
@@ -556,6 +588,19 @@ def volume_phase(iv, gpu: str):
             and torch.equal(iv.kernel_bwd(*args), iv.kernel_bwd(*args))):
         raise AssertionError("K3/K4 are not deterministic: two runs differ")
     print("K3/K4 two runs on the same inputs: coords, m, s and dv bitwise equal")
+    # A spatial rank's empty shard (spatial-uneven (g)): no rows, no launch
+    # (a grid of no blocks is a launch error); m -inf and s 0, which the
+    # merge adds as 0; dv empty.
+    n3, n4 = iv.launches, iv.bwd_launches
+    empty = torch.empty(4, 0, 18 * d, device="cuda", dtype=torch.bfloat16)
+    c0, m0, s0 = iv.kernel_stats(empty, 18, d, w)
+    dv0 = iv.kernel_bwd(empty, m0, s0, c0, torch.zeros_like(c0), 18, d, w)
+    torch.cuda.synchronize()
+    if ((iv.launches, iv.bwd_launches) != (n3, n4) or not bool((m0 == float("-inf")).all())
+            or not bool((s0 == 0).all()) or not bool((c0 == 0).all()) or dv0.shape != empty.shape):
+        raise AssertionError(f"K3/K4 on a 0-row shard: launches {iv.launches - n3} / {iv.bwd_launches - n4}, "
+                             f"m {m0.unique()}, s {s0.unique()}, dv {tuple(dv0.shape)}")
+    print("K3/K4 on a 0-row shard (4, 0, 1152): no launch; coords 0, m -inf, s 0, dv empty")
 
     timing = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -3112,6 +3157,27 @@ print(json.dumps({"k1": fhi.launches, "k2": fhi.bwd_launches, "colour": jpeg_col
 """
 
 
+REAL_VIS = 8  # the overlays Tester.evaluate(vis=True) writes by default
+
+
+def _check_overlays(vis_dir: str, n: int, frame_hw) -> str:
+    """The test CLI's --vis files: exactly pred_0.jpg ... pred_{n-1}.jpg, each
+    decoding (cv2, on the host) to a frame of ``frame_hw``."""
+    import cv2
+
+    names = sorted(os.listdir(vis_dir)) if os.path.isdir(vis_dir) else []
+    want = sorted(f"pred_{i}.jpg" for i in range(n))
+    if names != want:
+        raise AssertionError(f"--vis wrote {names}, want {want}")
+    sizes = []
+    for name in names:
+        img = cv2.imdecode(np.fromfile(os.path.join(vis_dir, name), np.uint8), cv2.IMREAD_COLOR)
+        if img is None or img.shape[:2] != tuple(frame_hw):
+            raise AssertionError(f"{name}: decodes to {None if img is None else img.shape}, want {frame_hw}")
+        sizes.append(os.path.getsize(os.path.join(vis_dir, name)))
+    return f"{n} overlays {names[0]} ... {names[-1]}, {frame_hw[1]}x{frame_hw[0]}, {min(sizes)}-{max(sizes)} bytes"
+
+
 def _nvjpeg_vs(got: torch.Tensor, want: np.ndarray):
     diff = np.abs(got.cpu().numpy().astype(np.int16) - want.astype(np.int16))
     return int(diff.max()), float(diff.mean())
@@ -3382,15 +3448,18 @@ def real_data_phase(fhi, gpu: str):
         # (d) the test CLI, and its coordinates against the frames rendered without JPEG
         t0 = time.perf_counter()
         rep_t = _child(_REAL_TEST_CHILD, json.dumps(["--config", "h36m3d_r50", "--data_root", root,
-                                                     "--output_dir", run, "--device", "cuda"]))
+                                                     "--output_dir", run, "--device", "cuda", "--vis"]))
         t_test = time.perf_counter() - t0
         test_set = build_dataset(cfg.data.testset, "test", cfg, root)
         batches = -(-len(test_set) // cfg.eval.batch_size_per_device)
         mpjpe = rep_t["metrics"]["MPJPE total"]
-        if (rep_t["k1"], rep_t["k2"], rep_t["colour"]) != (batches, 0, batches) or not math.isfinite(mpjpe):
+        n_vis = min(REAL_VIS, len(test_set))  # --vis: each overlay's frame decoded on the card, one colour launch
+        if (rep_t["k1"], rep_t["k2"], rep_t["colour"]) != (batches, 0, batches + n_vis) or not math.isfinite(mpjpe):
             raise AssertionError(f"real-data (d): {rep_t}")
-        print(f"real-data (d): test --data_root <root>: exit 0 in {t_test:.1f} s, {len(test_set)} samples, flip-test, "
-              f"K1 launches {rep_t['k1']}, the colour kernel {rep_t['colour']}; MPJPE {mpjpe:.2f} mm  [{gpu}]")
+        vis = _check_overlays(os.path.join(run, "vis"), n_vis, (REAL_SIZE, REAL_SIZE))
+        print(f"real-data (d): test --data_root <root> --vis: exit 0 in {t_test:.1f} s, {len(test_set)} samples, "
+              f"flip-test, K1 launches {rep_t['k1']}, the colour kernel {rep_t['colour']} ({batches} batches + "
+              f"{n_vis} overlay frames); MPJPE {mpjpe:.2f} mm; {vis}  [{gpu}]")
         by_file = {os.path.basename(s["img_path"]): s for s in written["test"]}
         plain = PoseDataset(test_set.name, test_set.skeleton,
                             [{**by_file[os.path.basename(s["img_path"])], "img_path": None} for s in test_set.samples],
@@ -3524,13 +3593,18 @@ class _HaloMeter:
 
     def __enter__(self):
         fwd, bwd = self.orig
+        mesh = self.mesh
 
-        def forward(ctx, x, above, below, fill, rows):
-            self.nbytes += (above + below) * x.shape[0] * x.shape[1] * x.shape[3] * x.element_size()
-            return self._timed(fwd, ctx, x, above, below, fill, rows)
+        def forward(ctx, x, rows_in, needs, fill, rows):
+            plan = mesh.halo_plan(rows_in, needs)
+            sent = plan["pad_before"] + plan["pad_after"]
+            self.nbytes += sent * x.shape[0] * x.shape[1] * x.shape[3] * x.element_size()
+            return self._timed(fwd, ctx, x, rows_in, needs, fill, rows)
 
         def backward(ctx, g):
-            self.nbytes += (ctx.above + ctx.below) * g.shape[0] * g.shape[1] * g.shape[3] * g.element_size()
+            plan = mesh.halo_plan(ctx.rows_in, ctx.needs)
+            sent = plan["pad_above"] + plan["pad_below"]
+            self.nbytes += sent * g.shape[0] * g.shape[1] * g.shape[3] * g.element_size()
             return self._timed(bwd, ctx, g)
 
         self.mesh.HaloRows.forward, self.mesh.HaloRows.backward = staticmethod(forward), staticmethod(backward)
@@ -3912,11 +3986,202 @@ def spatial_phase(fhi, iv, gpu: str):
     return k3, k4, max(r["k3_err"] for r in ranks), max(r["k4_err"] for r in ranks)
 
 
+# --- 7k: spatial partitioning on uneven row shards ------------------------------
+
+SPU_GRIDS = {"f": (3, 256), "g": (4, 64)}  # name: (ranks = S, input rows)
+SPU_STEPS = 3  # (f): timed fp32 steps after the counted one, for the halo's share
+TOL_SPU_LOSS = 1e-5  # (f) the first fp32 "highest" train loss on the grid vs one process, relative
+
+
+def _spu_cfg(out: str, world: int, rows: int):
+    """h36m3d_r50 in fp32 "highest" at rows x rows input (heatmaps rows / 4)
+    on a 1 x ``world`` grid (world 1: one process), batch SP_BATCH."""
+    cfg = _sp_cfg(out, world, fp32=True)
+    return cfg.replace(data=dataclasses.replace(cfg.data, input_shape=(rows, rows),
+                                                output_shape=(rows // 4, rows // 4)))
+
+
+def _uneven_rank(rank: int, world: int, work: str, gpu: str):
+    """One rank of spatial_uneven_phase on cuda:0 over gloo, S = world: the
+    fp32 flip-test eval step on its rows (K3 counted), K3/K4 against plain
+    on its rows' logits; at S = 3 also one counted fp32 train step and
+    SPU_STEPS timed ones with the halo exchanges metered."""
+    from ihpr_tpu_torch.data.augment import finalize_patch
+    from ihpr_tpu_torch.models.pose_net import build_pose_net, inference_copy
+    from ihpr_tpu_torch.ops import conv_bn as cb
+    from ihpr_tpu_torch.ops import fused_head_integral as fhi
+    from ihpr_tpu_torch.ops import integral_volume as iv
+    from ihpr_tpu_torch.ops import matmul_bn as mm
+    from ihpr_tpu_torch.parallel import mesh, train_step
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    name = next(k for k, (w, _) in SPU_GRIDS.items() if w == world)
+    rows = SPU_GRIDS[name][1]
+    inputs = torch.load(f"{work}/inputs_{name}.pt", weights_only=False)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in inputs["batch"].items()}
+    cfg = _spu_cfg(f"{work}/rank{rank}", world, rows)
+    dp = mesh.data_parallel(cfg)
+    out = {"rows": [mesh.row_range(r, rank, world) for r in (rows, rows // 32 + (rows % 32 > 0), rows // 4)]}
+    net = build_pose_net(cfg, device="cuda", dp=dp)
+    net.load_state_dict(inputs["eval_model"])
+    step = train_step.make_eval_step(inference_copy(net), cfg)
+    step(batch)  # warm-up
+    torch.cuda.synchronize()
+    # --- the eval step on this rank's rows, counted ---
+    _zero_counts(fhi, iv, mm, cb)
+    coords = step(batch)[0]
+    torch.cuda.synchronize()
+    out["eval"] = (coords.cpu().numpy(), _counts(fhi, iv, mm, cb))
+    # --------------------------------------------------
+    with torch.no_grad():
+        image = mesh.row_shard(finalize_patch(batch["patch"], batch["color_scale"], cfg.data), net.rows)
+        hm = net(image).contiguous()
+    b, h, w, c = hm.shape
+    out["volume"] = (b, h * w, c)
+    out["k3_err"], out["k4_err"] = check_volume(iv, hm.view(b, h * w, c), net.joint_num, net.depth_dim, w,
+                                                f"spatial-uneven rank {rank} of {world}, its rows' logits ({b}, "
+                                                f"{h * w}, {c}) fp32")
+    del net, hm, image
+    if name == "f":
+        model = build_pose_net(cfg, device="cuda", trainable=True, dp=dp)
+        model.load_state_dict(inputs["model"])
+        opt, sched = train_step.make_optimizer(model, cfg, 100, dp)
+        step = train_step.make_train_step(model, opt, cfg, scheduler=sched, dp=dp)
+        torch.cuda.synchronize()
+        # --- one train step, counted ---
+        _zero_counts(fhi, iv, mm, cb)
+        metrics = {k: float(v) for k, v in step(batch).items()}
+        torch.cuda.synchronize()
+        out["train"] = (metrics, _counts(fhi, iv, mm, cb))
+        # -------------------------------
+        walls = []
+        with _HaloMeter(mesh) as meter:
+            for _ in range(SPU_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(batch)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+        out["halo"] = (meter.s / SPU_STEPS, meter.nbytes / SPU_STEPS, meter.calls / SPU_STEPS, sum(walls) / SPU_STEPS)
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        out["digest"] = _state_digest(model)
+    return out
+
+
+def spatial_uneven_phase(fhi, iv, gpu: str):
+    """Spatial partitioning on GSPMD's uneven row shards (mesh.row_range:
+    blocks of ceil(R / S) rows, the last short or empty), h36m3d_r50 at
+    full width and depth in fp32 "highest", batch SP_BATCH, on ranks that
+    time-share the one card over gloo. (f) S = 3 at 256x256: 86/86/84 input
+    rows, 3/3/2 rows at stride 32, 22/22/20 heatmap rows: the flip-test eval
+    step against one process (within TOL_SP_FP32 voxel), one train step's
+    loss (within TOL_SPU_LOSS relative) and parameters bitwise equal on the
+    ranks, K3 once a rank in eval and K3 + K4 once a rank a step, K3/K4
+    against plain on each rank's rows, the halo exchanges' share of a
+    step's host time. (g) a 1 x 4 grid at 64x64 in eval mode: 2 rows at
+    stride 32, so ranks 2 and 3 own none there (at stride 16, one row
+    each), 4 heatmap rows each: the eval step against one
+    process. Returns the ranks' K3 and K4 launches and the largest
+    K3/K4-vs-plain differences."""
+    from ihpr_tpu_torch.data import skeletons
+    from ihpr_tpu_torch.data.augment import finalize_patch
+    from ihpr_tpu_torch.data.datasets import build_dataset
+    from ihpr_tpu_torch.data.pipeline import BatchLoader
+    from ihpr_tpu_torch.models.pose_net import build_pose_net, inference_copy
+    from ihpr_tpu_torch.parallel import launch
+    from ihpr_tpu_torch.parallel.train_step import make_eval_step, make_optimizer, make_train_step
+
+    t_phase = time.perf_counter()
+    failed = []
+    results = {}
+    with tempfile.TemporaryDirectory() as work:
+        for name, (world, rows) in SPU_GRIDS.items():
+            cfg = _spu_cfg(f"{work}/one", 1, rows)
+            gen = torch.Generator().manual_seed(SEED)
+            primary = skeletons.get_skeleton(cfg.data.trainset[0])
+            sets = [build_dataset(n, "train", cfg, "synthetic", SP_SIZE, hue_skeleton=primary if i else None)
+                    for i, n in enumerate(cfg.data.trainset)]
+            loader = BatchLoader(sets, cfg, SP_BATCH, num_workers=8, seed=cfg.seed)
+            hb = next(loader.epoch(0, 1))
+            loader.close()
+            batch_np = {f: getattr(hb, f) for f in ("patch", "color_scale", "joint_img", "joint_vis",
+                                                    "joints_have_depth")}
+            batch = {k: torch.from_numpy(v).cuda() for k, v in batch_np.items()}
+            net = build_pose_net(cfg, device="cuda", generator=gen)
+            image = finalize_patch(batch["patch"], batch["color_scale"], cfg.data)
+            _peak_heatmaps(net, image, gen)
+            sd = {k: v.detach().cpu().clone() for k, v in net.state_dict().items()}
+            torch.save({"model": sd, "eval_model": sd, "batch": batch_np}, f"{work}/inputs_{name}.pt")
+            want = {"eval": make_eval_step(inference_copy(net), cfg)(batch)[0].cpu().numpy()}
+            model = None
+            if name == "f":
+                model = build_pose_net(cfg, device="cuda", trainable=True)
+                model.load_state_dict(sd)
+                opt, sched = make_optimizer(model, cfg, 100)
+                want["loss"] = float(make_train_step(model, opt, cfg, scheduler=sched)(batch)["loss"])
+            del model, net, image, batch
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            ranks = launch.spawn(_uneven_rank, world, "gloo", work, gpu, workdir=work)
+            results[name] = (ranks, want, time.perf_counter() - t0)
+
+    k3 = k4 = 0
+    for name, (ranks, want, secs) in results.items():
+        world, rows = SPU_GRIDS[name]
+        r0 = ranks[0]
+        if not all(np.array_equal(r["eval"][0], r0["eval"][0]) for r in ranks):
+            failed.append(f"spatial-uneven ({name}): eval coords differ between the ranks")
+        err = float(np.abs(r0["eval"][0] - want["eval"]).max())
+        spread = float(np.abs(want["eval"] - want["eval"].mean()).max())
+        if not (err <= TOL_SP_FP32 and spread > 0.5):
+            failed.append(f"spatial-uneven ({name}): eval {err} voxel from one process (bar {TOL_SP_FP32}), "
+                          f"spread {spread}")
+        for rank, r in enumerate(ranks):
+            if r["eval"][1] != (0, 0, 1, 0, 0, 0, 0, 0):
+                failed.append(f"spatial-uneven ({name}) rank {rank}: eval launches K1-K8 {r['eval'][1]}")
+            k3 += r["eval"][1][2]
+        layout = "; ".join(f"rank {i}: input {r['rows'][0]}, stride 32 {r['rows'][1]}, heatmap {r['rows'][2]}"
+                           for i, r in enumerate(ranks))
+        print(f"spatial-uneven ({name}): 1 x {world} ranks over gloo on one card, h36m3d_r50 fp32 \"highest\" at "
+              f"{rows}x{rows}, rows [lo, hi) {layout}; flip-test eval step on {SP_BATCH} images {err:.3g} voxel from "
+              f"one process (bar {TOL_SP_FP32:g}), spread {spread:.3g}; K3 {[r['eval'][1][2] for r in ranks]} a "
+              f"rank, K1 0; {secs:.1f} s for the ranks' run  [{gpu}]")
+        print(f"spatial-uneven ({name}): K3 vs plain {max(r['k3_err'] for r in ranks):.3g} voxel, K4 vs plain_bwd "
+              f"{max(r['k4_err'] for r in ranks):.3g} on each rank's rows' logits "
+              f"{[r['volume'] for r in ranks]} fp32")
+        if name != "f":
+            continue
+        for rank, r in enumerate(ranks):
+            metrics, counts = r["train"]
+            if counts != (0, 0, 1, 1, 0, 0, 0, 0) or abs(metrics["loss"] - want["loss"]) > TOL_SPU_LOSS * abs(
+                    want["loss"]):
+                failed.append(f"spatial-uneven (f) rank {rank}: loss {metrics['loss']} against one process's "
+                              f"{want['loss']} (bar {TOL_SPU_LOSS} relative), K1-K8 {counts}")
+            k3, k4 = k3 + counts[2], k4 + counts[3]
+            halo_s, halo_bytes, halo_calls, wall = r["halo"]
+            print(f"spatial-uneven (f) rank {rank}: fp32 step {wall * 1e3:.3f} ms wall (host clock, {SPU_STEPS} "
+                  f"steps), halo exchanges {halo_s * 1e3:.3f} ms of it ({halo_s / wall:.3f}, {halo_calls:.0f} "
+                  f"calls), {halo_bytes / 2**20:.3f} MiB sent a step, peak {r['peak_gib']:.2f} GiB (three ranks "
+                  f"share the card; gloo copies through host memory: not a scaling number)  [{gpu}]")
+        if len({r["digest"] for r in ranks}) != 1:
+            failed.append("spatial-uneven (f): parameters and BN buffers differ between the ranks")
+        print(f"spatial-uneven (f): one fp32 train step: loss {r0['train'][0]['loss']:.8f} against one process's "
+              f"{want['loss']:.8f} (relative {abs(r0['train'][0]['loss'] - want['loss']) / abs(want['loss']):.3g}, "
+              f"bar {TOL_SPU_LOSS:g}); K3/K4 {[r['train'][1][2:4] for r in ranks]} a rank; parameters and BN "
+              f"buffers bitwise equal on the ranks")
+    print(f"spatial-uneven: the phase took {time.perf_counter() - t_phase:.1f} s  [{gpu}]")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    errs = [r[key] for ranks, _, _ in results.values() for r in ranks for key in ("k3_err", "k4_err")]
+    return k3, k4, max(errs[0::2]), max(errs[1::2])
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke run of ihpr_tpu_torch on one NVIDIA GPU.")
     parser.add_argument("--only", nargs="+",
                         choices=("bn", "fused", "dp", "dp-serve", "device-warp", "serving-bench", "real-data",
-                                 "spatial", "accuracy"),
+                                 "spatial", "spatial-uneven", "accuracy"),
                         help="build the kernels and run only these phases (no JSON lines)")
     only = parser.parse_args(argv).only
     if not torch.cuda.is_available():
@@ -3950,6 +4215,7 @@ def main(argv=None) -> int:
                   "dp": lambda: dp_phase(fhi, iv, mm, cb, gpu), "dp-serve": lambda: dp_serve_phase(fhi, gpu),
                   "device-warp": lambda: device_warp_phase(fhi, gpu), "serving-bench": lambda: serving_bench_phase(gpu),
                   "real-data": lambda: real_data_phase(fhi, gpu), "spatial": lambda: spatial_phase(fhi, iv, gpu),
+                  "spatial-uneven": lambda: spatial_uneven_phase(fhi, iv, gpu),
                   "accuracy": lambda: accuracy_phase(fhi, iv, mm, cb, gpu)}
         for name in only:
             phases[name]()
@@ -3980,6 +4246,7 @@ def main(argv=None) -> int:
     real_k1, real_k2, colour = real_data_phase(fhi, gpu)
     acc_k3, acc_k4, acc_colour, acc_colour_err = accuracy_phase(fhi, iv, mm, cb, gpu)
     sp_k3, sp_k4, sp_k3_err, sp_k4_err = spatial_phase(fhi, iv, gpu)
+    spu_k3, spu_k4, spu_k3_err, spu_k4_err = spatial_uneven_phase(fhi, iv, gpu)
     hm_k3, hm_k4, hm_err, hm_dv_err = heatmap_phase(fhi, iv, gpu)
     np_k3, np_k4, np_err = noplan_phase(fhi, iv, gpu)
     eval_k1, eval_k3, eval_k1_err, eval_k3_err = eval_phase(fhi, iv, gpu)
@@ -3993,10 +4260,10 @@ def main(argv=None) -> int:
         (fhi._BWD_LIB, "ihpr_tpu/ops/fused_head_integral.py:153",
          train_k2 + snap_k2 + r152_k2 + dp_n["K2"] + warp_k2 + real_k2,
          max(k2_err, head_err, r152_k2_err, dp_errs["K2"]), k2_ms, k2_plain, *b2, k2_lib),
-        (iv._FWD_LIB, "ihpr_tpu/ops/integral_pallas.py:201", hm_k3 + np_k3 + eval_k3 + sp_k3 + acc_k3,
-         max(k3_err, hm_err, np_err, eval_k3_err, sp_k3_err), k3_ms, k3_plain, *b3, None),
-        (iv._BWD_LIB, "ihpr_tpu/ops/integral_pallas.py:239", hm_k4 + np_k4 + sp_k4 + acc_k4,
-         max(k4_err, hm_dv_err, sp_k4_err), k4_ms, k4_plain, *b4, None),
+        (iv._FWD_LIB, "ihpr_tpu/ops/integral_pallas.py:201", hm_k3 + np_k3 + eval_k3 + sp_k3 + spu_k3 + acc_k3,
+         max(k3_err, hm_err, np_err, eval_k3_err, sp_k3_err, spu_k3_err), k3_ms, k3_plain, *b3, None),
+        (iv._BWD_LIB, "ihpr_tpu/ops/integral_pallas.py:239", hm_k4 + np_k4 + sp_k4 + spu_k4 + acc_k4,
+         max(k4_err, hm_dv_err, sp_k4_err, spu_k4_err), k4_ms, k4_plain, *b4, None),
     ]
     for (name, replaces, key, launches), err in zip(
         ((mm._FWD_LIB, "ihpr_tpu/ops/matmul_bn.py:127", "k5", k5_n + dp_n["K5"]),

@@ -69,9 +69,10 @@ class PoseServer:
 
         ``dp``: this rank's ``parallel.mesh.DataParallel`` of the world;
         None or world 1 is one process. At world > 1 (module docstring),
-        ``partition="data"`` needs ``max_batch`` divisible by the world, and
-        ``"spatial"`` the input's rows at stride 32 (ValueError otherwise;
-        build the server on every rank at the same point)."""
+        ``partition="data"`` needs ``max_batch`` divisible by the world
+        (ValueError otherwise); ``"spatial"`` takes any input rows, in
+        GSPMD's uneven layout where they do not split evenly (build the
+        server on every rank at the same point)."""
         if partition not in ("spatial", "data"):
             raise ValueError(f"partition must be 'spatial' or 'data', got {partition!r}")
         self.dp = dp if dp is not None and dp.world > 1 else None

@@ -5,8 +5,12 @@ Reference: ``common/base.py:Tester`` and ``main/test.py`` (no-grad loop,
 flip-test, predictions gathered, ``db.evaluate``) and the per-dataset
 evaluate (``Human36M.evaluate``: warp back, pixel2cam, root-align,
 per-action MPJPE). The model comes from the caller or from a snapshot in
-``cfg.output_dir``; the log goes to ``{output_dir}/log/test_logs.txt``. The
-``vis`` overlays wait for cv2.
+``cfg.output_dir``; the log goes to ``{output_dir}/log/test_logs.txt``.
+``evaluate(vis=True)`` also writes the reference's overlays of the first
+``vis_count`` predictions to ``{output_dir}/vis/pred_{i}.jpg``
+(``utils/vis.py``), each frame read through ``data/jpeg.py`` on the
+Tester's device (or rendered, for a synthetic sample) and written through
+``jpeg.encode``.
 
 Data-parallel (an initialized ``torch.distributed`` group), each rank
 scores its rows of each global batch (``eval.batch_size_per_device`` times
@@ -162,12 +166,13 @@ class Tester:
             raise AssertionError(f"{int((~seen).sum())} test samples got no prediction")
         return out
 
-    def evaluate(self) -> Dict[str, float]:
+    def evaluate(self, vis: bool = False, vis_count: int = 8) -> Dict[str, float]:
         """Predict, score, and write ``result/metrics_<name>.json``,
         ``result/preds_<name>.npy`` (original-image px and mm) and, with
         ``cfg.eval.dump_artifacts``, the reference's result files under
-        ``cfg.output_dir``. Every rank returns the metrics; only rank 0
-        writes (JAX: process 0)."""
+        ``cfg.output_dir``; with ``vis``, the overlays of the first
+        ``vis_count`` samples (``write_overlays``). Every rank returns the
+        metrics; only rank 0 writes (JAX: process 0)."""
         cfg = self.cfg
         name = self.dataset.name
         metrics, preds_img, samples, preds_cam = metrics_from_voxel_preds(
@@ -175,6 +180,8 @@ class Tester:
         )
         if self.dp.rank != 0:
             return metrics
+        if vis:
+            self.write_overlays(preds_img, samples, vis_count)
         result_dir = f"{cfg.output_dir}/result"
         os.makedirs(result_dir, exist_ok=True)
         for k, v in sorted(metrics.items()):
@@ -185,6 +192,34 @@ class Tester:
         if cfg.eval.dump_artifacts:
             self._write_upstream_artifacts(result_dir, name, preds_img, samples, preds_cam)
         return metrics
+
+    def write_overlays(self, preds_img: np.ndarray, samples, count: int):
+        """The reference's overlays (``utils.vis.vis_keypoints``) of the first
+        ``count`` predictions (original-image px) on their frames, written
+        as ``{output_dir}/vis/pred_{i}.jpg`` (JPEG quality 95, as
+        ``cv2.imwrite`` writes JAX's). A frame on disk is decoded by
+        ``jpeg.decode`` on the Tester's device, a synthetic one rendered;
+        the overlay is drawn on the host and encoded by ``jpeg.encode`` on
+        the Tester's device."""
+        from ihpr_tpu_torch.data import jpeg
+        from ihpr_tpu_torch.data.datasets import render_synthetic_image
+        from ihpr_tpu_torch.utils.vis import vis_keypoints
+
+        vis_dir = f"{self.cfg.output_dir}/vis"
+        os.makedirs(vis_dir, exist_ok=True)
+        n = min(count, len(samples))
+        for i in range(n):
+            s = samples[i]
+            if s.get("img_path") is None:
+                img = render_synthetic_image(s)
+            else:
+                with open(s["img_path"], "rb") as f:
+                    img = jpeg.decode([f.read()], self.device, [s["img_path"]])[0].cpu().numpy()
+            overlay = vis_keypoints(img, preds_img[i], self.dataset.skeleton)
+            blob = jpeg.encode([overlay], device=self.device)[0]
+            with open(f"{vis_dir}/pred_{i}.jpg", "wb") as f:
+                f.write(blob)
+        self.logger.info("wrote %d overlays to %s", n, vis_dir)
 
     def _write_upstream_artifacts(self, result_dir, name, preds_img, samples, preds_cam):
         """Result dumps in the reference's layouts, beside the metrics json:

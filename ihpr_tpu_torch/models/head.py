@@ -8,9 +8,11 @@ deconvs cast theirs to the compute dtype per call, and the final conv's
 fused op or the plain logits matmul (``head.py:143-148``), so autograd
 returns fp32 gradients through the casts.
 
-Row-sharded (``dp`` of spatial > 1), each deconv takes one row of each
-neighbour (``mesh.halo_rows``, zeros past the image's edges) and runs with
-padding 3 in H, which crops its output to the rank's 2h rows.
+Row-sharded (``dp`` of spatial > 1), each deconv takes the input rows its
+output rows (``mesh.row_range`` of the 2R output rows) receive taps from
+(``mesh.halo_rows`` with ``mesh.deconv_needs``, zeros past the image's
+edges) and crops the rest: on rows split evenly, one row of each neighbour
+and padding 3 in H. A rank with no output rows runs no cuDNN call.
 """
 
 from __future__ import annotations
@@ -19,9 +21,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ihpr_tpu_torch.models.resnet import BN
+from ihpr_tpu_torch.models.resnet import BN, _no_rows
 from ihpr_tpu_torch.ops.fused_head_integral import fused_final_conv_integral
-from ihpr_tpu_torch.parallel.mesh import DataParallel, halo_rows
+from ihpr_tpu_torch.parallel.mesh import DataParallel, deconv_needs, halo_rows, row_range
 
 
 class FinalConv(nn.Module):
@@ -36,27 +38,42 @@ class FinalConv(nn.Module):
 class Deconv(nn.ConvTranspose2d):
     """ConvTranspose2d(4, stride 2, padding 1), bias-free, with an fp32
     master weight cast to ``compute_dtype`` on each call. ``rows``
-    (``DataParallel.row_axis``): the input is this rank's h rows; with one
-    halo row above and below, output row q of the h + 2 rows, less the
-    padding, is row q - 3 of the rank's output, so padding 3 in H leaves
-    exactly its 2h rows."""
+    (``DataParallel.row_axis``): the input is this rank's rows of a stage
+    of ``rows_in`` rows (default: the grid's ``input_rows``). Output rows
+    [a, b) take input rows [i0, i1) = [(a - 1) // 2, b // 2 + 1); with
+    padding 0 in H those give output rows 2*i0 - 1 ... 2*i1 of the whole,
+    so the first a - 2*i0 + 1 and the last (2 or 3) rows past b are
+    cropped: by padding where both ends crop alike (3 and 3 on rows split
+    evenly), else by padding the lesser and slicing the rest."""
 
     def __init__(self, cin: int, cout: int, compute_dtype: torch.dtype, device=None,
-                 rows: DataParallel | None = None):
+                 rows: DataParallel | None = None, rows_in: int | None = None):
         super().__init__(
             cin, cout, 4, stride=2, padding=1, bias=False, dtype=torch.float32, device=device
         )
         self.compute_dtype = compute_dtype
         self.rows = rows
+        self.rows_in = None if rows is None else (rows_in if rows_in is not None else rows.input_rows)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight.to(self.compute_dtype)
         padding = self.padding
+        top = crop = 0
         if self.rows is not None:
-            x, padding = halo_rows(x, 1, 1, 0.0, self.rows), (3, self.padding[1])
-        return F.conv_transpose2d(
-            x, self.weight.to(self.compute_dtype), None, self.stride, padding,
-            self.output_padding, self.groups, self.dilation,
-        )
+            needs = deconv_needs(self.rows_in, self.rows.world)
+            a, b = row_range(2 * self.rows_in, self.rows.rank, self.rows.world)
+            x = halo_rows(x, self.rows_in, needs, 0.0, self.rows)
+            if b == a:
+                return _no_rows((x.shape[0], self.out_channels, 0, 2 * x.shape[3]), x, w)
+            i0, i1 = needs[self.rows.rank]
+            top = a - 2 * i0 + 1
+            bottom = 2 * (i1 - i0) + 2 - top - (b - a)
+            crop = min(top, bottom)
+            padding, top = (crop, self.padding[1]), top - crop
+        y = F.conv_transpose2d(x, w, None, self.stride, padding, self.output_padding, self.groups, self.dilation)
+        if self.rows is not None and (top or y.shape[2] != b - a):
+            y = y[:, :, top:top + b - a]
+        return y
 
 
 class DeconvHead(nn.Module):
@@ -71,14 +88,18 @@ class DeconvHead(nn.Module):
         fp32_logits: bool,
         device=None,
         dp: DataParallel | None = None,
+        rows_in: int | None = None,
     ):
         super().__init__()
         self.num_layers = num_layers
         self.dtype = dtype
         self.fp32_logits = fp32_logits
         rows = dp.row_axis if dp is not None else None
+        # The global rows of the heatmap on a spatial grid (None: whole images).
+        self.rows_out = None if rows_in is None else rows_in * 2 ** num_layers
         for i in range(num_layers):
-            self.add_module(f"deconv{i + 1}", Deconv(cin if i == 0 else features, features, dtype, device, rows))
+            r = None if rows_in is None else rows_in * 2 ** i
+            self.add_module(f"deconv{i + 1}", Deconv(cin if i == 0 else features, features, dtype, device, rows, r))
             self.add_module(f"bn{i + 1}", BN(features, bn_mode, dtype, device=device, dp=dp))
         self.final = FinalConv(features, out_channels, device)
 

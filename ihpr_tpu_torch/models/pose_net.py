@@ -77,6 +77,7 @@ class PoseNet(nn.Module):
             fp32_logits,
             device,
             dp,
+            self.backbone.rows_out,
         )
 
     def precision(self):
@@ -105,7 +106,8 @@ class PoseNet(nn.Module):
             )
 
     def coords_spatial(self, x: torch.Tensor) -> torch.Tensor:
-        """This spatial rank's (B, H/S, W, 3) rows of the images -> the whole
+        """This spatial rank's (B, h, W, 3) rows of the images
+        (``mesh.row_shard``: h may differ between ranks, or be 0) -> the whole
         images' (B, J, 3) voxel coords, the same on every rank of the row
         group: the head's logits of the rank's rows, then K3/K4 over them
         with the ranks' statistics merged (``soft_argmax_row_shards``). The
@@ -113,7 +115,7 @@ class PoseNet(nn.Module):
         mesh. K1/K2 do not run: the fused op sees only one rank's rows."""
         with self.precision():
             hm = self(x)
-        return soft_argmax_row_shards(hm, self.joint_num, self.depth_dim, self.rows)
+        return soft_argmax_row_shards(hm, self.joint_num, self.depth_dim, self.rows, self.head.rows_out)
 
     def coords_plain(self, x: torch.Tensor) -> torch.Tensor:
         """``coords`` via the heatmap logits and the plain soft-argmax."""

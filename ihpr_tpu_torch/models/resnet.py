@@ -22,15 +22,22 @@ the ranks, as the transpose of JAX's psum does. The conv3 route stays
 single-device, as in JAX. With no ``dp`` or world 1, BN runs the
 single-process code and no collective.
 
-Row-sharded (``dp`` of spatial > 1): each rank holds rows of every image.
-A conv of kernel k > 1 and the max-pool first take the rows their windows
-reach past the rank's own (``mesh.halo_rows``; zeros for a conv, -inf for
-the max-pool, past the image's edges) and then run with no padding in H.
-With the port's symmetric ``padding = k // 2`` and stride s, that is
-``padding`` rows above and ``k - s - padding`` below (7x7/2: 3 and 2;
-3x3/1: 1 and 1; 3x3/2 and the max-pool: 1 and 0); a 1x1 conv takes none.
-The convs stay cuDNN calls. BN's arithmetic is unchanged: its count,
-local count times world, is the global (B, H, W) count.
+Row-sharded (``dp`` of spatial > 1): each rank holds its rows of every
+image and stage, in GSPMD's layout (``mesh.row_range``: blocks of ceil(R /
+S) rows, the last short or empty). Each module knows its stage's global
+rows, from the grid's ``input_rows``. A conv of kernel k > 1 or stride 2
+and the max-pool first take the input rows their windows read
+(``mesh.halo_rows`` with ``mesh.conv_needs``; zeros for a conv, -inf for
+the max-pool, past the image's edges), wherever they lie, and then run
+with no padding in H: output rows [a, b) read rows [s*a - p, s*(b-1) - p
++ k). On rows split evenly that is ``padding`` rows above and ``k - s -
+padding`` below (7x7/2: 3 and 2; 3x3/1: 1 and 1; 3x3/2 and the max-pool:
+1 and 0), and a 1x1 conv of stride 2 takes none. A rank with no output
+rows runs no cuDNN call and no max-pool: it returns the empty tensor of
+the output's shape, still tied to its input and weight, so that the
+backward runs every collective on every rank. The convs stay cuDNN calls.
+BN's arithmetic is unchanged: the ranks' row counts are summed with its
+statistics, so its count is the global (B, H, W) count.
 """
 
 from __future__ import annotations
@@ -40,7 +47,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ihpr_tpu_torch.ops import conv_bn, matmul_bn
-from ihpr_tpu_torch.parallel.mesh import DataParallel, all_reduce_sum, halo_rows
+from ihpr_tpu_torch.parallel.mesh import DataParallel, all_reduce_sum, conv_needs, conv_rows, halo_rows
 
 # resnet_type -> (block kind, stage depths, channel expansion)
 RESNET_SPECS = {
@@ -74,8 +81,10 @@ class BN(nn.Module):
 
     With ``dp`` of world > 1 the train-mode statistics are the global
     batch's: the local fp32 sums of x and x^2 (or the sums handed to
-    ``from_sums``) are summed over the ranks by one all-reduce, and the
-    count is the global one.
+    ``from_sums``) and the rank's row count are summed over the ranks by one
+    all-reduce, and the count is the global one: a rank's samples times
+    its width times the ranks' rows (each data index's spatial peers hold
+    the same samples and together every row, in shares that may differ).
     """
 
     momentum = 0.9  # flax momentum: the share of the old running statistic
@@ -104,16 +113,19 @@ class BN(nn.Module):
     def _synced(self) -> bool:
         return self.dp is not None and self.dp.world > 1
 
-    def _global_sums(self, s1: torch.Tensor, s2: torch.Tensor):
-        """(s1, s2) summed over the ranks in one all-reduce."""
-        s = all_reduce_sum(torch.cat([s1, s2]), self.dp)
-        return s[: s1.shape[0]], s[s1.shape[0]:]
+    def _global_sums(self, s1: torch.Tensor, s2: torch.Tensor, per_row: int, rows: int):
+        """(s1, s2, count) over the ranks: the sums and this rank's ``rows``
+        summed in one all-reduce; count = ``per_row`` (samples times width,
+        the same on every rank) times the summed rows, in float64 (exact)."""
+        c = s1.shape[0]
+        s = all_reduce_sum(torch.cat([s1, s2, s1.new_full((1,), float(rows))]), self.dp)
+        return s[:c], s[c:2 * c], s[2 * c].detach().double() * per_row
 
     def _batch_stats(self, x: torch.Tensor):
         xf = x.to(torch.float32)
         if self._synced():
-            count = float(xf.numel() // xf.shape[1] * self.dp.world)
-            s1, s2 = self._global_sums(xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)))
+            b, _, h, w = xf.shape
+            s1, s2, count = self._global_sums(xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)), b * w, h)
             mean = s1 / count
             var = (s2 / count - mean * mean).clamp_min(0.0)
         else:
@@ -122,17 +134,19 @@ class BN(nn.Module):
         self._update_running(mean, var)
         return mean, var
 
-    def from_sums(self, s1: torch.Tensor, s2: torch.Tensor, count: float):
-        """Train-mode BN from precomputed per-channel sums (JAX's ``_SumBN``):
-        the fp32 (mul, add) of the folded normalize, from mean = s1 / count
-        and the biased var = max(s2 / count - mean^2, 0); the running
-        statistics are updated as in ``forward``. Data-parallel, the sums and
-        ``count`` are this rank's and are summed over the ranks first (the
-        psum of JAX's ``matmul_bn._sharded_call``), so K6 and K8 receive the
-        cotangents of the global sums."""
+    def from_sums(self, s1: torch.Tensor, s2: torch.Tensor, per_row: int, rows: int):
+        """Train-mode BN from precomputed per-channel sums (JAX's ``_SumBN``)
+        over ``per_row`` (samples times width) x ``rows`` values: the fp32
+        (mul, add) of the folded normalize, from mean = s1 / count and the
+        biased var = max(s2 / count - mean^2, 0); the running statistics are
+        updated as in ``forward``. Data-parallel, the sums and ``rows`` are
+        this rank's and are summed over the ranks first (the psum of JAX's
+        ``matmul_bn._sharded_call``), so K6 and K8 receive the cotangents of
+        the global sums."""
         if self._synced():
-            s1, s2 = self._global_sums(s1, s2)
-            count = count * self.dp.world
+            s1, s2, count = self._global_sums(s1, s2, per_row, rows)
+        else:
+            count = float(per_row * rows)
         mean = s1 / count
         var = (s2 / count - mean * mean).clamp_min(0.0)
         self._update_running(mean, var)
@@ -157,33 +171,61 @@ class BN(nn.Module):
         return (y + self.bias[:, None, None]).to(self.dtype)
 
 
+def _no_rows(shape, *inputs: torch.Tensor) -> torch.Tensor:
+    """The empty output of ``shape`` (its rows 0) of a layer on this rank,
+    computed without the layer's op but tied to ``inputs``, so that autograd
+    still runs the backward of every op before it (halos, BN's all-reduce),
+    whose collectives the other ranks wait on. Its gradients are 0."""
+    tie = sum(t.sum() for t in inputs) * 0
+    return tie.expand(shape)
+
+
+def _stage_rows(rows_in, kernel: int, stride: int, pad: int):
+    return None if rows_in is None else conv_rows(rows_in, kernel, stride, pad)
+
+
 class Conv(nn.Conv2d):
     """Bias-free conv with an fp32 master weight, cast to ``compute_dtype``
     on each call (a no-op once the weight is stored in that dtype, as in
     ``pose_net.inference_copy``). ``rows`` (``DataParallel.row_axis``): the
-    input is this rank's rows, and a kernel of more than one row takes its
-    halo first (module docstring)."""
+    input is this rank's rows of a stage of ``rows_in`` rows (default: the
+    grid's ``input_rows``), and a kernel of more than one row or a stride
+    of 2 takes its halo first (module docstring)."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int, compute_dtype, device=None,
-                 rows: DataParallel | None = None):
+                 rows: DataParallel | None = None, rows_in: int | None = None):
         super().__init__(
             cin, cout, kernel, stride=stride, padding=kernel // 2, bias=False,
             dtype=torch.float32, device=device,
         )
         self.compute_dtype = compute_dtype
-        self.rows = rows if kernel > 1 else None
+        self.rows = rows if kernel > 1 or stride > 1 else None
+        self.rows_in = None if self.rows is None else (rows_in if rows_in is not None else rows.input_rows)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.weight.to(self.compute_dtype)
+        (k, kw), (s, sw), (p, pw) = self.kernel_size, self.stride, self.padding
+        if self.rows is not None:
+            x = halo_rows(x, self.rows_in, conv_needs(self.rows_in, k, s, p, self.rows.world), 0.0, self.rows)
+        if x.shape[2] == 0:  # an empty shard (a 1x1 conv of stride 1 takes the rank's own rows)
+            return _no_rows((x.shape[0], self.out_channels, 0, (x.shape[3] + 2 * pw - kw) // sw + 1), x, w)
         if self.rows is None:
             return self._conv_forward(x, w, None)
-        (k, _), (s, _), (p, pw) = self.kernel_size, self.stride, self.padding
-        x = halo_rows(x, p, k - s - p, 0.0, self.rows)
         return F.conv2d(x, w, None, self.stride, (0, pw))
 
 
-def _conv(cin: int, cout: int, kernel: int, stride: int, dtype, device, dp: DataParallel | None = None) -> Conv:
-    return Conv(cin, cout, kernel, stride, dtype, device, dp.row_axis if dp is not None else None)
+def _conv(cin: int, cout: int, kernel: int, stride: int, dtype, device, dp: DataParallel | None = None,
+          rows_in: int | None = None) -> Conv:
+    return Conv(cin, cout, kernel, stride, dtype, device, dp.row_axis if dp is not None else None, rows_in)
+
+
+def max_pool_rows(x: torch.Tensor, rows_in: int, rows: DataParallel) -> torch.Tensor:
+    """The stem's 3x3/2 max-pool (padding 1) of this rank's rows of a stage
+    of ``rows_in`` rows, its halo taken first (-inf past the image)."""
+    x = halo_rows(x, rows_in, conv_needs(rows_in, 3, 2, 1, rows.world), float("-inf"), rows)
+    if x.shape[2] == 0:
+        return _no_rows((x.shape[0], x.shape[1], 0, (x.shape[3] - 1) // 2 + 1), x)
+    return F.max_pool2d(x, 3, stride=2, padding=(0, 1))
 
 
 def _rows(t: torch.Tensor) -> torch.Tensor:
@@ -201,15 +243,17 @@ class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, cin: int, features: int, stride: int, dtype, bn_mode: str, device=None,
-                 fused_1x1: bool = False, fused_conv3: bool = False, dp: DataParallel | None = None):
+                 fused_1x1: bool = False, fused_conv3: bool = False, dp: DataParallel | None = None,
+                 rows_in: int | None = None):
         # No 1x1 convs to fuse: the flags are accepted and ignored, as in JAX.
         super().__init__()
-        self.conv1 = _conv(cin, features, 3, stride, dtype, device, dp)
+        self.rows_out = _stage_rows(rows_in, 3, stride, 1)
+        self.conv1 = _conv(cin, features, 3, stride, dtype, device, dp, rows_in)
         self.bn1 = BN(features, bn_mode, dtype, device=device, dp=dp)
-        self.conv2 = _conv(features, features, 3, 1, dtype, device, dp)
+        self.conv2 = _conv(features, features, 3, 1, dtype, device, dp, self.rows_out)
         self.bn2 = BN(features, bn_mode, dtype, device=device, dp=dp)
         if stride != 1 or cin != features:
-            self.down_conv = _conv(cin, features, 1, stride, dtype, device)
+            self.down_conv = _conv(cin, features, 1, stride, dtype, device, dp, rows_in)
             self.down_bn = BN(features, bn_mode, dtype, device=device, dp=dp)
 
     def forward(self, x):
@@ -227,25 +271,31 @@ class Bottleneck(nn.Module):
     parameters and buffers are the same on every route. Data-parallel
     (world > 1) it never takes the conv3 route (JAX requires
     ``mesh.size == 1`` for it), and decides ``fused_1x1`` on the local rows,
-    as JAX does on ``m // nshard``."""
+    as JAX does, on ``m // nshard``: the global rows over the ranks that
+    split them (the spatial peers hold one sample's rows in shares that may
+    differ, so every peer decides on the same number and calls the same
+    collectives)."""
 
     expansion = 4
 
     def __init__(self, cin: int, features: int, stride: int, dtype, bn_mode: str, device=None,
-                 fused_1x1: bool = False, fused_conv3: bool = False, dp: DataParallel | None = None):
+                 fused_1x1: bool = False, fused_conv3: bool = False, dp: DataParallel | None = None,
+                 rows_in: int | None = None):
         super().__init__()
         self.features, self.stride, self.bn_mode = features, stride, bn_mode
         self.fused_1x1, self.fused_conv3 = fused_1x1, fused_conv3
         self.world = 1 if dp is None else dp.world
+        self.spatial = 1 if dp is None else dp.spatial
+        self.rows_in, self.rows_out = rows_in, _stage_rows(rows_in, 3, stride, 1)
         out = features * 4
         self.conv1 = _conv(cin, features, 1, 1, dtype, device)
         self.bn1 = BN(features, bn_mode, dtype, device=device, dp=dp)
-        self.conv2 = _conv(features, features, 3, stride, dtype, device, dp)
+        self.conv2 = _conv(features, features, 3, stride, dtype, device, dp, rows_in)
         self.bn2 = BN(features, bn_mode, dtype, device=device, dp=dp)
         self.conv3 = _conv(features, out, 1, 1, dtype, device)
         self.bn3 = BN(out, bn_mode, dtype, device=device, dp=dp)
         if stride != 1 or cin != out:
-            self.down_conv = _conv(cin, out, 1, stride, dtype, device)
+            self.down_conv = _conv(cin, out, 1, stride, dtype, device, dp, rows_in)
             self.down_bn = BN(out, bn_mode, dtype, device=device, dp=dp)
 
     def _route(self, x: torch.Tensor) -> str:
@@ -256,7 +306,8 @@ class Bottleneck(nn.Module):
         if (self.fused_conv3 and self.world == 1 and self.stride == 1 and conv_bn.profitable(e, e)
                 and conv_bn.supported(b, h, w, e, e, 1, itemsize)):
             return "conv3"
-        if self.fused_1x1 and matmul_bn.supported(b * h * w, cin, e, itemsize):
+        m = b * (h if self.rows_in is None else self.rows_in) * w
+        if self.fused_1x1 and m % self.spatial == 0 and matmul_bn.supported(m // self.spatial, cin, e, itemsize):
             return "1x1"
         return "plain"
 
@@ -281,17 +332,16 @@ class Bottleneck(nn.Module):
         dt = self.conv1.compute_dtype
         b, _, h, w = x.shape
         y1, s1, s2 = matmul_bn.fused_matmul_bn(_rows(x.to(dt)), self.conv1.weight.to(dt)[:, :, 0, 0].t())
-        mul1, add1 = self.bn1.from_sums(s1, s2, float(y1.shape[0]))
+        mul1, add1 = self.bn1.from_sums(s1, s2, b * w, h)
         a1 = torch.relu(torch.addcmul(add1.to(dt), y1, mul1.to(dt)))
         c2 = self.conv2(_nchw(a1, b, h, w))
         b2, _, h2, w2 = c2.shape
         c2f = c2.to(torch.float32)
-        m2 = float(b2 * h2 * w2)
-        mul2, add2 = self.bn2.from_sums(c2f.sum((0, 2, 3)), (c2f * c2f).sum((0, 2, 3)), m2)
+        mul2, add2 = self.bn2.from_sums(c2f.sum((0, 2, 3)), (c2f * c2f).sum((0, 2, 3)), b2 * w2, h2)
         y3, s1, s2 = matmul_bn.fused_matmul_bn(
             _rows(c2), self.conv3.weight.to(dt)[:, :, 0, 0].t(), mul2, add2
         )
-        mul3, add3 = self.bn3.from_sums(s1, s2, m2)
+        mul3, add3 = self.bn3.from_sums(s1, s2, b2 * w2, h2)
         return _nchw(torch.addcmul(add3.to(dt), y3, mul3.to(dt)), b2, h2, w2)
 
     def _fused_conv3(self, x):
@@ -303,12 +353,11 @@ class Bottleneck(nn.Module):
         b, _, h, w = x.shape
         c1 = self.conv1(x)
         c1f = c1.to(torch.float32)
-        m1 = float(b * h * w)
-        mul1, add1 = self.bn1.from_sums(c1f.sum((0, 2, 3)), (c1f * c1f).sum((0, 2, 3)), m1)
+        mul1, add1 = self.bn1.from_sums(c1f.sum((0, 2, 3)), (c1f * c1f).sum((0, 2, 3)), b * w, h)
         c2, s1, s2 = conv_bn.fused_conv3x3_bn(
             c1.permute(0, 2, 3, 1), self.conv2.weight.to(dt).permute(2, 3, 1, 0), mul1, add1
         )
-        mul2, add2 = self.bn2.from_sums(s1, s2, m1)
+        mul2, add2 = self.bn2.from_sums(s1, s2, b * w, h)
         a2 = torch.relu(torch.addcmul(add2.to(dt), c2, mul2.to(dt)))
         return self.bn3(self.conv3(a2.permute(0, 3, 1, 2)))
 
@@ -326,26 +375,31 @@ class ResNetBackbone(nn.Module):
         block_cls = BasicBlock if kind == "basic" else Bottleneck
         self.dtype = dtype
         self.out_features = 512 * expansion
-        self.conv1 = _conv(3, 64, 7, 2, dtype, device, dp)
-        self.bn1 = BN(64, bn_mode, dtype, device=device, dp=dp)
         self.rows = dp.row_axis if dp is not None else None
+        # The global rows of each stage on a spatial grid (None: whole images).
+        r = self.rows.input_rows if self.rows is not None else None
+        self.conv1 = _conv(3, 64, 7, 2, dtype, device, dp, r)
+        self.bn1 = BN(64, bn_mode, dtype, device=device, dp=dp)
+        self.pool_rows = _stage_rows(r, 7, 2, 3)
+        r = _stage_rows(self.pool_rows, 3, 2, 1)
         self.block_names = []
         cin = 64
         for stage, (width, depth) in enumerate(zip(_STAGE_WIDTHS, depths)):
             for i in range(depth):
                 stride = 2 if (stage > 0 and i == 0) else 1
                 name = f"layer{stage + 1}_{i}"
-                self.add_module(name, block_cls(cin, width, stride, dtype, bn_mode, device,
-                                                fused_1x1, fused_conv3, dp))
+                block = block_cls(cin, width, stride, dtype, bn_mode, device, fused_1x1, fused_conv3, dp, r)
+                self.add_module(name, block)
                 self.block_names.append(name)
-                cin = width * expansion
+                cin, r = width * expansion, block.rows_out
+        self.rows_out = r
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = F.relu(self.bn1(self.conv1(x.to(self.dtype))))
         if self.rows is None:
             x = F.max_pool2d(x, 3, stride=2, padding=1)
         else:
-            x = F.max_pool2d(halo_rows(x, 1, 0, float("-inf"), self.rows), 3, stride=2, padding=(0, 1))
+            x = max_pool_rows(x, self.pool_rows, self.rows)
         for name in self.block_names:
             x = getattr(self, name)(x)
         return x

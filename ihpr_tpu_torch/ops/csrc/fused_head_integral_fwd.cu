@@ -23,7 +23,13 @@
 //     then streams feat[b] in 64-row tiles through a ring of kStages slots
 //     (full/empty mbarriers);
 //   - two consumer warpgroups (232 registers) take alternate tiles, so one's
-//     epilogue overlaps the other's products: wgmma m64n192k16, both
+//     epilogue overlaps the other's products. kStages is even, so each
+//     warpgroup owns its own slots and waits on every phase of their full
+//     barriers in turn. With an odd ring a warpgroup met its slot's barrier
+//     again two phases on, the other's tile in between: a parity wait
+//     cannot tell those phases apart, and could pass before the other's tile
+//     had landed, reading a slot the TMA had not yet filled.
+//     wgmma m64n192k16, both
 //     operands K-major from shared memory, fp32 accumulation, then the
 //     online softmax of K1 v1 on the wgmma accumulator (the per-warp
 //     mma.sync m16n8 layout): base 2 with ex2.approx, one state (max, sum
@@ -63,7 +69,8 @@ using namespace hopper;
 
 constexpr int kG = 3;                 // joints per CTA
 constexpr int kN = kG * kBox;         // logit columns per CTA (wgmma N = 192)
-constexpr int kStages = 3;            // feature tiles in flight
+constexpr int kStages = 4;            // feature tiles in flight
+static_assert(kStages % 2 == 0, "each consumer warpgroup must own its ring slots");
 constexpr int kCtaThreads = 384;      // producer warpgroup + 2 consumer warpgroups
 constexpr int kConsumerWarps = 8;
 

@@ -22,9 +22,11 @@ the kernels are held against on the card. JAX pads the joint axis with
 and D, so nothing is padded.
 
 ``SoftArgmaxRowShards`` is the same integral over a volume whose rows are
-split over the spatial ranks (``parallel/mesh.py``): K3 on each rank's
-rows, the ranks' (coords, m, s) merged into the whole volume's, and K4 on
-each rank's rows with the whole volume's (m, s). Under a spatial mesh JAX
+split over the spatial ranks (``parallel/mesh.py``), evenly or not: K3 on
+each rank's rows, the ranks' (coords, m, s) merged into the whole volume's,
+and K4 on each rank's rows with the whole volume's (m, s). A volume of no
+rows (a rank with an empty shard) launches neither kernel: its m is -inf
+and its s 0, which the merge adds as exactly 0, and its dv is empty. Under a spatial mesh JAX
 takes the plain-XLA soft-argmax (``coords_plain``: ``pallas_call`` has no
 GSPMD rule); this is the same function with the kernels.
 """
@@ -38,7 +40,7 @@ from typing import Tuple
 import torch
 
 from ihpr_tpu_torch.ops import _build
-from ihpr_tpu_torch.parallel.mesh import DataParallel, all_gather_rows
+from ihpr_tpu_torch.parallel.mesh import DataParallel, all_gather_rows, row_range
 
 _FWD_LIB = "integral_volume_fwd"
 _BWD_LIB = "integral_volume_bwd"
@@ -63,13 +65,23 @@ def _grid(hw: int, width: int, depth_dim: int, device, dtype):
     return x, y, torch.arange(depth_dim, device=device, dtype=dtype)
 
 
+def _no_rows(vol: torch.Tensor, joint_num: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The statistics of a volume with no rows: coords 0, m -inf, s 0."""
+    acc = dict(dtype=_acc_dtype(vol), device=vol.device)
+    b = vol.shape[0]
+    return (torch.zeros((b, joint_num, 3), **acc), torch.full((b, joint_num), float("-inf"), **acc),
+            torch.zeros((b, joint_num), **acc))
+
+
 def plain(
     vol: torch.Tensor, joint_num: int, depth_dim: int, width: int
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version. vol (B, HW, J*D) -> coords (B, J, 3), per-joint
     max m (B, J) and normalizer s = sum exp(v - m) (B, J), fp32 (fp64 for
-    fp64 inputs)."""
+    fp64 inputs); coords 0, m -inf and s 0 where HW is 0."""
     b, hw, _ = vol.shape
+    if hw == 0:
+        return _no_rows(vol, joint_num)
     acc = _acc_dtype(vol)
     v = vol.to(acc).reshape(b, hw, joint_num, depth_dim).permute(0, 2, 1, 3)  # (B, J, HW, D)
     m = v.amax(dim=(2, 3))
@@ -122,6 +134,8 @@ def plain_bwd(
 ) -> torch.Tensor:
     """Plain PyTorch version of the backward: dv with vol's shape and dtype,
     computed in fp32 (fp64 for fp64 inputs) and rounded once."""
+    if vol.shape[1] == 0:
+        return torch.zeros_like(vol)
     v = vol.to(_acc_dtype(vol))
     return plain_dv(v, m, s, coords, g, joint_num, depth_dim, width).to(vol.dtype)
 
@@ -167,8 +181,11 @@ def kernel_stats(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K3 on the same contract as ``plain``. Launches on the current stream
     without synchronizing; raises on any input the kernel does not take and
-    on a refused launch."""
+    on a refused launch. A CUDA volume of no rows launches nothing (a grid
+    of no blocks is a launch error) and gives coords 0, m -inf, s 0."""
     global launches
+    if vol.dim() == 3 and vol.is_cuda and vol.shape[1] == 0 and vol.shape[2] == joint_num * depth_dim:
+        return _no_rows(vol, joint_num)
     b, hw, is_bf16, vec = _check_volume(vol, joint_num, depth_dim, width)
     jd = joint_num * depth_dim
     lib = _fwd_lib()
@@ -207,8 +224,11 @@ def kernel_bwd(
     ``kernel_stats`` does, and m, s (B, J), coords, g (B, J, 3) as fp32
     contiguous tensors on vol's device. Launches on the current stream
     without synchronizing; raises on any input the kernel does not take and
-    on a refused launch."""
+    on a refused launch. A volume of no rows launches nothing: its dv is
+    empty."""
     global bwd_launches
+    if vol.dim() == 3 and vol.is_cuda and vol.shape[1] == 0:
+        return torch.empty_like(vol)
     b, hw, is_bf16, vec = _check_volume(vol, joint_num, depth_dim, width)
     for name, t, shape in (("m", m, (b, joint_num)), ("s", s, (b, joint_num)),
                            ("coords", coords, (b, joint_num, 3)), ("g", g, (b, joint_num, 3))):
@@ -311,8 +331,8 @@ def merge_row_shards(
 
 class SoftArgmaxRowShards(torch.autograd.Function):
     """coords of the whole volume from this spatial rank's rows of it, a
-    (B, h*W, J*D) logits volume whose first row is row ``rows.rank * h`` of
-    the image: K3 on the rank's rows (``plain`` on CPU tensors), then
+    (B, h*W, J*D) logits volume whose first row is row ``y0`` of the image
+    (h may be 0): K3 on the rank's rows (``plain`` on CPU tensors), then
     ``merge_row_shards``. The backward needs no communication: given the
     same cotangent g on every rank (the loss is computed on the merged
     coords), K4 (``plain_bwd``) on the rank's rows with the whole volume's
@@ -321,10 +341,10 @@ class SoftArgmaxRowShards(torch.autograd.Function):
     rank's first row."""
 
     @staticmethod
-    def forward(ctx, vol, joint_num: int, depth_dim: int, width: int, rows: DataParallel, grad_enabled: bool):
+    def forward(ctx, vol, joint_num: int, depth_dim: int, width: int, y0: int, rows: DataParallel,
+                grad_enabled: bool):
         run = kernel_stats if vol.is_cuda else plain
         local, m, s = run(vol, joint_num, depth_dim, width)
-        y0 = rows.rank * (vol.shape[1] // width)
         coords, big_m, total = merge_row_shards(local, m, s, y0, rows)
         if grad_enabled and ctx.needs_input_grad[0]:
             shift = torch.tensor([0.0, float(y0), 0.0], dtype=coords.dtype, device=coords.device)
@@ -337,18 +357,22 @@ class SoftArgmaxRowShards(torch.autograd.Function):
         vol, big_m, total, coords = ctx.saved_tensors
         run = kernel_bwd if vol.is_cuda else plain_bwd
         dv = run(vol, big_m, total, coords, g.to(big_m.dtype).contiguous(), *ctx.dims)
-        return dv, None, None, None, None, None
+        return dv, None, None, None, None, None, None
 
 
 def soft_argmax_row_shards(
-    heatmap: torch.Tensor, joint_num: int, depth_dim: int, rows: DataParallel
+    heatmap: torch.Tensor, joint_num: int, depth_dim: int, rows: DataParallel, total_rows: int
 ) -> torch.Tensor:
-    """(B, h, W, J*D) NHWC head logits of this spatial rank's h rows ->
-    (B, J, 3) voxel coords of the whole image, the same on every rank of
-    ``rows``, differentiable through ``SoftArgmaxRowShards``. As
+    """(B, h, W, J*D) NHWC head logits of this spatial rank's rows
+    (``mesh.row_range`` of the heatmap's ``total_rows``) -> (B, J, 3) voxel
+    coords of the whole image, the same on every rank of ``rows``,
+    differentiable through ``SoftArgmaxRowShards``. As
     ``soft_argmax_from_heatmap``, a CUDA heatmap must be contiguous."""
     b, h, w, c = heatmap.shape
     if c != joint_num * depth_dim:
         raise ValueError(f"heatmap has {c} channels: need J*D = {joint_num}*{depth_dim}")
+    y0, y1 = row_range(total_rows, rows.rank, rows.world)
+    if h != y1 - y0:
+        raise ValueError(f"rank {rows.rank} holds {h} heatmap rows: expected rows [{y0}, {y1}) of {total_rows}")
     vol = heatmap.view(b, h * w, c) if heatmap.is_cuda else heatmap.reshape(b, h * w, c)
-    return SoftArgmaxRowShards.apply(vol, joint_num, depth_dim, w, rows, torch.is_grad_enabled())
+    return SoftArgmaxRowShards.apply(vol, joint_num, depth_dim, w, y0, rows, torch.is_grad_enabled())

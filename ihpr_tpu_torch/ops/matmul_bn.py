@@ -244,8 +244,12 @@ def _bwd_lib() -> ctypes.CDLL:
 def kernel_fwd(x: torch.Tensor, w: torch.Tensor, mul=None, add=None):
     """K5 on the same contract as ``plain``: x (M, K), w (K, N). Launches on
     the current stream without synchronizing; raises on any input the
-    kernel does not take and on a refused launch."""
+    kernel does not take and on a refused launch. x of no rows (a spatial
+    rank's empty shard) launches nothing: y is empty, s1 and s2 are 0."""
     global launches
+    if x.is_cuda and x.dim() == 2 and x.shape[0] == 0:
+        z = torch.zeros(w.shape[1], dtype=torch.float32, device=x.device)
+        return x.new_empty((0, w.shape[1])), z, z.clone()
     m, k, n, is_bf16 = check_kernel_inputs(x, w.unsqueeze(0), mul, add)
     lib = _fwd_lib()
     f32 = dict(dtype=torch.float32, device=x.device)
@@ -267,8 +271,15 @@ def kernel_fwd(x: torch.Tensor, w: torch.Tensor, mul=None, add=None):
 def kernel_bwd(x, w, mul, add, y, dy, ds1, ds2):
     """K6 on the same contract as ``plain_bwd`` (dw in fp32). Launches on
     the current stream without synchronizing; raises on any input the
-    kernel does not take and on a refused launch."""
+    kernel does not take and on a refused launch. x of no rows launches
+    nothing: dx is empty, dw, dmul and dadd are 0."""
     global bwd_launches
+    if x.is_cuda and x.dim() == 2 and x.shape[0] == 0:
+        f32 = dict(dtype=torch.float32, device=x.device)
+        dw = torch.zeros(tuple(w.shape), **f32)
+        if mul is None:
+            return torch.empty_like(x), dw, None, None
+        return torch.empty_like(x), dw, torch.zeros_like(mul), torch.zeros_like(add)
     m, k, n, is_bf16 = check_kernel_inputs(x, w.unsqueeze(0), mul, add)
     ds = check_cotangents(x, y, dy, ds1, ds2, n)
     lib = _bwd_lib()

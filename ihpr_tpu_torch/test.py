@@ -13,8 +13,9 @@ rank 0 writes the files; ``--spatial N`` splits each sample's image rows
 over N of the ranks (``parallel/mesh.py``), each sample scored once.
 ``--data_root`` is the test set's root in the reference's file layout
 (default ``data/<name>``), its JPEGs decoded on the device; ``--synthetic``
-evaluates ``--synthetic_size`` rendered samples. ``test.py``'s ``--vis``
-is not ported and is rejected.
+evaluates ``--synthetic_size`` rendered samples. ``--vis`` also writes
+the overlays of the first 8 predictions to ``{output_dir}/vis/pred_{i}.jpg``
+(``Tester.evaluate(vis=True)``), as ``test.py --vis`` does.
 """
 
 from __future__ import annotations
@@ -26,9 +27,6 @@ import logging
 import torch
 
 from ihpr_tpu_torch.utils.shutdown import install_graceful_shutdown
-
-_UNPORTED = {"vis": "--vis"}
-
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -44,13 +42,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="join the process group torchrun describes (data-parallel eval)")
     ap.add_argument("--spatial", type=int, default=None, metavar="N",
                     help="shard each sample's image rows over N ranks (a (data, spatial) grid)")
-    # test.py's flag that the port does not have: accepted, then refused.
-    ap.add_argument("--vis", action="store_true")
-    args = ap.parse_args(argv)
-    given = [flag for dest, flag in _UNPORTED.items() if getattr(args, dest) not in (None, False)]
-    if given:
-        ap.error(f"{', '.join(given)}: not ported to ihpr_tpu_torch")
-    return args
+    ap.add_argument("--vis", action="store_true", help="dump keypoint overlays to {output_dir}/vis")
+    return ap.parse_args(argv)
 
 
 def main(argv=None):
@@ -77,7 +70,7 @@ def main(argv=None):
             synthetic_size=args.synthetic_size, device=device,
         )
         try:
-            metrics = tester.evaluate()
+            metrics = tester.evaluate(vis=args.vis)
         finally:
             tester.close()
     finally:

@@ -18,7 +18,12 @@ directory of scripts there, not a package).
   frames through the Tester (MPJPE, PCKh@0.5, OKS AP) against JAX's bar,
   writes a JSON result and exits 0 or 1 by it; ``accuracy_loop`` also runs
   the trained weights on the CPU as an oracle. ``_accuracy`` holds what
-  they share.
+  they share. ``bf16_drift`` scores an ``accuracy_loop`` run's snapshot in
+  bf16 lean and flax BN, fp32 and the two mixes, and reports where per
+  layer bf16 departs from fp32.
+- ``validate_data``: the preflight of a dataset root against the loaders'
+  schema (exit 0 or 1); ``dress_rehearsal``: a tree in the upstream
+  layout, validated, then the train and test CLIs on it.
 Each runs on the card by default and on the CPU (plain versions, host
 clock) with ``--device cpu``:
 
@@ -29,6 +34,9 @@ clock) with ``--device cpu``:
     python -m ihpr_tpu_torch.tools.accuracy_loop [--preset tiny|flagship|r152] [--device cuda] [--output_dir D]
     python -m ihpr_tpu_torch.tools.mpii2d_probe [--device cuda] [--output_dir D]
     python -m ihpr_tpu_torch.tools.coco_probe [--device cuda] [--output_dir D]
+    python -m ihpr_tpu_torch.tools.bf16_drift --preset flagship --output_dir D [--device cuda]
+    python -m ihpr_tpu_torch.tools.validate_data --dataset Human36M --data_root R
+    python -m ihpr_tpu_torch.tools.dress_rehearsal --root T [--run] [--device cuda]
 
 ``train_supervised.sh`` relaunches ``python -m ihpr_tpu_torch.train`` with
 ``--continue`` after each exit 75 (the RSS watchdog's) and ends on any

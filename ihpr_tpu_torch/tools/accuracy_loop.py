@@ -30,9 +30,11 @@ snapshot interval and keep, and bars:
 - ``r152``: ``h36m3d_r152_384``, 2048 / 128 frames, 30 epochs, bar 250 mm.
 
 Every preset runs with ``matmul_precision="highest"`` (TF32 off), as JAX's
-tool runs fp32 in true fp32. JAX's ``--bn_mode`` is left out: the port's
-``build_pose_net`` rejects the measurement BN modes. ``--platform`` is
-``--device`` here (``cuda`` by default, ``cpu`` on request).
+tool runs fp32 in true fp32. ``--bn_mode`` overrides the preset's BN
+arithmetic, as JAX's does, with the two ported modes: ``flax`` or ``lean``
+(the measurement modes raise, as ``build_pose_net`` does); the result
+records the mode the run used. ``--platform`` is ``--device`` here
+(``cuda`` by default, ``cpu`` on request).
 
 Writes ``{output_dir}/accuracy_loop.json`` with JAX's keys plus the device
 (the card's name and power limit), the train loop's img/s and the share of
@@ -58,6 +60,7 @@ from ihpr_tpu_torch.data.datasets import PoseDataset
 from ihpr_tpu_torch.data.pipeline import prefetch_to_device
 from ihpr_tpu_torch.engine.tester import metrics_from_voxel_preds
 from ihpr_tpu_torch.models.pose_net import build_pose_net, inference_copy
+from ihpr_tpu_torch.models.resnet import BN_MODES
 from ihpr_tpu_torch.parallel.train_step import make_eval_step
 from ihpr_tpu_torch.tools._accuracy import (
     device_info,
@@ -148,6 +151,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="mix a synthetic MPII (2-D only) trainset into the Human36M one, coded in the "
                     "Human36M hues; the bar is unchanged")
     ap.add_argument("--mixed_size", type=int, default=None, help="MPII frames (default: --train_size)")
+    ap.add_argument("--bn_mode", default=None,
+                    help=f"override cfg.model.bn_mode with one of the ported modes {BN_MODES} (JAX's flag; "
+                    "its measurement modes are not ported)")
     ap.add_argument("--device", default="cuda", help="cuda (the card) or cpu")
     ap.add_argument("--continue", dest="continue_train", action="store_true",
                     help="resume from the latest snapshot in --output_dir (the synthetic sets are seeded and "
@@ -160,6 +166,8 @@ def main(argv=None):
 
     install_graceful_shutdown()
     args = parse_args(argv)
+    if args.bn_mode is not None and args.bn_mode not in BN_MODES:
+        raise ValueError(f"bn_mode {args.bn_mode!r} is not ported; use one of {BN_MODES}")
     hue_mode = args.hue_mode or ("semantic" if (args.flip_ab or args.use_aug) else "index")
     if (args.flip_ab or args.use_aug) and hue_mode != "semantic":
         raise SystemExit("--flip_ab/--use_aug need --hue_mode semantic")
@@ -175,6 +183,8 @@ def main(argv=None):
     # True fp32: TF32 would move coords by a fraction of a voxel against the
     # fp32 oracle, and the gap would measure rounding, not the port.
     cfg = cfg.replace(output_dir=out_dir, model=dataclasses.replace(cfg.model, matmul_precision="highest"))
+    if args.bn_mode:
+        cfg = cfg.replace(model=dataclasses.replace(cfg.model, bn_mode=args.bn_mode))
     if args.use_aug:
         cfg = cfg.replace(data=dataclasses.replace(cfg.data, use_aug=True))
         bar *= args.aug_bar_mult
@@ -224,6 +234,7 @@ def main(argv=None):
         "mixed_mpii_size": mixed_size,
         "config": cfg.name,
         "resnet": cfg.model.resnet_type,
+        "bn_mode": cfg.model.bn_mode,
         "input_shape": list(cfg.data.input_shape),
         "depth_dim": cfg.data.depth_dim,
         "train_size": train_size,

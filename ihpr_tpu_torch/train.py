@@ -14,7 +14,7 @@ trains on one CUDA device (``--device``), or data-parallel with
 ``batch_size_per_device`` times the ranks. ``--shard_opt_state`` shards
 the Adam moments over the ranks (ZeRO-1). ``--spatial N`` splits each
 sample's image rows over N ranks (a D x N grid of the ranks, N dividing
-them and the input's rows at stride 32; ``parallel/mesh.py``), as
+them; rows that do not split evenly split as GSPMD's; ``parallel/mesh.py``), as
 ``train.py --spatial`` does over JAX's devices. ``--steps 20`` caps each epoch at
 20 steps; the run takes ``--end_epoch`` epochs, the config's
 ``optim.end_epoch`` without it, as in ``train.py``. Snapshots go to

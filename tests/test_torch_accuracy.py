@@ -22,6 +22,7 @@ JAX's Tester, and the 2-D probes.
 
 import dataclasses
 import json
+import os
 import shutil
 import types
 
@@ -251,3 +252,114 @@ def test_bf16_preset_holds_an_fp32_model_to_the_oracle(tmp_path, monkeypatch):
         result = json.load(f)
     assert result["resnet"] == 18 and "mpjpe_ours_fp32_mm" in result
     assert result["mpjpe_gap_mm"] == 0.0 and result["mpjpe_torch_mm"] == result["mpjpe_ours_fp32_mm"]
+
+
+def _small_bf16(name="accuracy_bf16"):
+    """``flagship`` cut to ResNet-18 at 64x64 (bf16, lean BN, bf16 logits)."""
+    tiny = dataclasses.replace(_PROBE_CFGS["MPII"], name=name)
+    return tiny.replace(
+        model=tconfig.ModelConfig(resnet_type=18, compute_dtype="bfloat16", fp32_logits=False, bn_mode="lean"),
+        data=tconfig.DataConfig(trainset=("Human36M",), input_shape=(64, 64), output_shape=(16, 16), depth_dim=16,
+                                use_aug=False),
+        optim=tconfig.OptimConfig(batch_size_per_device=4, end_epoch=60, lr_dec_epoch=(45, 55)),
+    )
+
+
+@pytest.mark.parametrize("bn_mode", ["flax", "lean"])
+def test_bn_mode_overrides_the_preset_and_is_recorded(bn_mode, tmp_path, monkeypatch):
+    """``--bn_mode`` (JAX's flag) sets the trained model's BN arithmetic, as
+    JAX's ``cfg.replace(model=...bn_mode)`` does, and the result JSON records
+    it; the preset's lean mode is the default."""
+    monkeypatch.setattr(accuracy_loop, "preset_config", lambda preset: _small_bf16())
+    seen = {}
+    real = accuracy_loop.train_timed
+
+    def spy(cfg, *a, **k):
+        seen["mode"] = cfg.model.bn_mode
+        state, stats = real(cfg, *a, **k)
+        seen["bns"] = {m.mode for m in state.model.modules() if hasattr(m, "running_var")}
+        return state, stats
+
+    monkeypatch.setattr(accuracy_loop, "train_timed", spy)
+    argv = ["--device", "cpu", "--preset", "flagship", "--train_size", "4", "--test_size", "4", "--end_epoch", "1",
+            "--mpjpe_bar_mm", "10000", "--skip_oracle", "--output_dir", str(tmp_path)]
+    assert _run(accuracy_loop, argv + ["--bn_mode", bn_mode], monkeypatch) == 0
+    with open(tmp_path / "accuracy_loop.json") as f:
+        assert json.load(f)["bn_mode"] == bn_mode
+    assert seen == {"mode": bn_mode, "bns": {bn_mode}}
+
+
+def test_bn_mode_refuses_the_measurement_modes(tmp_path, monkeypatch):
+    """The modes ``build_pose_net`` rejects (JAX's lean16 / lean_sg / frozen
+    ...) raise before anything is rendered or trained."""
+    monkeypatch.setattr(accuracy_loop, "preset_config", lambda preset: _small_bf16())
+    monkeypatch.setattr(shutdown, "install_graceful_shutdown", lambda: None)
+    with pytest.raises(ValueError, match="lean_sg"):
+        accuracy_loop.main(["--device", "cpu", "--preset", "flagship", "--bn_mode", "lean_sg",
+                            "--output_dir", str(tmp_path)])
+    assert not os.path.exists(tmp_path / "imgs")
+
+
+def test_bf16_drift_localises_on_a_trained_run(tmp_path, monkeypatch):
+    """``tools/bf16_drift.py`` on a 1-epoch run of the cut flagship: the
+    five MPJPEs, one row per BN, block and deconv in execution order (the
+    stem's BN first, the head's last BN last), each BN's local errors and
+    cancellation, no K1 check on the CPU, and the npz of every BN's four
+    fields under the model's names."""
+    from ihpr_tpu_torch.models.resnet import BN
+    from ihpr_tpu_torch.tools import bf16_drift
+
+    monkeypatch.setattr(accuracy_loop, "preset_config", lambda preset: _small_bf16())
+    out = tmp_path / "run"
+    argv = ["--device", "cpu", "--preset", "flagship", "--train_size", "4", "--test_size", "4", "--end_epoch", "1",
+            "--mpjpe_bar_mm", "10000", "--skip_oracle", "--output_dir", str(out)]
+    assert _run(accuracy_loop, argv, monkeypatch) == 0
+    npz = tmp_path / "bn.npz"
+    bf16_drift.main(["--preset", "flagship", "--output_dir", str(out), "--test_size", "4", "--batch", "4",
+                     "--device", "cpu", "--stats_out", str(npz)])
+    with open(out / "bf16_drift.json") as f:
+        res = json.load(f)
+    assert set(res["mpjpe_mm"]) == {"bf16 lean", "fp32", "bf16 flax", "bf16 backbone + fp32 head",
+                                    "fp32 backbone + bf16 head"}
+    assert all(np.isfinite(v) for v in res["mpjpe_mm"].values())
+    layers = [r["layer"] for r in res["layers"]]
+    assert layers[0] == "backbone.bn1" and layers[-1] == "head.bn3"
+    bns = [r for r in res["layers"] if "cancellation" in r]
+    model = build_pose_net(_small_bf16(), device="cpu")
+    names = [n for n, m in model.named_modules() if isinstance(m, BN)]
+    assert [r["layer"] for r in bns] == names
+    assert all(r["local_lean"] >= 0 and r["local_flax"] >= 0 and r["cancellation"] >= 0 for r in bns)
+    assert res["k1"] is None and res["bn_mode"] == "lean" and res["hook_batch"] == 4
+    stats = np.load(npz)
+    assert sorted(stats.files) == sorted(f"{n}.{f}" for n in names
+                                         for f in ("weight", "bias", "running_mean", "running_var"))
+
+
+def test_bn_local_error_grows_with_the_lean_folds_cancellation():
+    """``bf16_drift.bn_local`` on one BN whose running mean is 88 of its
+    standard deviations (100.37 over sqrt(1.3)), on inputs of those
+    statistics: the lean fold's bf16 error is many times flax's, its
+    systematic part (per-channel bias) 10 times flax's, and the
+    cancellation max|mean * mul| / max|y| between 10 and 100 (y's largest
+    is ~4 std over 4096 values); with a zero running mean the two
+    arithmetics are alike."""
+    from ihpr_tpu_torch.models.resnet import BN
+    from ihpr_tpu_torch.tools.bf16_drift import bn_local
+
+    gen = torch.Generator().manual_seed(0)
+    c = 16
+    bn = BN(c, "lean", torch.bfloat16).eval()
+    x = torch.randn(4, c, 8, 8, generator=gen)
+    with torch.no_grad():
+        bn.running_var.fill_(1.3)
+        for mean, lean_over_flax in ((100.37, 20.0), (0.0, None)):
+            bn.running_mean.fill_(mean)
+            xs = x * 1.3 ** 0.5 + mean
+            y = (xs - mean) * torch.rsqrt(torch.tensor(1.3 + bn.eps))
+            got = bn_local(bn, xs, y)
+            if lean_over_flax is None:
+                assert got["local_lean"] <= 2 * got["local_flax"] + 2 ** -9 and got["cancellation"] == 0.0
+            else:
+                assert got["local_lean"] >= lean_over_flax * got["local_flax"]
+                assert got["bias_lean"] >= 10 * got["bias_flax"]
+                assert 10 < got["cancellation"] < 100

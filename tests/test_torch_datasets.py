@@ -18,6 +18,7 @@ import shutil
 import sys
 import warnings
 
+import cv2
 import jax
 import numpy as np
 import pytest
@@ -445,8 +446,9 @@ def test_cli_train_and_test_on_a_jpeg_root(tmp_path, monkeypatch):
     """``train --data_root R --pretrained P`` then ``test --data_root R`` on
     the tiny config (the CLIs' main, on the CPU): a materialized synthetic
     H36M root (JPEGs written by the port, read back by its loader), the
-    backbone from the .pth, one snapshot, finite MPJPE; --spatial accepted,
-    --vis still refused."""
+    backbone from the .pth, one snapshot, finite MPJPE; --spatial accepted;
+    ``--vis`` writes JAX's overlay files, ``vis/pred_{i}.jpg`` for the 4
+    test frames, each decoding to its frame's size."""
     from ihpr_tpu_torch.config import CONFIGS
 
     monkeypatch.setattr(train_cli, "install_graceful_shutdown", lambda: None)
@@ -470,8 +472,10 @@ def test_cli_train_and_test_on_a_jpeg_root(tmp_path, monkeypatch):
     train_cli.main([*common, "--pretrained", pth, "--steps", "2", "--end_epoch", "1"])
     assert torch.equal(seen["conv1"], sd["conv1.weight"]) and seen["img_path"].startswith(str(root))
     assert os.path.isdir(os.path.join(out, "model_dump"))
-    metrics = test_cli.main(common)
+    metrics = test_cli.main(common + ["--vis"])
     assert np.isfinite(metrics["MPJPE total"])
     assert train_cli.parse_args([*common, "--spatial", "2"]).spatial == 2
-    with pytest.raises(SystemExit):
-        test_cli.parse_args([*common, "--vis"])
+    assert sorted(os.listdir(os.path.join(out, "vis"))) == [f"pred_{i}.jpg" for i in range(4)]
+    for i in range(4):
+        frame = cv2.imread(os.path.join(out, "vis", f"pred_{i}.jpg"))
+        assert frame.shape == (96, 96, 3)

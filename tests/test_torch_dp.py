@@ -608,26 +608,30 @@ def test_cli_multihost_under_torchrun(tmp_path):
 def test_cli_flags_ported_and_refused():
     """--multihost, --shard_opt_state, --pretrained and --spatial (train) and
     --multihost and --spatial (test) are ported (tests/test_torch_spatial.py
-    runs --spatial); --vis (test) is still refused."""
+    runs --spatial); so is --vis (test; tests/test_torch_vis.py holds the
+    overlays)."""
     args = train_cli.parse_args(["--synthetic", "--multihost", "--shard_opt_state", "--pretrained", "x.msgpack"])
     assert args.multihost and args.shard_opt_state and args.pretrained == "x.msgpack"
     assert test_cli.parse_args(["--synthetic", "--multihost"]).multihost
     assert train_cli.parse_args(["--synthetic", "--spatial", "2"]).spatial == 2
     assert test_cli.parse_args(["--synthetic", "--spatial", "2"]).spatial == 2
-    with pytest.raises(SystemExit):
-        test_cli.parse_args(["--synthetic", "--vis"])
+    assert test_cli.parse_args(["--synthetic", "--vis"]).vis
 
 
 def test_data_axis_and_spatial_checks():
     """data_axis_size None means the world size over the spatial axis;
     another value raises. Without a process group the layout is one
-    process, where a spatial axis of 2 does not divide the world; an uneven
-    row shard raises too (tests/test_torch_spatial.py runs the grids)."""
+    process, where a spatial axis of 2 does not divide the world. Rows that
+    split unevenly are taken, as JAX takes them (tests/test_torch_spatial.py
+    runs such grids); a spatial axis that does not divide the ranks is the
+    refusal left."""
     cfg = _cfg()
     assert mesh.data_parallel(cfg) == mesh.SINGLE
     with pytest.raises(ValueError, match="data_axis_size=2"):
         mesh.data_parallel(cfg.replace(parallel=dataclasses.replace(cfg.parallel, data_axis_size=2)))
     with pytest.raises(ValueError, match="does not divide the 1 rank"):
         mesh.data_parallel(cfg.replace(parallel=dataclasses.replace(cfg.parallel, spatial_axis_size=2)))
-    with pytest.raises(ValueError, match="uneven row shards"):
-        mesh.check_row_shards(2, 2, 96)  # 3 rows at stride 32
+    mesh.check_row_shards(2, 2, 96)  # 3 rows at stride 32: rank 0 holds 2, rank 1 one
+    assert [mesh.row_range(3, r, 2) for r in range(2)] == [(0, 2), (2, 3)]
+    with pytest.raises(ValueError, match="does not divide the 2 rank"):
+        mesh.check_row_shards(3, 2, 96)

@@ -242,8 +242,8 @@ def test_steps_without_end_epoch_hands_train_what_jax_does(tmp_path, monkeypatch
 def test_cli_flags_ported_and_refused():
     """train accepts --continue, --output_dir, --profile_dir, --rss_limit_mb,
     --rss_check_steps, --multihost, --shard_opt_state, --pretrained and
-    --spatial; test accepts --multihost and --spatial and refuses --vis;
-    both accept a real --data_root."""
+    --spatial; test accepts --multihost, --spatial and --vis (ported: the
+    overlays); both accept a real --data_root."""
     args = train_cli.parse_args([
         "--synthetic", "--continue", "--output_dir", "o", "--profile_dir", "p",
         "--rss_limit_mb", "0", "--rss_check_steps", "5",
@@ -259,8 +259,8 @@ def test_cli_flags_ported_and_refused():
     assert (args.test_epoch, args.output_dir, args.synthetic_size) == (3, "o", 128)
     assert test_cli.parse_args(["--synthetic", "--multihost"]).multihost
     assert test_cli.parse_args(["--synthetic", "--spatial", "2"]).spatial == 2
-    with pytest.raises(SystemExit):
-        test_cli.parse_args(["--synthetic", "--vis"])
+    assert test_cli.parse_args(["--synthetic", "--vis"]).vis
+    assert not test_cli.parse_args(["--synthetic"]).vis
     for cli in (train_cli, test_cli):
         args = cli.parse_args(["--data_root", "/data/Human36M"])
         assert (args.data_root, args.synthetic) == ("/data/Human36M", False)

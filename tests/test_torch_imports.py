@@ -31,6 +31,8 @@ def test_port_imports_no_jax():
                  "ihpr_tpu_torch.models.pretrained", "ihpr_tpu_torch.utils.msgpack",
                  "ihpr_tpu_torch.tools.synthetic_root", "ihpr_tpu_torch.ops.jpeg_color",
                  "ihpr_tpu_torch.tools.accuracy_loop", "ihpr_tpu_torch.tools.mpii2d_probe",
-                 "ihpr_tpu_torch.tools.coco_probe", "ihpr_tpu_torch.tools._accuracy"):
+                 "ihpr_tpu_torch.tools.coco_probe", "ihpr_tpu_torch.tools._accuracy",
+                 "ihpr_tpu_torch.tools.bf16_drift", "ihpr_tpu_torch.tools.validate_data",
+                 "ihpr_tpu_torch.tools.dress_rehearsal", "ihpr_tpu_torch.utils.vis"):
         assert name in names.split(","), name
     assert leaked == "[]", leaked

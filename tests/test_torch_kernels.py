@@ -291,6 +291,25 @@ def test_bwd_kernel_matches_plain(cuda, shape, dtype):
 
 
 @pytest.mark.cuda
+def test_kernel_is_deterministic(cuda):
+    """K1 merges its warps' states in a fixed order, with no atomics, so
+    repeated launches on the same inputs agree bit for bit. A ring whose
+    warpgroups misread a barrier phase consumes a slot before its tile has
+    landed, and shows here as a launch that differs (or is NaN); a bf16
+    matmul before each launch leaves other data in shared memory."""
+    shape = (64, 64, 64, 256, 18, 64)
+    args = _head_inputs(shape, cuda, torch.bfloat16)
+    first = fhi.kernel_stats(*args, 18, 64, 64)
+    x = torch.randn(2048, 2048, device=cuda, dtype=torch.bfloat16)
+    differ = torch.zeros((), dtype=torch.int64, device=cuda)
+    for _ in range(200):
+        x @ x
+        got = fhi.kernel_stats(*args, 18, 64, 64)
+        differ += torch.stack([(a != b).any() for a, b in zip(got, first)]).any()
+    assert int(differ) == 0, f"{int(differ)} of 200 launches differ from the first"
+
+
+@pytest.mark.cuda
 def test_bwd_kernel_is_deterministic(cuda):
     """dW and db are per-warpgroup partials reduced in a fixed order, with
     no atomics: two runs on the same inputs agree bit for bit."""

@@ -368,26 +368,26 @@ def _row_axis(rank, world):
 
 def halo_layer_ranks(rank, world, cases):
     """Each (name, layer kwargs, x, cot) of ``cases``: the layer on this
-    rank's rows of x (B, C, H, W) with its halo, its output, dx and the
-    gradient of its weight summed over the ranks."""
+    rank's rows of x (B, C, H, W) (``mesh.row_range``, even or not) with its
+    halo, its output, dx and the gradient of its weight summed over the
+    ranks."""
     from ihpr_tpu_torch.models.head import Deconv
 
     torch.set_num_threads(1)
     rows = _row_axis(rank, world)
     out = {}
     for name, kind, kw, x, w, cot in cases:
-        h = x.shape[2] // world
         xl = torch.from_numpy(rows_of(x, rank, world)).contiguous(memory_format=torch.channels_last).requires_grad_()
+        h = x.shape[2]
         if kind == "pool":
             layer = None
-            y = torch.nn.functional.max_pool2d(mesh.halo_rows(xl, 1, 0, float("-inf"), rows), 3, 2, (0, 1))
+            y = resnet.max_pool_rows(xl, h, rows)
         else:
-            layer = (Deconv(**kw, rows=rows) if kind == "deconv" else resnet.Conv(**kw, rows=rows))
+            layer = (Deconv(**kw, rows=rows, rows_in=h) if kind == "deconv" else resnet.Conv(**kw, rows=rows, rows_in=h))
             layer.weight.data = torch.from_numpy(w).contiguous(memory_format=torch.channels_last)
             y = layer(xl)
-        ho = y.shape[2]
-        (y * torch.from_numpy(cot[:, :, rank * ho:(rank + 1) * ho])).sum().backward()
-        res = {"out": _np(y), "dx": _np(xl.grad), "rows_in": h}
+        (y * torch.from_numpy(rows_of(cot, rank, world))).sum().backward()
+        res = {"out": _np(y), "dx": _np(xl.grad)}
         if layer is not None:
             gw = layer.weight.grad.clone()
             dist.all_reduce(gw)
@@ -396,26 +396,27 @@ def halo_layer_ranks(rank, world, cases):
     return out
 
 
-def rows_of(a, rank: int, world: int):
-    """This rank's share of axis 2 (the rows of a (B, C, H, W) array)."""
-    n = a.shape[2] // world
-    return a[:, :, rank * n : (rank + 1) * n]
+def rows_of(a, rank: int, world: int, axis: int = 2):
+    """This rank's share (``mesh.row_range``) of ``axis``, the rows of a
+    (B, C, H, W) array by default."""
+    lo, hi = mesh.row_range(a.shape[axis], rank, world)
+    return np.take(a, range(lo, hi), axis=axis)
 
 
 def row_integral_ranks(rank, world, cases):
     """Each (name, vol (B, H*W, J*D), J, D, W, g) of ``cases``: the
-    row-sharded integral on this rank's rows (plain on the CPU): the merged
-    coords, this rank's dv for the cotangent g, its own max m and the merged
-    M."""
+    row-sharded integral on this rank's rows (``mesh.row_range`` of the H
+    rows; plain on the CPU): the merged coords, this rank's dv for the
+    cotangent g, its own max m and the merged M."""
     from ihpr_tpu_torch.ops import integral_volume as iv
 
     torch.set_num_threads(1)
     rows = _row_axis(rank, world)
     out = {}
     for name, vol, j, d, w, g in cases:
-        n = vol.shape[1] // world
-        local = torch.from_numpy(vol[:, rank * n:(rank + 1) * n]).requires_grad_()
-        coords = iv.SoftArgmaxRowShards.apply(local, j, d, w, rows, True)
+        y0, y1 = mesh.row_range(vol.shape[1] // w, rank, world)
+        local = torch.from_numpy(vol[:, y0 * w:y1 * w]).requires_grad_()
+        coords = iv.SoftArgmaxRowShards.apply(local, j, d, w, y0, rows, True)
         coords.backward(torch.from_numpy(g))
         _, m, s = iv.plain(local.detach(), j, d, w)
         _, big_m, _ = iv.merge_row_shards(torch.zeros_like(coords), m, s, 0, rows)
