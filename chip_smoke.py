@@ -4,7 +4,8 @@
 
 1. Prints the environment: torch, CUDA, nvcc, the card's name and power limit.
 2. Builds every CUDA kernel (K1-K8 of the serving, training, fused-train,
-   heatmap and eval paths; P1/P2 of the probe tools; the JPEG colour
+   heatmap and eval paths; K1/K2-fp32 of the fp32 heads JAX fuses and the
+   3xTF32 self-test's rate probe; P1/P2 of the probe tools; the JPEG colour
    kernel of the decode) and the nvJPEG codec from ihpr_tpu_torch/ops/csrc,
    one nvcc per source, all at once.
 3. K1 (fused head forward, bf16): holds it against its plain PyTorch
@@ -24,6 +25,17 @@
    bitwise equal; time both at (128, 4096, 1152) in bf16 and fp32.
 5b. K1/K2's library composition (cuBLAS final conv + K3/K4), a yardstick,
    at K1's two batches and K2's.
+5d. K1-fp32 / K2-fp32 (the fused head in 3xTF32, f32_kernel_phase) on the
+   fp32 flagship head (64x64, C=256, J=18, D=64): the head through
+   fused_final_conv_integral at B=8, counted (K1/K2-fp32 once each,
+   nothing else), against plain / plain_bwd; mma.sync's TF32 and bf16
+   rates alone; K1-fp32 at B = 64 and 128 against plain (5e-4 voxel), its
+   distance from plain in float64 at most twice the no-plan route's
+   (cuBLAS fp32 + K3) on the same inputs, 500 repeated launches bitwise
+   equal; K2-fp32 at B = 32 and 128 against plain_bwd (1e-4 of each
+   largest), two runs bitwise equal; K1-fp32 at B = 32, 64, 128 and K2-fp32
+   at 32 and 128 timed beside plain and the no-plan route (the library),
+   in turns; K2-fp32's four launches' device time (torch.profiler).
 5c. K5/K6 (fused 1x1 conv + BN statistics) and K7/K8 (fused 3x3 conv + BN
    statistics), forward and backward: against plain / plain_bwd at every
    shape of the flagship fused step and of a fused_1x1-alone step (bf16)
@@ -61,6 +73,14 @@
    ihpr_tpu_torch.test on the run in a subprocess; a torch.profiler window
    of the Trainer whose trace names K1's and K2's kernels; the snapshot's
    size and the save's blocking, background and load times (host clock).
+7l. The fp32 heads JAX fuses, on their configs at full width and depth:
+   h36m3d_r50_fp32 (ResNet-50, 256x256, fp32 "highest", flax BN, batch 32)
+   on synthetic H36M+MPII: the first forward and backward on K1/K2-fp32
+   and on the no-plan route from the same weights (loss 1e-4, gradient
+   norm 1e-3 relative), then 3 counted Trainer steps (K1/K2-fp32 once a
+   step), each route's device ms a step and peak memory; parity_r50
+   (fp32, batch 1) served through PoseServer with flip-test, K1-fp32 once
+   a dispatch, coords against flip-test coords_plain.
 7c. h36m3d_r152_384 (ResNet-152, 384x288 input, 96x72x64 heatmaps, bf16)
    at full depth and width on seeded weights: serves 40 patches at
    max_batch 32 with flip-test (K1 at H*W = 6912, W = 72, the padded
@@ -133,7 +153,8 @@
 7j. The accuracy harness (accuracy_phase): python -m
    ihpr_tpu_torch.tools.accuracy_loop --preset tiny through its main, cut
    to 512 / 64 frames and 5 epochs, with its CPU oracle (gap within 1 mm);
-   K3/K4 and the colour kernel counted over the run; img/s and the
+   K1/K2-fp32 (its fp32 head has a fused plan: J = 18, D = 32) and the
+   colour kernel counted over the run; img/s and the
    loader's share of the train loop printed; then the colour kernel
    against its plain version on 64 of the tool's JPEGs. The kernels line's
    max_abs_err for the colour kernel is the largest of 7h's and 7j's
@@ -164,10 +185,9 @@
    step through model(x) -> soft_argmax_from_heatmap -> loss (K3 forward,
    K4 backward), coords and dv against plain on the same logits, device ms
    per step; again with fp32_logits at batch 32.
-9. The fused op on heads K1/K2 do not take (C=72, D=80, and fp32 heads,
-   the flagship's C=256, D=64 included): fp32 logits and K3/K4, forward
-   and backward, against the plain fused op; the fp32 flagship head's
-   forward (B=64) and backward (B=128) times on this route.
+9. The fused op on fp32 heads with no fused plan (C=72, D=80, and the
+   D=1 head of mpii2d_r50): fp32 logits and K3/K4, forward and backward,
+   against the plain fused op; K1/K2 and K1/K2-fp32 do not launch.
 10. Evaluates h36m3d_r50 through the Tester (300 synthetic H36M test
     samples, batch 128, the last batch padded, flip-test): MPJPE and the
     result files; one batch's coords against plain; host-clock img/s and
@@ -190,7 +210,8 @@ its serving and its training, each counted on its own; 7d: each rank's
 steps, fused step and Tester, counted in the rank; 7e: each rank's serving;
 7f: the train steps, the Tester and the server, each on its own; 7h: the
 train and test CLIs, counted in their subprocesses, and the Tester; 7j:
-the accuracy tool's whole run; 7i:
+the accuracy tool's whole run; 5d: the fused op's forward and backward;
+7l: each route's forward and backward, the Trainer's steps, the server; 7i:
 each rank's eval steps, Trainer steps, server and grid step, counted in
 the rank; 7k: each rank's eval step and train step, counted in the rank) the
 kernels' launch counters are set to 0 just before the path
@@ -206,7 +227,8 @@ non-zero; so does a host without CUDA.
 
 builds the kernels and runs only the named phases (bn: 5c; fused: 7b; dp:
 7d; dp-serve: 7e; device-warp: 7f; serving-bench: 7g; real-data: 7h;
-spatial: 7i; spatial-uneven: 7k; accuracy: 7j), for timing one tree's K5-K8 against another's (copy this file into a
+spatial: 7i; spatial-uneven: 7k; accuracy: 7j; fp32-kernels: 5d;
+fp32-train and parity-serve: 7l; no-plan: 9), for timing one tree's K5-K8 against another's (copy this file into a
 checkout of the other tree and run it there) or trying one phase. It
 prints no JSON lines.
 """
@@ -214,6 +236,8 @@ prints no JSON lines.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import ctypes
 import dataclasses
 import glob
 import hashlib
@@ -942,6 +966,195 @@ def train_phase(fhi, gpu: str):
     return k1, k2, head_err
 
 
+# --- 7l: the fp32 heads JAX fuses, on the card: h36m3d_r50_fp32 and parity_r50 ---
+
+F32_STEPS = 3  # counted Trainer steps of h36m3d_r50_fp32
+F32_SIZE = 64  # synthetic samples per train set: H36M + MPII = 128, 4 batches of 32
+PARITY_PATCHES = 6  # parity_r50 serves at batch 1: one dispatch (2 images with flip-test) a patch
+# The first loss and gradient norm on K1/K2-fp32 against the no-plan route,
+# relative: the fp32 "highest" step bars of 7d (TOL_DP_FP32).
+TOL_F32_LOSS = 1e-4
+TOL_F32_GRAD = 1e-3
+
+
+def _first_step(model, cfg, batch, state, flip_perm):
+    """Loss and gradients of one train-mode forward and backward of
+    ``model`` from ``state`` on ``batch`` (no update)."""
+    from ihpr_tpu_torch.ops.loss import joint_location_loss
+    from ihpr_tpu_torch.parallel.train_step import patch_batch
+
+    model.load_state_dict(state)
+    pb = patch_batch(batch, cfg, flip_perm, train=True)
+    model.train()
+    model.zero_grad(set_to_none=True)
+    with model.precision():
+        coords = model.coords(pb.image)
+        loss = joint_location_loss(coords, pb.joint_img, pb.joint_vis, pb.joints_have_depth)
+        loss.backward()
+    torch.cuda.synchronize()
+    return float(loss.detach()), {n: p.grad.detach().clone() for n, p in model.named_parameters()
+                                  if p.grad is not None}
+
+
+@contextlib.contextmanager
+def _no_plan_route(fhi):
+    """fused_final_conv_integral with every head on the no-plan route
+    (logits, then K3/K4): the route fp32 heads took before K1/K2-fp32."""
+    supported = fhi.fused_supported
+    fhi.fused_supported = lambda *args: False
+    try:
+        yield
+    finally:
+        fhi.fused_supported = supported
+
+
+def fp32_train_phase(fhi, iv, gpu: str):
+    """h36m3d_r50_fp32 at full width and depth (ResNet-50 at 256x256, fp32
+    "highest", flax BN, batch 32) on synthetic H36M + MPII: its fp32 head
+    has a fused plan, so K1-fp32 and K2-fp32 run once a step. First one
+    train-mode forward and backward from the same weights on the fused route
+    (counted: K1/K2-fp32 once each, K1-K4 none) and on the no-plan route
+    (K3/K4 once each): loss within TOL_F32_LOSS and the gradient norm within
+    TOL_F32_GRAD, relative, and the final conv's gradients compared; then
+    F32_STEPS counted steps through Trainer.train (K1/K2-fp32 once a step);
+    then each route's device ms per step and peak memory on one resident
+    batch. Returns K1-fp32's and K2-fp32's launches."""
+    from ihpr_tpu_torch.config import get_config
+    from ihpr_tpu_torch.data import skeletons
+    from ihpr_tpu_torch.data.pipeline import prefetch_to_device
+    from ihpr_tpu_torch.engine.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    scratch = tempfile.TemporaryDirectory()  # the Trainer's log and snapshot; removed on return
+    cfg = get_config("h36m3d_r50_fp32").replace(output_dir=scratch.name)
+    if (cfg.optim.batch_size_per_device, cfg.model.matmul_precision, cfg.model.compute_dtype,
+            cfg.model.bn_mode) != (F32_TRAIN_BATCH, "highest", "float32", "flax"):
+        raise AssertionError(f"h36m3d_r50_fp32 is {cfg.model} at batch {cfg.optim.batch_size_per_device}")
+    trainer = Trainer(cfg, data_root="synthetic", synthetic_size=F32_SIZE, num_workers=8, device="cuda")
+    try:
+        model = trainer.model
+        flip_perm = skeletons.get_skeleton(cfg.data.trainset[0]).flip_permutation()
+        batch, _ = next(prefetch_to_device(iter(list(trainer.loader.epoch(99, 1))), "cuda"))
+        state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        _first_step(model, cfg, batch, state, flip_perm)  # warm-up: cuDNN plans, kernel load
+        # --- one forward and backward on each route, counted ---
+        _zero_counts(fhi, iv)
+        loss, grads = _first_step(model, cfg, batch, state, flip_perm)
+        fused_counts = _counts(fhi, iv) + _f32_counts(fhi)
+        with _no_plan_route(fhi):
+            _zero_counts(fhi, iv)
+            loss_np, grads_np = _first_step(model, cfg, batch, state, flip_perm)
+            noplan_counts = _counts(fhi, iv) + _f32_counts(fhi)
+        # --------------------------------------------------------
+        model.load_state_dict(state)
+        norm = float(torch.stack([g.double().norm() for g in grads.values()]).norm())
+        norm_np = float(torch.stack([g.double().norm() for g in grads_np.values()]).norm())
+        head = {n: float((grads[n] - grads_np[n]).abs().max() / grads_np[n].abs().max())
+                for n in grads if n.startswith("head.final")}
+        worst = max(float((grads[n] - grads_np[n]).abs().max() / grads_np[n].abs().max()) for n in grads)
+        print(f"fp32 train: h36m3d_r50_fp32 first forward and backward at batch {F32_TRAIN_BATCH}: loss "
+              f"{loss:.8f} on K1/K2-fp32, {loss_np:.8f} on the no-plan route (relative {abs(loss - loss_np) / abs(loss_np):.3g}, "
+              f"bar {TOL_F32_LOSS:g}); gradient norm {norm:.8g} / {norm_np:.8g} (relative "
+              f"{abs(norm - norm_np) / norm_np:.3g}, bar {TOL_F32_GRAD:g}); final conv |diff|/max "
+              f"{', '.join(f'{n} {v:.2e}' for n, v in head.items())}; worst tensor {worst:.2e}; K1-K4, K1/K2-fp32 "
+              f"{fused_counts} fused, {noplan_counts} no-plan")
+        if (fused_counts != (0, 0, 0, 0, 1, 1) or noplan_counts != (0, 0, 1, 1, 0, 0)
+                or abs(loss - loss_np) > TOL_F32_LOSS * abs(loss_np) or abs(norm - norm_np) > TOL_F32_GRAD * norm_np):
+            raise AssertionError(f"fp32 train: loss {loss} / {loss_np}, |g| {norm} / {norm_np}, launches "
+                                 f"{fused_counts} / {noplan_counts}")
+        del grads, grads_np
+
+        # --- the main path, counted: F32_STEPS steps through Trainer.train ---
+        trainer.cap_steps_per_epoch(F32_STEPS)
+        _zero_counts(fhi, iv)
+        t0 = time.perf_counter()
+        trainer.train(trainer.start_epoch + 1)
+        torch.cuda.synchronize()
+        t_epoch = time.perf_counter() - t0
+        counts = _counts(fhi, iv) + _f32_counts(fhi)
+        # ---------------------------------------------------------------------
+        losses = [float(x) for x in trainer.losses]
+        if counts != (0, 0, 0, 0, F32_STEPS, F32_STEPS):
+            raise AssertionError(f"fp32 train: K1-K4, K1/K2-fp32 launched {counts} times in {F32_STEPS} steps")
+        if len(losses) != F32_STEPS or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"fp32 train losses {losses}")
+        print(f"fp32 train: {F32_STEPS} steps through Trainer.train, K1-fp32 {counts[4]}, K2-fp32 {counts[5]}, "
+              f"K1-K4 0; losses {', '.join(f'{x:.4f}' for x in losses)}; host clock "
+              f"{t_epoch * 1e3 / F32_STEPS:.3f} ms/step (loader included)  [{gpu}]")
+        for label, route in (("K1/K2-fp32", contextlib.nullcontext()), ("no-plan route", _no_plan_route(fhi))):
+            with route:
+                trainer.lean_step_fn(batch)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                step_ms = _cuda_ms(lambda: trainer.lean_step_fn(batch), 3, reps=1)
+                peak = torch.cuda.max_memory_allocated() / 2**30
+            print(f"fp32 train ({label}): device {step_ms:.3f} ms/step on one resident batch of "
+                  f"{F32_TRAIN_BATCH}, {F32_TRAIN_BATCH / step_ms * 1e3:.1f} img/s (CUDA events); peak "
+                  f"{peak:.3f} GiB allocated  [{gpu}]")
+    finally:
+        trainer.close()
+        scratch.cleanup()
+    torch.cuda.empty_cache()
+    print(f"fp32 train: the phase took {time.perf_counter() - t_phase:.1f} s  [{gpu}]")
+    return counts[4], counts[5]
+
+
+def parity_serve_phase(fhi, iv, gpu: str):
+    """parity_r50 (ResNet-50 at 256x256, fp32 "highest", served at batch 1)
+    through PoseServer with flip-test on PARITY_PATCHES patches, seeded
+    weights with peaked heatmaps: one dispatch (2 images) a patch, K1-fp32
+    once a dispatch and nothing else; the coords against flip-test
+    coords_plain (the logits and the plain soft-argmax) on the same
+    weights. Returns K1-fp32's launches."""
+    from ihpr_tpu_torch.config import get_config
+    from ihpr_tpu_torch.data.augment import finalize_patch
+    from ihpr_tpu_torch.engine.server import PoseServer
+    from ihpr_tpu_torch.models.pose_net import build_pose_net
+    from ihpr_tpu_torch.parallel.train_step import flip_test_coords
+
+    cfg = get_config("parity_r50")
+    if (cfg.optim.batch_size_per_device, cfg.model.matmul_precision, cfg.model.compute_dtype) != (
+            1, "highest", "float32"):
+        raise AssertionError(f"parity_r50 is {cfg.model} at batch {cfg.optim.batch_size_per_device}")
+    in_h, in_w = cfg.data.input_shape
+    gen = torch.Generator().manual_seed(SEED)
+    model = build_pose_net(cfg, device="cuda", generator=gen)
+    patches = np.random.RandomState(SEED).randint(0, 256, (PARITY_PATCHES, in_h, in_w, 3)).astype(np.uint8)
+    with torch.inference_mode():
+        image = finalize_patch(torch.from_numpy(patches).cuda(), torch.ones(PARITY_PATCHES, 3, device="cuda"),
+                               cfg.data)
+    _peak_heatmaps(model, image, gen)
+    server = PoseServer(cfg, model, max_batch=cfg.optim.batch_size_per_device, flip_test=True, device="cuda")
+    server.predict_patches(patches[:1])  # warm-up: cuDNN setup, kernel load
+    torch.cuda.synchronize()
+    # --- the main path, counted ---
+    _zero_counts(fhi, iv)
+    t0 = time.perf_counter()
+    voxels = server.predict_patches(patches)
+    t_serve = time.perf_counter() - t0
+    counts = _counts(fhi, iv) + _f32_counts(fhi)
+    # ------------------------------
+    with torch.inference_mode():
+        ref = flip_test_coords(server.model.coords_plain, image, server.flip_perm,
+                               cfg.data.output_shape[1]).cpu().numpy()
+    err = float(np.abs(voxels - ref).max())
+    spread = float(np.abs(ref - ref.mean()).max())
+    dispatch_ms = _cuda_ms(lambda: server.submit_patches(patches[:1]), 10)
+    print(f"parity serve: parity_r50 through PoseServer (max_batch {server.max_batch}, flip-test) on "
+          f"{PARITY_PATCHES} patches: K1-fp32 {counts[4]} for {PARITY_PATCHES} dispatches, K1-K4 and K2-fp32 "
+          f"{counts[:4] + counts[5:]}; coords vs flip-test coords_plain {err:.3g} voxel (bar {2 * TOL_VOXEL:g}, "
+          f"spread {spread:.3g}); {t_serve * 1e3 / PARITY_PATCHES:.3f} ms a dispatch (host clock), "
+          f"{dispatch_ms:.3f} ms (CUDA events)  [{gpu}]")
+    if counts != (0, 0, 0, 0, PARITY_PATCHES, 0) or voxels.shape != (PARITY_PATCHES, 18, 3):
+        raise AssertionError(f"parity serve: K1-K4, K1/K2-fp32 {counts} for {PARITY_PATCHES} dispatches, "
+                             f"coords {voxels.shape}")
+    if not (np.isfinite(voxels).all() and err <= 2 * TOL_VOXEL and spread > 1.0):
+        raise AssertionError(f"parity serve: coords {err} voxel from coords_plain (spread {spread})")
+    del server, model
+    torch.cuda.empty_cache()
+    return counts[4]
+
+
 R152_SERVE_PATCHES = 40  # two dispatches of the r152 server, the second padded
 R152_STEPS = 3  # counted train steps of the r152 phase
 
@@ -1292,6 +1505,13 @@ def _counts(*mods):
 def _zero_counts(*mods):
     for mod in mods:
         mod.launches = mod.bwd_launches = 0
+        if hasattr(mod, "f32_launches"):
+            mod.f32_launches = mod.f32_bwd_launches = 0
+
+
+def _f32_counts(fhi):
+    """(K1-fp32, K2-fp32) launches."""
+    return fhi.f32_launches, fhi.f32_bwd_launches
 
 
 def heatmap_phase(fhi, iv, gpu: str):
@@ -1390,20 +1610,19 @@ def heatmap_phase(fhi, iv, gpu: str):
 
 
 def noplan_phase(fhi, iv, gpu: str):
-    """fused_final_conv_integral on heads K1/K2 do not take (C=72, not a
-    multiple of 16; D=80, more than 64 bins; the flagship head C=256, D=64
-    in fp32): fp32 logits, then K3/K4, forward and backward, against
-    autograd through the fused op's plain version. Then the fp32 flagship
-    head's times on this route: the forward at (64, 4096, 256), the backward
-    at (128, 4096, 256). Returns (K3, K4) launches and the largest coords
-    difference."""
-    b, h, w, j = 8, 64, 64, 18
+    """fused_final_conv_integral on fp32 heads that have no fused plan (C=72,
+    not a multiple of 16; D=80, more than 64 bins; J=16, D=1, the head of
+    mpii2d_r50, which JAX computes outside any kernel): fp32 logits, then
+    K3/K4, forward and backward, against autograd through the fused op's
+    plain version; K1/K2 and K1/K2-fp32 do not launch. Returns (K3, K4)
+    launches and the largest coords difference."""
+    b, h, w = 8, 64, 64
     k3 = k4 = 0
     errs = []
-    for c, d in ((72, 64), (256, 80), (256, 64)):
+    for c, j, d in ((72, 18, 64), (256, 18, 80), (256, 16, 1)):
         feat, kernel, bias = _head_inputs(b, h * w, c, j * d, torch.float32, 12)
-        if fhi.fused_supported(c, d, feat.dtype):
-            raise AssertionError(f"C={c}, D={d} should have no K1/K2 plan")
+        if fhi.fused_supported(j, d, h * w, c, feat.dtype):
+            raise AssertionError(f"C={c}, J={j}, D={d} fp32 should have no fused plan")
         leaves = [feat.view(b, h, w, c).clone().requires_grad_(),
                   kernel.clone().requires_grad_(), bias.clone().requires_grad_()]
         g = torch.randn(b, j, 3, generator=torch.Generator().manual_seed(13)).cuda()
@@ -1412,10 +1631,10 @@ def noplan_phase(fhi, iv, gpu: str):
         coords = fhi.fused_final_conv_integral(*leaves, j, d)
         coords.backward(g)
         torch.cuda.synchronize()
-        counts = _counts(fhi, iv)
+        counts = _counts(fhi, iv) + _f32_counts(fhi)
         # ------------------------------
-        if counts != (0, 0, 1, 1):
-            raise AssertionError(f"no-plan C={c} D={d} launched K1/K2/K3/K4 {counts} times")
+        if counts != (0, 0, 1, 1, 0, 0):
+            raise AssertionError(f"no-plan C={c} D={d} launched K1/K2/K3/K4/K1-fp32/K2-fp32 {counts} times")
         k3, k4 = k3 + counts[2], k4 + counts[3]
         ref_leaves = [t.clone().requires_grad_() for t in (feat, kernel, bias)]
         ref = fhi.plain(*ref_leaves, j, d, w)[0]
@@ -1423,35 +1642,211 @@ def noplan_phase(fhi, iv, gpu: str):
         err = float((coords.detach() - ref.detach()).abs().max())
         if not (err <= TOL_VOXEL and float((ref.detach() - ref.detach().mean()).abs().max()) > 1.0):
             raise AssertionError(f"no-plan C={c} D={d}: coords {err} voxel from plain")
+        # db can cancel to ~0 (at D = 1 it is 0 exactly): 1e-4 of its summands' bound.
+        ext = torch.tensor([w - 1, h - 1, d - 1], dtype=torch.float32, device="cuda")
+        db_atol = 1e-4 * float((g.abs() * ext).sum(-1).sum(0).max())
         rel = []
         for name, a, r in zip(("dfeat", "dW", "db"), leaves, ref_leaves):
             diff = float((a.grad.reshape(r.grad.shape) - r.grad).abs().max())
             scale = float(r.grad.abs().max())
-            if not diff <= TOL_NOPLAN_GRAD * scale:
+            if not diff <= TOL_NOPLAN_GRAD * scale + (db_atol if name == "db" else 0.0):
                 raise AssertionError(f"no-plan C={c} D={d} {name}: {diff} from plain (max {scale})")
             rel.append(f"{name} {diff / scale:.2e}")
         errs.append(err)
-        print(f"no-plan route C={c} D={d} (fp32, B={b}): K3 {counts[2]}, K4 {counts[3]}, K1/K2 0; "
-              f"coords vs plain {err:.3g} voxel; grads |diff|/max " + ", ".join(rel))
+        print(f"no-plan route C={c} J={j} D={d} (fp32, B={b}): K3 {counts[2]}, K4 {counts[3]}, K1/K2 and "
+              f"K1/K2-fp32 0; coords vs plain {err:.3g} voxel; grads |diff|/max " + ", ".join(rel))
     del feat, kernel, bias, leaves, ref_leaves, coords, ref
-
-    c, d = 256, 64
-    feat, kernel, bias = _head_inputs(2 * MAX_BATCH, h * w, c, j * d, torch.float32, SEED)
-    with torch.no_grad():
-        fwd_ms = _cuda_ms(lambda: fhi.fused_final_conv_integral(feat.view(-1, h, w, c), kernel, bias, j, d),
-                          5, reps=3)
-    feat, kernel, bias = _head_inputs(TRAIN_BATCH, h * w, c, j * d, torch.float32, SEED)
-    leaves = [feat.view(-1, h, w, c).requires_grad_(), kernel.requires_grad_(), bias.requires_grad_()]
-    coords = fhi.fused_final_conv_integral(*leaves, j, d)
-    g = torch.randn(TRAIN_BATCH, j, 3, generator=torch.Generator().manual_seed(13)).cuda()
-    bwd_ms = _cuda_ms(lambda: torch.autograd.grad(coords, leaves, g, retain_graph=True), 3, reps=3)
-    print(f"fp32 flagship head on the no-plan route (fp32 cuBLAS, TF32 off, + K3/K4): forward "
-          f"({2 * MAX_BATCH}, {h * w}, {c}) {fwd_ms:.4f} ms, backward ({TRAIN_BATCH}, {h * w}, {c}) "
-          f"{bwd_ms:.4f} ms; the scalar fp32 K1/K2 this route replaces took 14.228 / 123.332 ms at "
-          f"these shapes (NVIDIA H100 80GB HBM3, 700 W)  [{gpu}]")
-    del feat, kernel, bias, leaves, coords
     torch.cuda.empty_cache()
     return k3, k4, max(errs)
+
+
+# --- 9b: K1-fp32 / K2-fp32 (3xTF32) on the fp32 heads JAX fuses ------------------
+
+F32_K1_BATCHES = (32, 64, 128)  # K1-fp32 timed at each; checked against float64 and repeated at 64 and 128
+F32_K2_BATCHES = (32, 128)  # K2-fp32 checked and timed at each
+F32_TRAIN_BATCH = 32  # h36m3d_r50_fp32's batch_size_per_device: the kernels line's times
+TOL_F32_F64 = 2.0  # K1-fp32's largest distance from float64 plain, at most this times the no-plan route's
+PEAK_TF32_FLOPS = 494.7e12  # dense TF32 on the tensor cores (H100 SXM, 700 W)
+
+
+def f32_bound(b, products, hw=None):
+    """(ms, bound_by) of K1-fp32 (1 product) or K2-fp32 (3) at (b, hw, 256)
+    x (256, 1152): three TF32 passes a product on the tensor cores (3xTF32)
+    against reading feat and W once, and for K2 writing dfeat and dW once,
+    in fp32."""
+    hw = _HEAD[0] if hw is None else hw
+    _, c, jd = _HEAD
+    flops = 3 * products * 2 * b * hw * c * jd
+    nbytes = (b * hw * c + c * jd) * 4 * (1 if products == 1 else 2)
+    t_ops, t_bytes = flops / PEAK_TF32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+MMA_RATE_BLOCKS, MMA_RATE_ITERS = 528, 4096  # 4 CTAs an SM
+
+
+def mma_sync_rates():
+    """TFLOP/s of mma.sync m16n8k8 TF32 and m16n8k16 bf16 alone (no loads;
+    tf32x3_selftest.cu's rate kernel), CUDA events: what K1/K2-fp32's
+    products can reach at most on mma.sync."""
+    from ihpr_tpu_torch.ops import _build
+
+    lib = _build.load("tf32x3_selftest")
+    lib.ihpr_tf32x3_mma_rate.restype = ctypes.c_int
+    lib.ihpr_tf32x3_mma_rate.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    out = torch.empty(MMA_RATE_BLOCKS * 256, device="cuda")
+    rates = []
+    for bf16 in (0, 1):
+        def run():
+            err = lib.ihpr_tf32x3_mma_rate(out.data_ptr(), MMA_RATE_BLOCKS, MMA_RATE_ITERS, bf16,
+                                           torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"tf32x3_selftest rate launch failed: CUDA error {err}")
+
+        flops = MMA_RATE_BLOCKS * 8 * MMA_RATE_ITERS * 8 * (4096 if bf16 else 2048)
+        rates.append(flops / _cuda_ms(run, 3, reps=3) / 1e9)
+    return rates
+
+
+def f32_kernel_phase(fhi, iv, gpu: str):
+    """K1-fp32 and K2-fp32 at the fp32 flagship head (64x64, C=256, J=18,
+    D=64: h36m3d_r50_fp32's and parity_r50's), where the port took cuBLAS
+    fp32 + K3/K4 before (the no-plan route, timed here as the library).
+    (1) The head through fused_final_conv_integral at B=8, forward and
+    backward, counted: K1-fp32 and K2-fp32 once each and nothing else;
+    coords against plain, gradients against plain_bwd. (2) K1-fp32 at
+    B = 64 and 128: within TOL_VOXEL of plain; its largest distance from
+    plain in float64 at most TOL_F32_F64 times the no-plan route's on the
+    same inputs ("highest" holds); bitwise equal over K1_REPEATS launches.
+    (3) K2-fp32 at F32_K2_BATCHES against plain_bwd within TOL_BWD (fp32)
+    of each result's largest, two runs bitwise equal. (4) Times in turns:
+    K1-fp32, plain and the no-plan route's forward (cuBLAS addmm, TF32 off,
+    + K3) at F32_K1_BATCHES; K2-fp32, plain_bwd and the no-plan route's
+    backward (K4 + two cuBLAS matmuls + db's sum, on saved logits) at
+    F32_K2_BATCHES. Returns (K1-fp32, K2-fp32) launches of (1), the largest
+    differences from plain, and {b: (kernel, plain, library) ms} of each."""
+    hw, w, c, j, d = 64 * 64, 64, 256, 18, 64
+    # (1) the fused op on the fp32 head, counted
+    feat, kernel, bias = _head_inputs(8, hw, c, j * d, torch.float32, 12)
+    if not fhi.fused_supported(j, d, hw, c, feat.dtype):
+        raise AssertionError("the fp32 flagship head should take K1/K2-fp32")
+    leaves = [feat.view(8, 64, w, c).clone().requires_grad_(), kernel.clone().requires_grad_(),
+              bias.clone().requires_grad_()]
+    g = torch.randn(8, j, 3, generator=torch.Generator().manual_seed(13)).cuda()
+    _zero_counts(fhi, iv)
+    coords = fhi.fused_final_conv_integral(*leaves, j, d)
+    coords.backward(g)
+    torch.cuda.synchronize()
+    counts = _counts(fhi, iv) + _f32_counts(fhi)
+    if counts != (0, 0, 0, 0, 1, 1):
+        raise AssertionError(f"fp32 flagship head launched K1/K2/K3/K4/K1-fp32/K2-fp32 {counts} times")
+    coords_p = fhi.plain(feat, kernel, bias, j, d, w)[0]
+    _, m, s = fhi.kernel_stats(feat, kernel, bias, j, d, w)  # the m and s autograd saved
+    err = float((coords.detach() - coords_p).abs().max())
+    if not (err <= TOL_VOXEL and float((coords_p - coords_p.mean()).abs().max()) > 1.0):
+        raise AssertionError(f"fp32 flagship head through the fused op: coords {err} voxel from plain")
+    got = tuple(t.grad.reshape(r.shape) for t, r in zip(leaves, (feat, kernel, bias)))
+    k2_errs = [check_bwd(fhi, (feat, kernel, bias, m, s, coords.detach(), g), j, d, w, TOL_BWD[torch.float32],
+                         "fp32 flagship head (B=8), autograd's gradients of the fused op",
+                         want=fhi.plain_bwd(feat, kernel, bias, m, s, coords.detach(), g, j, d, w))[0]]
+    again = fhi.kernel_bwd(feat, kernel, bias, m, s, coords.detach(), g, j, d, w)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError("autograd's fp32 head gradients are not K2-fp32's output on the saved inputs")
+    print(f"fp32 flagship head (8, {hw}, {c}) through fused_final_conv_integral: K1-fp32 {counts[4]}, K2-fp32 "
+          f"{counts[5]}, K1-K4 0; coords vs plain {err:.3g} voxel")
+    k1_errs = [err]
+    del leaves, coords, got, again
+
+    # The ceiling of their products: mma.sync alone, on register operands.
+    rates = mma_sync_rates()
+    print(f"mma.sync alone on this card (tf32x3_selftest.cu, {MMA_RATE_BLOCKS} CTAs of 8 warps): m16n8k8 TF32 "
+          f"{rates[0]:.1f} TFLOP/s ({rates[0] / (PEAK_TF32_FLOPS / 1e12):.3f} of dense TF32's "
+          f"{PEAK_TF32_FLOPS / 1e12:g}), m16n8k16 bf16 {rates[1]:.1f}  [{gpu}]")
+
+    # (2) K1-fp32 against plain, float64 and itself; (4) its times
+    fwd = {}
+    for b in F32_K1_BATCHES:
+        args = _head_inputs(b, hw, c, j * d, torch.float32, SEED)
+        flat = args[0].view(-1, c)
+
+        def library():
+            with fhi.no_tf32():
+                logits = torch.addmm(args[2], flat, args[1]).view(b, hw, j * d)
+            return iv.kernel_stats(logits, j, d, w)
+
+        if b in (64, 128):
+            k1_errs.append(check_kernel(fhi, *args, j, d, w))
+            got, route = fhi.kernel_stats(*args, j, d, w)[0], library()[0]
+            want = fhi.plain(*(t.double() for t in args), j, d, w)[0]
+            e_k, e_r = (float((x.double() - want).abs().max()) for x in (got, route))
+            del want
+            differ = repeat_check(fhi, args, j, d, w, K1_REPEATS)
+            print(f"K1-fp32 ({b}, {hw}, {c}): max|dcoords| from plain {k1_errs[-1]:.3g} voxel; from float64 "
+                  f"plain {e_k:.3g} voxel, the no-plan route's {e_r:.3g} (bar {TOL_F32_F64:g}x); {differ} of "
+                  f"{K1_REPEATS} repeated launches differ bitwise from the first")
+            if not e_k <= TOL_F32_F64 * e_r:
+                raise AssertionError(f"K1-fp32 at batch {b}: {e_k} voxel from float64, the no-plan route {e_r}")
+            if differ:
+                raise AssertionError(f"K1-fp32 at batch {b}: {differ} of {K1_REPEATS} repeated launches differ")
+        runs = {"plain": (lambda: fhi.plain(*args, j, d, w), []),
+                "kernel": (lambda: fhi.kernel_stats(*args, j, d, w), []),
+                "library": (library, [])}
+        for name in ("plain", "kernel", "library", "library", "kernel", "plain"):  # in turns
+            fn, out = runs[name]
+            out.append(_cuda_ms(fn, 3 if name == "plain" else 5, reps=3))
+        fwd[b] = tuple(statistics.median(runs[k][1]) for k in ("kernel", "plain", "library"))
+        bound = f32_bound(b, 1)[0]
+        print(f"K1-fp32 ({b}, {hw}, {c}) x ({c}, {j * d}): kernel {fwd[b][0]:.4f} ms ({3 * 2 * b * hw * c * j * d / fwd[b][0] / 1e9:.1f} "
+              f"TFLOP/s of TF32 passes; bound {bound:.4f} ms, {bound / fwd[b][0]:.3f} of it), plain {fwd[b][1]:.4f} ms, "
+              f"no-plan route (cuBLAS fp32 + K3) {fwd[b][2]:.4f} ms  [{gpu}]")
+        del args, flat, runs
+        torch.cuda.empty_cache()
+
+    # (3) K2-fp32 against plain_bwd and itself; (4) its times
+    bwd = {}
+    for b in F32_K2_BATCHES:
+        args = _bwd_inputs(fhi, b, hw, c, j, d, w, torch.float32, 4)
+        err, got = check_bwd(fhi, args, j, d, w, TOL_BWD[torch.float32], f"fp32 ({b}, {hw}, {c})")
+        k2_errs.append(err)
+        if not all(torch.equal(x, y) for x, y in zip(got, fhi.kernel_bwd(*args, j, d, w))):
+            raise AssertionError(f"K2-fp32 at batch {b} is not deterministic: two runs differ")
+        feat, kernel, bias, m, s, coords, g = args
+        flat = feat.view(-1, c)
+        with fhi.no_tf32():
+            logits = torch.addmm(bias, flat, kernel).view(b, hw, j * d)
+
+        def library():
+            dv = iv.kernel_bwd(logits, m, s, coords, g, j, d, w).view(-1, j * d)
+            with fhi.no_tf32():
+                return dv @ kernel.t(), flat.t() @ dv, dv.sum(0)
+
+        runs = {"plain": (lambda: fhi.plain_bwd(*args, j, d, w), []),
+                "kernel": (lambda: fhi.kernel_bwd(*args, j, d, w), []),
+                "library": (library, [])}
+        for name in ("plain", "kernel", "library", "library", "kernel", "plain"):  # in turns
+            fn, out = runs[name]
+            out.append(_cuda_ms(fn, 1 if name == "plain" else 3, reps=3))
+        bwd[b] = tuple(statistics.median(runs[k][1]) for k in ("kernel", "plain", "library"))
+        bound = f32_bound(b, 3)[0]
+        print(f"K2-fp32 ({b}, {hw}, {c}) x ({c}, {j * d}): kernel {bwd[b][0]:.4f} ms ({9 * 2 * b * hw * c * j * d / bwd[b][0] / 1e9:.1f} "
+              f"TFLOP/s of TF32 passes over its 3 products; bound {bound:.4f} ms, {bound / bwd[b][0]:.3f} of it), "
+              f"plain_bwd {bwd[b][1]:.4f} ms, no-plan route (K4 + cuBLAS fp32) {bwd[b][2]:.4f} ms; two runs "
+              f"bitwise equal  [{gpu}]")
+        del args, feat, flat, logits, runs, got
+        torch.cuda.empty_cache()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        args = _bwd_inputs(fhi, F32_TRAIN_BATCH, hw, c, j, d, w, torch.float32, 4)
+        for _ in range(3):
+            fhi.kernel_bwd(*args, j, d, w)
+        torch.cuda.synchronize()
+    names = ("transpose_kernel", "dfeat_kernel", "dw_kernel", "reduce_kernel")  # one call's launches
+    parts = [f"{k} {e.self_device_time_total / e.count / 1e3:.4f} ms"
+             for e in prof.key_averages() for k in names if k in e.key]
+    print(f"K2-fp32's launches per call at B={F32_TRAIN_BATCH} (torch.profiler, 3 calls): "
+          f"{', '.join(parts) or 'not measured'}  [{gpu}]")
+    del args
+    torch.cuda.empty_cache()
+    return counts[4], counts[5], max(k1_errs), max(k2_errs), fwd, bwd
 
 
 def eval_phase(fhi, iv, gpu: str):
@@ -1993,7 +2388,7 @@ def fused_train_phase(fhi, iv, mm, cb, gpu: str):
 
     wrapped = {}
     try:
-        batch, _ = next(prefetch_to_device(trainer.loader.epoch(99, 1), "cuda"))
+        batch, _ = next(prefetch_to_device(iter(list(trainer.loader.epoch(99, 1))), "cuda"))
         for _ in range(2):  # warm-up: kernel loads, cuDNN plans
             trainer.lean_step_fn(batch)
         torch.cuda.synchronize()
@@ -2638,7 +3033,7 @@ def dp_phase(fhi, iv, mm, cb, gpu: str):
     print(f"dp (b): the bf16 step's own noise: one process with the batch's halves swapped, loss "
           f"{swapped['loss']:.6f} / |g| {swapped['grad_norm']:.6f}; in fp32 \"highest\" {fp32['loss']:.6f} / "
           f"{fp32['grad_norm']:.6f}")
-    print(f"dp (b): the step in fp32 \"highest\" (cuBLAS + K3/K4 head) on {DP_RANKS} ranks, loss "
+    print(f"dp (b): the step in fp32 \"highest\" (K1/K2-fp32 head) on {DP_RANKS} ranks, loss "
           f"{r0['fp32']['loss']:.6f} / |g| {r0['fp32']['grad_norm']:.6f}, against one process "
           f"{fp32['loss']:.6f} / {fp32['grad_norm']:.6f} (bars {TOL_DP_FP32[0]:g} / {TOL_DP_FP32[1]:g})")
     print(f"dp (b): {DP_RANKS} ranks over gloo on one card, {DP_CONFIG} at batch {gb // DP_RANKS} a rank "
@@ -3501,14 +3896,16 @@ def accuracy_phase(fhi, iv, mm, cb, gpu: str):
     ACC_TRAIN / ACC_TEST frames and ACC_EPOCHS epochs, with its oracle,
     through the tool's main: the synthetic frames rendered and encoded on
     the card (nvJPEG), decoded there (nvJPEG + the colour kernel), ResNet-18
-    at 128x128 trained in fp32 "highest" (the fp32 head takes the logits and
-    K3/K4, not K1/K2), the Tester's MPJPE, and the trained weights on the
+    at 128x128 trained in fp32 "highest" (its fp32 head, J = 18 and D = 32,
+    has a fused plan in JAX: K1-fp32 and K2-fp32), the Tester's MPJPE, and
+    the trained weights on the
     CPU (the oracle) within TOL_ORACLE_MM of the card's eval. The bar is set
     out of reach (5 epochs do not learn the task), so the exit code is the
     oracle's verdict. K1-K8 and the colour kernel counted over the run;
     then the colour kernel held against its plain version on ACC_COMPARED
-    of the tool's JPEGs. Returns K3's, K4's and the colour kernel's
-    launches, and the colour kernel's largest difference from plain."""
+    of the tool's JPEGs. Returns K1-fp32's, K2-fp32's and the colour
+    kernel's launches, and the colour kernel's largest difference from
+    plain."""
     from ihpr_tpu_torch.data import jpeg
     from ihpr_tpu_torch.data.pipeline import _read_bytes
     from ihpr_tpu_torch.ops import jpeg_color
@@ -3527,7 +3924,7 @@ def accuracy_phase(fhi, iv, mm, cb, gpu: str):
         except SystemExit as exc:
             code = exc.code
         torch.cuda.synchronize()
-        counts, colour = _counts(fhi, iv, mm, cb), jpeg_color.launches
+        counts, colour = _counts(fhi, iv, mm, cb) + _f32_counts(fhi), jpeg_color.launches
         with open(os.path.join(out, "accuracy_loop.json")) as f:
             result = json.load(f)
         frames = sorted(glob.glob(os.path.join(out, "imgs", "*.jpg")))[:ACC_COMPARED]
@@ -3535,7 +3932,7 @@ def accuracy_phase(fhi, iv, mm, cb, gpu: str):
             raise AssertionError(f"accuracy: {len(frames)} JPEGs under the tool's imgs/, want {ACC_COMPARED} or more")
         err = colour_vs_plain(jpeg, jpeg_color, [_read_bytes(p) for p in frames], "accuracy: the tool's frames")
     steps = ACC_TRAIN // 32 * ACC_EPOCHS
-    want = (0, 0, steps + ACC_EVAL_BATCHES, steps, 0, 0, 0, 0)
+    want = (0, 0, 0, 0, 0, 0, 0, 0, steps + ACC_EVAL_BATCHES, steps)
     # One decode a batch: the train batches, the two evals' and the oracle's
     # (its patches are the card loader's).
     want_colour = steps + ACC_EVAL_BATCHES + 1
@@ -3544,14 +3941,14 @@ def accuracy_phase(fhi, iv, mm, cb, gpu: str):
           f"{ACC_EPOCHS}: exit {code}; unseen MPJPE {ours} mm, train subset {result['mpjpe_train_subset_mm']} mm, "
           f"CPU oracle {result['mpjpe_torch_mm']} mm, gap {gap} mm (bar {TOL_ORACLE_MM}); {result['train_steps']} "
           f"steps in {result['train_seconds']} s, {result['train_img_per_s']} img/s, the loader's share of the "
-          f"train loop {result['loader_share']}; K1-K8 {counts} (want {want}), the colour kernel {colour} (want "
+          f"train loop {result['loader_share']}; K1-K8, K1/K2-fp32 {counts} (want {want}), the colour kernel {colour} (want "
           f"{want_colour})  [{gpu}]")
     if (code != 0 or counts != want or colour != want_colour or result["train_steps"] != steps
             or not (math.isfinite(ours) and gap <= TOL_ORACLE_MM) or result["gpu"] is None):
-        raise AssertionError(f"accuracy: exit {code}, K1-K8 {counts} (want {want}), colour {colour} (want "
+        raise AssertionError(f"accuracy: exit {code}, K1-K8, K1/K2-fp32 {counts} (want {want}), colour {colour} (want "
                              f"{want_colour}), {result}")
     print(f"accuracy: the phase took {time.perf_counter() - t_phase:.1f} s  [{gpu}]")
-    return counts[2], counts[3], colour, err
+    return counts[8], counts[9], colour, err
 
 
 # --- 7i: spatial partitioning ---------------------------------------------------
@@ -4181,7 +4578,8 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke run of ihpr_tpu_torch on one NVIDIA GPU.")
     parser.add_argument("--only", nargs="+",
                         choices=("bn", "fused", "dp", "dp-serve", "device-warp", "serving-bench", "real-data",
-                                 "spatial", "spatial-uneven", "accuracy"),
+                                 "spatial", "spatial-uneven", "accuracy", "fp32-kernels", "fp32-train",
+                                 "parity-serve", "no-plan"),
                         help="build the kernels and run only these phases (no JSON lines)")
     only = parser.parse_args(argv).only
     if not torch.cuda.is_available():
@@ -4204,7 +4602,8 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # plain fp32 versions are true fp32
 
     t0 = time.perf_counter()
-    libs = _build.build_all([fhi._LIB, fhi._BWD_LIB, iv._FWD_LIB, iv._BWD_LIB,
+    libs = _build.build_all([fhi._LIB, fhi._BWD_LIB, fhi._F32_LIB, fhi._F32_BWD_LIB, "tf32x3_selftest",
+                             iv._FWD_LIB, iv._BWD_LIB,
                              mm._FWD_LIB, mm._BWD_LIB, cb._FWD_LIB, cb._BWD_LIB, ep._LIB, pm._LIB, jpeg._LIB,
                              jpeg_color._LIB])
     print(f"build: {', '.join(lib.name for lib in libs)} in {time.perf_counter() - t0:.2f} s")
@@ -4216,7 +4615,11 @@ def main(argv=None) -> int:
                   "device-warp": lambda: device_warp_phase(fhi, gpu), "serving-bench": lambda: serving_bench_phase(gpu),
                   "real-data": lambda: real_data_phase(fhi, gpu), "spatial": lambda: spatial_phase(fhi, iv, gpu),
                   "spatial-uneven": lambda: spatial_uneven_phase(fhi, iv, gpu),
-                  "accuracy": lambda: accuracy_phase(fhi, iv, mm, cb, gpu)}
+                  "accuracy": lambda: accuracy_phase(fhi, iv, mm, cb, gpu),
+                  "fp32-kernels": lambda: f32_kernel_phase(fhi, iv, gpu),
+                  "fp32-train": lambda: fp32_train_phase(fhi, iv, gpu),
+                  "parity-serve": lambda: parity_serve_phase(fhi, iv, gpu),
+                  "no-plan": lambda: noplan_phase(fhi, iv, gpu)}
         for name in only:
             phases[name]()
         print(gpu)
@@ -4226,6 +4629,7 @@ def main(argv=None) -> int:
     k1_ms, k1_plain = k1_times[2 * MAX_BATCH]  # the serving shape, as b1 and k1_lib
     k2_err, (k2_ms, k2_plain) = k2_phase(fhi, gpu)
     k1_lib, k1_lib_train, k2_lib = head_library_phase(fhi, iv, gpu)
+    f32_n1, f32_n2, f32_k1_err, f32_k2_err, f32_fwd, f32_bwd = f32_kernel_phase(fhi, iv, gpu)
     (k1_train_ms, _), b1_train = k1_times[TRAIN_BATCH], k1_bound(TRAIN_BATCH)[0]
     print(f"K1 at the train batch ({TRAIN_BATCH}, 4096, 256): kernel {k1_train_ms:.4f} ms, library "
           f"{k1_lib_train:.4f} ms, bound {b1_train:.4f} ms; K1 + K2 per train step {k1_train_ms + k2_ms:.4f} "
@@ -4236,6 +4640,8 @@ def main(argv=None) -> int:
     export_phase(r50_server, gpu)
     del r50_server
     train_k1, train_k2, head_err = train_phase(fhi, gpu)
+    f32_train_k1, f32_train_k2 = fp32_train_phase(fhi, iv, gpu)
+    parity_k1 = parity_serve_phase(fhi, iv, gpu)
     snap_k1, snap_k2 = snapshot_phase(fhi, gpu)
     r152_k1, r152_k2, r152_k1_err, r152_k2_err = r152_phase(fhi, iv, gpu)
     (k5_n, k6_n, k7_n, k8_n), fused_errs = fused_train_phase(fhi, iv, mm, cb, gpu)
@@ -4244,7 +4650,7 @@ def main(argv=None) -> int:
     warp_k1, warp_k2 = device_warp_phase(fhi, gpu)
     serving_bench_phase(gpu)
     real_k1, real_k2, colour = real_data_phase(fhi, gpu)
-    acc_k3, acc_k4, acc_colour, acc_colour_err = accuracy_phase(fhi, iv, mm, cb, gpu)
+    acc_k1f, acc_k2f, acc_colour, acc_colour_err = accuracy_phase(fhi, iv, mm, cb, gpu)
     sp_k3, sp_k4, sp_k3_err, sp_k4_err = spatial_phase(fhi, iv, gpu)
     spu_k3, spu_k4, spu_k3_err, spu_k4_err = spatial_uneven_phase(fhi, iv, gpu)
     hm_k3, hm_k4, hm_err, hm_dv_err = heatmap_phase(fhi, iv, gpu)
@@ -4260,10 +4666,16 @@ def main(argv=None) -> int:
         (fhi._BWD_LIB, "ihpr_tpu/ops/fused_head_integral.py:153",
          train_k2 + snap_k2 + r152_k2 + dp_n["K2"] + warp_k2 + real_k2,
          max(k2_err, head_err, r152_k2_err, dp_errs["K2"]), k2_ms, k2_plain, *b2, k2_lib),
-        (iv._FWD_LIB, "ihpr_tpu/ops/integral_pallas.py:201", hm_k3 + np_k3 + eval_k3 + sp_k3 + spu_k3 + acc_k3,
+        (iv._FWD_LIB, "ihpr_tpu/ops/integral_pallas.py:201", hm_k3 + np_k3 + eval_k3 + sp_k3 + spu_k3,
          max(k3_err, hm_err, np_err, eval_k3_err, sp_k3_err, spu_k3_err), k3_ms, k3_plain, *b3, None),
-        (iv._BWD_LIB, "ihpr_tpu/ops/integral_pallas.py:239", hm_k4 + np_k4 + sp_k4 + spu_k4 + acc_k4,
+        (iv._BWD_LIB, "ihpr_tpu/ops/integral_pallas.py:239", hm_k4 + np_k4 + sp_k4 + spu_k4,
          max(k4_err, hm_dv_err, sp_k4_err, spu_k4_err), k4_ms, k4_plain, *b4, None),
+        # K1/K2's fp32 instances, timed at h36m3d_r50_fp32's batch; the
+        # library is the no-plan route (cuBLAS fp32 with K3 / K4).
+        (fhi._F32_LIB, "ihpr_tpu/ops/fused_head_integral.py:133", f32_n1 + f32_train_k1 + parity_k1 + acc_k1f,
+         f32_k1_err, *f32_fwd[F32_TRAIN_BATCH][:2], *f32_bound(F32_TRAIN_BATCH, 1), f32_fwd[F32_TRAIN_BATCH][2]),
+        (fhi._F32_BWD_LIB, "ihpr_tpu/ops/fused_head_integral.py:153", f32_n2 + f32_train_k2 + acc_k2f,
+         f32_k2_err, *f32_bwd[F32_TRAIN_BATCH][:2], *f32_bound(F32_TRAIN_BATCH, 3), f32_bwd[F32_TRAIN_BATCH][2]),
     ]
     for (name, replaces, key, launches), err in zip(
         ((mm._FWD_LIB, "ihpr_tpu/ops/matmul_bn.py:127", "k5", k5_n + dp_n["K5"]),

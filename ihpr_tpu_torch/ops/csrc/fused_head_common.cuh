@@ -2,7 +2,8 @@
 // fused_head_integral_fwd.cu; K2 backward, fused_head_integral_bwd.cu) and
 // the conv + BN-statistics kernels (K5-K8, conv_bn_common.cuh): element
 // traits, base-2 exp, cp.async, ldmatrix/mma.sync fragments and the warp
-// matmul warp_mma of K5-K8, and the weight transpose of K1/K2. K1/K2's
+// matmul warp_mma of K5-K8, and the weight transpose of K1/K2 (bf16) and
+// their fp32 instances (fused_head_integral_fwd_f32.cu, _bwd_f32.cu). K1/K2's
 // wgmma/TMA machinery is in hopper.cuh.
 
 #pragma once
@@ -144,13 +145,13 @@ __device__ __forceinline__ void warp_mma(float (&acc)[NT][4], const float* a, in
   }
 }
 
-// W (C, JD) -> Wt (JD, C), bf16: a joint's D columns of the final conv
-// become D rows whose pitch (2C bytes) TMA can copy, whatever J*D is.
-// Blocks of 32x8 threads over 32x32 tiles.
-__global__ void transpose_kernel(const __nv_bfloat16* __restrict__ w, __nv_bfloat16* __restrict__ wt,
-                                 int C, int JD) {
-  __shared__ __align__(4) unsigned char raw[32 * 33 * sizeof(__nv_bfloat16)];
-  __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(raw);  // [32][33]
+// W (C, JD) -> Wt (JD, C), bf16 or fp32: a joint's D columns of the final
+// conv become D rows whose pitch (C elements) TMA or cp.async can copy,
+// whatever J*D is. Blocks of 32x8 threads over 32x32 tiles.
+template <typename T>
+__global__ void transpose_kernel(const T* __restrict__ w, T* __restrict__ wt, int C, int JD) {
+  __shared__ __align__(4) unsigned char raw[32 * 33 * sizeof(T)];
+  T* tile = reinterpret_cast<T*>(raw);  // [32][33]
   const int n0 = blockIdx.x * 32, k0 = blockIdx.y * 32;
   for (int i = threadIdx.y; i < 32; i += 8) {
     const int k = k0 + i, n = n0 + threadIdx.x;
@@ -163,9 +164,9 @@ __global__ void transpose_kernel(const __nv_bfloat16* __restrict__ w, __nv_bfloa
   }
 }
 
-inline cudaError_t transpose(const __nv_bfloat16* w, __nv_bfloat16* wt, int C, int JD,
-                             cudaStream_t stream) {
-  transpose_kernel<<<dim3((JD + 31) / 32, (C + 31) / 32), dim3(32, 8), 0, stream>>>(w, wt, C, JD);
+template <typename T>
+inline cudaError_t transpose(const T* w, T* wt, int C, int JD, cudaStream_t stream) {
+  transpose_kernel<T><<<dim3((JD + 31) / 32, (C + 31) / 32), dim3(32, 8), 0, stream>>>(w, wt, C, JD);
   return cudaGetLastError();
 }
 

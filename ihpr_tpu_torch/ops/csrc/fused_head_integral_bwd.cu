@@ -15,8 +15,8 @@
 //     dW    = sum_b feat^T dvc (C, J*D),   fp32 accumulate, bf16
 //     db    = sum_{b,r} dv     (J*D,),     fp32, bf16
 // the rounding of ops/fused_head_integral.py:plain_bwd (and of the TPU
-// kernel). bf16 only, as K1. The logits are recomputed in each kernel and
-// never written, nor is dv.
+// kernel). bf16 only, as K1 (fp32: fused_head_integral_bwd_f32.cu). The
+// logits are recomputed in each kernel and never written, nor is dv.
 //
 // Design: four launches. dfeat contracts over all J*D columns and dW over
 // all rows of all samples, so no one layout of CTAs owns both sums:

@@ -10,8 +10,9 @@
 //     coords[b, j] = (sum p * (r mod width), sum p * (r div width), sum p * z)
 // plus the per-(b, j) max m and normalizer s = sum exp(v - m), which the
 // backward will need. The (B, HW, J*D) logits volume is never written.
-// bf16 operands only: fp32 heads take the logits + K3 route
-// (ops/fused_head_integral.py), since TF32 would not be fp32.
+// bf16 operands only: fp32 heads take K1-fp32 (fused_head_integral_fwd_f32.cu,
+// 3xTF32) where JAX fuses them, else the logits + K3 route
+// (ops/fused_head_integral.py).
 //
 // Design. One CTA per (group of kG = 3 joints, sample); blockIdx.x = group,
 // so a sample's J/kG CTAs run close together and share feat[b] in L2 (on an

@@ -13,15 +13,22 @@ memory, in either direction:
   recomputes the logits from m and s and contracts dv at once into dfeat,
   dW and db.
 
-Both take bf16 heads only. fp32 heads take the no-plan route below: the
-tensor cores' fp32 input is TF32, which would break ``"highest"``, and
-scalar fp32 kernels were slower than cuBLAS in fp32 plus K3/K4.
+Both take bf16 heads. fp32 heads have their own pair, K1-fp32 and K2-fp32
+(``csrc/fused_head_integral_fwd_f32.cu``, ``_bwd_f32.cu``): the same
+functions with every product in 3xTF32 on the tensor cores
+(``csrc/tf32x3.cuh``), ~2^-21 relative per product, which keeps JAX's fp32
+``Precision.HIGHEST``. ``kernel_stats`` and ``kernel_bwd`` pick the pair by
+dtype.
 
-``FusedHeadIntegral`` is the autograd Function around the pair.
-``fused_final_conv_integral`` picks its route from the shapes alone
-(``fused_supported``), before anything launches: heads K1/K2 take go
-through ``FusedHeadIntegral``; any other head forms the fp32 logits volume
-with a plain matmul and runs the standalone integral, K3/K4
+``FusedHeadIntegral`` is the autograd Function around either pair.
+``fused_final_conv_integral`` picks its route from the shapes and dtype
+alone (``fused_supported``), before anything launches. bf16 heads within
+K1/K2's limits go through ``FusedHeadIntegral``; fp32 heads do so exactly
+where JAX runs its fused kernel in fp32 (``jax_plan``, the copy of JAX's
+``_pad_plan``: ``h36m3d_r50_fp32``, ``parity_r50``, the accuracy harness's
+``tiny``). Any other head (the D = 1 heads of ``mpii2d_r50`` and
+``coco2d_r50``, C = 72, D = 80, float64) forms the fp32 logits volume with
+a plain matmul and runs the standalone integral, K3/K4
 (``integral_volume.SoftArgmaxVolume``), as JAX does when ``_pad_plan``
 finds no tiling. On either route a CUDA tensor goes to the kernels, which
 launch or raise; a CPU tensor goes to the plain PyTorch versions
@@ -51,29 +58,100 @@ from ihpr_tpu_torch.ops.integral_volume import _acc_dtype, fold_bwd_rows
 
 _LIB = "fused_head_integral_fwd"
 _BWD_LIB = "fused_head_integral_bwd"
-_MAX_DEPTH = 64  # depth bins of one joint's slab (kBox in csrc/hopper.cuh)
+_F32_LIB = "fused_head_integral_fwd_f32"
+_F32_BWD_LIB = "fused_head_integral_bwd_f32"
+_MAX_DEPTH = 64  # depth bins of one joint's slab (kBox in csrc/hopper.cuh, kBins in the fp32 kernels)
 _MAX_CHANNELS = 256  # channels K2's register accumulators hold (kMaxC)
 _MAX_SMEM = 232448  # bytes of shared memory a block may use on Hopper
+# Channel multiple each dtype's kernels take: bf16 wgmma k-steps of 16;
+# the fp32 kernels' 32-channel ring stages.
+_C_MULTIPLE = {torch.bfloat16: 16, torch.float32: 32}
 
-# Launches of K1 (``launches``) and K2 (``bwd_launches``) since the count
-# was last set to 0; each wrapper adds one per launch and nothing else
-# touches them.
+# Launches of K1 (``launches``), K2 (``bwd_launches``), K1-fp32
+# (``f32_launches``) and K2-fp32 (``f32_bwd_launches``) since the count was
+# last set to 0; each wrapper adds one per launch of its kernel and nothing
+# else touches them.
 launches = 0
 bwd_launches = 0
+f32_launches = 0
+f32_bwd_launches = 0
+
+# JAX's fused-kernel plan, copied as plain Python on ints (the port imports
+# nothing of the JAX package): ``_chunk_rows``, ``_supported`` and
+# ``_padded_joint_num`` of ihpr_tpu/ops/integral_pallas.py, and
+# ``fused_supported`` and ``_pad_plan`` of ihpr_tpu/ops/fused_head_integral.py,
+# at JAX's default 2 MiB chunk budget.
+_PLAN_CHUNK_BYTES = 2 * 1024 * 1024
+_PLAN_LANES = 128
 
 
-def fused_supported(channels: int, depth_dim: int, dtype: torch.dtype) -> bool:
-    """Whether K1 and K2 take a head of ``channels`` features, ``depth_dim``
-    bins and ``dtype``: bf16, C a multiple of 16 up to K2's 256 channels,
-    D <= 64. A pure predicate on shapes, the counterpart of JAX's
-    ``fused_supported`` / ``_pad_plan``; J and H*W are free. Up to 256
-    channels both kernels' shared memory fits a Hopper block."""
+def _chunk_rows(hw: int, lanes: int) -> int | None:
+    cap = max(8, _PLAN_CHUNK_BYTES // (lanes * 4))
+    if hw <= cap:
+        return hw
+    for c in range(cap, 7, -1):
+        if hw % c == 0 and c % 8 == 0:
+            return c
+    return None
+
+
+def _lanes_supported(joint_num: int, depth_dim: int, hw: int) -> bool:
     return (
-        dtype == torch.bfloat16
-        and channels % 16 == 0
-        and 16 <= channels <= _MAX_CHANNELS
-        and 1 <= depth_dim <= _MAX_DEPTH
+        (joint_num * depth_dim) % _PLAN_LANES == 0
+        and joint_num <= _PLAN_LANES
+        and _chunk_rows(hw, joint_num * depth_dim) is not None
     )
+
+
+def _padded_joint_num(joint_num: int, depth_dim: int, hw: int) -> int | None:
+    if _PLAN_LANES % depth_dim != 0:
+        return None
+    g = max(1, _PLAN_LANES // depth_dim)
+    j2 = -(-joint_num // g) * g
+    return j2 if _lanes_supported(j2, depth_dim, hw) else None
+
+
+def _plan_fits(joint_num: int, depth_dim: int, hw: int, channels: int) -> bool:
+    return (
+        _lanes_supported(joint_num, depth_dim, hw)
+        and channels % _PLAN_LANES == 0
+        and (_chunk_rows(hw, joint_num * depth_dim) or 0) % 8 == 0
+    )
+
+
+@functools.cache
+def jax_plan(joint_num: int, depth_dim: int, hw: int, channels: int) -> int | None:
+    """JAX's ``_pad_plan``: the joint count JAX runs its fused kernel at (J,
+    or J padded up to a 128-lane multiple of J*D, at most 2J), or None where
+    JAX computes the logits outside any kernel. The port's kernels take any
+    J, so only the choice of route is copied, not the weight padding."""
+    if _plan_fits(joint_num, depth_dim, hw, channels):
+        return joint_num
+    j2 = _padded_joint_num(joint_num, depth_dim, hw)
+    if j2 is not None and j2 <= 2 * joint_num and _plan_fits(j2, depth_dim, hw, channels):
+        return j2
+    return None
+
+
+def fused_supported(joint_num: int, depth_dim: int, hw: int, channels: int, dtype: torch.dtype) -> bool:
+    """Whether ``fused_final_conv_integral`` takes ``FusedHeadIntegral`` (K1
+    and K2 on the card) for a head of ``joint_num`` joints, ``depth_dim``
+    bins, ``hw`` rows, ``channels`` features and ``dtype``. A pure
+    predicate on shapes and dtype:
+
+    - bf16: C a multiple of 16 up to K2's 256 channels, D <= 64; J and H*W
+      are free;
+    - fp32: exactly where JAX runs its fused kernel in fp32 (``jax_plan``;
+      it needs C % 128 == 0), within K1/K2-fp32's limits (C a multiple of
+      32 up to 256, D <= 64);
+    - any other dtype: never.
+
+    Within these limits both kernels' shared memory fits a Hopper block."""
+    multiple = _C_MULTIPLE.get(dtype)
+    if multiple is None or not (channels % multiple == 0 and multiple <= channels <= _MAX_CHANNELS
+                                and 1 <= depth_dim <= _MAX_DEPTH):
+        return False
+    return dtype == torch.bfloat16 or jax_plan(joint_num, depth_dim, hw, channels) is not None
 
 
 def plain(
@@ -91,14 +169,14 @@ def plain(
 
 
 @functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = _build.load(_LIB)
-    lib.ihpr_fused_head_integral_fwd_smem.restype = ctypes.c_size_t
-    lib.ihpr_fused_head_integral_fwd_smem.argtypes = [ctypes.c_int]
-    lib.ihpr_fused_head_integral_fwd.restype = ctypes.c_int
-    lib.ihpr_fused_head_integral_fwd.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    )
+def _lib(name: str = _LIB) -> ctypes.CDLL:
+    """The forward library ``name`` (``_LIB`` or ``_F32_LIB``: one C
+    interface, its symbols named ``ihpr_<name>``)."""
+    lib = _build.load(name)
+    smem, run = getattr(lib, f"ihpr_{name}_smem"), getattr(lib, f"ihpr_{name}")
+    smem.restype, smem.argtypes = ctypes.c_size_t, [ctypes.c_int]
+    run.restype = ctypes.c_int
+    run.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     return lib
 
 
@@ -154,16 +232,15 @@ def _check_cuda_tensors(feat, kernel, bias):
 
 
 def _check_kernel_inputs(feat, kernel, bias, joint_num, depth_dim, width):
-    """What both kernels require of feat, kernel and bias; returns
-    (B, HW, C)."""
+    """What both kernels of either dtype require of feat, kernel and bias;
+    returns (B, HW, C)."""
     b, hw, c = _check(feat, kernel, bias, joint_num, depth_dim, width)
     _check_cuda_tensors(feat, kernel, bias)
-    if feat.dtype != torch.bfloat16:
-        raise ValueError(f"K1/K2 take bfloat16 heads, not {feat.dtype} (fp32 heads take the no-plan route)")
     if feat.data_ptr() % 16:
         raise ValueError("feat must be 16-byte aligned")
-    if c % 16:
-        raise ValueError(f"C={c} must be a multiple of 16")
+    multiple = _C_MULTIPLE[feat.dtype]
+    if c % multiple:
+        raise ValueError(f"C={c} must be a multiple of {multiple} for {feat.dtype} heads")
     if not 1 <= depth_dim <= _MAX_DEPTH:
         raise ValueError(f"depth_dim={depth_dim} must be in [1, {_MAX_DEPTH}]")
     if not (1 <= b <= 65535 and joint_num >= 1 and hw >= 1):
@@ -175,13 +252,14 @@ def kernel_stats(
     feat: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
     joint_num: int, depth_dim: int, width: int,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K1 on the same contract as ``plain``. Launches on the current stream
-    without synchronizing; raises on any input the kernel does not take and
-    on a refused launch."""
-    global launches
+    """K1 (bf16 operands) or K1-fp32 (fp32 operands) on the same contract as
+    ``plain``. Launches on the current stream without synchronizing; raises
+    on any input the kernel does not take and on a refused launch."""
+    global launches, f32_launches
     b, hw, c = _check_kernel_inputs(feat, kernel, bias, joint_num, depth_dim, width)
-    lib = _lib()
-    smem = lib.ihpr_fused_head_integral_fwd_smem(c)
+    name = _LIB if feat.dtype == torch.bfloat16 else _F32_LIB
+    lib = _lib(name)
+    smem = getattr(lib, f"ihpr_{name}_smem")(c)
     if smem > _MAX_SMEM:
         raise ValueError(f"C={c} needs {smem} bytes of shared memory (> {_MAX_SMEM})")
     opts = dict(dtype=torch.float32, device=feat.device)
@@ -190,31 +268,34 @@ def kernel_stats(
     s = torch.empty((b, joint_num), **opts)
     wt = torch.empty((joint_num * depth_dim, c), dtype=feat.dtype, device=feat.device)
     with torch.cuda.device(feat.device):
-        err = lib.ihpr_fused_head_integral_fwd(
+        err = getattr(lib, f"ihpr_{name}")(
             feat.data_ptr(), kernel.data_ptr(), bias.data_ptr(), wt.data_ptr(),
             coords.data_ptr(), m.data_ptr(), s.data_ptr(),
             b, hw, width, c, joint_num, depth_dim,
             torch.cuda.current_stream().cuda_stream,
         )
     if err:
-        raise RuntimeError(f"{_LIB} launch failed: CUDA error {err}")
-    launches += 1
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    if name == _LIB:
+        launches += 1
+    else:
+        f32_launches += 1
     return coords, m, s
 
 
 @functools.cache
-def _bwd_lib() -> ctypes.CDLL:
-    lib = _build.load(_BWD_LIB)
-    lib.ihpr_fused_head_integral_bwd_smem.restype = ctypes.c_size_t
-    lib.ihpr_fused_head_integral_bwd_smem.argtypes = [ctypes.c_int]
-    lib.ihpr_fused_head_integral_bwd_max_channels.restype = ctypes.c_int
-    lib.ihpr_fused_head_integral_bwd_max_channels.argtypes = []
-    lib.ihpr_fused_head_integral_bwd_partials.restype = ctypes.c_int
-    lib.ihpr_fused_head_integral_bwd_partials.argtypes = [ctypes.c_int] * 3
-    lib.ihpr_fused_head_integral_bwd.restype = ctypes.c_int
-    lib.ihpr_fused_head_integral_bwd.argtypes = (
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    )
+def _bwd_lib(name: str = _BWD_LIB) -> ctypes.CDLL:
+    """The backward library ``name`` (``_BWD_LIB`` or ``_F32_BWD_LIB``: one
+    C interface, its symbols named ``ihpr_<name>``)."""
+    lib = _build.load(name)
+    sym = f"ihpr_{name}"
+    smem, max_c = getattr(lib, f"{sym}_smem"), getattr(lib, f"{sym}_max_channels")
+    parts, run = getattr(lib, f"{sym}_partials"), getattr(lib, sym)
+    smem.restype, smem.argtypes = ctypes.c_size_t, [ctypes.c_int]
+    max_c.restype, max_c.argtypes = ctypes.c_int, []
+    parts.restype, parts.argtypes = ctypes.c_int, [ctypes.c_int] * 3
+    run.restype = ctypes.c_int
+    run.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     return lib
 
 
@@ -223,12 +304,12 @@ def kernel_bwd(
     m: torch.Tensor, s: torch.Tensor, coords: torch.Tensor, g: torch.Tensor,
     joint_num: int, depth_dim: int, width: int,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K2 on the same contract as ``plain_bwd``. Checks feat, kernel and
-    bias as ``kernel_stats`` does, and m, s (B, J), coords, g (B, J, 3) as
-    fp32 contiguous tensors on the same device. Launches on the current
-    stream without synchronizing; raises on any input the kernel does not
-    take and on a refused launch."""
-    global bwd_launches
+    """K2 (bf16 operands) or K2-fp32 (fp32 operands) on the same contract as
+    ``plain_bwd``. Checks feat, kernel and bias as ``kernel_stats`` does,
+    and m, s (B, J), coords, g (B, J, 3) as fp32 contiguous tensors on the
+    same device. Launches on the current stream without synchronizing;
+    raises on any input the kernel does not take and on a refused launch."""
+    global bwd_launches, f32_bwd_launches
     b, hw, c = _check_kernel_inputs(feat, kernel, bias, joint_num, depth_dim, width)
     for name, t, shape in (("m", m, (b, joint_num)), ("s", s, (b, joint_num)),
                            ("coords", coords, (b, joint_num, 3)), ("g", g, (b, joint_num, 3))):
@@ -236,11 +317,13 @@ def kernel_bwd(
             raise ValueError(f"{name} is {t.dtype}{tuple(t.shape)}: need float32{shape}")
         if t.device != feat.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {feat.device}")
-    lib = _bwd_lib()
-    max_c = lib.ihpr_fused_head_integral_bwd_max_channels()
+    name = _BWD_LIB if feat.dtype == torch.bfloat16 else _F32_BWD_LIB
+    sym = f"ihpr_{name}"
+    lib = _bwd_lib(name)
+    max_c = getattr(lib, f"{sym}_max_channels")()
     if c > max_c:
         raise ValueError(f"C={c} is more than the backward's {max_c} channels")
-    smem = lib.ihpr_fused_head_integral_bwd_smem(c)
+    smem = getattr(lib, f"{sym}_smem")(c)
     if smem > _MAX_SMEM:
         raise ValueError(f"C={c} needs {smem} bytes of shared memory (> {_MAX_SMEM})")
     jd = joint_num * depth_dim
@@ -248,13 +331,13 @@ def kernel_bwd(
     f32 = dict(dtype=torch.float32, device=feat.device)
     wt = torch.empty((jd, c), dtype=feat.dtype, device=feat.device)
     with torch.cuda.device(feat.device):
-        parts = lib.ihpr_fused_head_integral_bwd_partials(b, hw, joint_num)
+        parts = getattr(lib, f"{sym}_partials")(b, hw, joint_num)
         part = torch.empty((parts, joint_num, c, _MAX_DEPTH), **f32)
         dbpart = torch.empty((parts, joint_num, _MAX_DEPTH), **f32)
         dfeat = torch.empty_like(feat)
         dw = torch.empty_like(kernel)
         db = torch.empty_like(bias)
-        err = lib.ihpr_fused_head_integral_bwd(
+        err = getattr(lib, sym)(
             feat.data_ptr(), kernel.data_ptr(), bias.data_ptr(), rows.data_ptr(),
             wt.data_ptr(), part.data_ptr(), dbpart.data_ptr(),
             dfeat.data_ptr(), dw.data_ptr(), db.data_ptr(),
@@ -262,15 +345,18 @@ def kernel_bwd(
             torch.cuda.current_stream().cuda_stream,
         )
     if err:
-        raise RuntimeError(f"{_BWD_LIB} launch failed: CUDA error {err}")
-    bwd_launches += 1
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    if name == _BWD_LIB:
+        bwd_launches += 1
+    else:
+        f32_bwd_launches += 1
     return dfeat, dw, db
 
 
 class FusedHeadIntegral(torch.autograd.Function):
     """coords = fused final conv + integral of (feat, kernel, bias): K1
-    forward and K2 backward on CUDA tensors, ``plain`` and ``plain_bwd`` on
-    CPU tensors. Saves feat, kernel, bias, m, s and coords for the backward;
+    forward and K2 backward (their fp32 instances for fp32 operands) on CUDA
+    tensors, ``plain`` and ``plain_bwd`` on CPU tensors. Saves feat, kernel, bias, m, s and coords for the backward;
     nothing when no input needs a gradient or ``grad_enabled`` (the caller's
     ``torch.is_grad_enabled()``: the forward itself runs with grad off) is
     False, as under ``no_grad`` and ``inference_mode``."""
@@ -349,11 +435,12 @@ def fused_final_conv_integral(
 ) -> torch.Tensor:
     """(B, H, W, C) head features + (C, J*D) final-conv weight + (J*D,) bias
     -> (B, J, 3) voxel coords (x, y, z), fp32, differentiable in all three
-    tensors. Heads ``fused_supported`` admits (bf16) run
-    ``FusedHeadIntegral`` (K1/K2 on CUDA tensors); any other head, fp32
-    included, forms the fp32 logits (``_Logits``) and runs
-    ``integral_volume.SoftArgmaxVolume`` (K3/K4 on CUDA tensors). CPU
-    tensors take the same route through the plain versions."""
+    tensors. Heads ``fused_supported`` admits (bf16 within K1/K2's limits;
+    fp32 where JAX has a fused plan) run ``FusedHeadIntegral`` (K1/K2 or
+    K1/K2-fp32 on CUDA tensors); any other head forms the fp32 logits
+    (``_Logits``) and runs ``integral_volume.SoftArgmaxVolume`` (K3/K4 on
+    CUDA tensors). CPU tensors take the same route through the plain
+    versions."""
     b, h, w, c = features.shape
     if features.is_cuda:
         if not features.is_contiguous():
@@ -365,7 +452,7 @@ def fused_final_conv_integral(
     else:
         raise ValueError(f"no fused head integral for device {features.device}")
     _check(feat, kernel, bias, joint_num, depth_dim, w)
-    if fused_supported(c, depth_dim, features.dtype):
+    if fused_supported(joint_num, depth_dim, h * w, c, features.dtype):
         return FusedHeadIntegral.apply(
             feat, kernel, bias, joint_num, depth_dim, w, torch.is_grad_enabled()
         )

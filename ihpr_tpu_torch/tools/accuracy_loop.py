@@ -24,10 +24,12 @@ frame sizes, epochs, decay epochs (rescaled under ``--end_epoch``),
 snapshot interval and keep, and bars:
 
 - ``tiny``: ResNet-18 at 128x128, 32^3 volume, fp32, batch 32, 4096 / 256
-  frames, 60 epochs, bar 130 mm;
+  frames, 60 epochs, bar 130 mm; its fp32 head has JAX's fused plan (J*D =
+  576 padded to 20 joints), so it trains on K1-fp32 / K2-fp32;
 - ``flagship``: ``h36m3d_r50`` (bf16, batch 128) without augmentation,
-  8192 / 256 frames, 60 epochs, bar 75 mm;
-- ``r152``: ``h36m3d_r152_384``, 2048 / 128 frames, 30 epochs, bar 250 mm.
+  8192 / 256 frames, 60 epochs, bar 75 mm; K1 / K2;
+- ``r152``: ``h36m3d_r152_384``, 2048 / 128 frames, 30 epochs, bar 250 mm;
+  K1 / K2.
 
 Every preset runs with ``matmul_precision="highest"`` (TF32 off), as JAX's
 tool runs fp32 in true fp32. ``--bn_mode`` overrides the preset's BN

@@ -1,5 +1,5 @@
 """The port's standalone integral (``ops/integral_volume.py``, plain on the
-CPU) and the fused op's no-plan route against the JAX package, on the CPU.
+CPU) and the fused op's routes against the JAX package, on the CPU.
 
 Inputs are made with numpy from a seed and fed to both sides. The JAX
 integral runs its Pallas kernels (K3/K4) in interpret mode
@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from ihpr_tpu.ops.fused_head_integral import _pad_plan as jax_pad_plan
 from ihpr_tpu.ops.fused_head_integral import fused_final_conv_integral as jax_fused
 from ihpr_tpu.ops.integral_pallas import soft_argmax_3d_fused as jax_3d_fused
 from ihpr_tpu.ops.integral_pallas import soft_argmax_from_heatmap as jax_from_heatmap
@@ -158,7 +159,7 @@ def test_fused_op_without_a_plan_matches_jax(shape):
     ref = np.asarray(ref)
     assert _away_from_centre(ref, (b, h, w, j, d))
 
-    assert not fhi.fused_supported(c, d, torch.float32)
+    assert not fhi.fused_supported(j, d, h * w, c, torch.float32)
     leaves = [torch.from_numpy(a).requires_grad_() for a in (feat, kernel, bias)]
     coords = fhi.fused_final_conv_integral(*leaves, j, d)
     assert "SoftArgmaxVolume" in type(coords.grad_fn).__name__  # the route taken
@@ -189,54 +190,123 @@ def test_fused_op_without_a_plan_gradcheck_float64():
     assert torch.autograd.gradcheck(lambda f, k, bb: fhi.fused_final_conv_integral(f, k, bb, j, d), leaves)
 
 
-# (B, H, W, C, J, D) that K1/K2 take in bf16: in fp32 they go the no-plan route.
+# (B, H, W, C, J, D) of fp32 heads JAX runs its fused kernel on (J*D = 128
+# as is; J = 18, D = 16 padded to 24 joints): the port takes FusedHeadIntegral
+# (K1/K2-fp32 on the card).
 FP32_HEADS = [(2, 16, 16, 128, 4, 32), (2, 16, 16, 128, 18, 16)]
+# fp32 heads JAX has no fused plan for: D = 1 (mpii2d_r50's head: J*D = 16
+# would pad to 128 joints, more than 2J), C = 72 (not a multiple of 128).
+FP32_NO_PLAN = [(2, 8, 8, 256, 16, 1), (2, 8, 8, 72, 18, 16)]
 
 
-@pytest.mark.parametrize("shape", FP32_HEADS, ids=["aligned", "padded"])
-def test_fp32_head_takes_the_no_plan_route_and_matches_jax(shape):
-    """An fp32 head of a shape K1/K2 take in bf16 forms fp32 logits and runs
-    the standalone integral (K3/K4 on the card), as fused_supported says:
-    coords within 2e-3 voxel of JAX's fused_final_conv_integral (its fused
-    kernel, in interpret mode) on the same weights, gradients within 1e-4
-    of each one's largest, the no-plan bound."""
+def _route_matches_jax(shape, route, seed):
+    """The fused op on fp32 numpy inputs against JAX's fused op on the same
+    ones: the route the port took (by its autograd node), coords within 2e-3
+    voxel, each gradient within 1e-4 of its largest."""
     b, h, w, c, j, d = shape
-    feat, kernel, bias = _head(shape, seed=15)
-    g = np.random.RandomState(16).randn(b, j, 3).astype(np.float32)
+    feat, kernel, bias = _head(shape, seed=seed)
+    g = np.random.RandomState(seed + 1).randn(b, j, 3).astype(np.float32)
     ref, vjp = jax.vjp(lambda f, k, bb: jax_fused(f, k, bb, j, d), *map(jnp.asarray, (feat, kernel, bias)))
     ref_grads = [np.asarray(x) for x in vjp(jnp.asarray(g))]
     ref = np.asarray(ref)
     assert _away_from_centre(ref, (b, h, w, j, d))
 
-    assert fhi.fused_supported(c, d, torch.bfloat16) and not fhi.fused_supported(c, d, torch.float32)
     leaves = [torch.from_numpy(a).requires_grad_() for a in (feat, kernel, bias)]
     coords = fhi.fused_final_conv_integral(*leaves, j, d)
-    assert "SoftArgmaxVolume" in type(coords.grad_fn).__name__  # the route taken
+    assert route in type(coords.grad_fn).__name__  # the route taken
     np.testing.assert_allclose(coords.detach().numpy(), ref, atol=2e-3)
     grads = torch.autograd.grad(coords, leaves, torch.from_numpy(g))
     for name, got, want in zip(("feat", "kernel", "bias"), grads, ref_grads):
-        assert got.shape == want.shape, name
+        assert got.shape == want.shape and got.dtype == torch.float32, name
+        if name == "bias" and d == 1:
+            # At D = 1, db = sum p (gx (x - cx) + gy (y - cy)) is 0 exactly
+            # (x and y are centred on the coords), so both sides hold fp32
+            # noise: each within 1e-4 of the bound on its terms, sum_r |dv|
+            # <= |gx| (w - 1) + |gy| (h - 1) per sample and joint.
+            bound = 1e-4 * (np.abs(g[..., 0]) * (w - 1) + np.abs(g[..., 1]) * (h - 1)).sum(0).max()
+            assert max(np.abs(got.numpy()).max(), np.abs(want).max()) <= bound, name
+            continue
         assert np.abs(got.numpy() - want).max() <= 1e-4 * np.abs(want).max(), name
 
 
+@pytest.mark.parametrize("shape", FP32_HEADS, ids=["aligned", "padded"])
+def test_fp32_head_takes_the_no_plan_route_and_matches_jax(shape):
+    """An fp32 head JAX runs its fused kernel on (in fp32 HIGHEST; here in
+    interpret mode) now takes FusedHeadIntegral, K1/K2-fp32's route (their
+    plain versions on the CPU), where it used to take the no-plan route:
+    coords within 2e-3 voxel of JAX's fused_final_conv_integral on the same
+    weights, gradients within 1e-4 of each one's largest."""
+    b, h, w, c, j, d = shape
+    assert fhi.jax_plan(j, d, h * w, c) is not None
+    assert fhi.fused_supported(j, d, h * w, c, torch.float32)
+    _route_matches_jax(shape, "FusedHeadIntegral", seed=15)
+
+
+@pytest.mark.parametrize("shape", FP32_NO_PLAN, ids=["j16_d1", "c72"])
+def test_fp32_head_without_a_jax_plan_takes_the_no_plan_route(shape):
+    """An fp32 head JAX computes the logits of outside any kernel keeps the
+    port's no-plan route (fp32 logits, then K3/K4 on the card), within the
+    same bars of JAX's fused op."""
+    b, h, w, c, j, d = shape
+    assert fhi.jax_plan(j, d, h * w, c) is None
+    assert not fhi.fused_supported(j, d, h * w, c, torch.float32)
+    _route_matches_jax(shape, "SoftArgmaxVolume", seed=17)
+
+
 def test_fused_supported_mirrors_the_kernels_limits():
-    assert fhi.fused_supported(256, 64, torch.bfloat16)
-    assert fhi.fused_supported(16, 1, torch.bfloat16)
-    assert not fhi.fused_supported(16, 1, torch.float32)  # fp32 heads: logits + K3/K4
-    assert not fhi.fused_supported(72, 64, torch.bfloat16)  # C % 16
-    assert not fhi.fused_supported(272, 64, torch.bfloat16)  # more than K2's 256 channels
-    assert not fhi.fused_supported(256, 65, torch.bfloat16)  # D > 64
-    assert not fhi.fused_supported(256, 64, torch.float16)  # a dtype the kernels do not take
+    hw = 64 * 64
+    assert fhi.fused_supported(18, 64, hw, 256, torch.bfloat16)
+    assert fhi.fused_supported(16, 1, hw, 16, torch.bfloat16)  # bf16: J and H*W free
+    assert fhi.fused_supported(18, 64, hw, 256, torch.float32)  # the fp32 flagship: K1/K2-fp32
+    assert fhi.fused_supported(18, 32, 32 * 32, 256, torch.float32)  # the tiny accuracy preset
+    assert fhi.fused_supported(18, 64, hw, 128, torch.float32)
+    assert not fhi.fused_supported(16, 1, hw, 256, torch.float32)  # no JAX plan: logits + K3/K4
+    assert not fhi.fused_supported(17, 1, hw, 256, torch.float32)  # coco2d_r50's head
+    assert not fhi.fused_supported(18, 64, hw, 64, torch.float32)  # no JAX plan (C % 128)
+    assert not fhi.fused_supported(2, 128, hw, 256, torch.float32)  # a JAX plan, but D > 64
+    assert not fhi.fused_supported(18, 64, hw, 384, torch.float32)  # a JAX plan, but C > 256
+    assert not fhi.fused_supported(18, 64, hw, 72, torch.bfloat16)  # C % 16
+    assert not fhi.fused_supported(18, 64, hw, 272, torch.bfloat16)  # more than K2's 256 channels
+    assert not fhi.fused_supported(18, 65, hw, 256, torch.bfloat16)  # D > 64
+    assert not fhi.fused_supported(18, 64, hw, 256, torch.float16)  # a dtype the kernels do not take
+    assert not fhi.fused_supported(18, 64, hw, 256, torch.float64)
+
+
+PLAN_J = (1, 2, 4, 14, 16, 17, 18, 24, 33, 64, 100, 128, 129)
+PLAN_D = (1, 2, 3, 8, 16, 24, 32, 48, 64, 80, 128)
+PLAN_HW = (9, 64, 256, 1000, 1024, 2304, 4096, 4097, 6912)
+PLAN_C = (64, 72, 128, 256, 384)
+
+
+def test_jax_plan_equals_jax_pad_plan():
+    """The port's copy of JAX's plan against ihpr_tpu's own _pad_plan on
+    every (J, D, HW, C) of the grid (the joint count as well as whether one
+    exists), and the fp32 route it gives against ``_pad_plan(...) is not
+    None`` within the fp32 kernels' limits (C <= 256, D <= 64)."""
+    planned = 0
+    for j in PLAN_J:
+        for d in PLAN_D:
+            for hw in PLAN_HW:
+                for c in PLAN_C:
+                    want = jax_pad_plan(j, d, hw, c)
+                    assert fhi.jax_plan(j, d, hw, c) == want, (j, d, hw, c)
+                    if c <= 256 and d <= 64:
+                        assert fhi.fused_supported(j, d, hw, c, torch.float32) == (want is not None), (j, d, hw, c)
+                    planned += want is not None
+    assert 0 < planned < len(PLAN_J) * len(PLAN_D) * len(PLAN_HW) * len(PLAN_C)
 
 
 def test_launch_counters_stay_zero_on_cpu():
     iv.launches = iv.bwd_launches = fhi.launches = fhi.bwd_launches = 0
+    fhi.f32_launches = fhi.f32_bwd_launches = 0
     shape = VOL_SHAPES[0]
     x = torch.from_numpy(_heatmap(shape)).requires_grad_()
     iv.soft_argmax_from_heatmap(x, *shape[3:]).sum().backward()
-    leaves = [torch.from_numpy(a).requires_grad_() for a in _head(NO_PLAN[0], seed=13)]
-    fhi.fused_final_conv_integral(*leaves, *NO_PLAN[0][4:]).sum().backward()
-    assert (iv.launches, iv.bwd_launches, fhi.launches, fhi.bwd_launches) == (0, 0, 0, 0)
+    for head in (NO_PLAN[0], FP32_HEADS[0]):  # the no-plan route, then the fused one
+        leaves = [torch.from_numpy(a).requires_grad_() for a in _head(head, seed=13)]
+        fhi.fused_final_conv_integral(*leaves, *head[4:]).sum().backward()
+    counts = (iv.launches, iv.bwd_launches, fhi.launches, fhi.bwd_launches, fhi.f32_launches, fhi.f32_bwd_launches)
+    assert counts == (0,) * 6
 
 
 def test_volume_ops_reject_bad_inputs():

@@ -173,20 +173,21 @@ HEAD_IDS = ["aligned", "j18d16", "ragged", "d1", "c80", "c16", "r152"]  # r152: 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
 @pytest.mark.parametrize("shape", HEAD_SHAPES, ids=HEAD_IDS)
 def test_kernel_matches_plain(cuda, shape, dtype):
-    """Both sides accumulate in fp32 from the same operands: 5e-4 voxel on
-    coords, 1e-4 on the max logit, 1e-4 relative on the normalizer. fp32
-    heads raise: they take the no-plan route."""
+    """Both sides accumulate in fp32 (fp32 operands: K1-fp32's 3xTF32
+    products) from the same operands: 5e-4 voxel on coords, 1e-4 on the max
+    logit, 1e-4 relative on the normalizer. Each dtype's launch moves its
+    own counter. fp32 heads whose C is not a multiple of 32 raise."""
     b, h, w, c, j, d = shape
     feat, kernel, bias = _head_inputs(shape, cuda, dtype)
-    before = fhi.launches
-    if dtype == torch.float32:
-        assert not fhi.fused_supported(c, d, dtype)
-        with pytest.raises(ValueError, match="bfloat16"):
+    counters = ("launches", "f32_launches") if dtype == torch.bfloat16 else ("f32_launches", "launches")
+    before = [getattr(fhi, n) for n in counters]
+    if dtype == torch.float32 and c % 32:
+        with pytest.raises(ValueError, match="multiple of 32"):
             fhi.kernel_stats(feat, kernel, bias, j, d, w)
-        assert fhi.launches == before
+        assert [getattr(fhi, n) for n in counters] == before
         return
     got = fhi.kernel_stats(feat, kernel, bias, j, d, w)
-    assert fhi.launches == before + 1
+    assert [getattr(fhi, n) for n in counters] == [before[0] + 1, before[1]]
     want = fhi.plain(feat, kernel, bias, j, d, w)
     torch.cuda.synchronize()
     torch.testing.assert_close(got[0], want[0], atol=5e-4, rtol=0)
@@ -206,14 +207,19 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         fhi.kernel_stats(feat[..., :120].contiguous(), kernel[:120].contiguous(), bias, 4, 32, 16)
     with pytest.raises(ValueError, match="depth_dim"):
         fhi.kernel_stats(feat, kernel, bias, 1, 128, 16)
+    f32 = [t.float() for t in (feat, kernel, bias)]
+    with pytest.raises(ValueError, match="multiple of 32"):
+        fhi.kernel_stats(f32[0][..., :112].contiguous(), f32[1][:112].contiguous(), f32[2], 4, 32, 16)
+    with pytest.raises(ValueError, match="depth_dim"):
+        fhi.kernel_stats(*f32, 1, 128, 16)
 
 
 @pytest.mark.cuda
 def test_pose_net_coords_run_the_kernel(cuda):
-    """PoseNet.coords of an fp32 model on the card goes through the no-plan
-    route's kernel, K3 (its counter moves, K1's does not), and agrees with
-    coords_plain on the same fp32 weights, TF32 off: 2e-3 voxel, the
-    end-to-end bar."""
+    """PoseNet.coords of an fp32 model on the card goes through K1-fp32 (its
+    counter moves; K1's and K3's do not): JAX has a fused plan for this
+    head (J = 18, D = 16 pads to 24 joints). It agrees with coords_plain on
+    the same fp32 weights, TF32 off: 2e-3 voxel, the end-to-end bar."""
     cfg = get_config("h36m3d_r50_fp32").replace(
         model=ModelConfig(resnet_type=18, matmul_precision="highest"),
         data=DataConfig(trainset=("Human36M",), input_shape=(64, 64), output_shape=(16, 16), depth_dim=16),
@@ -225,9 +231,9 @@ def test_pose_net_coords_run_the_kernel(cuda):
         rms = float(feat.pow(2).mean().sqrt())
         c = feat.shape[-1]
         model.head.final.weight.normal_(0.0, 5.0 / (rms * c**0.5))  # logits std ~5
-        fhi.launches = iv.launches = 0
+        fhi.launches = fhi.f32_launches = iv.launches = 0
         coords = model.coords(x)
-        assert (fhi.launches, iv.launches) == (0, 1)
+        assert (fhi.launches, fhi.f32_launches, iv.launches) == (0, 1, 0)
         plain = model.coords_plain(x)
     assert float((plain - plain.mean()).abs().max()) > 1.0  # peaked, not flat
     torch.testing.assert_close(coords, plain, atol=2e-3, rtol=0)
@@ -270,24 +276,29 @@ def _db_atol(g, h, w, d):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
 @pytest.mark.parametrize("shape", HEAD_SHAPES, ids=HEAD_IDS)
 def test_bwd_kernel_matches_plain(cuda, shape, dtype):
-    h, w, j, d = shape[1], shape[2], shape[4], shape[5]
-    before = fhi.bwd_launches
-    if dtype == torch.float32:  # fp32 heads take the no-plan route
+    """K2 (bf16) within 1e-2 of each result's largest magnitude; K2-fp32
+    within 1e-4 (fp32 sums in another order, 3xTF32 products). fp32 heads
+    whose C is not a multiple of 32 raise."""
+    h, w, c, j, d = shape[1], shape[2], shape[3], shape[4], shape[5]
+    counter = "bwd_launches" if dtype == torch.bfloat16 else "f32_bwd_launches"
+    before = getattr(fhi, counter)
+    if dtype == torch.float32 and c % 32:
         args = _bwd_inputs(shape, cuda, torch.bfloat16)
         fp32 = [t.float() for t in args[:3]] + list(args[3:])
-        with pytest.raises(ValueError, match="bfloat16"):
+        with pytest.raises(ValueError, match="multiple of 32"):
             fhi.kernel_bwd(*fp32, j, d, w)
-        assert fhi.bwd_launches == before
+        assert getattr(fhi, counter) == before
         return
     args = _bwd_inputs(shape, cuda, dtype)
     got = fhi.kernel_bwd(*args, j, d, w)
-    assert fhi.bwd_launches == before + 1
+    assert getattr(fhi, counter) == before + 1
     want = fhi.plain_bwd(*args, j, d, w)
     torch.cuda.synchronize()
+    tol = BWD_TOL if dtype == torch.bfloat16 else 1e-4
     for name, a, b in zip(("dfeat", "dW", "db"), got, want):
         assert a.dtype == b.dtype and a.shape == b.shape, name
         atol = _db_atol(args[-1], h, w, d) if name == "db" else 0.0
-        _assert_rel_close(a, b, BWD_TOL, name, atol)
+        _assert_rel_close(a, b, tol, name, atol)
 
 
 @pytest.mark.cuda
@@ -327,16 +338,9 @@ def test_bwd_kernel_soft_peak_against_float64(cuda, dtype):
     """A logit of 5 over a flat floor at one voxel: p is spread over the
     volume and dv is nonzero everywhere (a hard one-hot gives dv ~ 0, which
     any kernel passes). dW's column for that voxel against float64 on the
-    host, from the same bf16-rounded inputs. fp32 heads raise: they take
-    the no-plan route."""
+    host, from the same inputs (bf16-rounded for bf16): 2e-2 of its largest
+    for K2 (dv rounded to bf16), 1e-4 for K2-fp32."""
     b, h, w, c, j, d = 2, 16, 16, 64, 4, 32
-    if dtype == torch.float32:
-        z = torch.zeros(b, j, device=cuda)
-        feat, kernel, bias = _head_inputs((b, h, w, c, j, d), cuda, dtype)
-        with pytest.raises(ValueError, match="bfloat16"):
-            fhi.kernel_bwd(feat, kernel, bias, z, z + 1, z[..., None].expand(b, j, 3).contiguous(),
-                           z[..., None].expand(b, j, 3).contiguous(), j, d, w)
-        return
     r0, z0, j0 = 77, 9, 2
     gen = torch.Generator().manual_seed(7)
     feat = (torch.randn(b, h * w, c, generator=gen) * 0.05).to(dtype)
@@ -362,7 +366,7 @@ def test_bwd_kernel_soft_peak_against_float64(cuda, dtype):
     _, dw, _ = fhi.kernel_bwd(feat_c, kernel_c, bias_c, m, s, coords_k, g.to(cuda), j, d, w)
     col = dw[:, j0 * d + z0].double().cpu()
     assert float(ref_col.abs().max()) > 1e-3  # the peak column is not ~0
-    _assert_rel_close(col, ref_col, 2e-2, "dW peak column")
+    _assert_rel_close(col, ref_col, 2e-2 if dtype == torch.bfloat16 else 1e-4, "dW peak column")
 
 
 @pytest.mark.cuda
@@ -564,13 +568,15 @@ def test_fused_op_without_a_plan_runs_k3_and_k4(cuda, c, d):
     fused op's plain version, gradients against autograd through it."""
     b, h, w, j = 2, 16, 16, 18
     feat, kernel, bias = _head_inputs((b, h, w, c, j, d), cuda, torch.float32)
-    assert not fhi.fused_supported(c, d, torch.float32)
+    assert not fhi.fused_supported(j, d, h * w, c, torch.float32)
     leaves = [t.clone().requires_grad_() for t in (feat.view(b, h, w, c), kernel, bias)]
     iv.launches = iv.bwd_launches = fhi.launches = fhi.bwd_launches = 0
+    fhi.f32_launches = fhi.f32_bwd_launches = 0
     coords = fhi.fused_final_conv_integral(*leaves, j, d)
     g = torch.randn_like(coords)
     coords.backward(g)
     assert (iv.launches, iv.bwd_launches, fhi.launches, fhi.bwd_launches) == (1, 1, 0, 0)
+    assert (fhi.f32_launches, fhi.f32_bwd_launches) == (0, 0)
     ref_leaves = [t.clone().requires_grad_() for t in (feat, kernel, bias)]
     ref = fhi.plain(*ref_leaves, j, d, w)[0]
     ref.backward(g)
@@ -583,12 +589,166 @@ def test_fused_op_without_a_plan_runs_k3_and_k4(cuda, c, d):
 @pytest.mark.cuda
 def test_fused_supported_shapes_fit_shared_memory(cuda):
     """Every channel count fused_supported admits fits K1's and K2's shared
-    memory, so the predicate needs no size check."""
+    memory, and K1/K2-fp32's, so the predicate needs no size check."""
     for c in range(16, 257, 16):
-        assert fhi.fused_supported(c, 64, torch.bfloat16)
+        assert fhi.fused_supported(18, 64, 4096, c, torch.bfloat16)
         assert fhi._lib().ihpr_fused_head_integral_fwd_smem(c) <= fhi._MAX_SMEM
         assert fhi._bwd_lib().ihpr_fused_head_integral_bwd_smem(c) <= fhi._MAX_SMEM
+    for c in range(32, 257, 32):
+        assert fhi._lib(fhi._F32_LIB).ihpr_fused_head_integral_fwd_f32_smem(c) <= fhi._MAX_SMEM
+        assert fhi._bwd_lib(fhi._F32_BWD_LIB).ihpr_fused_head_integral_bwd_f32_smem(c) <= fhi._MAX_SMEM
     assert fhi._bwd_lib().ihpr_fused_head_integral_bwd_max_channels() == fhi._MAX_CHANNELS
+    assert fhi._bwd_lib(fhi._F32_BWD_LIB).ihpr_fused_head_integral_bwd_f32_max_channels() == fhi._MAX_CHANNELS
+
+
+# --- K1/K2-fp32: 3xTF32 (csrc/tf32x3.cuh) ------------------------------------------
+
+
+def _tf32x3_lib():
+    lib = _build.load("tf32x3_selftest")
+    lib.ihpr_tf32x3_split.restype = lib.ihpr_tf32x3_product.restype = ctypes.c_int
+    lib.ihpr_tf32x3_split.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
+    lib.ihpr_tf32x3_product.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
+    return lib
+
+
+@pytest.mark.cuda
+def test_tf32x3_split(cuda):
+    """hi is x rounded to TF32 (low 13 bits zero), bitwise what
+    cvt.rna.tf32.f32 gives; the remainder x - hi is exact in fp32, so
+    hi + (x - hi) gives x back bitwise; lo is the
+    remainder rounded to TF32 and in its turn has its low 13 bits zero, so
+    hi + lo is within 2^-22 |x| of x (not x itself: a TF32 lo keeps 11 of
+    the remainder's up to 13 significant bits)."""
+    gen = torch.Generator().manual_seed(3)
+    x = torch.cat([torch.randn(1 << 16, generator=gen) * 10.0 ** torch.randint(-6, 7, (1 << 16,), generator=gen),
+                   torch.tensor([0.0, 1.0, -1.0, 1.0 + 2.0**-23, -(2.0 - 2.0**-23), 3.0e38, -1.0e-30])]).to(cuda)
+    hi, rem, lo, rna = (torch.empty_like(x) for _ in range(4))
+    lib = _tf32x3_lib()
+    assert lib.ihpr_tf32x3_split(x.data_ptr(), hi.data_ptr(), rem.data_ptr(), lo.data_ptr(), rna.data_ptr(),
+                                 x.numel(), torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    low = (1 << 13) - 1
+
+    def bad(ok):  # the first few x where a check fails, for the message
+        return [(float(v), float(h), float(r), float(lo_)) for v, h, r, lo_ in
+                zip(x[~ok][:4], hi[~ok][:4], rem[~ok][:4], lo[~ok][:4])]
+
+    ok = (hi.view(torch.int32) & low) == 0
+    assert bool(ok.all()), f"hi not TF32: {bad(ok)}"
+    ok = hi.view(torch.int32) == rna.view(torch.int32)
+    assert bool(ok.all()), f"hi is not cvt.rna.tf32.f32's: {bad(ok)}"
+    ok = (lo.view(torch.int32) & low) == 0
+    assert bool(ok.all()), f"lo not TF32: {bad(ok)}"
+    ok = hi + rem == x
+    assert bool(ok.all()), f"hi + (x - hi) != x: {bad(ok)}"
+    ok = rem.double() == x.double() - hi.double()  # the remainder is exact
+    assert bool(ok.all()), f"x - hi inexact: {bad(ok)}"
+    ok = (x.double() - hi.double() - lo.double()).abs() <= 2.0**-22 * x.double().abs()
+    assert bool(ok.all()), f"|x - (hi + lo)| > 2^-22 |x|: {bad(ok)}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [8, 256], ids=["k8", "k256"])
+def test_tf32x3_tile_product_against_float64(cuda, k):
+    """One m16n8 tile of A (16 x K) B (K x 8) by 3xTF32, and that tile
+    turned in registers into the A fragment of a second product (the path
+    of K2-fp32's contractions over dv): each element within 2^-20 of
+    sum_k |a b| of float64, where one TF32 pass errs by ~2^-11."""
+    gen = torch.Generator().manual_seed(k)
+    a = torch.randn(16, k, generator=gen).to(cuda)
+    b = torch.randn(k, 8, generator=gen).to(cuda)
+    b2 = torch.randn(8, 8, generator=gen).to(cuda)
+    d, e = torch.empty(16, 8, device=cuda), torch.empty(16, 8, device=cuda)
+    assert _tf32x3_lib().ihpr_tf32x3_product(a.data_ptr(), b.data_ptr(), b2.data_ptr(), d.data_ptr(),
+                                              e.data_ptr(), k, torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    a64, b64, b264 = a.double(), b.double(), b2.double()
+    d64 = a64 @ b64
+    assert bool(((d.double() - d64).abs() <= 2.0**-20 * (a64.abs() @ b64.abs())).all())
+    e64 = d.double() @ b264  # from the kernel's own d
+    assert bool(((e.double() - e64).abs() <= 2.0**-20 * (d.double().abs() @ b264.abs())).all())
+    one_pass = (a64 @ b64 - (a.to(torch.bfloat16).double() @ b.to(torch.bfloat16).double())).abs().max()
+    assert float((d.double() - d64).abs().max()) < 1e-3 * float(one_pass)  # far below a 16-bit pass
+
+
+F32_HEAD = (8, 32, 32, 256, 18, 64)  # a flagship-width head at 32x32
+
+
+@pytest.mark.cuda
+def test_f32_kernels_against_float64(cuda):
+    """K1-fp32 and K2-fp32 against plain / plain_bwd run in float64 on the
+    same fp32 inputs, beside the no-plan route (fp32 cuBLAS with TF32 off,
+    then K3/K4) on the same inputs: K1-fp32's coords at most twice the
+    no-plan route's distance from float64 (plus 1e-6 voxel), which shows
+    "highest" holds; each gradient of K2-fp32 within 1e-4 of float64's
+    largest (fp32 sums of up to B*HW terms)."""
+    b, h, w, c, j, d = F32_HEAD
+    feat, kernel, bias = _head_inputs(F32_HEAD, cuda, torch.float32, seed=8)
+    f64 = [t.double() for t in (feat, kernel, bias)]
+    want = fhi.plain(*f64, j, d, w)
+    got = fhi.kernel_stats(feat, kernel, bias, j, d, w)
+    with fhi.no_tf32():
+        logits = torch.addmm(bias, feat.view(-1, c), kernel).view(b, h * w, j * d)
+    route = iv.kernel_stats(logits, j, d, w)
+    torch.cuda.synchronize()
+    k1_err = float((got[0].double() - want[0]).abs().max())
+    route_err = float((route[0].double() - want[0]).abs().max())
+    assert float((want[0] - want[0].mean()).abs().max()) > 1.0  # peaked
+    assert k1_err <= 2 * route_err + 1e-6, (k1_err, route_err)
+
+    g = torch.randn(b, j, 3, generator=torch.Generator().manual_seed(9)).to(cuda)
+    coords = want[0].float().contiguous()
+    m, s = got[1], got[2]
+    grads = fhi.kernel_bwd(feat, kernel, bias, m, s, coords, g, j, d, w)
+    ref = fhi.plain_bwd(*f64, m.double(), s.double(), coords.double(), g.double(), j, d, w)
+    torch.cuda.synchronize()
+    for name, a, r in zip(("dfeat", "dW", "db"), grads, ref):
+        _assert_rel_close(a.double(), r, 1e-4, name)
+
+
+@pytest.mark.cuda
+def test_f32_kernels_are_deterministic(cuda):
+    """K1-fp32 merges its warps' states and K2-fp32 reduces its partials in
+    a fixed order, with no atomics: repeated launches on the same inputs
+    agree bit for bit, each K1-fp32 launch after a bf16 matmul that leaves
+    other data in shared memory."""
+    b, h, w, c, j, d = 16, 64, 64, 256, 18, 64
+    args = _head_inputs((b, h, w, c, j, d), cuda, torch.float32)
+    first = fhi.kernel_stats(*args, j, d, w)
+    x = torch.randn(2048, 2048, device=cuda, dtype=torch.bfloat16)
+    differ = torch.zeros((), dtype=torch.int64, device=cuda)
+    for _ in range(100):
+        x @ x
+        got = fhi.kernel_stats(*args, j, d, w)
+        differ += torch.stack([(a != b_).any() for a, b_ in zip(got, first)]).any()
+    assert int(differ) == 0, f"{int(differ)} of 100 launches differ from the first"
+    g = torch.randn(b, j, 3, generator=torch.Generator().manual_seed(2)).to(cuda)
+    bwd = [fhi.kernel_bwd(*args, first[1], first[2], first[0], g, j, d, w) for _ in range(3)]
+    for other in bwd[1:]:
+        for a, b_ in zip(bwd[0], other):
+            assert torch.equal(a, b_)
+
+
+@pytest.mark.cuda
+def test_autograd_runs_k1_and_k2_fp32(cuda):
+    """fused_final_conv_integral on fp32 CUDA tensors of a head JAX has a
+    fused plan for runs K1-fp32 forward and K2-fp32 backward, once each
+    (K1/K2 and K3/K4 not at all), and its gradients are K2-fp32's."""
+    b, h, w, c, j, d = 2, 16, 16, 128, 18, 16
+    feat, kernel, bias = _head_inputs((b, h, w, c, j, d), cuda, torch.float32)
+    leaves = [t.clone().requires_grad_() for t in (feat.view(b, h, w, c), kernel, bias)]
+    fhi.launches = fhi.bwd_launches = fhi.f32_launches = fhi.f32_bwd_launches = 0
+    iv.launches = iv.bwd_launches = 0
+    coords = fhi.fused_final_conv_integral(*leaves, j, d)
+    g = torch.randn_like(coords)
+    coords.backward(g)
+    assert (fhi.launches, fhi.bwd_launches, fhi.f32_launches, fhi.f32_bwd_launches) == (0, 0, 1, 1)
+    assert (iv.launches, iv.bwd_launches) == (0, 0)
+    _, m, s = fhi.kernel_stats(feat, kernel, bias, j, d, w)
+    want = fhi.kernel_bwd(feat, kernel, bias, m, s, coords.detach(), g, j, d, w)
+    for leaf, ref in zip(leaves, want):
+        assert torch.equal(leaf.grad.reshape(ref.shape), ref)
 
 
 # --- K5-K8: the conv + BN-statistics kernels ------------------------------------

@@ -101,7 +101,8 @@ def test_r152_config_matches_jax():
     assert cfg == to_port_cfg(jcfg)
     assert (cfg.model.resnet_type, cfg.data.input_shape, cfg.data.output_shape) == (152, (384, 288), (96, 72))
     assert cfg.optim.batch_size_per_device == 32
-    assert fhi.fused_supported(cfg.model.deconv_channels, cfg.data.depth_dim, torch.bfloat16)
+    h, w = cfg.data.output_shape
+    assert fhi.fused_supported(18, cfg.data.depth_dim, h * w, cfg.model.deconv_channels, torch.bfloat16)
 
 
 def test_r152_coords_match_jax(r152):

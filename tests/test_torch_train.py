@@ -141,7 +141,7 @@ def test_fused_saves_nothing_without_grad(monkeypatch):
     feat, kernel, bias = (torch.from_numpy(a).requires_grad_() for a in _head_inputs(ALIGNED))
     feat = feat.reshape(b, h * w, c)
 
-    def run():  # FusedHeadIntegral as bf16 heads reach it (fp32 heads take the no-plan route)
+    def run():  # FusedHeadIntegral as heads with a fused plan reach it
         return fhi.FusedHeadIntegral.apply(feat, kernel, bias, j, d, w, torch.is_grad_enabled())
 
     with torch.no_grad():
