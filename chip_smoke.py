@@ -28,14 +28,17 @@
 5d. K1-fp32 / K2-fp32 (the fused head in 3xTF32, f32_kernel_phase) on the
    fp32 flagship head (64x64, C=256, J=18, D=64): the head through
    fused_final_conv_integral at B=8, counted (K1/K2-fp32 once each,
-   nothing else), against plain / plain_bwd; mma.sync's TF32 and bf16
-   rates alone; K1-fp32 at B = 64 and 128 against plain (5e-4 voxel), its
+   nothing else), against plain / plain_bwd; the tensor cores' rates alone
+   (mma.sync TF32 and bf16, wgmma TF32 n64 and n32 with A from registers);
+   the split pre-pass bitwise split_planes; K1-fp32 at B = 64 and 128
+   against plain (5e-4 voxel), its
    distance from plain in float64 at most twice the no-plan route's
    (cuBLAS fp32 + K3) on the same inputs, 500 repeated launches bitwise
    equal; K2-fp32 at B = 32 and 128 against plain_bwd (1e-4 of each
    largest), two runs bitwise equal; K1-fp32 at B = 32, 64, 128 and K2-fp32
    at 32 and 128 timed beside plain and the no-plan route (the library),
-   in turns; K2-fp32's four launches' device time (torch.profiler).
+   in turns; K1-fp32's three and K2-fp32's four launches' device time
+   (torch.profiler).
 5c. K5/K6 (fused 1x1 conv + BN statistics) and K7/K8 (fused 3x3 conv + BN
    statistics), forward and backward: against plain / plain_bwd at every
    shape of the flagship fused step and of a fused_1x1-alone step (bf16)
@@ -1670,10 +1673,11 @@ PEAK_TF32_FLOPS = 494.7e12  # dense TF32 on the tensor cores (H100 SXM, 700 W)
 
 
 def f32_bound(b, products, hw=None):
-    """(ms, bound_by) of K1-fp32 (1 product) or K2-fp32 (3) at (b, hw, 256)
-    x (256, 1152): three TF32 passes a product on the tensor cores (3xTF32)
-    against reading feat and W once, and for K2 writing dfeat and dW once,
-    in fp32."""
+    """(ms, bound_by) of K1-fp32 (1 product) or K2-fp32 (3: the function's
+    dfeat, dW and the logits once; 4 with the logits recomputed in each of
+    its two kernels, its own work) at (b, hw, 256) x (256, 1152): three
+    TF32 passes a product on the tensor cores (3xTF32) against reading feat
+    and W once, and for K2 writing dfeat and dW once, in fp32."""
     hw = _HEAD[0] if hw is None else hw
     _, c, jd = _HEAD
     flops = 3 * products * 2 * b * hw * c * jd
@@ -1683,28 +1687,34 @@ def f32_bound(b, products, hw=None):
 
 
 MMA_RATE_BLOCKS, MMA_RATE_ITERS = 528, 4096  # 4 CTAs an SM
+WGMMA_RATE_BLOCKS, WGMMA_RATE_ITERS = 132, 2048  # one CTA of 2 warpgroups an SM
 
 
-def mma_sync_rates():
-    """TFLOP/s of mma.sync m16n8k8 TF32 and m16n8k16 bf16 alone (no loads;
-    tf32x3_selftest.cu's rate kernel), CUDA events: what K1/K2-fp32's
-    products can reach at most on mma.sync."""
+def tensor_core_rates():
+    """TFLOP/s of the tensor cores' paths alone (no loads; tf32x3_selftest.cu's
+    rate kernels), CUDA events: mma.sync m16n8k8 TF32 and m16n8k16 bf16 (what
+    an mma.sync design of K1/K2-fp32 could reach at most), then wgmma
+    m64n64k8 and m64n32k8 TF32 with A from registers (what K1/K2-fp32's
+    products can reach at most)."""
     from ihpr_tpu_torch.ops import _build
 
     lib = _build.load("tf32x3_selftest")
-    lib.ihpr_tf32x3_mma_rate.restype = ctypes.c_int
-    lib.ihpr_tf32x3_mma_rate.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    out = torch.empty(MMA_RATE_BLOCKS * 256, device="cuda")
+    for fn in (lib.ihpr_tf32x3_mma_rate, lib.ihpr_tf32x3_wgmma_rate):
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    out = torch.empty(max(MMA_RATE_BLOCKS, WGMMA_RATE_BLOCKS) * 256, device="cuda")
+    runs = [(lib.ihpr_tf32x3_mma_rate, MMA_RATE_BLOCKS, MMA_RATE_ITERS, 0, MMA_RATE_BLOCKS * 8 * 8 * 2048),
+            (lib.ihpr_tf32x3_mma_rate, MMA_RATE_BLOCKS, MMA_RATE_ITERS, 1, MMA_RATE_BLOCKS * 8 * 8 * 4096),
+            (lib.ihpr_tf32x3_wgmma_rate, WGMMA_RATE_BLOCKS, WGMMA_RATE_ITERS, 64, WGMMA_RATE_BLOCKS * 2 * 8 * 65536),
+            (lib.ihpr_tf32x3_wgmma_rate, WGMMA_RATE_BLOCKS, WGMMA_RATE_ITERS, 32, WGMMA_RATE_BLOCKS * 2 * 8 * 32768)]
     rates = []
-    for bf16 in (0, 1):
+    for fn, blocks, iters, arg, flops_per_iter in runs:
         def run():
-            err = lib.ihpr_tf32x3_mma_rate(out.data_ptr(), MMA_RATE_BLOCKS, MMA_RATE_ITERS, bf16,
-                                           torch.cuda.current_stream().cuda_stream)
+            err = fn(out.data_ptr(), blocks, iters, arg, torch.cuda.current_stream().cuda_stream)
             if err:
                 raise RuntimeError(f"tf32x3_selftest rate launch failed: CUDA error {err}")
 
-        flops = MMA_RATE_BLOCKS * 8 * MMA_RATE_ITERS * 8 * (4096 if bf16 else 2048)
-        rates.append(flops / _cuda_ms(run, 3, reps=3) / 1e9)
+        rates.append(flops_per_iter * iters / _cuda_ms(run, 3, reps=3) / 1e9)
     return rates
 
 
@@ -1723,8 +1733,12 @@ def f32_kernel_phase(fhi, iv, gpu: str):
     K1-fp32, plain and the no-plan route's forward (cuBLAS addmm, TF32 off,
     + K3) at F32_K1_BATCHES; K2-fp32, plain_bwd and the no-plan route's
     backward (K4 + two cuBLAS matmuls + db's sum, on saved logits) at
-    F32_K2_BATCHES. Returns (K1-fp32, K2-fp32) launches of (1), the largest
-    differences from plain, and {b: (kernel, plain, library) ms} of each."""
+    F32_K2_BATCHES. (5) Each call's launches' device time at
+    F32_TRAIN_BATCH (torch.profiler). Returns (K1-fp32, K2-fp32) launches
+    of (1), the largest differences from plain, and {b: (kernel, plain,
+    library) ms} of each."""
+    from ihpr_tpu_torch.ops import _build
+
     hw, w, c, j, d = 64 * 64, 64, 256, 18, 64
     # (1) the fused op on the fp32 head, counted
     feat, kernel, bias = _head_inputs(8, hw, c, j * d, torch.float32, 12)
@@ -1757,11 +1771,29 @@ def f32_kernel_phase(fhi, iv, gpu: str):
     k1_errs = [err]
     del leaves, coords, got, again
 
-    # The ceiling of their products: mma.sync alone, on register operands.
-    rates = mma_sync_rates()
-    print(f"mma.sync alone on this card (tf32x3_selftest.cu, {MMA_RATE_BLOCKS} CTAs of 8 warps): m16n8k8 TF32 "
-          f"{rates[0]:.1f} TFLOP/s ({rates[0] / (PEAK_TF32_FLOPS / 1e12):.3f} of dense TF32's "
-          f"{PEAK_TF32_FLOPS / 1e12:g}), m16n8k16 bf16 {rates[1]:.1f}  [{gpu}]")
+    # The ceiling of their products: the tensor cores' paths alone.
+    rates = tensor_core_rates()
+    peak = PEAK_TF32_FLOPS / 1e12
+    print(f"tensor cores alone on this card (tf32x3_selftest.cu): mma.sync m16n8k8 TF32 {rates[0]:.1f} TFLOP/s "
+          f"({rates[0] / peak:.3f} of dense TF32's {peak:g}; {MMA_RATE_BLOCKS} CTAs of 8 warps), m16n8k16 bf16 "
+          f"{rates[1]:.1f}; wgmma TF32, A from registers ({WGMMA_RATE_BLOCKS} CTAs of 2 warpgroups): m64n64k8 "
+          f"{rates[2]:.1f} ({rates[2] / peak:.3f}), m64n32k8 {rates[3]:.1f} ({rates[3] / peak:.3f})  [{gpu}]")
+
+    # The pre-pass bitwise its plain version, on the flagship head's weight.
+    wt_want, w_want = fhi.split_planes(kernel, j, d)
+    split = _build.load(fhi._F32_BWD_LIB).ihpr_fused_head_integral_bwd_f32_split
+    split.restype = ctypes.c_int
+    split.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    planes = torch.full((4, j * 64, c), float("nan"), device="cuda")
+    if split(kernel.data_ptr(), planes.data_ptr(), c, j, d, torch.cuda.current_stream().cuda_stream):
+        raise RuntimeError("split_planes_kernel launch failed")
+    torch.cuda.synchronize()
+    same = (torch.equal(planes[:2].view(torch.int32), wt_want.view(torch.int32))
+            and torch.equal(planes[2:].reshape(w_want.shape).view(torch.int32), w_want.view(torch.int32)))
+    print(f"split_planes_kernel ({c}, {j * d}) -> 4 planes of ({j * 64}, {c}): bitwise split_planes: {same}")
+    if not same:
+        raise AssertionError("the fp32 kernels' pre-pass differs from split_planes")
+    del planes, wt_want, w_want
 
     # (2) K1-fp32 against plain, float64 and itself; (4) its times
     fwd = {}
@@ -1827,23 +1859,23 @@ def f32_kernel_phase(fhi, iv, gpu: str):
             fn, out = runs[name]
             out.append(_cuda_ms(fn, 1 if name == "plain" else 3, reps=3))
         bwd[b] = tuple(statistics.median(runs[k][1]) for k in ("kernel", "plain", "library"))
-        bound = f32_bound(b, 3)[0]
+        bound, bound4 = f32_bound(b, 3)[0], f32_bound(b, 4)[0]
         print(f"K2-fp32 ({b}, {hw}, {c}) x ({c}, {j * d}): kernel {bwd[b][0]:.4f} ms ({9 * 2 * b * hw * c * j * d / bwd[b][0] / 1e9:.1f} "
-              f"TFLOP/s of TF32 passes over its 3 products; bound {bound:.4f} ms, {bound / bwd[b][0]:.3f} of it), "
-              f"plain_bwd {bwd[b][1]:.4f} ms, no-plan route (K4 + cuBLAS fp32) {bwd[b][2]:.4f} ms; two runs "
-              f"bitwise equal  [{gpu}]")
+              f"TFLOP/s of TF32 passes over the function's 3 products; bound {bound:.4f} ms, {bound / bwd[b][0]:.3f} "
+              f"of it; over the 4 it computes {bound4:.4f} ms, {bound4 / bwd[b][0]:.3f}), plain_bwd {bwd[b][1]:.4f} ms, "
+              f"no-plan route (K4 + cuBLAS fp32) {bwd[b][2]:.4f} ms; two runs bitwise equal  [{gpu}]")
         del args, feat, flat, logits, runs, got
         torch.cuda.empty_cache()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        args = _bwd_inputs(fhi, F32_TRAIN_BATCH, hw, c, j, d, w, torch.float32, 4)
-        for _ in range(3):
-            fhi.kernel_bwd(*args, j, d, w)
-        torch.cuda.synchronize()
-    names = ("transpose_kernel", "dfeat_kernel", "dw_kernel", "reduce_kernel")  # one call's launches
-    parts = [f"{k} {e.self_device_time_total / e.count / 1e3:.4f} ms"
-             for e in prof.key_averages() for k in names if k in e.key]
-    print(f"K2-fp32's launches per call at B={F32_TRAIN_BATCH} (torch.profiler, 3 calls): "
-          f"{', '.join(parts) or 'not measured'}  [{gpu}]")
+    # (5) each call's launches
+    args = _bwd_inputs(fhi, F32_TRAIN_BATCH, hw, c, j, d, w, torch.float32, 4)
+    for label, fn, expect in (
+            ("K1-fp32", lambda: fhi.kernel_stats(*args[:3], j, d, w), ("fwd_f32_kernel",)),
+            ("K2-fp32", lambda: fhi.kernel_bwd(*args, j, d, w), ("dfeat_kernel", "dw_kernel"))):
+        ms = _launch_ms(fn, 3, expect)  # the kernel's launches, not the wrapper's torch ops
+        parts = ", ".join(f"{_kernel_label(k)} {v:.4f} ms" for k, v in ms.items()
+                          if not _kernel_label(k).startswith("at::"))
+        print(f"{label}'s launches per call at B={F32_TRAIN_BATCH} (torch.profiler, 3 calls): "
+              f"{parts or 'not measured'}  [{gpu}]")
     del args
     torch.cuda.empty_cache()
     return counts[4], counts[5], max(k1_errs), max(k2_errs), fwd, bwd

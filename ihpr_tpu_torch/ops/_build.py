@@ -58,11 +58,13 @@ def _link_flags(name: str) -> list:
     return flags
 
 
-def build(name: str) -> Path:
+def build(name: str, defines: tuple = ()) -> Path:
     """Compile ``csrc/<name>.cu`` unless its library is newer than the
-    source and every header under ``csrc/``; return the library's path."""
+    source and every header under ``csrc/``; return the library's path.
+    ``defines`` are ``-D`` macros (a stripped build for timing), named in
+    the library's file name."""
     src = CSRC / f"{name}.cu"
-    lib = BUILD_DIR / f"lib{name}.so"
+    lib = BUILD_DIR / f"lib{name}{''.join('-' + d.lower() for d in defines)}.so"
     newest = max(p.stat().st_mtime for p in (src, *CSRC.glob("*.cuh")))
     if lib.exists() and lib.stat().st_mtime >= newest:
         return lib
@@ -70,12 +72,13 @@ def build(name: str) -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
     proc = subprocess.run(
-        [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src), *link], capture_output=True, text=True
+        [nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", str(tmp), str(src), *link],
+        capture_output=True, text=True,
     )
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}{proc.stderr}")
-    (BUILD_DIR / f"lib{name}.log").write_text(proc.stdout + proc.stderr)
+    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, lib)
     return lib
 

@@ -15,66 +15,70 @@
 //     db    = sum_{b,r} dv     (J*D,)
 // all in fp32, dv not rounded (ops/fused_head_integral.py:plain_bwd for
 // fp32 operands). The logits and dv are recomputed in each kernel and
-// never written. Every product is 3xTF32 on mma.sync m16n8k8 (tf32x3.cuh).
+// never written. Every product is 3xTF32 on wgmma (fused_head_f32.cuh).
 //
-// Design: four launches, as K2's (bf16): dfeat contracts over all J*D
-// columns and dW over all rows of all samples, so no one layout of CTAs
-// owns both sums.
-//   1. transpose (fused_head_common.cuh): W (C, J*D) -> Wt (J*D, C).
-//   2. dfeat_kernel, one CTA (8 warps) per (128 rows, sample): the rows
-//      stay in shared memory, and Wt streams through a two-stage cp.async
-//      ring in chunks of 32 bins of one joint. Per chunk each warp forms
-//      S = F W (16 rows x 32 bins), turns it into dv in registers, and
-//      adds dv W^T to its 16 x C dfeat accumulator; dv's accumulator
-//      fragments serve as the next product's A operand in place
-//      (tf32x3::as_a), so dv never touches shared memory.
-//   3. dw_kernel, one CTA per (joint, range of 32-row feature tiles, any
-//      samples): Wt_j stays resident; the warps form two groups of four
-//      that take alternate tiles of a two-stage ring, and each warp owns 16
-//      bins. Per tile: S^T = W_j^T F^T (16 bins x 32 rows), dv^T in place,
-//      db's sums in fp32, then dW_j^T (16 bins x C, registers) += dv^T F.
-//      Each group writes its partial: 2 x ranges x J x C x 64 fp32.
-//   4. reduce_kernel: dW and db as the sums of the partials in a fixed
-//      order.
+// Design (an earlier one on mma.sync, every operand read and split through
+// registers, ran 9.46 ms at B = 32): four launches, as K2's (bf16):
+// dfeat contracts over all J*D columns and dW over all rows of all samples,
+// so no one layout of CTAs owns both sums.
+//   1. split_planes_kernel: W split once into TF32 hi / lo planes, Wt
+//      (J*64, C) K-major over channels and W (C, J*64) K-major over bins in
+//      as_a's order.
+//   2. dfeat_kernel, one CTA per (128 rows, sample): the rows land once by
+//      TMA and stay (64 per consumer warpgroup); the weights stream through
+//      a ring of kStages stages of 16 KB (a 64 x 32 hi tile and its lo
+//      tile), which both warpgroups read. Per joint: S = F Wt_j^T (64 rows
+//      x 64 bins, wgmma m64n64k8, A the rows split in registers), dv in the
+//      accumulator, then dfeat (64 rows x C, 4 accumulators of n64) += dv
+//      W_j with dv's accumulator turned into A in registers (as_a).
+//   3. dw_kernel, one CTA per (joint, range of 64-row feature tiles, any
+//      samples): Wt_j's planes resident; the tile's 32-channel blocks land
+//      in a ring of one slot each. Warpgroup w forms S for bins [32w, 32w +
+//      32) (n32), writes dv^T into two shared-memory planes (hi, lo: bins x
+//      64 rows, K-major over rows) and, after a barrier of both
+//      warpgroups, adds F^T dv (channel tiles w, w + 2, all 64 bins: A the
+//      tile's values read transposed and split in registers, each k-step's
+//      wgmmas issued as soon as its A is split; B the dv^T planes) into its
+//      dW_j accumulators, flushed into the partial every kFlush tiles; db's
+//      sums in fp32. A block is free once the warpgroup whose channels it
+//      holds has read it for F^T, so the next tile's blocks land while the
+//      channel tiles after them are multiplied. (Warpgroups that each own
+//      32 bins end to end, sharing only the ring, ran 1.5x slower: twice
+//      the F^T splits, n32 products.)
+//   4. reduce_kernel: dW and db as the sums of the ranges' partials in a
+//      fixed order.
 // Every sum has a fixed order, so the results are bitwise the same from
 // run to run (on one card: the ranges follow its SM count); nothing is
 // atomic. The TPU kernel carried dW / db in VMEM scratch across a grid that
 // runs in order, which on a GPU grid would race.
 //
-// Shapes: any J, D <= 64, any HW; C a multiple of 32 up to 256 (the
-// register accumulators). Bins past D get dv = 0 and rows past HW dv = 0;
-// neither adds anything.
+// Shapes: any J, D <= 64, any HW; C a multiple of 32 up to 256. Bins past D
+// get dv = 0 and rows past HW dv = 0; neither adds anything.
 //
-// What bounds it on an H100: three products, 3 * 3 * 2*B*HW*C*J*D
-// tensor-core operations at TF32's 494.7 TFLOP/s (5.625 ms at 128 x 4096 x
-// 256 x 1152), against reading feat and writing dfeat once (2*B*HW*C*4
-// bytes): compute bound. Beside the products: the operand splits, two exp
-// passes (one per kernel), Wt re-read from L2 by every dfeat CTA, and feat
-// re-read from L2 by the J dW CTAs of a range.
+// What bounds it on an H100: four products (the logits in both kernels,
+// dfeat, dW), 3 * 4 * 2*B*HW*C*J*D tensor-core operations at TF32's 494.7
+// TFLOP/s (1.875 ms at 32 x 4096 x 256 x 1152; 1.406 for the three products
+// of the function) against reading feat and writing dfeat once
+// (2*B*HW*C*4 bytes): compute bound. Beside the products: the A splits in
+// registers (each feature value split J times in dfeat and twice a joint in
+// dW), the weights re-read from L2 by every dfeat CTA, and feat re-read from
+// L2 by the J dW CTAs of a range.
 
 #include <algorithm>
 
-#include "fused_head_common.cuh"
-#include "tf32x3.cuh"
+#include "fused_head_f32.cuh"
 
 namespace {
 
 using namespace fhi;
-using namespace tf32x3;
+using namespace hopper;
+using namespace f32h;
 
-constexpr int kMaxC = 256;       // channels the register accumulators hold
-constexpr int kMaxNt = kMaxC / 8;
-constexpr int kBins = 64;        // depth bins of a joint's slab
-constexpr int kRowVals = 8;      // per (b, j): m + log s, gx, gy, gz, cx, cy, cz, 0
-constexpr int kCtaThreads = 256;  // 8 warps
-constexpr int kDfRows = 128;     // dfeat: feature rows per CTA, 16 per warp
-constexpr int kZc = 32;          // dfeat: bins per Wt chunk
-constexpr int kDwRows = 32;      // dW: feature rows per tile
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+constexpr int kMaxC = 256;        // channels the accumulators hold
+constexpr int kRowVals = 8;       // per (b, j): m + log s, gx, gy, gz, cx, cy, cz, 0
+constexpr int kCtaThreads = 384;  // producer warpgroup + 2 consumer warpgroups
+constexpr int kStages = 4;        // dfeat: weight stages in flight (4 and 6 timed alike)
+constexpr int kFlush = 16;        // dW: 64-row tiles summed in the accumulators between flushes
 
 // The per-(b, j) row of K1's results and the cotangent.
 struct Row {
@@ -87,302 +91,390 @@ struct Row {
     return gx * ((float)(row % width) - cx) + gy * ((float)(row / width) - cy);
   }
   // dv of a logit v (without bias) at bias bz, given tx + tz.
-  __device__ float dv(float v, float bz, float txz) const { return ex2((v + bz - lse) * kLog2e) * txz; }
+  __device__ float dv(float v, float bz, float txz) const { return f32_ex2((v + bz - lse) * kLog2e) * txz; }
 };
 
-// Copies rows [row0, row0 + n) of a (rows_total, C) fp32 matrix into
-// shared memory at pitch C + 4, rows past rows_total clamped to its last.
-__device__ __forceinline__ void load_rows(float* dst, const float* src, int row0, int n, int rows_total,
-                                          int C, int tid) {
-  const int cq = C / 4;
-  for (int i = tid; i < n * cq; i += kCtaThreads) {
-    const int r = i / cq, q = i % cq;
-    cp_async16(dst + r * (C + 4) + q * 4, src + (size_t)min(row0 + r, rows_total - 1) * C + q * 4);
-  }
-}
+// ---- dfeat ---------------------------------------------------------------------------
 
-template <int M, int N>
-__device__ __forceinline__ void zero(float (&d)[M][N][4]) {
-#pragma unroll
-  for (int m = 0; m < M; ++m)
-#pragma unroll
-    for (int n = 0; n < N; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) d[m][n][e] = 0.f;
-}
+// Shared memory: the rows [2 warpgroups][nkb] tiles, the ring [kStages][hi,
+// lo] tiles, the mbarriers.
+struct DfLayout {
+  int nkb;
+  __host__ __device__ explicit DfLayout(int C) : nkb(C / kKb) {}
+  __host__ __device__ size_t ring() const { return (size_t)2 * nkb * kTile; }
+  __host__ __device__ size_t bars() const { return ring() + (size_t)kStages * 2 * kTile; }
+  __host__ __device__ size_t bytes() const { return 1024 + bars() + (1 + 2 * kStages) * 8; }
+};
 
-// acc (16 x 8*nct, in groups of 8 n tiles) += A (16 x 8, given split) B,
-// B's k-slot t at q[0] and slot t + 4 at q[ld], n tile nt at q[8 nt]: the
-// products over dv (as_a), whose k-slot t is row or bin 2t. Each group's
-// B tiles are split, then its 3xTF32 passes run.
-template <int G>
-__device__ __forceinline__ void mma3_b_rows(float (&acc)[G][1][8][4], const uint32_t (&ah)[1][4],
-                                            const uint32_t (&al)[1][4], const float* q, int ld, int nct) {
-#pragma unroll
-  for (int grp = 0; grp < G; ++grp) {
-    if (grp * 8 < nct) {
-      uint32_t bh[8][2], bl[8][2];
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const float* p = q + (grp * 8 + nt) * 8;
-        if (grp * 8 + nt < nct) split_b(p[0], p[ld], bh[nt], bl[nt]);
-      }
-      mma3(acc[grp], ah, al, bh, bl, nct - grp * 8);
-    }
-  }
-}
-
-__host__ __device__ inline size_t dfeat_smem(int C) {
-  return sizeof(float) * (size_t)(kDfRows + 2 * kZc) * (C + 4);
-}
+// Weight stages of one joint: the logits' nkb channel blocks of Wt_j, then
+// dfeat's (bin block kbb < nkbb, channel chunk nc < nnc) tiles of W_j.
+__device__ __forceinline__ int df_stages(int C, int D) { return C / kKb + (D > kKb ? 2 : 1) * cdiv(C, kBox); }
 
 __global__ void __launch_bounds__(kCtaThreads, 1)
-    dfeat_kernel(const float* __restrict__ feat, const float* __restrict__ wt,
-                 const float* __restrict__ bias, const float* __restrict__ rows,
-                 float* __restrict__ dfeat, int hw, int width, int C, int J, int D) {
-  extern __shared__ __align__(16) float smem[];
-  const int ld = C + 4;
-  float* f_s = smem;                // [kDfRows][ld]
-  float* ring = f_s + kDfRows * ld;  // [2][kZc][ld]
-  const int b = blockIdx.y, row0 = blockIdx.x * kDfRows, tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const int nq = (D + kZc - 1) / kZc, nchunks = J * nq, nct = C / 8;
-  const float* fb = feat + (size_t)b * hw * C;
+    dfeat_kernel(const __grid_constant__ CUtensorMap fmap, const __grid_constant__ CUtensorMap wtmap,
+                 const __grid_constant__ CUtensorMap wmap, const float* __restrict__ bias,
+                 const float* __restrict__ rows, float* __restrict__ dfeat, int hw, int width, int C, int J,
+                 int D) {
+  unsigned char* base = smem_base();
+  const DfLayout L(C);
+  const int nkb = L.nkb, nnc = cdiv(C, kBox), nkbb = D > kKb ? 2 : 1, per_joint = df_stages(C, D);
+  unsigned char* f_s = base;
+  unsigned char* ring = base + L.ring();
+  uint64_t* f_full = reinterpret_cast<uint64_t*>(base + L.bars());
+  uint64_t* full = f_full + 1;
+  uint64_t* empty = full + kStages;
+  const int b = blockIdx.y, row0 = blockIdx.x * 2 * kBox, tid = threadIdx.x;
 
-  // Chunk n: bins [32 (n % nq), + 32) of joint n / nq.
-  auto load = [&](int n) {
-    load_rows(ring + (n & 1) * kZc * ld, wt, (n / nq) * D + (n % nq) * kZc, kZc, J * D, C, tid);
-  };
-  load_rows(f_s, fb, row0, kDfRows, hw, C, tid);
-  load(0);
-  cp_async_commit();
+  if (tid == 0) {
+    mbar_init(f_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
 
-  const int r_lo = row0 + warp * 16 + g, r_hi = r_lo + 8;
-  const bool ok_lo = r_lo < hw, ok_hi = r_hi < hw;
-  const float* fw = f_s + warp * 16 * ld;
+  if (tid < 128) {  // producer warpgroup
+    setmaxnreg_dec<40>();
+    if (tid == 0) {
+      mbar_arrive_expect_tx(f_full, 2 * nkb * kTile);
+      for (int h = 0; h < 2; ++h)
+        for (int kb = 0; kb < nkb; ++kb)
+          tma_load_3d(f_s + (h * nkb + kb) * kTile, &fmap, f_full, kb * kKb, row0 + h * kBox, b);
+      const int total = J * per_joint, jd = J * kBins;
+      for (int n = 0; n < total; ++n) {
+        const int s = n % kStages, j = n / per_joint, k = n % per_joint;
+        unsigned char* dst = ring + s * 2 * kTile;
+        mbar_wait(&empty[s], ((n / kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[s], 2 * kTile);
+        if (k < nkb) {  // Wt_j's channel block k: 64 bins x 32 channels
+          tma_load_2d(dst, &wtmap, &full[s], k * kKb, j * kBins);
+          tma_load_2d(dst + kTile, &wtmap, &full[s], k * kKb, jd + j * kBins);
+        } else {  // W_j's bins [32 kbb, + 32) of channels [64 nc, + 64)
+          const int kbb = (k - nkb) / nnc, nc = (k - nkb) % nnc;
+          tma_load_2d(dst, &wmap, &full[s], j * kBins + kbb * kKb, nc * kBox);
+          tma_load_2d(dst + kTile, &wmap, &full[s], j * kBins + kbb * kKb, C + nc * kBox);
+        }
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<232>();
+  const int ctid = tid - 128, wg = ctid >> 7, wq = (ctid >> 5) & 3;
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int r_lo = row0 + wg * kBox + wq * 16 + g, r_hi = r_lo + 8;
+  const unsigned char* fw = f_s + wg * nkb * kTile;
   const float* rows_b = rows + (size_t)b * J * kRowVals;
 
-  float dacc[kMaxNt / 8][1][8][4];  // 8 n tiles (64 channels) a group
+  float dacc[kMaxC / kBox][kBins / 2];  // dfeat: channel chunk nc, n64
 #pragma unroll
-  for (int q = 0; q < kMaxNt / 8; ++q)
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dacc[q][0][nt][e] = 0.f;
+  for (int nc = 0; nc < kMaxC / kBox; ++nc) zero(dacc[nc]);
+  mbar_wait(f_full, 0);
 
-  for (int n = 0; n < nchunks; ++n) {
-    if (n + 1 < nchunks) {
-      load(n + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // chunk n (and the rows) are in
-    const int j = n / nq, q0 = (n % nq) * kZc;
-    const int nzt = (min(kZc, D - q0) + 7) / 8;  // n tiles holding bins < D
-    const float* ws = ring + (n & 1) * kZc * ld;
-
-    // S = F W_j (16 rows x 32 bins).
-    float s[1][4][4];
-    zero(s);
-    for (int ks = 0; ks < C / 8; ++ks) {
-      const float* p = fw + g * ld + ks * 8 + t;
-      const float af[4] = {p[0], p[8 * ld], p[4], p[8 * ld + 4]};
-      uint32_t ah[1][4], al[1][4], bh[4][2], bl[4][2];
-      split(af, ah[0], al[0]);
+  int n = 0;  // the stage counter, as the producer's
+  for (int j = 0; j < J; ++j) {
+    // S = F Wt_j^T (64 rows x 64 bins).
+    float sacc[kBins / 2];
+    zero(sacc);
+    for (int kb = 0; kb < nkb; ++kb, ++n) {
+      const int s = n % kStages;
+      uint32_t ah[4][4], al[4][4];
+      load_a(fw + kb * kTile, wq, g, t, ah, al);
+      mbar_wait(&full[s], (n / kStages) & 1);
+      const unsigned char* ws = ring + s * 2 * kTile;
+      fence_acc(sacc);
+      wgmma_fence();
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const float* q = ws + (nt * 8 + g) * ld + ks * 8 + t;
-        if (nt < nzt) split_b(q[0], q[4], bh[nt], bl[nt]);
-      }
-      mma3(s, ah, al, bh, bl, nzt);
+      for (int q = 0; q < 4; ++q) mma3<kBins>(sacc, ah[q], al[q], kdesc(ws, q), kdesc(ws + kTile, q));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(sacc);
+      if (lane == 0) mbar_arrive(&empty[s]);  // the warp's products have read the stage
     }
 
-    // dv in place; 0 past D and past HW.
+    // dv in place, split into A fragments over bins (as_a); 0 past D and HW.
     const Row r(rows_b + j * kRowVals);
     const float tx_lo = r.tx(r_lo, width), tx_hi = r.tx(r_hi, width);
+    uint32_t dh[kBins / 8][4], dl[kBins / 8][4];
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
+    for (int i = 0; i < kBins / 8; ++i) {
 #pragma unroll
       for (int q = 0; q < 2; ++q) {
-        const int z = q0 + nt * 8 + 2 * t + q;
-        const bool in = nt < nzt && z < D;
+        const int z = i * 8 + 2 * t + q;
+        const bool in = z < D;
         const float bz = in ? __ldg(bias + j * D + z) : 0.f;
         const float tz = r.gz * ((float)z - r.cz);
-        float* sv = s[0][nt];
-        sv[q] = in && ok_lo ? r.dv(sv[q], bz, tx_lo + tz) : 0.f;
-        sv[q + 2] = in && ok_hi ? r.dv(sv[q + 2], bz, tx_hi + tz) : 0.f;
+        float* sv = sacc + 4 * i;
+        sv[q] = in && r_lo < hw ? r.dv(sv[q], bz, tx_lo + tz) : 0.f;
+        sv[q + 2] = in && r_hi < hw ? r.dv(sv[q + 2], bz, tx_hi + tz) : 0.f;
       }
+      const float a[4] = {sacc[4 * i], sacc[4 * i + 2], sacc[4 * i + 1], sacc[4 * i + 3]};  // as_a
+      split_a(a, dh[i], dl[i]);
     }
 
-    // dfeat (16 rows x C) += dv W_j^T, k relabelled: slot t is bin 2t.
+    // dfeat (64 rows x C) += dv W_j.
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      if (ks < nzt) {
-        float af[4];
-        as_a(s[0][ks], af);
-        uint32_t ah[1][4], al[1][4];
-        split(af, ah[0], al[0]);
-        mma3_b_rows(dacc, ah, al, ws + (ks * 8 + 2 * t) * ld + g, ld, nct);
+    for (int kbb = 0; kbb < 2; ++kbb) {
+      if (kbb >= nkbb) break;
+#pragma unroll
+      for (int nc = 0; nc < kMaxC / kBox; ++nc) {
+        if (nc >= nnc) break;
+        const int s = n % kStages;
+        mbar_wait(&full[s], (n / kStages) & 1);
+        const unsigned char* ws = ring + s * 2 * kTile;
+        fence_acc(dacc[nc]);
+        wgmma_fence();
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          mma3<kBins>(dacc[nc], dh[4 * kbb + q], dl[4 * kbb + q], kdesc(ws, q), kdesc(ws + kTile, q));
+        wgmma_commit();
+        wgmma_wait<0>();  // one group at a time: with one more in flight ptxas
+                          // serialized every wgmma here (C7512, register resources)
+        fence_acc(dacc[nc]);
+        if (lane == 0) mbar_arrive(&empty[s]);
+        ++n;
       }
     }
-    __syncthreads();  // every warp is done with chunk n's slot
   }
 
   float* out = dfeat + (size_t)b * hw * C;
 #pragma unroll
-  for (int q = 0; q < kMaxNt / 8; ++q) {
+  for (int nc = 0; nc < kMaxC / kBox; ++nc) {
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const float* dd = dacc[q][0][nt];
-      const int c = (q * 8 + nt) * 8 + 2 * t;
-      if (q * 8 + nt < nct) {
-        if (ok_lo) *reinterpret_cast<float2*>(out + (size_t)r_lo * C + c) = make_float2(dd[0], dd[1]);
-        if (ok_hi) *reinterpret_cast<float2*>(out + (size_t)r_hi * C + c) = make_float2(dd[2], dd[3]);
+    for (int i = 0; i < kBins / 8; ++i) {
+      const int c = nc * kBox + i * 8 + 2 * t;
+      const float* dd = dacc[nc] + 4 * i;
+      if (c < C) {
+        if (r_lo < hw) *reinterpret_cast<float2*>(out + (size_t)r_lo * C + c) = make_float2(dd[0], dd[1]);
+        if (r_hi < hw) *reinterpret_cast<float2*>(out + (size_t)r_hi * C + c) = make_float2(dd[2], dd[3]);
       }
     }
   }
 }
 
-__host__ __device__ inline size_t dw_smem(int C) {
-  return sizeof(float) * (size_t)(kBins + 4 * kDwRows) * (C + 4);
-}
+// ---- dW ------------------------------------------------------------------------------
+
+// Shared memory: Wt_j's hi tiles [nkb] and lo tiles [nkb], the feature
+// tile's channel blocks [nkb] (one ring slot each), the dv^T planes [hi,
+// lo][2 row blocks] (64 bins x 128 bytes each; db's warp sums at the end),
+// the mbarriers.
+struct DwLayout {
+  int nkb;
+  __host__ __device__ explicit DwLayout(int C) : nkb(C / kKb) {}
+  __host__ __device__ size_t ring() const { return (size_t)2 * nkb * kTile; }
+  __host__ __device__ size_t dvt() const { return ring() + (size_t)nkb * kTile; }
+  __host__ __device__ size_t bars() const { return dvt() + (size_t)4 * kTile; }
+  __host__ __device__ size_t bytes() const { return 1024 + bars() + (1 + 2 * nkb) * 8; }
+};
 
 // One CTA per (joint j = blockIdx.x, range = blockIdx.y of the B * ntiles
-// 32-row feature tiles, sample-major). Writes partials 2 range and
-// 2 range + 1 (one per warp group) of dW_j (C x 64) and db_j (64).
+// 64-row feature tiles, sample-major). Writes partial `range` of dW_j (C x
+// 64) and db_j (64).
 __global__ void __launch_bounds__(kCtaThreads, 1)
-    dw_kernel(const float* __restrict__ feat, const float* __restrict__ wt, const float* __restrict__ bias,
-              const float* __restrict__ rows, float* __restrict__ part, float* __restrict__ dbpart,
-              int batch, int hw, int width, int C, int J, int D) {
-  extern __shared__ __align__(16) float smem[];
-  const int ld = C + 4;
-  float* w_s = smem;               // [kBins][ld]
-  float* ring = w_s + kBins * ld;  // [2 stages][2 groups][kDwRows][ld]
+    dw_kernel(const __grid_constant__ CUtensorMap fmap, const __grid_constant__ CUtensorMap wtmap,
+              const float* __restrict__ bias, const float* __restrict__ rows, float* __restrict__ part,
+              float* __restrict__ dbpart, int batch, int hw, int width, int C, int J, int D) {
+  unsigned char* base = smem_base();
+  const DwLayout L(C);
+  const int nkb = L.nkb;
+  unsigned char* w_s = base;
+  unsigned char* ring = base + L.ring();
+  uint64_t* w_full = reinterpret_cast<uint64_t*>(base + L.bars());
+  uint64_t* full = w_full + 1;
+  uint64_t* empty = full + nkb;
+  float* red = reinterpret_cast<float*>(base + L.dvt());  // db's [8 warps][64 bins], after the last tile
   const int j = blockIdx.x, range = blockIdx.y, ranges = gridDim.y, tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const int grp = warp >> 2, z0 = (warp & 3) * 16, nct = C / 8;
-  const int ntiles = (hw + kDwRows - 1) / kDwRows;
+  const int ntiles = cdiv(hw, kBox);
   const long long total = (long long)batch * ntiles;
   const int i0 = (int)(total * range / ranges), n = (int)(total * (range + 1) / ranges) - i0;
-  const int npairs = (n + 1) / 2;
 
-  // Tile i of the range: rows [row0, + 32) of sample bb.
-  auto load = [&](int pi) {
+  if (tid == 0) {
+    mbar_init(w_full, 1);
+    for (int kb = 0; kb < nkb; ++kb) {
+      mbar_init(&full[kb], 1);
+      mbar_init(&empty[kb], 4);  // the warps of the warpgroup whose channel tile holds the block
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid < 128) {  // producer warpgroup
+    setmaxnreg_dec<40>();
+    if (tid == 0) {
+      mbar_arrive_expect_tx(w_full, 2 * nkb * kTile);
+      for (int kb = 0; kb < nkb; ++kb) {
+        tma_load_2d(w_s + kb * kTile, &wtmap, w_full, kb * kKb, j * kBins);
+        tma_load_2d(w_s + (nkb + kb) * kTile, &wtmap, w_full, kb * kKb, (J + j) * kBins);
+      }
+      for (int i = 0; i < n; ++i) {
+        const int tt = i0 + i, bb = tt / ntiles, r0 = (tt % ntiles) * kBox;
+        for (int kb = 0; kb < nkb; ++kb) {
+          mbar_wait(&empty[kb], (i & 1) ^ 1);
+          mbar_arrive_expect_tx(&full[kb], kTile);
+          tma_load_3d(ring + kb * kTile, &fmap, &full[kb], kb * kKb, r0, bb);
+        }
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<232>();
+  const int ctid = tid - 128, wg = ctid >> 7, warp = ctid >> 5, wq = warp & 3;
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int nmt = cdiv(C, kBox);  // channel tiles of 64
+  const int zw = wg * kKb;        // this warpgroup's first bin of the logits
+  unsigned char* dvt_hi = base + L.dvt();  // [2 row blocks] x kTile
+  unsigned char* dvt_lo = dvt_hi + 2 * kTile;
+
+  float wacc[2][kBins / 2];  // dW_j, channel tiles wg and wg + 2, all 64 bins
+  zero(wacc[0]);
+  zero(wacc[1]);
+  float db[kKb / 8][2] = {};  // db over bins zw + 8i + 2t + q, this thread's rows
+  float bz[kKb / 8][2];
+#pragma unroll
+  for (int i = 0; i < kKb / 8; ++i)
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int z = zw + i * 8 + 2 * t + q;
+      bz[i][q] = z < D ? __ldg(bias + j * D + z) : 0.f;
+    }
+  mbar_wait(w_full, 0);
+
+  for (int i = 0; i < n; ++i) {
+    const int tt = i0 + i, bb = tt / ntiles, r0 = (tt % ntiles) * kBox;
+    const uint32_t par = i & 1;
+
+    // S = F Wt_j^T for this warpgroup's bins (64 rows x 32 bins).
+    float sacc[kKb / 2];
+    zero(sacc);
+    for (int kb = 0; kb < nkb; ++kb) {
+      mbar_wait(&full[kb], par);
+      uint32_t ah[4][4], al[4][4];
+      load_a(ring + kb * kTile, wq, g, t, ah, al);
+      fence_acc(sacc);
+      wgmma_fence();
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        mma3<kKb>(sacc, ah[q], al[q], kdesc(w_s + kb * kTile + wg * (kTile / 2), q),
+                  kdesc(w_s + (nkb + kb) * kTile + wg * (kTile / 2), q));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(sacc);
+    }
+
+    // dv in place; db's sums; then dv^T's planes, once both warpgroups'
+    // products of the last tile have read them.
+    const Row r(rows + ((size_t)bb * J + j) * kRowVals);
+    const int rl = wq * 16 + g, rh = rl + 8;  // rows in the tile
+    const float tx_lo = r.tx(r0 + rl, width), tx_hi = r.tx(r0 + rh, width);
+    const bool ok_lo = r0 + rl < hw, ok_hi = r0 + rh < hw;
+#pragma unroll
+    for (int ii = 0; ii < kKb / 8; ++ii) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int z = zw + ii * 8 + 2 * t + (e & 1);
+        const float tz = r.gz * ((float)z - r.cz);
+        float& v = sacc[4 * ii + e];
+        v = z < D && ((e & 2) ? ok_hi : ok_lo) ? r.dv(v, bz[ii][e & 1], ((e & 2) ? tx_hi : tx_lo) + tz) : 0.f;
+        db[ii][e & 1] += v;
+      }
+    }
+    named_barrier(1, 256);  // both warpgroups' dW products of the last tile are done
+#pragma unroll
+    for (int ii = 0; ii < kKb / 8; ++ii) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int z = zw + ii * 8 + 2 * t + (e & 1), row = (e & 2) ? rh : rl;
+        uint32_t hi, lo;
+        split_v(sacc[4 * ii + e], hi, lo);
+        const int off = (row >> 5) * kTile + swz(z, row & 31);
+        *reinterpret_cast<uint32_t*>(dvt_hi + off) = hi;
+        *reinterpret_cast<uint32_t*>(dvt_lo + off) = lo;
+      }
+    }
+    fence_proxy_async();
+    named_barrier(2, 256);  // dv^T complete
+
+    // dW_j (channel tiles wg, wg + 2: 64 channels x 64 bins) += F^T dv.
+    // A: m row 16 wq + g (+ 8) is channel 64 mt + 16 wq + 2g (+ 1), k-slot
+    // t (+ 4) of k-step s is tile row 8s + t (+ 4); each k-step's products
+    // issue as soon as its A is split.
+#pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int i = 2 * pi + h;
-      if (i < n) {
-        const int tt = i0 + i, bb = tt / ntiles;
-        load_rows(ring + ((pi & 1) * 2 + h) * kDwRows * ld, feat + (size_t)bb * hw * C,
-                  (tt % ntiles) * kDwRows, kDwRows, hw, C, tid);
-      }
-    }
-  };
-  load_rows(w_s, wt, j * D, kBins, J * D, C, tid);
-  load(0);
-  cp_async_commit();
-
-  const bool active = z0 < D;  // the warp's 16 bins start before D
-  const int z_lo = z0 + g, z_hi = z_lo + 8;
-  const float bz_lo = z_lo < D ? __ldg(bias + j * D + z_lo) : 0.f;
-  const float bz_hi = z_hi < D ? __ldg(bias + j * D + z_hi) : 0.f;
-  float wacc[kMaxNt / 8][1][8][4];  // 8 n tiles (64 channels) a group
+      const int mt = wg + 2 * h;
+      if (mt >= nmt) break;
+      const int c = mt * kBox + wq * 16 + 2 * g;  // this thread's channel pair
+      const bool c_in = c < C;
+      const unsigned char* blk = ring + (c_in ? c / kKb : 0) * kTile;
+      uint32_t ah[8][4], al[8][4];  // k-step s's own registers: no wgmma of this tile waits on another's
+      fence_acc(wacc[h]);
 #pragma unroll
-  for (int q = 0; q < kMaxNt / 8; ++q)
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) wacc[q][0][nt][e] = 0.f;
-  float db_lo = 0.f, db_hi = 0.f;
-
-  for (int pi = 0; pi < npairs; ++pi) {
-    if (pi + 1 < npairs) {
-      load(pi + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // pair pi (and Wt_j) are in
-    const int i = 2 * pi + grp;
-    if (active && i < n) {
-      const int tt = i0 + i, bb = tt / ntiles, row0 = (tt % ntiles) * kDwRows;
-      const float* fs = ring + ((pi & 1) * 2 + grp) * kDwRows * ld;
-
-      // S^T = W_j^T F^T (16 bins x 32 rows).
-      float s[1][4][4];
-      zero(s);
-      for (int ks = 0; ks < C / 8; ++ks) {
-        const float* p = w_s + z_lo * ld + ks * 8 + t;
-        const float af[4] = {p[0], p[8 * ld], p[4], p[8 * ld + 4]};
-        uint32_t ah[1][4], al[1][4], bh[4][2], bl[4][2];
-        split(af, ah[0], al[0]);
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const float* q = fs + (nt * 8 + g) * ld + ks * 8 + t;
-          split_b(q[0], q[4], bh[nt], bl[nt]);
+      for (int s = 0; s < 8; ++s) {
+        float2 x0 = make_float2(0.f, 0.f), x1 = x0;
+        if (c_in) {
+          x0 = *reinterpret_cast<const float2*>(blk + swz(8 * s + t, c % kKb));
+          x1 = *reinterpret_cast<const float2*>(blk + swz(8 * s + t + 4, c % kKb));
         }
-        mma3(s, ah, al, bh, bl, 4);
+        const float a[4] = {x0.x, x0.y, x1.x, x1.y};
+        split_a(a, ah[s], al[s]);
+        wgmma_fence();
+        mma3<kBins>(wacc[h], ah[s], al[s], kdesc(dvt_hi + (s >> 2) * kTile, s & 3),
+                    kdesc(dvt_lo + (s >> 2) * kTile, s & 3));
       }
-
-      // dv^T in place; db's sums.
-      const Row r(rows + ((size_t)bb * J + j) * kRowVals);
-      const float tz_lo = r.gz * ((float)z_lo - r.cz), tz_hi = r.gz * ((float)z_hi - r.cz);
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          const int row = row0 + nt * 8 + 2 * t + q;
-          const float tx = r.tx(row, width);
-          const bool ok = row < hw;
-          float* sv = s[0][nt];
-          sv[q] = ok && z_lo < D ? r.dv(sv[q], bz_lo, tx + tz_lo) : 0.f;
-          sv[q + 2] = ok && z_hi < D ? r.dv(sv[q + 2], bz_hi, tx + tz_hi) : 0.f;
-          db_lo += sv[q];
-          db_hi += sv[q + 2];
-        }
+      wgmma_commit();
+      __syncwarp();
+      if (lane == 0) {  // the channel tile's blocks are read: the next tile's may land
+        mbar_arrive(&empty[2 * mt]);
+        if (2 * mt + 1 < nkb) mbar_arrive(&empty[2 * mt + 1]);
       }
-
-      // dW_j^T (16 bins x C) += dv^T F, k relabelled: slot t is row 2t.
-#pragma unroll
-      for (int ks = 0; ks < 4; ++ks) {
-        float af[4];
-        as_a(s[0][ks], af);
-        uint32_t ah[1][4], al[1][4];
-        split(af, ah[0], al[0]);
-        mma3_b_rows(wacc, ah, al, fs + (ks * 8 + 2 * t) * ld + g, ld, nct);
-      }
+      wgmma_wait<0>();
+      fence_acc(wacc[h]);
     }
-    __syncthreads();  // every warp is done with pair pi's slots
-  }
-
-  if (!active) return;
-  // dW_j partial [c][z]: bin z_lo / z_hi, channel nt*8 + 2t (+1).
-  const int p = 2 * range + grp;
-  float* out = part + ((size_t)p * J + j) * C * kBins;
+    // Every kFlush tiles (and at the end) the accumulators are added to the
+    // partial with round to nearest and start again from 0: summed by the
+    // tensor cores over a whole range (~10^5 rows at B = 128) they erred by
+    // 1.6e-4 of dW's largest (PERF.md §6).
+    if ((i + 1) % kFlush == 0 || i + 1 == n) {
+      float* out = part + ((size_t)range * J + j) * C * kBins;
 #pragma unroll
-  for (int q = 0; q < kMaxNt / 8; ++q) {
+      for (int h = 0; h < 2; ++h) {
+        const int mt = wg + 2 * h, c = mt * kBox + wq * 16 + 2 * g;
+        if (mt >= nmt || c >= C) continue;
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const float* w = wacc[q][0][nt];
-      const int c = (q * 8 + nt) * 8 + 2 * t;
-      if (q * 8 + nt < nct) {
-        out[(size_t)c * kBins + z_lo] = w[0];
-        out[(size_t)(c + 1) * kBins + z_lo] = w[1];
-        out[(size_t)c * kBins + z_hi] = w[2];
-        out[(size_t)(c + 1) * kBins + z_hi] = w[3];
+        for (int ii = 0; ii < kBins / 8; ++ii) {
+          float* w = wacc[h] + 4 * ii;
+          float2* o0 = reinterpret_cast<float2*>(out + (size_t)c * kBins + ii * 8 + 2 * t);
+          float2* o1 = reinterpret_cast<float2*>(out + (size_t)(c + 1) * kBins + ii * 8 + 2 * t);
+          const float2 p0 = i < kFlush ? make_float2(0.f, 0.f) : *o0, p1 = i < kFlush ? make_float2(0.f, 0.f) : *o1;
+          *o0 = make_float2(p0.x + w[0], p0.y + w[1]);
+          *o1 = make_float2(p1.x + w[2], p1.y + w[3]);
+          w[0] = w[1] = w[2] = w[3] = 0.f;
+        }
       }
     }
   }
-  // db_j partial: the sums of the warp's 4 lanes of a bin, in order.
-  db_lo += __shfl_xor_sync(0xffffffffu, db_lo, 1);
-  db_lo += __shfl_xor_sync(0xffffffffu, db_lo, 2);
-  db_hi += __shfl_xor_sync(0xffffffffu, db_hi, 1);
-  db_hi += __shfl_xor_sync(0xffffffffu, db_hi, 2);
-  if (t == 0) {
-    dbpart[((size_t)p * J + j) * kBins + z_lo] = db_lo;
-    dbpart[((size_t)p * J + j) * kBins + z_hi] = db_hi;
+
+  // db_j partial: each warp's sums over its lanes' rows (g), then the 4
+  // warps of the bins' warpgroup, in order.
+  named_barrier(1, 256);  // both warpgroups' last products have read dv^T
+#pragma unroll
+  for (int ii = 0; ii < kKb / 8; ++ii)
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      float v = db[ii][q];
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      if (g == 0) red[warp * kBins + zw + ii * 8 + 2 * t + q] = v;
+    }
+  named_barrier(1, 256);
+  if (ctid < kBins) {
+    const int w0 = (ctid / kKb) * 4;  // the warps of the bin's warpgroup
+    float v = red[w0 * kBins + ctid];
+    for (int w = 1; w < 4; ++w) v += red[(w0 + w) * kBins + ctid];
+    dbpart[((size_t)range * J + j) * kBins + ctid] = v;
   }
 }
 
@@ -413,64 +505,75 @@ __global__ void reduce_kernel(const float* __restrict__ part, const float* __res
   }
 }
 
-int sm_count() {
-  int device = 0, sms = 132;
-  if (cudaGetDevice(&device) == cudaSuccess) cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  return sms;
-}
-
 }  // namespace
 
 extern "C" {
 
 // Largest shared memory one CTA of the backward needs for C channels.
-size_t ihpr_fused_head_integral_bwd_f32_smem(int C) { return std::max(dfeat_smem(C), dw_smem(C)); }
+size_t ihpr_fused_head_integral_bwd_f32_smem(int C) { return std::max(DfLayout(C).bytes(), DwLayout(C).bytes()); }
 
-// Channels the kernels' register accumulators hold.
+// Channels the kernels' accumulators hold.
 int ihpr_fused_head_integral_bwd_f32_max_channels() { return kMaxC; }
 
+// The pre-pass alone: w (C, J*D) fp32 -> planes (4, J*64, C): Wt's hi and
+// lo planes (2, J*64, C), then W's (2, C, J*64) (what
+// ops/fused_head_integral.py:split_planes computes). Returns the launch's
+// cudaError_t.
+int ihpr_fused_head_integral_bwd_f32_split(const void* w, void* planes, int C, int J, int D, void* stream) {
+  if (C % kKb || D < 1 || D > kBins) return (int)cudaErrorInvalidValue;
+  float* wt = static_cast<float*>(planes);
+  return (int)split_planes(static_cast<const float*>(w), wt, wt + (size_t)2 * J * kBins * C, C, J, D,
+                           static_cast<cudaStream_t>(stream));
+}
+
 // Partials of dW / db the backward should write for this shape on the
-// current device: two (one per warp group) per feature-tile range of the
-// dW kernel, with as many (joint, range) CTAs as the card has SMs (one
-// wave), at least one range and at most one tile per range.
+// current device: one per feature-tile range of the dW kernel, with as many
+// (joint, range) CTAs as the card has SMs (one wave), at least one range
+// and at most one tile per range.
 int ihpr_fused_head_integral_bwd_f32_partials(int batch, int hw, int J) {
-  const long long tiles = (long long)batch * ((hw + kDwRows - 1) / kDwRows);
-  return 2 * (int)std::max(1LL, std::min<long long>(sm_count() / J, tiles));
+  const long long tiles = (long long)batch * cdiv(hw, kBox);
+  return (int)std::max(1LL, std::min<long long>(sm_count() / J, tiles));
 }
 
 // feat (batch, hw, C), w (C, J*D), bias (J*D,): contiguous fp32, feat
 // 16-byte aligned, C a multiple of 32 up to 256. rows (batch, J, 8) fp32:
-// m + log s, gx, gy, gz, cx, cy, cz, 0. Scratch: wt (J*D, C), part (parts,
-// J, C, 64) and dbpart (parts, J, 64) fp32, parts even and positive (as
-// ihpr_fused_head_integral_bwd_f32_partials gives it). Writes dfeat (batch,
-// hw, C), dw (C, J*D) and db (J*D,) in fp32. Returns 0 or the first
+// m + log s, gx, gy, gz, cx, cy, cz, 0. Scratch: planes (4, J*64, C) fp32
+// (Wt's hi and lo, then W's), part (parts, J, C, 64) and dbpart (parts, J,
+// 64) fp32, parts positive (as ihpr_fused_head_integral_bwd_f32_partials
+// gives it). Writes dfeat (batch, hw, C), dw (C, J*D) and db (J*D,) in
+// fp32. Returns 0, the CUresult of a tensor-map encoding, or the first
 // cudaError_t of the four launches.
 int ihpr_fused_head_integral_bwd_f32(const void* feat, const void* w, const void* bias, const float* rows,
-                                     void* wt, float* part, float* dbpart, void* dfeat, void* dw, void* db,
+                                     void* planes, float* part, float* dbpart, void* dfeat, void* dw, void* db,
                                      int batch, int hw, int width, int C, int J, int D, int parts,
                                      void* stream) {
-  if (parts < 2 || parts % 2 || C % kZc || C > kMaxC || D < 1 || D > kBins) return (int)cudaErrorInvalidValue;
+  if (parts < 1 || C % kKb || C > kMaxC || D < 1 || D > kBins) return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
-  const int jd = J * D;
-  const auto* f = static_cast<const float*>(feat);
-  const auto* wt_c = static_cast<const float*>(wt);
+  const int jd = J * kBins;
+  float* wt_planes = static_cast<float*>(planes);
+  float* w_planes = wt_planes + (size_t)2 * jd * C;
   const auto* bias_c = static_cast<const float*>(bias);
-  cudaError_t err = transpose(static_cast<const float*>(w), static_cast<float*>(wt), C, jd, st);
+  cudaError_t err = split_planes(static_cast<const float*>(w), wt_planes, w_planes, C, J, D, st);
   if (err != cudaSuccess) return (int)err;
+  CUtensorMap fmap, wtmap, wmap;
+  int terr = tmap_batched_f32(&fmap, feat, batch, hw, C);
+  if (!terr) terr = tmap_matrix_f32(&wtmap, wt_planes, (uint64_t)2 * jd, C);
+  if (!terr) terr = tmap_matrix_f32(&wmap, w_planes, (uint64_t)2 * C, jd);
+  if (terr) return terr;
 
-  const size_t smem_a = dfeat_smem(C);
+  const size_t smem_a = DfLayout(C).bytes();
   err = cudaFuncSetAttribute(dfeat_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_a);
   if (err != cudaSuccess) return (int)err;
-  dfeat_kernel<<<dim3((hw + kDfRows - 1) / kDfRows, batch), kCtaThreads, smem_a, st>>>(
-      f, wt_c, bias_c, rows, static_cast<float*>(dfeat), hw, width, C, J, D);
+  dfeat_kernel<<<dim3(cdiv(hw, 2 * kBox), batch), kCtaThreads, smem_a, st>>>(
+      fmap, wtmap, wmap, bias_c, rows, static_cast<float*>(dfeat), hw, width, C, J, D);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  const size_t smem_b = dw_smem(C);
+  const size_t smem_b = DwLayout(C).bytes();
   err = cudaFuncSetAttribute(dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_b);
   if (err != cudaSuccess) return (int)err;
-  dw_kernel<<<dim3(J, parts / 2), kCtaThreads, smem_b, st>>>(f, wt_c, bias_c, rows, part, dbpart, batch, hw,
-                                                             width, C, J, D);
+  dw_kernel<<<dim3(J, parts), kCtaThreads, smem_b, st>>>(fmap, wtmap, bias_c, rows, part, dbpart, batch, hw,
+                                                         width, C, J, D);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 

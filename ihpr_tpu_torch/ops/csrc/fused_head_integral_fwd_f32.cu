@@ -15,69 +15,68 @@
 // and the per-(b, j) max m and normalizer s = sum exp(v - m). The
 // (B, HW, J*D) logits volume is never written.
 //
-// Precision. The products are 3xTF32 (tf32x3.cuh): fp32 operands split
-// into TF32 hi and lo parts, hi*hi + hi*lo + lo*hi on the tensor cores with
-// fp32 accumulation, ~2^-21 relative per product, where one TF32 pass would
-// give 2^-11. Nothing depends on the process's TF32 flags. The softmax runs
-// in natural units with ex2.approx((v - m) * log2 e), as K3 does on the
-// no-plan route.
+// Precision. The products are 3xTF32 (fused_head_f32.cuh): fp32 operands
+// split into TF32 hi and lo parts, lo*hi + hi*lo + hi*hi on the tensor cores
+// with fp32 accumulation, ~2^-21 relative per product, where one TF32 pass
+// would give 2^-11. Nothing depends on the process's TF32 flags. The
+// softmax runs in base-2 units with ex2.approx, as K1 does.
 //
-// Design. One CTA (8 warps) per (joint, sample); blockIdx.x = joint, so a
-// sample's J CTAs run close together and share feat[b] in L2. A small
-// kernel first transposes W (C, J*D) to Wt (J*D, C) (fused_head_common.cuh),
-// so that the joint's D columns are D rows of C contiguous floats. The CTA
-// copies its Wt_j slab (64 bins x C, rows past D clamped into Wt and
-// masked) into shared memory once and splits it there once into TF32 hi
-// and lo planes, then streams feat[b] through a ring of two cp.async
-// stages of 256 rows x 32 channels. Each warp owns 32 rows
-// (two m16 tiles) of a 256-row tile and accumulates their 32 x 64 logits
-// over the tile's C / 32 stages with mma.sync m16n8k8 (its A fragments
-// split in registers, B read split; each 3xTF32 pass runs over all 16
-// accumulators before the next, so no MMA waits on the one before it); n
-// tiles wholly past D are skipped.
-// After a tile's last stage the warp folds its logits into one online
-// softmax state (max, sum e, sum e*x, sum e*y, sum e*z) per thread. A
-// shuffle merge, then a fixed-order merge of the 8 warps' states, ends the
-// CTA: no state crosses CTAs, nothing is atomic, and the result is bitwise
-// the same from run to run. Shared memory rows are padded by 4 floats, so
-// every fragment load is free of bank conflicts.
+// Design (an earlier one, 8 warps of mma.sync per CTA, each warp reading
+// and splitting its operands through registers, ran 2.26 ms at B = 32).
+//   1. split_planes_kernel (fused_head_f32.cuh) splits W once into TF32 hi
+//      and lo planes of Wt (J*64, C), K-major over channels in perm32's
+//      order: no kernel splits a weight again.
+//   2. fwd_f32_kernel, one CTA per (joint, sample, part of the sample's
+//      rows), 3 warpgroups:
+//      - producer (one thread, registers cut to 40): TMA-loads the joint's
+//        hi and lo slabs (64 bins x C each, resident, 128-byte swizzle),
+//        then streams the rows in stages of 128 rows x 32 channels (two
+//        3-D boxes: a box past HW reads zeros, not the next sample) through
+//        a ring of kStages (full / empty mbarriers);
+//      - two consumer warpgroups (232 registers), each on 64 rows of every
+//        stage: A is the rows, two 16-byte loads a row and thread, split in
+//        registers; B the slab planes; wgmma m64n64k8 TF32 with A from
+//        registers, three passes a k-step. The stage is free once its A
+//        values are in registers, and the next stage's values load and
+//        split while this one's products run (f32h::pipelined). After a tile's
+//        last stage the warpgroup folds its 64 x 64 logits into one online
+//        softmax state (max, sum e, sum e*x, sum e*y, sum e*z) per thread.
+//      A shuffle merge, then a fixed-order merge of the 8 warps' states,
+//      ends the CTA, which writes its part's state.
+//   3. merge_kernel: each (b, j)'s parts merged in part order, coords, m, s.
+//   The parts fill the last wave of CTAs (parts_for below): at the
+//   flagship's B = 32 576 (joint, sample) CTAs are 4.36 waves on 132 SMs,
+//   2 parts 8.73. No state crosses CTAs except through the parts, nothing is
+//   atomic, and the result is bitwise the same from run to run on one card.
 //
-// Shapes: any J, D <= 64, any HW (the last tile's rows past HW are clamped
-// loads and masked), C a multiple of 32 up to 256 (the route sends C = 128
-// and 256 here).
+// Shapes: any J, D <= 64 (bins past D get a -inf bias), any HW (rows past
+// HW are masked to -inf), C a multiple of 32 up to 256 (the slab is
+// resident: 2 x 64 x C x 4 bytes).
 //
 // What bounds it on an H100: 3 * 2*B*HW*C*J*D tensor-core operations at
-// TF32's 494.7 TFLOP/s (1.875 ms at the flagship's 128 x 4096 x 256 x 1152)
-// against B*HW*C*4 bytes of features read once from device memory (268 MB,
-// 0.08 ms): compute bound. mma.sync, not wgmma: wgmma takes TF32 operands
-// K-major from shared memory only, and this first design favours one layout
-// for all three products of K1/K2-fp32. Beside the products each logit costs
-// the split of its fragments (two integer roundings and a subtraction per
-// fp32 value, tf32x3.cuh) and
-// ~8 fp32 operations of softmax.
+// TF32's 494.7 TFLOP/s (0.469 ms at 32 x 4096 x 256 x 1152; wgmma TF32
+// alone reaches 0.96 of that rate) against B*HW*C*4 bytes of features read
+// once (134 MB, 0.04 ms): compute bound. Beside the products each A value
+// costs two 16-byte loads per 8 and its split (three integer operations and
+// a subtraction), and each logit ~8 fp32 operations of softmax; the two
+// warpgroups' products cover each other's. Timed at ~0.64 of the bound
+// (PERF.md §6).
 
-#include "fused_head_common.cuh"
-#include "tf32x3.cuh"
+#include "fused_head_f32.cuh"
 
 namespace {
 
 using namespace fhi;
-using namespace tf32x3;
+using namespace hopper;
+using namespace f32h;
 
-constexpr int kBins = 64;            // depth bins of a joint's slab
-constexpr int kCtaWarps = 8;
-constexpr int kCtaThreads = kCtaWarps * 32;
-constexpr int kRows = kCtaWarps * 32;  // feature rows per tile: 32 per warp
-constexpr int kKc = 32;              // channels per ring stage
-constexpr int kLdr = kKc + 4;        // ring row pitch, floats
-constexpr int kStages = 2;  // ring stages: one computed while the next lands
+constexpr int kRows = 2 * kBox;  // feature rows of a stage: 64 per consumer warpgroup
+constexpr int kStages = 4;       // stages in flight
+constexpr int kCtaThreads = 384;  // producer warpgroup + 2 consumer warpgroups
+constexpr int kConsumerWarps = 8;
+constexpr int kStateVals = 5;     // m, s, sx, sy, sz
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Online softmax state, logits in natural units.
+// Online softmax state, logits in base-2 units (u = v * log2 e).
 struct Stats {
   float m, s, sx, sy, sz;
 };
@@ -85,7 +84,7 @@ struct Stats {
 __device__ __forceinline__ void merge(Stats& a, const Stats& b) {
   const float m = fmaxf(a.m, b.m);
   if (m == neg_inf()) return;  // both empty
-  const float ca = ex2((a.m - m) * kLog2e), cb = ex2((b.m - m) * kLog2e);
+  const float ca = ex2(a.m - m), cb = ex2(b.m - m);
   a.s = a.s * ca + b.s * cb;
   a.sx = a.sx * ca + b.sx * cb;
   a.sy = a.sy * ca + b.sy * cb;
@@ -93,144 +92,125 @@ __device__ __forceinline__ void merge(Stats& a, const Stats& b) {
   a.m = m;
 }
 
-// Shared memory, in 4-byte words: the Wt_j slab split once, its TF32 hi
-// and lo parts [2][kBins][C + 4], the ring [kStages][kRows][kLdr], the bias
-// [kBins], the warps' states.
-__host__ __device__ inline size_t smem_bytes(int C) {
-  return sizeof(float) * (2 * (size_t)kBins * (C + 4) + (size_t)kStages * kRows * kLdr + kBins) +
-         kCtaWarps * sizeof(Stats);
-}
+// Shared memory, from a 1024-byte aligned base: the slab's hi tiles [nkb]
+// then its lo tiles [nkb] (64 bins x 128 bytes each), the ring [kStages][2
+// boxes of 64 rows x 128 bytes], the mbarriers, the bias in base-2 units
+// and the warps' states.
+struct Layout {
+  int nkb;
+  __host__ __device__ explicit Layout(int C) : nkb(C / kKb) {}
+  __host__ __device__ size_t ring() const { return (size_t)2 * nkb * kTile; }
+  __host__ __device__ size_t bars() const { return ring() + (size_t)kStages * 2 * kTile; }
+  __host__ __device__ size_t bias() const { return bars() + (1 + 2 * kStages) * 8; }
+  __host__ __device__ size_t red() const { return bias() + kBins * sizeof(float); }
+  __host__ __device__ size_t bytes() const { return 1024 + red() + kConsumerWarps * sizeof(Stats); }
+};
 
 __global__ void __launch_bounds__(kCtaThreads, 1)
-    fwd_f32_kernel(const float* __restrict__ feat, const float* __restrict__ wt,
-                   const float* __restrict__ bias, float* __restrict__ coords, float* __restrict__ m_out,
-                   float* __restrict__ s_out, int hw, int width, int C, int J, int D) {
-  extern __shared__ __align__(16) float smem[];
-  const int ldw = C + 4;
-  float* w_s = smem;  // the slab lands here in fp32 and is split in place into hi
-  uint32_t* w_hi = reinterpret_cast<uint32_t*>(w_s);
-  uint32_t* w_lo = w_hi + kBins * ldw;
-  float* ring = reinterpret_cast<float*>(w_lo + kBins * ldw);
-  float* bias_s = ring + kStages * kRows * kLdr;
-  Stats* red = reinterpret_cast<Stats*>(bias_s + kBins);
+    fwd_f32_kernel(const __grid_constant__ CUtensorMap fmap, const __grid_constant__ CUtensorMap wmap,
+                   const float* __restrict__ bias, float* __restrict__ part, int hw, int width, int C, int J,
+                   int D) {
+  unsigned char* base = smem_base();
+  const Layout L(C);
+  const int nkb = L.nkb;
+  unsigned char* w_s = base;
+  unsigned char* ring = base + L.ring();
+  uint64_t* w_full = reinterpret_cast<uint64_t*>(base + L.bars());
+  uint64_t* full = w_full + 1;
+  uint64_t* empty = full + kStages;
+  float* bias_s = reinterpret_cast<float*>(base + L.bias());
+  Stats* red = reinterpret_cast<Stats*>(base + L.red());
 
-  const int j = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const int nnt = (D + 7) / 8;  // n tiles holding bins < D
-  const int nkc = C / kKc, ntiles = (hw + kRows - 1) / kRows, total = ntiles * nkc;
-  const int jd = J * D, cq = C / 4;
-  const float* fb = feat + (size_t)b * hw * C;
+  const int j = blockIdx.x, b = blockIdx.y, pi = blockIdx.z, parts = gridDim.z, tid = threadIdx.x;
+  const int ntiles = cdiv(hw, kRows);
+  const int t0 = ntiles * pi / parts, nst = (ntiles * (pi + 1) / parts - t0) * nkb;
 
-  // Bias; -inf past D masks those bins.
-  if (tid < kBins) bias_s[tid] = tid < D ? bias[j * D + tid] : neg_inf();
-  for (int i = tid; i < kBins * cq; i += kCtaThreads) {
-    const int z = i / cq, q = i % cq;
-    cp_async16(w_s + z * ldw + q * 4, wt + (size_t)min(j * D + z, jd - 1) * C + q * 4);
-  }
-  // Ring stage n: rows of tile n / nkc, channels of block n % nkc.
-  auto load = [&](int n) {
-    const int tile = n / nkc, kc = n % nkc;
-    float* dst = ring + (n % kStages) * kRows * kLdr;
-    for (int i = tid; i < kRows * (kKc / 4); i += kCtaThreads) {
-      const int r = i / (kKc / 4), q = i % (kKc / 4);
-      const int row = min(tile * kRows + r, hw - 1);
-      cp_async16(dst + r * kLdr + q * 4, fb + (size_t)row * C + kc * kKc + q * 4);
+  if (tid < kBins) bias_s[tid] = tid < D ? bias[j * D + tid] * kLog2e : neg_inf();
+  if (tid == 0) {
+    mbar_init(w_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerWarps);  // one arrival per consumer warp
     }
-  };
-  load(0);  // with the slab
-  cp_async_commit();
-  cp_async_wait<0>();
+    fence_barrier_init();
+  }
   __syncthreads();
-  // Split the slab once: every warp reads every B fragment of it for every
-  // tile, so splitting there would repeat the work 8 x ntiles times.
-  for (int i = tid; i < kBins * C; i += kCtaThreads) {
-    const int k = (i / C) * ldw + i % C;
-    split(w_s[k], w_hi[k], w_lo[k]);
+
+  if (tid < 128) {  // producer warpgroup
+    setmaxnreg_dec<40>();
+    if (tid == 0) {
+      mbar_arrive_expect_tx(w_full, 2 * nkb * kTile);
+      for (int kb = 0; kb < nkb; ++kb) {
+        tma_load_2d(w_s + kb * kTile, &wmap, w_full, kb * kKb, j * kBins);
+        tma_load_2d(w_s + (nkb + kb) * kTile, &wmap, w_full, kb * kKb, (J + j) * kBins);
+      }
+      for (int n = 0; n < nst; ++n) {
+        const int s = n % kStages, row0 = (t0 + n / nkb) * kRows, c0 = (n % nkb) * kKb;
+        mbar_wait(&empty[s], ((n / kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[s], 2 * kTile);
+        tma_load_3d(ring + s * 2 * kTile, &fmap, &full[s], c0, row0, b);
+        tma_load_3d(ring + s * 2 * kTile + kTile, &fmap, &full[s], c0, row0 + kBox, b);
+      }
+    }
+    return;
   }
 
+  setmaxnreg_inc<232>();
+  const int ctid = tid - 128, wg = ctid >> 7, warp = ctid >> 5, wq = warp & 3;
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
   Stats st = {neg_inf(), 0.f, 0.f, 0.f, 0.f};
-  float acc[2][8][4];
-  for (int it = 0; it < total; ++it) {
-    if (it > 0) cp_async_wait<0>();  // stage it, issued during it - 1
-    __syncthreads();  // stage it and the split slab are in; every warp is done with stage it - 1
-    if (it + 1 < total) load(it + 1);
-    cp_async_commit();
-    const int tile = it / nkc, kc = it % nkc;
-    if (kc == 0) {
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-    }
-    const float* fs = ring + (it % kStages) * kRows * kLdr + warp * 32 * kLdr;
-    const int wk = kc * kKc;
-#pragma unroll
-    for (int ks = 0; ks < kKc / 8; ++ks) {
-      uint32_t ah[2][4], al[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const float* p = fs + (mt * 16 + g) * kLdr + ks * 8 + t;
-        const float af[4] = {p[0], p[8 * kLdr], p[4], p[8 * kLdr + 4]};
-        split(af, ah[mt], al[mt]);
-      }
-      uint32_t bh[8][2], bl[8][2];
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        if (nt < nnt) {
-          const int q = (nt * 8 + g) * ldw + wk + ks * 8 + t;
-          bh[nt][0] = w_hi[q], bh[nt][1] = w_hi[q + 4];
-          bl[nt][0] = w_lo[q], bl[nt][1] = w_lo[q + 4];
-        }
-      }
-      mma3(acc, ah, al, bh, bl, nnt);
-    }
-    if (kc != nkc - 1) continue;
+  float acc[kBins / 2];
+  mbar_wait(w_full, 0);
 
-    // The tile's logits are complete: v = acc + bias, -inf past HW or D.
-    const int r0 = tile * kRows + warp * 32 + g;
+  const int ntl = nst / nkb;  // this part's 128-row tiles
+  for (int tl = 0; tl < ntl; ++tl) {
+    const int n0 = tl * nkb;  // the tile's first stage
+    zero(acc);
+    fence_acc(acc);
+    pipelined(
+        nkb,
+        [&](int kb, uint32_t (&ah)[4][4], uint32_t (&al)[4][4]) {
+          const int n = n0 + kb, s = n % kStages;
+          mbar_wait(&full[s], (n / kStages) & 1);
+          load_a(ring + s * 2 * kTile + wg * kTile, wq, g, t, ah, al);
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&empty[s]);  // the stage's values are in registers
+        },
+        [&](int kb, const uint32_t (&ah)[4][4], const uint32_t (&al)[4][4]) {
+          wgmma_fence();
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            mma3<kBins>(acc, ah[q], al[q], kdesc(w_s + kb * kTile, q), kdesc(w_s + (nkb + kb) * kTile, q));
+          wgmma_commit();
+        });
+    fence_acc(acc);
+
+    // The tile's logits are complete: u = v log2 e, -inf past HW or D.
+    const int r_lo = (t0 + tl) * kRows + wg * kBox + wq * 16 + g, r_hi = r_lo + 8;
     float tmax = neg_inf();
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        if (nt < nnt) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int r = r0 + mt * 16 + (e >> 1) * 8;
-            const float v = r < hw ? acc[mt][nt][e] + bias_s[nt * 8 + 2 * t + (e & 1)] : neg_inf();
-            acc[mt][nt][e] = v;
-            tmax = fmaxf(tmax, v);
-          }
-        }
-      }
+    for (int i = 0; i < kBins / 2; ++i) {
+      const int r = (i & 2) ? r_hi : r_lo;
+      const float u = r < hw ? fmaf(acc[i], kLog2e, bias_s[(i >> 2) * 8 + 2 * t + (i & 1)]) : neg_inf();
+      acc[i] = u;
+      tmax = fmaxf(tmax, u);
     }
     if (tmax == neg_inf()) continue;
     const float m_new = fmaxf(st.m, tmax);
-    const float c = ex2((st.m - m_new) * kLog2e);
+    const float c = ex2(st.m - m_new);
     st.s *= c, st.sx *= c, st.sy *= c, st.sz *= c;
     st.m = m_new;
+    // x and y are per row: sum each row's probabilities first.
+    float p_lo = 0.f, p_hi = 0.f;
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      // x and y are per row: sum each row's probabilities first.
-      float p_lo = 0.f, p_hi = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        if (nt < nnt) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float p = ex2((acc[mt][nt][e] - m_new) * kLog2e);  // 0 for masked entries
-            (e < 2 ? p_lo : p_hi) += p;
-            st.sz = fmaf(p, (float)(nt * 8 + 2 * t + (e & 1)), st.sz);
-          }
-        }
-      }
-      const int r_lo = r0 + mt * 16, r_hi = r_lo + 8;
-      st.s += p_lo + p_hi;
-      st.sx = fmaf(p_lo, (float)(r_lo % width), fmaf(p_hi, (float)(r_hi % width), st.sx));
-      st.sy = fmaf(p_lo, (float)(r_lo / width), fmaf(p_hi, (float)(r_hi / width), st.sy));
+    for (int i = 0; i < kBins / 2; ++i) {
+      const float p = f32_ex2(acc[i] - m_new);  // 0 for masked entries
+      ((i & 2) ? p_hi : p_lo) += p;
+      st.sz = fmaf(p, (float)((i >> 2) * 8 + 2 * t + (i & 1)), st.sz);
     }
+    st.s += p_lo + p_hi;
+    st.sx = fmaf(p_lo, (float)(r_lo % width), fmaf(p_hi, (float)(r_hi % width), st.sx));
+    st.sy = fmaf(p_lo, (float)(r_lo / width), fmaf(p_hi, (float)(r_hi / width), st.sy));
   }
 
 #pragma unroll
@@ -244,18 +224,53 @@ __global__ void __launch_bounds__(kCtaThreads, 1)
     merge(st, o);
   }
   if (lane == 0) red[warp] = st;
-  __syncthreads();
-  if (tid == 0) {
+  named_barrier(1, 256);  // the consumer warpgroups only
+  if (ctid == 0) {
     Stats S = red[0];
-    for (int w = 1; w < kCtaWarps; ++w) merge(S, red[w]);
-    const int o = b * J + j;
-    const float inv = 1.f / S.s;
-    coords[o * 3 + 0] = S.sx * inv;
-    coords[o * 3 + 1] = S.sy * inv;
-    coords[o * 3 + 2] = S.sz * inv;
-    m_out[o] = S.m;
-    s_out[o] = S.s;
+    for (int w = 1; w < kConsumerWarps; ++w) merge(S, red[w]);
+    float* o = part + ((size_t)(b * J + j) * parts + pi) * kStateVals;
+    o[0] = S.m, o[1] = S.s, o[2] = S.sx, o[3] = S.sy, o[4] = S.sz;
   }
+}
+
+// coords, m (natural units) and s of each (b, j) from its parts, merged in
+// part order.
+__global__ void merge_kernel(const float* __restrict__ part, float* __restrict__ coords, float* __restrict__ m_out,
+                             float* __restrict__ s_out, int n, int parts) {
+  const int o = blockIdx.x * blockDim.x + threadIdx.x;
+  if (o >= n) return;
+  const float* p = part + (size_t)o * parts * kStateVals;
+  Stats S = {p[0], p[1], p[2], p[3], p[4]};
+  for (int i = 1; i < parts; ++i) {
+    const float* q = p + i * kStateVals;
+    merge(S, Stats{q[0], q[1], q[2], q[3], q[4]});
+  }
+  const float inv = 1.f / S.s;
+  coords[o * 3 + 0] = S.sx * inv;
+  coords[o * 3 + 1] = S.sy * inv;
+  coords[o * 3 + 2] = S.sz * inv;
+  m_out[o] = S.m * kLn2;
+  s_out[o] = S.s;
+}
+
+// Parts of each (joint, sample)'s rows: the fewest of 1 ... 4 (at most one
+// 128-row tile a part) whose CTAs fill their last wave on this card to
+// within 5% of the best. Whole samples a CTA (IHPR_F32_ONE_PART) timed
+// slower at B = 32 and at serving's B = 2 (PERF.md §6).
+int parts_for(int batch, int hw, int J) {
+#ifdef IHPR_F32_ONE_PART
+  return 1;  // a timing build (tools/f32_breakdown.py): whole samples a CTA
+#endif
+  const int sms = sm_count(), ntiles = cdiv(hw, kRows);
+  auto fill = [&](int p) {
+    const long long ctas = (long long)J * batch * p;
+    return (double)ctas / (double)(((ctas + sms - 1) / sms) * sms);
+  };
+  double best = 0.0;
+  for (int p = 1; p <= 4 && p <= ntiles; ++p) best = fill(p) > best ? fill(p) : best;
+  for (int p = 1; p <= 4 && p <= ntiles; ++p)
+    if (fill(p) >= best - 0.05) return p;
+  return 1;
 }
 
 }  // namespace
@@ -263,26 +278,43 @@ __global__ void __launch_bounds__(kCtaThreads, 1)
 extern "C" {
 
 // Shared memory one CTA needs for C channels.
-size_t ihpr_fused_head_integral_fwd_f32_smem(int C) { return smem_bytes(C); }
+size_t ihpr_fused_head_integral_fwd_f32_smem(int C) { return Layout(C).bytes(); }
+
+// Scratch (in floats) the forward needs: the split planes (2, J*64, C) and
+// the parts' states (batch, J, parts, 5).
+size_t ihpr_fused_head_integral_fwd_f32_scratch(int batch, int hw, int C, int J) {
+  return (size_t)2 * J * kBins * C + (size_t)batch * J * parts_for(batch, hw, J) * kStateVals;
+}
 
 // feat (batch, hw, C), w (C, J*D), bias (J*D,): contiguous fp32, feat
-// 16-byte aligned, C a multiple of 32. Scratch wt (J*D, C) fp32. Writes
-// coords (batch, J, 3), m and s (batch, J), fp32. Returns 0 or the first
-// cudaError_t of the two launches (transpose, K1-fp32).
-int ihpr_fused_head_integral_fwd_f32(const void* feat, const void* w, const void* bias, void* wt,
+// 16-byte aligned, C a multiple of 32 up to 256. Scratch: as many floats as
+// ihpr_fused_head_integral_fwd_f32_scratch gives, 16-byte aligned. Writes
+// coords (batch, J, 3), m and s (batch, J), fp32. Returns 0, the CUresult
+// of a tensor-map encoding, or the first cudaError_t of the three launches
+// (split planes, K1-fp32, merge).
+int ihpr_fused_head_integral_fwd_f32(const void* feat, const void* w, const void* bias, void* scratch,
                                      float* coords, float* m, float* s, int batch, int hw, int width,
                                      int C, int J, int D, void* stream) {
-  if (C % kKc || D < 1 || D > kBins) return (int)cudaErrorInvalidValue;
+  if (C % kKb || C > 256 || D < 1 || D > kBins) return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
-  const int jd = J * D;
-  cudaError_t err = transpose(static_cast<const float*>(w), static_cast<float*>(wt), C, jd, st);
+  float* planes = static_cast<float*>(scratch);
+  float* part = planes + (size_t)2 * J * kBins * C;
+  cudaError_t err = split_planes(static_cast<const float*>(w), planes, nullptr, C, J, D, st);
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = smem_bytes(C);
+  CUtensorMap fmap, wmap;
+  int terr = tmap_batched_f32(&fmap, feat, batch, hw, C);
+  if (!terr) terr = tmap_matrix_f32(&wmap, planes, (uint64_t)2 * J * kBins, C);
+  if (terr) return terr;
+  const size_t smem = Layout(C).bytes();
   err = cudaFuncSetAttribute(fwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  fwd_f32_kernel<<<dim3(J, batch), kCtaThreads, smem, st>>>(
-      static_cast<const float*>(feat), static_cast<const float*>(wt), static_cast<const float*>(bias),
-      coords, m, s, hw, width, C, J, D);
+  const int parts = parts_for(batch, hw, J);
+  fwd_f32_kernel<<<dim3(J, batch, parts), kCtaThreads, smem, st>>>(
+      fmap, wmap, static_cast<const float*>(bias), part, hw, width, C, J, D);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int n = batch * J;
+  merge_kernel<<<cdiv(n, 128), 128, 0, st>>>(part, coords, m, s, n, parts);
   return (int)cudaGetLastError();
 }
 

@@ -1,13 +1,14 @@
 // Hopper (sm_90a) building blocks of the fused head kernels K1/K2
-// (fused_head_integral_fwd.cu, fused_head_integral_bwd.cu), the bf16 conv +
-// BN-statistics kernels K5/K6 (matmul_bn_hopper.cuh) and K7/K8
-// (conv3_hopper.cuh), and the matmul probe P2 (probe_mm.cu): TMA tensor maps
-// (bf16 or 8-bit; 2-D, 3-D, and the 4-D NHWC map whose shifted boxes make a
-// 3x3 conv's taps) and loads, mbarriers, wgmma shared-memory descriptors and
-// the wgmma shapes those kernels issue (bf16 -> fp32, s8 -> s32), warpgroup
-// register reallocation and named barriers, and the fixed-order column sums
-// of an accumulator (K5's and K7's s1/s2). Everything here is plain PTX; no
-// library kernel is called.
+// (fused_head_integral_fwd.cu, fused_head_integral_bwd.cu) and their fp32
+// instances (fused_head_f32.cuh), the bf16 conv + BN-statistics kernels
+// K5/K6 (matmul_bn_hopper.cuh) and K7/K8 (conv3_hopper.cuh), and the matmul
+// probe P2 (probe_mm.cu): TMA tensor maps (bf16, fp32 or 8-bit; 2-D, 3-D,
+// and the 4-D NHWC map whose shifted boxes make a 3x3 conv's taps) and
+// loads, mbarriers, wgmma shared-memory descriptors and the wgmma shapes
+// those kernels issue (bf16 -> fp32, TF32 -> fp32 with A from shared memory
+// or registers, s8 -> s32), warpgroup register reallocation and named
+// barriers, and the fixed-order column sums of an accumulator (K5's and
+// K7's s1/s2). Everything here is plain PTX; no library kernel is called.
 //
 // Shared-memory tiles are 64 rows of 128 bytes (64 bf16 or 128 int8) with
 // the 128-byte swizzle that TMA writes (16-byte chunk i of row r lands at
@@ -21,7 +22,8 @@
 //            a 128- or 256-wide B is two or four 64-row boxes, lbo = 8192).
 // A wider K-major B is its 64-row boxes stacked (256 rows for n256), same
 // descriptor. An int8 tile is K-major only (8-bit wgmma takes no transposed
-// operand); its k-step (32 int8) is the same 32 bytes.
+// operand); its k-step (32 int8) is the same 32 bytes. So is an fp32 tile
+// (64 rows of 32 values) read as TF32: K-major only, a k-step of 8 values.
 // A kernel may rewrite a tile in place between the TMA load and the wgmma
 // that reads it: byte (r, 16 i + b) of the tile holds column 8 (i ^ (r % 8))
 // + b / 2 of row r (bf16), and the writes are ordered before the wgmma by
@@ -119,6 +121,24 @@ inline int tmap_batched(CUtensorMap* map, const void* base, uint64_t batch, uint
   const uint64_t dims[3] = {cols, rows, batch}, strides[2] = {cols * 2, cols * rows * 2};
   const uint32_t box[3] = {kBox, kBox, 1};
   return make_tmap(map, base, 3, dims, strides, box);
+}
+
+// A row-major (rows, cols) fp32 matrix in boxes of 32 columns x 64 rows:
+// one box is the same 8192-byte swizzled tile (128-byte rows of 32 fp32);
+// cols % 4 == 0.
+inline int tmap_matrix_f32(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols) {
+  const uint64_t dims[2] = {cols, rows}, strides[1] = {cols * 4};
+  const uint32_t box[2] = {kBox / 2, kBox};
+  return make_tmap(map, base, 2, dims, strides, box, CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
+}
+
+// A (batch, rows, cols) fp32 tensor in 32 x 64 x 1 boxes: a box that runs
+// past `rows` reads zeros, not the next batch entry's rows.
+inline int tmap_batched_f32(CUtensorMap* map, const void* base, uint64_t batch, uint64_t rows,
+                            uint64_t cols) {
+  const uint64_t dims[3] = {cols, rows, batch}, strides[2] = {cols * 4, cols * rows * 4};
+  const uint32_t box[3] = {kBox / 2, kBox, 1};
+  return make_tmap(map, base, 3, dims, strides, box, CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
 }
 
 // An NHWC (batch, height, width, channels) bf16 tensor in boxes of 64
@@ -516,6 +536,75 @@ __device__ __forceinline__ void mma_rs_n64(float (&d)[32], const uint32_t (&a)[4
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
+
+// --- device: TF32 wgmma (K1-fp32 / K2-fp32) ------------------------------------------
+
+// d (m64 x n32) += A (smem, descriptor da) * B (smem, descriptor db), TF32
+// operands (the low 13 bits of each 32-bit value are ignored), both K-major.
+__device__ __forceinline__ void mma_tf32_ss_n32(float (&d)[16], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d (m64 x n32) += A (registers: each warp's 16 rows in the m16n8k8 TF32 A
+// layout, a[0] = A(g, t), a[1] = A(g + 8, t), a[2] = A(g, t + 4), a[3] =
+// A(g + 8, t + 4)) * B (smem, descriptor db, K-major), TF32 operands.
+__device__ __forceinline__ void mma_tf32_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (m64 x n64) += A (smem, descriptor da) * B (smem, descriptor db), TF32
+// operands (the low 13 bits of each 32-bit value are ignored), both K-major.
+__device__ __forceinline__ void mma_tf32_ss_n64(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d (m64 x n64) += A (registers: each warp's 16 rows in the m16n8k8 TF32 A
+// layout, a[0] = A(g, t), a[1] = A(g + 8, t), a[2] = A(g, t + 4), a[3] =
+// A(g + 8, t + 4)) * B (smem, descriptor db, K-major), TF32 operands.
+__device__ __forceinline__ void mma_tf32_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 
 // --- device: column sums of wgmma accumulators (K5's and K7's s1/s2) ----------------
 

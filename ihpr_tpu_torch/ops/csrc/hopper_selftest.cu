@@ -26,7 +26,26 @@
 // Operands come in by TMA into 128-byte-swizzled tiles, as in the kernels;
 // an MN-major B of N = 128 or 256 is two or four 64-column boxes 8192 bytes
 // apart.
+//
+// TF32 (K1-fp32 / K2-fp32, fused_head_f32.cuh): D (64 x N, fp32) = A (64 x
+// K) B^T (B given N x K, both K-major: TF32 wgmma takes no transposed
+// operand), K = 32 ... 128, N = 32 or 64, m64nNk8.
+//   mode 0: A and B from 128-byte-swizzled fp32 TMA tiles, TF32 values.
+//   mode 1: A from registers (m16n8k8 TF32 A layout, natural k order), B a
+//           tile, TF32 values.
+//   mode 2: 3xTF32 as K1-fp32: A a raw fp32 tile split in registers by
+//           load_a (perm32's channel order), B hi / lo planes (2, 64, K) in
+//           that order (the pre-pass's Wt); N = 32 takes rows 32 ... 63,
+//           as dw_kernel's second warpgroup does.
+//   mode 3: 3xTF32 on a tile rewritten in place: B lands raw, the threads
+//           overwrite it with its hi part and write its lo part to a second
+//           tile (dw_kernel's dv^T planes), fence to the async proxy; A raw
+//           from registers, split there.
+//   mode 4: mode 2's D1 (64 x 64), then E = D1 B2^T with D1's accumulator
+//           as A in registers (tf32x3::as_a), B2 hi / lo planes (2, N, 64)
+//           in perm8's bin order (the pre-pass's W): dfeat's dv W_j.
 
+#include "fused_head_f32.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -257,6 +276,144 @@ __global__ void __launch_bounds__(128)
   }
 }
 
+// ---- TF32 ---------------------------------------------------------------------------
+
+template <int N>
+__device__ __forceinline__ void mma_tf32_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (N == 64)
+    mma_tf32_rs_n64(d, a, db);
+  else
+    mma_tf32_rs_n32(d, a, db);
+}
+
+template <int N>
+__global__ void __launch_bounds__(128)
+    selftest_tf32_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap bmap,
+                         const __grid_constant__ CUtensorMap b2map, const float* __restrict__ a,
+                         float* __restrict__ out, float* __restrict__ out2, int mode, int K) {
+  using namespace f32h;
+  unsigned char* base = smem_base();
+  const int nkb = K / kKb;
+  unsigned char* a_s = base;                   // [nkb] tiles
+  unsigned char* b_s = a_s + nkb * kTile;      // [2][nkb] tiles: hi (or raw), lo
+  unsigned char* b2_s = b_s + 2 * nkb * kTile;  // [2][2] tiles: hi, lo of bins 0-31, 32-63
+  uint64_t* bar = reinterpret_cast<uint64_t*>(b2_s + 4 * kTile);
+  const int tid = threadIdx.x, wq = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const bool a_tile = mode != 1 && mode != 3, b_planes = mode == 2 || mode == 4;
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_arrive_expect_tx(bar, ((a_tile ? 1 : 0) + (b_planes ? 2 : 1)) * nkb * kTile + (mode == 4 ? 4 * kTile : 0));
+    for (int kb = 0; kb < nkb; ++kb) {
+      if (a_tile) tma_load_2d(a_s + kb * kTile, &amap, bar, kb * kKb, 0);
+      tma_load_2d(b_s + kb * kTile, &bmap, bar, kb * kKb, 0);
+      if (b_planes) tma_load_2d(b_s + (nkb + kb) * kTile, &bmap, bar, kb * kKb, kBox);
+    }
+    if (mode == 4)
+      for (int h = 0; h < 2; ++h)
+        for (int kb = 0; kb < 2; ++kb) tma_load_2d(b2_s + (2 * h + kb) * kTile, &b2map, bar, kb * kKb, h * N);
+  }
+  mbar_wait(bar, 0);
+  if (mode == 3) {  // B rewritten in place: hi over the raw values, lo beside
+    for (int i = tid; i < nkb * kBox * kKb; i += 128) {
+      const int kb = i / (kBox * kKb), r = (i / kKb) % kBox, k = i % kKb;
+      uint32_t* p = reinterpret_cast<uint32_t*>(b_s + kb * kTile + swz(r, k));
+      uint32_t hi, lo;
+      tf32x3::split(__uint_as_float(*p), hi, lo);
+      *p = hi;
+      *reinterpret_cast<uint32_t*>(b_s + (nkb + kb) * kTile + swz(r, k)) = lo;
+    }
+    fence_proxy_async();
+    __syncthreads();
+  }
+
+  const int b_off = (b_planes && N == 32) ? 32 * 128 : 0;  // rows 32 ... 63 of the planes
+  constexpr int D1 = (N == 64) ? 32 : 16;
+  float d[N / 2];
+  zero(d);
+  fence_acc(d);
+  for (int kb = 0; kb < nkb; ++kb) {
+    const unsigned char* bh = b_s + kb * kTile + b_off;
+    const unsigned char* bl = b_s + (nkb + kb) * kTile + b_off;
+    if (mode == 0) {
+      wgmma_fence();
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        if constexpr (N == 64)
+          mma_tf32_ss_n64(d, kdesc(a_s + kb * kTile, q), kdesc(bh, q));
+        else
+          mma_tf32_ss_n32(d, kdesc(a_s + kb * kTile, q), kdesc(bh, q));
+      }
+    } else if (mode == 1 || mode == 3) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int k = kb * kKb + q * 8 + t, r = wq * 16 + g;
+        const float x[4] = {a[r * K + k], a[(r + 8) * K + k], a[r * K + k + 4], a[(r + 8) * K + k + 4]};
+        uint32_t hi[4], lo[4];
+        tf32x3::split(x, hi, lo);
+        wgmma_fence();  // after A's registers are written
+        if (mode == 1) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) hi[e] = __float_as_uint(x[e]);
+          mma_tf32_rs<N>(d, hi, kdesc(bh, q));
+        } else {
+          mma3<N>(d, hi, lo, kdesc(bh, q), kdesc(bl, q));
+        }
+      }
+    } else {
+      uint32_t ah[4][4], al[4][4];
+      load_a(a_s + kb * kTile, wq, g, t, ah, al);
+      wgmma_fence();
+#pragma unroll
+      for (int q = 0; q < 4; ++q) mma3<N>(d, ah[q], al[q], kdesc(bh, q), kdesc(bl, q));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(d);
+  }
+#pragma unroll
+  for (int i = 0; i < N / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) out[(size_t)(wq * 16 + g + 8 * (e >> 1)) * N + 8 * i + 2 * t + (e & 1)] = d[4 * i + e];
+  if constexpr (N == 64) {
+    if (mode == 4) {  // E = D1 B2^T: D1's accumulator as A over its 64 columns
+      float e2[D1];
+      zero(e2);
+      fence_acc(e2);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float x[4] = {d[4 * i], d[4 * i + 2], d[4 * i + 1], d[4 * i + 3]};  // as_a
+        uint32_t hi[4], lo[4];
+        tf32x3::split(x, hi, lo);
+        wgmma_fence();
+        mma3<64>(e2, hi, lo, kdesc(b2_s + (i >> 2) * kTile, i & 3), kdesc(b2_s + (2 + (i >> 2)) * kTile, i & 3));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(e2);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          out2[(size_t)(wq * 16 + g + 8 * (e >> 1)) * 64 + 8 * i + 2 * t + (e & 1)] = e2[4 * i + e];
+    }
+  }
+}
+
+template <int N>
+int launch_tf32(const CUtensorMap& am, const CUtensorMap& bm, const CUtensorMap& b2m, const float* a, float* out,
+                float* out2, int mode, int K, cudaStream_t stream) {
+  const int nkb = K / f32h::kKb;
+  const int smem = 1024 + (3 * nkb + 4) * f32h::kTile + 8;
+  cudaError_t err = cudaFuncSetAttribute(selftest_tf32_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  selftest_tf32_kernel<N><<<1, 128, smem, stream>>>(am, bm, b2m, a, out, out2, mode, K);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -295,6 +452,27 @@ int ihpr_hopper_selftest_s8(const void* a, const void* bt, int* out, int K, int 
   if (err) return err;
   auto st = static_cast<cudaStream_t>(stream);
   return N == 128 ? launch_s8<128>(am, bm, out, K, st) : launch_s8<256>(am, bm, out, K, st);
+}
+
+// TF32 modes 0-4 above. a (64, K) fp32; b (N, K) fp32 for modes 0, 1, 3,
+// (2, 64, K) hi / lo planes for modes 2 and 4; b2 (2, N, 64) planes for
+// mode 4 (else unused); out (64, N) fp32, out2 (64, N) fp32 for mode 4 (E;
+// N = 64 there). Returns 0, a CUresult of the encoding or the cudaError_t
+// of the launch; -1 for a mode, K or N it does not take.
+int ihpr_hopper_selftest_tf32(const float* a, const float* b, const float* b2, float* out, float* out2, int mode,
+                              int K, int N, void* stream) {
+  if (mode < 0 || mode > 4 || K % f32h::kKb || K < f32h::kKb || K > 4 * f32h::kKb || (N != 32 && N != 64) ||
+      (mode == 4 && N != 64))
+    return -1;
+  const bool planes = mode == 2 || mode == 4;
+  CUtensorMap am, bm, b2m;
+  int err = tmap_matrix_f32(&am, a, 64, K);
+  if (!err) err = tmap_matrix_f32(&bm, b, planes ? 2 * 64 : N, K);
+  if (!err) err = tmap_matrix_f32(&b2m, mode == 4 ? b2 : b, mode == 4 ? 2 * N : N, mode == 4 ? 64 : K);
+  if (err) return err;
+  auto st = static_cast<cudaStream_t>(stream);
+  return N == 64 ? launch_tf32<64>(am, bm, b2m, a, out, out2, mode, K, st)
+                 : launch_tf32<32>(am, bm, b2m, a, out, out2, mode, K, st);
 }
 
 // a (batch, height, width, channels) bf16, contiguous, 16-byte aligned;

@@ -1,4 +1,5 @@
-// fp32 matrix products on the tensor cores: 3xTF32 with mma.sync m16n8k8.
+// fp32 matrix products on the tensor cores: the 3xTF32 split, and its
+// mma.sync m16n8k8 form.
 //
 // TF32 keeps 10 explicit mantissa bits, so one TF32 pass over fp32
 // operands errs by ~2^-11 of each product. Split each operand x into
@@ -9,13 +10,19 @@
 // first. Per product the error is ~2^-21 relative, where one TF32 pass
 // gives 2^-11: fp32 "highest" on the tensor cores' TF32 rate (494.7 dense
 // TFLOP/s on an H100 SXM, a third of it per 3xTF32 product, against 66.9
-// for fp32 FFMA). The fused head's fp32 kernels (K1-fp32,
-// fused_head_integral_fwd_f32.cu; K2-fp32, _bwd_f32.cu) use it;
-// tf32x3_selftest.cu holds the split and one tile's product against
-// float64.
+// for fp32 FFMA).
+//
+// The fused head's fp32 kernels (K1-fp32, fused_head_integral_fwd_f32.cu;
+// K2-fp32, _bwd_f32.cu) take the split from here and run the three passes
+// on wgmma (fused_head_f32.cuh): wgmma TF32 alone reached 0.96 of dense
+// TF32 on the card, mma.sync 0.56 (PERF.md §6), which is what held their
+// earlier mma.sync design. mma_tf32 / mma3 below stay for
+// tf32x3_selftest.cu, which holds the split and one tile's product against
+// float64 and measures both instructions' rates.
 //
 // Fragments of mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 (PTX
-// ISA), lane = 4 g + t:
+// ISA), lane = 4 g + t (wgmma m64nNk8's TF32 A fragment and accumulator
+// take the same layout in each warp's 16 rows):
 //   A (16 x 8): a[0] = A(g, t), a[1] = A(g + 8, t), a[2] = A(g, t + 4), a[3] = A(g + 8, t + 4)
 //   B (8 x 8):  b0 = B(t, g), b1 = B(t + 4, g)
 //   D (16 x 8): d[0] = D(g, 2t), d[1] = D(g, 2t + 1), d[2] = D(g + 8, 2t), d[3] = D(g + 8, 2t + 1)

@@ -1,11 +1,13 @@
 // Self-test of tf32x3.cuh, the 3xTF32 split and product of the fused
-// head's fp32 kernels. Replaces no TPU kernel: it exists so that a wrong
+// head's fp32 kernels, and the rates of the tensor cores' TF32 paths
+// (mma.sync beside wgmma). Replaces no TPU kernel: it exists so that a wrong
 // fragment layout or split shows as a failed test of one tile, not as
 // slightly-off coordinates. tests/test_torch_kernels.py (-k tf32x3) holds
-// its results against float64 on the host.
+// its results against float64 on the host; chip_smoke.py prints the rates.
 
 #include <cuda_runtime.h>
 
+#include "hopper.cuh"
 #include "tf32x3.cuh"
 
 namespace {
@@ -89,9 +91,58 @@ __global__ void __launch_bounds__(256) rate_kernel(float* __restrict__ out, int 
   out[blockIdx.x * blockDim.x + threadIdx.x] = s;
 }
 
+// The tensor cores' rate for wgmma m64nNk8 TF32 with A from registers and
+// B a zeroed 64 x 32 tile (N = 64: K1-fp32's and K2-fp32's products; 32:
+// dw_kernel's logits), alone: each of 2 warpgroups a CTA issues iters x 8
+// products, 8 a commit group, one group in flight behind the next. What
+// K1/K2-fp32's products can reach at most on wgmma.
+template <int N>
+__global__ void __launch_bounds__(256) wgmma_rate_kernel(float* __restrict__ out, int iters) {
+  __shared__ __align__(1024) unsigned char b[hopper::kBox * 128];
+  for (int i = threadIdx.x; i < hopper::kBox * 32; i += blockDim.x) reinterpret_cast<float*>(b)[i] = 0.f;
+  hopper::fence_proxy_async();
+  __syncthreads();
+  const uint32_t a[4] = {threadIdx.x, threadIdx.x + 1, threadIdx.x + 2, threadIdx.x + 3};
+  const uint64_t db = hopper::desc_sw128(b, 16, 1024);
+  float d[N / 2] = {};
+  hopper::fence_acc(d);
+  hopper::wgmma_fence();
+  for (int i = 0; i < iters; ++i) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      if constexpr (N == 64)
+        hopper::mma_tf32_rs_n64(d, a, db);
+      else
+        hopper::mma_tf32_rs_n32(d, a, db);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<1>();
+  }
+  hopper::wgmma_wait<0>();
+  hopper::fence_acc(d);
+  float s = 0.f;
+#pragma unroll
+  for (int k = 0; k < N / 2; ++k) s += d[k];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+
 }  // namespace
 
 extern "C" {
+
+// blocks x 2 warpgroups, each iters x 8 wgmma m64nNk8 TF32 products of
+// 2 * 64 * N * 8 operations (n = 32 or 64), into out (blocks * 256,).
+// Returns the launch's cudaError_t.
+int ihpr_tf32x3_wgmma_rate(float* out, int blocks, int iters, int n, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  if (n == 64)
+    wgmma_rate_kernel<64><<<blocks, 256, 0, st>>>(out, iters);
+  else if (n == 32)
+    wgmma_rate_kernel<32><<<blocks, 256, 0, st>>>(out, iters);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
 
 // blocks x 256 threads, each warp iters x kAcc products of 2048 (TF32) or
 // 4096 (bf16) operations into out (blocks * 256,). Returns the launch's

@@ -15,10 +15,11 @@ memory, in either direction:
 
 Both take bf16 heads. fp32 heads have their own pair, K1-fp32 and K2-fp32
 (``csrc/fused_head_integral_fwd_f32.cu``, ``_bwd_f32.cu``): the same
-functions with every product in 3xTF32 on the tensor cores
-(``csrc/tf32x3.cuh``), ~2^-21 relative per product, which keeps JAX's fp32
-``Precision.HIGHEST``. ``kernel_stats`` and ``kernel_bwd`` pick the pair by
-dtype.
+functions with every product in 3xTF32 on wgmma (``csrc/fused_head_f32.cuh``),
+~2^-21 relative per product, which keeps JAX's fp32 ``Precision.HIGHEST``.
+Each first splits the weight into TF32 hi and lo planes (``split_planes``
+is that pre-pass's plain version). ``kernel_stats`` and ``kernel_bwd`` pick
+the pair by dtype.
 
 ``FusedHeadIntegral`` is the autograd Function around either pair.
 ``fused_final_conv_integral`` picks its route from the shapes and dtype
@@ -168,15 +169,59 @@ def plain(
     return integral_volume.plain(v, joint_num, depth_dim, width)
 
 
+# The pre-pass of K1-fp32 / K2-fp32 (csrc/fused_head_f32.cuh): each joint
+# padded to _MAX_DEPTH bins; position p of a 32-channel block of the Wt
+# planes holds channel _PERM32[p], position q of an 8-bin group of the W
+# planes bin _PERM8[q].
+_PERM32 = [8 * (p & 3) + 2 * (p >> 3) + ((p >> 2) & 1) for p in range(32)]
+_PERM8 = [2 * (q & 3) + (q >> 2) for q in range(8)]
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """fp32 x rounded to TF32 (10 mantissa bits, to nearest, ties away
+    from zero) by the integer rule of ``csrc/tf32x3.cuh:to_tf32``: the low 13
+    bits of the result are zero."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fp32 x -> (hi, lo), both TF32: hi = tf32(x), lo = tf32(x - hi),
+    |x - (hi + lo)| <= 2^-22 |x|."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
+def split_planes(kernel: torch.Tensor, joint_num: int, depth_dim: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the fp32 kernels' pre-pass. kernel (C, J*D) fp32
+    -> wt (2, J*64, C) and w (2, C, J*64): the TF32 hi plane, then the lo
+    plane, every joint padded to 64 bins with zeros. wt is K-major over
+    channels, each 32-channel block in ``_PERM32``'s order; w is K-major
+    over bins, each 8-bin group in ``_PERM8``'s (tf32x3::as_a's relabelling
+    of k)."""
+    c = kernel.shape[0]
+    padded = kernel.new_zeros(c, joint_num, _MAX_DEPTH)
+    padded[:, :, :depth_dim] = kernel.view(c, joint_num, depth_dim)
+    planes = torch.stack(tf32_split(padded))  # (2, C, J, 64)
+    bins = torch.tensor([8 * (p // 8) + _PERM8[p % 8] for p in range(_MAX_DEPTH)], device=kernel.device)
+    chans = torch.tensor([32 * (p // 32) + _PERM32[p % 32] for p in range(c)], device=kernel.device)
+    w = planes[..., bins].reshape(2, c, joint_num * _MAX_DEPTH)
+    wt = planes.permute(0, 2, 3, 1).reshape(2, joint_num * _MAX_DEPTH, c)[..., chans]
+    return wt.contiguous(), w.contiguous()
+
+
 @functools.cache
 def _lib(name: str = _LIB) -> ctypes.CDLL:
     """The forward library ``name`` (``_LIB`` or ``_F32_LIB``: one C
-    interface, its symbols named ``ihpr_<name>``)."""
+    interface, its symbols named ``ihpr_<name>``; ``_F32_LIB`` also sizes
+    its scratch, ``ihpr_<name>_scratch``)."""
     lib = _build.load(name)
     smem, run = getattr(lib, f"ihpr_{name}_smem"), getattr(lib, f"ihpr_{name}")
     smem.restype, smem.argtypes = ctypes.c_size_t, [ctypes.c_int]
     run.restype = ctypes.c_int
     run.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    if name == _F32_LIB:
+        lib.ihpr_fused_head_integral_fwd_f32_scratch.restype = ctypes.c_size_t
+        lib.ihpr_fused_head_integral_fwd_f32_scratch.argtypes = [ctypes.c_int] * 4
     return lib
 
 
@@ -266,8 +311,11 @@ def kernel_stats(
     coords = torch.empty((b, joint_num, 3), **opts)
     m = torch.empty((b, joint_num), **opts)
     s = torch.empty((b, joint_num), **opts)
-    wt = torch.empty((joint_num * depth_dim, c), dtype=feat.dtype, device=feat.device)
     with torch.cuda.device(feat.device):
+        if name == _LIB:  # W transposed
+            wt = torch.empty((joint_num * depth_dim, c), dtype=feat.dtype, device=feat.device)
+        else:  # W's split planes and the row parts' states
+            wt = torch.empty(lib.ihpr_fused_head_integral_fwd_f32_scratch(b, hw, c, joint_num), **opts)
         err = getattr(lib, f"ihpr_{name}")(
             feat.data_ptr(), kernel.data_ptr(), bias.data_ptr(), wt.data_ptr(),
             coords.data_ptr(), m.data_ptr(), s.data_ptr(),
@@ -329,7 +377,9 @@ def kernel_bwd(
     jd = joint_num * depth_dim
     rows = fold_bwd_rows(m, s, coords, g)
     f32 = dict(dtype=torch.float32, device=feat.device)
-    wt = torch.empty((jd, c), dtype=feat.dtype, device=feat.device)
+    # bf16: W transposed; fp32: W's split planes, Wt's and W's (4, J*64, C)
+    wt = (torch.empty((jd, c), dtype=feat.dtype, device=feat.device) if name == _BWD_LIB
+          else torch.empty((4, joint_num * _MAX_DEPTH, c), **f32))
     with torch.cuda.device(feat.device):
         parts = getattr(lib, f"{sym}_partials")(b, hw, joint_num)
         part = torch.empty((parts, joint_num, c, _MAX_DEPTH), **f32)

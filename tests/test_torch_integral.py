@@ -325,3 +325,99 @@ def test_volume_ops_reject_bad_inputs():
     feat, kernel, bias = (torch.from_numpy(a) for a in _head(NO_PLAN[0], seed=14))
     with pytest.raises(ValueError, match="do not match"):
         fhi.fused_final_conv_integral(feat, kernel[:, :-1], bias, 18, 16)
+
+
+# --- the fp32 kernels' split pre-pass (ops/fused_head_integral.py:split_planes) ---
+
+# (C, J, D): the fp32 flagship head, a ragged J at D = 64, D = 32, C % 64 == 32 with D = 24
+SPLIT_SHAPES = [(256, 18, 64), (64, 17, 64), (128, 4, 32), (96, 5, 24)]
+SPLIT_IDS = ["flagship", "j17", "d32", "c96_d24"]
+
+
+def _split_inputs(shape, seed=11):
+    c, j, d = shape
+    rng = np.random.RandomState(seed)
+    # magnitudes over many binades, so the rounding sees every exponent
+    w = rng.randn(c, j * d) * 10.0 ** rng.randint(-6, 7, (c, j * d))
+    return torch.from_numpy(w.astype(np.float32))
+
+
+def _unpermuted(shape, wt, w):
+    """Each plane back in natural order: (2, C, J, 64) from wt and from w."""
+    c, j, _ = shape
+    inv32 = torch.argsort(torch.tensor(fhi._PERM32))
+    inv8 = torch.argsort(torch.tensor(fhi._PERM8))
+    chans = torch.tensor([32 * (k // 32) + int(inv32[k % 32]) for k in range(c)])
+    bins = torch.tensor([8 * (z // 8) + int(inv8[z % 8]) for z in range(64)])
+    from_wt = wt[..., chans].view(2, j, 64, c).permute(0, 3, 1, 2)
+    from_w = w.view(2, c, j, 64)[..., bins]
+    return from_wt, from_w
+
+
+@pytest.mark.parametrize("shape", SPLIT_SHAPES, ids=SPLIT_IDS)
+def test_split_planes_are_tf32_and_within_2_22(shape):
+    """Both layouts' hi and lo planes are TF32 (the low 13 bits zero, so
+    the tensor cores drop nothing); hi + lo is within 2^-22 |W| of W, with
+    zeros past D; and both layouts hold the same values."""
+    c, j, d = shape
+    kernel = _split_inputs(shape)
+    wt, w = fhi.split_planes(kernel, j, d)
+    assert wt.shape == (2, j * 64, c) and w.shape == (2, c, j * 64)
+    for plane in (wt, w):
+        assert int((plane.view(torch.int32) & 0x1FFF).abs().max()) == 0
+    from_wt, from_w = _unpermuted(shape, wt, w)
+    assert torch.equal(from_wt, from_w)
+    whole = from_w[0].double() + from_w[1].double()  # (C, J, 64)
+    assert int(torch.count_nonzero(whole[..., d:])) == 0
+    x = kernel.double().view(c, j, d)
+    assert bool(((whole[..., :d] - x).abs() <= 2.0 ** -22 * x.abs()).all())
+    assert bool((from_w[0][..., :d].double() != x).any())  # lo is not all zero: hi alone is not x
+
+
+@pytest.mark.parametrize("shape", SPLIT_SHAPES, ids=SPLIT_IDS)
+def test_split_planes_permuted_products_give_the_head(shape):
+    """The products the kernels form from the planes, emulated in float64
+    with the planes as stored: dfeat = dv W^T with A relabelled as as_a does
+    (k-slot t of an 8-bin group is bin 2t, slot t + 4 is bin 2t + 1, so A's
+    slot q holds bin _PERM8[q]), and S = F W with A taken as load_a does
+    (slot q of k-step s of a 32-channel block is channel _PERM32[8s + q]):
+    each within 2^-20 of the sum of |terms| of the float64 product of the
+    fp32 operands."""
+    c, j, d = shape
+    rng = np.random.RandomState(12)
+    kernel = torch.from_numpy((rng.randn(c, j * d) * 0.1).astype(np.float32))
+    wt, w = fhi.split_planes(kernel, j, d)
+    k64 = kernel.double()
+    dv = torch.from_numpy(rng.randn(40, j * d).astype(np.float32)).double()
+    dv_pad = torch.zeros(40, j, 64, dtype=torch.float64)
+    dv_pad[..., :d] = dv.view(40, j, d)
+    bins = torch.tensor([8 * (p // 8) + fhi._PERM8[p % 8] for p in range(64)])
+    a = dv_pad[..., bins].reshape(40, j * 64)  # A's k-slots, as_a's order
+    got = a @ (w[0].double() + w[1].double()).t()
+    want = dv @ k64.t()
+    assert bool(((got - want).abs() <= 2.0 ** -20 * (dv.abs() @ k64.abs().t())).all())
+
+    feat = torch.from_numpy(rng.randn(40, c).astype(np.float32)).double()
+    chans = torch.tensor([32 * (p // 32) + fhi._PERM32[p % 32] for p in range(c)])
+    s = feat[:, chans] @ (wt[0].double() + wt[1].double()).t()  # (40, J*64)
+    s = s.view(40, j, 64)[..., :d].reshape(40, j * d)
+    want = feat @ k64
+    assert bool(((s - want).abs() <= 2.0 ** -20 * (feat.abs() @ k64.abs())).all())
+
+
+def test_split_planes_perms_match_the_kernels():
+    """_PERM32 and _PERM8 are the orders csrc/fused_head_f32.cuh writes
+    (perm32, perm8 and their inverses inv32, inv8, copied here as
+    formulas): each a permutation, each inverse its inverse."""
+    inv32 = [8 * ((c & 7) >> 1) + (c >> 3) + 4 * (c & 1) for c in range(32)]
+    inv8 = [(z >> 1) + 4 * (z & 1) for z in range(8)]
+    assert sorted(fhi._PERM32) == list(range(32)) and sorted(fhi._PERM8) == list(range(8))
+    assert [inv32[fhi._PERM32[p]] for p in range(32)] == list(range(32))
+    assert [inv8[fhi._PERM8[q]] for q in range(8)] == list(range(8))
+    # load_a: thread t, k-step s takes channels 8t + 2s (slot t) and 8t + 2s + 1 (slot t + 4)
+    for s in range(4):
+        for t in range(4):
+            assert fhi._PERM32[8 * s + t] == 8 * t + 2 * s
+            assert fhi._PERM32[8 * s + t + 4] == 8 * t + 2 * s + 1
+    # as_a: slot t is column 2t, slot t + 4 is column 2t + 1
+    assert fhi._PERM8 == [0, 2, 4, 6, 1, 3, 5, 7]

@@ -124,6 +124,87 @@ def test_wgmma_s8_matches_int_products(cuda, k, n):
     assert torch.equal(out, (a.double() @ bt.double().t()).to(torch.int32))
 
 
+def _selftest_tf32(a, b, b2, mode, k, n):
+    """D (64 x n) of hopper_selftest.cu's TF32 mode ``mode``, and E (64 x
+    n) for mode 4."""
+    lib = _build.load("hopper_selftest")
+    fn = lib.ihpr_hopper_selftest_tf32
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    out, out2 = torch.empty(64, n, device=a.device), torch.empty(64, n, device=a.device)
+    err = fn(a.data_ptr(), b.data_ptr(), (b2 if b2 is not None else b).data_ptr(), out.data_ptr(),
+             out2.data_ptr(), mode, k, n, torch.cuda.current_stream().cuda_stream)
+    assert err == 0, f"hopper_selftest tf32 mode {mode}: error {err}"
+    torch.cuda.synchronize()
+    return out, out2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "mode, k, n",
+    [(0, 128, 64), (0, 64, 32), (1, 128, 64), (1, 32, 32), (2, 128, 64), (2, 96, 32), (3, 128, 64),
+     (3, 64, 32), (4, 128, 64)],
+    ids=["tf32_kmajor_ab_n64", "tf32_kmajor_ab_n32", "tf32_regs_a_n64", "tf32_regs_a_n32",
+         "tf32_split_perm32_n64", "tf32_split_perm32_rows32_n32", "tf32_rewritten_split_n64",
+         "tf32_rewritten_split_n32", "tf32_acc_as_a_perm8"],
+)
+def test_wgmma_tf32_modes_match_float64(cuda, mode, k, n):
+    """The TF32 wgmma modes K1-fp32 / K2-fp32 build on
+    (csrc/fused_head_f32.cuh; hopper_selftest.cu's modes 0-4), against
+    float64 products. Modes 0 and 1 (K-major A and B from 128-byte-swizzled
+    fp32 TMA tiles; A from registers) take TF32 values (split_planes'
+    rounding), so the products are exact: 1e-6 of the sum of |terms|
+    (fp32 sums). Modes 2-4 are 3xTF32 on fp32 values: A split in registers
+    in perm32's order against the pre-pass's Wt planes (n32 on rows 32-63,
+    as dw_kernel's second warpgroup); B rewritten in place in shared memory
+    as its hi and lo planes; the accumulator turned into A (as_a) against
+    the pre-pass's W planes in perm8's order: 2^-20 of the sum of |terms|,
+    where one TF32 pass errs by ~2^-11."""
+    g = torch.Generator().manual_seed(100 * mode + k + n)
+    a = torch.randn(64, k, generator=g)
+    if mode in (0, 1):
+        a, b = fhi.tf32_round(a), fhi.tf32_round(torch.randn(n, k, generator=g))
+        got, _ = _selftest_tf32(a.to(cuda), b.to(cuda), None, mode, k, n)
+        want, scale = a.double() @ b.double().t(), a.double().abs() @ b.double().abs().t()
+        assert bool(((got.cpu().double() - want).abs() <= 1e-6 * scale).all())
+        return
+    if mode == 3:
+        b = torch.randn(n, k, generator=g)
+        got, _ = _selftest_tf32(a.to(cuda), b.to(cuda), None, mode, k, n)
+        bt = b.double()
+    else:
+        b1 = torch.randn(k, 64, generator=g)  # a kernel (C = k, J*D = 64): Wt planes (2, 64, k)
+        planes = fhi.split_planes(b1, 1, 64)[0]
+        b2 = torch.randn(n, 64, generator=g)  # mode 4: W planes (2, n, 64) of a kernel (n, 64)
+        got, e = _selftest_tf32(a.to(cuda), planes.to(cuda), fhi.split_planes(b2, 1, 64)[1].to(cuda), mode, k, n)
+        bt = b1.double().t()[64 - n:]
+    want, scale = a.double() @ bt.t(), a.double().abs() @ bt.abs().t()
+    assert bool(((got.cpu().double() - want).abs() <= 2.0**-20 * scale).all())
+    if mode == 4:
+        d1 = got.cpu().double()
+        want, scale = d1 @ b2.double().t(), d1.abs() @ b2.double().abs().t()
+        assert bool(((e.cpu().double() - want).abs() <= 2.0**-20 * scale).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(256, 18, 64), (64, 17, 64), (96, 5, 24)], ids=["flagship", "j17", "c96_d24"])
+def test_split_planes_kernel_matches_plain(cuda, shape):
+    """The fp32 kernels' pre-pass (split_planes_kernel) bitwise
+    split_planes: the Wt and W planes, hi and lo, padding included."""
+    c, j, d = shape
+    kernel = torch.randn(c, j * d, generator=torch.Generator().manual_seed(c + j)) * 3.0
+    lib = _build.load(fhi._F32_BWD_LIB)
+    fn = lib.ihpr_fused_head_integral_bwd_f32_split
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    planes = torch.full((4, j * 64, c), float("nan"), device=cuda)
+    assert fn(kernel.to(cuda).data_ptr(), planes.data_ptr(), c, j, d, torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    wt, w = fhi.split_planes(kernel, j, d)
+    assert torch.equal(planes[:2].cpu().view(torch.int32), wt.view(torch.int32))
+    assert torch.equal(planes[2:].cpu().reshape(2, c, j * 64).view(torch.int32), w.view(torch.int32))
+
+
 def _tma4d(a, bw, bh, c0, j0, i0, b):
     """The (64, 64) box of hopper.cuh's 4-D NHWC map of a at (channel c0,
     column j0, row i0, image b), unswizzled (hopper_selftest.cu)."""
