@@ -4,7 +4,8 @@
 
 1. Prints the environment: torch, CUDA, nvcc, the card's name and power limit.
 2. Builds every CUDA kernel (K1-K8 of the serving, training, fused-train,
-   heatmap and eval paths; K1/K2-fp32 of the fp32 heads JAX fuses and the
+   heatmap and eval paths, K5/K6-fp32 with K5/K6; K1/K2-fp32 of the fp32
+   heads JAX fuses and the
    3xTF32 self-test's rate probe; P1/P2 of the probe tools; the JPEG colour
    kernel of the decode) and the nvJPEG codec from ihpr_tpu_torch/ops/csrc,
    one nvcc per source, all at once.
@@ -49,7 +50,13 @@
    over each step's launches beside the step's bound; K5 and K6 at each
    shape with their bytes, share of the bound and sub-launches
    (torch.profiler), and their device time summed over each step; each
-   sub-launch of one bf16 K7 and one K8 call beside its own bound.
+   sub-launch of one bf16 K7 and one K8 call beside its own bound. Then
+   K5-fp32 / K6-fp32 (3xTF32 on wgmma) at every shape of a fp32 fused_1x1
+   step of h36m3d_r50_fp32 (f32_breakdown.BN_STEP, batch 32) against plain, timed
+   beside plain and cuBLAS fp32 (TF32 off) + sums, with their sub-launches,
+   the 3xTF32 bound and the FMA peak's time, summed over the step's 16
+   launches, two runs bitwise equal; K7/K8-fp32 timed once at (32, 16, 16, 256) x (9, 256, 256)
+   beside cuDNN fp32 (no full-width path runs them).
 6. Serves the flagship config h36m3d_r50 (ResNet-50, 256x256, 18 joints,
    64 depth bins, bf16, flip-test) at max_batch 32 with seeded random
    weights: predict_patches, predict (native warp) and predict_stream.
@@ -84,6 +91,14 @@
    step), each route's device ms a step and peak memory; parity_r50
    (fp32, batch 1) served through PoseServer with flip-test, K1-fp32 once
    a dispatch, coords against flip-test coords_plain.
+7m. h36m3d_r50_fp32 with lean BN and fused_1x1 (fp32_fused_phase; ResNet-50
+   at 256x256, fp32 "highest", batch 32): the first forward and backward
+   on the fused route (K5-fp32 / K6-fp32 16 each, K1/K2-fp32 one, K7/K8
+   none) and on the unfused lean route from the same weights (loss 1e-4,
+   gradient norm 1e-3 relative); 3 counted Trainer steps, one K5-fp32 and
+   one K6-fp32 launch of them against plain on its saved inputs; device ms
+   a step, peak memory and device-busy time, fused_1x1 against unfused, in
+   turns, medians of three rounds.
 7c. h36m3d_r152_384 (ResNet-152, 384x288 input, 96x72x64 heatmaps, bf16)
    at full depth and width on seeded weights: serves 40 patches at
    max_batch 32 with flip-test (K1 at H*W = 6912, W = 72, the padded
@@ -214,7 +229,8 @@ steps, fused step and Tester, counted in the rank; 7e: each rank's serving;
 7f: the train steps, the Tester and the server, each on its own; 7h: the
 train and test CLIs, counted in their subprocesses, and the Tester; 7j:
 the accuracy tool's whole run; 5d: the fused op's forward and backward;
-7l: each route's forward and backward, the Trainer's steps, the server; 7i:
+7l: each route's forward and backward, the Trainer's steps, the server; 7m:
+each route's forward and backward, the Trainer's steps; 7i:
 each rank's eval steps, Trainer steps, server and grid step, counted in
 the rank; 7k: each rank's eval step and train step, counted in the rank) the
 kernels' launch counters are set to 0 just before the path
@@ -231,7 +247,7 @@ non-zero; so does a host without CUDA.
 builds the kernels and runs only the named phases (bn: 5c; fused: 7b; dp:
 7d; dp-serve: 7e; device-warp: 7f; serving-bench: 7g; real-data: 7h;
 spatial: 7i; spatial-uneven: 7k; accuracy: 7j; fp32-kernels: 5d;
-fp32-train and parity-serve: 7l; no-plan: 9), for timing one tree's K5-K8 against another's (copy this file into a
+fp32-train and parity-serve: 7l; fp32-fused: 7m; no-plan: 9), for timing one tree's K5-K8 against another's (copy this file into a
 checkout of the other tree and run it there) or trying one phase. It
 prints no JSON lines.
 """
@@ -1100,6 +1116,137 @@ def fp32_train_phase(fhi, iv, gpu: str):
     torch.cuda.empty_cache()
     print(f"fp32 train: the phase took {time.perf_counter() - t_phase:.1f} s  [{gpu}]")
     return counts[4], counts[5]
+
+
+def fp32_fused_phase(fhi, iv, mm, cb, gpu: str):
+    """7m: h36m3d_r50_fp32 with lean BN and fused_1x1 (ResNet-50 at 256x256,
+    fp32 "highest", batch 32) on synthetic H36M + MPII: 8 Bottlenecks take
+    the 1x1 route, so a step launches K5-fp32 and K6-fp32 16 times each,
+    K1/K2-fp32 once (its fp32 head has a fused plan) and K7/K8 never. First
+    one train-mode forward and backward from the same weights on the fused
+    route and on the unfused lean route (counted; loss within TOL_F32_LOSS
+    and gradient norm within TOL_F32_GRAD, relative); then F32_STEPS counted
+    steps through Trainer.train, one K5-fp32 and one K6-fp32 launch of them
+    (with the prologue) held against plain on its saved inputs; then device
+    ms per step, peak memory and device-busy time on one resident batch,
+    fused_1x1 against unfused, in turns, medians of three rounds. Returns
+    K5-fp32's and K6-fp32's launches and the saved launches' largest y and
+    dx differences."""
+    from ihpr_tpu_torch.config import get_config
+    from ihpr_tpu_torch.data import skeletons
+    from ihpr_tpu_torch.data.pipeline import prefetch_to_device
+    from ihpr_tpu_torch.engine.trainer import Trainer
+    from ihpr_tpu_torch.models.resnet import Bottleneck
+
+    def counts():  # K5-fp32, K6-fp32, K1-fp32, K2-fp32, then bf16 K5-K8
+        return (mm.f32_launches, mm.f32_bwd_launches, *_f32_counts(fhi), *_counts(mm, cb))
+
+    t_phase = time.perf_counter()
+    scratch = tempfile.TemporaryDirectory()  # the Trainer's log and snapshot; removed on return
+    base = get_config("h36m3d_r50_fp32").replace(output_dir=scratch.name)
+    cfg = base.replace(model=dataclasses.replace(base.model, bn_mode="lean", fused_1x1=True))
+    if (cfg.optim.batch_size_per_device, cfg.model.matmul_precision, cfg.model.compute_dtype) != (
+            F32_TRAIN_BATCH, "highest", "float32"):
+        raise AssertionError(f"h36m3d_r50_fp32 is {cfg.model} at batch {cfg.optim.batch_size_per_device}")
+    trainer = Trainer(cfg, data_root="synthetic", synthetic_size=F32_SIZE, num_workers=8, device="cuda")
+    blocks = [m for m in trainer.model.modules() if isinstance(m, Bottleneck)]
+
+    def set_fused(on):
+        for blk in blocks:
+            blk.fused_1x1 = on
+
+    wrapped = {}
+    try:
+        model = trainer.model
+        flip_perm = skeletons.get_skeleton(cfg.data.trainset[0]).flip_permutation()
+        batch, _ = next(prefetch_to_device(iter(list(trainer.loader.epoch(99, 1))), "cuda"))
+        state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        runs = {}
+        for on in (True, False):
+            set_fused(on)
+            _first_step(model, cfg, batch, state, flip_perm)  # warm-up: kernel loads, cuDNN plans
+            # --- one forward and backward on each route, counted ---
+            _zero_counts(fhi, iv, mm, cb)
+            runs[on] = (*_first_step(model, cfg, batch, state, flip_perm), counts())
+            # --------------------------------------------------------
+        model.load_state_dict(state)
+        set_fused(True)
+        (loss, grads, fused_n), (loss_u, grads_u, unfused_n) = runs[True], runs[False]
+        norm = float(torch.stack([g.double().norm() for g in grads.values()]).norm())
+        norm_u = float(torch.stack([g.double().norm() for g in grads_u.values()]).norm())
+        worst = max(float((grads[n] - grads_u[n]).abs().max() / grads_u[n].abs().max()) for n in grads)
+        print(f"fp32 fused: h36m3d_r50_fp32 lean BN, first forward and backward at batch {F32_TRAIN_BATCH}: loss "
+              f"{loss:.8f} with fused_1x1, {loss_u:.8f} unfused (relative {abs(loss - loss_u) / abs(loss_u):.3g}, "
+              f"bar {TOL_F32_LOSS:g}); gradient norm {norm:.8g} / {norm_u:.8g} (relative "
+              f"{abs(norm - norm_u) / norm_u:.3g}, bar {TOL_F32_GRAD:g}); worst tensor |diff|/max {worst:.2e}; "
+              f"K5/K6-fp32, K1/K2-fp32, K5-K8 launches {fused_n} fused, {unfused_n} unfused")
+        if (fused_n != (16, 16, 1, 1, 0, 0, 0, 0) or unfused_n != (0, 0, 1, 1, 0, 0, 0, 0)
+                or abs(loss - loss_u) > TOL_F32_LOSS * abs(loss_u) or abs(norm - norm_u) > TOL_F32_GRAD * norm_u):
+            raise AssertionError(f"fp32 fused: loss {loss} / {loss_u}, |g| {norm} / {norm_u}, launches "
+                                 f"{fused_n} / {unfused_n}")
+        del grads, grads_u
+
+        with_prologue = lambda args: args[2] is not None and args[0].dtype == torch.float32  # noqa: E731
+        for name in ("kernel_fwd", "kernel_bwd"):
+            wrapped[name] = _FirstLaunch(getattr(mm, name), with_prologue)
+            setattr(mm, name, wrapped[name])
+        # --- the main path, counted: F32_STEPS steps through Trainer.train ---
+        trainer.cap_steps_per_epoch(F32_STEPS)
+        _zero_counts(fhi, iv, mm, cb)
+        trainer.train(trainer.start_epoch + 1)
+        torch.cuda.synchronize()
+        steps_n = counts()
+        # ---------------------------------------------------------------------
+        for name, w in wrapped.items():
+            setattr(mm, name, w.fn)
+        losses = [float(x) for x in trainer.losses]
+        if steps_n != tuple(F32_STEPS * c for c in (16, 16, 1, 1, 0, 0, 0, 0)):
+            raise AssertionError(f"fp32 fused: {F32_STEPS} Trainer steps launched {steps_n}")
+        if len(losses) != F32_STEPS or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"fp32 fused losses {losses}")
+        print(f"fp32 fused: {F32_STEPS} steps through Trainer.train, K5/K6-fp32, K1/K2-fp32, K5-K8 launches "
+              f"{steps_n}; losses {', '.join(f'{x:.4f}' for x in losses)}")
+        (f_args, f_out), (b_args, b_out) = wrapped["kernel_fwd"].saved, wrapped["kernel_bwd"].saved
+        rows = f_out[0].shape[0]
+        errs = (compare_bn("K5-fp32, one launch of a counted step", FWD_NAMES, f_out, mm.plain(*f_args),
+                           torch.float32, rows)["y"],
+                compare_bn("K6-fp32, one launch of a counted step", BWD_NAMES, b_out, mm.plain_bwd(*b_args),
+                           torch.float32, rows)["dx"])
+
+        # The A/B on one resident batch: fused_1x1 and unfused in turns (the
+        # order reversed every other round), three rounds of three steps.
+        step = lambda: trainer.lean_step_fn(batch)  # noqa: E731
+        timing, peak = {True: [], False: []}, {}
+        for rnd in range(3):
+            for on in ((True, False) if rnd % 2 == 0 else (False, True)):
+                set_fused(on)
+                torch.cuda.reset_peak_memory_stats()
+                timing[on].append(_cuda_ms(step, 3, reps=1))
+                peak[on] = torch.cuda.max_memory_allocated() / 2**30
+        for on in (True, False):
+            set_fused(on)
+            step()
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                step()
+                torch.cuda.synchronize()
+            kinds = prof.key_averages()
+            busy = sum(e.self_device_time_total for e in kinds) / 1e3
+            fused = sum(e.self_device_time_total for e in kinds if "mbf::" in e.key) / 1e3
+            ms = statistics.median(timing[on])
+            print(f"fp32 fused A/B, h36m3d_r50_fp32 lean batch {F32_TRAIN_BATCH}, "
+                  f"{'fused_1x1' if on else 'unfused'}: {ms:.3f} ms/step median of "
+                  f"{', '.join(f'{t:.3f}' for t in timing[on])} ({F32_TRAIN_BATCH / ms * 1e3:.1f} img/s, peak "
+                  f"{peak[on]:.3f} GiB); device busy {busy:.3f} ms, idle share {1 - busy / ms:.3f}; K5/K6-fp32 "
+                  f"kernels {fused:.3f} ms (CUDA events, same model, in turns; torch.profiler)  [{gpu}]")
+        set_fused(True)
+    finally:
+        for name, w in wrapped.items():
+            setattr(mm, name, w.fn)
+        trainer.close()
+        scratch.cleanup()
+    torch.cuda.empty_cache()
+    print(f"fp32 fused: the phase took {time.perf_counter() - t_phase:.1f} s  [{gpu}]")
+    return fused_n[0] + steps_n[0], fused_n[1] + steps_n[1], errs
 
 
 def parity_serve_phase(fhi, iv, gpu: str):
@@ -1988,17 +2135,34 @@ MM_STEP = (
     (32768, 1024, 256, False, 0, 5),  # layer3_1 ... layer3_5 conv1 (fused_1x1 alone)
 )
 CONV_STEP = ((128, 16, 16, 256, 256), 5)  # layer3_1 ... layer3_5 conv2
+# A fused_1x1 step of h36m3d_r50_fp32 with lean BN (batch 32) runs K5-fp32 /
+# K6-fp32 at ihpr_tpu_torch/tools/f32_breakdown.py:BN_STEP's 8 shapes, 16
+# launches each; the conv3 route takes no fp32 block, so K7/K8-fp32 run on
+# no full-width path: they are timed once at CONV_F32 only.
+CONV_F32 = (32, 16, 16, 256, 256)  # K7/K8-fp32, timed only: the R50 stage-3 conv2 at batch 32
+# The kernels line's names of K5-fp32 / K6-fp32, whose source is the header
+# both entry points include.
+F32_FWD_NAME, F32_BWD_NAME = "matmul_bn_fwd_f32", "matmul_bn_bwd_f32"
+SOURCES = {F32_FWD_NAME: "ihpr_tpu_torch/ops/csrc/matmul_bn_f32.cuh",
+           F32_BWD_NAME: "ihpr_tpu_torch/ops/csrc/matmul_bn_f32.cuh"}
 # Peak rates of one H100 SXM (NVIDIA's data sheet, dense) for the bounds.
 PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 
 
-def _bound(flops: float, nbytes: float, dtype=torch.bfloat16):
+def _bound(flops: float, nbytes: float, dtype=torch.bfloat16, elementwise: bool = False):
     """(least ms, what bounds it) for work of ``flops`` operations in
-    ``dtype`` moving ``nbytes`` bytes."""
-    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
-    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    ``dtype`` moving ``nbytes`` bytes. Matrix products in fp32 count as
+    3xTF32 on the tensor cores (three TF32 passes a product, f32_bound's
+    rule); ``elementwise`` fp32 work runs on the FMA units."""
+    if dtype == torch.bfloat16:
+        t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    elif elementwise:
+        t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    else:
+        t_ops = 3 * flops / PEAK_TF32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -2246,16 +2410,102 @@ def _k6_one_pass(k: int, n: int) -> bool:
     return k <= 256 and n <= 256 and width(k) * width(n) <= 128 * 128
 
 
+def bn_f32_step(mm, cb, gpu: str):
+    """K5-fp32 / K6-fp32 at every shape of a fused_1x1 step of
+    h36m3d_r50_fp32 (f32_breakdown.BN_STEP): each against plain (the fp32 bars of
+    compare_bn), then kernel, plain and library (cuBLAS fp32 with TF32 off,
+    and torch sums) in turns, the sub-launches (torch.profiler), the 3xTF32
+    bound and the time the products would take at the FMA units' peak;
+    summed over the step's 16 launches each; two runs bitwise equal at
+    the longest sums. Then K7/K8-fp32 timed once at
+    CONV_F32 (no full-width path runs them). Returns ({"k5f", "k6f": max
+    |y| or |dx diff|}, {"k5f", "k6f": (ms, plain, library, flops, bytes,
+    device ms, (bound ms, bound by))})."""
+    from ihpr_tpu_torch.ops.fused_head_integral import no_tf32
+    from ihpr_tpu_torch.tools.f32_breakdown import BN_STEP
+
+    errs = {"k5f": 0.0, "k6f": 0.0}
+    step = {k: [0.0] * 6 for k in ("k5f", "k6f")}
+    # The step's bound: the sum of each launch's own (launches run one after
+    # another), split by what bounds each.
+    bounds = {k: {"bytes": 0.0, "operations": 0.0} for k in ("k5f", "k6f")}
+    for i, (m, k, n, prologue, launches) in enumerate(BN_STEP):
+        shape = f"({m}, {k}) x ({k}, {n}){' +prologue' if prologue else ''}"
+        args = _bn_inputs((m,), k, n, 1, torch.float32, prologue, SEED + 60 + i)
+        ey, edx = check_bn(mm, args, f"K5/K6-fp32 {shape}")
+        errs["k5f"], errs["k6f"] = max(errs["k5f"], ey), max(errs["k6f"], edx)
+        with no_tf32():
+            t = _time_bn(mm, args, _library_mm)
+        work = _bn_work((m,), k, n, 1, 4)
+        x, w, mul, add, dy, ds1, ds2 = args
+        y = mm.kernel_fwd(x, w, mul, add)[0]
+        calls = {"k5f": (lambda: mm.kernel_fwd(x, w, mul, add), "fwd", work[0], work[1]),
+                 "k6f": (lambda: mm.kernel_bwd(x, w, mul, add, y, dy, ds1, ds2), "bwd", work[2], work[3])}
+        for key, (fn, kind, flops, nbytes) in calls.items():
+            parts = _launch_ms(fn, expect=("reduce_rows",))
+            device = sum(parts.values())
+            acc = step[key]
+            for j, v in enumerate((t[f"kernel_{kind}"], t[f"plain_{kind}"], t[f"library_{kind}"], flops, nbytes,
+                                   device)):
+                acc[j] += launches * v
+            bound, by = _bound(flops, nbytes, torch.float32)
+            bounds[key][by] += launches * bound
+            print(f"{'K5' if kind == 'fwd' else 'K6'}-fp32 {shape} x{launches}/step: kernel {t[f'kernel_{kind}']:.4f} "
+                  f"ms ({bound / t[f'kernel_{kind}']:.2f} of its bound {bound:.4f}, {by}; FMA peak "
+                  f"{flops / PEAK_FP32_FLOPS * 1e3:.4f}), plain {t[f'plain_{kind}']:.4f}, cuBLAS fp32+sums "
+                  f"{t[f'library_{kind}']:.4f}, {nbytes / 1e6:.1f} MB; sub-launches "
+                  + "; ".join(f"{_kernel_label(name)} {ms:.4f} ms" for name, ms in parts.items())
+                  + f" (device {device:.4f})  [{gpu}]")
+        del args, x, w, mul, add, dy, ds1, ds2, y
+    for key, label in (("k5f", "K5-fp32"), ("k6f", "K6-fp32")):
+        ms, plain_ms, lib_ms, flops, nbytes, device = step[key]
+        bound_ms, bound_by = sum(bounds[key].values()), max(bounds[key], key=bounds[key].get)
+        step[key].append((bound_ms, bound_by))
+        print(f"{label} per fp32 fused_1x1 step ({sum(r[4] for r in BN_STEP)} launches): kernel {ms:.4f} ms "
+              f"(device {device:.4f} by torch.profiler), plain {plain_ms:.4f}, library {lib_ms:.4f}, bound "
+              f"{bound_ms:.4f} (the launches' own, summed: bytes {bounds[key]['bytes']:.4f}, operations "
+              f"{bounds[key]['operations']:.4f}; {ms and bound_ms / ms:.2f} of it), FMA peak "
+              f"{flops / PEAK_FP32_FLOPS * 1e3:.4f}; {flops / 1e9:.1f} GFLOP, {nbytes / 1e9:.3f} GB  [{gpu}]")
+
+    # Two runs bitwise equal where the sums are longest (dw over 2048 row
+    # tiles, flushed into partials), with the prologue.
+    x, w, mul, add, dy, ds1, ds2 = _bn_inputs((131072,), 256, 128, 1, torch.float32, True, SEED + 69)
+    first, again = mm.kernel_fwd(x, w, mul, add), mm.kernel_fwd(x, w, mul, add)
+    bwd = (x, w, mul, add, first[0], dy, ds1, ds2)
+    if not all(torch.equal(a, b) for a, b in zip((*first, *mm.kernel_bwd(*bwd)), (*again, *mm.kernel_bwd(*bwd)))):
+        raise AssertionError("K5/K6-fp32 are not deterministic: two runs differ")
+    print("K5/K6-fp32 two runs at (131072, 256) x (256, 128) +prologue: y, s1, s2, dx, dw, dmul, dadd bitwise equal")
+    del x, w, mul, add, dy, ds1, ds2, first, again, bwd
+
+    b, h, w_, c, n = CONV_F32
+    args = _bn_inputs((b, h, w_), c, n, 9, torch.float32, True, SEED + 70)
+    check_bn(cb, args, f"K7/K8-fp32 ({b}, {h}, {w_}, {c}) x (9, {c}, {n})")
+    with no_tf32():
+        t = _time_bn(cb, args, _library_conv)
+    work = _bn_work((b, h, w_), c, n, 9, 4)
+    for label, kind, flops, nbytes in (("K7", "fwd", work[0], work[1]), ("K8", "bwd", work[2], work[3])):
+        bound, by = _bound(flops, nbytes, torch.float32)
+        print(f"{label}-fp32 ({b}, {h}, {w_}, {c}) x (9, {c}, {n}), timed only (0 launches on any full-width "
+              f"path): kernel {t[f'kernel_{kind}']:.4f} ms, bound {bound:.4f} ({by}; FMA peak "
+              f"{flops / PEAK_FP32_FLOPS * 1e3:.4f}), plain {t[f'plain_{kind}']:.4f}, cuDNN fp32+sums "
+              f"{t[f'library_{kind}']:.4f}  [{gpu}]")
+    del args
+    torch.cuda.empty_cache()
+    return errs, step
+
+
 def bn_kernel_phase(mm, cb, gpu: str):
     """K5/K6 and K7/K8 against their plain versions at every shape of the
     flagship fused step and of a fused_1x1-alone step (bf16, with the
-    prologue where the step has it) and at edge cases (fp32, M = 1, M = 40,
+    prologue where the step has it), K5/K6-fp32 at a fp32 fused_1x1 step's
+    (bn_f32_step), and at edge cases (fp32, M = 1, M = 40,
     K = N = 8, K5's streamed w, the R152 stage-3 plane, B = 1, and the bf16
     K7/K8 tiles' edges); K5's and K6's sub-launches at each 1x1 shape,
     K7/K8's at the flagship; two runs bitwise equal; each timed (kernel,
     plain, library) and summed over each step's launches. Returns, per
     kernel name, (max |y or dx diff|, step ms, step plain ms, step library
-    ms, step bound ms, bound by) of the step with both flags."""
+    ms, step bound ms, bound by) of the step with both flags (k5f, k6f: of
+    the fp32 fused_1x1 step)."""
     errs = {k: 0.0 for k in ("k5", "k6", "k7", "k8")}
     step = {k: [0.0, 0.0, 0.0, 0.0, 0.0] for k in ("k5", "k6", "k7", "k8")}  # ms, plain, library, ops, bytes
     alone = {k: [0.0, 0.0, 0.0, 0.0, 0.0] for k in ("k5", "k6")}  # the same over a fused_1x1-alone step
@@ -2310,6 +2560,8 @@ def bn_kernel_phase(mm, cb, gpu: str):
         print(f"K6 {shape}: {t['kernel_bwd']:.4f} ms, {work[3] / 1e6:.1f} MB, {bwd_bound / t['kernel_bwd']:.2f} of "
               f"its bound; sub-launches {bwd}  [{gpu}]")
         del args, x, w, mul, add, dy, ds1, ds2, y
+    f32_errs, f32_step = bn_f32_step(mm, cb, gpu)
+    errs.update(f32_errs)
     # Edges: M below a tile, K and N off the 64-grid, K or N within one box
     # with the other past 256 (bf16 K6 takes two kernels there), and K x N
     # too large for K5 to keep w in shared memory at widths 64 and 128.
@@ -2367,6 +2619,9 @@ def bn_kernel_phase(mm, cb, gpu: str):
         dev = f" (device {device[key][0]:.4f} by torch.profiler)" if key in device else ""
         print(f"{key.upper()} per flagship step: kernel {ms:.4f} ms{dev}, plain {plain_ms:.4f}, library "
               f"{lib_ms:.4f}, bound {bound_ms:.4f} ({bound_by})  [{gpu}]")
+    for key in ("k5f", "k6f"):
+        ms, plain_ms, lib_ms, _, _, _, (bound_ms, bound_by) = f32_step[key]
+        out[key] = (errs[key], ms, plain_ms, lib_ms, bound_ms, bound_by)
     for key in ("k5", "k6"):
         ms, plain_ms, lib_ms, flops, nbytes = alone[key]
         bound_ms, bound_by = _bound(flops, nbytes)
@@ -2575,8 +2830,8 @@ def head_bounds():
     train batch (128, 4096, 256), K3 and K4 at the (128, 4096, 1152) volume;
     ~5 fp32 operations per logit for the softmax terms."""
     vol = TRAIN_BATCH * _HEAD[0] * _HEAD[2]
-    k3 = max(_bound(5 * vol, 0, torch.float32), _bound(0, 2 * vol))
-    k4 = max(_bound(5 * vol, 0, torch.float32), _bound(0, 4 * vol))
+    k3 = max(_bound(5 * vol, 0, torch.float32, elementwise=True), _bound(0, 2 * vol))
+    k4 = max(_bound(5 * vol, 0, torch.float32, elementwise=True), _bound(0, 4 * vol))
     return k1_bound(2 * MAX_BATCH), k2_bound(TRAIN_BATCH), k3, k4
 
 
@@ -4611,7 +4866,7 @@ def main(argv=None) -> int:
     parser.add_argument("--only", nargs="+",
                         choices=("bn", "fused", "dp", "dp-serve", "device-warp", "serving-bench", "real-data",
                                  "spatial", "spatial-uneven", "accuracy", "fp32-kernels", "fp32-train",
-                                 "parity-serve", "no-plan"),
+                                 "fp32-fused", "parity-serve", "no-plan"),
                         help="build the kernels and run only these phases (no JSON lines)")
     only = parser.parse_args(argv).only
     if not torch.cuda.is_available():
@@ -4650,6 +4905,7 @@ def main(argv=None) -> int:
                   "accuracy": lambda: accuracy_phase(fhi, iv, mm, cb, gpu),
                   "fp32-kernels": lambda: f32_kernel_phase(fhi, iv, gpu),
                   "fp32-train": lambda: fp32_train_phase(fhi, iv, gpu),
+                  "fp32-fused": lambda: fp32_fused_phase(fhi, iv, mm, cb, gpu),
                   "parity-serve": lambda: parity_serve_phase(fhi, iv, gpu),
                   "no-plan": lambda: noplan_phase(fhi, iv, gpu)}
         for name in only:
@@ -4673,6 +4929,7 @@ def main(argv=None) -> int:
     del r50_server
     train_k1, train_k2, head_err = train_phase(fhi, gpu)
     f32_train_k1, f32_train_k2 = fp32_train_phase(fhi, iv, gpu)
+    k5f_n, k6f_n, (k5f_err, k6f_err) = fp32_fused_phase(fhi, iv, mm, cb, gpu)
     parity_k1 = parity_serve_phase(fhi, iv, gpu)
     snap_k1, snap_k2 = snapshot_phase(fhi, gpu)
     r152_k1, r152_k2, r152_k1_err, r152_k2_err = r152_phase(fhi, iv, gpu)
@@ -4719,6 +4976,15 @@ def main(argv=None) -> int:
     ):
         phase_err, ms, plain_ms, lib_ms, bound_ms, bound_by = bn[key]
         kernels.append((name, replaces, launches, max(phase_err, err), ms, plain_ms, bound_ms, bound_by, lib_ms))
+    # K5/K6's fp32 instances (csrc/matmul_bn_f32.cuh, behind the same two
+    # entry points), timed over a fp32 fused_1x1 step's 16 launches; the
+    # library is cuBLAS fp32 with TF32 off, and torch sums.
+    for name, replaces, key, launches, err in (
+        (F32_FWD_NAME, "ihpr_tpu/ops/matmul_bn.py:127", "k5f", k5f_n, k5f_err),
+        (F32_BWD_NAME, "ihpr_tpu/ops/matmul_bn.py:151", "k6f", k6f_n, k6f_err),
+    ):
+        phase_err, ms, plain_ms, lib_ms, bound_ms, bound_by = bn[key]
+        kernels.append((name, replaces, launches, max(phase_err, err), ms, plain_ms, bound_ms, bound_by, lib_ms))
     p1_n, p1_err, p1_ms, p1_plain, p1_lib, p1_bound = p1
     kernels.append((ep._LIB, "tools/exp_probe.py:44", p1_n, p1_err, p1_ms, p1_plain, p1_bound, "bytes", p1_lib))
     p2_n, p2_err, p2_ms, p2_plain, p2_lib, p2_bound, p2_by = p2
@@ -4731,7 +4997,7 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
-        "source": f"ihpr_tpu_torch/ops/csrc/{name}.cu",
+        "source": SOURCES.get(name, f"ihpr_tpu_torch/ops/csrc/{name}.cu"),
         "replaces": replaces,
         "launches": launches,
         "max_abs_err": err,

@@ -19,10 +19,12 @@ take w as (9, C, N) in the tap order t = (dy+1)*3 + (dx+1).
 The route inside each library is chosen by dtype. bf16 takes the Hopper
 kernels of ``csrc/conv3_hopper.cuh``: one elementwise pass writes a (and,
 backward, gc) to scratch, then TMA reads each tap as a shifted 4-D box
-(zero outside the image: the SAME padding) and wgmma multiplies. fp32 takes
-v1's FMA kernels of ``csrc/conv_bn_common.cuh`` (shared with K5/K6):
-wgmma has no fp32 mode, and TF32 would not be fp32. Neither route is a
-fallback for the other; no failure is caught.
+(zero outside the image: the SAME padding) and wgmma multiplies. fp32
+(K7/K8-fp32) takes v1's FMA kernels of ``csrc/conv_bn_common.cuh``: no
+full-width path runs them (JAX's conv3 route takes no fp32 ResNet-50 block
+at batch 32 or 128), and they are not redesigned as fp32 K5/K6 were (3xTF32
+on wgmma, ``csrc/matmul_bn_f32.cuh``). Neither route is a fallback for the
+other; no failure is caught.
 
 ``FusedConv3x3BN`` is the autograd Function: a CUDA tensor goes to the
 kernels, which launch or raise; a CPU tensor goes to ``plain`` /

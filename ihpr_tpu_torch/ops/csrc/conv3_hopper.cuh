@@ -3,7 +3,8 @@
 //   K7 conv_bn_fwd.cu (replaces ihpr_tpu/ops/conv_bn.py:_fwd_kernel)
 //   K8 conv_bn_bwd.cu (replaces ihpr_tpu/ops/conv_bn.py:_bwd_kernel)
 // for bf16 operands. fp32 operands keep the FMA kernels of
-// conv_bn_common.cuh: wgmma has no fp32 mode, and TF32 would not be fp32.
+// conv_bn_common.cuh (K7/K8-fp32, on no full-width path; fp32 K5/K6 run
+// 3xTF32 on wgmma, matmul_bn_f32.cuh).
 //
 // What they compute. x (B, H, W, C) NHWC bf16, w (9, C, N) in HWIO tap order
 // t = (dy+1)*3 + (dx+1); shift_t(a)[i, j] = a[i+dy, j+dx], 0 outside the

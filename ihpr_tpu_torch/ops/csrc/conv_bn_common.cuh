@@ -1,24 +1,22 @@
 // Conv + BatchNorm-statistics kernels (FMA) for Hopper (sm_90a), fp32 operands, used by
-//   K5 matmul_bn_fwd.cu   (replaces ihpr_tpu/ops/matmul_bn.py:_fwd_kernel)
-//   K6 matmul_bn_bwd.cu   (replaces ihpr_tpu/ops/matmul_bn.py:_bwd_kernel)
 //   K7 conv_bn_fwd.cu     (replaces ihpr_tpu/ops/conv_bn.py:_fwd_kernel)
 //   K8 conv_bn_bwd.cu     (replaces ihpr_tpu/ops/conv_bn.py:_bwd_kernel)
-// bf16 K5/K6 run the TMA + wgmma kernels of matmul_bn_hopper.cuh and bf16
-// K7/K8 those of conv3_hopper.cuh; both take reduce_rows (and the fp32
-// routes' partial counts) from here.
+// for fp32 operands (K7/K8-fp32), which no full-width path runs (JAX's conv3
+// route takes no fp32 ResNet-50 block). bf16 K7/K8 run the TMA + wgmma
+// kernels of conv3_hopper.cuh, and K5/K6 those of matmul_bn_hopper.cuh
+// (bf16) and matmul_bn_f32.cuh (fp32, 3xTF32 on wgmma); all of them take
+// reduce_rows from here.
 //
 // What they compute. Rows are pixels: x (M, K) row-major, the NHWC
-// activation of B images of H x W (M = B*H*W) or any (M, K) matrix. A 1x1
-// conv (K5/K6, TAPS = 1) is y = a @ w with w (K, N); a stride-1 SAME 3x3 conv
-// (fp32 K7/K8, TAPS = 9) is y = sum_t shift_t(a) @ w_t with w (9, K, N) in HWIO
-// tap order t = (dy+1)*3 + (dx+1), where shift_t(a)[p] is a at pixel
-// (i+dy, j+dx) of p's image and 0 outside it (the SAME padding). With the
-// prologue, a = relu(x*mul + add) in fp32 rounded to x's dtype, else a = x.
-//   forward:  y = conv(a, w), fp32 accumulation, stored in x's dtype;
-//             s1, s2 = column sums of the fp32 accumulator and its square
-//             (taken before the cast, as the TPU kernels do).
-//   backward: g  = dy + ds1 + 2*y*ds2 in fp32 with the saved, rounded y;
-//             gc = g rounded to x's dtype (gc_kernel);
+// activation of B images of H x W (M = B*H*W). A stride-1 SAME 3x3 conv
+// (TAPS = 9, the only instance built) is y = sum_t shift_t(a) @ w_t with w
+// (9, K, N) in HWIO tap order t = (dy+1)*3 + (dx+1), where shift_t(a)[p] is
+// a at pixel (i+dy, j+dx) of p's image and 0 outside it (the SAME padding);
+// TAPS = 1 would be a 1x1 conv. With the prologue, a = relu(x*mul + add) in
+// fp32, else a = x.
+//   forward:  y = conv(a, w), fp32 accumulation;
+//             s1, s2 = column sums of the fp32 accumulator and its square.
+//   backward: g  = dy + ds1 + 2*y*ds2 in fp32 with the saved y (gc_kernel);
 //             da = sum_t shift_{-t}(gc) @ w_t^T (fp32); with the prologue
 //             t = da * (x*mul + add > 0), dx = t*mul, dmul = sum t*x,
 //             dadd = sum t; else dx = da (dx_kernel);
@@ -43,10 +41,11 @@
 // prologue in place (each thread to the chunks it copied), and runs
 // plain FMAs in the mma.sync m16n8k16 layout (fhi::warp_mma).
 //
-// What bounds them on an H100. fp32 operands have no tensor-core mode that
-// stays fp32 and run on the FMA units (67 TFLOP/s peak). The fp32 backward
-// also writes gc (M x N) once and reads it twice where the TPU kernel forms
-// g in VMEM.
+// What bounds them on an H100: the FMA units (67 TFLOP/s peak), where
+// 3xTF32 on the tensor cores would have 165 (PERF.md §6: at (32, 16, 16,
+// 256) x (9, 256, 256) they are slower than cuDNN fp32). The backward also
+// writes gc (M x N) once and reads it twice where the TPU kernel forms g in
+// VMEM. Not redesigned: they run on no full-width path (ROADMAP Queue 2).
 
 #pragma once
 

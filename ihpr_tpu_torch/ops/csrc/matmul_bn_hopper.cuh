@@ -2,8 +2,7 @@
 // backward, in bf16 for Hopper (sm_90a): the kernels of matmul_bn_fwd.cu
 // (replaces ihpr_tpu/ops/matmul_bn.py:_fwd_kernel) and matmul_bn_bwd.cu
 // (replaces ihpr_tpu/ops/matmul_bn.py:_bwd_kernel) for bf16 operands. fp32
-// operands keep the FMA kernels of conv_bn_common.cuh: wgmma has no fp32
-// mode, and TF32 would not be fp32.
+// operands take matmul_bn_f32.cuh (K5-fp32 / K6-fp32: 3xTF32 on wgmma).
 //
 // What they compute. x (M, K), w (K, N), y and dy (M, N) bf16; ds = [ds1;
 // ds2] (2, N) fp32; with the prologue mul, add (K,) fp32 and a =

@@ -12,8 +12,7 @@ the counterpart of ``ihpr_tpu/ops/matmul_bn.py``.
   bf16 it runs the TMA + wgmma kernel of ``csrc/matmul_bn_hopper.cuh``:
   persistent CTAs that read x once for N up to 256, keep w in shared
   memory where it fits, form ``a`` in place in the tiles they load, and
-  store y through staging tiles; in fp32 the FMA kernel of
-  ``csrc/conv_bn_common.cuh``;
+  store y through staging tiles;
 - K6, ``csrc/matmul_bn_bwd.cu`` (the port of ``_bwd_kernel``), folds the
   statistics' cotangents into ``g = dy + ds1 + 2*y*ds2`` (with the saved,
   rounded y), rounds g to x's dtype, recomputes ``a`` from x and returns
@@ -22,12 +21,19 @@ the counterpart of ``ihpr_tpu/ops/matmul_bn.py``.
   the tiles they load, so neither reaches device memory: one kernel where
   K and N are at most 256 and dw fits a warpgroup's registers (K x N up to
   128 x 128 after rounding each up to 64, 128 or 256), else a dx kernel
-  and a dw kernel; in fp32 the
-  FMA kernels of ``csrc/conv_bn_common.cuh``.
+  and a dw kernel.
 
-fp32 K5/K6 share ``csrc/conv_bn_common.cuh`` with the fp32 route of
-K7/K8 (``ops/conv_bn.py``, which also takes ``check_kernel_inputs`` from
-here).
+fp32 operands, which JAX multiplies at ``Precision.HIGHEST``, take K5-fp32
+and K6-fp32 (``csrc/matmul_bn_f32.cuh``, the same two entry points): every
+product in 3xTF32 on wgmma (~2^-21 relative a product, fp32 accumulation),
+A split in registers, B from TF32 hi and lo planes of w that a pre-pass
+splits once a call (``split_planes`` is its plain version); g and a stay in
+registers, and dw's accumulators are flushed into fp32 partials every 16
+row tiles. ``f32_launches`` and ``f32_bwd_launches`` count them.
+
+``ops/conv_bn.py`` takes ``check_kernel_inputs`` from here; its fp32 route
+(K7/K8-fp32) keeps the FMA kernels of ``csrc/conv_bn_common.cuh``.
+
 ``FusedMatmulBN`` is the autograd Function around the pair: a CUDA tensor
 goes to the kernels, which launch or raise; a CPU tensor goes to the plain
 versions here (``plain``, ``plain_bwd``), which are also what the kernels
@@ -56,17 +62,20 @@ import functools
 import torch
 
 from ihpr_tpu_torch.ops import _build
-from ihpr_tpu_torch.ops.fused_head_integral import no_tf32
+from ihpr_tpu_torch.ops.fused_head_integral import no_tf32, tf32_split
 from ihpr_tpu_torch.ops.integral_volume import _acc_dtype
 
 _FWD_LIB = "matmul_bn_fwd"
 _BWD_LIB = "matmul_bn_bwd"
 
-# Launches of K5 (``launches``) and K6 (``bwd_launches``) since the count was
-# last set to 0; each wrapper adds one per launch and nothing else touches
-# them.
+# Launches of K5 (``launches``), K6 (``bwd_launches``), K5-fp32
+# (``f32_launches``) and K6-fp32 (``f32_bwd_launches``) since the count was
+# last set to 0; each wrapper adds one per launch of its kernel and nothing
+# else touches them.
 launches = 0
 bwd_launches = 0
+f32_launches = 0
+f32_bwd_launches = 0
 
 # --- JAX's route predicate (ihpr_tpu/ops/matmul_bn.py:56-116) ----------------
 
@@ -169,6 +178,33 @@ def plain_bwd(x, w, mul, add, y, dy, ds1, ds2):
     return dx, dw, dmul, dadd
 
 
+def _perm32(p: int) -> int:
+    """Contraction index at position p of a 32-long run of the fp32
+    kernels' planes (``csrc/fused_head_f32.cuh:perm32``): k-step s = p // 8
+    of the run takes indices 2s and 2s + 1 of each thread's 8, so that a
+    thread's A values of the run are 8 consecutive ones."""
+    return 8 * (p & 3) + 2 * (p >> 3) + ((p >> 2) & 1)
+
+
+def split_planes(w: torch.Tensor, trans: bool) -> torch.Tensor:
+    """Plain version of K5-fp32's and K6-fp32's pre-pass: fp32 w (K, N) ->
+    planes (2, R, L') of TF32 bit patterns, the hi plane then the lo plane
+    (``tf32_split``): with ``trans`` K5-fp32's B, rows n over the contraction
+    K (R = N), else K6-fp32's dx B, rows k over N (R = K). L' is the
+    contraction rounded up to 32, zeros past it, and each 32-long run holds
+    its indices in ``_perm32``'s order."""
+    src = w.t() if trans else w  # (R, L)
+    rows, length = src.shape
+    padded = src.new_zeros(rows, -(-length // 32) * 32)
+    padded[:, :length] = src
+    order = torch.tensor([32 * (p // 32) + _perm32(p % 32) for p in range(padded.shape[1])], device=w.device)
+    return torch.stack(tf32_split(padded[:, order].contiguous()))
+
+
+def _planes_shape(rows: int, length: int) -> tuple:
+    return 2, rows, -(-length // 32) * 32
+
+
 # --- the kernels ----------------------------------------------------------------
 
 
@@ -223,8 +259,10 @@ def _fwd_lib() -> ctypes.CDLL:
     lib.ihpr_matmul_bn_fwd_groups.argtypes = [ctypes.c_int] * 3
     lib.ihpr_matmul_bn_fwd.restype = ctypes.c_int
     lib.ihpr_matmul_bn_fwd.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     )
+    lib.ihpr_matmul_bn_split.restype = ctypes.c_int
+    lib.ihpr_matmul_bn_split.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     return lib
 
 
@@ -246,7 +284,7 @@ def kernel_fwd(x: torch.Tensor, w: torch.Tensor, mul=None, add=None):
     the current stream without synchronizing; raises on any input the
     kernel does not take and on a refused launch. x of no rows (a spatial
     rank's empty shard) launches nothing: y is empty, s1 and s2 are 0."""
-    global launches
+    global launches, f32_launches
     if x.is_cuda and x.dim() == 2 and x.shape[0] == 0:
         z = torch.zeros(w.shape[1], dtype=torch.float32, device=x.device)
         return x.new_empty((0, w.shape[1])), z, z.clone()
@@ -255,16 +293,20 @@ def kernel_fwd(x: torch.Tensor, w: torch.Tensor, mul=None, add=None):
     f32 = dict(dtype=torch.float32, device=x.device)
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     s = torch.empty((2, n), **f32)
-    with torch.cuda.device(x.device):  # bf16 partial counts follow this card's SM count
+    planes = None if is_bf16 else torch.empty(_planes_shape(n, k), **f32)  # w's split, K5-fp32's B
+    with torch.cuda.device(x.device):  # partial counts follow this card's SM count
         parts = lib.ihpr_matmul_bn_fwd_groups(m, n, is_bf16)
         part = torch.empty((parts, 2, n), **f32)
         err = lib.ihpr_matmul_bn_fwd(
-            x.data_ptr(), w.data_ptr(), _ptr(mul), _ptr(add), y.data_ptr(), part.data_ptr(), parts,
-            s.data_ptr(), m, k, n, is_bf16, _stream(),
+            x.data_ptr(), w.data_ptr(), _ptr(mul), _ptr(add), y.data_ptr(), _ptr(planes), part.data_ptr(),
+            parts, s.data_ptr(), m, k, n, is_bf16, _stream(),
         )
     if err:
         raise RuntimeError(f"{_FWD_LIB} launch failed: CUDA error {err}")
-    launches += 1
+    if is_bf16:
+        launches += 1
+    else:
+        f32_launches += 1
     return y, s[0], s[1]
 
 
@@ -273,7 +315,7 @@ def kernel_bwd(x, w, mul, add, y, dy, ds1, ds2):
     the current stream without synchronizing; raises on any input the
     kernel does not take and on a refused launch. x of no rows launches
     nothing: dx is empty, dw, dmul and dadd are 0."""
-    global bwd_launches
+    global bwd_launches, f32_bwd_launches
     if x.is_cuda and x.dim() == 2 and x.shape[0] == 0:
         f32 = dict(dtype=torch.float32, device=x.device)
         dw = torch.zeros(tuple(w.shape), **f32)
@@ -284,23 +326,26 @@ def kernel_bwd(x, w, mul, add, y, dy, ds1, ds2):
     ds = check_cotangents(x, y, dy, ds1, ds2, n)
     lib = _bwd_lib()
     f32 = dict(dtype=torch.float32, device=x.device)
-    gc = None if is_bf16 else torch.empty_like(y)  # bf16 forms gc in shared memory
+    planes = None if is_bf16 else torch.empty(_planes_shape(k, n), **f32)  # w's split, K6-fp32's dx B
     dx = torch.empty_like(x)
     dw = torch.empty((k, n), **f32)
     dmd = torch.empty((2, k), **f32)
-    with torch.cuda.device(x.device):  # bf16 partial counts follow this card's SM count
+    with torch.cuda.device(x.device):  # partial counts follow this card's SM count
         parts_x = lib.ihpr_matmul_bn_bwd_dx_partials(m, k, n, is_bf16)
         parts_w = lib.ihpr_matmul_bn_bwd_dw_partials(m, k, n, is_bf16)
         part_x = torch.empty((parts_x, 2, k), **f32)
         part_w = torch.empty((parts_w, k, n), **f32)
         err = lib.ihpr_matmul_bn_bwd(
             x.data_ptr(), w.data_ptr(), _ptr(mul), _ptr(add), y.data_ptr(), dy.data_ptr(),
-            ds.data_ptr(), _ptr(gc), dx.data_ptr(), dw.data_ptr(), dmd.data_ptr(),
+            ds.data_ptr(), _ptr(planes), dx.data_ptr(), dw.data_ptr(), dmd.data_ptr(),
             part_x.data_ptr(), parts_x, part_w.data_ptr(), parts_w, m, k, n, is_bf16, _stream(),
         )
     if err:
         raise RuntimeError(f"{_BWD_LIB} launch failed: CUDA error {err}")
-    bwd_launches += 1
+    if is_bf16:
+        bwd_launches += 1
+    else:
+        f32_bwd_launches += 1
     if mul is None:
         return dx, dw, None, None
     return dx, dw, dmd[0], dmd[1]

@@ -305,24 +305,118 @@ def test_route_predicates_match_jax():
     assert checked == 2 * 4 * 3 * (16 + 50)
 
 
-def _flagship_launches(fused_1x1, fused_conv3):
-    """(K5, K6, K7, K8) launches of one h36m3d_r50 train step at batch 128,
-    256x256, bf16, from the port's predicates, routed as Bottleneck._route."""
+def _flagship_launches(fused_1x1, fused_conv3, itemsize=2, batch=128):
+    """(K5, K6, K7, K8) launches of one ResNet-50 train step at 256x256 (the
+    flagship h36m3d_r50: bf16, batch 128; h36m3d_r50_fp32: itemsize 4,
+    batch 32) from the port's predicates, routed as Bottleneck._route: a
+    block whose conv1 shape JAX fuses runs K5 twice (conv1, conv3) and K6
+    twice. JAX's fused_matmul_bn checks each conv on its own and sends a
+    conv3 whose shape is not ``supported`` to ``_reference`` (plain XLA):
+    in fp32 layer3_0's conv3 at (8192, 256, 1024), which the port runs on
+    K5-fp32 / K6-fp32 all the same (the same function)."""
     k5 = k7 = 0
-    for _, cin, e, stride, b, h, w in _bottleneck_shapes(50, 128, (256, 256)):
-        if fused_conv3 and stride == 1 and conv_bn.profitable(e, e) and conv_bn.supported(b, h, w, e, e, 1, 2):
+    for _, cin, e, stride, b, h, w in _bottleneck_shapes(50, batch, (256, 256)):
+        if (fused_conv3 and stride == 1 and conv_bn.profitable(e, e)
+                and conv_bn.supported(b, h, w, e, e, 1, itemsize)):
             k7 += 1
-        elif fused_1x1 and matmul_bn.supported(b * h * w, cin, e, 2):
+        elif fused_1x1 and matmul_bn.supported(b * h * w, cin, e, itemsize):
             k5 += 2
     return k5, k5, k7, k7
 
 
-def test_flagship_launch_counts():
-    """Both flags: layer1_0 ... layer3_0 on the 1x1 route, layer3_1 ...
-    layer3_5 on the conv3 route, stage 4 plain; fused_1x1 alone: 13 blocks."""
-    assert _flagship_launches(True, True) == (16, 16, 5, 5)
-    assert _flagship_launches(True, False) == (26, 26, 0, 0)
-    assert _flagship_launches(False, True) == (0, 0, 5, 5)
+@pytest.mark.parametrize("itemsize, batch, want", [
+    (2, 128, {(True, True): (16, 16, 5, 5), (True, False): (26, 26, 0, 0), (False, True): (0, 0, 5, 5)}),
+    (4, 32, {(True, True): (16, 16, 0, 0), (True, False): (16, 16, 0, 0), (False, True): (0, 0, 0, 0)}),
+], ids=["bf16_b128", "fp32_b32"])
+def test_flagship_launch_counts(itemsize, batch, want):
+    """bf16 at batch 128, both flags: layer1_0 ... layer3_0 on the 1x1
+    route, layer3_1 ... layer3_5 on the conv3 route, stage 4 plain;
+    fused_1x1 alone: 13 blocks. fp32 at batch 32 (h36m3d_r50_fp32, the
+    smoke's fp32-fused phase): the 1x1 route takes layer1_0 ... layer3_0
+    with or without fused_conv3, and the conv3 route none (its fp32 tiles
+    exceed JAX's VMEM budget), so K7/K8-fp32 run on no full-width path."""
+    for flags, counts in want.items():
+        assert _flagship_launches(*flags, itemsize=itemsize, batch=batch) == counts, flags
+
+
+# --- K5-fp32 / K6-fp32: the split pre-pass and dw's flush schedule ------------------
+
+
+def _tf32_np(x):
+    """float32 x rounded to TF32 in numpy: to nearest, ties away from zero,
+    at bit 13 (the low 13 bits cleared)."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    return ((bits + 0x1000) & 0xFFFFE000).astype(np.uint32).view(np.float32)
+
+
+def _split_np(x):
+    hi = _tf32_np(x)
+    return hi, _tf32_np((x - hi).astype(np.float32))
+
+
+@pytest.mark.parametrize("shape", [(64, 64), (200, 72), (8, 40)], ids=["k64_n64", "k200_n72", "k8_n40"])
+def test_matmul_bn_split_planes_match_numpy(shape):
+    """split_planes (the plain twin of K5-fp32 / K6-fp32's pre-pass) bitwise
+    a numpy rendering: TF32 hi and lo of every weight, K5-fp32's wt (rows
+    n, over K) and K6-fp32's wn (rows k, over N), the contraction padded
+    with zeros to a multiple of 32 and each 32-long run in k-step order:
+    slot q of k-step s holds index 8 (q % 4) + 2 s + q // 4."""
+    k, n = shape
+    w = (np.random.RandomState(k + n).randn(k, n) * 3.0).astype(np.float32)
+    slot = [8 * (q % 4) + 2 * s + q // 4 for s in range(4) for q in range(8)]
+    for trans, src in ((True, w.T), (False, w)):
+        rows, length = src.shape
+        padded = np.zeros((rows, -(-length // 32) * 32), np.float32)
+        padded[:, :length] = src
+        order = [32 * (p // 32) + slot[p % 32] for p in range(padded.shape[1])]
+        want = np.stack(_split_np(padded[:, order]))
+        got = matmul_bn.split_planes(torch.from_numpy(w), trans).numpy()
+        assert got.shape == want.shape and np.array_equal(got.view(np.uint32), want.view(np.uint32)), trans
+
+
+def _rz32(x):
+    """float64 x to float32, rounded toward zero."""
+    f = x.astype(np.float32)
+    over = np.abs(f.astype(np.float64)) > np.abs(x)
+    f[over] = np.nextafter(f[over], np.float32(0))
+    return f
+
+
+def _dw_3xtf32(a, g, flush_rows):
+    """dw = a^T g as K6-fp32's dw_kernel sums it on the tensor cores: per
+    8-row k-step three TF32 products (lo hi, hi lo, hi hi), each added to
+    the fp32 accumulator with its 8 terms exact and the add truncated (the
+    tensor cores' fp32 accumulation rounds toward zero); every
+    ``flush_rows`` rows (0: never) the accumulator is added to an fp32
+    partial with round to nearest and starts again from 0."""
+    ah, al = _split_np(a)
+    gh, gl = _split_np(g)
+    acc = np.zeros((a.shape[1], g.shape[1]), np.float32)
+    part = np.zeros_like(acc)
+    for r in range(0, a.shape[0], 8):
+        for x, y in ((al, gh), (ah, gl), (ah, gh)):
+            acc = _rz32(acc.astype(np.float64) + x[r:r + 8].T.astype(np.float64) @ y[r:r + 8].astype(np.float64))
+        if flush_rows and (r + 8) % flush_rows == 0:
+            part, acc = part + acc, np.zeros_like(acc)
+    return part + acc
+
+
+def test_dw_flush_schedule_holds_the_fp32_bar():
+    """dw's longest sum, 131072 rows (the 64x64 maps of layer1 at batch 32
+    in one row range), at a narrow K x N: emulated 3xTF32 with the kernel's
+    flush every kFlush = 16 tiles of 64 rows lands within 1e-4 of float64
+    (of dw's largest, K6's fp32 bar), while one accumulator over all rows
+    drifts past it. a is a prologue's output (relu, >= 0) and g has the
+    mean ds1 gives it, so the running sums grow with the rows."""
+    rng = np.random.RandomState(20)
+    m, k, n = 131072, 8, 8
+    a = np.maximum(rng.randn(m, k) * 0.8 + 0.2, 0).astype(np.float32)
+    g = (rng.randn(m, n) + 0.5).astype(np.float32)
+    want = a.astype(np.float64).T @ g.astype(np.float64)
+    scale = np.abs(want).max()
+    flushed = np.abs(_dw_3xtf32(a, g, 16 * 64) - want).max() / scale
+    whole = np.abs(_dw_3xtf32(a, g, 0) - want).max() / scale
+    assert flushed <= 1e-4 < whole, (flushed, whole)
 
 
 # --- one Bottleneck on each route --------------------------------------------------------

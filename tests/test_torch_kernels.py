@@ -887,12 +887,21 @@ def _run_bn(mod, x, w, mul, add, dy, ds1, ds2):
     w_op = w[0] if mod is matmul_bn else w
     y, s1, s2 = mod.plain(x, w_op, mul, add)
     plain = (y, s1, s2, *mod.plain_bwd(x, w_op, mul, add, y, dy, ds1, ds2))
-    f0, b0 = mod.launches, mod.bwd_launches
+    counts = _bn_counters(mod, x.dtype)
+    f0, b0 = counts()
     fwd = mod.kernel_fwd(x, w_op, mul, add)
     bwd = mod.kernel_bwd(x, w_op, mul, add, y, dy, ds1, ds2)
     torch.cuda.synchronize()
-    assert (mod.launches, mod.bwd_launches) == (f0 + 1, b0 + 1)
+    assert counts() == (f0 + 1, b0 + 1)
     return (*fwd, *bwd), plain
+
+
+def _bn_counters(mod, dtype):
+    """The launch counters of the kernels ``mod`` runs for ``dtype``:
+    K5-fp32 / K6-fp32 count apart from bf16 K5 / K6; K7/K8 count both."""
+    if mod is matmul_bn and dtype == torch.float32:
+        return lambda: (mod.f32_launches, mod.f32_bwd_launches)
+    return lambda: (mod.launches, mod.bwd_launches)
 
 
 @pytest.mark.cuda
@@ -901,10 +910,10 @@ def _run_bn(mod, x, w, mul, add, dy, ds1, ds2):
 @pytest.mark.parametrize("shape", [(1, 8, 8), (1000, 24, 40), (4160, 64, 256), (2051, 256, 72), (4097, 256, 128),
                                    (40, 128, 512), (300, 256, 1024), (333, 128, 128), (333, 120, 64), (333, 56, 128),
                                    (333, 200, 64), (300, 64, 512), (300, 512, 64), (333, 1024, 256), (333, 2048, 40),
-                                   (333, 1000, 120)],
+                                   (333, 1000, 120), (131072, 256, 128), (8192, 256, 1024)],
                          ids=["m1_k8_n8", "ragged", "k64_n256", "k256_n72", "flagship_ragged_m", "m40_k128_n512",
                               "k256_n1024", "k128_n128", "k120_n64", "k56_n128", "k200_n64", "k64_n512", "k512_n64",
-                              "k1024_n256", "k2048_n40", "k1000_n120"])
+                              "k1024_n256", "k2048_n40", "k1000_n120", "fp32_step_m131072", "fp32_step_k256_n1024"])
 def test_matmul_bn_kernels_match_plain(cuda, shape, prologue, dtype):
     """K5/K6 against plain; bf16 K5 and K6 take their TMA + wgmma kernels at
     every shape: M = 1 and M = 40 (below one 128-row tile), a ragged M with
@@ -919,7 +928,13 @@ def test_matmul_bn_kernels_match_plain(cuda, shape, prologue, dtype):
     (128, 128), (64, 256) and (256, 64), and its dx and dw kernels at widths
     64, 128 and 256 (k64_n512 and k512_n64: one of K and N within one
     64-wide box, the other past 256, which take two kernels). fp32 runs
-    v1's FMA kernels."""
+    K5-fp32 / K6-fp32 (3xTF32 on wgmma) at every shape, at the fp32 bars:
+    each width 64 and 128 of the forward's N chunks and the dx kernel's K
+    ranges, K and N off the 32-wide k-blocks (ragged, k120_n64, k56_n128,
+    k200_n64, k1000_n120), and two shapes of a fp32 fused_1x1 step of
+    ResNet-50 at batch 32: layer2_0's conv1 (131072 rows, dw summed over
+    2048 row tiles in flushed partials) and layer3_0's conv3 (eight
+    128-wide chunks of N)."""
     m, k, n = shape
     got, want = _run_bn(matmul_bn, *_bn_inputs((m,), k, n, 1, cuda, dtype, prologue))
     _close_bn(got, want, dtype, shape)
@@ -942,16 +957,36 @@ def test_conv_bn_kernels_match_plain(cuda, shape, prologue, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mod", [matmul_bn, conv_bn], ids=["k5_k6", "k7_k8"])
-def test_bn_kernels_are_deterministic(cuda, mod):
+@pytest.mark.parametrize("mod, dtype", [(matmul_bn, torch.bfloat16), (conv_bn, torch.bfloat16),
+                                        (matmul_bn, torch.float32)], ids=["k5_k6", "k7_k8", "k5_k6_fp32"])
+def test_bn_kernels_are_deterministic(cuda, mod, dtype):
     x_shape, taps = ((4096,), 1) if mod is matmul_bn else ((4, 16, 16), 9)
-    x, w, mul, add, dy, ds1, ds2 = _bn_inputs(x_shape, 128, 128, taps, cuda, torch.bfloat16, True)
+    x, w, mul, add, dy, ds1, ds2 = _bn_inputs(x_shape, 128, 128, taps, cuda, dtype, True)
     w_op = w[0] if mod is matmul_bn else w
     first = mod.kernel_fwd(x, w_op, mul, add)
     again = mod.kernel_fwd(x, w_op, mul, add)
     args = (x, w_op, mul, add, first[0], dy, ds1, ds2)
     grads, grads_again = mod.kernel_bwd(*args), mod.kernel_bwd(*args)
     assert all(torch.equal(a, b) for a, b in zip((*first, *grads), (*again, *grads_again)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 64), (512, 128), (256, 1024), (200, 72), (8, 8)],
+                         ids=["k64_n64", "k512_n128", "k256_n1024", "k200_n72", "k8_n8"])
+def test_matmul_bn_split_matches_plain(cuda, shape):
+    """K5-fp32 / K6-fp32's pre-pass (split_w_kernel) bitwise split_planes,
+    both layouts (K5-fp32's wt, K6-fp32's wn), padding included."""
+    k, n = shape
+    w = torch.randn(*shape, generator=torch.Generator().manual_seed(sum(shape))) * 3.0
+    w_card = w.to(cuda)
+    for trans in (True, False):
+        want = matmul_bn.split_planes(w, trans)
+        got = torch.full(want.shape, float("nan"), device=cuda)
+        err = matmul_bn._fwd_lib().ihpr_matmul_bn_split(w_card.data_ptr(), got.data_ptr(), k, n, int(trans),
+                                                        torch.cuda.current_stream().cuda_stream)
+        assert err == 0, f"ihpr_matmul_bn_split: CUDA error {err}"
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32)), trans
 
 
 @pytest.mark.cuda
@@ -986,7 +1021,8 @@ def test_bottleneck_routes_run_the_kernels(cuda, flags, monkeypatch):
     blocks[1].load_state_dict(blocks[0].state_dict())
     x = torch.randn(2, 8, 8, 256, device=cuda).permute(0, 3, 1, 2)
     mod = matmul_bn if flags[0] else conv_bn
-    f0, b0 = mod.launches, mod.bwd_launches
+    counts = _bn_counters(mod, torch.float32)
+    f0, b0 = counts()
     outs = []
     with fhi.no_tf32():
         for block in blocks:
@@ -995,7 +1031,7 @@ def test_bottleneck_routes_run_the_kernels(cuda, flags, monkeypatch):
             outs.append(out.detach())
     torch.cuda.synchronize()
     per_block = 2 if flags[0] else 1
-    assert (mod.launches - f0, mod.bwd_launches - b0) == (per_block, per_block)
+    assert counts() == (f0 + per_block, b0 + per_block)
     assert float((outs[0] - outs[1]).abs().max()) <= 1e-3 * float(outs[1].abs().max())
     for (name, p), q in zip(blocks[0].named_parameters(), blocks[1].parameters()):
         assert float((p.grad - q.grad).abs().max()) <= 1e-2 * float(q.grad.abs().max()), name
