@@ -55,8 +55,10 @@
    step of h36m3d_r50_fp32 (f32_breakdown.BN_STEP, batch 32) against plain, timed
    beside plain and cuBLAS fp32 (TF32 off) + sums, with their sub-launches,
    the 3xTF32 bound and the FMA peak's time, summed over the step's 16
-   launches, two runs bitwise equal; K7/K8-fp32 timed once at (32, 16, 16, 256) x (9, 256, 256)
-   beside cuDNN fp32 (no full-width path runs them).
+   launches, two runs bitwise equal; K7/K8-fp32 (3xTF32 on wgmma) the same
+   way at the conv3 route's fp32 shape (32, 8, 8, 256) x (9, 256, 256) (5
+   launches a step of 7n) and at (32, 16, 16, 256), timed only, beside
+   cuDNN fp32 + sums, with each wrapper's host enqueue.
 6. Serves the flagship config h36m3d_r50 (ResNet-50, 256x256, 18 joints,
    64 depth bins, bf16, flip-test) at max_batch 32 with seeded random
    weights: predict_patches, predict (native warp) and predict_stream.
@@ -99,6 +101,16 @@
    one K6-fp32 launch of them against plain on its saved inputs; device ms
    a step, peak memory and device-busy time, fused_1x1 against unfused, in
    turns, medians of three rounds.
+7n. h36m3d_r50_fp32 with lean BN and both fused flags at a 128x128 frame
+   (fp32_conv3_phase; ResNet-50 at full width, fp32 "highest", batch 32,
+   32x32x64 heatmaps), the one full-width fp32 step on which JAX's conv3
+   route takes blocks: the first forward and backward on the fused route
+   (K5-fp32 / K6-fp32 16 each, K7-fp32 / K8-fp32 5 each, K1/K2-fp32 one)
+   and on the unfused lean route from the same weights (7m's bars); 3
+   counted Trainer steps, one K7-fp32 and one K8-fp32 launch of them
+   against plain on its saved inputs; device ms a step, device-busy ms
+   and peak memory with both flags, fused_1x1 alone and unfused, in turns,
+   medians of three rounds.
 7c. h36m3d_r152_384 (ResNet-152, 384x288 input, 96x72x64 heatmaps, bf16)
    at full depth and width on seeded weights: serves 40 patches at
    max_batch 32 with flip-test (K1 at H*W = 6912, W = 72, the padded
@@ -247,7 +259,7 @@ non-zero; so does a host without CUDA.
 builds the kernels and runs only the named phases (bn: 5c; fused: 7b; dp:
 7d; dp-serve: 7e; device-warp: 7f; serving-bench: 7g; real-data: 7h;
 spatial: 7i; spatial-uneven: 7k; accuracy: 7j; fp32-kernels: 5d;
-fp32-train and parity-serve: 7l; fp32-fused: 7m; no-plan: 9), for timing one tree's K5-K8 against another's (copy this file into a
+fp32-train and parity-serve: 7l; fp32-fused: 7m; fp32-conv3: 7n; no-plan: 9), for timing one tree's K5-K8 against another's (copy this file into a
 checkout of the other tree and run it there) or trying one phase. It
 prints no JSON lines.
 """
@@ -1118,43 +1130,47 @@ def fp32_train_phase(fhi, iv, gpu: str):
     return counts[4], counts[5]
 
 
-def fp32_fused_phase(fhi, iv, mm, cb, gpu: str):
-    """7m: h36m3d_r50_fp32 with lean BN and fused_1x1 (ResNet-50 at 256x256,
-    fp32 "highest", batch 32) on synthetic H36M + MPII: 8 Bottlenecks take
-    the 1x1 route, so a step launches K5-fp32 and K6-fp32 16 times each,
-    K1/K2-fp32 once (its fp32 head has a fused plan) and K7/K8 never. First
-    one train-mode forward and backward from the same weights on the fused
-    route and on the unfused lean route (counted; loss within TOL_F32_LOSS
-    and gradient norm within TOL_F32_GRAD, relative); then F32_STEPS counted
-    steps through Trainer.train, one K5-fp32 and one K6-fp32 launch of them
-    (with the prologue) held against plain on its saved inputs; then device
-    ms per step, peak memory and device-busy time on one resident batch,
-    fused_1x1 against unfused, in turns, medians of three rounds. Returns
-    K5-fp32's and K6-fp32's launches and the saved launches' largest y and
-    dx differences."""
-    from ihpr_tpu_torch.config import get_config
+def _f32_fused_counts(fhi, mm, cb):
+    """(K5-fp32, K6-fp32, K7-fp32, K8-fp32, K1-fp32, K2-fp32, then bf16 K5,
+    K6, K7, K8) launches."""
+    return (mm.f32_launches, mm.f32_bwd_launches, cb.f32_launches, cb.f32_bwd_launches, *_f32_counts(fhi),
+            *_counts(mm, cb))
+
+
+def _fp32_fused_routes(tag, cfg, modes, per_step, wrapped_mod, labels, fhi, iv, mm, cb, gpu: str):
+    """What 7m and 7n run on ``cfg`` (h36m3d_r50_fp32, lean BN, batch
+    F32_TRAIN_BATCH) through a Trainer on synthetic H36M + MPII. ``modes``
+    maps a name to the Bottlenecks' (fused_1x1, fused_conv3); the first is
+    the main path, the last unfused. First one train-mode forward and
+    backward from the same weights on the first and the last mode (counted:
+    the first launches ``per_step``, _f32_fused_counts' order, the last only
+    K1/K2-fp32; loss within TOL_F32_LOSS and gradient norm within
+    TOL_F32_GRAD, relative); then F32_STEPS counted steps through
+    Trainer.train in the first mode, one launch of ``wrapped_mod``'s
+    kernel_fwd and one of its kernel_bwd (fp32, with the prologue) held
+    against plain on their saved inputs (``labels`` name them); then device
+    ms a step, device-busy ms and peak memory on one resident batch in every
+    mode, in turns (the order rotated every round), medians of three rounds.
+    Returns the main path's launches (the first step's and the Trainer
+    steps', summed) and the saved launches' largest y and dx differences."""
     from ihpr_tpu_torch.data import skeletons
     from ihpr_tpu_torch.data.pipeline import prefetch_to_device
     from ihpr_tpu_torch.engine.trainer import Trainer
     from ihpr_tpu_torch.models.resnet import Bottleneck
 
-    def counts():  # K5-fp32, K6-fp32, K1-fp32, K2-fp32, then bf16 K5-K8
-        return (mm.f32_launches, mm.f32_bwd_launches, *_f32_counts(fhi), *_counts(mm, cb))
-
-    t_phase = time.perf_counter()
-    scratch = tempfile.TemporaryDirectory()  # the Trainer's log and snapshot; removed on return
-    base = get_config("h36m3d_r50_fp32").replace(output_dir=scratch.name)
-    cfg = base.replace(model=dataclasses.replace(base.model, bn_mode="lean", fused_1x1=True))
-    if (cfg.optim.batch_size_per_device, cfg.model.matmul_precision, cfg.model.compute_dtype) != (
-            F32_TRAIN_BATCH, "highest", "float32"):
-        raise AssertionError(f"h36m3d_r50_fp32 is {cfg.model} at batch {cfg.optim.batch_size_per_device}")
+    if (cfg.optim.batch_size_per_device, cfg.model.matmul_precision, cfg.model.compute_dtype, cfg.model.bn_mode,
+            cfg.model.resnet_type) != (F32_TRAIN_BATCH, "highest", "float32", "lean", 50):
+        raise AssertionError(f"{tag}: h36m3d_r50_fp32 is {cfg.model} at batch {cfg.optim.batch_size_per_device}")
+    size = "x".join(map(str, cfg.data.input_shape))
     trainer = Trainer(cfg, data_root="synthetic", synthetic_size=F32_SIZE, num_workers=8, device="cuda")
     blocks = [m for m in trainer.model.modules() if isinstance(m, Bottleneck)]
 
-    def set_fused(on):
+    def set_mode(mode):
         for blk in blocks:
-            blk.fused_1x1 = on
+            blk.fused_1x1, blk.fused_conv3 = modes[mode]
 
+    main, unfused = list(modes)[0], list(modes)[-1]
+    counts = lambda: _f32_fused_counts(fhi, mm, cb)  # noqa: E731
     wrapped = {}
     try:
         model = trainer.model
@@ -1162,34 +1178,34 @@ def fp32_fused_phase(fhi, iv, mm, cb, gpu: str):
         batch, _ = next(prefetch_to_device(iter(list(trainer.loader.epoch(99, 1))), "cuda"))
         state = {k: v.detach().clone() for k, v in model.state_dict().items()}
         runs = {}
-        for on in (True, False):
-            set_fused(on)
+        for mode in (main, unfused):
+            set_mode(mode)
             _first_step(model, cfg, batch, state, flip_perm)  # warm-up: kernel loads, cuDNN plans
             # --- one forward and backward on each route, counted ---
             _zero_counts(fhi, iv, mm, cb)
-            runs[on] = (*_first_step(model, cfg, batch, state, flip_perm), counts())
+            runs[mode] = (*_first_step(model, cfg, batch, state, flip_perm), counts())
             # --------------------------------------------------------
         model.load_state_dict(state)
-        set_fused(True)
-        (loss, grads, fused_n), (loss_u, grads_u, unfused_n) = runs[True], runs[False]
+        set_mode(main)
+        (loss, grads, fused_n), (loss_u, grads_u, unfused_n) = runs[main], runs[unfused]
         norm = float(torch.stack([g.double().norm() for g in grads.values()]).norm())
         norm_u = float(torch.stack([g.double().norm() for g in grads_u.values()]).norm())
         worst = max(float((grads[n] - grads_u[n]).abs().max() / grads_u[n].abs().max()) for n in grads)
-        print(f"fp32 fused: h36m3d_r50_fp32 lean BN, first forward and backward at batch {F32_TRAIN_BATCH}: loss "
-              f"{loss:.8f} with fused_1x1, {loss_u:.8f} unfused (relative {abs(loss - loss_u) / abs(loss_u):.3g}, "
+        print(f"{tag}: h36m3d_r50_fp32 lean BN at {size}, first forward and backward at batch {F32_TRAIN_BATCH}: "
+              f"loss {loss:.8f} with {main}, {loss_u:.8f} {unfused} (relative {abs(loss - loss_u) / abs(loss_u):.3g}, "
               f"bar {TOL_F32_LOSS:g}); gradient norm {norm:.8g} / {norm_u:.8g} (relative "
               f"{abs(norm - norm_u) / norm_u:.3g}, bar {TOL_F32_GRAD:g}); worst tensor |diff|/max {worst:.2e}; "
-              f"K5/K6-fp32, K1/K2-fp32, K5-K8 launches {fused_n} fused, {unfused_n} unfused")
-        if (fused_n != (16, 16, 1, 1, 0, 0, 0, 0) or unfused_n != (0, 0, 1, 1, 0, 0, 0, 0)
+              f"K5/K6-fp32, K7/K8-fp32, K1/K2-fp32, K5-K8 launches {fused_n} fused, {unfused_n} unfused")
+        if (fused_n != per_step or unfused_n != (0, 0, 0, 0, 1, 1, 0, 0, 0, 0)
                 or abs(loss - loss_u) > TOL_F32_LOSS * abs(loss_u) or abs(norm - norm_u) > TOL_F32_GRAD * norm_u):
-            raise AssertionError(f"fp32 fused: loss {loss} / {loss_u}, |g| {norm} / {norm_u}, launches "
+            raise AssertionError(f"{tag}: loss {loss} / {loss_u}, |g| {norm} / {norm_u}, launches "
                                  f"{fused_n} / {unfused_n}")
         del grads, grads_u
 
         with_prologue = lambda args: args[2] is not None and args[0].dtype == torch.float32  # noqa: E731
         for name in ("kernel_fwd", "kernel_bwd"):
-            wrapped[name] = _FirstLaunch(getattr(mm, name), with_prologue)
-            setattr(mm, name, wrapped[name])
+            wrapped[name] = _FirstLaunch(getattr(wrapped_mod, name), with_prologue)
+            setattr(wrapped_mod, name, wrapped[name])
         # --- the main path, counted: F32_STEPS steps through Trainer.train ---
         trainer.cap_steps_per_epoch(F32_STEPS)
         _zero_counts(fhi, iv, mm, cb)
@@ -1198,55 +1214,116 @@ def fp32_fused_phase(fhi, iv, mm, cb, gpu: str):
         steps_n = counts()
         # ---------------------------------------------------------------------
         for name, w in wrapped.items():
-            setattr(mm, name, w.fn)
+            setattr(wrapped_mod, name, w.fn)
         losses = [float(x) for x in trainer.losses]
-        if steps_n != tuple(F32_STEPS * c for c in (16, 16, 1, 1, 0, 0, 0, 0)):
-            raise AssertionError(f"fp32 fused: {F32_STEPS} Trainer steps launched {steps_n}")
+        if steps_n != tuple(F32_STEPS * c for c in per_step):
+            raise AssertionError(f"{tag}: {F32_STEPS} Trainer steps launched {steps_n}")
         if len(losses) != F32_STEPS or not all(math.isfinite(x) for x in losses):
-            raise AssertionError(f"fp32 fused losses {losses}")
-        print(f"fp32 fused: {F32_STEPS} steps through Trainer.train, K5/K6-fp32, K1/K2-fp32, K5-K8 launches "
+            raise AssertionError(f"{tag} losses {losses}")
+        print(f"{tag}: {F32_STEPS} steps through Trainer.train, K5/K6-fp32, K7/K8-fp32, K1/K2-fp32, K5-K8 launches "
               f"{steps_n}; losses {', '.join(f'{x:.4f}' for x in losses)}")
         (f_args, f_out), (b_args, b_out) = wrapped["kernel_fwd"].saved, wrapped["kernel_bwd"].saved
-        rows = f_out[0].shape[0]
-        errs = (compare_bn("K5-fp32, one launch of a counted step", FWD_NAMES, f_out, mm.plain(*f_args),
-                           torch.float32, rows)["y"],
-                compare_bn("K6-fp32, one launch of a counted step", BWD_NAMES, b_out, mm.plain_bwd(*b_args),
-                           torch.float32, rows)["dx"])
+        rows = f_out[0].numel() // f_out[0].shape[-1]
+        shape = f"{tuple(f_args[0].shape)} x {tuple(f_args[1].shape)}"
+        errs = (compare_bn(f"{labels[0]} {shape}, one launch of a counted step", FWD_NAMES, f_out,
+                           wrapped_mod.plain(*f_args), torch.float32, rows)["y"],
+                compare_bn(f"{labels[1]} {shape}, one launch of a counted step", BWD_NAMES, b_out,
+                           wrapped_mod.plain_bwd(*b_args), torch.float32, rows)["dx"])
 
-        # The A/B on one resident batch: fused_1x1 and unfused in turns (the
-        # order reversed every other round), three rounds of three steps.
+        # The A/B on one resident batch: every mode in turns (the order
+        # rotated every round), three rounds of three steps.
         step = lambda: trainer.lean_step_fn(batch)  # noqa: E731
-        timing, peak = {True: [], False: []}, {}
+        timing, peak = {m: [] for m in modes}, {}
+        order = list(modes)
         for rnd in range(3):
-            for on in ((True, False) if rnd % 2 == 0 else (False, True)):
-                set_fused(on)
+            for mode in order[rnd % len(order):] + order[:rnd % len(order)]:
+                set_mode(mode)
                 torch.cuda.reset_peak_memory_stats()
-                timing[on].append(_cuda_ms(step, 3, reps=1))
-                peak[on] = torch.cuda.max_memory_allocated() / 2**30
-        for on in (True, False):
-            set_fused(on)
+                timing[mode].append(_cuda_ms(step, 3, reps=1))
+                peak[mode] = torch.cuda.max_memory_allocated() / 2**30
+        for mode in modes:
+            set_mode(mode)
             step()
             with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
                 step()
                 torch.cuda.synchronize()
             kinds = prof.key_averages()
             busy = sum(e.self_device_time_total for e in kinds) / 1e3
+            conv3 = sum(e.self_device_time_total for e in kinds if "c3f::" in e.key) / 1e3
             fused = sum(e.self_device_time_total for e in kinds if "mbf::" in e.key) / 1e3
-            ms = statistics.median(timing[on])
-            print(f"fp32 fused A/B, h36m3d_r50_fp32 lean batch {F32_TRAIN_BATCH}, "
-                  f"{'fused_1x1' if on else 'unfused'}: {ms:.3f} ms/step median of "
-                  f"{', '.join(f'{t:.3f}' for t in timing[on])} ({F32_TRAIN_BATCH / ms * 1e3:.1f} img/s, peak "
-                  f"{peak[on]:.3f} GiB); device busy {busy:.3f} ms, idle share {1 - busy / ms:.3f}; K5/K6-fp32 "
-                  f"kernels {fused:.3f} ms (CUDA events, same model, in turns; torch.profiler)  [{gpu}]")
-        set_fused(True)
+            ms = statistics.median(timing[mode])
+            print(f"{tag} A/B, h36m3d_r50_fp32 lean {size} batch {F32_TRAIN_BATCH}, {mode}: {ms:.3f} ms/step median "
+                  f"of {', '.join(f'{t:.3f}' for t in timing[mode])} ({F32_TRAIN_BATCH / ms * 1e3:.1f} img/s, peak "
+                  f"{peak[mode]:.3f} GiB); device busy {busy:.3f} ms, idle share {1 - busy / ms:.3f}; K5/K6-fp32 "
+                  f"kernels {fused:.3f} ms, K7/K8-fp32 {conv3:.3f} ms (CUDA events, same model, in turns; "
+                  f"torch.profiler)  [{gpu}]")
+        set_mode(main)
     finally:
         for name, w in wrapped.items():
-            setattr(mm, name, w.fn)
+            setattr(wrapped_mod, name, w.fn)
         trainer.close()
-        scratch.cleanup()
     torch.cuda.empty_cache()
+    return tuple(a + b for a, b in zip(fused_n, steps_n)), errs
+
+
+def fp32_fused_phase(fhi, iv, mm, cb, gpu: str):
+    """7m: h36m3d_r50_fp32 with lean BN and fused_1x1 (ResNet-50 at 256x256,
+    fp32 "highest", batch 32) on synthetic H36M + MPII: 8 Bottlenecks take
+    the 1x1 route, so a step launches K5-fp32 and K6-fp32 16 times each,
+    K1/K2-fp32 once (its fp32 head has a fused plan) and K7/K8 never.
+    _fp32_fused_routes runs it: fused_1x1 against unfused, one K5-fp32 and
+    one K6-fp32 launch of the counted steps against plain. Returns
+    K5-fp32's and K6-fp32's launches and the saved launches' largest y and
+    dx differences."""
+    from ihpr_tpu_torch.config import get_config
+
+    t_phase = time.perf_counter()
+    scratch = tempfile.TemporaryDirectory()  # the Trainer's log and snapshot; removed on return
+    try:
+        base = get_config("h36m3d_r50_fp32").replace(output_dir=scratch.name)
+        cfg = base.replace(model=dataclasses.replace(base.model, bn_mode="lean", fused_1x1=True))
+        launches, errs = _fp32_fused_routes(
+            "fp32 fused", cfg, {"fused_1x1": (True, False), "unfused": (False, False)},
+            (16, 16, 0, 0, 1, 1, 0, 0, 0, 0), mm, ("K5-fp32", "K6-fp32"), fhi, iv, mm, cb, gpu)
+    finally:
+        scratch.cleanup()
     print(f"fp32 fused: the phase took {time.perf_counter() - t_phase:.1f} s  [{gpu}]")
-    return fused_n[0] + steps_n[0], fused_n[1] + steps_n[1], errs
+    return launches[0], launches[1], errs
+
+
+# 7n's frame: the largest input at which JAX's conv3 route takes fp32
+# ResNet-50 blocks (stage 3's 8x8 planes), and its heatmaps (depth 64).
+CONV3_F32_FRAME = ((128, 128), (32, 32))
+
+
+def fp32_conv3_phase(fhi, iv, mm, cb, gpu: str):
+    """7n: h36m3d_r50_fp32 with lean BN and both fused flags at a 128x128
+    frame (ResNet-50 at full width, fp32 "highest", batch 32, synthetic
+    H36M + MPII): the 1x1 route takes layer1_0 ... layer3_0 (K5-fp32 /
+    K6-fp32 16 each a step) and the conv3 route layer3_1 ... layer3_5's
+    conv2 (K7-fp32 / K8-fp32 5 each), K1/K2-fp32 once. _fp32_fused_routes
+    runs it: both flags against fused_1x1 alone and unfused, one K7-fp32
+    and one K8-fp32 launch of the counted steps against plain. Returns the
+    launches of K5-fp32, K6-fp32, K7-fp32, K8-fp32, K1-fp32 and K2-fp32, and
+    the saved launches' largest y and dx differences."""
+    from ihpr_tpu_torch.config import get_config
+
+    t_phase = time.perf_counter()
+    scratch = tempfile.TemporaryDirectory()
+    try:
+        base = get_config("h36m3d_r50_fp32").replace(output_dir=scratch.name)
+        size, heatmap = CONV3_F32_FRAME
+        cfg = base.replace(model=dataclasses.replace(base.model, bn_mode="lean", fused_1x1=True, fused_conv3=True),
+                           data=dataclasses.replace(base.data, input_shape=size, output_shape=heatmap))
+        if cfg.data.depth_dim != 64:
+            raise AssertionError(f"h36m3d_r50_fp32's depth is {cfg.data.depth_dim}")
+        launches, errs = _fp32_fused_routes(
+            "fp32 conv3", cfg, {"both flags": (True, True), "fused_1x1": (True, False), "unfused": (False, False)},
+            (16, 16, 5, 5, 1, 1, 0, 0, 0, 0), cb, ("K7-fp32", "K8-fp32"), fhi, iv, mm, cb, gpu)
+    finally:
+        scratch.cleanup()
+    print(f"fp32 conv3: the phase took {time.perf_counter() - t_phase:.1f} s  [{gpu}]")
+    return launches[:6], errs
 
 
 def parity_serve_phase(fhi, iv, gpu: str):
@@ -2137,14 +2214,21 @@ MM_STEP = (
 CONV_STEP = ((128, 16, 16, 256, 256), 5)  # layer3_1 ... layer3_5 conv2
 # A fused_1x1 step of h36m3d_r50_fp32 with lean BN (batch 32) runs K5-fp32 /
 # K6-fp32 at ihpr_tpu_torch/tools/f32_breakdown.py:BN_STEP's 8 shapes, 16
-# launches each; the conv3 route takes no fp32 block, so K7/K8-fp32 run on
-# no full-width path: they are timed once at CONV_F32 only.
-CONV_F32 = (32, 16, 16, 256, 256)  # K7/K8-fp32, timed only: the R50 stage-3 conv2 at batch 32
-# The kernels line's names of K5-fp32 / K6-fp32, whose source is the header
-# both entry points include.
+# launches each. JAX's conv3 route takes an fp32 block only where one
+# image's plane fits its VMEM budget beside the nine fp32 weight blocks: at
+# a 128x128 frame stage 3's 8x8 planes (layer3_1 ... layer3_5 conv2, 5
+# launches of K7/K8-fp32 a step with both fused flags, phase 7n), at 256x256
+# none. CONV_F32 keeps v1's 16x16 row, timed only.
+CONV_F32_STEP = ((32, 8, 8, 256, 256), 5)
+CONV_F32 = (32, 16, 16, 256, 256)  # K7/K8-fp32, timed only: the R50 stage-3 conv2 at batch 32, 256x256
+# The kernels line's names of K5-fp32 / K6-fp32 and K7-fp32 / K8-fp32, whose
+# sources are the headers both entry points include.
 F32_FWD_NAME, F32_BWD_NAME = "matmul_bn_fwd_f32", "matmul_bn_bwd_f32"
+CONV_F32_FWD_NAME, CONV_F32_BWD_NAME = "conv_bn_fwd_f32", "conv_bn_bwd_f32"
 SOURCES = {F32_FWD_NAME: "ihpr_tpu_torch/ops/csrc/matmul_bn_f32.cuh",
-           F32_BWD_NAME: "ihpr_tpu_torch/ops/csrc/matmul_bn_f32.cuh"}
+           F32_BWD_NAME: "ihpr_tpu_torch/ops/csrc/matmul_bn_f32.cuh",
+           CONV_F32_FWD_NAME: "ihpr_tpu_torch/ops/csrc/conv3_f32.cuh",
+           CONV_F32_BWD_NAME: "ihpr_tpu_torch/ops/csrc/conv3_f32.cuh"}
 # Peak rates of one H100 SXM (NVIDIA's data sheet, dense) for the bounds.
 PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
@@ -2417,10 +2501,11 @@ def bn_f32_step(mm, cb, gpu: str):
     and torch sums) in turns, the sub-launches (torch.profiler), the 3xTF32
     bound and the time the products would take at the FMA units' peak;
     summed over the step's 16 launches each; two runs bitwise equal at
-    the longest sums. Then K7/K8-fp32 timed once at
-    CONV_F32 (no full-width path runs them). Returns ({"k5f", "k6f": max
-    |y| or |dx diff|}, {"k5f", "k6f": (ms, plain, library, flops, bytes,
-    device ms, (bound ms, bound by))})."""
+    the longest sums. Then K7/K8-fp32 the same way at CONV_F32_STEP (summed
+    over its 5 launches a step) and at CONV_F32 (timed only), with each
+    wrapper's host enqueue. Returns ({"k5f", "k6f", "k7f", "k8f": max |y|
+    or |dx diff|}, {the same keys: (ms, plain, library, flops, bytes,
+    device ms, (bound ms, bound by)) a step})."""
     from ihpr_tpu_torch.ops.fused_head_integral import no_tf32
     from ihpr_tpu_torch.tools.f32_breakdown import BN_STEP
 
@@ -2477,19 +2562,45 @@ def bn_f32_step(mm, cb, gpu: str):
     print("K5/K6-fp32 two runs at (131072, 256) x (256, 128) +prologue: y, s1, s2, dx, dw, dmul, dadd bitwise equal")
     del x, w, mul, add, dy, ds1, ds2, first, again, bwd
 
-    b, h, w_, c, n = CONV_F32
-    args = _bn_inputs((b, h, w_), c, n, 9, torch.float32, True, SEED + 70)
-    check_bn(cb, args, f"K7/K8-fp32 ({b}, {h}, {w_}, {c}) x (9, {c}, {n})")
-    with no_tf32():
-        t = _time_bn(cb, args, _library_conv)
-    work = _bn_work((b, h, w_), c, n, 9, 4)
-    for label, kind, flops, nbytes in (("K7", "fwd", work[0], work[1]), ("K8", "bwd", work[2], work[3])):
-        bound, by = _bound(flops, nbytes, torch.float32)
-        print(f"{label}-fp32 ({b}, {h}, {w_}, {c}) x (9, {c}, {n}), timed only (0 launches on any full-width "
-              f"path): kernel {t[f'kernel_{kind}']:.4f} ms, bound {bound:.4f} ({by}; FMA peak "
-              f"{flops / PEAK_FP32_FLOPS * 1e3:.4f}), plain {t[f'plain_{kind}']:.4f}, cuDNN fp32+sums "
-              f"{t[f'library_{kind}']:.4f}  [{gpu}]")
-    del args
+    for key in ("k7f", "k8f"):
+        errs[key] = 0.0
+    for i, (shape, launches) in enumerate(((CONV_F32_STEP[0], CONV_F32_STEP[1]), (CONV_F32, 0))):
+        b, h, w_, c, n = shape
+        args = _bn_inputs((b, h, w_), c, n, 9, torch.float32, True, SEED + 70 + i)
+        label = f"({b}, {h}, {w_}, {c}) x (9, {c}, {n})"
+        ey, edx = check_bn(cb, args, f"K7/K8-fp32 {label}")
+        errs["k7f"], errs["k8f"] = max(errs["k7f"], ey), max(errs["k8f"], edx)
+        with no_tf32():
+            t = _time_bn(cb, args, _library_conv)
+        work = _bn_work((b, h, w_), c, n, 9, 4)
+        x, w, mul, add, dy, ds1, ds2 = args
+        y = cb.kernel_fwd(x, w, mul, add)[0]
+        calls = {"k7f": (lambda: cb.kernel_fwd(x, w, mul, add), "fwd", work[0], work[1]),
+                 "k8f": (lambda: cb.kernel_bwd(x, w, mul, add, y, dy, ds1, ds2), "bwd", work[2], work[3])}
+        for key, (fn, kind, flops, nbytes) in calls.items():
+            parts = _launch_ms(fn, expect=("reduce_rows",))
+            device = sum(parts.values())
+            bound, by = _bound(flops, nbytes, torch.float32)
+            ms = t[f"kernel_{kind}"]
+            if launches:
+                step[key] = [launches * v for v in (ms, t[f"plain_{kind}"], t[f"library_{kind}"], flops, nbytes,
+                                                     device)] + [(launches * bound, by)]
+            where = f"x{launches}/step of a fp32 step with both fused flags at 128x128" if launches else (
+                "timed only")
+            print(f"{'K7' if kind == 'fwd' else 'K8'}-fp32 {label} {where}: kernel {ms:.4f} ms (device {device:.4f}; "
+                  f"{bound / ms:.2f} of its bound {bound:.4f}, {by}; FMA peak {flops / PEAK_FP32_FLOPS * 1e3:.4f}), "
+                  f"plain {t[f'plain_{kind}']:.4f}, cuDNN fp32+sums {t[f'library_{kind}']:.4f}, "
+                  f"{nbytes / 1e6:.1f} MB; the wrapper's host enqueue {_host_us(fn):.1f} us; sub-launches "
+                  + "; ".join(f"{_kernel_label(name)} {v:.4f} ms" for name, v in parts.items()) + f"  [{gpu}]")
+        del args, x, w, mul, add, dy, ds1, ds2, y
+    # Two runs bitwise equal at the route's shape, with the prologue.
+    x, w, mul, add, dy, ds1, ds2 = _bn_inputs(CONV_F32_STEP[0][:3], 256, 256, 9, torch.float32, True, SEED + 72)
+    first, again = cb.kernel_fwd(x, w, mul, add), cb.kernel_fwd(x, w, mul, add)
+    bwd = (x, w, mul, add, first[0], dy, ds1, ds2)
+    if not all(torch.equal(a, b) for a, b in zip((*first, *cb.kernel_bwd(*bwd)), (*again, *cb.kernel_bwd(*bwd)))):
+        raise AssertionError("K7/K8-fp32 are not deterministic: two runs differ")
+    print(f"K7/K8-fp32 two runs at {CONV_F32_STEP[0]} +prologue: y, s1, s2, dx, dw, dmul, dadd bitwise equal")
+    del x, w, mul, add, dy, ds1, ds2, first, again, bwd
     torch.cuda.empty_cache()
     return errs, step
 
@@ -2579,7 +2690,8 @@ def bn_kernel_phase(mm, cb, gpu: str):
     for dtype in (torch.bfloat16, torch.float32):
         args = _bn_inputs((b, h, w), c, n, 9, dtype, True, SEED + 30)
         ey, edx = check_bn(cb, args, f"K7/K8 {str(dtype)[6:]} ({b}, {h}, {w}, {c}) x (9, {c}, {n})")
-        errs["k7"], errs["k8"] = max(errs["k7"], ey), max(errs["k8"], edx)
+        k7, k8 = ("k7", "k8") if dtype == torch.bfloat16 else ("k7f", "k8f")
+        errs[k7], errs[k8] = max(errs[k7], ey), max(errs[k8], edx)
         if dtype == torch.bfloat16:
             t = _time_bn(cb, args, _library_conv)
             work = _bn_work((b, h, w), c, n, 9, 2)
@@ -2592,15 +2704,17 @@ def bn_kernel_phase(mm, cb, gpu: str):
                   f"{t['library_bwd']:.4f}  [{gpu}]")
             conv_breakdown(cb, args, gpu)
         del args
-    # Edges: W = 18 and 3 (boxes run past the image), no prologue, C and N
-    # not multiples of 64, the flagship plane at B = 1, an image narrower
-    # than a box.
+    # Edges, both dtypes: W = 18 and 3 (boxes run past the image), no
+    # prologue, C and N not multiples of 64, the flagship plane at B = 1, an
+    # image narrower than a box, a 12 x 8 plane (an odd number of boxes).
     for shape, prologue in (((2, 24, 18, 256, 256), True), ((1, 16, 16, 64, 64), False), ((1, 5, 3, 8, 16), True),
-                            ((5, 16, 16, 200, 136), True), ((1, 16, 16, 256, 256), True), ((2, 3, 5, 64, 64), True)):
+                            ((5, 16, 16, 200, 136), True), ((1, 16, 16, 256, 256), True), ((2, 3, 5, 64, 64), True),
+                            ((3, 12, 8, 256, 256), True)):
         b, h, w, c, n = shape
-        args = _bn_inputs((b, h, w), c, n, 9, torch.bfloat16, prologue, SEED + 40)
-        ey, edx = check_bn(cb, args, f"K7/K8 bf16 ({b}, {h}, {w}, {c}) x (9, {c}, {n})")
-        errs["k7"], errs["k8"] = max(errs["k7"], ey), max(errs["k8"], edx)
+        for dtype, k7, k8 in ((torch.bfloat16, "k7", "k8"), (torch.float32, "k7f", "k8f")):
+            args = _bn_inputs((b, h, w), c, n, 9, dtype, prologue, SEED + 40)
+            ey, edx = check_bn(cb, args, f"K7/K8 {str(dtype)[6:]} ({b}, {h}, {w}, {c}) x (9, {c}, {n})")
+            errs[k7], errs[k8] = max(errs[k7], ey), max(errs[k8], edx)
 
     for mod, label, shape, taps in ((mm, "K5/K6", (8192,), 1), (cb, "K7/K8", (8, 16, 16), 9)):
         x, w, mul, add, dy, ds1, ds2 = _bn_inputs(shape, 256, 256, taps, torch.bfloat16, True, SEED + 50)
@@ -2619,7 +2733,7 @@ def bn_kernel_phase(mm, cb, gpu: str):
         dev = f" (device {device[key][0]:.4f} by torch.profiler)" if key in device else ""
         print(f"{key.upper()} per flagship step: kernel {ms:.4f} ms{dev}, plain {plain_ms:.4f}, library "
               f"{lib_ms:.4f}, bound {bound_ms:.4f} ({bound_by})  [{gpu}]")
-    for key in ("k5f", "k6f"):
+    for key in ("k5f", "k6f", "k7f", "k8f"):
         ms, plain_ms, lib_ms, _, _, _, (bound_ms, bound_by) = f32_step[key]
         out[key] = (errs[key], ms, plain_ms, lib_ms, bound_ms, bound_by)
     for key in ("k5", "k6"):
@@ -4866,7 +4980,7 @@ def main(argv=None) -> int:
     parser.add_argument("--only", nargs="+",
                         choices=("bn", "fused", "dp", "dp-serve", "device-warp", "serving-bench", "real-data",
                                  "spatial", "spatial-uneven", "accuracy", "fp32-kernels", "fp32-train",
-                                 "fp32-fused", "parity-serve", "no-plan"),
+                                 "fp32-fused", "fp32-conv3", "parity-serve", "no-plan"),
                         help="build the kernels and run only these phases (no JSON lines)")
     only = parser.parse_args(argv).only
     if not torch.cuda.is_available():
@@ -4906,6 +5020,7 @@ def main(argv=None) -> int:
                   "fp32-kernels": lambda: f32_kernel_phase(fhi, iv, gpu),
                   "fp32-train": lambda: fp32_train_phase(fhi, iv, gpu),
                   "fp32-fused": lambda: fp32_fused_phase(fhi, iv, mm, cb, gpu),
+                  "fp32-conv3": lambda: fp32_conv3_phase(fhi, iv, mm, cb, gpu),
                   "parity-serve": lambda: parity_serve_phase(fhi, iv, gpu),
                   "no-plan": lambda: noplan_phase(fhi, iv, gpu)}
         for name in only:
@@ -4930,6 +5045,7 @@ def main(argv=None) -> int:
     train_k1, train_k2, head_err = train_phase(fhi, gpu)
     f32_train_k1, f32_train_k2 = fp32_train_phase(fhi, iv, gpu)
     k5f_n, k6f_n, (k5f_err, k6f_err) = fp32_fused_phase(fhi, iv, mm, cb, gpu)
+    conv3_n, (k7f_err, k8f_err) = fp32_conv3_phase(fhi, iv, mm, cb, gpu)
     parity_k1 = parity_serve_phase(fhi, iv, gpu)
     snap_k1, snap_k2 = snapshot_phase(fhi, gpu)
     r152_k1, r152_k2, r152_k1_err, r152_k2_err = r152_phase(fhi, iv, gpu)
@@ -4961,9 +5077,10 @@ def main(argv=None) -> int:
          max(k4_err, hm_dv_err, sp_k4_err, spu_k4_err), k4_ms, k4_plain, *b4, None),
         # K1/K2's fp32 instances, timed at h36m3d_r50_fp32's batch; the
         # library is the no-plan route (cuBLAS fp32 with K3 / K4).
-        (fhi._F32_LIB, "ihpr_tpu/ops/fused_head_integral.py:133", f32_n1 + f32_train_k1 + parity_k1 + acc_k1f,
+        (fhi._F32_LIB, "ihpr_tpu/ops/fused_head_integral.py:133",
+         f32_n1 + f32_train_k1 + parity_k1 + acc_k1f + conv3_n[4],
          f32_k1_err, *f32_fwd[F32_TRAIN_BATCH][:2], *f32_bound(F32_TRAIN_BATCH, 1), f32_fwd[F32_TRAIN_BATCH][2]),
-        (fhi._F32_BWD_LIB, "ihpr_tpu/ops/fused_head_integral.py:153", f32_n2 + f32_train_k2 + acc_k2f,
+        (fhi._F32_BWD_LIB, "ihpr_tpu/ops/fused_head_integral.py:153", f32_n2 + f32_train_k2 + acc_k2f + conv3_n[5],
          f32_k2_err, *f32_bwd[F32_TRAIN_BATCH][:2], *f32_bound(F32_TRAIN_BATCH, 3), f32_bwd[F32_TRAIN_BATCH][2]),
     ]
     for (name, replaces, key, launches), err in zip(
@@ -4977,11 +5094,14 @@ def main(argv=None) -> int:
         phase_err, ms, plain_ms, lib_ms, bound_ms, bound_by = bn[key]
         kernels.append((name, replaces, launches, max(phase_err, err), ms, plain_ms, bound_ms, bound_by, lib_ms))
     # K5/K6's fp32 instances (csrc/matmul_bn_f32.cuh, behind the same two
-    # entry points), timed over a fp32 fused_1x1 step's 16 launches; the
-    # library is cuBLAS fp32 with TF32 off, and torch sums.
+    # entry points), timed over a fp32 fused_1x1 step's 16 launches, and
+    # K7/K8's (csrc/conv3_f32.cuh), timed over 7n's 5 launches a step; the
+    # library is cuBLAS / cuDNN fp32 with TF32 off, and torch sums.
     for name, replaces, key, launches, err in (
-        (F32_FWD_NAME, "ihpr_tpu/ops/matmul_bn.py:127", "k5f", k5f_n, k5f_err),
-        (F32_BWD_NAME, "ihpr_tpu/ops/matmul_bn.py:151", "k6f", k6f_n, k6f_err),
+        (F32_FWD_NAME, "ihpr_tpu/ops/matmul_bn.py:127", "k5f", k5f_n + conv3_n[0], k5f_err),
+        (F32_BWD_NAME, "ihpr_tpu/ops/matmul_bn.py:151", "k6f", k6f_n + conv3_n[1], k6f_err),
+        (CONV_F32_FWD_NAME, "ihpr_tpu/ops/conv_bn.py:150", "k7f", conv3_n[2], k7f_err),
+        (CONV_F32_BWD_NAME, "ihpr_tpu/ops/conv_bn.py:177", "k8f", conv3_n[3], k8f_err),
     ):
         phase_err, ms, plain_ms, lib_ms, bound_ms, bound_by = bn[key]
         kernels.append((name, replaces, launches, max(phase_err, err), ms, plain_ms, bound_ms, bound_by, lib_ms))

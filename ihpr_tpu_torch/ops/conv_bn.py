@@ -20,16 +20,21 @@ The route inside each library is chosen by dtype. bf16 takes the Hopper
 kernels of ``csrc/conv3_hopper.cuh``: one elementwise pass writes a (and,
 backward, gc) to scratch, then TMA reads each tap as a shifted 4-D box
 (zero outside the image: the SAME padding) and wgmma multiplies. fp32
-(K7/K8-fp32) takes v1's FMA kernels of ``csrc/conv_bn_common.cuh``: no
-full-width path runs them (JAX's conv3 route takes no fp32 ResNet-50 block
-at batch 32 or 128), and they are not redesigned as fp32 K5/K6 were (3xTF32
-on wgmma, ``csrc/matmul_bn_f32.cuh``). Neither route is a fallback for the
-other; no failure is caught.
+(K7/K8-fp32), which JAX multiplies at ``Precision.HIGHEST``, takes the
+kernels of ``csrc/conv3_f32.cuh``: the same shifted boxes in fp32, every
+product in 3xTF32 on wgmma as K5/K6-fp32 (``csrc/matmul_bn_f32.cuh``), A
+split in registers (a formed there from x; g written once to scratch), B
+from the TF32 hi and lo planes of each tap's w that a pre-pass splits once
+a call (``split_planes`` is its plain version). JAX's conv3 route takes an
+fp32 ResNet-50 block only where an image's plane fits its VMEM budget
+beside the nine fp32 weight blocks: stage 3 at a 128x128 frame, none at
+256x256. Neither route is a fallback for the other; no failure is caught.
 
 ``FusedConv3x3BN`` is the autograd Function: a CUDA tensor goes to the
 kernels, which launch or raise; a CPU tensor goes to ``plain`` /
 ``plain_bwd``. ``kernel_fwd`` and ``kernel_bwd`` count one launch per call,
-however many CUDA kernels the call runs. ``supported`` and ``profitable``
+however many CUDA kernels the call runs: bf16 in ``launches`` /
+``bwd_launches``, fp32 in ``f32_launches`` / ``f32_bwd_launches``. ``supported`` and ``profitable``
 are JAX's route predicates, copied; as in ``matmul_bn`` they pick the
 Bottleneck blocks that take the fused route and do not gate the kernels,
 which take any B, H, W and C, N multiples of 8.
@@ -48,17 +53,22 @@ from ihpr_tpu_torch.ops import _build
 from ihpr_tpu_torch.ops.fused_head_integral import no_tf32
 from ihpr_tpu_torch.ops.integral_volume import _acc_dtype
 from ihpr_tpu_torch.ops.matmul_bn import (
-    _VMEM_BUDGET, _ptr, _stream, check_cotangents, check_kernel_inputs, fold_g, prologue, prologue_bwd,
+    _VMEM_BUDGET, _planes_shape, _ptr, _stream, check_cotangents, check_kernel_inputs, fold_g, prologue,
+    prologue_bwd,
 )
+from ihpr_tpu_torch.ops.matmul_bn import split_planes as _split_one
 
 _FWD_LIB = "conv_bn_fwd"
 _BWD_LIB = "conv_bn_bwd"
 
-# Launches of K7 (``launches``) and K8 (``bwd_launches``) since the count was
-# last set to 0; each wrapper adds one per launch and nothing else touches
-# them.
+# Launches of K7 (``launches``), K8 (``bwd_launches``), K7-fp32
+# (``f32_launches``) and K8-fp32 (``f32_bwd_launches``) since the count was
+# last set to 0; each wrapper adds one per launch of its kernel and nothing
+# else touches them.
 launches = 0
 bwd_launches = 0
+f32_launches = 0
+f32_bwd_launches = 0
 
 # --- JAX's route predicates (ihpr_tpu/ops/conv_bn.py:46-112) ------------------
 
@@ -144,6 +154,14 @@ def plain_bwd(x, w9, mul, add, y, dy, ds1, ds2):
     return dx.reshape(b, h, w, c), dw, dmul, dadd
 
 
+def split_planes(w9: torch.Tensor, trans: bool) -> torch.Tensor:
+    """Plain version of K7-fp32's and K8-fp32's pre-pass: fp32 w9 (9, C, N)
+    -> (9, 2, R, L'), each tap's ``matmul_bn.split_planes``: with ``trans``
+    K7-fp32's B, rows n over the contraction C, else K8-fp32's da B, rows c
+    over N."""
+    return torch.stack([_split_one(w9[t], trans) for t in range(w9.shape[0])])
+
+
 # --- the kernels -------------------------------------------------------------------
 
 
@@ -161,6 +179,8 @@ def _fwd_lib() -> ctypes.CDLL:
     lib.ihpr_conv_bn_fwd.argtypes = (
         [ctypes.c_void_p] * 7 + [ctypes.c_int] + [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     )
+    lib.ihpr_conv_bn_split.restype = ctypes.c_int
+    lib.ihpr_conv_bn_split.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     return lib
 
 
@@ -178,38 +198,44 @@ def _bwd_lib() -> ctypes.CDLL:
     return lib
 
 
-def _prologue_scratch(x2, mul):
-    """The (M, C) bf16 buffer the bf16 route writes a = relu(x*mul + add)
-    into; None without the prologue (a is x) and in fp32 (whose kernels
-    recompute a)."""
-    return torch.empty_like(x2) if mul is not None and x2.dtype == torch.bfloat16 else None
+def _scratch(x2, mul, rows: int, length: int):
+    """bf16: the (M, C) buffer the route writes a = relu(x*mul + add) into,
+    None without the prologue (a is x); fp32: the (9, 2, rows, length
+    rounded up to 32) TF32 planes of w's split (the fp32 kernels form a in
+    registers)."""
+    if x2.dtype == torch.float32:
+        return torch.empty((9, *_planes_shape(rows, length)), dtype=torch.float32, device=x2.device)
+    return torch.empty_like(x2) if mul is not None else None
 
 
 def kernel_fwd(x: torch.Tensor, w9: torch.Tensor, mul=None, add=None):
     """K7 on the same contract as ``plain``. Launches on the current stream
     without synchronizing; raises on any input it does not take and on a
     refused launch."""
-    global launches
+    global launches, f32_launches
     b, h, w, _ = x.shape
     x2 = _rows(x)
     m, k, n, is_bf16 = check_kernel_inputs(x2, w9, mul, add)
     if w9.shape[0] != 9:
         raise ValueError(f"w9 {tuple(w9.shape)} is not (9, C, N)")
     lib = _fwd_lib()
-    parts = lib.ihpr_conv_bn_fwd_partials(b, h, w, n, is_bf16)
     f32 = dict(dtype=torch.float32, device=x.device)
-    part = torch.empty((parts, 2, n), **f32)
-    a = _prologue_scratch(x2, mul)
+    scratch = _scratch(x2, mul, n, k)  # bf16: a; fp32: w's split, K7-fp32's B
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     s = torch.empty((2, n), **f32)
-    with torch.cuda.device(x.device):
+    with torch.cuda.device(x.device):  # fp32's partial count follows this card's SM count
+        parts = lib.ihpr_conv_bn_fwd_partials(b, h, w, n, is_bf16)
+        part = torch.empty((parts, 2, n), **f32)
         err = lib.ihpr_conv_bn_fwd(
-            x2.data_ptr(), w9.data_ptr(), _ptr(mul), _ptr(add), _ptr(a), y.data_ptr(), part.data_ptr(),
+            x2.data_ptr(), w9.data_ptr(), _ptr(mul), _ptr(add), _ptr(scratch), y.data_ptr(), part.data_ptr(),
             parts, s.data_ptr(), b, h, w, k, n, is_bf16, _stream(),
         )
     if err:
         raise RuntimeError(f"{_FWD_LIB} launch failed: CUDA error {err}")
-    launches += 1
+    if is_bf16:
+        launches += 1
+    else:
+        f32_launches += 1
     return y.view(b, h, w, n), s[0], s[1]
 
 
@@ -217,7 +243,7 @@ def kernel_bwd(x, w9, mul, add, y, dy, ds1, ds2):
     """K8 on the same contract as ``plain_bwd`` (dw in fp32). Launches on
     the current stream without synchronizing; raises on any input it does
     not take and on a refused launch."""
-    global bwd_launches
+    global bwd_launches, f32_bwd_launches
     b, h, w, _ = x.shape
     x2 = _rows(x)
     m, k, n, is_bf16 = check_kernel_inputs(x2, w9, mul, add)
@@ -227,24 +253,27 @@ def kernel_bwd(x, w9, mul, add, y, dy, ds1, ds2):
     ds = check_cotangents(x2, y2, dy2, ds1, ds2, n)
     lib = _bwd_lib()
     f32 = dict(dtype=torch.float32, device=x.device)
-    a = _prologue_scratch(x2, mul)
-    gc = torch.empty_like(y2)
+    scratch = _scratch(x2, mul, k, n)  # bf16: a; fp32: w's split, K8-fp32's da B
+    gc = torch.empty_like(y2)  # g in x's dtype
     dx = torch.empty_like(x2)
     dw = torch.empty((9, k, n), **f32)
     dmd = torch.empty((2, k), **f32)
-    with torch.cuda.device(x.device):  # dw's partial count follows this card's SM count
+    with torch.cuda.device(x.device):  # partial counts follow this card's SM count
         parts_x = lib.ihpr_conv_bn_bwd_dx_partials(b, h, w, k, is_bf16)
         parts_w = lib.ihpr_conv_bn_bwd_dw_partials(b, h, w, k, n, is_bf16)
         part_x = torch.empty((parts_x, 2, k), **f32)
         part_w = torch.empty((parts_w, 9, k, n), **f32)
         err = lib.ihpr_conv_bn_bwd(
             x2.data_ptr(), w9.data_ptr(), _ptr(mul), _ptr(add), y2.data_ptr(), dy2.data_ptr(),
-            ds.data_ptr(), _ptr(a), gc.data_ptr(), dx.data_ptr(), dw.data_ptr(), dmd.data_ptr(),
+            ds.data_ptr(), _ptr(scratch), gc.data_ptr(), dx.data_ptr(), dw.data_ptr(), dmd.data_ptr(),
             part_x.data_ptr(), parts_x, part_w.data_ptr(), parts_w, b, h, w, k, n, is_bf16, _stream(),
         )
     if err:
         raise RuntimeError(f"{_BWD_LIB} launch failed: CUDA error {err}")
-    bwd_launches += 1
+    if is_bf16:
+        bwd_launches += 1
+    else:
+        f32_bwd_launches += 1
     dx = dx.view(x.shape)
     if mul is None:
         return dx, dw, None, None

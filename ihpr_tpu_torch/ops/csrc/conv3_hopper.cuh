@@ -2,9 +2,8 @@
 // (sm_90a): the kernels of
 //   K7 conv_bn_fwd.cu (replaces ihpr_tpu/ops/conv_bn.py:_fwd_kernel)
 //   K8 conv_bn_bwd.cu (replaces ihpr_tpu/ops/conv_bn.py:_bwd_kernel)
-// for bf16 operands. fp32 operands keep the FMA kernels of
-// conv_bn_common.cuh (K7/K8-fp32, on no full-width path; fp32 K5/K6 run
-// 3xTF32 on wgmma, matmul_bn_f32.cuh).
+// for bf16 operands. fp32 operands (K7/K8-fp32) take the 3xTF32 wgmma
+// kernels of conv3_f32.cuh, which share this file's pixel tiling (Geo).
 //
 // What they compute. x (B, H, W, C) NHWC bf16, w (9, C, N) in HWIO tap order
 // t = (dy+1)*3 + (dx+1); shift_t(a)[i, j] = a[i+dy, j+dx], 0 outside the
@@ -73,6 +72,7 @@
 #pragma once
 
 #include "conv_bn_common.cuh"
+#include "fused_head_common.cuh"
 #include "hopper.cuh"
 
 namespace c3 {

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks of the fused head kernels K1/K2
 // (fused_head_integral_fwd.cu, fused_head_integral_bwd.cu) and their fp32
-// instances (fused_head_f32.cuh), the bf16 conv + BN-statistics kernels
-// K5/K6 (matmul_bn_hopper.cuh) and K7/K8 (conv3_hopper.cuh), and the matmul
-// probe P2 (probe_mm.cu): TMA tensor maps (bf16, fp32 or 8-bit; 2-D, 3-D,
-// and the 4-D NHWC map whose shifted boxes make a 3x3 conv's taps) and
+// instances (fused_head_f32.cuh), the conv + BN-statistics kernels K5/K6
+// (matmul_bn_hopper.cuh; fp32 matmul_bn_f32.cuh) and K7/K8
+// (conv3_hopper.cuh; fp32 conv3_f32.cuh), and the matmul probe P2
+// (probe_mm.cu): TMA tensor maps (bf16, fp32 or 8-bit; 2-D, 3-D, and the
+// 4-D NHWC map whose shifted boxes make a 3x3 conv's taps) and
 // loads, mbarriers, wgmma shared-memory descriptors and the wgmma shapes
 // those kernels issue (bf16 -> fp32, TF32 -> fp32 with A from shared memory
 // or registers, s8 -> s32), warpgroup register reallocation and named
@@ -153,6 +154,19 @@ inline int tmap_nhwc(CUtensorMap* map, const void* base, uint64_t batch, uint64_
   const uint64_t strides[3] = {channels * 2, width * channels * 2, height * width * channels * 2};
   const uint32_t box[4] = {kBox, bw, bh, 1};
   return make_tmap(map, base, 4, dims, strides, box);
+}
+
+// The same NHWC map over fp32 (K7-fp32 / K8-fp32): boxes of 32 channels x
+// bw columns x bh rows x 1 image land as one 64-row x 128-byte tile with
+// the 128-byte swizzle (the tile tmap_matrix_f32's boxes make); pixels or
+// channels outside the tensor read 0. channels % 4 == 0 (TMA's 16-byte
+// pitch).
+inline int tmap_nhwc_f32(CUtensorMap* map, const void* base, uint64_t batch, uint64_t height, uint64_t width,
+                         uint64_t channels, uint32_t bw, uint32_t bh) {
+  const uint64_t dims[4] = {channels, width, height, batch};
+  const uint64_t strides[3] = {channels * 4, width * channels * 4, height * width * channels * 4};
+  const uint32_t box[4] = {kBox / 2, bw, bh, 1};
+  return make_tmap(map, base, 4, dims, strides, box, CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
 }
 
 // --- device: barriers, TMA -------------------------------------------------------

@@ -276,6 +276,29 @@ __global__ void __launch_bounds__(128)
   }
 }
 
+// The fp32 box of `map` (tmap_nhwc_f32) at (c0, c1, c2, c3), unswizzled:
+// out[r * 32 + c] is channel c of the box's row r.
+__global__ void __launch_bounds__(128)
+    tma4d_f32_kernel(const __grid_constant__ CUtensorMap map, float* __restrict__ out, int c0, int c1, int c2,
+                     int c3) {
+  __shared__ __align__(1024) unsigned char tile[kBoxBytes];
+  __shared__ uint64_t bar;
+  if (threadIdx.x == 0) {
+    mbar_init(&bar, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_arrive_expect_tx(&bar, kBoxBytes);
+    tma_load_4d(tile, &map, &bar, c0, c1, c2, c3);
+  }
+  mbar_wait(&bar, 0);
+  for (int e = threadIdx.x; e < kBox * 32; e += blockDim.x) {
+    const int r = e / 32, c = e % 32;
+    out[e] = *reinterpret_cast<const float*>(tile + r * 128 + (((c >> 2) ^ (r & 7)) << 4) + (c & 3) * 4);
+  }
+}
+
 // ---- TF32 ---------------------------------------------------------------------------
 
 template <int N>
@@ -489,6 +512,20 @@ int ihpr_hopper_selftest_tma4d(const void* a, void* out, int batch, int height, 
   if (err) return err;
   tma4d_kernel<<<1, 128, 0, static_cast<cudaStream_t>(stream)>>>(
       map, static_cast<__nv_bfloat16*>(out), c0, j0, i0, b);
+  return (int)cudaGetLastError();
+}
+
+// The same for fp32: a (batch, height, width, channels) fp32; out (64, 32)
+// fp32: the box of tmap_nhwc_f32(a, ..., bw, bh) at channel c0, column j0,
+// row i0 of image b. -1 for bw * bh != 64 or channels % 4 != 0.
+int ihpr_hopper_selftest_tma4d_f32(const void* a, void* out, int batch, int height, int width,
+                                   int channels, int bw, int bh, int c0, int j0, int i0, int b,
+                                   void* stream) {
+  if (bw * bh != kBox || bw < 1 || channels % 4) return -1;
+  CUtensorMap map;
+  const int err = tmap_nhwc_f32(&map, a, batch, height, width, channels, bw, bh);
+  if (err) return err;
+  tma4d_f32_kernel<<<1, 128, 0, static_cast<cudaStream_t>(stream)>>>(map, static_cast<float*>(out), c0, j0, i0, b);
   return (int)cudaGetLastError();
 }
 

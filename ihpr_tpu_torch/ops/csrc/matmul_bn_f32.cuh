@@ -26,9 +26,10 @@
 // (tools/f32_breakdown.py:BN_STEP) 7 are bound by bytes and 9 by
 // operations, most by a hair.
 // K6-fp32 moves 4(2MK + 2MN) + 8KN bytes and does twice the flops. So the
-// passes have to hide under the loads. v1 (conv_bn_common.cuh's FMA
-// kernels, mma.sync layout, 67 TFLOP/s at best) could not reach half of
-// either bound even at its peak, and wrote gc (M x N) once and read it twice.
+// passes have to hide under the loads. v1 (FMA kernels in the mma.sync
+// layout, 67 TFLOP/s at best; gone since K7/K8-fp32 left them too) could
+// not reach half of either bound even at its peak, and wrote gc (M x N)
+// once and read it twice.
 //
 // Design. Persistent CTAs of a producer warp (TMA) and two consumer
 // warpgroups, as the bf16 kernels; a ring of 32-deep k-blocks (one 128-byte
@@ -124,25 +125,30 @@ inline int dw_ranges(int M, int K, int N, int sms) {
 
 // --- 0. the split pre-pass -------------------------------------------------------------
 
-// out (2, R, Lp), Lp = round32(L): out[h][r][p] = part h (hi, lo) of
-// src(r, l), l = 32 (p / 32) + perm32(p % 32), 0 where l >= L; src(r, l) =
-// w[l][r] (TRANS: wt, R = N, L = K) or w[r][l] (wn, R = K, L = N).
-__global__ void split_w_kernel(const float* __restrict__ w, uint32_t* __restrict__ out, int K, int N, int trans) {
+// Each of `taps` matrices w_t = w + t K N (K, N) -> out_t = out + 2 t R Lp,
+// (2, R, Lp), Lp = round32(L): out_t[h][r][p] = part h (hi, lo) of src(r,
+// l), l = 32 (p / 32) + perm32(p % 32), 0 where l >= L; src(r, l) = w_t[l][r]
+// (TRANS: wt, R = N, L = K) or w_t[r][l] (wn, R = K, L = N). K5-fp32 /
+// K6-fp32 split one matrix, K7-fp32 / K8-fp32 (conv3_f32.cuh) the nine taps.
+__global__ void split_w_kernel(const float* __restrict__ w, uint32_t* __restrict__ out, int K, int N, int trans,
+                               int taps) {
   const int R = trans ? N : K, L = trans ? K : N, lp = round32(L);
   const size_t total = (size_t)R * lp;
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < total; i += (size_t)gridDim.x * blockDim.x) {
-    const int r = (int)(i / lp), p = (int)(i % lp), l = (p & ~31) + f32h::perm32(p & 31);
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < taps * total; i += (size_t)gridDim.x * blockDim.x) {
+    const size_t tap = i / total, j = i % total;
+    const int r = (int)(j / lp), p = (int)(j % lp), l = (p & ~31) + f32h::perm32(p & 31);
+    const float* wt = w + tap * K * N;
     uint32_t hi = 0u, lo = 0u;
-    if (l < L) tf32x3::split(trans ? __ldg(w + (size_t)l * N + r) : __ldg(w + (size_t)r * N + l), hi, lo);
-    out[i] = hi;
-    out[total + i] = lo;
+    if (l < L) tf32x3::split(trans ? __ldg(wt + (size_t)l * N + r) : __ldg(wt + (size_t)r * N + l), hi, lo);
+    out[2 * tap * total + j] = hi;
+    out[(2 * tap + 1) * total + j] = lo;
   }
 }
 
-inline cudaError_t split_w(const float* w, float* planes, int K, int N, int trans, cudaStream_t st) {
-  const size_t total = (size_t)(trans ? N : K) * round32(trans ? K : N);
+inline cudaError_t split_w(const float* w, float* planes, int K, int N, int trans, cudaStream_t st, int taps = 1) {
+  const size_t total = (size_t)taps * (trans ? N : K) * round32(trans ? K : N);
   const int blocks = (int)((total + 255) / 256 < 1024 ? (total + 255) / 256 : 1024);
-  split_w_kernel<<<blocks, 256, 0, st>>>(w, reinterpret_cast<uint32_t*>(planes), K, N, trans);
+  split_w_kernel<<<blocks, 256, 0, st>>>(w, reinterpret_cast<uint32_t*>(planes), K, N, trans, taps);
   return cudaGetLastError();
 }
 

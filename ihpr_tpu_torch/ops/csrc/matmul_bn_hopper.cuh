@@ -19,7 +19,7 @@
 // K5. What bounds it on an H100: bytes. Each input read once and each output
 // written once is 2(MK + MN) + 2KN bytes; the product is 2MKN flops. At the
 // flagship fused step's shapes the bytes take 1.095 ms per step at 3.35
-// TB/s, the flops at most 35 us a call at 989 TFLOP/s. v1 (conv_bn_common.cuh:
+// TB/s, the flops at most 35 us a call at 989 TFLOP/s. v1 (since removed:
 // mma.sync from a cp.async ring, 64 x 64 CTA tiles) read x once per 64
 // columns of N, applied the prologue as often, stored y 4 bytes at a time
 // and ran at 0.23 of the bound per step.
@@ -51,7 +51,7 @@
 // written once is 2(MK + MN) bf16 + 6KN bytes; the products are 4MKN flops.
 // At the flagship fused step's shapes (M = 32768 ... 524288, K, N = 64 ...
 // 1024) the bytes take 2.195 ms per step at 3.35 TB/s, the flops 0.60 ms at
-// 989 TFLOP/s. v1 (conv_bn_common.cuh) wrote gc (M x N) and read it twice, read
+// 989 TFLOP/s. v1 (since removed) wrote gc (M x N) and read it twice, read
 // gc's rows once per 64 columns of K and x once per 64 columns of N with
 // mma.sync, and ran at 0.09-0.31 of the bound.
 //

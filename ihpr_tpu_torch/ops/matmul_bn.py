@@ -31,8 +31,9 @@ splits once a call (``split_planes`` is its plain version); g and a stay in
 registers, and dw's accumulators are flushed into fp32 partials every 16
 row tiles. ``f32_launches`` and ``f32_bwd_launches`` count them.
 
-``ops/conv_bn.py`` takes ``check_kernel_inputs`` from here; its fp32 route
-(K7/K8-fp32) keeps the FMA kernels of ``csrc/conv_bn_common.cuh``.
+``ops/conv_bn.py`` takes ``check_kernel_inputs`` and ``split_planes`` from
+here; its fp32 route (K7/K8-fp32, ``csrc/conv3_f32.cuh``) splits each tap's
+w the same way in the same pre-pass kernel.
 
 ``FusedMatmulBN`` is the autograd Function around the pair: a CUDA tensor
 goes to the kernels, which launch or raise; a CPU tensor goes to the plain

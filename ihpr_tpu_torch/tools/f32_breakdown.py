@@ -1,9 +1,11 @@
-"""Where K1-fp32 and K2-fp32, or K5-fp32 and K6-fp32, spend their time:
-each kernel built as it is and stripped of one part of its work, timed at
-the fp32 flagship head, or at every shape of a fp32 fused_1x1 step.
+"""Where K1-fp32 and K2-fp32, K5-fp32 and K6-fp32, or K7-fp32 and K8-fp32
+spend their time: each kernel built as it is and stripped of one part of
+its work, timed at the fp32 flagship head, at every shape of a fp32
+fused_1x1 step, or at the conv3 route's fp32 shapes.
 
     python -m ihpr_tpu_torch.tools.f32_breakdown [--batch 32 128] [--reps 3]
     python -m ihpr_tpu_torch.tools.f32_breakdown --kernels bn
+    python -m ihpr_tpu_torch.tools.f32_breakdown --kernels conv
 
 Builds ``fused_head_integral_fwd_f32`` and ``_bwd_f32`` once per variant
 (``-D`` macros of ``csrc/fused_head_f32.cuh``; a stripped build's results
@@ -27,8 +29,11 @@ With ``--kernels bn`` it times K5-fp32 and K6-fp32 (``matmul_bn_fwd`` /
 passes from ``fused_head_f32.cuh``) in the variants that touch them
 (``full``, ``no_split``, ``one_pass``): each launch's device milliseconds
 (torch.profiler) at every shape of ``BN_STEP`` and their sums over the
-step's 16 launches. CUDA only: the variants are timings of the card's
-kernels.
+step's 16 launches. With ``--kernels conv`` it times K7-fp32 and K8-fp32
+(``conv_bn_fwd`` / ``_bwd``, ``csrc/conv3_f32.cuh``) in ``full``,
+``no_split`` and ``one_pass`` at ``CONV_SHAPES``: each
+call's milliseconds (CUDA events) and each launch's device milliseconds.
+CUDA only: the variants are timings of the card's kernels.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ import types
 import torch
 
 from ihpr_tpu_torch.ops import _build
+from ihpr_tpu_torch.ops import conv_bn as cb
 from ihpr_tpu_torch.ops import fused_head_integral as fhi
 from ihpr_tpu_torch.ops import matmul_bn as mm
 
@@ -57,7 +63,11 @@ VARIANTS = {
     "one_part": ("IHPR_F32_ONE_PART",),
 }
 HW, WIDTH, C, J, D = 64 * 64, 64, 256, 18, 64
-BN_VARIANTS = ("full", "no_split", "one_pass")  # the variants whose macros K5/K6-fp32 read
+BN_VARIANTS = ("full", "no_split", "one_pass")  # the variants whose macros K5-K8-fp32 read
+# (B, H, W, C, N, launches a step) of K7-fp32 / K8-fp32: layer3_1 ... layer3_5
+# conv2 of h36m3d_r50_fp32 with both fused flags at 128x128 (chip_smoke.py's
+# 7n), and the same conv at 256x256, which no step runs (5c times it).
+CONV_SHAPES = ((32, 8, 8, 256, 256, 5), (32, 16, 16, 256, 256, 0))
 # One fused_1x1 step of h36m3d_r50_fp32 with lean BN (ResNet-50, 256x256,
 # batch 32): the (M, K, N, prologue, launches) of K5-fp32 / K6-fp32, layer1_0
 # ... layer3_0's conv1 and conv3 (chip_smoke.py's 5c and 7m run them too).
@@ -74,9 +84,9 @@ BN_STEP = (
 
 
 def _use(defines: tuple, mod=fhi) -> None:
-    """Point ``mod``'s kernel libraries (fhi's or mm's) at the build with
-    ``defines``."""
-    for lib in (mod._fwd_lib if mod is mm else mod._lib, mod._bwd_lib):
+    """Point ``mod``'s kernel libraries (fhi's, mm's or cb's) at the build
+    with ``defines``."""
+    for lib in (mod._lib if mod is fhi else mod._fwd_lib, mod._bwd_lib):
         lib.cache_clear()
     mod._build = types.SimpleNamespace(load=lambda n: ctypes.CDLL(str(_build.build(n, defines))))
 
@@ -99,7 +109,7 @@ def _ms(fn, calls: int = 5, reps: int = 3) -> float:
 def _launches(fn, calls: int = 3) -> dict:
     """{kernel: device ms a launch} of fn's CUDA kernels (torch.profiler),
     taken again (at most six times) until it caught dfeat_kernel,
-    fwd_f32_kernel or one of K5/K6-fp32's."""
+    fwd_f32_kernel or one of K5-K8-fp32's."""
     fn()
     torch.cuda.synchronize()
     for _ in range(6):
@@ -110,7 +120,7 @@ def _launches(fn, calls: int = 3) -> dict:
         ms = {e.key.removeprefix("void ").replace("(anonymous namespace)::", "").split("(")[0]:
               round(e.self_device_time_total / e.count / 1e3, 4)
               for e in prof.key_averages() if e.self_device_time_total > 0 and "at::" not in e.key}
-        if any(k in name for name in ms for k in ("dfeat_kernel", "fwd_f32_kernel", "mbf::")):
+        if any(k in name for name in ms for k in ("dfeat_kernel", "fwd_f32_kernel", "mbf::", "c3f::")):
             break
     return ms
 
@@ -154,13 +164,40 @@ def _bn_step(variants, gpu: str) -> dict:
     return results
 
 
+def _conv_shapes(variants, reps: int, gpu: str) -> dict:
+    """K7-fp32 / K8-fp32 at every CONV_SHAPES shape in each variant: each
+    call's ms and each launch's device ms."""
+    results = {}
+    for name in variants:
+        _use(VARIANTS[name], cb)
+        for i, (b, h, w, c, n, launches) in enumerate(CONV_SHAPES):
+            gen = torch.Generator().manual_seed(70 + i)
+            x = torch.randn(b, h, w, c, generator=gen).cuda()
+            w9 = (torch.randn(9, c, n, generator=gen) / (9 * c) ** 0.5).cuda()
+            mul, add = (torch.rand(c, generator=gen) + 0.5).cuda(), (torch.randn(c, generator=gen) * 0.2).cuda()
+            dy = torch.randn(b, h, w, n, generator=gen).cuda()
+            ds1, ds2 = (torch.randn(n, generator=gen) * 0.1).cuda(), (torch.randn(n, generator=gen) * 0.01).cuda()
+            y = cb.kernel_fwd(x, w9, mul, add)[0]
+            fwd, bwd = lambda: cb.kernel_fwd(x, w9, mul, add), lambda: cb.kernel_bwd(x, w9, mul, add, y, dy, ds1, ds2)
+            k7, k8 = _ms(fwd, reps=reps), _ms(bwd, reps=reps)
+            parts = {**{f"K7 {k}": v for k, v in _launches(fwd).items()},
+                     **{f"K8 {k}": v for k, v in _launches(bwd).items()}}
+            results[f"{name}/{b}x{h}x{w}x{c}"] = {"k7_ms": round(k7, 4), "k8_ms": round(k8, 4), "launches": parts}
+            print(f"{name:9s} ({b}, {h}, {w}, {c}) x (9, {c}, {n}) x{launches}/step: K7-fp32 {k7:.4f} ms, K8-fp32 "
+                  f"{k8:.4f} ms; launches " + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()) + f"  [{gpu}]")
+            del x, w9, mul, add, dy, ds1, ds2, y
+        torch.cuda.empty_cache()
+    return results
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--batch", type=int, nargs="+", default=[32])
     parser.add_argument("--reps", type=int, default=3)
     parser.add_argument("--variants", nargs="+", default=list(VARIANTS), choices=list(VARIANTS))
-    parser.add_argument("--kernels", choices=("head", "bn"), default="head",
-                        help="head: K1/K2-fp32 at the flagship head; bn: K5/K6-fp32 at BN_STEP")
+    parser.add_argument("--kernels", choices=("head", "bn", "conv"), default="head",
+                        help="head: K1/K2-fp32 at the flagship head; bn: K5/K6-fp32 at BN_STEP; "
+                             "conv: K7/K8-fp32 at CONV_SHAPES")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("f32_breakdown: needs a CUDA device", file=sys.stderr)
@@ -168,6 +205,13 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip().splitlines()[0]
+    if args.kernels == "conv":
+        variants = [v for v in args.variants if v in BN_VARIANTS]
+        with concurrent.futures.ThreadPoolExecutor(8) as pool:
+            list(pool.map(lambda a: _build.build(*a), [(n, VARIANTS[v]) for v in variants
+                                                        for n in (cb._FWD_LIB, cb._BWD_LIB)]))
+        print(json.dumps({"gpu": gpu, "shapes": CONV_SHAPES, "results": _conv_shapes(variants, args.reps, gpu)}))
+        return 0
     if args.kernels == "bn":
         variants = [v for v in args.variants if v in BN_VARIANTS]
         with concurrent.futures.ThreadPoolExecutor(8) as pool:

@@ -305,17 +305,17 @@ def test_route_predicates_match_jax():
     assert checked == 2 * 4 * 3 * (16 + 50)
 
 
-def _flagship_launches(fused_1x1, fused_conv3, itemsize=2, batch=128):
-    """(K5, K6, K7, K8) launches of one ResNet-50 train step at 256x256 (the
-    flagship h36m3d_r50: bf16, batch 128; h36m3d_r50_fp32: itemsize 4,
-    batch 32) from the port's predicates, routed as Bottleneck._route: a
+def _flagship_launches(fused_1x1, fused_conv3, itemsize=2, batch=128, size=(256, 256)):
+    """(K5, K6, K7, K8) launches of one ResNet-50 train step at ``size`` (the
+    flagship h36m3d_r50: bf16, batch 128, 256x256; h36m3d_r50_fp32: itemsize
+    4, batch 32) from the port's predicates, routed as Bottleneck._route: a
     block whose conv1 shape JAX fuses runs K5 twice (conv1, conv3) and K6
     twice. JAX's fused_matmul_bn checks each conv on its own and sends a
     conv3 whose shape is not ``supported`` to ``_reference`` (plain XLA):
     in fp32 layer3_0's conv3 at (8192, 256, 1024), which the port runs on
     K5-fp32 / K6-fp32 all the same (the same function)."""
     k5 = k7 = 0
-    for _, cin, e, stride, b, h, w in _bottleneck_shapes(50, batch, (256, 256)):
+    for _, cin, e, stride, b, h, w in _bottleneck_shapes(50, batch, size):
         if (fused_conv3 and stride == 1 and conv_bn.profitable(e, e)
                 and conv_bn.supported(b, h, w, e, e, 1, itemsize)):
             k7 += 1
@@ -324,19 +324,24 @@ def _flagship_launches(fused_1x1, fused_conv3, itemsize=2, batch=128):
     return k5, k5, k7, k7
 
 
-@pytest.mark.parametrize("itemsize, batch, want", [
-    (2, 128, {(True, True): (16, 16, 5, 5), (True, False): (26, 26, 0, 0), (False, True): (0, 0, 5, 5)}),
-    (4, 32, {(True, True): (16, 16, 0, 0), (True, False): (16, 16, 0, 0), (False, True): (0, 0, 0, 0)}),
-], ids=["bf16_b128", "fp32_b32"])
-def test_flagship_launch_counts(itemsize, batch, want):
+@pytest.mark.parametrize("itemsize, batch, size, want", [
+    (2, 128, (256, 256), {(True, True): (16, 16, 5, 5), (True, False): (26, 26, 0, 0), (False, True): (0, 0, 5, 5)}),
+    (4, 32, (256, 256), {(True, True): (16, 16, 0, 0), (True, False): (16, 16, 0, 0), (False, True): (0, 0, 0, 0)}),
+    (4, 32, (128, 128), {(True, True): (16, 16, 5, 5), (True, False): (16, 16, 0, 0), (False, True): (0, 0, 5, 5)}),
+], ids=["bf16_b128", "fp32_b32", "fp32_b32_128x128"])
+def test_flagship_launch_counts(itemsize, batch, size, want):
     """bf16 at batch 128, both flags: layer1_0 ... layer3_0 on the 1x1
     route, layer3_1 ... layer3_5 on the conv3 route, stage 4 plain;
     fused_1x1 alone: 13 blocks. fp32 at batch 32 (h36m3d_r50_fp32, the
-    smoke's fp32-fused phase): the 1x1 route takes layer1_0 ... layer3_0
-    with or without fused_conv3, and the conv3 route none (its fp32 tiles
-    exceed JAX's VMEM budget), so K7/K8-fp32 run on no full-width path."""
+    smoke's fp32-fused phase 7m): the 1x1 route takes layer1_0 ... layer3_0
+    with or without fused_conv3. The conv3 route must fit one image's plane
+    into JAX's 6 MiB VMEM budget beside the nine fp32 weight blocks (4.72 MB
+    at e = 256), which leaves at most 127 pixel rows: it takes no block at
+    256x256 (stage 3's planes are 16x16), and at 128x128 (phase 7n) stage
+    3's 8x8 planes, layer3_1 ... layer3_5, 5 launches of K7/K8-fp32 a
+    step; stage 4 (e = 512) never."""
     for flags, counts in want.items():
-        assert _flagship_launches(*flags, itemsize=itemsize, batch=batch) == counts, flags
+        assert _flagship_launches(*flags, itemsize=itemsize, batch=batch, size=size) == counts, flags
 
 
 # --- K5-fp32 / K6-fp32: the split pre-pass and dw's flush schedule ------------------
@@ -371,6 +376,30 @@ def test_matmul_bn_split_planes_match_numpy(shape):
         order = [32 * (p // 32) + slot[p % 32] for p in range(padded.shape[1])]
         want = np.stack(_split_np(padded[:, order]))
         got = matmul_bn.split_planes(torch.from_numpy(w), trans).numpy()
+        assert got.shape == want.shape and np.array_equal(got.view(np.uint32), want.view(np.uint32)), trans
+
+
+@pytest.mark.parametrize("shape", [(64, 64), (200, 72), (8, 40)], ids=["c64_n64", "c200_n72", "c8_n40"])
+def test_conv_bn_split_planes_match_numpy(shape):
+    """conv_bn.split_planes (the plain twin of K7-fp32 / K8-fp32's pre-pass
+    over the nine taps) bitwise a numpy rendering: tap t's planes at [t],
+    TF32 hi and lo of every weight of w_t, K7-fp32's wt (rows n, over C)
+    and K8-fp32's wn (rows c, over N), the contraction padded with zeros to
+    a multiple of 32 and each 32-long run in k-step order."""
+    c, n = shape
+    w9 = (np.random.RandomState(c + n).randn(9, c, n) * 3.0).astype(np.float32)
+    slot = [8 * (q % 4) + 2 * s + q // 4 for s in range(4) for q in range(8)]
+    for trans in (True, False):
+        want = []
+        for t in range(9):
+            src = w9[t].T if trans else w9[t]
+            rows, length = src.shape
+            padded = np.zeros((rows, -(-length // 32) * 32), np.float32)
+            padded[:, :length] = src
+            order = [32 * (p // 32) + slot[p % 32] for p in range(padded.shape[1])]
+            want.append(np.stack(_split_np(padded[:, order])))
+        want = np.stack(want)
+        got = conv_bn.split_planes(torch.from_numpy(w9), trans).numpy()
         assert got.shape == want.shape and np.array_equal(got.view(np.uint32), want.view(np.uint32)), trans
 
 
@@ -417,6 +446,24 @@ def test_dw_flush_schedule_holds_the_fp32_bar():
     flushed = np.abs(_dw_3xtf32(a, g, 16 * 64) - want).max() / scale
     whole = np.abs(_dw_3xtf32(a, g, 0) - want).max() / scale
     assert flushed <= 1e-4 < whole, (flushed, whole)
+
+
+def test_conv_dw_flush_schedule_holds_the_fp32_bar():
+    """K8-fp32's dw sums one tap over a CTA's range of 64-pixel box tiles
+    and flushes every kFlush = 16 of them, as K6-fp32's dw. Its longest
+    range on the smoke's paths is 32768 pixels, every box tile of (128, 16,
+    16) in one range (dw_ranges is 1 where the 9 taps x channel blocks fill
+    the card): emulated 3xTF32 with that flush lands within 1e-4 of float64
+    (of dw's largest, the fp32 bar), a the shifted prologue output (zero at
+    the SAME padding) and g with the mean ds1 gives it."""
+    rng = np.random.RandomState(21)
+    m, k, n = 32768, 8, 8
+    a = np.maximum(rng.randn(m, k) * 0.8 + 0.2, 0).astype(np.float32)
+    a[rng.rand(m) < 1 / 16] = 0.0  # pixels whose shifted source lies outside the image
+    g = (rng.randn(m, n) + 0.5).astype(np.float32)
+    want = a.astype(np.float64).T @ g.astype(np.float64)
+    flushed = np.abs(_dw_3xtf32(a, g, 16 * 64) - want).max() / np.abs(want).max()
+    assert flushed <= 1e-4, flushed
 
 
 # --- one Bottleneck on each route --------------------------------------------------------

@@ -242,6 +242,46 @@ def test_tma4d_shifted_boxes_match_padded_slices(cuda, shape, bw):
                 assert torch.equal(got, want.reshape(64, 64)), (b, i0, j0, c0)
 
 
+def _tma4d_f32(a, bw, bh, c0, j0, i0, b):
+    """The (64, 32) box of hopper.cuh's fp32 4-D NHWC map of a at (channel
+    c0, column j0, row i0, image b), unswizzled (hopper_selftest.cu)."""
+    lib = _build.load("hopper_selftest")
+    fn = lib.ihpr_hopper_selftest_tma4d_f32
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    out = torch.empty(64, 32, device=a.device, dtype=torch.float32)
+    err = fn(a.data_ptr(), out.data_ptr(), *a.shape, bw, bh, c0, j0, i0, b, torch.cuda.current_stream().cuda_stream)
+    assert err == 0, f"tma4d_f32: error {err}"
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape, bw", [((2, 5, 7, 72), 8), ((3, 8, 8, 256), 8), ((2, 12, 8, 40), 8),
+                                       ((2, 16, 16, 64), 16)],
+                         ids=["ragged_w8", "route_8x8", "plane_12x8", "w16"])
+def test_tma4d_f32_shifted_boxes_match_padded_slices(cuda, shape, bw):
+    """The fp32 4-D NHWC box K7-fp32 / K8-fp32 read their taps with
+    (tmap_nhwc_f32 + tma_load_4d), 32 channels x bw x bh, at the four image
+    corners shifted one pixel outwards (negative coordinates included),
+    wholly past the image and past the batch, and at the last channel block
+    (past C at C = 72 and 40): bitwise the matching slice of the zero-padded
+    tensor, the 3x3 conv's SAME padding."""
+    bh = 64 // bw
+    nb, h, w, c = shape
+    a = torch.randn(*shape, generator=torch.Generator().manual_seed(8)).to(cuda)
+    pad = 64
+    padded = F.pad(a, (0, 32, pad, pad, pad, pad))
+    corners = [(-1, -1), (-1, w - bw + 1), (h - bh + 1, -1), (h - bh + 1, w - bw + 1), (h, w)]
+    for b in (0, nb - 1, nb):
+        for i0, j0 in corners:
+            for c0 in (0, (c - 1) // 32 * 32):
+                got = _tma4d_f32(a, bw, bh, c0, j0, i0, b)
+                want = (padded[b, pad + i0:pad + i0 + bh, pad + j0:pad + j0 + bw, c0:c0 + 32] if b < nb
+                        else torch.zeros(bh, bw, 32, device=cuda))
+                assert torch.equal(got, want.reshape(64, 32)), (b, i0, j0, c0)
+
+
 # --- K1: the fused head forward ---------------------------------------------------
 
 HEAD_SHAPES = [(2, 16, 16, 128, 4, 32), (2, 16, 16, 128, 18, 16), (3, 9, 7, 64, 17, 64),
@@ -897,9 +937,10 @@ def _run_bn(mod, x, w, mul, add, dy, ds1, ds2):
 
 
 def _bn_counters(mod, dtype):
-    """The launch counters of the kernels ``mod`` runs for ``dtype``:
-    K5-fp32 / K6-fp32 count apart from bf16 K5 / K6; K7/K8 count both."""
-    if mod is matmul_bn and dtype == torch.float32:
+    """The launch counters of the kernels ``mod`` runs for ``dtype``: the
+    fp32 kernels (K5-fp32 / K6-fp32, K7-fp32 / K8-fp32) count apart from
+    bf16's."""
+    if dtype == torch.float32:
         return lambda: (mod.f32_launches, mod.f32_bwd_launches)
     return lambda: (mod.launches, mod.bwd_launches)
 
@@ -944,13 +985,19 @@ def test_matmul_bn_kernels_match_plain(cuda, shape, prologue, dtype):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
 @pytest.mark.parametrize("prologue", [False, True], ids=["plain", "prologue"])
 @pytest.mark.parametrize("shape", [(1, 5, 3, 8, 16), (3, 7, 9, 32, 24), (2, 24, 18, 256, 256), (1, 16, 16, 64, 64),
-                                   (5, 16, 16, 200, 136), (1, 16, 16, 256, 256), (2, 3, 5, 64, 64)],
-                         ids=["w3", "ragged", "r152_stage3", "b1", "c200_n136", "flagship_b1", "narrow"])
+                                   (5, 16, 16, 200, 136), (1, 16, 16, 256, 256), (2, 3, 5, 64, 64),
+                                   (32, 8, 8, 256, 256), (3, 12, 8, 256, 256)],
+                         ids=["w3", "ragged", "r152_stage3", "b1", "c200_n136", "flagship_b1", "narrow",
+                              "fp32_route_8x8", "plane_12x8"])
 def test_conv_bn_kernels_match_plain(cuda, shape, prologue, dtype):
-    """K7/K8 against plain at shapes that cut the bf16 route's tiles: C and
-    N not multiples of 64 (c200_n136), the flagship plane at B = 1, an
-    image narrower than a box (narrow: 5 x 3 in 8 x 8 boxes), W = 18 and 3
-    (boxes that run past the image); fp32 takes the FMA route."""
+    """K7/K8 against plain at shapes that cut the routes' tiles: C and N not
+    multiples of 64 or 32 (c200_n136, ragged), the flagship plane at B = 1,
+    an image narrower than a box (narrow: 5 x 3 in 8 x 8 boxes), W = 18 and
+    3 (boxes that run past the image), the conv3 route's fp32 shape in a
+    ResNet-50 step at 128x128 (fp32_route_8x8: one image a box) and a 12 x 8
+    plane (a box runs past H; an odd number of boxes leaves the last
+    128-pixel tile half empty). fp32 runs K7-fp32 / K8-fp32 (3xTF32 on
+    wgmma) at every shape, at the fp32 bars."""
     b, h, w, c, n = shape
     got, want = _run_bn(conv_bn, *_bn_inputs((b, h, w), c, n, 9, cuda, dtype, prologue))
     _close_bn(got, want, dtype, shape)
@@ -958,7 +1005,8 @@ def test_conv_bn_kernels_match_plain(cuda, shape, prologue, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mod, dtype", [(matmul_bn, torch.bfloat16), (conv_bn, torch.bfloat16),
-                                        (matmul_bn, torch.float32)], ids=["k5_k6", "k7_k8", "k5_k6_fp32"])
+                                        (matmul_bn, torch.float32), (conv_bn, torch.float32)],
+                         ids=["k5_k6", "k7_k8", "k5_k6_fp32", "k7_k8_fp32"])
 def test_bn_kernels_are_deterministic(cuda, mod, dtype):
     x_shape, taps = ((4096,), 1) if mod is matmul_bn else ((4, 16, 16), 9)
     x, w, mul, add, dy, ds1, ds2 = _bn_inputs(x_shape, 128, 128, taps, cuda, dtype, True)
@@ -985,6 +1033,25 @@ def test_matmul_bn_split_matches_plain(cuda, shape):
         err = matmul_bn._fwd_lib().ihpr_matmul_bn_split(w_card.data_ptr(), got.data_ptr(), k, n, int(trans),
                                                         torch.cuda.current_stream().cuda_stream)
         assert err == 0, f"ihpr_matmul_bn_split: CUDA error {err}"
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32)), trans
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(256, 256), (200, 72), (8, 40)], ids=["c256_n256", "c200_n72", "c8_n40"])
+def test_conv_bn_split_matches_plain(cuda, shape):
+    """K7-fp32 / K8-fp32's pre-pass (split_w_kernel over the nine taps in
+    one launch) bitwise conv_bn.split_planes, both layouts (K7-fp32's wt,
+    K8-fp32's wn), padding included."""
+    c, n = shape
+    w9 = torch.randn(9, c, n, generator=torch.Generator().manual_seed(c + n)) * 3.0
+    w_card = w9.to(cuda)
+    for trans in (True, False):
+        want = conv_bn.split_planes(w9, trans)
+        got = torch.full(want.shape, float("nan"), device=cuda)
+        err = conv_bn._fwd_lib().ihpr_conv_bn_split(w_card.data_ptr(), got.data_ptr(), c, n, int(trans),
+                                                   torch.cuda.current_stream().cuda_stream)
+        assert err == 0, f"ihpr_conv_bn_split: CUDA error {err}"
         torch.cuda.synchronize()
         assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32)), trans
 
