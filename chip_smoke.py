@@ -75,6 +75,17 @@
    step against plain_bwd on the same saved inputs; the loss falling over
    10 steps on one repeated batch; device ms per step (CUDA events),
    host-clock img/s and the loader's host ms per batch.
+7o. The JAX package's modes (modes_phase): K1/K2 bf16 at (128, 4096, 256)
+   x (256, 1152) and K1/K2-fp32 at batch 32 under IHPR_EXP2, IHPR_BEXP and
+   both, each against plain in the same mode (TOL_VOXEL, TOL_BWD), K2's
+   own IHPR_BEXP move against plain's (TOL_BEXP), K1 500 repeats bitwise, times beside the natural base in turns; h36m3d_r50 at
+   batch 128 on two resident batches under every BN mode (flax, lean16,
+   lean_sub4, lean_sub8, lean_sg, lean_sgv, frozen), both remat policies
+   and each exp mode (tools/bwd_experiments.measure: loss finite, ms a
+   step, device busy, peak GiB); each remat policy's gradients and BN
+   statistics against the plain step's from the same state (cuDNN's
+   deterministic algorithms); a flip-test dispatch through PoseServer with
+   the s2d stem against the 7x7 stem on embedded weights. K1 / K2 counted.
 7a. The snapshot lifecycle of h36m3d_r50 (batch 128, synthetic H36M+MPII
    cut to 4 steps an epoch, cuDNN's deterministic algorithms): two epochs
    uninterrupted; the same run preempted by the RSS watchdog at itr 1
@@ -259,7 +270,7 @@ non-zero; so does a host without CUDA.
 builds the kernels and runs only the named phases (bn: 5c; fused: 7b; dp:
 7d; dp-serve: 7e; device-warp: 7f; serving-bench: 7g; real-data: 7h;
 spatial: 7i; spatial-uneven: 7k; accuracy: 7j; fp32-kernels: 5d;
-fp32-train and parity-serve: 7l; fp32-fused: 7m; fp32-conv3: 7n; no-plan: 9), for timing one tree's K5-K8 against another's (copy this file into a
+fp32-train and parity-serve: 7l; fp32-fused: 7m; fp32-conv3: 7n; no-plan: 9; modes: 7o), for timing one tree's K5-K8 against another's (copy this file into a
 checkout of the other tree and run it there) or trying one phase. It
 prints no JSON lines.
 """
@@ -335,10 +346,11 @@ def _head_inputs(b, hw, c, jd, dtype, seed):
     return tuple(t.to("cuda", dtype) for t in (feat, kernel, bias))
 
 
-def check_kernel(fhi, feat, kernel, bias, j, d, w, expect=None):
-    """Kernel vs plain on the card; returns max |coords diff| in voxels."""
-    got = fhi.kernel_stats(feat, kernel, bias, j, d, w)
-    want = fhi.plain(feat, kernel, bias, j, d, w)
+def check_kernel(fhi, feat, kernel, bias, j, d, w, expect=None, exp2=False):
+    """Kernel vs plain on the card (both in IHPR_EXP2's base 2 with
+    ``exp2``); returns max |coords diff| in voxels."""
+    got = fhi.kernel_stats(feat, kernel, bias, j, d, w, exp2)
+    want = fhi.plain(feat, kernel, bias, j, d, w, exp2)
     torch.cuda.synchronize()
     err = float((got[0] - want[0]).abs().max())
     if not (err <= TOL_VOXEL and torch.isfinite(got[0]).all()):
@@ -353,17 +365,17 @@ def check_kernel(fhi, feat, kernel, bias, j, d, w, expect=None):
     return err
 
 
-def repeat_check(fhi, args, j, d, w, n):
+def repeat_check(fhi, args, j, d, w, n, exp2=False):
     """Launch K1 n times on the same inputs, each after a bf16 matmul that
     leaves other data in shared memory, and count the launches whose
     coords, m or s differ bitwise from the first's (NaN counts as
     different). K1 is deterministic, so any count above 0 is a race."""
-    want = fhi.kernel_stats(*args, j, d, w)
+    want = fhi.kernel_stats(*args, j, d, w, exp2)
     x = torch.randn(2048, 2048, device="cuda", dtype=torch.bfloat16)
     bad = torch.zeros((), dtype=torch.int64, device="cuda")
     for _ in range(n):
         x @ x
-        got = fhi.kernel_stats(*args, j, d, w)
+        got = fhi.kernel_stats(*args, j, d, w, exp2)
         bad += torch.stack([(a != b).any() for a, b in zip(got, want)]).any()
     return int(bad)
 
@@ -431,13 +443,14 @@ def _bwd_inputs(fhi, b, hw, c, j, d, w, dtype, seed):
     return feat, kernel, bias, m, s, coords, g
 
 
-def check_bwd(fhi, args, j, d, w, tol, label, want=None):
-    """K2 vs plain_bwd (or ``want``) on the card, each result relative to
-    its largest magnitude; db may also differ by 1e-4 of its summands'
-    bound, sum_b |gx| (w-1) + |gy| (h-1) + |gz| (d-1), since it can cancel
-    to ~0. Returns the largest absolute difference."""
-    got = fhi.kernel_bwd(*args, j, d, w)
-    want = fhi.plain_bwd(*args, j, d, w) if want is None else want
+def check_bwd(fhi, args, j, d, w, tol, label, want=None, modes=(False, False)):
+    """K2 vs plain_bwd (or ``want``) on the card, both in the exp ``modes``
+    (exp2, bexp), each result relative to its largest magnitude; db may
+    also differ by 1e-4 of its summands' bound, sum_b |gx| (w-1) + |gy|
+    (h-1) + |gz| (d-1), since it can cancel to ~0. Returns the largest
+    absolute difference."""
+    got = fhi.kernel_bwd(*args, j, d, w, *modes)
+    want = fhi.plain_bwd(*args, j, d, w, *modes) if want is None else want
     torch.cuda.synchronize()
     g, h = args[-1], args[0].shape[1] // w
     ext = torch.tensor([w - 1, h - 1, d - 1], dtype=torch.float32, device=g.device)
@@ -4295,8 +4308,9 @@ TOL_ORACLE_MM = 1.0  # the tool's own --oracle_tol_mm
 def accuracy_phase(fhi, iv, mm, cb, gpu: str):
     """``python -m ihpr_tpu_torch.tools.accuracy_loop --preset tiny`` cut to
     ACC_TRAIN / ACC_TEST frames and ACC_EPOCHS epochs, with its oracle,
-    through the tool's main: the synthetic frames rendered and encoded on
-    the card (nvJPEG), decoded there (nvJPEG + the colour kernel), ResNet-18
+    through the tool's main: the synthetic frames rendered and encoded by
+    cv2 on the CPU (the JAX tool's bytes), decoded on the card (nvJPEG +
+    the colour kernel), ResNet-18
     at 128x128 trained in fp32 "highest" (its fp32 head, J = 18 and D = 32,
     has a fused plan in JAX: K1-fp32 and K2-fp32), the Tester's MPJPE, and
     the trained weights on the
@@ -4975,12 +4989,189 @@ def spatial_uneven_phase(fhi, iv, gpu: str):
     return k3, k4, max(errs[0::2]), max(errs[1::2])
 
 
+EXP_MODES = {"exp2": (True, False), "bexp": (False, True), "exp2_bexp": (True, True)}
+EXP_F32_BATCH = 32  # K1/K2-fp32 in the exp modes, at h36m3d_r50_fp32's batch
+EXP_HEAD = (64 * 64, 64, 256, 18, 64)  # (H*W, W, C, J, D): the flagship head
+# The flagship train steps of the modes phase: (label, ModelConfig fields,
+# environment), each run as tools/bwd_experiments.py measures a variant.
+MODE_RUNS = [("lean", {}, {})] + [
+    (m, dict(bn_mode=m), {}) for m in ("flax", "lean16", "lean_sub4", "lean_sub8", "lean_sg", "lean_sgv", "frozen")
+] + [(f"remat_{p}", dict(block_remat=True, remat_policy=p), {}) for p in ("full", "conv_outs")] + [
+    (m, {}, {"IHPR_EXP2": "1" if e2 else "0", "IHPR_BEXP": "1" if be else "0"}) for m, (e2, be) in EXP_MODES.items()
+]
+MODE_STEPS = 2  # timed steps a run (beside its first step and one profiled step)
+TOL_BEXP = 0.5  # K2's IHPR_BEXP move (with against without) vs plain_bwd's, of plain's move (2-norm)
+TOL_REMAT = 1e-3  # a remat step's gradients vs the plain step's, of each tensor's largest
+TOL_S2D = 0.3  # voxel: the s2d stem's served coords vs the 7x7 stem's, two bf16 roundings (as TOL_ARTIFACT_K1)
+
+
+def bexp_effect_check(fhi, args, j, d, w, exp2, label):
+    """IHPR_BEXP moves K2's results by one bf16 rounding of p, less than
+    TOL_BWD, so check_bwd alone cannot tell a K2 that ignores it. Here the
+    kernel's own move (with IHPR_BEXP against without, the same exp2) is
+    held against plain_bwd's on the same inputs: their difference within
+    TOL_BEXP of plain's move, 2-norm, for each result. Returns the largest
+    ratio."""
+    kern = [fhi.kernel_bwd(*args, j, d, w, exp2, on) for on in (True, False)]
+    plain = [fhi.plain_bwd(*args, j, d, w, exp2, on) for on in (True, False)]
+    worst, rel = 0.0, []
+    for name, a, a0, r, r0 in zip(("dfeat", "dW", "db"), *kern, *plain):
+        move = r.double() - r0.double()
+        ratio = float(((a.double() - a0.double()) - move).norm() / move.norm())
+        if not ratio <= TOL_BEXP:
+            raise AssertionError(f"K2 {label} {name}: the kernel's IHPR_BEXP move is off plain's by {ratio:.3g} of it")
+        worst = max(worst, ratio)
+        rel.append(f"{name} {ratio:.3g}")
+    print(f"K2 {label}: |kernel's IHPR_BEXP move - plain's| / |plain's| " + ", ".join(rel) + f" (bar {TOL_BEXP})")
+    return worst
+
+
+def exp_modes_check(fhi, gpu: str):
+    """K1 / K2 in bf16 at the train batch (128, 4096, 256) x (256, 1152) and
+    K1-fp32 / K2-fp32 at EXP_F32_BATCH, under IHPR_EXP2, IHPR_BEXP and both
+    (kernel_stats / kernel_bwd with the modes): each against plain /
+    plain_bwd in the same mode at TOL_VOXEL and TOL_BWD (under IHPR_BEXP p
+    is a bf16 value, so K2-fp32 takes the bf16 bar, and bexp_effect_check
+    holds the mode's own move), K1 bitwise over K1_REPEATS launches; each mode's time beside the natural base's, in
+    turns. Returns the largest differences {K1, K2, K1f, K2f}."""
+    hw, w, c, j, d = EXP_HEAD
+    errs = {}
+    for dtype, b, k1, k2 in ((torch.bfloat16, TRAIN_BATCH, "K1", "K2"), (torch.float32, EXP_F32_BATCH, "K1f", "K2f")):
+        feat, kernel, bias = _head_inputs(b, hw, c, j * d, dtype, SEED)
+        g = torch.randn(b, j, 3, generator=torch.Generator().manual_seed(SEED)).cuda()
+        tag = f"{'bf16' if dtype == torch.bfloat16 else 'fp32'} ({b}, {hw}, {c}) x ({c}, {j * d})"
+        e1, e2 = [], []
+        runs = {}
+        for mode, (exp2, bexp) in {"natural": (False, False), **EXP_MODES}.items():
+            e1.append(check_kernel(fhi, feat, kernel, bias, j, d, w, exp2=exp2))
+            differ = repeat_check(fhi, (feat, kernel, bias), j, d, w, K1_REPEATS, exp2=exp2)
+            if differ:
+                raise AssertionError(f"{k1} {mode}: {differ} of {K1_REPEATS} repeated launches differ bitwise")
+            coords, m, s = fhi.kernel_stats(feat, kernel, bias, j, d, w, exp2)
+            args = (feat, kernel, bias, m, s, coords, g)
+            tol = TOL_BWD[torch.bfloat16 if bexp else dtype]
+            e2.append(check_bwd(fhi, args, j, d, w, tol, f"{mode} {tag}", modes=(exp2, bexp))[0])
+            if bexp:
+                bexp_effect_check(fhi, args, j, d, w, exp2, f"{mode} {tag}")
+            runs[mode] = (lambda a=args, m2=(exp2, bexp): fhi.kernel_stats(*a[:3], j, d, w, m2[0]),
+                          lambda a=args, m2=(exp2, bexp): fhi.kernel_bwd(*a, j, d, w, *m2))
+        times = {mode: ([], []) for mode in runs}
+        for rnd in range(2):
+            for mode in (list(runs) if rnd == 0 else list(runs)[::-1]):
+                times[mode][0].append(_cuda_ms(runs[mode][0], 10, reps=3))
+                times[mode][1].append(_cuda_ms(runs[mode][1], 5, reps=3))
+        for mode in runs:
+            t1, t2 = (statistics.median(t) for t in times[mode])
+            print(f"{k1}/{k2} {tag} {mode}: {k1} {t1:.4f} ms, {k2} {t2:.4f} ms (CUDA events, the modes in turns); "
+                  f"vs plain in the same mode {k1} max|dcoords| {e1[list(runs).index(mode)]:.3g} voxel, {k2} "
+                  f"max|diff| {e2[list(runs).index(mode)]:.3g}; {K1_REPEATS} repeats bitwise  [{gpu}]")
+        errs[k1], errs[k2] = max(e1), max(e2)
+        del feat, kernel, bias, runs
+    torch.cuda.empty_cache()
+    return errs
+
+
+def modes_phase(fhi, gpu: str):
+    """The JAX package's model and kernel modes on the card: (a)
+    exp_modes_check; (b) h36m3d_r50 (batch 128, bf16) trained on two
+    resident batches of synthetic frames under each BN mode, each remat
+    policy and each exp mode (MODE_RUNS, tools/bwd_experiments.measure: a
+    first step, MODE_STEPS timed, one profiled): loss finite, ms a step,
+    device busy, peak GiB; each remat policy's first forward and backward
+    against the plain step's from the same state under cuDNN's
+    deterministic algorithms (gradients TOL_REMAT, running statistics
+    1e-6); (c) a flip-test dispatch of 32 patches through PoseServer with
+    the s2d stem, its 7x7 stem embedded (s2d_stem_kernel), against the 7x7
+    server's (TOL_S2D), after one warm-up dispatch each. Counted: K1 / K2
+    once a step and K1 once a dispatch. Returns (K1 launches, K2 launches, {K1, K2, K1f, K2f: the
+    exp checks' largest differences})."""
+    from ihpr_tpu_torch.data import skeletons
+    from ihpr_tpu_torch.data.augment import finalize_patch
+    from ihpr_tpu_torch.engine.server import PoseServer
+    from ihpr_tpu_torch.models.pose_net import build_pose_net
+    from ihpr_tpu_torch.models.resnet import s2d_stem_kernel
+    from ihpr_tpu_torch.tools import bwd_experiments as bx
+
+    t0 = time.perf_counter()
+    errs = exp_modes_check(fhi, gpu)
+    base = bx.base_config()
+    batches = bx.resident_batches(base, TRAIN_BATCH, "cuda")
+
+    # --- the main path under each mode, counted ---
+    fhi.launches = fhi.bwd_launches = 0
+    steps = 0
+    for label, kw, env in MODE_RUNS:
+        cfg = base.replace(model=dataclasses.replace(base.model, **kw))
+        with bx.environ(env):
+            res = bx.measure(cfg, batches, "cuda", MODE_STEPS, 0)
+        steps += res["steps_run"]
+        print(f"modes: h36m3d_r50 batch {TRAIN_BATCH} {label}: {res['step_ms']:.3f} ms/step "
+              f"({TRAIN_BATCH / res['step_ms'] * 1e3:.1f} img/s), device busy {res['busy_ms']:.3f} ms, idle share "
+              f"{res['idle_share']:.3f}, peak {res['peak_gib']:.3f} GiB, loss {res['first_loss']:.4f} -> "
+              f"{res['loss']:.4f}  [{gpu}]")
+    flip_perm = skeletons.get_skeleton(base.data.trainset[0]).flip_permutation()
+    torch.backends.cudnn.deterministic = True
+    try:
+        plain = build_pose_net(base, device="cuda", trainable=True)
+        state = {k: v.detach().clone() for k, v in plain.state_dict().items()}
+        loss0, grads0 = _first_step(plain, base, batches[0], state, flip_perm)
+        stats0 = {k: v.clone() for k, v in plain.named_buffers()}
+        del plain
+        for policy in ("full", "conv_outs"):
+            cfg = base.replace(model=dataclasses.replace(base.model, block_remat=True, remat_policy=policy))
+            model = build_pose_net(cfg, device="cuda", trainable=True)
+            loss, grads = _first_step(model, cfg, batches[0], state, flip_perm)
+            worst = max(float((grads[n] - grads0[n]).abs().max() / grads0[n].abs().max()) for n in grads0)
+            stat_gap = max(float((b - stats0[n]).abs().max()) for n, b in model.named_buffers())
+            print(f"modes: remat {policy} first forward and backward vs the plain step's from the same state: loss "
+                  f"{loss:.6f} / {loss0:.6f}, worst tensor |dgrad|/max {worst:.3g} (bar {TOL_REMAT:g}), running "
+                  f"statistics {stat_gap:.3g} apart (bar 1e-6)")
+            if set(grads) != set(grads0) or worst > TOL_REMAT or stat_gap > 1e-6 or not math.isfinite(loss):
+                raise AssertionError(f"remat {policy}: loss {loss} / {loss0}, gradients {worst}, statistics {stat_gap}")
+            del model, grads
+        steps += 3
+    finally:
+        torch.backends.cudnn.deterministic = False
+    del grads0
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator().manual_seed(SEED)
+    model7 = build_pose_net(base, device="cuda", generator=gen)
+    patches = np.random.RandomState(SEED).randint(0, 256, (MAX_BATCH, *base.data.input_shape, 3)).astype(np.uint8)
+    with torch.inference_mode():
+        image = finalize_patch(torch.from_numpy(patches).cuda(), torch.ones(MAX_BATCH, 3, device="cuda"), base.data)
+    _peak_heatmaps(model7, image, gen)
+    sd = model7.state_dict()
+    sd["backbone.conv1.weight"] = s2d_stem_kernel(sd["backbone.conv1.weight"])
+    cfg_s2d = base.replace(model=dataclasses.replace(base.model, s2d_stem=True))
+    model_s2d = build_pose_net(cfg_s2d, device="cuda")
+    model_s2d.load_state_dict(sd)
+    servers = [PoseServer(c, m, max_batch=MAX_BATCH, flip_test=True, device="cuda")
+               for c, m in ((base, model7), (cfg_s2d, model_s2d))]
+    for srv in servers:
+        srv.predict_patches(patches)  # warm-up: cuDNN's plans for the s2d stem
+    v7, vs = (srv.predict_patches(patches) for srv in servers)
+    s2d_err, spread = float(np.abs(vs - v7).max()), float(np.abs(v7 - v7.mean()).max())
+    print(f"modes: s2d stem served {MAX_BATCH} patches (flip-test) vs the 7x7 stem on embedded weights: max|dcoords| "
+          f"{s2d_err:.3g} voxel (bar {TOL_S2D}; coord spread {spread:.3g})")
+    if not (s2d_err <= TOL_S2D and spread > 1.0 and np.isfinite(vs).all()):
+        raise AssertionError(f"s2d stem coords {s2d_err} voxel from the 7x7 stem's (spread {spread})")
+    k1, k2 = fhi.launches, fhi.bwd_launches
+    # ----------------------------------------------
+    if (k1, k2) != (steps + 4, steps):
+        raise AssertionError(f"modes: K1 / K2 launched {k1} / {k2} times for {steps} steps and 4 dispatches")
+    del servers, model7, model_s2d
+    torch.cuda.empty_cache()
+    print(f"modes: K1 / K2 launches {k1} / {k2} ({steps} steps, 4 dispatches); {time.perf_counter() - t0:.1f} s")
+    return k1, k2, errs
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke run of ihpr_tpu_torch on one NVIDIA GPU.")
     parser.add_argument("--only", nargs="+",
                         choices=("bn", "fused", "dp", "dp-serve", "device-warp", "serving-bench", "real-data",
                                  "spatial", "spatial-uneven", "accuracy", "fp32-kernels", "fp32-train",
-                                 "fp32-fused", "fp32-conv3", "parity-serve", "no-plan"),
+                                 "fp32-fused", "fp32-conv3", "parity-serve", "no-plan", "modes"),
                         help="build the kernels and run only these phases (no JSON lines)")
     only = parser.parse_args(argv).only
     if not torch.cuda.is_available():
@@ -5022,7 +5213,8 @@ def main(argv=None) -> int:
                   "fp32-fused": lambda: fp32_fused_phase(fhi, iv, mm, cb, gpu),
                   "fp32-conv3": lambda: fp32_conv3_phase(fhi, iv, mm, cb, gpu),
                   "parity-serve": lambda: parity_serve_phase(fhi, iv, gpu),
-                  "no-plan": lambda: noplan_phase(fhi, iv, gpu)}
+                  "no-plan": lambda: noplan_phase(fhi, iv, gpu),
+                  "modes": lambda: modes_phase(fhi, gpu)}
         for name in only:
             phases[name]()
         print(gpu)
@@ -5043,6 +5235,7 @@ def main(argv=None) -> int:
     export_phase(r50_server, gpu)
     del r50_server
     train_k1, train_k2, head_err = train_phase(fhi, gpu)
+    modes_k1, modes_k2, modes_errs = modes_phase(fhi, gpu)
     f32_train_k1, f32_train_k2 = fp32_train_phase(fhi, iv, gpu)
     k5f_n, k6f_n, (k5f_err, k6f_err) = fp32_fused_phase(fhi, iv, mm, cb, gpu)
     conv3_n, (k7f_err, k8f_err) = fp32_conv3_phase(fhi, iv, mm, cb, gpu)
@@ -5066,11 +5259,11 @@ def main(argv=None) -> int:
     b1, b2, b3, b4 = head_bounds()
     kernels = [
         (fhi._LIB, "ihpr_tpu/ops/fused_head_integral.py:133",
-         serve_k1 + train_k1 + snap_k1 + r152_k1 + eval_k1 + dp_n["K1"] + dp_serve_k1 + warp_k1 + real_k1,
-         max(k1_err, eval_k1_err, r152_k1_err, dp_errs["K1"]), k1_ms, k1_plain, *b1, k1_lib),
+         serve_k1 + train_k1 + modes_k1 + snap_k1 + r152_k1 + eval_k1 + dp_n["K1"] + dp_serve_k1 + warp_k1 + real_k1,
+         max(k1_err, eval_k1_err, r152_k1_err, dp_errs["K1"], modes_errs["K1"]), k1_ms, k1_plain, *b1, k1_lib),
         (fhi._BWD_LIB, "ihpr_tpu/ops/fused_head_integral.py:153",
-         train_k2 + snap_k2 + r152_k2 + dp_n["K2"] + warp_k2 + real_k2,
-         max(k2_err, head_err, r152_k2_err, dp_errs["K2"]), k2_ms, k2_plain, *b2, k2_lib),
+         train_k2 + modes_k2 + snap_k2 + r152_k2 + dp_n["K2"] + warp_k2 + real_k2,
+         max(k2_err, head_err, r152_k2_err, dp_errs["K2"], modes_errs["K2"]), k2_ms, k2_plain, *b2, k2_lib),
         (iv._FWD_LIB, "ihpr_tpu/ops/integral_pallas.py:201", hm_k3 + np_k3 + eval_k3 + sp_k3 + spu_k3,
          max(k3_err, hm_err, np_err, eval_k3_err, sp_k3_err, spu_k3_err), k3_ms, k3_plain, *b3, None),
         (iv._BWD_LIB, "ihpr_tpu/ops/integral_pallas.py:239", hm_k4 + np_k4 + sp_k4 + spu_k4,
@@ -5079,9 +5272,9 @@ def main(argv=None) -> int:
         # library is the no-plan route (cuBLAS fp32 with K3 / K4).
         (fhi._F32_LIB, "ihpr_tpu/ops/fused_head_integral.py:133",
          f32_n1 + f32_train_k1 + parity_k1 + acc_k1f + conv3_n[4],
-         f32_k1_err, *f32_fwd[F32_TRAIN_BATCH][:2], *f32_bound(F32_TRAIN_BATCH, 1), f32_fwd[F32_TRAIN_BATCH][2]),
+         max(f32_k1_err, modes_errs["K1f"]), *f32_fwd[F32_TRAIN_BATCH][:2], *f32_bound(F32_TRAIN_BATCH, 1), f32_fwd[F32_TRAIN_BATCH][2]),
         (fhi._F32_BWD_LIB, "ihpr_tpu/ops/fused_head_integral.py:153", f32_n2 + f32_train_k2 + acc_k2f + conv3_n[5],
-         f32_k2_err, *f32_bwd[F32_TRAIN_BATCH][:2], *f32_bound(F32_TRAIN_BATCH, 3), f32_bwd[F32_TRAIN_BATCH][2]),
+         max(f32_k2_err, modes_errs["K2f"]), *f32_bwd[F32_TRAIN_BATCH][:2], *f32_bound(F32_TRAIN_BATCH, 3), f32_bwd[F32_TRAIN_BATCH][2]),
     ]
     for (name, replaces, key, launches), err in zip(
         ((mm._FWD_LIB, "ihpr_tpu/ops/matmul_bn.py:127", "k5", k5_n + dp_n["K5"]),

@@ -4,10 +4,6 @@ The dataclasses, their field names and values, and the named ``CONFIGS``
 are the JAX package's, so a config name means the same model in both
 packages. The copy exists because importing ``ihpr_tpu`` pulls in JAX;
 the port imports neither.
-
-Fields that select code paths the port does not have (``s2d_stem``,
-``block_remat``) are kept for parity of the dataclass, and the port's model
-builder rejects a config that turns one on.
 """
 
 from __future__ import annotations
@@ -36,14 +32,22 @@ class ModelConfig:
     matmul_precision: Optional[str] = None
     # Emit the plain heatmap logits in fp32 (False keeps compute_dtype).
     fp32_logits: bool = True
-    s2d_stem: bool = False  # not ported
+    # The stem as space-to-depth 2 + a 4x4 stride-1 conv on 12 channels,
+    # exact for an embedded 7x7/2 stem (models/resnet.py:S2DStem).
+    s2d_stem: bool = False
     bn_momentum: float = 0.9
     bn_epsilon: float = 1e-5
     # "flax": (x - mean) * (scale * rsqrt(var + eps)) + bias in fp32, cast
     # to compute_dtype. "lean": the same normalize folded in fp32 into one
     # per-channel (mul, add) pair, applied as x * mul + add in compute_dtype.
+    # Measurement modes, lean's apply with other statistics: "lean16"
+    # (in compute_dtype), "lean_subN" (every N-th image row), "lean_sg" /
+    # "lean_sgv" (mean and var / var detached), "frozen" (running
+    # statistics in train mode too) (models/resnet.py:BN).
     bn_mode: str = "flax"
-    block_remat: bool = False  # not ported (training only)
+    # Recompute each residual block's forward in the backward (training):
+    # "full" keeps block inputs only, "conv_outs" also every conv output.
+    block_remat: bool = False
     remat_policy: str = "full"
     # Train-mode lean-BN Bottlenecks on JAX's fused routes: conv1/conv3 with
     # the BN statistics in the matmul (ops/matmul_bn.py, K5/K6); conv2 with

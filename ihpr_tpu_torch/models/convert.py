@@ -149,12 +149,16 @@ def to_jax_params(model_or_state_dict) -> tuple:
     return params, stats
 
 
-def check_stem(backbone_params: Mapping):
-    """Raise unless the JAX stem kernel is the 7x7x3 layout (the
-    space-to-depth stem is not ported)."""
-    stem = np.asarray(backbone_params["conv1"]["kernel"])
-    if stem.shape[:3] != (7, 7, 3):
-        raise ValueError(f"stem kernel {stem.shape} is not 7x7x3 (s2d_stem is not ported)")
+_STEMS = {False: (7, 7, 3), True: (4, 4, 12)}  # s2d_stem -> the JAX stem kernel's (kh, kw, in)
+
+
+def check_stem(backbone_params: Mapping, s2d_stem: bool | None = None):
+    """Raise unless the JAX stem kernel is the 7x7x3 layout or, with
+    ``s2d_stem``, the space-to-depth (4, 4, 12) one (None: either)."""
+    stem = np.asarray(backbone_params["conv1"]["kernel"]).shape[:3]
+    allowed = list(_STEMS.values()) if s2d_stem is None else [_STEMS[s2d_stem]]
+    if stem not in allowed:
+        raise ValueError(f"stem kernel {stem} is not one of {allowed} (s2d_stem={s2d_stem})")
 
 
 def from_jax_params(
@@ -162,7 +166,7 @@ def from_jax_params(
 ) -> Dict[str, torch.Tensor]:
     """JAX PoseNet ``params`` / ``batch_stats`` (nested dicts of arrays) ->
     the port's fp32 PoseNet ``state_dict``."""
-    check_stem(params["backbone"])
+    check_stem(params["backbone"], cfg.model.s2d_stem)
     _, depths, _ = RESNET_SPECS[cfg.model.resnet_type]
     blocks = [k for k in params["backbone"] if k.startswith("layer")]
     if len(blocks) != sum(depths):

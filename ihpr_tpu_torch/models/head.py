@@ -76,6 +76,33 @@ class Deconv(nn.ConvTranspose2d):
         return y
 
 
+class SubpixelConvTranspose(Deconv):
+    """JAX's ``SubpixelConvTranspose`` (ihpr_tpu/models/head.py:27): the
+    4x4 stride-2 deconv as four 2x2 phase convs and a pixel shuffle, a
+    drop-in for ``Deconv`` with the same weight (torch's (in, out, 4, 4)
+    layout). Output pixel (2i + py, 2j + px) correlates the input padded
+    by 1 with the phase kernel ``w.flip(2, 3)[:, :, py::2, px::2]``: torch's
+    transposed conv correlates with the taps that flax's convolves with
+    (``models/convert.py``), so the phases are flax's strided slices of
+    the flipped weight. Equal to ``Deconv`` up to the convs' summation
+    order. Whole images only (no ``rows``); ``DeconvHead`` keeps
+    ``Deconv``, as JAX's head keeps ``nn.ConvTranspose``."""
+
+    def __init__(self, cin: int, cout: int, compute_dtype: torch.dtype, device=None):
+        super().__init__(cin, cout, compute_dtype, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, _, h, w = x.shape
+        f = self.out_channels
+        k = self.weight.to(self.compute_dtype).flip(2, 3)
+        phases = torch.cat([k[:, :, py::2, px::2] for py in (0, 1) for px in (0, 1)], dim=1)  # (in, 4F, 2, 2)
+        y = F.conv2d(F.pad(x.to(self.compute_dtype), (1, 1, 1, 1)), phases.transpose(0, 1))  # (B, 4F, h+1, w+1)
+        ee, eo = y[:, 0:f, 0:h, 0:w], y[:, f:2 * f, 0:h, 1:w + 1]
+        oe, oo = y[:, 2 * f:3 * f, 1:h + 1, 0:w], y[:, 3 * f:, 1:h + 1, 1:w + 1]
+        out = torch.stack([torch.stack([ee, eo], -1), torch.stack([oe, oo], -1)], 3)  # (B, F, h, 2, w, 2)
+        return out.reshape(b, f, 2 * h, 2 * w).contiguous(memory_format=torch.channels_last)
+
+
 class DeconvHead(nn.Module):
     def __init__(
         self,
@@ -100,7 +127,8 @@ class DeconvHead(nn.Module):
         for i in range(num_layers):
             r = None if rows_in is None else rows_in * 2 ** i
             self.add_module(f"deconv{i + 1}", Deconv(cin if i == 0 else features, features, dtype, device, rows, r))
-            self.add_module(f"bn{i + 1}", BN(features, bn_mode, dtype, device=device, dp=dp))
+            self.add_module(f"bn{i + 1}", BN(features, bn_mode, dtype, device=device, dp=dp,
+                                             rows=None if r is None else 2 * r))
         self.final = FinalConv(features, out_channels, device)
 
     def features(self, x: torch.Tensor) -> torch.Tensor:

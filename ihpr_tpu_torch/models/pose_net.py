@@ -58,6 +58,9 @@ class PoseNet(nn.Module):
         fused_1x1: bool = False,
         fused_conv3: bool = False,
         dp: DataParallel | None = None,
+        s2d_stem: bool = False,
+        block_remat: bool = False,
+        remat_policy: str = "full",
     ):
         super().__init__()
         self.joint_num = joint_num
@@ -65,7 +68,8 @@ class PoseNet(nn.Module):
         self.matmul_precision = matmul_precision
         self.rows = dp.row_axis if dp is not None else None
         self.backbone = ResNetBackbone(
-            resnet_type, compute_dtype, bn_mode, device, fused_1x1, fused_conv3, dp
+            resnet_type, compute_dtype, bn_mode, device, fused_1x1, fused_conv3, dp, s2d_stem, block_remat,
+            remat_policy,
         )
         self.head = DeconvHead(
             self.backbone.out_features,
@@ -143,9 +147,6 @@ def build_pose_net(
     from ihpr_tpu_torch.models.convert import init_state_dict
 
     m = cfg.model
-    for flag in ("s2d_stem", "block_remat"):
-        if getattr(m, flag):
-            raise ValueError(f"ModelConfig.{flag} is not ported to ihpr_tpu_torch")
     if m.compute_dtype not in _DTYPES:
         raise ValueError(f"compute_dtype {m.compute_dtype!r} not in {sorted(_DTYPES)}")
     with torch.device("meta"):
@@ -162,6 +163,9 @@ def build_pose_net(
             fused_1x1=m.fused_1x1,
             fused_conv3=m.fused_conv3,
             dp=dp,
+            s2d_stem=m.s2d_stem,
+            block_remat=m.block_remat,
+            remat_policy=m.remat_policy,
         )
     model = model.to_empty(device=device).train(trainable).requires_grad_(trainable)
     for mod in model.modules():

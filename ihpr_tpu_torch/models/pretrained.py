@@ -15,8 +15,11 @@ Two file formats:
   ``ResNetBackbone``, read by the port's own decoder (``utils/msgpack.py``)
   and mapped through ``models/convert.py``'s layout map.
 
-A key the backbone lacks, a key of the backbone that the file lacks, or a
-shape that differs raises ``ValueError`` naming them. Loading copies into
+A backbone with the space-to-depth stem (``s2d_stem``) takes a file's 7x7
+stem embedded by ``resnet.s2d_stem_kernel``, as JAX's converter embeds it
+(``tools/convert_torch_ckpt.py --s2d_stem``), or a stem already in that
+form. A key the backbone lacks, a key of the backbone that the file lacks,
+or a shape that differs raises ``ValueError`` naming them. Loading copies into
 the backbone's parameters and BN statistics in place, and touches nothing
 else.
 """
@@ -30,6 +33,7 @@ import torch
 from torch import nn
 
 from ihpr_tpu_torch.models.convert import check_stem, jax_tree_to_state_dict
+from ihpr_tpu_torch.models.resnet import S2DStem, s2d_stem_kernel
 from ihpr_tpu_torch.utils import msgpack
 
 _TORCH_SUFFIXES = (".pth", ".pt")
@@ -78,6 +82,8 @@ def load_backbone(backbone: nn.Module, path: str):
     ``ResNetBackbone``): every parameter and BN statistic, each of the same
     shape, and nothing more."""
     got = read(path)
+    if isinstance(backbone.conv1, S2DStem) and got.get("conv1.weight", torch.empty(0)).shape[-2:] == (7, 7):
+        got["conv1.weight"] = s2d_stem_kernel(got["conv1.weight"])
     want = backbone.state_dict()
     missing, unknown = sorted(want.keys() - got.keys()), sorted(got.keys() - want.keys())
     if missing or unknown:

@@ -42,12 +42,16 @@ statistics, so its count is the global (B, H, W) count.
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from ihpr_tpu_torch.ops import conv_bn, matmul_bn
-from ihpr_tpu_torch.parallel.mesh import DataParallel, all_reduce_sum, conv_needs, conv_rows, halo_rows
+from ihpr_tpu_torch.parallel.mesh import DataParallel, all_reduce_sum, conv_needs, conv_rows, halo_rows, row_range
 
 # resnet_type -> (block kind, stage depths, channel expansion)
 RESNET_SPECS = {
@@ -60,24 +64,64 @@ RESNET_SPECS = {
 
 _STAGE_WIDTHS = (64, 128, 256, 512)
 
-BN_MODES = ("flax", "lean")
+# The BN arithmetics of JAX's ``_BN`` (ihpr_tpu/models/resnet.py:34-165).
+# "lean_subN" stands for "lean_sub" followed by any N >= 1 (lean_sub4, ...).
+BN_MODES = ("flax", "lean", "lean16", "lean_subN", "lean_sg", "lean_sgv", "frozen")
+
+
+def bn_subsample(mode: str) -> int:
+    """The row stride of ``mode``'s batch statistics (N of "lean_subN", else
+    1); raises ValueError for a mode that is not one of ``BN_MODES``."""
+    if mode.startswith("lean_sub") and mode[len("lean_sub"):].isdigit() and int(mode[len("lean_sub"):]) >= 1:
+        return int(mode[len("lean_sub"):])
+    if mode not in BN_MODES or mode == "lean_subN":
+        raise ValueError(f"unknown bn_mode {mode!r}; use one of {BN_MODES} (lean_subN: lean_sub2, lean_sub4, ...)")
+    return 1
+
+
+class _Recompute(threading.local):
+    depth = 0
+
+
+_RECOMPUTE = _Recompute()
+
+
+@contextlib.contextmanager
+def recomputing(inner=None):
+    """The recompute of a rematerialized block (``ResNetBackbone``'s
+    ``block_remat``): BN leaves its running statistics alone inside it, as
+    flax's lifted remat discards a recompute's variable updates. ``inner``:
+    a context manager entered with it (selective checkpointing's)."""
+    _RECOMPUTE.depth += 1
+    try:
+        with inner if inner is not None else contextlib.nullcontext():
+            yield
+    finally:
+        _RECOMPUTE.depth -= 1
 
 
 class BN(nn.Module):
-    """BatchNorm in one of two arithmetics:
+    """BatchNorm in one of JAX's arithmetics (``BN_MODES``):
 
     - ``"flax"``: ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in fp32,
       then cast to ``dtype`` (flax ``nn.BatchNorm``);
     - ``"lean"``: ``mul = scale * rsqrt(var + eps)`` and
-      ``add = bias - mean * scale * rsqrt(var + eps)`` computed in fp32, both
-      cast to ``dtype``, then ``x * mul + add`` in ``dtype`` (``_LeanBN``).
+      ``add = bias - mean * scale * rstd`` computed in fp32, both cast to
+      ``dtype``, then ``x * mul + add`` in ``dtype`` (``_LeanBN``);
+    - the measurement modes, each lean's apply with another treatment of
+      the batch statistics: ``"lean16"`` takes them in ``dtype``;
+      ``"lean_subN"`` from the image rows ``(N-1)//2::N`` where the stage
+      has at least 2N rows; ``"lean_sg"`` detaches mean and var from the
+      graph, ``"lean_sgv"`` var only; ``"frozen"`` normalizes with the
+      running statistics in train mode too and never updates them.
 
-    In train mode both normalize with the batch statistics, taken in fp32
-    over (N, H, W) as ``mean = E[x]`` and the biased ``var = max(E[x^2] -
-    mean^2, 0)``, with gradients through both, and update the running
-    statistics as ``momentum * old + (1 - momentum) * batch`` (flax momentum
-    0.9; the running variance gets the biased variance too). In eval mode
-    they normalize with the running statistics.
+    In train mode (``frozen`` aside) BN normalizes with the batch statistics,
+    taken in fp32 over (N, H, W) as ``mean = E[x]`` and the biased ``var =
+    max(E[x^2] - mean^2, 0)``, with gradients through both, and updates the
+    running statistics as ``momentum * old + (1 - momentum) * batch`` (flax
+    momentum 0.9; the running variance gets the biased variance too), except
+    inside ``recomputing``. In eval mode it normalizes with the running
+    statistics.
 
     With ``dp`` of world > 1 the train-mode statistics are the global
     batch's: the local fp32 sums of x and x^2 (or the sums handed to
@@ -85,19 +129,25 @@ class BN(nn.Module):
     all-reduce, and the count is the global one: a rank's samples times
     its width times the ranks' rows (each data index's spatial peers hold
     the same samples and together every row, in shares that may differ).
+    On a spatial grid ``rows`` is the stage's global row count, and
+    ``lean_subN`` takes the global rows its stride picks, wherever they lie
+    (GSPMD slices the global tensor).
     """
 
     momentum = 0.9  # flax momentum: the share of the old running statistic
 
     def __init__(self, channels: int, mode: str, dtype: torch.dtype, eps: float = 1e-5, device=None,
-                 dp: DataParallel | None = None):
+                 dp: DataParallel | None = None, rows: int | None = None):
         super().__init__()
         self.dp = dp
-        if mode not in BN_MODES:
-            raise ValueError(f"bn_mode {mode!r} is not ported; use one of {BN_MODES}")
+        self.sub = bn_subsample(mode)
         self.mode = mode
+        self.lean = mode != "flax"
+        self.stats_dtype = dtype if mode == "lean16" else torch.float32
+        self.stop_grad = {"lean_sg": "all", "lean_sgv": "var"}.get(mode, "")
         self.dtype = dtype
         self.eps = eps
+        self.rows = rows
         f32 = dict(dtype=torch.float32, device=device)
         self.weight = nn.Parameter(torch.ones(channels, **f32))
         self.bias = nn.Parameter(torch.zeros(channels, **f32))
@@ -105,6 +155,8 @@ class BN(nn.Module):
         self.register_buffer("running_var", torch.ones(channels, **f32))
 
     def _update_running(self, mean: torch.Tensor, var: torch.Tensor):
+        if _RECOMPUTE.depth:
+            return
         with torch.no_grad():
             m = self.momentum
             self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
@@ -121,17 +173,40 @@ class BN(nn.Module):
         s = all_reduce_sum(torch.cat([s1, s2, s1.new_full((1,), float(rows))]), self.dp)
         return s[:c], s[c:2 * c], s[2 * c].detach().double() * per_row
 
+    def _stat_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """The rows of ``x`` (N, C, H, W) the batch statistics read: all of
+        them, or for ``lean_subN`` the stage's rows ``(N-1)//2::N`` where it
+        has at least 2N (on a spatial grid, the global rows of that stride
+        that this rank holds)."""
+        s = self.sub
+        grid = self.dp.row_axis if self.dp is not None else None
+        total = x.shape[2] if grid is None else self.rows
+        if s == 1 or total < 2 * s:
+            return x
+        first = (s - 1) // 2
+        if grid is None:
+            return x[:, :, first::s]
+        lo, hi = row_range(total, grid.rank, grid.world)
+        start = first + max(0, -(-(lo - first) // s)) * s
+        return x[:, :, min(start, hi) - lo:hi - lo:s]
+
     def _batch_stats(self, x: torch.Tensor):
-        xf = x.to(torch.float32)
+        xf = self._stat_rows(x).to(self.stats_dtype)
         if self._synced():
             b, _, h, w = xf.shape
-            s1, s2, count = self._global_sums(xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)), b * w, h)
-            mean = s1 / count
-            var = (s2 / count - mean * mean).clamp_min(0.0)
+            f32 = torch.float32
+            s1, s2, count = self._global_sums(xf.sum(dim=(0, 2, 3), dtype=f32),
+                                              (xf * xf).sum(dim=(0, 2, 3), dtype=f32), b * w, h)
+            mean = (s1 / count).to(xf.dtype)
+            var = ((s2 / count).to(xf.dtype) - mean * mean).clamp_min(0.0)
         else:
             mean = xf.mean(dim=(0, 2, 3))
             var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
         self._update_running(mean, var)
+        if self.stop_grad:
+            var = var.detach()
+            if self.stop_grad == "all":
+                mean = mean.detach()
         return mean, var
 
     def from_sums(self, s1: torch.Tensor, s2: torch.Tensor, per_row: int, rows: int):
@@ -142,7 +217,8 @@ class BN(nn.Module):
         updated as in ``forward``. Data-parallel, the sums and ``rows`` are
         this rank's and are summed over the ranks first (the psum of JAX's
         ``matmul_bn._sharded_call``), so K6 and K8 receive the cotangents of
-        the global sums."""
+        the global sums. Only the lean mode's blocks take the fused routes
+        that call this (JAX's ``fusable_bn``)."""
         if self._synced():
             s1, s2, count = self._global_sums(s1, s2, per_row, rows)
         else:
@@ -153,16 +229,17 @@ class BN(nn.Module):
         return self._fold(mean, var)
 
     def _fold(self, mean: torch.Tensor, var: torch.Tensor):
-        """The lean normalize as one per-channel fp32 (mul, add) pair."""
+        """The lean normalize as one per-channel (mul, add) pair (fp32, or
+        lean16's statistics promoted against the fp32 scale and bias)."""
         rstd = torch.rsqrt(var + self.eps)
         return self.weight * rstd, self.bias - mean * self.weight * rstd
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
+        if self.training and self.mode != "frozen":
             mean, var = self._batch_stats(x)
         else:
             mean, var = self.running_mean, self.running_var
-        if self.mode == "lean":
+        if self.lean:
             mul, add = (t.to(self.dtype)[:, None, None] for t in self._fold(mean, var))
             # One rounding of x*mul + add, as XLA's fused multiply-add gives.
             return torch.addcmul(add, x.to(self.dtype), mul)
@@ -248,13 +325,14 @@ class BasicBlock(nn.Module):
         # No 1x1 convs to fuse: the flags are accepted and ignored, as in JAX.
         super().__init__()
         self.rows_out = _stage_rows(rows_in, 3, stride, 1)
+        bn = dict(device=device, dp=dp, rows=self.rows_out)
         self.conv1 = _conv(cin, features, 3, stride, dtype, device, dp, rows_in)
-        self.bn1 = BN(features, bn_mode, dtype, device=device, dp=dp)
+        self.bn1 = BN(features, bn_mode, dtype, **bn)
         self.conv2 = _conv(features, features, 3, 1, dtype, device, dp, self.rows_out)
-        self.bn2 = BN(features, bn_mode, dtype, device=device, dp=dp)
+        self.bn2 = BN(features, bn_mode, dtype, **bn)
         if stride != 1 or cin != features:
             self.down_conv = _conv(cin, features, 1, stride, dtype, device, dp, rows_in)
-            self.down_bn = BN(features, bn_mode, dtype, device=device, dp=dp)
+            self.down_bn = BN(features, bn_mode, dtype, **bn)
 
     def forward(self, x):
         y = F.relu(self.bn1(self.conv1(x)))
@@ -288,15 +366,16 @@ class Bottleneck(nn.Module):
         self.spatial = 1 if dp is None else dp.spatial
         self.rows_in, self.rows_out = rows_in, _stage_rows(rows_in, 3, stride, 1)
         out = features * 4
+        bn = dict(device=device, dp=dp, rows=self.rows_out)
         self.conv1 = _conv(cin, features, 1, 1, dtype, device)
-        self.bn1 = BN(features, bn_mode, dtype, device=device, dp=dp)
+        self.bn1 = BN(features, bn_mode, dtype, device=device, dp=dp, rows=rows_in)
         self.conv2 = _conv(features, features, 3, stride, dtype, device, dp, rows_in)
-        self.bn2 = BN(features, bn_mode, dtype, device=device, dp=dp)
+        self.bn2 = BN(features, bn_mode, dtype, **bn)
         self.conv3 = _conv(features, out, 1, 1, dtype, device)
-        self.bn3 = BN(out, bn_mode, dtype, device=device, dp=dp)
+        self.bn3 = BN(out, bn_mode, dtype, **bn)
         if stride != 1 or cin != out:
             self.down_conv = _conv(cin, out, 1, stride, dtype, device, dp, rows_in)
-            self.down_bn = BN(out, bn_mode, dtype, device=device, dp=dp)
+            self.down_bn = BN(out, bn_mode, dtype, **bn)
 
     def _route(self, x: torch.Tensor) -> str:
         if self.bn_mode != "lean" or not self.training:
@@ -362,25 +441,91 @@ class Bottleneck(nn.Module):
         return self.bn3(self.conv3(a2.permute(0, 3, 1, 2)))
 
 
+class S2DStem(Conv):
+    """The stem as JAX's ``s2d_stem`` computes it: space-to-depth 2 (channel
+    ``(py * 2 + px) * C + c`` of a half-size image holds pixel (2y + py,
+    2x + px) of channel c), then a 4x4 stride-1 conv on the 4C channels,
+    padded 2 above and left and 1 below and right. With weights from
+    ``s2d_stem_kernel`` it equals the 7x7 stride-2 stem exactly. An fp32
+    master weight (64, 4C, 4, 4), cast to ``compute_dtype`` on each call."""
+
+    def __init__(self, cin: int, cout: int, compute_dtype, device=None):
+        super().__init__(4 * cin, cout, 4, 1, compute_dtype, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, h, w = x.shape
+        x = x.reshape(b, c, h // 2, 2, w // 2, 2).permute(0, 3, 5, 1, 2, 4).reshape(b, 4 * c, h // 2, w // 2)
+        x = F.pad(x.contiguous(memory_format=torch.channels_last), (2, 1, 2, 1))
+        return F.conv2d(x, self.weight.to(self.compute_dtype))
+
+
+def s2d_stem_kernel(w7: torch.Tensor) -> torch.Tensor:
+    """A torch (F, C, 7, 7) stride-2 stem weight -> the exact (F, 4C, 4, 4)
+    weight of ``S2DStem`` (the port's copy of JAX's ``s2d_stem_kernel``, in
+    torch's layout): tap u of the 7x7 lands on tap (u - 3) // 2 + 2 of the
+    4x4, in the channel block of phase (u - 3) mod 2; unused taps stay 0."""
+    f, c, k, _ = w7.shape
+    if k != 7:
+        raise ValueError(f"s2d_stem_kernel takes a 7x7 stem, not {tuple(w7.shape)}")
+    out = w7.new_zeros(f, 4 * c, 4, 4)
+    for u in range(7):
+        a, py = (u - 3) // 2 + 2, (u - 3) % 2
+        for v in range(7):
+            bb, px = (v - 3) // 2 + 2, (v - 3) % 2
+            out[:, (py * 2 + px) * c:(py * 2 + px + 1) * c, a, bb] = w7[:, :, u, v]
+    return out
+
+
+REMAT_POLICIES = ("full", "conv_outs")
+
+_CONV_OPS = (torch.ops.aten.convolution.default,)
+
+
+def _save_conv_outs(ctx, op, *args, **kwargs):
+    """``conv_outs``'s policy: keep every conv's output, recompute the rest
+    (JAX's ``save_only_these_names("conv_out")``)."""
+    return ckpt.CheckpointPolicy.MUST_SAVE if op in _CONV_OPS else ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
 class ResNetBackbone(nn.Module):
     """(B, 3, H, W) image -> (B, C, H/32, W/32) features, C = 512 for
-    ResNet-18/34 and 2048 for 50/101/152."""
+    ResNet-18/34 and 2048 for 50/101/152.
+
+    ``s2d_stem``: the stem is ``S2DStem`` (JAX's space-to-depth stem, conv1
+    of shape (64, 12, 4, 4)). ``block_remat`` (JAX's ``nn.remat`` of each
+    block): with gradients on, each residual block runs under
+    ``torch.utils.checkpoint`` (non-reentrant), its forward recomputed in
+    the backward; ``remat_policy`` ``"full"`` keeps only the block's input,
+    ``"conv_outs"`` (selective checkpointing) also every cuDNN conv's output
+    and recomputes the rest (BN, ReLU; a fused route's kernels run again).
+    The recompute leaves BN's running statistics alone (``recomputing``);
+    its collectives (BN's all-reduce, halos) run again in the backward on
+    every rank, block by block in the same order."""
 
     def __init__(self, resnet_type: int, dtype: torch.dtype, bn_mode: str, device=None,
-                 fused_1x1: bool = False, fused_conv3: bool = False, dp: DataParallel | None = None):
+                 fused_1x1: bool = False, fused_conv3: bool = False, dp: DataParallel | None = None,
+                 s2d_stem: bool = False, block_remat: bool = False, remat_policy: str = "full"):
         super().__init__()
         if resnet_type not in RESNET_SPECS:
             raise ValueError(f"resnet_type {resnet_type} not in {sorted(RESNET_SPECS)}")
+        if remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"unknown remat_policy {remat_policy!r}; use one of {REMAT_POLICIES}")
         kind, depths, expansion = RESNET_SPECS[resnet_type]
         block_cls = BasicBlock if kind == "basic" else Bottleneck
         self.dtype = dtype
         self.out_features = 512 * expansion
+        self.block_remat, self.remat_policy = block_remat, remat_policy
         self.rows = dp.row_axis if dp is not None else None
         # The global rows of each stage on a spatial grid (None: whole images).
         r = self.rows.input_rows if self.rows is not None else None
-        self.conv1 = _conv(3, 64, 7, 2, dtype, device, dp, r)
-        self.bn1 = BN(64, bn_mode, dtype, device=device, dp=dp)
+        if s2d_stem:
+            if self.rows is not None:
+                raise ValueError("s2d_stem does not run on a spatial grid (spatial_axis_size > 1)")
+            self.conv1 = S2DStem(3, 64, dtype, device)
+        else:
+            self.conv1 = _conv(3, 64, 7, 2, dtype, device, dp, r)
         self.pool_rows = _stage_rows(r, 7, 2, 3)
+        self.bn1 = BN(64, bn_mode, dtype, device=device, dp=dp, rows=self.pool_rows)
         r = _stage_rows(self.pool_rows, 3, 2, 1)
         self.block_names = []
         cin = 64
@@ -394,12 +539,20 @@ class ResNetBackbone(nn.Module):
                 cin, r = width * expansion, block.rows_out
         self.rows_out = r
 
+    def _remat_contexts(self):
+        if self.remat_policy == "conv_outs":
+            fwd, rec = ckpt.create_selective_checkpoint_contexts(_save_conv_outs)
+            return fwd, recomputing(rec)
+        return contextlib.nullcontext(), recomputing()
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = F.relu(self.bn1(self.conv1(x.to(self.dtype))))
         if self.rows is None:
             x = F.max_pool2d(x, 3, stride=2, padding=1)
         else:
             x = max_pool_rows(x, self.pool_rows, self.rows)
+        remat = self.block_remat and torch.is_grad_enabled()
         for name in self.block_names:
-            x = getattr(self, name)(x)
+            block = getattr(self, name)
+            x = ckpt.checkpoint(block, x, use_reentrant=False, context_fn=self._remat_contexts) if remat else block(x)
         return x

@@ -17,6 +17,21 @@ constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
+// The fused head kernels' mode argument (ops/fused_head_integral.py): bit 0
+// IHPR_EXP2 (W and b come scaled by log2 e: the logits are base 2 as they
+// are), bit 1 IHPR_BEXP (the backward's exp argument and result rounded to
+// bf16).
+// How each kernel takes it: K1-fp32, K2 and K2-fp32 are templated on the
+// base (the K2s on BEXP too), so their natural instance keeps log2 e as a
+// constant; with the base as a runtime scale they timed 1.5-2% slower on
+// the H100 (PERF.md section 6). K1 takes the scale and m's unscale as
+// runtime arguments: there the runtime scale timed within the spread of
+// the constant's, so it keeps one instance.
+constexpr int kModeExp2 = 1;
+constexpr int kModeBexp = 2;
+
+// x rounded to bf16 (nearest even) and back: IHPR_BEXP's roundings.
+__device__ __forceinline__ float round_bf16(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
 
 template <typename T>
 struct Elem;
@@ -46,6 +61,15 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
+}
+
+// The backward's p = exp(a) of a logit's offset a = v - (m + log s), from
+// a in natural units times scale (log2 e; 1 for IHPR_EXP2's base-2
+// logits). BEXP (IHPR_BEXP): a and p rounded to bf16.
+template <bool BEXP>
+__device__ __forceinline__ float dv_exp(float a, float scale) {
+  if (BEXP) return round_bf16(ex2(round_bf16(a) * scale));
+  return ex2(a * scale);
 }
 
 // W (C, JD) -> Wt (JD, C), bf16 or fp32: a joint's D columns of the final

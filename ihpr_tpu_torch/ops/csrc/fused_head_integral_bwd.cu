@@ -90,9 +90,10 @@ struct Row {
 
 // Turns this thread's logits accumulator S (v - bias, 64 rows x 64 bins of
 // joint j) into fp32 dv in place: cb(z) = bias - (m + log s), -inf past D,
-// so p = 0 there. Rows not ok get dv = 0.
-template <typename Bias>
-__device__ __forceinline__ void form_dv(float (&acc)[32], const Row& r, Bias bias_of, int D,
+// so p = 0 there (dv_exp: scale and BEXP are the exp modes'). Rows not ok
+// get dv = 0.
+template <bool BEXP, typename Bias>
+__device__ __forceinline__ void form_dv(float (&acc)[32], const Row& r, Bias bias_of, int D, float scale,
                                         float tx_lo, float tx_hi, bool ok_lo, bool ok_hi, int tig) {
 #pragma unroll
   for (int nt = 0; nt < 8; ++nt) {
@@ -102,8 +103,8 @@ __device__ __forceinline__ void form_dv(float (&acc)[32], const Row& r, Bias bia
       const float cb = z < D ? bias_of(z) - r.lse : neg_inf();
       const float tz = z < D ? r.gz * ((float)z - r.cz) : 0.f;
       const int lo = nt * 4 + q, hi = lo + 2;
-      acc[lo] = ok_lo ? ex2((acc[lo] + cb) * kLog2e) * (tx_lo + tz) : 0.f;
-      acc[hi] = ok_hi ? ex2((acc[hi] + cb) * kLog2e) * (tx_hi + tz) : 0.f;
+      acc[lo] = ok_lo ? dv_exp<BEXP>(acc[lo] + cb, scale) * (tx_lo + tz) : 0.f;
+      acc[hi] = ok_hi ? dv_exp<BEXP>(acc[hi] + cb, scale) * (tx_hi + tz) : 0.f;
     }
   }
 }
@@ -138,10 +139,12 @@ struct DfeatLayout {
   __host__ __device__ size_t bytes() const { return 1024 + bars() + (1 + 2 * kStages) * 8; }
 };
 
+template <bool BEXP, bool BASE2>
 __global__ void __launch_bounds__(kCtaThreads, 1)
     dfeat_kernel(const __grid_constant__ CUtensorMap fmap, const __grid_constant__ CUtensorMap wmap,
                  const __nv_bfloat16* __restrict__ bias, const float* __restrict__ rows,
                  __nv_bfloat16* __restrict__ dfeat, int hw, int width, int C, int J, int D) {
+  constexpr float scale = BASE2 ? 1.f : kLog2e;  // IHPR_EXP2: the logits come in base 2
   unsigned char* base = smem_base();
   const DfeatLayout L(C);
   const int nkb = L.nkb;
@@ -208,8 +211,8 @@ __global__ void __launch_bounds__(kCtaThreads, 1)
     logits(acc, f, w, nkb);
     const Row r(rows_b + j * kRowVals);
     const __nv_bfloat16* bias_j = bias + j * D;
-    form_dv(acc, r, [bias_j](int z) { return __bfloat162float(bias_j[z]); }, D,
-            r.tx(r_lo, width), r.tx(r_hi, width), ok_lo, ok_hi, tig);
+    form_dv<BEXP>(acc, r, [bias_j](int z) { return __bfloat162float(bias_j[z]); }, D, scale,
+                  r.tx(r_lo, width), r.tx(r_hi, width), ok_lo, ok_hi, tig);
     // dv in bf16 as wgmma A fragments: k-step ks (bins 16 ks ...) is
     // accumulator chunks 2 ks (a0 row g, a1 row g+8) and 2 ks + 1 (a2, a3).
     uint32_t af[4][4];
@@ -264,11 +267,13 @@ struct DwLayout {
 // One CTA per (joint j = blockIdx.x, range r = blockIdx.y of the B * ntiles
 // 64-row feature tiles, sample-major). Writes partials 2r and 2r + 1 (one
 // per consumer warpgroup) of dW_j (C x 64) and db_j (64).
+template <bool BEXP, bool BASE2>
 __global__ void __launch_bounds__(kCtaThreads, 1)
     dw_kernel(const __grid_constant__ CUtensorMap fmap, const __grid_constant__ CUtensorMap wmap,
               const __nv_bfloat16* __restrict__ bias, const float* __restrict__ rows,
               float* __restrict__ part, float* __restrict__ dbpart, int batch, int hw, int width,
               int C, int J, int D) {
+  constexpr float scale = BASE2 ? 1.f : kLog2e;  // IHPR_EXP2: the logits come in base 2
   unsigned char* base = smem_base();
   const DwLayout L(C);
   const int nkb = L.nkb;
@@ -339,8 +344,8 @@ __global__ void __launch_bounds__(kCtaThreads, 1)
     logits(acc, tile, w_s, nkb);
     const Row r(rows + ((size_t)bb * J + j) * kRowVals);
     const int l_lo = wq * 16 + g, l_hi = l_lo + 8;  // rows of the tile
-    form_dv(acc, r, [bias_s](int z) { return bias_s[z]; }, D, r.tx(row0 + l_lo, width),
-            r.tx(row0 + l_hi, width), row0 + l_lo < hw, row0 + l_hi < hw, tig);
+    form_dv<BEXP>(acc, r, [bias_s](int z) { return bias_s[z]; }, D, scale, r.tx(row0 + l_lo, width),
+                  r.tx(row0 + l_hi, width), row0 + l_lo < hw, row0 + l_hi < hw, tig);
     // db in fp32; dv in bf16 into the tile's MN-major B operand: bin z of
     // row l at byte l*128 + ((z/8) ^ (l%8))*16 + (z%8)*2.
 #pragma unroll
@@ -407,10 +412,11 @@ __global__ void __launch_bounds__(kCtaThreads, 1)
 }
 
 // dW[c, j*D + z] = sum_p part[p, j, c, z] and db[j*D + z] = sum_p dbpart[p, j, z],
-// in partial order, rounded once to bf16.
+// in partial order, times dscale (log2 e for IHPR_EXP2, else 1), rounded
+// once to bf16.
 __global__ void reduce_kernel(const float* __restrict__ part, const float* __restrict__ dbpart,
                               __nv_bfloat16* __restrict__ dw, __nv_bfloat16* __restrict__ db,
-                              int parts, int C, int J, int D) {
+                              int parts, int C, int J, int D, float dscale) {
   const size_t n = (size_t)J * C * kBox;
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n) {
@@ -421,7 +427,7 @@ __global__ void reduce_kernel(const float* __restrict__ part, const float* __res
       float s = 0.f;
 #pragma unroll 8
       for (int p = 0; p < parts; ++p) s += part[(size_t)p * n + i];
-      dw[(size_t)c * J * D + j * D + z] = __float2bfloat16(s);
+      dw[(size_t)c * J * D + j * D + z] = __float2bfloat16(s * dscale);
     }
   }
   if (i < (size_t)J * kBox) {
@@ -429,9 +435,33 @@ __global__ void reduce_kernel(const float* __restrict__ part, const float* __res
     if (z < D) {
       float s = 0.f;
       for (int p = 0; p < parts; ++p) s += dbpart[(size_t)p * J * kBox + i];
-      db[j * D + z] = __float2bfloat16(s);
+      db[j * D + z] = __float2bfloat16(s * dscale);
     }
   }
+}
+
+// The dfeat and dW launches with the exp modes' kernels (the natural base's
+// instance keeps the constant log2 e of the kernels before the modes).
+template <bool BEXP, bool BASE2>
+cudaError_t launch_products(const CUtensorMap& fmap, const CUtensorMap& wmap, const __nv_bfloat16* bias,
+                            const float* rows, void* dfeat, float* part, float* dbpart, int batch, int hw,
+                            int width, int C, int J, int D, int parts, cudaStream_t st) {
+  const size_t smem_a = DfeatLayout(C).bytes();
+  cudaError_t err =
+      cudaFuncSetAttribute(dfeat_kernel<BEXP, BASE2>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_a);
+  if (err != cudaSuccess) return err;
+  dfeat_kernel<BEXP, BASE2><<<dim3((hw + 2 * kBox - 1) / (2 * kBox), batch), kCtaThreads, smem_a, st>>>(
+      fmap, wmap, bias, rows, static_cast<__nv_bfloat16*>(dfeat), hw, width, C, J, D);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const int ranges = parts / 2;
+  const size_t smem_b = DwLayout(C).bytes();
+  err = cudaFuncSetAttribute(dw_kernel<BEXP, BASE2>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_b);
+  if (err != cudaSuccess) return err;
+  dw_kernel<BEXP, BASE2><<<dim3(J, ranges), kCtaThreads, smem_b, st>>>(fmap, wmap, bias, rows, part, dbpart, batch,
+                                                               hw, width, C, J, D);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -462,12 +492,16 @@ int ihpr_fused_head_integral_bwd_partials(int batch, int hw, int J) {
 // cz, 0. Scratch: wt (J*D, C) bf16, part (parts, J, C, 64) and dbpart
 // (parts, J, 64) fp32, parts even and positive (as
 // ihpr_fused_head_integral_bwd_partials gives it). Writes dfeat (batch,
-// hw, C), dw (C, J*D) and db (J*D,) in bf16. Returns 0, the CUresult of a
-// tensor-map encoding, or the first cudaError_t of the four launches.
+// hw, C), dw (C, J*D) and db (J*D,) in bf16. mode bit 0 (IHPR_EXP2): w and
+// bias come scaled by log2 e, rows hold m + log2 s and g times ln 2, and
+// dW, db are scaled back by log2 e before their rounding; bit 1
+// (IHPR_BEXP): the exp's argument and result rounded to bf16. Returns 0,
+// the CUresult of a tensor-map encoding, or the first cudaError_t of the
+// four launches.
 int ihpr_fused_head_integral_bwd(const void* feat, const void* w, const void* bias,
                                  const float* rows, void* wt, float* part, float* dbpart,
                                  void* dfeat, void* dw, void* db, int batch, int hw, int width,
-                                 int C, int J, int D, int parts, void* stream) {
+                                 int C, int J, int D, int parts, int mode, void* stream) {
   if (parts < 2 || parts % 2) return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   const int jd = J * D;
@@ -480,26 +514,18 @@ int ihpr_fused_head_integral_bwd(const void* feat, const void* w, const void* bi
   if (!terr) terr = tmap_matrix(&wmap, wt, jd, C);
   if (terr) return terr;
 
-  const size_t smem_a = DfeatLayout(C).bytes();
-  err = cudaFuncSetAttribute(dfeat_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_a);
-  if (err != cudaSuccess) return (int)err;
-  dfeat_kernel<<<dim3((hw + 2 * kBox - 1) / (2 * kBox), batch), kCtaThreads, smem_a, st>>>(
-      fmap, wmap, bias_h, rows, static_cast<__nv_bfloat16*>(dfeat), hw, width, C, J, D);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  const int ranges = parts / 2;
-  const size_t smem_b = DwLayout(C).bytes();
-  err = cudaFuncSetAttribute(dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_b);
-  if (err != cudaSuccess) return (int)err;
-  dw_kernel<<<dim3(J, ranges), kCtaThreads, smem_b, st>>>(fmap, wmap, bias_h, rows, part, dbpart,
-                                                         batch, hw, width, C, J, D);
-  err = cudaGetLastError();
+  const bool base2 = mode & kModeExp2;
+  auto launch = [&](auto products) {
+    return products(fmap, wmap, bias_h, rows, dfeat, part, dbpart, batch, hw, width, C, J, D, parts, st);
+  };
+  err = (mode & kModeBexp) ? (base2 ? launch(launch_products<true, true>) : launch(launch_products<true, false>))
+                           : (base2 ? launch(launch_products<false, true>) : launch(launch_products<false, false>));
   if (err != cudaSuccess) return (int)err;
 
   const size_t n = (size_t)J * C * kBox;
   reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
-      part, dbpart, static_cast<__nv_bfloat16*>(dw), static_cast<__nv_bfloat16*>(db), parts, C, J, D);
+      part, dbpart, static_cast<__nv_bfloat16*>(dw), static_cast<__nv_bfloat16*>(db), parts, C, J, D,
+      base2 ? kLog2e : 1.f);
   return (int)cudaGetLastError();
 }
 

@@ -90,8 +90,13 @@ struct Row {
   __device__ float tx(int row, int width) const {
     return gx * ((float)(row % width) - cx) + gy * ((float)(row / width) - cy);
   }
-  // dv of a logit v (without bias) at bias bz, given tx + tz.
-  __device__ float dv(float v, float bz, float txz) const { return f32_ex2((v + bz - lse) * kLog2e) * txz; }
+  // dv of a logit v (without bias) at bias bz, given tx + tz; scale and
+  // BEXP are the exp modes' (dv_exp).
+  template <bool BEXP>
+  __device__ float dv(float v, float bz, float txz, float scale) const {
+    const float a = v + bz - lse;
+    return (BEXP ? round_bf16(f32_ex2(round_bf16(a) * scale)) : f32_ex2(a * scale)) * txz;
+  }
 };
 
 // ---- dfeat ---------------------------------------------------------------------------
@@ -110,11 +115,13 @@ struct DfLayout {
 // dfeat's (bin block kbb < nkbb, channel chunk nc < nnc) tiles of W_j.
 __device__ __forceinline__ int df_stages(int C, int D) { return C / kKb + (D > kKb ? 2 : 1) * cdiv(C, kBox); }
 
+template <bool BEXP, bool BASE2>
 __global__ void __launch_bounds__(kCtaThreads, 1)
     dfeat_kernel(const __grid_constant__ CUtensorMap fmap, const __grid_constant__ CUtensorMap wtmap,
                  const __grid_constant__ CUtensorMap wmap, const float* __restrict__ bias,
                  const float* __restrict__ rows, float* __restrict__ dfeat, int hw, int width, int C, int J,
                  int D) {
+  constexpr float scale = BASE2 ? 1.f : kLog2e;  // IHPR_EXP2: the logits come in base 2
   unsigned char* base = smem_base();
   const DfLayout L(C);
   const int nkb = L.nkb, nnc = cdiv(C, kBox), nkbb = D > kKb ? 2 : 1, per_joint = df_stages(C, D);
@@ -207,8 +214,8 @@ __global__ void __launch_bounds__(kCtaThreads, 1)
         const float bz = in ? __ldg(bias + j * D + z) : 0.f;
         const float tz = r.gz * ((float)z - r.cz);
         float* sv = sacc + 4 * i;
-        sv[q] = in && r_lo < hw ? r.dv(sv[q], bz, tx_lo + tz) : 0.f;
-        sv[q + 2] = in && r_hi < hw ? r.dv(sv[q + 2], bz, tx_hi + tz) : 0.f;
+        sv[q] = in && r_lo < hw ? r.dv<BEXP>(sv[q], bz, tx_lo + tz, scale) : 0.f;
+        sv[q + 2] = in && r_hi < hw ? r.dv<BEXP>(sv[q + 2], bz, tx_hi + tz, scale) : 0.f;
       }
       const float a[4] = {sacc[4 * i], sacc[4 * i + 2], sacc[4 * i + 1], sacc[4 * i + 3]};  // as_a
       split_a(a, dh[i], dl[i]);
@@ -272,10 +279,12 @@ struct DwLayout {
 // One CTA per (joint j = blockIdx.x, range = blockIdx.y of the B * ntiles
 // 64-row feature tiles, sample-major). Writes partial `range` of dW_j (C x
 // 64) and db_j (64).
+template <bool BEXP, bool BASE2>
 __global__ void __launch_bounds__(kCtaThreads, 1)
     dw_kernel(const __grid_constant__ CUtensorMap fmap, const __grid_constant__ CUtensorMap wtmap,
               const float* __restrict__ bias, const float* __restrict__ rows, float* __restrict__ part,
               float* __restrict__ dbpart, int batch, int hw, int width, int C, int J, int D) {
+  constexpr float scale = BASE2 ? 1.f : kLog2e;  // IHPR_EXP2: the logits come in base 2
   unsigned char* base = smem_base();
   const DwLayout L(C);
   const int nkb = L.nkb;
@@ -377,7 +386,7 @@ __global__ void __launch_bounds__(kCtaThreads, 1)
         const int z = zw + ii * 8 + 2 * t + (e & 1);
         const float tz = r.gz * ((float)z - r.cz);
         float& v = sacc[4 * ii + e];
-        v = z < D && ((e & 2) ? ok_hi : ok_lo) ? r.dv(v, bz[ii][e & 1], ((e & 2) ? tx_hi : tx_lo) + tz) : 0.f;
+        v = z < D && ((e & 2) ? ok_hi : ok_lo) ? r.dv<BEXP>(v, bz[ii][e & 1], ((e & 2) ? tx_hi : tx_lo) + tz, scale) : 0.f;
         db[ii][e & 1] += v;
       }
     }
@@ -479,9 +488,10 @@ __global__ void __launch_bounds__(kCtaThreads, 1)
 }
 
 // dW[c, j*D + z] = sum_p part[p, j, c, z] and db[j*D + z] = sum_p dbpart[p, j, z],
-// in partial order.
+// in partial order, times dscale (log2 e for IHPR_EXP2, else 1).
 __global__ void reduce_kernel(const float* __restrict__ part, const float* __restrict__ dbpart,
-                              float* __restrict__ dw, float* __restrict__ db, int parts, int C, int J, int D) {
+                              float* __restrict__ dw, float* __restrict__ db, int parts, int C, int J, int D,
+                              float dscale) {
   const size_t n = (size_t)J * C * kBins;
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n) {
@@ -492,7 +502,7 @@ __global__ void reduce_kernel(const float* __restrict__ part, const float* __res
       float s = 0.f;
 #pragma unroll 8
       for (int p = 0; p < parts; ++p) s += part[(size_t)p * n + i];
-      dw[(size_t)c * J * D + j * D + z] = s;
+      dw[(size_t)c * J * D + j * D + z] = s * dscale;
     }
   }
   if (i < (size_t)J * kBins) {
@@ -500,9 +510,32 @@ __global__ void reduce_kernel(const float* __restrict__ part, const float* __res
     if (z < D) {
       float s = 0.f;
       for (int p = 0; p < parts; ++p) s += dbpart[(size_t)p * J * kBins + i];
-      db[j * D + z] = s;
+      db[j * D + z] = s * dscale;
     }
   }
+}
+
+// The dfeat and dW launches with the exp modes' kernels (the natural base's
+// instance keeps the constant log2 e of the kernels before the modes).
+template <bool BEXP, bool BASE2>
+cudaError_t launch_products(const CUtensorMap& fmap, const CUtensorMap& wtmap, const CUtensorMap& wmap,
+                            const float* bias, const float* rows, void* dfeat, float* part, float* dbpart,
+                            int batch, int hw, int width, int C, int J, int D, int parts, cudaStream_t st) {
+  const size_t smem_a = DfLayout(C).bytes();
+  cudaError_t err =
+      cudaFuncSetAttribute(dfeat_kernel<BEXP, BASE2>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_a);
+  if (err != cudaSuccess) return err;
+  dfeat_kernel<BEXP, BASE2><<<dim3(cdiv(hw, 2 * kBox), batch), kCtaThreads, smem_a, st>>>(
+      fmap, wtmap, wmap, bias, rows, static_cast<float*>(dfeat), hw, width, C, J, D);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const size_t smem_b = DwLayout(C).bytes();
+  err = cudaFuncSetAttribute(dw_kernel<BEXP, BASE2>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_b);
+  if (err != cudaSuccess) return err;
+  dw_kernel<BEXP, BASE2><<<dim3(J, parts), kCtaThreads, smem_b, st>>>(fmap, wtmap, bias, rows, part, dbpart, batch,
+                                                               hw, width, C, J, D);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -541,11 +574,12 @@ int ihpr_fused_head_integral_bwd_f32_partials(int batch, int hw, int J) {
 // (Wt's hi and lo, then W's), part (parts, J, C, 64) and dbpart (parts, J,
 // 64) fp32, parts positive (as ihpr_fused_head_integral_bwd_f32_partials
 // gives it). Writes dfeat (batch, hw, C), dw (C, J*D) and db (J*D,) in
-// fp32. Returns 0, the CUresult of a tensor-map encoding, or the first
+// fp32. mode: the exp modes, as ihpr_fused_head_integral_bwd takes them.
+// Returns 0, the CUresult of a tensor-map encoding, or the first
 // cudaError_t of the four launches.
 int ihpr_fused_head_integral_bwd_f32(const void* feat, const void* w, const void* bias, const float* rows,
                                      void* planes, float* part, float* dbpart, void* dfeat, void* dw, void* db,
-                                     int batch, int hw, int width, int C, int J, int D, int parts,
+                                     int batch, int hw, int width, int C, int J, int D, int parts, int mode,
                                      void* stream) {
   if (parts < 1 || C % kKb || C > kMaxC || D < 1 || D > kBins) return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
@@ -561,25 +595,18 @@ int ihpr_fused_head_integral_bwd_f32(const void* feat, const void* w, const void
   if (!terr) terr = tmap_matrix_f32(&wmap, w_planes, (uint64_t)2 * C, jd);
   if (terr) return terr;
 
-  const size_t smem_a = DfLayout(C).bytes();
-  err = cudaFuncSetAttribute(dfeat_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_a);
-  if (err != cudaSuccess) return (int)err;
-  dfeat_kernel<<<dim3(cdiv(hw, 2 * kBox), batch), kCtaThreads, smem_a, st>>>(
-      fmap, wtmap, wmap, bias_c, rows, static_cast<float*>(dfeat), hw, width, C, J, D);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  const size_t smem_b = DwLayout(C).bytes();
-  err = cudaFuncSetAttribute(dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_b);
-  if (err != cudaSuccess) return (int)err;
-  dw_kernel<<<dim3(J, parts), kCtaThreads, smem_b, st>>>(fmap, wtmap, bias_c, rows, part, dbpart, batch, hw,
-                                                         width, C, J, D);
-  err = cudaGetLastError();
+  const bool base2 = mode & kModeExp2;
+  auto launch = [&](auto products) {
+    return products(fmap, wtmap, wmap, bias_c, rows, dfeat, part, dbpart, batch, hw, width, C, J, D, parts, st);
+  };
+  err = (mode & kModeBexp) ? (base2 ? launch(launch_products<true, true>) : launch(launch_products<true, false>))
+                           : (base2 ? launch(launch_products<false, true>) : launch(launch_products<false, false>));
   if (err != cudaSuccess) return (int)err;
 
   const size_t n = (size_t)J * C * kBins;
   reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(part, dbpart, static_cast<float*>(dw),
-                                                              static_cast<float*>(db), parts, C, J, D);
+                                                              static_cast<float*>(db), parts, C, J, D,
+                                                              base2 ? kLog2e : 1.f);
   return (int)cudaGetLastError();
 }
 

@@ -112,7 +112,7 @@ __global__ void __launch_bounds__(kCtaThreads, 1)
                                    const __nv_bfloat16* __restrict__ bias,
                                    float* __restrict__ coords, float* __restrict__ m_out,
                                    float* __restrict__ s_out, int hw, int width, int C, int J,
-                                   int D) {
+                                   int D, float scale, float unscale) {
   unsigned char* base = smem_base();
   const Layout L(C);
   const int nkb = L.nkb;
@@ -129,11 +129,12 @@ __global__ void __launch_bounds__(kCtaThreads, 1)
   const int tid = threadIdx.x;
   const int ntiles = (hw + kBox - 1) / kBox;
 
-  // Bias in base-2 units; -inf for columns past D (or past the last joint)
-  // masks their logits.
+  // Bias in base-2 units (times scale: log2 e, or 1 where W and b come
+  // pre-scaled, IHPR_EXP2); -inf for columns past D (or past the last
+  // joint) masks their logits.
   if (tid < kN) {
     const int gi = tid / kBox, z = tid % kBox;
-    bias_s[tid] = gi < nj && z < D ? __bfloat162float(bias[(j0 + gi) * D + z]) * kLog2e : neg_inf();
+    bias_s[tid] = gi < nj && z < D ? __bfloat162float(bias[(j0 + gi) * D + z]) * scale : neg_inf();
   }
   if (tid == 0) {
     mbar_init(w_full, 1);
@@ -192,7 +193,7 @@ __global__ void __launch_bounds__(kCtaThreads, 1)
     fence_acc(acc);
     if (lane == 0) mbar_arrive(&empty[s]);  // the tile's slot is free again
 
-    // u = v * log2(e), in place of acc; rows past hw (last tile only) -> -inf.
+    // u = v * scale (base 2), in place of acc; rows past hw (last tile only) -> -inf.
     const int r_lo = t * kBox + wq * 16 + g, r_hi = r_lo + 8;
     const bool ragged = (t + 1) * kBox > hw;
     const float x_lo = (float)(r_lo % width), y_lo = (float)(r_lo / width);
@@ -206,7 +207,7 @@ __global__ void __launch_bounds__(kCtaThreads, 1)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int i = (gi * 8 + nt) * 4 + e;
-            float u = fmaf(acc[i], kLog2e, bias_s[gi * kBox + nt * 8 + 2 * tig + (e & 1)]);
+            float u = fmaf(acc[i], scale, bias_s[gi * kBox + nt * 8 + 2 * tig + (e & 1)]);
             if (ragged && (e < 2 ? r_lo : r_hi) >= hw) u = neg_inf();
             acc[i] = u;
             tmax = fmaxf(tmax, u);
@@ -261,7 +262,7 @@ __global__ void __launch_bounds__(kCtaThreads, 1)
     coords[o * 3 + 0] = S.sx * inv;
     coords[o * 3 + 1] = S.sy * inv;
     coords[o * 3 + 2] = S.sz * inv;
-    m_out[o] = S.m * kLn2;
+    m_out[o] = S.m * unscale;
     s_out[o] = S.s;
   }
 }
@@ -275,11 +276,13 @@ size_t ihpr_fused_head_integral_fwd_smem(int C) { return Layout(C).bytes(); }
 
 // feat (batch, hw, C), w (C, J*D), bias (J*D,): contiguous bf16, feat
 // 16-byte aligned. Scratch wt (J*D, C) bf16. Writes coords (batch, J, 3),
-// m and s (batch, J), fp32. Returns 0, the CUresult of a tensor-map
-// encoding, or the first cudaError_t of the two launches (transpose, K1).
+// m and s (batch, J), fp32. mode bit 0 (IHPR_EXP2): w and bias come scaled
+// by log2 e, the logits are base 2 as they are and m is a base-2 max.
+// Returns 0, the CUresult of a tensor-map encoding, or the first
+// cudaError_t of the two launches (transpose, K1).
 int ihpr_fused_head_integral_fwd(const void* feat, const void* w, const void* bias, void* wt,
                                  float* coords, float* m, float* s, int batch, int hw, int width,
-                                 int C, int J, int D, void* stream) {
+                                 int C, int J, int D, int mode, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   const int jd = J * D;
   cudaError_t err = transpose(static_cast<const __nv_bfloat16*>(w), static_cast<__nv_bfloat16*>(wt),
@@ -294,7 +297,8 @@ int ihpr_fused_head_integral_fwd(const void* feat, const void* w, const void* bi
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   fused_head_integral_fwd_kernel<<<dim3((J + kG - 1) / kG, batch), kCtaThreads, smem, st>>>(
-      fmap, wmap, static_cast<const __nv_bfloat16*>(bias), coords, m, s, hw, width, C, J, D);
+      fmap, wmap, static_cast<const __nv_bfloat16*>(bias), coords, m, s, hw, width, C, J, D,
+      (mode & kModeExp2) ? 1.f : kLog2e, (mode & kModeExp2) ? 1.f : kLn2);
   return (int)cudaGetLastError();
 }
 

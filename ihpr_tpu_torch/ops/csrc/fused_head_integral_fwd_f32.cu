@@ -106,10 +106,12 @@ struct Layout {
   __host__ __device__ size_t bytes() const { return 1024 + red() + kConsumerWarps * sizeof(Stats); }
 };
 
+template <bool BASE2>
 __global__ void __launch_bounds__(kCtaThreads, 1)
     fwd_f32_kernel(const __grid_constant__ CUtensorMap fmap, const __grid_constant__ CUtensorMap wmap,
                    const float* __restrict__ bias, float* __restrict__ part, int hw, int width, int C, int J,
                    int D) {
+  constexpr float scale = BASE2 ? 1.f : kLog2e;  // IHPR_EXP2: the logits come in base 2
   unsigned char* base = smem_base();
   const Layout L(C);
   const int nkb = L.nkb;
@@ -125,7 +127,7 @@ __global__ void __launch_bounds__(kCtaThreads, 1)
   const int ntiles = cdiv(hw, kRows);
   const int t0 = ntiles * pi / parts, nst = (ntiles * (pi + 1) / parts - t0) * nkb;
 
-  if (tid < kBins) bias_s[tid] = tid < D ? bias[j * D + tid] * kLog2e : neg_inf();
+  if (tid < kBins) bias_s[tid] = tid < D ? bias[j * D + tid] * scale : neg_inf();
   if (tid == 0) {
     mbar_init(w_full, 1);
     for (int s = 0; s < kStages; ++s) {
@@ -185,13 +187,14 @@ __global__ void __launch_bounds__(kCtaThreads, 1)
         });
     fence_acc(acc);
 
-    // The tile's logits are complete: u = v log2 e, -inf past HW or D.
+    // The tile's logits are complete: u = v scale (log2 e, or 1 for
+    // IHPR_EXP2's pre-scaled W and b), -inf past HW or D.
     const int r_lo = (t0 + tl) * kRows + wg * kBox + wq * 16 + g, r_hi = r_lo + 8;
     float tmax = neg_inf();
 #pragma unroll
     for (int i = 0; i < kBins / 2; ++i) {
       const int r = (i & 2) ? r_hi : r_lo;
-      const float u = r < hw ? fmaf(acc[i], kLog2e, bias_s[(i >> 2) * 8 + 2 * t + (i & 1)]) : neg_inf();
+      const float u = r < hw ? fmaf(acc[i], scale, bias_s[(i >> 2) * 8 + 2 * t + (i & 1)]) : neg_inf();
       acc[i] = u;
       tmax = fmaxf(tmax, u);
     }
@@ -233,10 +236,11 @@ __global__ void __launch_bounds__(kCtaThreads, 1)
   }
 }
 
-// coords, m (natural units) and s of each (b, j) from its parts, merged in
-// part order.
+// coords, m (natural units: base-2 times unscale, which is 1 for
+// IHPR_EXP2's base-2 m) and s of each (b, j) from its parts, merged in part
+// order.
 __global__ void merge_kernel(const float* __restrict__ part, float* __restrict__ coords, float* __restrict__ m_out,
-                             float* __restrict__ s_out, int n, int parts) {
+                             float* __restrict__ s_out, int n, int parts, float unscale) {
   const int o = blockIdx.x * blockDim.x + threadIdx.x;
   if (o >= n) return;
   const float* p = part + (size_t)o * parts * kStateVals;
@@ -249,7 +253,7 @@ __global__ void merge_kernel(const float* __restrict__ part, float* __restrict__
   coords[o * 3 + 0] = S.sx * inv;
   coords[o * 3 + 1] = S.sy * inv;
   coords[o * 3 + 2] = S.sz * inv;
-  m_out[o] = S.m * kLn2;
+  m_out[o] = S.m * unscale;
   s_out[o] = S.s;
 }
 
@@ -289,12 +293,13 @@ size_t ihpr_fused_head_integral_fwd_f32_scratch(int batch, int hw, int C, int J)
 // feat (batch, hw, C), w (C, J*D), bias (J*D,): contiguous fp32, feat
 // 16-byte aligned, C a multiple of 32 up to 256. Scratch: as many floats as
 // ihpr_fused_head_integral_fwd_f32_scratch gives, 16-byte aligned. Writes
-// coords (batch, J, 3), m and s (batch, J), fp32. Returns 0, the CUresult
-// of a tensor-map encoding, or the first cudaError_t of the three launches
-// (split planes, K1-fp32, merge).
+// coords (batch, J, 3), m and s (batch, J), fp32. mode bit 0 (IHPR_EXP2):
+// w and bias come scaled by log2 e and m is a base-2 max. Returns 0, the
+// CUresult of a tensor-map encoding, or the first cudaError_t of the three
+// launches (split planes, K1-fp32, merge).
 int ihpr_fused_head_integral_fwd_f32(const void* feat, const void* w, const void* bias, void* scratch,
                                      float* coords, float* m, float* s, int batch, int hw, int width,
-                                     int C, int J, int D, void* stream) {
+                                     int C, int J, int D, int mode, void* stream) {
   if (C % kKb || C > 256 || D < 1 || D > kBins) return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   float* planes = static_cast<float*>(scratch);
@@ -306,15 +311,17 @@ int ihpr_fused_head_integral_fwd_f32(const void* feat, const void* w, const void
   if (!terr) terr = tmap_matrix_f32(&wmap, planes, (uint64_t)2 * J * kBins, C);
   if (terr) return terr;
   const size_t smem = Layout(C).bytes();
-  err = cudaFuncSetAttribute(fwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  // The natural base's instance keeps the constant log2 e (a runtime scale timed 1.5% slower).
+  auto kernel = (mode & kModeExp2) ? fwd_f32_kernel<true> : fwd_f32_kernel<false>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int parts = parts_for(batch, hw, J);
-  fwd_f32_kernel<<<dim3(J, batch, parts), kCtaThreads, smem, st>>>(
-      fmap, wmap, static_cast<const float*>(bias), part, hw, width, C, J, D);
+  kernel<<<dim3(J, batch, parts), kCtaThreads, smem, st>>>(fmap, wmap, static_cast<const float*>(bias), part, hw,
+                                                            width, C, J, D);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int n = batch * J;
-  merge_kernel<<<cdiv(n, 128), 128, 0, st>>>(part, coords, m, s, n, parts);
+  merge_kernel<<<cdiv(n, 128), 128, 0, st>>>(part, coords, m, s, n, parts, (mode & kModeExp2) ? 1.f : kLn2);
   return (int)cudaGetLastError();
 }
 

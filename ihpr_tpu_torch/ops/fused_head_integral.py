@@ -36,6 +36,16 @@ launch or raise; a CPU tensor goes to the plain PyTorch versions
 (``plain``, ``plain_bwd``), which are also what the kernels are held
 against on the card. Nothing falls back from one to the other.
 
+Two measurement modes of JAX's kernels, read from the environment at each
+call (JAX reads them when it traces): ``IHPR_EXP2=1`` pre-scales W and b
+by log2 e (``base2_scale``: an fp32 multiply, one rounding to the compute
+dtype), so that the kernels' logits are base 2 and take ``ex2`` with no
+multiply of their own, m is a base-2 max, the backward's rows carry
+log2 s and ln 2, and dW, db are scaled back by log2 e before their one
+rounding; ``IHPR_BEXP=1`` rounds the backward's exp argument and its
+result to bf16. ``plain`` and ``plain_bwd`` take both modes; the kernels
+take them as an argument.
+
 Data-parallel, each rank calls this op on its own rows of the batch: K1/K2
 run per rank on the local (B/W, H*W, C) features, which is the port of
 JAX's ``_sharded_fused`` (``ihpr_tpu/ops/fused_head_integral.py:352``, a
@@ -50,6 +60,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
+import os
 from typing import Tuple
 
 import torch
@@ -76,6 +87,26 @@ launches = 0
 bwd_launches = 0
 f32_launches = 0
 f32_bwd_launches = 0
+
+_LOG2E = 1.4426950408889634  # log2(e)
+_LN2 = 0.6931471805599453  # 1 / log2(e)
+# The kernels' mode argument: bit 0 IHPR_EXP2, bit 1 IHPR_BEXP.
+_MODE_EXP2, _MODE_BEXP = 1, 2
+
+
+def exp_modes() -> Tuple[bool, bool]:
+    """(``IHPR_EXP2``, ``IHPR_BEXP``) as the environment sets them now: each
+    on when its variable is "1", as JAX's ``_use_exp2`` / ``_use_bexp``."""
+    return os.environ.get("IHPR_EXP2", "0") == "1", os.environ.get("IHPR_BEXP", "0") == "1"
+
+
+def base2_scale(kernel: torch.Tensor, bias: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """JAX's ``_base2_scale``: W and b times log2 e, multiplied in fp32 and
+    rounded once to their dtype, so the logits come out in base 2."""
+    acc = _acc_dtype(kernel)
+    return ((kernel.to(acc) * _LOG2E).to(kernel.dtype).contiguous(),
+            (bias.to(acc) * _LOG2E).to(bias.dtype).contiguous())
+
 
 # JAX's fused-kernel plan, copied as plain Python on ints (the port imports
 # nothing of the JAX package): ``_chunk_rows``, ``_supported`` and
@@ -157,16 +188,19 @@ def fused_supported(joint_num: int, depth_dim: int, hw: int, channels: int, dtyp
 
 def plain(
     feat: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
-    joint_num: int, depth_dim: int, width: int,
+    joint_num: int, depth_dim: int, width: int, exp2: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version. feat (B, HW, C), kernel (C, J*D), bias (J*D,)
     -> coords (B, J, 3), per-joint max m (B, J) and normalizer
     s = sum exp(v - m) (B, J), all fp32 (fp64 for fp64 inputs). Products of
     bf16 values are exact in fp32, so upcasting first equals fp32
-    accumulation."""
+    accumulation. ``exp2``: ``IHPR_EXP2``'s base-2 logits from the scaled
+    W and b, m their max and s = sum exp2(v - m)."""
+    if exp2:
+        kernel, bias = base2_scale(kernel, bias)
     acc = _acc_dtype(feat)
     v = feat.to(acc) @ kernel.to(acc) + bias.to(acc)  # (B, HW, J*D)
-    return integral_volume.plain(v, joint_num, depth_dim, width)
+    return integral_volume.plain(v, joint_num, depth_dim, width, base2=exp2)
 
 
 # The pre-pass of K1-fp32 / K2-fp32 (csrc/fused_head_f32.cuh): each joint
@@ -218,7 +252,7 @@ def _lib(name: str = _LIB) -> ctypes.CDLL:
     smem, run = getattr(lib, f"ihpr_{name}_smem"), getattr(lib, f"ihpr_{name}")
     smem.restype, smem.argtypes = ctypes.c_size_t, [ctypes.c_int]
     run.restype = ctypes.c_int
-    run.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    run.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     if name == _F32_LIB:
         lib.ihpr_fused_head_integral_fwd_f32_scratch.restype = ctypes.c_size_t
         lib.ihpr_fused_head_integral_fwd_f32_scratch.argtypes = [ctypes.c_int] * 4
@@ -228,22 +262,30 @@ def _lib(name: str = _LIB) -> ctypes.CDLL:
 def plain_bwd(
     feat: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
     m: torch.Tensor, s: torch.Tensor, coords: torch.Tensor, g: torch.Tensor,
-    joint_num: int, depth_dim: int, width: int,
+    joint_num: int, depth_dim: int, width: int, exp2: bool = False, bexp: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the backward, rounded as the JAX kernel
     rounds: dv in fp32; dvc = dv in kernel's dtype feeds both contractions,
     each accumulated in fp32; dfeat (B, HW, C) in feat's dtype, dW (C, J*D)
     in kernel's dtype, db (J*D,) summed from the fp32 dv, in bias's dtype
-    (fp64 throughout for fp64 inputs)."""
+    (fp64 throughout for fp64 inputs). ``exp2`` (m, s from ``plain`` in the
+    same mode): the scaled W and b, rows of log2 s and ln 2 (so dv is the
+    base-2 logits' cotangent and dfeat comes out exact), dW and db times
+    log2 e before their rounding; ``bexp``: p from a bf16 exp of a bf16
+    argument."""
     b, hw, c = feat.shape
     jd = joint_num * depth_dim
+    if exp2:
+        kernel, bias = base2_scale(kernel, bias)
+    scale = _LOG2E if exp2 else 1.0
     acc = _acc_dtype(feat)
     v = feat.to(acc) @ kernel.to(acc) + bias.to(acc)  # (B, HW, J*D)
-    dv = integral_volume.plain_dv(v, m, s, coords, g, joint_num, depth_dim, width)
+    dv = integral_volume.plain_dv(v, m, s, coords, g, joint_num, depth_dim, width, base2=exp2,
+                                  g_scale=_LN2 if exp2 else 1.0, bexp=bexp)
     dvc = dv.to(kernel.dtype).to(acc)
     dfeat = (dvc @ kernel.to(acc).t()).to(feat.dtype)
-    dw = (feat.to(acc).reshape(b * hw, c).t() @ dvc.view(b * hw, jd)).to(kernel.dtype)
-    db = dv.sum(dim=(0, 1)).to(bias.dtype)
+    dw = (feat.to(acc).reshape(b * hw, c).t() @ dvc.view(b * hw, jd) * scale).to(kernel.dtype)
+    db = (dv.sum(dim=(0, 1)) * scale).to(bias.dtype)
     return dfeat, dw, db
 
 
@@ -295,13 +337,16 @@ def _check_kernel_inputs(feat, kernel, bias, joint_num, depth_dim, width):
 
 def kernel_stats(
     feat: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
-    joint_num: int, depth_dim: int, width: int,
+    joint_num: int, depth_dim: int, width: int, exp2: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K1 (bf16 operands) or K1-fp32 (fp32 operands) on the same contract as
-    ``plain``. Launches on the current stream without synchronizing; raises
-    on any input the kernel does not take and on a refused launch."""
+    ``plain``, ``exp2`` included. Launches on the current stream without
+    synchronizing; raises on any input the kernel does not take and on a
+    refused launch."""
     global launches, f32_launches
     b, hw, c = _check_kernel_inputs(feat, kernel, bias, joint_num, depth_dim, width)
+    if exp2:
+        kernel, bias = base2_scale(kernel, bias)
     name = _LIB if feat.dtype == torch.bfloat16 else _F32_LIB
     lib = _lib(name)
     smem = getattr(lib, f"ihpr_{name}_smem")(c)
@@ -319,7 +364,7 @@ def kernel_stats(
         err = getattr(lib, f"ihpr_{name}")(
             feat.data_ptr(), kernel.data_ptr(), bias.data_ptr(), wt.data_ptr(),
             coords.data_ptr(), m.data_ptr(), s.data_ptr(),
-            b, hw, width, c, joint_num, depth_dim,
+            b, hw, width, c, joint_num, depth_dim, _MODE_EXP2 if exp2 else 0,
             torch.cuda.current_stream().cuda_stream,
         )
     if err:
@@ -343,17 +388,17 @@ def _bwd_lib(name: str = _BWD_LIB) -> ctypes.CDLL:
     max_c.restype, max_c.argtypes = ctypes.c_int, []
     parts.restype, parts.argtypes = ctypes.c_int, [ctypes.c_int] * 3
     run.restype = ctypes.c_int
-    run.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    run.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     return lib
 
 
 def kernel_bwd(
     feat: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
     m: torch.Tensor, s: torch.Tensor, coords: torch.Tensor, g: torch.Tensor,
-    joint_num: int, depth_dim: int, width: int,
+    joint_num: int, depth_dim: int, width: int, exp2: bool = False, bexp: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K2 (bf16 operands) or K2-fp32 (fp32 operands) on the same contract as
-    ``plain_bwd``. Checks feat, kernel and bias as ``kernel_stats`` does,
+    ``plain_bwd``, ``exp2`` and ``bexp`` included. Checks feat, kernel and bias as ``kernel_stats`` does,
     and m, s (B, J), coords, g (B, J, 3) as fp32 contiguous tensors on the
     same device. Launches on the current stream without synchronizing;
     raises on any input the kernel does not take and on a refused launch."""
@@ -375,7 +420,11 @@ def kernel_bwd(
     if smem > _MAX_SMEM:
         raise ValueError(f"C={c} needs {smem} bytes of shared memory (> {_MAX_SMEM})")
     jd = joint_num * depth_dim
-    rows = fold_bwd_rows(m, s, coords, g)
+    rows = fold_bwd_rows(m, s, coords, g, base2=exp2, g_scale=_LN2 if exp2 else 1.0)
+    dw = torch.empty_like(kernel)
+    db = torch.empty_like(bias)
+    if exp2:
+        kernel, bias = base2_scale(kernel, bias)
     f32 = dict(dtype=torch.float32, device=feat.device)
     # bf16: W transposed; fp32: W's split planes, Wt's and W's (4, J*64, C)
     wt = (torch.empty((jd, c), dtype=feat.dtype, device=feat.device) if name == _BWD_LIB
@@ -385,13 +434,12 @@ def kernel_bwd(
         part = torch.empty((parts, joint_num, c, _MAX_DEPTH), **f32)
         dbpart = torch.empty((parts, joint_num, _MAX_DEPTH), **f32)
         dfeat = torch.empty_like(feat)
-        dw = torch.empty_like(kernel)
-        db = torch.empty_like(bias)
         err = getattr(lib, sym)(
             feat.data_ptr(), kernel.data_ptr(), bias.data_ptr(), rows.data_ptr(),
             wt.data_ptr(), part.data_ptr(), dbpart.data_ptr(),
             dfeat.data_ptr(), dw.data_ptr(), db.data_ptr(),
             b, hw, width, c, joint_num, depth_dim, parts,
+            (_MODE_EXP2 if exp2 else 0) | (_MODE_BEXP if bexp else 0),
             torch.cuda.current_stream().cuda_stream,
         )
     if err:
@@ -406,19 +454,21 @@ def kernel_bwd(
 class FusedHeadIntegral(torch.autograd.Function):
     """coords = fused final conv + integral of (feat, kernel, bias): K1
     forward and K2 backward (their fp32 instances for fp32 operands) on CUDA
-    tensors, ``plain`` and ``plain_bwd`` on CPU tensors. Saves feat, kernel, bias, m, s and coords for the backward;
-    nothing when no input needs a gradient or ``grad_enabled`` (the caller's
-    ``torch.is_grad_enabled()``: the forward itself runs with grad off) is
-    False, as under ``no_grad`` and ``inference_mode``."""
+    tensors, ``plain`` and ``plain_bwd`` on CPU tensors, in the exp modes
+    ``modes`` = (exp2, bexp). Saves feat, kernel, bias, m, s and coords for
+    the backward; nothing when no input needs a gradient or
+    ``grad_enabled`` (the caller's ``torch.is_grad_enabled()``: the forward
+    itself runs with grad off) is False, as under ``no_grad`` and
+    ``inference_mode``."""
 
     @staticmethod
     def forward(ctx, feat, kernel, bias, joint_num: int, depth_dim: int, width: int,
-                grad_enabled: bool):
+                grad_enabled: bool, modes: Tuple[bool, bool] = (False, False)):
         run = kernel_stats if feat.is_cuda else plain
-        coords, m, s = run(feat, kernel, bias, joint_num, depth_dim, width)
+        coords, m, s = run(feat, kernel, bias, joint_num, depth_dim, width, modes[0])
         if grad_enabled and any(ctx.needs_input_grad[:3]):
             ctx.save_for_backward(feat, kernel, bias, m, s, coords)
-            ctx.dims = (joint_num, depth_dim, width)
+            ctx.dims = (joint_num, depth_dim, width, *modes)
         return coords
 
     @staticmethod
@@ -427,7 +477,7 @@ class FusedHeadIntegral(torch.autograd.Function):
         run = kernel_bwd if feat.is_cuda else plain_bwd
         grads = run(feat, kernel, bias, m, s, coords, g.to(m.dtype).contiguous(), *ctx.dims)
         return (*(d if need else None for d, need in zip(grads, ctx.needs_input_grad)),
-                None, None, None, None)
+                None, None, None, None, None)
 
 
 @contextlib.contextmanager
@@ -487,7 +537,8 @@ def fused_final_conv_integral(
     -> (B, J, 3) voxel coords (x, y, z), fp32, differentiable in all three
     tensors. Heads ``fused_supported`` admits (bf16 within K1/K2's limits;
     fp32 where JAX has a fused plan) run ``FusedHeadIntegral`` (K1/K2 or
-    K1/K2-fp32 on CUDA tensors); any other head forms the fp32 logits
+    K1/K2-fp32 on CUDA tensors) in the exp modes the environment sets now
+    (``exp_modes``); any other head forms the fp32 logits
     (``_Logits``) and runs ``integral_volume.SoftArgmaxVolume`` (K3/K4 on
     CUDA tensors). CPU tensors take the same route through the plain
     versions."""
@@ -504,7 +555,7 @@ def fused_final_conv_integral(
     _check(feat, kernel, bias, joint_num, depth_dim, w)
     if fused_supported(joint_num, depth_dim, h * w, c, features.dtype):
         return FusedHeadIntegral.apply(
-            feat, kernel, bias, joint_num, depth_dim, w, torch.is_grad_enabled()
+            feat, kernel, bias, joint_num, depth_dim, w, torch.is_grad_enabled(), exp_modes()
         )
     return integral_volume.soft_argmax_volume(
         _Logits.apply(feat, kernel, bias), joint_num, depth_dim, w

@@ -74,18 +74,20 @@ def _no_rows(vol: torch.Tensor, joint_num: int) -> Tuple[torch.Tensor, torch.Ten
 
 
 def plain(
-    vol: torch.Tensor, joint_num: int, depth_dim: int, width: int
+    vol: torch.Tensor, joint_num: int, depth_dim: int, width: int, base2: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version. vol (B, HW, J*D) -> coords (B, J, 3), per-joint
     max m (B, J) and normalizer s = sum exp(v - m) (B, J), fp32 (fp64 for
-    fp64 inputs); coords 0, m -inf and s 0 where HW is 0."""
+    fp64 inputs); coords 0, m -inf and s 0 where HW is 0. ``base2``: vol
+    holds base-2 logits and the softmax takes exp2 (the fused head's
+    ``IHPR_EXP2``), so s = sum exp2(v - m)."""
     b, hw, _ = vol.shape
     if hw == 0:
         return _no_rows(vol, joint_num)
     acc = _acc_dtype(vol)
     v = vol.to(acc).reshape(b, hw, joint_num, depth_dim).permute(0, 2, 1, 3)  # (B, J, HW, D)
     m = v.amax(dim=(2, 3))
-    e = torch.exp(v - m[..., None, None])
+    e = (torch.exp2 if base2 else torch.exp)(v - m[..., None, None])
     s = e.sum(dim=(2, 3))
     p = e / s[..., None, None]
     x, y, z = _grid(hw, width, depth_dim, vol.device, acc)
@@ -97,15 +99,19 @@ def plain(
 
 
 def fold_bwd_rows(
-    m: torch.Tensor, s: torch.Tensor, coords: torch.Tensor, g: torch.Tensor
+    m: torch.Tensor, s: torch.Tensor, coords: torch.Tensor, g: torch.Tensor, base2: bool = False,
+    g_scale: float = 1.0,
 ) -> torch.Tensor:
     """Per-joint backward constants, (B, J, 8): m + log s (the softmax
     normalizer folded into the exp argument, so p = exp(v - row0); s == 0
     gives +inf and p = 0), gx, gy, gz, cx, cy, cz, 0. The port of
     ``integral_pallas.fold_bwd_rows`` with per-joint m and s, so the rows
-    are per joint where the TPU's are per lane. Shared by K2 and K4."""
-    log_s = torch.where(s > 0, torch.log(s), torch.full_like(s, float("inf")))
-    g = g.to(m.dtype)
+    are per joint where the TPU's are per lane. Shared by K2 and K4.
+    ``base2``: m is a base-2 max, so row0 = m + log2 s and p = exp2(v -
+    row0); ``g_scale`` multiplies g (the fused head's ``IHPR_EXP2`` passes
+    ln 2)."""
+    log_s = torch.where(s > 0, torch.log2(s) if base2 else torch.log(s), torch.full_like(s, float("inf")))
+    g = g.to(m.dtype) * g_scale
     return torch.stack(
         [m + log_s, g[..., 0], g[..., 1], g[..., 2],
          coords[..., 0], coords[..., 1], coords[..., 2], torch.zeros_like(m)],
@@ -115,13 +121,22 @@ def fold_bwd_rows(
 
 def plain_dv(
     v: torch.Tensor, m: torch.Tensor, s: torch.Tensor, coords: torch.Tensor, g: torch.Tensor,
-    joint_num: int, depth_dim: int, width: int,
+    joint_num: int, depth_dim: int, width: int, base2: bool = False, g_scale: float = 1.0,
+    bexp: bool = False,
 ) -> torch.Tensor:
     """dv (B, HW, J*D) in v's dtype from logits v (B, HW, J*D) in the
-    accumulation dtype: p * (gx (x - cx) + gy (y - cy) + gz (z - cz))."""
+    accumulation dtype: p * (gx (x - cx) + gy (y - cy) + gz (z - cz)).
+    ``base2`` and ``g_scale`` as ``fold_bwd_rows``; ``bexp`` (the fused
+    head's ``IHPR_BEXP``): the exp's argument is rounded to bf16, and so is
+    p, before the arithmetic that follows."""
     b, hw, jd = v.shape
-    row0, gx, gy, gz, cx, cy, cz, _ = fold_bwd_rows(m, s, coords, g).unbind(-1)  # (B, J)
-    p = torch.exp(v.view(b, hw, joint_num, depth_dim) - row0[:, None, :, None])
+    row0, gx, gy, gz, cx, cy, cz, _ = fold_bwd_rows(m, s, coords, g, base2, g_scale).unbind(-1)  # (B, J)
+    exp = torch.exp2 if base2 else torch.exp
+    arg = v.view(b, hw, joint_num, depth_dim) - row0[:, None, :, None]
+    if bexp:
+        p = exp(arg.to(torch.bfloat16)).to(v.dtype)
+    else:
+        p = exp(arg)
     x, y, z = _grid(hw, width, depth_dim, v.device, v.dtype)
     tx = gx[:, None] * (x[None, :, None] - cx[:, None]) + gy[:, None] * (y[None, :, None] - cy[:, None])
     tz = gz[..., None] * (z - cz[..., None])  # (B, J, D)

@@ -33,12 +33,15 @@ def scale_horizon(cfg: Config, end_epoch: Optional[int], default_end: int) -> Co
     ))
 
 
-def synthetic_samples(skel: skeletons.Skeleton, n: int, seed: int, out_dir: str, device, **kw) -> list:
+def synthetic_samples(skel: skeletons.Skeleton, n: int, seed: int, out_dir: str, **kw) -> list:
     """``n`` synthetic samples of ``skel`` from ``seed``, their frames written
-    as JPEGs under ``{out_dir}/imgs`` (encoded on ``device``; files already
-    there are reused), so that the loader reads them as it reads a real set.
+    as JPEGs under ``{out_dir}/imgs`` (files already there are reused), so
+    that the loader reads them as it reads a real set. The frames are
+    encoded on the CPU by cv2, the bytes the JAX package's tools train on,
+    whatever device the run uses: nvJPEG's encode of the same frames cost
+    the flagship 13-20 mm of unseen MPJPE at two seeds (PERF.md §6 PR 22).
     ``kw`` goes to ``make_synthetic`` (``img_size``, ``hue_mode``, ...)."""
-    return materialize_synthetic(make_synthetic(skel, n, seed=seed, **kw), f"{out_dir}/imgs", device=device)
+    return materialize_synthetic(make_synthetic(skel, n, seed=seed, **kw), f"{out_dir}/imgs", device="cpu")
 
 
 def device_info(device) -> dict:
@@ -152,8 +155,8 @@ def probe_2d(argv, doc: str, tool: str, config: str, skel: skeletons.Skeleton, s
     )
     cfg = scale_horizon(cfg, end_epoch, 40)
     name = cfg.data.trainset[0]
-    train = synthetic_samples(skel, train_size, seeds[0], out_dir, device, img_size=320)
-    test = synthetic_samples(skel, test_size, seeds[1], out_dir, device, img_size=320)
+    train = synthetic_samples(skel, train_size, seeds[0], out_dir, img_size=320)
+    test = synthetic_samples(skel, test_size, seeds[1], out_dir, img_size=320)
     state, stats = train_timed(cfg, [PoseDataset(name, skel, train, True)], device)
     metrics, eval_s, _ = evaluate(cfg, PoseDataset(name, skel, test, False), state, device, num_workers=8)
     value = metrics[metric]

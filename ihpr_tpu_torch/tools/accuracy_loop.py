@@ -6,8 +6,9 @@ strongest accuracy proxy there is:
 
 1. train on synthetic but learnable frames (a Gaussian blob per joint, its
    hue coding the joint and its radius the depth;
-   ``datasets.render_synthetic_image``), written as JPEGs and read back
-   through the loader, until the unseen set beats a stated MPJPE bar
+   ``datasets.render_synthetic_image``), written as JPEGs by cv2 on the
+   CPU (the JAX tool's bytes; ``_accuracy.synthetic_samples``) and read
+   back through the loader, until the unseen set beats a stated MPJPE bar
    through the whole eval chain (Tester -> warp back -> pixel2cam -> root
    alignment -> per-action MPJPE; reference ``Human36M.evaluate``);
 2. run the same trained weights through the port on the CPU (fp32,
@@ -33,9 +34,9 @@ snapshot interval and keep, and bars:
 
 Every preset runs with ``matmul_precision="highest"`` (TF32 off), as JAX's
 tool runs fp32 in true fp32. ``--bn_mode`` overrides the preset's BN
-arithmetic, as JAX's does, with the two ported modes: ``flax`` or ``lean``
-(the measurement modes raise, as ``build_pose_net`` does); the result
-records the mode the run used. ``--platform`` is ``--device`` here
+arithmetic, as JAX's does, with any of JAX's modes (``models.resnet.BN_MODES``:
+``flax``, ``lean`` and the measurement modes); an unknown one raises before
+anything is rendered; the result records the mode the run used. ``--platform`` is ``--device`` here
 (``cuda`` by default, ``cpu`` on request).
 
 Writes ``{output_dir}/accuracy_loop.json`` with JAX's keys plus the device
@@ -62,7 +63,7 @@ from ihpr_tpu_torch.data.datasets import PoseDataset
 from ihpr_tpu_torch.data.pipeline import prefetch_to_device
 from ihpr_tpu_torch.engine.tester import metrics_from_voxel_preds
 from ihpr_tpu_torch.models.pose_net import build_pose_net, inference_copy
-from ihpr_tpu_torch.models.resnet import BN_MODES
+from ihpr_tpu_torch.models.resnet import BN_MODES, bn_subsample
 from ihpr_tpu_torch.parallel.train_step import make_eval_step
 from ihpr_tpu_torch.tools._accuracy import (
     device_info,
@@ -154,8 +155,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                     "Human36M hues; the bar is unchanged")
     ap.add_argument("--mixed_size", type=int, default=None, help="MPII frames (default: --train_size)")
     ap.add_argument("--bn_mode", default=None,
-                    help=f"override cfg.model.bn_mode with one of the ported modes {BN_MODES} (JAX's flag; "
-                    "its measurement modes are not ported)")
+                    help=f"override cfg.model.bn_mode with one of JAX's modes {BN_MODES} (JAX's flag; "
+                    "lean_subN: lean_sub2, lean_sub4, ...)")
     ap.add_argument("--device", default="cuda", help="cuda (the card) or cpu")
     ap.add_argument("--continue", dest="continue_train", action="store_true",
                     help="resume from the latest snapshot in --output_dir (the synthetic sets are seeded and "
@@ -168,8 +169,8 @@ def main(argv=None):
 
     install_graceful_shutdown()
     args = parse_args(argv)
-    if args.bn_mode is not None and args.bn_mode not in BN_MODES:
-        raise ValueError(f"bn_mode {args.bn_mode!r} is not ported; use one of {BN_MODES}")
+    if args.bn_mode is not None:
+        bn_subsample(args.bn_mode)  # raises for a mode that is not JAX's
     hue_mode = args.hue_mode or ("semantic" if (args.flip_ab or args.use_aug) else "index")
     if (args.flip_ab or args.use_aug) and hue_mode != "semantic":
         raise SystemExit("--flip_ab/--use_aug need --hue_mode semantic")
@@ -196,8 +197,8 @@ def main(argv=None):
 
     skel = skeletons.H36M
     synth = dict(img_size=img_size, easy_depth=True, hue_mode=hue_mode)
-    train_samples = synthetic_samples(skel, train_size, 11, out_dir, device, **synth)
-    test_samples = synthetic_samples(skel, test_size, 22, out_dir, device, **synth)
+    train_samples = synthetic_samples(skel, train_size, 11, out_dir, **synth)
+    test_samples = synthetic_samples(skel, test_size, 22, out_dir, **synth)
     train_ds = PoseDataset("Human36M", skel, train_samples, True)
     test_ds = PoseDataset("Human36M", skel, test_samples, False)
     train_datasets = [train_ds]
@@ -205,7 +206,7 @@ def main(argv=None):
     if args.mixed:
         mixed_size = train_size if args.mixed_size is None else args.mixed_size
         cfg = cfg.replace(data=dataclasses.replace(cfg.data, trainset=("Human36M", "MPII")))
-        mpii = synthetic_samples(skeletons.MPII, mixed_size, 33, out_dir, device, img_size=img_size,
+        mpii = synthetic_samples(skeletons.MPII, mixed_size, 33, out_dir, img_size=img_size,
                                  hue_mode=hue_mode, hue_skeleton=skel)
         if mpii:  # --mixed_size 0: the config alone, as a control
             train_datasets.append(PoseDataset("MPII", skeletons.MPII, mpii, True))

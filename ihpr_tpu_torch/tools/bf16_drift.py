@@ -47,10 +47,12 @@ from ihpr_tpu_torch.engine.checkpoint import load_snapshot
 from ihpr_tpu_torch.engine.tester import metrics_from_voxel_preds
 from ihpr_tpu_torch.models.head import Deconv
 from ihpr_tpu_torch.models.pose_net import build_pose_net, inference_copy
-from ihpr_tpu_torch.models.resnet import BN, BN_MODES, BasicBlock, Bottleneck
+from ihpr_tpu_torch.models.resnet import BN, BasicBlock, Bottleneck
 from ihpr_tpu_torch.ops import fused_head_integral as fhi
 from ihpr_tpu_torch.parallel.train_step import patch_batch
 from ihpr_tpu_torch.tools._accuracy import device_info, synthetic_samples
+
+ARITHMETICS = ("flax", "lean")  # the two BN applies the tool sets against each other
 
 # A layer drifts where its error passes this (relative RMS), about four
 # bf16 roundings' worth, and twice the other BN mode's error there.
@@ -173,7 +175,7 @@ def run(cfg, test_ds: PoseDataset, state_dict: dict, device, batch: int = 32, nu
     the result dict."""
     device = torch.device(device)
     mode = cfg.model.bn_mode
-    other = next(m for m in BN_MODES if m != mode)
+    other = next(m for m in ARITHMETICS if m != mode)
 
     def build(**kw):
         c = cfg.replace(model=dataclasses.replace(cfg.model, matmul_precision="highest", **kw))
@@ -234,7 +236,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--preset", choices=sorted(PRESETS), default="flagship")
     ap.add_argument("--output_dir", required=True, help="the accuracy_loop run's --output_dir")
-    ap.add_argument("--bn_mode", choices=BN_MODES, default=None, help="default: the preset's")
+    ap.add_argument("--bn_mode", choices=ARITHMETICS, default=None, help="default: the preset's")
     ap.add_argument("--test_size", type=int, default=None)
     ap.add_argument("--batch", type=int, default=32, help="patches through the hooked models")
     ap.add_argument("--stats_out", default=None, help="write every BN's parameters and statistics here (npz)")
@@ -246,7 +248,7 @@ def main(argv=None):
         cfg = cfg.replace(model=dataclasses.replace(cfg.model, bn_mode=args.bn_mode))
     cfg = cfg.replace(eval=dataclasses.replace(cfg.eval, flip_test=False))
     skel = skeletons.H36M
-    samples = synthetic_samples(skel, args.test_size or default_test, 22, args.output_dir, args.device,
+    samples = synthetic_samples(skel, args.test_size or default_test, 22, args.output_dir,
                                 img_size=img_size, easy_depth=True, hue_mode="index")
     state_dict, epoch = load_snapshot(args.output_dir)
     result = run(cfg, PoseDataset("Human36M", skel, samples, False), state_dict["model"], args.device,

@@ -289,15 +289,46 @@ def test_bn_mode_overrides_the_preset_and_is_recorded(bn_mode, tmp_path, monkeyp
     assert seen == {"mode": bn_mode, "bns": {bn_mode}}
 
 
-def test_bn_mode_refuses_the_measurement_modes(tmp_path, monkeypatch):
-    """The modes ``build_pose_net`` rejects (JAX's lean16 / lean_sg / frozen
-    ...) raise before anything is rendered or trained."""
+def test_synthetic_frames_are_jax_cv2_bytes(tmp_path):
+    """The accuracy tools write their synthetic frames as JAX's tool does,
+    with cv2 on the CPU whatever the run's device: the same file names and
+    the same bytes as JAX's ``materialize_synthetic`` (nvJPEG's encode of
+    the same frames cost the flagship 13-20 mm, PERF.md §6 PR 22)."""
+    from ihpr_tpu_torch.tools import _accuracy
+
+    kw = dict(img_size=200, easy_depth=True, hue_mode="index")
+    ours = _accuracy.synthetic_samples(skeletons.H36M, 6, 11, str(tmp_path / "port"), **kw)
+    theirs = jdatasets.materialize_synthetic(jdatasets.make_synthetic(jskeletons.H36M, 6, seed=11, **kw),
+                                             str(tmp_path / "jax"))
+    for a, b in zip(ours, theirs):
+        assert os.path.basename(a["img_path"]) == os.path.basename(b["img_path"])
+        with open(a["img_path"], "rb") as fa, open(b["img_path"], "rb") as fb:
+            assert fa.read() == fb.read()
+
+
+@pytest.mark.parametrize("mode", ["lean_sgx", "lean_sub0", "frozen16"])
+def test_bn_mode_refuses_the_measurement_modes(tmp_path, monkeypatch, mode):
+    """A mode JAX does not know raises before anything is rendered or
+    trained; JAX's own measurement modes are taken
+    (``test_bn_mode_takes_every_jax_mode``)."""
     monkeypatch.setattr(accuracy_loop, "preset_config", lambda preset: _small_bf16())
     monkeypatch.setattr(shutdown, "install_graceful_shutdown", lambda: None)
-    with pytest.raises(ValueError, match="lean_sg"):
-        accuracy_loop.main(["--device", "cpu", "--preset", "flagship", "--bn_mode", "lean_sg",
+    with pytest.raises(ValueError, match=mode):
+        accuracy_loop.main(["--device", "cpu", "--preset", "flagship", "--bn_mode", mode,
                             "--output_dir", str(tmp_path)])
     assert not os.path.exists(tmp_path / "imgs")
+
+
+@pytest.mark.parametrize("mode", ["lean16", "lean_sub4", "lean_sg", "lean_sgv", "frozen"])
+def test_bn_mode_takes_every_jax_mode(tmp_path, monkeypatch, mode):
+    """Each of JAX's measurement modes trains the cut flagship for an epoch
+    on the CPU and is recorded in the result."""
+    monkeypatch.setattr(accuracy_loop, "preset_config", lambda preset: _small_bf16())
+    out = tmp_path / "run"
+    argv = ["--device", "cpu", "--preset", "flagship", "--train_size", "4", "--test_size", "4", "--end_epoch", "1",
+            "--mpjpe_bar_mm", "10000", "--skip_oracle", "--bn_mode", mode, "--output_dir", str(out)]
+    assert _run(accuracy_loop, argv, monkeypatch) == 0
+    assert json.loads((out / "accuracy_loop.json").read_text())["bn_mode"] == mode
 
 
 def test_bf16_drift_localises_on_a_trained_run(tmp_path, monkeypatch):

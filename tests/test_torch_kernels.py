@@ -422,6 +422,73 @@ def test_bwd_kernel_matches_plain(cuda, shape, dtype):
         _assert_rel_close(a, b, tol, name, atol)
 
 
+EXP_MODES = {"exp2": (True, False), "bexp": (False, True), "exp2_bexp": (True, True)}
+EXP_SHAPES = [HEAD_SHAPES[0], HEAD_SHAPES[1], HEAD_SHAPES[2]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("shape", EXP_SHAPES, ids=HEAD_IDS[:3])
+@pytest.mark.parametrize("mode", sorted(EXP_MODES))
+def test_exp_modes_kernels_match_plain(cuda, mode, shape, dtype):
+    """K1 and K2 (K1-fp32 and K2-fp32 for fp32) in each exp mode against
+    ``plain`` / ``plain_bwd`` in the same mode, at ``test_kernel_matches_plain``'s
+    and ``test_bwd_kernel_matches_plain``'s bars; under IHPR_BEXP the
+    backward's p is a bf16 value, so K2-fp32 takes the bf16 bar there.
+    IHPR_EXP2's m is a base-2 max. Each launch moves its own counter once."""
+    exp2, bexp = EXP_MODES[mode]
+    b, h, w, c, j, d = shape
+    feat, kernel, bias = _head_inputs(shape, cuda, dtype)
+    fwd, bwd = ("launches", "bwd_launches") if dtype == torch.bfloat16 else ("f32_launches", "f32_bwd_launches")
+    before = (getattr(fhi, fwd), getattr(fhi, bwd))
+    got = fhi.kernel_stats(feat, kernel, bias, j, d, w, exp2)
+    want = fhi.plain(feat, kernel, bias, j, d, w, exp2)
+    torch.testing.assert_close(got[0], want[0], atol=5e-4, rtol=0)
+    torch.testing.assert_close(got[1], want[1], atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(got[2], want[2], atol=0, rtol=1e-4)
+    _, m, s = got
+    g = torch.randn(b, j, 3, generator=torch.Generator().manual_seed(6)).to(cuda)
+    args = (feat, kernel, bias, m, s, want[0].contiguous(), g, j, d, w, exp2, bexp)
+    grads = fhi.kernel_bwd(*args)
+    assert (getattr(fhi, fwd), getattr(fhi, bwd)) == (before[0] + 1, before[1] + 1)
+    ref = fhi.plain_bwd(*args)
+    torch.cuda.synchronize()
+    tol = BWD_TOL if dtype == torch.bfloat16 or bexp else 1e-4
+    for name, a, r in zip(("dfeat", "dW", "db"), grads, ref):
+        assert a.dtype == r.dtype and a.shape == r.shape, name
+        _assert_rel_close(a, r, tol, name, _db_atol(g, h, w, d) if name == "db" else 0.0)
+    if bexp:  # the kernel's own IHPR_BEXP move against plain's, as chip_smoke's bexp_effect_check
+        without = (fhi.kernel_bwd(*args[:-1], False), fhi.plain_bwd(*args[:-1], False))
+        for name, a, r, a0, r0 in zip(("dfeat", "dW", "db"), grads, ref, *without):
+            move = (r.double() - r0.double()).norm()
+            off = ((a.double() - a0.double()) - (r.double() - r0.double())).norm()
+            assert off <= 0.5 * move, (name, float(off / move))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", sorted(EXP_MODES))
+def test_exp_modes_reach_the_kernels_through_autograd(cuda, mode, monkeypatch):
+    """With the environment set, ``fused_final_conv_integral`` runs K1 / K2
+    in that mode: its coords and gradients are the kernels' in the mode,
+    called directly, bitwise."""
+    exp2, bexp = EXP_MODES[mode]
+    for flag, on in (("IHPR_EXP2", exp2), ("IHPR_BEXP", bexp)):
+        monkeypatch.setenv(flag, "1" if on else "0")
+    shape = HEAD_SHAPES[1]
+    b, h, w, c, j, d = shape
+    feat, kernel, bias = _head_inputs(shape, cuda, torch.bfloat16)
+    f = feat.view(b, h, w, c).clone().requires_grad_()
+    k, bb = kernel.clone().requires_grad_(), bias.clone().requires_grad_()
+    out = fhi.fused_final_conv_integral(f, k, bb, j, d)
+    g = torch.randn(b, j, 3, generator=torch.Generator().manual_seed(7)).to(cuda)
+    out.backward(g)
+    coords, m, s = fhi.kernel_stats(feat, kernel, bias, j, d, w, exp2)
+    grads = fhi.kernel_bwd(feat, kernel, bias, m, s, coords, g, j, d, w, exp2, bexp)
+    assert torch.equal(out.detach(), coords)
+    for a, want in zip((f.grad.view(b, h * w, c), k.grad, bb.grad), grads):
+        assert torch.equal(a, want)
+
+
 @pytest.mark.cuda
 def test_kernel_is_deterministic(cuda):
     """K1 merges its warps' states in a fixed order, with no atomics, so

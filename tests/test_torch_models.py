@@ -179,15 +179,29 @@ def test_from_jax_params_covers_every_weight():
     np.testing.assert_array_equal(sd["head.deconv2.weight"][:, :, 0, 0].numpy(), k[3, 3])
 
 
-def test_build_pose_net_rejects_unported_options():
+@pytest.mark.parametrize("field, value", [("bn_mode", "lean_subx"), ("bn_mode", "lean_sub0"), ("bn_mode", "fused"),
+                                          ("remat_policy", "dots")])
+def test_build_pose_net_rejects_unported_options(field, value):
+    """Every option of JAX's ModelConfig is ported (``test_every_jax_model_option_builds``);
+    a bn_mode or remat_policy JAX does not know is refused by name."""
     base = tconfig.get_config("h36m3d_r50")
-    for flag in ("s2d_stem", "block_remat"):
-        cfg = base.replace(model=dataclasses.replace(base.model, **{flag: True}))
-        with pytest.raises(ValueError, match=flag):
-            build_pose_net(cfg, device="cpu")
-    cfg = base.replace(model=dataclasses.replace(base.model, bn_mode="lean16"))
-    with pytest.raises(ValueError, match="lean16"):
+    cfg = base.replace(model=dataclasses.replace(base.model, block_remat=True, **{field: value}))
+    with pytest.raises(ValueError, match=value):
         build_pose_net(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("options", [
+    dict(bn_mode=m) for m in ("flax", "lean", "lean16", "lean_sub4", "lean_sub8", "lean_sg", "lean_sgv", "frozen")
+] + [dict(block_remat=True, remat_policy=p) for p in ("full", "conv_outs")] + [dict(s2d_stem=True)],
+    ids=lambda o: "-".join(f"{k}={v}" for k, v in o.items()))
+def test_every_jax_model_option_builds(options):
+    """Each bn_mode, remat policy and the s2d stem JAX's ModelConfig takes
+    builds a PoseNet (R18 at 64x64) that runs a train-mode forward."""
+    cfg = tconfig.get_config("h36m3d_r50").replace(
+        model=tconfig.ModelConfig(resnet_type=18, **options), data=tconfig.DataConfig(**TINY_DATA))
+    model = build_pose_net(cfg, device="cpu", trainable=True)
+    out = model.coords(torch.zeros(2, 64, 64, 3))
+    assert out.shape == (2, 18, 3) and bool(torch.isfinite(out).all())
 
 
 def test_seeded_init_is_reproducible():

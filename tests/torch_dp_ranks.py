@@ -564,3 +564,53 @@ def spatial_export_ranks(rank, world, cfg, model_sd, patches):
     blob = export_server(srv)
     coords = load_exported(blob)(patches, np.ones((len(patches), 3), np.float32))
     return {"sha1": hashlib.sha1(blob).hexdigest(), "coords": _np(coords)}
+
+
+def bn_rows_ranks(rank, world, cases):
+    """Each (name, mode, x, r, scale, bias, mean, var) of ``cases`` (x and r
+    (B, C, H, W)): a train-mode BN of ``mode`` on this rank's rows of x on
+    an S = world grid (``mesh.row_range``), its output and dx rows, its
+    running statistics and the scale / bias gradients summed over the
+    ranks, for the cotangent r."""
+    torch.set_num_threads(1)
+    out = {}
+    for name, mode, x, r, scale, bias, mean, var in cases:
+        grid = mesh.make_grid(mesh.DataParallel(rank, world, dist.group.WORLD), world, x.shape[2])
+        bn = resnet.BN(x.shape[1], mode, torch.float32, dp=grid, rows=x.shape[2])
+        bn.load_state_dict({"weight": torch.from_numpy(scale), "bias": torch.from_numpy(bias),
+                            "running_mean": torch.from_numpy(mean), "running_var": torch.from_numpy(var)})
+        xl = torch.from_numpy(rows_of(x, rank, world)).requires_grad_()
+        y = bn.train()(xl)
+        (y * torch.from_numpy(rows_of(r, rank, world))).sum().backward()
+        grads = torch.cat([bn.weight.grad, bn.bias.grad])
+        dist.all_reduce(grads)
+        c = x.shape[1]
+        out[name] = {"y": _np(y), "dx": _np(xl.grad), "running_mean": _np(bn.running_mean),
+                     "running_var": _np(bn.running_var), "dscale": _np(grads[:c]), "dbias": _np(grads[c:])}
+    return out
+
+
+def remat_grid_ranks(rank, world, cfg, model_sd, batch):
+    """On an S = world grid, from ``model_sd``: one train-mode forward and
+    backward of ``cfg`` through the model's DDP on this rank's rows of
+    ``batch``, without block_remat and with each policy: {policy: the loss,
+    the gradients and the BN statistics after it}."""
+    torch.set_num_threads(1)
+    sd = {k: torch.from_numpy(v) for k, v in model_sd.items()}
+    local = {k: torch.from_numpy(v) for k, v in batch.items()}
+    out = {}
+    for policy in ("none", "full", "conv_outs"):
+        remat = {} if policy == "none" else dict(block_remat=True, remat_policy=policy)
+        c = cfg.replace(parallel=dataclasses.replace(cfg.parallel, spatial_axis_size=world),
+                        model=dataclasses.replace(cfg.model, **remat))
+        dp = data_parallel(c)
+        model = build_pose_net(c, device="cpu", trainable=True, dp=dp)
+        model.load_state_dict(sd)
+        ddp = train_step._ddp(model, dp)
+        with model.precision():
+            image = mesh.row_shard(finalize_patch(local["patch"], local["color_scale"], c.data), model.rows)
+            loss = joint_location_loss(ddp(image), local["joint_img"], local["joint_vis"], local["joints_have_depth"])
+            loss.backward()
+        out[policy] = {"loss": float(loss), "grads": {k: _np(p.grad) for k, p in model.named_parameters()},
+                       "stats": {k: _np(b) for k, b in model.named_buffers()}}
+    return out
