@@ -85,9 +85,8 @@ def _whole_image_model(server) -> nn.Module:
     model = server.model
     if model.rows is None:
         return model
-    whole = build_pose_net(server.cfg, model.joint_num, device=server.device)
-    whole.load_state_dict(model.state_dict())
-    return inference_copy(whole)
+    return inference_copy(build_pose_net(server.cfg, model.joint_num, device=server.device,
+                                         state_dict=model.state_dict()))
 
 
 def export_server(server, batch: Union[int, str, None] = None) -> bytes:

@@ -92,8 +92,7 @@ class PoseServer:
         if isinstance(model_or_state, PoseNet):
             model = on_grid(model_or_state, cfg, self.dp, self.device)
         else:
-            model = build_pose_net(cfg, joints, device=self.device, dp=self.dp)
-            model.load_state_dict(model_or_state)
+            model = build_pose_net(cfg, joints, device=self.device, dp=self.dp, state_dict=model_or_state)
         self.model = inference_copy(model).to(self.device)
         if self.model.joint_num != joints:
             raise ValueError(

@@ -119,8 +119,8 @@ class Tester:
         )
         if state is None:
             state_dict, epoch = load_snapshot(cfg.output_dir, test_epoch)
-            model = build_pose_net(cfg, dataset.joint_num, device=self.device, dp=self.dp)
-            model.load_state_dict(state_dict["model"])
+            model = build_pose_net(cfg, dataset.joint_num, device=self.device, dp=self.dp,
+                                   state_dict=state_dict["model"])
             self.logger.info("loaded snapshot_%d", epoch)
         else:
             model = state.model if isinstance(state, TrainState) else state

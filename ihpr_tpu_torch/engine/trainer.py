@@ -98,6 +98,8 @@ class Trainer:
             sum(len(d) for d in datasets), "+".join(d.name for d in datasets),
             self.batch_size, self.dp.world, data.world, self.dp.spatial, self.steps_per_epoch, self.device,
         )
+        # JAX's initial values from the key JAX's Trainer takes, the same on
+        # every rank.
         self.model = build_pose_net(cfg, self.loader.joint_num, device=self.device, trainable=True,
                                     dp=self.dp)
         self.max_steps: Optional[int] = None  # set by cap_steps_per_epoch

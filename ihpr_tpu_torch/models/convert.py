@@ -1,5 +1,6 @@
 """Weights for the port's PoseNet: the JAX package's initialization scheme
-from a ``torch.Generator``, conversion of a JAX parameter tree and of a
+drawn from a ``torch.Generator`` (JAX's own values come from
+``models.jax_random``), conversion of a JAX parameter tree and of a
 JAX train state (parameters, Adam moments, counts), and the way back: the
 port's weights as numpy trees in flax's layout and names
 (``to_jax_params``), for a JAX Tester to score.
@@ -26,11 +27,8 @@ from torch import nn
 
 from ihpr_tpu_torch.config import Config
 from ihpr_tpu_torch.models.head import FinalConv
+from ihpr_tpu_torch.models.jax_random import TRUNC_STD
 from ihpr_tpu_torch.models.resnet import BN, RESNET_SPECS
-
-# Std of a standard normal truncated to [-2, 2]; flax's lecun_normal divides
-# by it so the truncated draw keeps variance 1 / fan_in.
-_TRUNC_STD = 0.87962566103423978
 
 
 def init_state_dict(
@@ -39,7 +37,10 @@ def init_state_dict(
     """fp32 CPU state_dict for ``model`` drawn from ``generator`` with the
     JAX package's scheme: convs lecun-normal (truncated at 2 std), deconvs
     and the final conv normal(``init_std``), zero final bias, BN scale 1,
-    bias 0, running mean 0, running var 1."""
+    bias 0, running mean 0, running var 1. The distributions are JAX's, the
+    values are not: ``build_pose_net`` takes this draw only for a caller
+    that passes a ``generator``; the rest get JAX's own values
+    (``jax_random.jax_init_params``)."""
     sd: Dict[str, torch.Tensor] = {}
 
     def normal(shape, std):
@@ -51,7 +52,7 @@ def init_state_dict(
             sd[p + "weight"] = normal(mod.weight.shape, init_std)
         elif isinstance(mod, nn.Conv2d):
             fan_in = math.prod(mod.weight.shape[1:])
-            std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+            std = math.sqrt(1.0 / fan_in) / TRUNC_STD
             sd[p + "weight"] = nn.init.trunc_normal_(
                 torch.empty(mod.weight.shape), 0.0, std, -2 * std, 2 * std, generator=generator
             )
@@ -215,8 +216,7 @@ def from_jax_train_state(
             f"opt_state is not make_optimizer's chain: {[type(s).__name__ for s in states]}"
         )
     (adam,), (sched,) = adam, sched
-    model = build_pose_net(cfg, device="cpu", trainable=True)
-    model.load_state_dict(from_jax_params(params, batch_stats, cfg))
+    model = build_pose_net(cfg, device="cpu", trainable=True, state_dict=from_jax_params(params, batch_stats, cfg))
     state = create_train_state(model, cfg, steps_per_epoch=1)
     mu = from_jax_params(adam.mu, batch_stats, cfg)
     nu = from_jax_params(adam.nu, batch_stats, cfg)

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+from typing import Mapping
 
 import torch
 from torch import nn
@@ -136,23 +137,34 @@ def build_pose_net(
     generator: torch.Generator | None = None,
     trainable: bool = False,
     dp: DataParallel | None = None,
+    state_dict: Mapping[str, torch.Tensor] | None = None,
 ) -> PoseNet:
-    """PoseNet for ``cfg`` on ``device`` with fp32 parameters, initialized
-    the way the JAX package initializes (``models.convert.init_state_dict``)
-    from ``generator``, or from ``torch.Generator().manual_seed(cfg.seed)``.
+    """PoseNet for ``cfg`` on ``device`` with fp32 parameters. Its weights,
+    in the first of these that the caller gives:
+
+    - ``state_dict``, loaded as it is (no draw);
+    - ``generator``: the JAX package's scheme drawn by torch
+      (``models.convert.init_state_dict``), not JAX's values;
+    - otherwise JAX's own initial values (``jax_random.jax_init_params``)
+      from ``split(key(cfg.seed))[1]``, the key JAX's ``Trainer``
+      initializes from, so one seed gives one model in both packages (the
+      port's ``Trainer`` builds its model so).
+
     Frozen in eval mode, or in train mode with gradients when
     ``trainable``. ``dp`` (``parallel.mesh.DataParallel``, as JAX's
     ``mesh=``): with world > 1, train-mode BN takes global-batch
     statistics; with spatial > 1 the model runs on this rank's rows."""
-    from ihpr_tpu_torch.models.convert import init_state_dict
+    from ihpr_tpu_torch.models import jax_random
+    from ihpr_tpu_torch.models.convert import from_jax_params, init_state_dict
 
     m = cfg.model
     if m.compute_dtype not in _DTYPES:
         raise ValueError(f"compute_dtype {m.compute_dtype!r} not in {sorted(_DTYPES)}")
+    joint_num = cfg.joint_num if joint_num is None else joint_num
     with torch.device("meta"):
         model = PoseNet(
             resnet_type=m.resnet_type,
-            joint_num=cfg.joint_num if joint_num is None else joint_num,
+            joint_num=joint_num,
             depth_dim=cfg.data.depth_dim,
             num_deconv_layers=m.num_deconv_layers,
             deconv_features=m.deconv_channels,
@@ -171,9 +183,12 @@ def build_pose_net(
     for mod in model.modules():
         if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):
             mod.weight.data = mod.weight.data.contiguous(memory_format=torch.channels_last)
-    if generator is None:
-        generator = torch.Generator().manual_seed(cfg.seed)
-    model.load_state_dict(init_state_dict(model, generator, m.head_final_init_std))
+    if state_dict is None and generator is not None:
+        state_dict = init_state_dict(model, generator, m.head_final_init_std)
+    elif state_dict is None:
+        params, stats = jax_random.jax_init_params(cfg, joint_num, jax_random.trainer_init_key(cfg.seed))
+        state_dict = from_jax_params(params, stats, cfg)
+    model.load_state_dict(state_dict)
     return model
 
 
@@ -183,9 +198,7 @@ def on_grid(model: PoseNet, cfg: Config, dp, device) -> PoseNet:
     state (the Tester's and the server's spatial copies)."""
     if dp is None or dp.row_axis == model.rows:
         return model
-    grid_model = build_pose_net(cfg, model.joint_num, device=device, dp=dp)
-    grid_model.load_state_dict(model.state_dict())
-    return grid_model
+    return build_pose_net(cfg, model.joint_num, device=device, dp=dp, state_dict=model.state_dict())
 
 
 def inference_copy(model: PoseNet) -> PoseNet:

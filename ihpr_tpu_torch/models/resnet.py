@@ -51,7 +51,9 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from ihpr_tpu_torch.ops import conv_bn, matmul_bn
-from ihpr_tpu_torch.parallel.mesh import DataParallel, all_reduce_sum, conv_needs, conv_rows, halo_rows, row_range
+from ihpr_tpu_torch.parallel.mesh import (
+    DataParallel, all_reduce_sum, conv_needs, conv_rows, halo_rows, row_range, s2d_needs,
+)
 
 # resnet_type -> (block kind, stage depths, channel expansion)
 RESNET_SPECS = {
@@ -447,16 +449,32 @@ class S2DStem(Conv):
     2x + px) of channel c), then a 4x4 stride-1 conv on the 4C channels,
     padded 2 above and left and 1 below and right. With weights from
     ``s2d_stem_kernel`` it equals the 7x7 stride-2 stem exactly. An fp32
-    master weight (64, 4C, 4, 4), cast to ``compute_dtype`` on each call."""
+    master weight (64, 4C, 4, 4), cast to ``compute_dtype`` on each call.
 
-    def __init__(self, cin: int, cout: int, compute_dtype, device=None):
-        super().__init__(4 * cin, cout, 4, 1, compute_dtype, device)
+    ``rows``: the input is this rank's rows of images of ``rows_in`` rows
+    (even, as JAX's reshape needs). For its output rows [a, b) a rank
+    takes image rows [2a - 4, 2b + 2) (``mesh.s2d_needs``, zeros past the
+    image), whose first is even, so the local block pairs rows as the whole
+    image does; then the conv runs without padding in H."""
+
+    def __init__(self, cin: int, cout: int, compute_dtype, device=None,
+                 rows: DataParallel | None = None, rows_in: int | None = None):
+        super().__init__(4 * cin, cout, 4, 1, compute_dtype, device, rows, rows_in)
+        if self.rows is not None and self.rows_in % 2:
+            raise ValueError(f"s2d_stem needs an even input height, not {self.rows_in}")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, c, h, w = x.shape
-        x = x.reshape(b, c, h // 2, 2, w // 2, 2).permute(0, 3, 5, 1, 2, 4).reshape(b, 4 * c, h // 2, w // 2)
-        x = F.pad(x.contiguous(memory_format=torch.channels_last), (2, 1, 2, 1))
-        return F.conv2d(x, self.weight.to(self.compute_dtype))
+        w = self.weight.to(self.compute_dtype)
+        pad = (2, 1, 2, 1)
+        if self.rows is not None:
+            x = halo_rows(x, self.rows_in, s2d_needs(self.rows_in, self.rows.world), 0.0, self.rows)
+            if x.shape[2] == 0:
+                return _no_rows((x.shape[0], self.out_channels, 0, x.shape[3] // 2), x, w)
+            pad = (2, 1, 0, 0)
+        b, c, h, wd = x.shape
+        x = x.reshape(b, c, h // 2, 2, wd // 2, 2).permute(0, 3, 5, 1, 2, 4).reshape(b, 4 * c, h // 2, wd // 2)
+        x = F.pad(x.contiguous(memory_format=torch.channels_last), pad)
+        return F.conv2d(x, w)
 
 
 def s2d_stem_kernel(w7: torch.Tensor) -> torch.Tensor:
@@ -519,9 +537,7 @@ class ResNetBackbone(nn.Module):
         # The global rows of each stage on a spatial grid (None: whole images).
         r = self.rows.input_rows if self.rows is not None else None
         if s2d_stem:
-            if self.rows is not None:
-                raise ValueError("s2d_stem does not run on a spatial grid (spatial_axis_size > 1)")
-            self.conv1 = S2DStem(3, 64, dtype, device)
+            self.conv1 = S2DStem(3, 64, dtype, device, self.rows, r)
         else:
             self.conv1 = _conv(3, 64, 7, 2, dtype, device, dp, r)
         self.pool_rows = _stage_rows(r, 7, 2, 3)

@@ -140,6 +140,19 @@ def deconv_needs(rows_in: int, world: int) -> Tuple[Tuple[int, int], ...]:
     return tuple(needs)
 
 
+def s2d_needs(rows_in: int, world: int) -> Tuple[Tuple[int, int], ...]:
+    """For each rank, the image rows [lo, hi) the space-to-depth stem's
+    output rows on that rank (``row_range`` of the rows_in / 2 output rows)
+    read: output rows [a, b) take space-to-depth rows [a - 2, b + 1) (the
+    4x4 conv's padding of 2 above and 1 below), image rows [2a - 4, 2b + 2),
+    whose first is even."""
+    needs = []
+    for r in range(world):
+        a, b = row_range(rows_in // 2, r, world)
+        needs.append((2 * a - 4, 2 * b + 2) if b > a else (0, 0))
+    return tuple(needs)
+
+
 def make_grid(dp: DataParallel, spatial: int, input_rows: int) -> DataParallel:
     """``dp`` (the world) as a D x ``spatial`` grid (``check_row_shards``)
     of images of ``input_rows`` rows. Creates one spatial group per data index, then one data group per

@@ -33,7 +33,11 @@ snapshot interval and keep, and bars:
   K1 / K2.
 
 Every preset runs with ``matmul_precision="highest"`` (TF32 off), as JAX's
-tool runs fp32 in true fp32. ``--bn_mode`` overrides the preset's BN
+tool runs fp32 in true fp32. The Trainer starts from JAX's own initial
+weights for the config's seed (``models/jax_random.py``: the values JAX's
+Trainer draws, computed without JAX), so a run and JAX's tool at one seed
+train one model. ``--seed`` sets that seed (model init and the loader's
+order; JAX's presets use 0); the synthetic sets keep theirs. ``--bn_mode`` overrides the preset's BN
 arithmetic, as JAX's does, with any of JAX's modes (``models.resnet.BN_MODES``:
 ``flax``, ``lean`` and the measurement modes); an unknown one raises before
 anything is rendered; the result records the mode the run used. ``--platform`` is ``--device`` here
@@ -116,8 +120,8 @@ def oracle_preds(cfg, loader, joint_num: int, state_dict) -> np.ndarray:
     (N, J, 3) voxel coords in ``loader.index`` order."""
     cpu_cfg = cfg.replace(model=dataclasses.replace(cfg.model, compute_dtype="float32", fp32_logits=True,
                                                     matmul_precision="highest"))
-    model = build_pose_net(cpu_cfg, joint_num, device="cpu")
-    model.load_state_dict({k: v.to("cpu") for k, v in state_dict.items()})
+    model = build_pose_net(cpu_cfg, joint_num, device="cpu",
+                           state_dict={k: v.to("cpu") for k, v in state_dict.items()})
     step = make_eval_step(inference_copy(model), cpu_cfg)
     n = len(loader.index)
     preds = np.zeros((n, joint_num, 3), np.float32)
@@ -158,6 +162,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help=f"override cfg.model.bn_mode with one of JAX's modes {BN_MODES} (JAX's flag; "
                     "lean_subN: lean_sub2, lean_sub4, ...)")
     ap.add_argument("--device", default="cuda", help="cuda (the card) or cpu")
+    ap.add_argument("--seed", type=int, default=None,
+                    help="the config's seed: JAX's initial weights for it and the loader's order (default: the "
+                    "preset's, 0)")
     ap.add_argument("--continue", dest="continue_train", action="store_true",
                     help="resume from the latest snapshot in --output_dir (the synthetic sets are seeded and "
                     "their JPEGs cached there, so the resumed run sees the same stream)")
@@ -188,6 +195,8 @@ def main(argv=None):
     cfg = cfg.replace(output_dir=out_dir, model=dataclasses.replace(cfg.model, matmul_precision="highest"))
     if args.bn_mode:
         cfg = cfg.replace(model=dataclasses.replace(cfg.model, bn_mode=args.bn_mode))
+    if args.seed is not None:
+        cfg = cfg.replace(seed=args.seed)
     if args.use_aug:
         cfg = cfg.replace(data=dataclasses.replace(cfg.data, use_aug=True))
         bar *= args.aug_bar_mult
@@ -238,6 +247,7 @@ def main(argv=None):
         "config": cfg.name,
         "resnet": cfg.model.resnet_type,
         "bn_mode": cfg.model.bn_mode,
+        "seed": cfg.seed,
         "input_shape": list(cfg.data.input_shape),
         "depth_dim": cfg.data.depth_dim,
         "train_size": train_size,
@@ -267,8 +277,8 @@ def main(argv=None):
                 cfg_fp32 = cfg.replace(model=dataclasses.replace(cfg.model, compute_dtype="float32",
                                                                  fp32_logits=True),
                                        output_dir=f"{out_dir}/fp32_eval")
-                fp32_model = build_pose_net(cfg_fp32, test_ds.joint_num, device=device)
-                fp32_model.load_state_dict(state.model.state_dict())
+                fp32_model = build_pose_net(cfg_fp32, test_ds.joint_num, device=device,
+                                            state_dict=state.model.state_dict())
                 ours_fp32 = evaluate(cfg_fp32, test_ds, fp32_model, device, **aux)[0]["MPJPE total"]
                 del fp32_model
                 print(f"ours (fp32 eval, same weights) MPJPE total: {ours_fp32:.2f} mm")

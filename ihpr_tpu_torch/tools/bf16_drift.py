@@ -179,9 +179,7 @@ def run(cfg, test_ds: PoseDataset, state_dict: dict, device, batch: int = 32, nu
 
     def build(**kw):
         c = cfg.replace(model=dataclasses.replace(cfg.model, matmul_precision="highest", **kw))
-        model = build_pose_net(c, test_ds.joint_num, device=device)
-        model.load_state_dict(state_dict)
-        return inference_copy(model)
+        return inference_copy(build_pose_net(c, test_ds.joint_num, device=device, state_dict=state_dict))
 
     bf16 = dict(compute_dtype="bfloat16", fp32_logits=False)
     models = {"fp32": build(compute_dtype="float32", fp32_logits=True), mode: build(**bf16),
@@ -255,8 +253,8 @@ def main(argv=None):
                  batch=args.batch)
     result.update(preset=args.preset, snapshot_epoch=epoch)
     if args.stats_out:
-        model = build_pose_net(cfg, skel.joint_num, device="cpu")
-        model.load_state_dict({k: v.cpu() for k, v in state_dict["model"].items()})
+        model = build_pose_net(cfg, skel.joint_num, device="cpu",
+                               state_dict={k: v.cpu() for k, v in state_dict["model"].items()})
         os.makedirs(os.path.dirname(os.path.abspath(args.stats_out)), exist_ok=True)
         np.savez_compressed(args.stats_out, **bn_fields(model))
         result["stats_out"] = args.stats_out

@@ -72,8 +72,7 @@ def test_converter_round_trip_is_bitwise(resnet):
     jcfg = jcfg.replace(model=dataclasses.replace(jcfg.model, resnet_type=resnet))
     _, params, stats = jax_pose_weights(jcfg, seed=resnet)
     cfg = to_port_cfg(jcfg)
-    model = build_pose_net(cfg, device="cpu")
-    model.load_state_dict(from_jax_params(params, stats, cfg))
+    model = build_pose_net(cfg, device="cpu", state_dict=from_jax_params(params, stats, cfg))
     for want, got in zip((params, stats), to_jax_params(model)):
         assert jax.tree.structure(got) == jax.tree.structure(want)
         for (path, a), (_, b) in zip(_leaves(want), _leaves(got)):
@@ -172,8 +171,7 @@ def test_jax_tester_scores_the_trained_weights_as_the_port_does(runs, tmp_path):
     samples = datasets.materialize_synthetic(
         datasets.make_synthetic(skeletons.H36M, 16, seed=22, img_size=400, easy_depth=True),
         str(out_dir / "imgs"), device="cpu")
-    model = build_pose_net(cfg, device="cpu")
-    model.load_state_dict(state_dict["model"])
+    model = build_pose_net(cfg, device="cpu", state_dict=state_dict["model"])
     tester = ttester.Tester(cfg.replace(output_dir=str(tmp_path / "port")),
                             dataset=datasets.PoseDataset("Human36M", skeletons.H36M, samples, False),
                             state=model, num_workers=0, device="cpu")
@@ -287,6 +285,44 @@ def test_bn_mode_overrides_the_preset_and_is_recorded(bn_mode, tmp_path, monkeyp
     with open(tmp_path / "accuracy_loop.json") as f:
         assert json.load(f)["bn_mode"] == bn_mode
     assert seen == {"mode": bn_mode, "bns": {bn_mode}}
+
+
+@pytest.mark.parametrize("seed", [None, 2])
+def test_seed_sets_the_trainers_jax_init_and_is_recorded(seed, tmp_path, monkeypatch):
+    """``--seed`` sets the config's seed, and with it the Trainer's initial
+    weights: JAX's draw for that seed (``jax_random.trainer_init_key``); the
+    preset's 0 by default. The result JSON records it."""
+    from ihpr_tpu_torch.models import jax_random
+    from ihpr_tpu_torch.models.convert import from_jax_params
+
+    monkeypatch.setattr(accuracy_loop, "preset_config", lambda preset: _small_bf16())
+    seen = {}
+    real = accuracy_loop.train_timed
+
+    def spy(cfg, *a, **k):
+        seen["seed"] = cfg.seed
+        params, stats = jax_random.jax_init_params(cfg, 18, jax_random.trainer_init_key(cfg.seed))
+        seen["init"] = from_jax_params(params, stats, cfg)["backbone.conv1.weight"]
+        return real(cfg, *a, **k)
+
+    monkeypatch.setattr(accuracy_loop, "train_timed", spy)
+    from ihpr_tpu_torch.engine import trainer as trainer_mod
+
+    built = {}
+    real_trainer_build = trainer_mod.build_pose_net
+
+    def build(*a, **k):
+        model = real_trainer_build(*a, **k)
+        built.setdefault("stem", model.state_dict()["backbone.conv1.weight"].clone())
+        return model
+
+    monkeypatch.setattr(trainer_mod, "build_pose_net", build)
+    argv = ["--device", "cpu", "--preset", "flagship", "--train_size", "4", "--test_size", "4", "--end_epoch", "1",
+            "--mpjpe_bar_mm", "10000", "--skip_oracle", "--output_dir", str(tmp_path)]
+    assert _run(accuracy_loop, argv + ([] if seed is None else ["--seed", str(seed)]), monkeypatch) == 0
+    with open(tmp_path / "accuracy_loop.json") as f:
+        assert json.load(f)["seed"] == (seed or 0) == seen["seed"]
+    assert torch.equal(built["stem"], seen["init"])
 
 
 def test_synthetic_frames_are_jax_cv2_bytes(tmp_path):

@@ -184,8 +184,7 @@ def planted():
     jcfg = _jcfg("float32", "lean")
     _, params, jstats = jax_pose_weights(jcfg, seed=11)
     cfg = to_port_cfg(jcfg)
-    model = build_pose_net(cfg, device="cpu")
-    model.load_state_dict(from_jax_params(params, jstats, cfg))
+    model = build_pose_net(cfg, device="cpu", state_dict=from_jax_params(params, jstats, cfg))
     rng = np.random.RandomState(12)
     image = torch.from_numpy((rng.randn(B, SIZE, SIZE, 3) * 0.5 + np.asarray(BACKGROUND)).astype(np.float32))
     reached = plant(model, stats, image)
@@ -198,8 +197,7 @@ def _port_outputs(params, jstats, image, dtype, bn_mode):
     from ihpr_tpu_torch.models.pose_net import inference_copy
 
     cfg = to_port_cfg(_jcfg(dtype, bn_mode))
-    model = build_pose_net(cfg, device="cpu")
-    model.load_state_dict(from_jax_params(params, jstats, cfg))
+    model = build_pose_net(cfg, device="cpu", state_dict=from_jax_params(params, jstats, cfg))
     model = inference_copy(model)
     x = torch.from_numpy(image)
     with torch.inference_mode():

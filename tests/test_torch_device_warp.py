@@ -328,8 +328,7 @@ def test_canvas_train_step_matches_jax(monkeypatch):
     keys = []
     monkeypatch.setattr(train_step, "sample_aug_params",
                         lambda gen, b, data: (keys.append(b), drawn)[1])
-    model = build_pose_net(cfg, device="cpu", trainable=True)
-    model.load_state_dict(from_jax_params(params, stats, cfg))
+    model = build_pose_net(cfg, device="cpu", trainable=True, state_dict=from_jax_params(params, stats, cfg))
     opt, sched = train_step.make_optimizer(model, cfg, 10)
     got = train_step.make_train_step(model, opt, cfg, scheduler=sched)(
         {k: _t(v) for k, v in batch.items()}, 0, 0)
@@ -349,8 +348,7 @@ def eval_setup():
                         parallel=dataclasses.replace(jcfg.parallel, data_axis_size=1))
     cfg = to_port_cfg(jcfg)
     jmodel, params, stats = jax_pose_weights(jcfg, seed=6)
-    model = build_pose_net(cfg, device="cpu")
-    model.load_state_dict(from_jax_params(params, stats, cfg))
+    model = build_pose_net(cfg, device="cpu", state_dict=from_jax_params(params, stats, cfg))
     return jcfg, cfg, jmodel, params, stats, model
 
 

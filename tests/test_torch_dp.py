@@ -345,8 +345,8 @@ def test_route_table_at_world_2_matches_jax_mesh():
 
 
 def _one_process_step(cfg, model_sd, batch, steps):
-    model = build_pose_net(cfg, device="cpu", trainable=True)
-    model.load_state_dict({k: torch.from_numpy(v) for k, v in model_sd.items()})
+    model = build_pose_net(cfg, device="cpu", trainable=True,
+                           state_dict={k: torch.from_numpy(v) for k, v in model_sd.items()})
     t = {k: torch.from_numpy(v) for k, v in batch.items()}
     from ihpr_tpu_torch.data.augment import finalize_patch
 
@@ -518,8 +518,7 @@ def test_tester_gathers_rows_and_rank_0_alone_writes(ranks, tmp_path):
     fp32 noise (1e-5 voxel), every rank returns the same metrics, and only
     rank 0 writes result files."""
     tcfg, model_sd = ranks["inputs"]["test"]
-    model = build_pose_net(tcfg, device="cpu")
-    model.load_state_dict({k: torch.from_numpy(v) for k, v in model_sd.items()})
+    model = build_pose_net(tcfg, device="cpu", state_dict={k: torch.from_numpy(v) for k, v in model_sd.items()})
     one = ttester.Tester(tcfg.replace(output_dir=str(tmp_path)),
                          dataset=datasets.build_dataset("Human36M", "test", tcfg, "synthetic", N_TEST),
                          state=model, num_workers=0, device="cpu")

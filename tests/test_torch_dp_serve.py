@@ -56,8 +56,7 @@ def served(tmp_path_factory):
     _, params, stats = jax_pose_weights(jcfg, seed=8)
     cfg = to_port_cfg(jcfg)
     sd = from_jax_params(params, stats, cfg)
-    model = build_pose_net(cfg, device="cpu", trainable=True)
-    model.load_state_dict(sd)
+    model = build_pose_net(cfg, device="cpu", trainable=True, state_dict=sd)
     ckpt = CheckpointManager(str(tmp / "run"))
     ckpt.save(0, create_train_state(model, cfg, 1))
     ckpt.wait()

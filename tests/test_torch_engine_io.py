@@ -78,8 +78,7 @@ def weights():
 def _port_snapshot(cfg, params, stats, out, epoch=3):
     """A port model with the given JAX weights, saved as snapshot ``epoch``
     under ``out``; returns the model."""
-    model = build_pose_net(cfg, device="cpu", trainable=True)
-    model.load_state_dict(from_jax_params(params, stats, cfg))
+    model = build_pose_net(cfg, device="cpu", trainable=True, state_dict=from_jax_params(params, stats, cfg))
     ckpt = CheckpointManager(str(out))
     ckpt.save(epoch, create_train_state(model, cfg, 1))
     ckpt.wait()

@@ -56,8 +56,7 @@ def setup():
     Human36M test split (the same samples from the same seed)."""
     jcfg, cfg = _cfgs(matmul_precision="highest")
     jmodel, params, stats = jax_pose_weights(jcfg, seed=6)
-    model = build_pose_net(cfg, device="cpu")
-    model.load_state_dict(from_jax_params(params, stats, cfg))
+    model = build_pose_net(cfg, device="cpu", state_dict=from_jax_params(params, stats, cfg))
     jds = jdatasets.build_dataset("Human36M", "test", jcfg, "synthetic", N_TEST)
     tds = datasets.build_dataset("Human36M", "test", cfg, "synthetic", N_TEST)
     return jcfg, cfg, jmodel, params, stats, model, jds, tds

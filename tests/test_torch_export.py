@@ -194,8 +194,7 @@ def test_export_cli_from_a_snapshot(tiny_setup, tmp_path, monkeypatch):
     predictions, and the sidecar has JAX's keys."""
     _, cfg, params, stats, _ = tiny_setup
     monkeypatch.setitem(tconfig.CONFIGS, "tiny_export", cfg.replace(name="tiny_export"))
-    model = build_pose_net(cfg, device="cpu", trainable=True)
-    model.load_state_dict(from_jax_params(params, stats, cfg))
+    model = build_pose_net(cfg, device="cpu", trainable=True, state_dict=from_jax_params(params, stats, cfg))
     ckpt = CheckpointManager(str(tmp_path / "run"))
     ckpt.save(2, create_train_state(model, cfg, 1))
     ckpt.wait()

@@ -84,8 +84,7 @@ def jax_pose_weights(jcfg, seed=0):
 
 def port_model(jcfg, params, stats):
     cfg = to_port_cfg(jcfg)
-    model = build_pose_net(cfg, device="cpu")
-    model.load_state_dict(from_jax_params(params, stats, cfg))
+    model = build_pose_net(cfg, device="cpu", state_dict=from_jax_params(params, stats, cfg))
     return model
 
 
@@ -227,8 +226,7 @@ def test_bf16_config_keeps_fp32_master_weights():
     _, params, stats = jax_pose_weights(jcfg)
     cfg = to_port_cfg(jcfg)
     sd = from_jax_params(params, stats, cfg)
-    model = build_pose_net(cfg, device="cpu")
-    model.load_state_dict(sd)
+    model = build_pose_net(cfg, device="cpu", state_dict=sd)
     out = model.state_dict()
     assert set(out) == set(sd)
     for k, v in out.items():

@@ -523,13 +523,17 @@ def test_s2d_stem_backbone_matches_jax():
 
 
 def test_s2d_stem_refuses_a_spatial_grid():
-    """The s2d stem on row shards is not ported (ROADMAP Queue 1 #5): the
-    backbone refuses a grid of spatial > 1 by name."""
+    """The s2d stem runs on row shards (``S2DStem`` with ``rows``; held to
+    JAX's mesh in ``tests/test_torch_spatial.py``), and refuses, by name, a
+    grid of images of an odd height, where JAX's space-to-depth reshape
+    fails; an even height builds."""
     from ihpr_tpu_torch.parallel.mesh import DataParallel
 
-    grid = DataParallel(0, 2, None, spatial=2, input_rows=64)
+    grid = DataParallel(0, 2, None, spatial=2, input_rows=63)
     with pytest.raises(ValueError, match="s2d_stem"):
         ResNetBackbone(18, torch.float32, "flax", dp=grid, s2d_stem=True)
+    even = DataParallel(0, 2, None, spatial=2, input_rows=64)
+    assert ResNetBackbone(18, torch.float32, "flax", dp=even, s2d_stem=True).conv1.rows_in == 64
 
 
 def test_s2d_stem_converts_both_ways_and_loads_pretrained(tmp_path):
@@ -541,8 +545,7 @@ def test_s2d_stem_converts_both_ways_and_loads_pretrained(tmp_path):
     jcfg = jax_tiny_cfg(s2d_stem=True)
     cfg = to_port_cfg(jcfg)
     model, params, stats = jax_pose_weights(jcfg, seed=9)
-    port = build_pose_net(cfg, device="cpu")
-    port.load_state_dict(from_jax_params(params, stats, cfg))
+    port = build_pose_net(cfg, device="cpu", state_dict=from_jax_params(params, stats, cfg))
     back, _ = to_jax_params(port)
     np.testing.assert_array_equal(back["backbone"]["conv1"]["kernel"], params["backbone"]["conv1"]["kernel"])
     x = np.random.RandomState(10).randn(2, 64, 64, 3).astype(np.float32)

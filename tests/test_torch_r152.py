@@ -72,8 +72,7 @@ def r152():
         if "bn3" in layer:
             layer["bn3"]["BatchNorm_0"]["scale"] = layer["bn3"]["BatchNorm_0"]["scale"] * RESIDUAL_SCALE
     cfg = to_port_cfg(jcfg)
-    model = build_pose_net(cfg, device="cpu")
-    model.load_state_dict(from_jax_params(params, stats, cfg))
+    model = build_pose_net(cfg, device="cpu", state_dict=from_jax_params(params, stats, cfg))
     return jcfg, cfg, jmodel, params, stats, model
 
 
@@ -128,8 +127,7 @@ def _train_coords(cfg, state_dict, batch, perturb):
     """Train-mode coords of the port model on ``state_dict`` with each
     weight times (1 + perturb * N(0, 1)), seeded."""
     g = torch.Generator().manual_seed(1)
-    model = build_pose_net(cfg, device="cpu", trainable=True)
-    model.load_state_dict({
+    model = build_pose_net(cfg, device="cpu", trainable=True, state_dict={
         k: v * (1 + perturb * torch.randn(v.shape, generator=g)) if k.endswith(("weight", "bias")) else v
         for k, v in state_dict.items()
     })

@@ -11,7 +11,8 @@ fp32 "highest" lean BN; 64x64 at S = 2, 128x128 at S = 4 and at 2 x 2 (rows
 split evenly at every stage); 64x64 on a 1 x 4 grid (the 2 rows at stride
 32 over 4 ranks: two own none) and 128x128 at S = 3 (4 rows at stride 32
 over 3) in GSPMD's layout (``mesh.row_range``). The halo'd layers and the
-integral also run on shards of odd sizes and on empty ones.
+integral also run on shards of odd sizes and on empty ones. The s2d stem
+runs on an S = 2 grid at 64x64 and an S = 3 grid at 128x128 (``S2D``).
 
 Tolerances: each halo'd layer 1e-6 of the result's largest; the row-sharded
 integral 1e-5 voxel (coords) and 1e-6 of dv's largest; eval-mode gradients
@@ -57,8 +58,13 @@ import torch_dp_ranks as R
 
 torch.set_num_threads(1)
 
-GRIDS = {"2": (2, 2), "4": (4, 4), "2x2": (4, 2), "1x4": (4, 4), "3": (3, 3)}  # name: (world, S)
-SIZE = {"2": 64, "4": 128, "2x2": 128, "1x4": 64, "3": 128}  # input rows (and columns) of each grid's steps
+GRIDS = {"2": (2, 2), "4": (4, 4), "2x2": (4, 2), "1x4": (4, 4), "3": (3, 3),
+         "s2d_2": (2, 2), "s2d_3": (3, 3)}  # name: (world, S)
+SIZE = {"2": 64, "4": 128, "2x2": 128, "1x4": 64, "3": 128,
+        "s2d_2": 64, "s2d_3": 128}  # input rows (and columns) of each grid's steps
+# The grids whose model has the space-to-depth stem (32 stem rows over 2;
+# 64 over 3, in blocks of 22, 22 and 20).
+S2D = ("s2d_2", "s2d_3")
 # Each grid's batch is 2 samples, as test_torch_train._train_batch: the R18
 # train-mode step on 4 random patches is ill-conditioned (test_torch_dp.py).
 N_TRAIN, N_TEST = 8, 6  # the CLI's synthetic samples
@@ -76,10 +82,10 @@ def _batch(b, size, seed=20, j=18):
     }
 
 
-def _jcfg(size, per_device=2, data_axis_size=None, spatial=1):
+def _jcfg(size, per_device=2, data_axis_size=None, spatial=1, s2d=False):
     """The JAX tiny config at size x size (heatmaps size / 4), fp32 "highest"
-    lean BN, ``per_device`` samples a data index."""
-    jcfg = jax_tiny_cfg(matmul_precision="highest", bn_mode="lean")
+    lean BN, ``per_device`` samples a data index, the s2d stem with ``s2d``."""
+    jcfg = jax_tiny_cfg(matmul_precision="highest", bn_mode="lean", s2d_stem=s2d)
     return jcfg.replace(
         data=dataclasses.replace(jcfg.data, input_shape=(size, size), output_shape=(size // 4, size // 4)),
         optim=dataclasses.replace(jcfg.optim, batch_size_per_device=per_device, lr=1e-3),
@@ -163,7 +169,7 @@ UNEVEN_INTEGRAL_ROWS = {3: 5, 4: 3}  # 2 + 2 + 1 rows; 1 + 1 + 1 + 0
 def _step_inputs(name):
     world, spatial = GRIDS[name]
     size = SIZE[name]
-    jcfg = _jcfg(size, per_device=2 // (world // spatial))
+    jcfg = _jcfg(size, per_device=2 // (world // spatial), s2d=name in S2D)
     _, params, stats = jax_pose_weights(jcfg, seed=5)
     cfg = to_port_cfg(jcfg)
     model_sd = {k: v.numpy() for k, v in from_jax_params(params, stats, cfg).items()}
@@ -387,16 +393,14 @@ def _one_process(cfg, model_sd, batch):
 
     sd = {k: torch.from_numpy(v) for k, v in model_sd.items()}
     t = {k: torch.from_numpy(v) for k, v in batch.items()}
-    model = build_pose_net(cfg, device="cpu", trainable=True)
-    model.load_state_dict(sd)
+    model = build_pose_net(cfg, device="cpu", trainable=True, state_dict=sd)
     model.eval()
     with model.precision():
         loss = joint_location_loss(model.coords(finalize_patch(t["patch"], t["color_scale"], cfg.data)),
                                    t["joint_img"], t["joint_vis"], t["joints_have_depth"])
         loss.backward()
     grads = {k: p.grad.numpy().copy() for k, p in model.named_parameters()}
-    net = build_pose_net(cfg, device="cpu")
-    net.load_state_dict(sd)
+    net = build_pose_net(cfg, device="cpu", state_dict=sd)
     coords = make_eval_step(inference_copy(net), cfg)(t)[0].numpy()
     opt, sched = make_optimizer(model, cfg, 10)
     metrics = {k: float(v) for k, v in make_train_step(model, opt, cfg, scheduler=sched)(t).items()}
@@ -452,9 +456,9 @@ def test_train_step_on_the_grid_matches_one_process(spawned, one_process, name):
 
 
 @functools.cache
-def _jax_eval_step(size):
+def _jax_eval_step(size, s2d=False):
     """JAX's unpartitioned flip-test eval step at size x size, jitted once."""
-    jcfg = _jcfg(size)
+    jcfg = _jcfg(size, s2d=s2d)
     return jax_make_eval_step(jax_build_pose_net(jcfg), jcfg)
 
 
@@ -472,7 +476,7 @@ def test_flip_test_eval_on_the_grid(spawned, one_process, name):
     got = np.concatenate([r["eval_coords"] for r in ranks[::spatial]])
     assert np.abs(got - one_process[name][2]).max() <= 1e-6 * SIZE[name] / 4
     jcfg, params, stats, _, _, batch = spawned["inputs"]["step"][name]
-    jev = _jax_eval_step(SIZE[name])
+    jev = _jax_eval_step(SIZE[name], name in S2D)
     jcoords = np.asarray(jev(params, stats, {k: jnp.asarray(v) for k, v in batch.items()})[0])
     assert np.abs(jcoords - 7.5).max() > 0.5
     assert np.abs(got - jcoords).max() <= 2e-3
@@ -496,8 +500,31 @@ def test_train_step_matches_jax_spatial_mesh(spawned):
     gradients below: JAX's own (2, 2)-mesh train steps disagree with its
     1-device step by more than these bounds, at 128x128 through the step's
     ill-conditioning and at 64x64 in the backbone's gradients."""
-    jcfg, params, stats, cfg, _, batch = spawned["inputs"]["step"]["2"]
-    jmesh = _jax_mesh("2")
+    _check_train_step_against_jax(spawned, "2")
+
+
+def test_s2d_train_step_matches_jax_spatial_mesh(spawned):
+    """The s2d stem's first step on the S = 2 grid (each rank's stem takes
+    image rows [2a - 4, 2b + 2) for its output rows [a, b)) against JAX's
+    make_train_step on make_mesh(1, spatial_axis_size=2), at the bounds of
+    ``test_train_step_matches_jax_spatial_mesh``; against the port's one
+    process in ``test_train_step_on_the_grid_matches_one_process[s2d_2]``."""
+    _check_train_step_against_jax(spawned, "s2d_2")
+
+
+@pytest.mark.parametrize("name", S2D)
+def test_s2d_eval_coords_match_jax_mesh(spawned, name):
+    """The s2d stem's eval coords (flip-test on) on the S = 2 grid and on the
+    uneven S = 3 grid against JAX's eval step on its own (1, S) mesh, at
+    JAX's test_spatial_eval_step_matches_unpartitioned bar, 1e-4 voxel."""
+    _check_eval_coords_against_jax_mesh(spawned, name)
+
+
+def _check_train_step_against_jax(spawned, name):
+    """The grid ``name``'s first step against JAX's mesh step from the same
+    weights and batch (the bounds of ``test_train_step_matches_jax_spatial_mesh``)."""
+    jcfg, params, stats, cfg, _, batch = spawned["inputs"]["step"][name]
+    jmesh = _jax_mesh(name)
     jmodel = jax_build_pose_net(jcfg, mesh=jmesh)
     state, tx = jax_create_train_state(jmodel, jcfg, jax.random.key(0), 10, params=params, batch_stats=stats,
                                        mesh=jmesh)
@@ -507,7 +534,7 @@ def test_train_step_matches_jax_spatial_mesh(spawned):
     ref_grads = {k: v.numpy() for k, v in from_jax_params(to_np(metrics["grads"]), stats, cfg).items()}
     ref_state = {k: v.numpy() for k, v in
                  from_jax_params(to_np(new_state.params), to_np(new_state.batch_stats), cfg).items()}
-    got = _ranks(spawned, "2")[0]
+    got = _ranks(spawned, name)[0]
     assert got["metrics"]["loss"] == pytest.approx(float(metrics["loss"]), rel=1e-5)
     assert got["metrics"]["grad_norm"] == pytest.approx(float(metrics["grad_norm"]), rel=1e-4)
     for k, g in got["grads"].items():
@@ -580,14 +607,20 @@ def test_uneven_1x4_eval_coords_match_jax_mesh(spawned):
     """The 1 x 4 grid's eval coords (flip-test on) against JAX's eval step
     on its own (1, 4) mesh, at JAX's test_spatial_eval_step_matches_
     unpartitioned bar, 1e-4 voxel."""
-    jcfg, params, stats, _, _, batch = spawned["inputs"]["step"]["1x4"]
-    jmesh = _jax_mesh("1x4")
+    _check_eval_coords_against_jax_mesh(spawned, "1x4")
+
+
+def _check_eval_coords_against_jax_mesh(spawned, name):
+    """Rank 0's flip-test eval coords on the grid ``name`` (D = 1) against
+    JAX's eval step on its own mesh, within 1e-4 voxel."""
+    jcfg, params, stats, _, _, batch = spawned["inputs"]["step"][name]
+    jmesh = _jax_mesh(name)
     from ihpr_tpu.parallel import batch_sharding
 
     ev = jax_make_eval_step(jax_build_pose_net(jcfg), jcfg, jmesh)
     jbatch = {k: jax.device_put(jnp.asarray(v), batch_sharding(jmesh)) for k, v in batch.items()}
     jcoords = np.asarray(ev(params, stats, jbatch)[0])
-    got = _ranks(spawned, "1x4")[0]["eval_coords"]
+    got = _ranks(spawned, name)[0]["eval_coords"]
     assert np.abs(jcoords - 7.5).max() > 0.5
     np.testing.assert_allclose(got, jcoords, rtol=0, atol=1e-4)
 

@@ -323,8 +323,7 @@ def _port_step(cfg, params, stats, batch):
     """One port train step from the JAX weights: loss, grad norm, every
     parameter's gradient, the state after the step, and the coords the
     model gave before it (train mode, on a copy)."""
-    model = build_pose_net(cfg, device="cpu", trainable=True)
-    model.load_state_dict(from_jax_params(params, stats, cfg))
+    model = build_pose_net(cfg, device="cpu", trainable=True, state_dict=from_jax_params(params, stats, cfg))
     with torch.no_grad():
         coords = copy.deepcopy(model).coords(_finalize(batch, cfg))
     opt, sched = make_optimizer(model, cfg, 10)
@@ -559,20 +558,24 @@ def _tiny_trainer(samples, output_dir, **optim):
 
 
 def test_trainer_takes_steps_with_a_falling_loss(tmp_path):
-    """Three one-step epochs of the Trainer on one fixed batch of four
+    """Five one-step epochs of the Trainer on one fixed batch of four
     synthetic samples: finite, falling loss; the step counter follows, and
-    ``losses`` holds the current epoch's loss after each."""
+    ``losses`` holds the current epoch's loss after each. From JAX's
+    initial weights (the Trainer's draw) this batch's loss rises at the
+    second step in both packages and falls from the fourth (measured: the
+    port 2.574, 2.597, 2.582, 2.384, 2.298; JAX's Trainer 2.574, 2.588,
+    2.551, 2.362, 2.273), so three steps do not show the fall."""
     trainer, _ = _tiny_trainer(4, tmp_path, lr=1e-2)
     losses = []
     try:
         assert trainer.steps_per_epoch == 1
-        for end in (1, 2, 3):
+        for end in (1, 2, 3, 4, 5):
             state = trainer.train(end)
             assert len(trainer.losses) == 1
             losses += [float(x) for x in trainer.losses]
     finally:
         trainer.close()
-    assert state.step == 3 and len(losses) == 3
+    assert state.step == 5 and len(losses) == 5
     assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
 
 

@@ -114,8 +114,8 @@ def step_ranks(rank, world, cfg, model_sd, batch, steps):
     first, and the state after the first and after the last."""
     torch.set_num_threads(1)
     dp = data_parallel(cfg)
-    model = build_pose_net(cfg, device="cpu", trainable=True, dp=dp)
-    model.load_state_dict({k: torch.from_numpy(v) for k, v in model_sd.items()})
+    model = build_pose_net(cfg, device="cpu", trainable=True, dp=dp,
+                           state_dict={k: torch.from_numpy(v) for k, v in model_sd.items()})
     local = {k: torch.from_numpy(rows(v, rank, world)) for k, v in batch.items()}
     labels = (local["joint_img"], local["joint_vis"], local["joints_have_depth"])
 
@@ -281,8 +281,7 @@ def tester_ranks(rank, world, cfg, model_sd, n):
     """The Tester on this rank's rows: predictions, metrics, and the result
     files this rank wrote."""
     torch.set_num_threads(1)
-    model = build_pose_net(cfg, device="cpu")
-    model.load_state_dict({k: torch.from_numpy(v) for k, v in model_sd.items()})
+    model = build_pose_net(cfg, device="cpu", state_dict={k: torch.from_numpy(v) for k, v in model_sd.items()})
     written = []
     save, dump = np.save, ttester.json.dump
     ttester.np.save = lambda path, *a, **kw: (written.append(str(path)), save(path, *a, **kw))[1]
@@ -440,8 +439,7 @@ def spatial_step_ranks(rank, world, cfg, model_sd, batch, spatial):
     sd = {k: torch.from_numpy(v) for k, v in model_sd.items()}
     local = {k: torch.from_numpy(rows(v, data.rank, data.world)) for k, v in batch.items()}
     labels = (local["joint_img"], local["joint_vis"], local["joints_have_depth"])
-    model = build_pose_net(cfg, device="cpu", trainable=True, dp=dp)
-    model.load_state_dict(sd)
+    model = build_pose_net(cfg, device="cpu", trainable=True, dp=dp, state_dict=sd)
     ddp = train_step._ddp(model, dp)
     model.eval()
     with model.precision():
@@ -450,8 +448,7 @@ def spatial_step_ranks(rank, world, cfg, model_sd, batch, spatial):
         eval_loss.backward()
     out = {"eval_loss": float(eval_loss), "eval_grads": {k: _np(p.grad) for k, p in model.named_parameters()}}
 
-    net = build_pose_net(cfg, device="cpu", dp=dp)
-    net.load_state_dict(sd)
+    net = build_pose_net(cfg, device="cpu", dp=dp, state_dict=sd)
     coords, _, _ = train_step.make_eval_step(inference_copy(net), cfg)(local)
     out["eval_coords"] = _np(coords)
 
@@ -604,8 +601,7 @@ def remat_grid_ranks(rank, world, cfg, model_sd, batch):
         c = cfg.replace(parallel=dataclasses.replace(cfg.parallel, spatial_axis_size=world),
                         model=dataclasses.replace(cfg.model, **remat))
         dp = data_parallel(c)
-        model = build_pose_net(c, device="cpu", trainable=True, dp=dp)
-        model.load_state_dict(sd)
+        model = build_pose_net(c, device="cpu", trainable=True, dp=dp, state_dict=sd)
         ddp = train_step._ddp(model, dp)
         with model.precision():
             image = mesh.row_shard(finalize_patch(local["patch"], local["color_scale"], c.data), model.rows)
