@@ -79,6 +79,16 @@
    step against plain_bwd on the same saved inputs; the loss falling over
    10 steps on one repeated batch; device ms per step (CUDA events),
    host-clock img/s and the loader's host ms per batch.
+7q. The kernel switch on the card (kernels_off_phase): IHPR_PALLAS=off,
+   set inside the phase (restored after), is refused by the Trainer and
+   the fused head, with no launch. Then h36m3d_r50 from JAX's initial
+   weights trains OFF_STEPS steps through the Trainer on the plain
+   versions (plain_versions, a triage patch outside the port): none of
+   K1-K8 (nor their fp32 instances) launches; the first loss within
+   TOL_OFF_LOSS of the kernels' first step from the same state on the same
+   batch; one resident batch's device ms a step on the plain versions and
+   with the kernels, in turns. The script itself refuses to start (exit 2)
+   when IHPR_PALLAS is set to anything but auto.
 7o. The JAX package's modes (modes_phase): K1/K2 bf16 at (128, 4096, 256)
    x (256, 1152) and K1/K2-fp32 at batch 32 under IHPR_EXP2, IHPR_BEXP and
    both, each against plain in the same mode (TOL_VOXEL, TOL_BWD), K2's
@@ -264,7 +274,8 @@ the accuracy tool's whole run; 5d: the fused op's forward and backward;
 7l: each route's forward and backward, the Trainer's steps, the server; 7m:
 each route's forward and backward, the Trainer's steps; 7i:
 each rank's eval steps, Trainer steps, server, s2d eval and train step
-and grid step, counted in the rank; 7k: each rank's eval step and train step, counted in the rank) the
+and grid step, counted in the rank; 7k: each rank's eval step and train step, counted in the rank;
+7q: the Trainer's steps with the kernels off, where every count must stay 0) the
 kernels' launch counters are set to 0 just before the path
 runs and read just after (in 11-12 the path is the tool's main); each kernel of the path must have launched as
 often as the path dispatched it, and the others not at all. Outputs are
@@ -280,7 +291,7 @@ builds the kernels and runs only the named phases (bn: 5c; fused: 7b; dp:
 7d; dp-serve: 7e; device-warp: 7f; serving-bench: 7g; real-data: 7h;
 spatial: 7i; spatial-uneven: 7k; accuracy: 7j; fp32-kernels: 5d;
 fp32-train and parity-serve: 7l; fp32-fused: 7m; fp32-conv3: 7n; no-plan: 9; modes: 7o;
-jax-init: 2b), for timing one tree's K5-K8 against another's (copy this file into a
+jax-init: 2b; kernels-off: 7q), for timing one tree's K5-K8 against another's (copy this file into a
 checkout of the other tree and run it there) or trying one phase. It
 prints no JSON lines.
 """
@@ -1018,6 +1029,127 @@ def train_phase(fhi, gpu: str):
     finally:
         trainer.close()
     return k1, k2, head_err
+
+
+# --- 7q: IHPR_PALLAS=off refused on the card; the plain versions' A/B on the flagship ---
+
+OFF_STEPS = 2  # counted Trainer steps on the plain versions
+OFF_SIZE = 128  # synthetic samples per train set: H36M + MPII = 256, two batches of 128
+# The first loss on the plain versions vs the kernels', from one state on
+# one batch (absolute, on a loss of ~7.4): 20x the gap measured on the card.
+TOL_OFF_LOSS = 1e-5
+
+
+@contextlib.contextmanager
+def plain_versions(fhi, iv, mm, cb):
+    """The plain versions of K1-K8 on CUDA tensors: the kernels' A/B
+    against them on the card (7q; ``build/p24/accuracy_variants.py
+    --variant off`` trains under it). Not a route of the port, which
+    refuses ``IHPR_PALLAS=off`` on CUDA tensors: each op module's
+    ``use_kernels`` answers False here, and the fused head has no plan, so
+    it takes the no-plan route (fp32 logits, then the plain integral) as
+    JAX's ``IHPR_PALLAS=off`` does (``j2 = None``)."""
+    saved = [(mod, "use_kernels", mod.use_kernels) for mod in (fhi, iv, mm, cb)]
+    saved.append((fhi, "fused_supported", fhi.fused_supported))
+    for mod, name, _ in saved:
+        setattr(mod, name, lambda *args: False)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def kernels_off_phase(fhi, iv, mm, cb, gpu: str):
+    """7q: with ``IHPR_PALLAS=off`` set inside the phase (and restored
+    after), the Trainer refuses to start on the card and the fused head
+    refuses CUDA tensors, launching nothing. Then h36m3d_r50 (ResNet-50 at
+    256x256, bf16, lean BN, batch 128) from JAX's initial weights trains
+    OFF_STEPS counted steps through ``Trainer.train`` under
+    ``plain_versions``: no hand-written kernel of K1-K8 launches, and the
+    first counted loss is held to the kernels' first step from the same
+    state on the same batch (TOL_OFF_LOSS). Then one resident batch's step
+    is timed with the kernels and with the plain versions, in turns (CUDA
+    events), which sizes a whole run on the plain versions. Returns (plain
+    ms, kernels ms) a step."""
+    from ihpr_tpu_torch.config import get_config
+    from ihpr_tpu_torch.data import skeletons
+    from ihpr_tpu_torch.data.pipeline import prefetch_to_device
+    from ihpr_tpu_torch.engine.trainer import Trainer
+
+    scratch = tempfile.TemporaryDirectory()  # the Trainer's log; removed on return
+    cfg = get_config("h36m3d_r50").replace(output_dir=scratch.name)
+    all_counts = (lambda: _counts(fhi, iv, mm, cb) + _f32_counts(fhi) + (
+        mm.f32_launches, mm.f32_bwd_launches, cb.f32_launches, cb.f32_bwd_launches))
+    prev = os.environ.get("IHPR_PALLAS")
+    os.environ["IHPR_PALLAS"] = "off"
+    try:
+        _zero_counts(fhi, iv, mm, cb)
+        refused = []
+        try:
+            Trainer(cfg, data_root="synthetic", synthetic_size=OFF_SIZE, num_workers=1, device="cuda")
+        except ValueError as e:
+            refused.append(str(e))
+        feat, kernel, bias = _head_inputs(2, 64 * 64, 256, 18 * 64, torch.bfloat16, seed=24)
+        try:
+            fhi.fused_final_conv_integral(feat.view(2, 64, 64, 256), kernel, bias, 18, 64)
+        except ValueError as e:
+            refused.append(str(e))
+        torch.cuda.synchronize()
+    finally:
+        if prev is None:
+            os.environ.pop("IHPR_PALLAS", None)
+        else:
+            os.environ["IHPR_PALLAS"] = prev
+    if len(refused) != 2 or not all("IHPR_PALLAS" in e for e in refused) or any(all_counts()):
+        raise AssertionError(f"IHPR_PALLAS=off on the card: refusals {refused}, launches {all_counts()}")
+    print(f"kernels-off: IHPR_PALLAS=off refused by the Trainer and the fused head on CUDA tensors, "
+          f"{all_counts().count(0)} of 14 kernels launched 0 times: {refused[0]!r}")
+
+    trainer = Trainer(cfg, data_root="synthetic", synthetic_size=OFF_SIZE, num_workers=8, device="cuda")
+    try:
+        flip_perm = skeletons.get_skeleton(cfg.data.trainset[0]).flip_permutation()
+        start = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
+        trainer.cap_steps_per_epoch(OFF_STEPS)
+        # The epoch's first batch, as Trainer.train will draw it.
+        batch, _ = next(prefetch_to_device(trainer.loader.epoch(trainer.start_epoch, 1), "cuda"))
+        _zero_counts(fhi, iv, mm, cb)
+        kernel_loss, _ = _first_step(trainer.model, cfg, batch, start, flip_perm)
+        if _counts(fhi)[:2] != (1, 1):
+            raise AssertionError(f"the kernels' first step launched K1/K2 {_counts(fhi)[:2]} times")
+        trainer.model.load_state_dict(start)
+
+        # --- the main path on the plain versions, counted ---
+        with plain_versions(fhi, iv, mm, cb):
+            _zero_counts(fhi, iv, mm, cb)
+            trainer.train(trainer.start_epoch + 1)
+            torch.cuda.synchronize()
+            counts = all_counts()
+        # ----------------------------------------------------
+        losses = [float(x) for x in trainer.losses]
+        if any(counts):
+            raise AssertionError(f"the plain versions launched kernels (K1, K2, K3, K4, K5, K6, K7, K8, K1-fp32, "
+                                 f"K2-fp32, K5-fp32, K6-fp32, K7-fp32, K8-fp32): {counts}")
+        if len(losses) != OFF_STEPS or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"kernels-off losses {losses}")
+        gap = abs(losses[0] - kernel_loss)
+        print(f"kernels-off: {OFF_STEPS} steps through Trainer.train on the plain versions, K1-K8 launches "
+              f"{counts}; losses {', '.join(f'{x:.6f}' for x in losses)}; the first against the kernels' "
+              f"{kernel_loss:.6f} from the same state: |gap| {gap:.3e} (bar {TOL_OFF_LOSS})")
+        if gap > TOL_OFF_LOSS:
+            raise AssertionError(f"kernels-off first loss {losses[0]} vs the kernels' {kernel_loss}")
+
+        times = {"plain": [], "kernels": []}
+        for _ in range(2):  # in turns, each after its own warm-up call
+            with plain_versions(fhi, iv, mm, cb):
+                times["plain"].append(_cuda_ms(lambda: trainer.lean_step_fn(batch), 3, reps=1))
+            times["kernels"].append(_cuda_ms(lambda: trainer.lean_step_fn(batch), 3, reps=1))
+        off_ms, on_ms = (float(np.median(times[m])) for m in ("plain", "kernels"))
+        print(f"kernels-off: device {off_ms:.3f} ms/step on the plain versions against {on_ms:.3f} with K1/K2 "
+              f"(resident batch of {TRAIN_BATCH}, CUDA events, rounds {times})  [{gpu}]")
+    finally:
+        trainer.close()
+    return off_ms, on_ms
 
 
 # --- 7l: the fp32 heads JAX fuses, on the card: h36m3d_r50_fp32 and parity_r50 ---
@@ -5349,9 +5481,17 @@ def main(argv=None) -> int:
     parser.add_argument("--only", nargs="+",
                         choices=("bn", "fused", "dp", "dp-serve", "device-warp", "serving-bench", "real-data",
                                  "spatial", "spatial-uneven", "accuracy", "fp32-kernels", "fp32-train",
-                                 "fp32-fused", "fp32-conv3", "parity-serve", "no-plan", "modes", "jax-init"),
+                                 "fp32-fused", "fp32-conv3", "parity-serve", "no-plan", "modes", "jax-init",
+                                 "kernels-off"),
                         help="build the kernels and run only these phases (no JSON lines)")
     only = parser.parse_args(argv).only
+    if os.environ.get("IHPR_PALLAS", "auto") != "auto":
+        # The port refuses off on the card; a run under another value would
+        # prove nothing of the default routing (7q sets off itself, inside
+        # the phase, to see it refused).
+        print(f"chip_smoke: IHPR_PALLAS={os.environ['IHPR_PALLAS']!r}; the smoke runs only with the kernels' "
+              "default routing (unset or auto)", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run", file=sys.stderr)
         return 1
@@ -5393,7 +5533,8 @@ def main(argv=None) -> int:
                   "fp32-conv3": lambda: fp32_conv3_phase(fhi, iv, mm, cb, gpu),
                   "parity-serve": lambda: parity_serve_phase(fhi, iv, gpu),
                   "no-plan": lambda: noplan_phase(fhi, iv, gpu),
-                  "modes": lambda: modes_phase(fhi, gpu), "jax-init": lambda: jax_init_phase(gpu, draw)}
+                  "modes": lambda: modes_phase(fhi, gpu), "jax-init": lambda: jax_init_phase(gpu, draw),
+                  "kernels-off": lambda: kernels_off_phase(fhi, iv, mm, cb, gpu)}
         for name in only:
             phases[name]()
         print(gpu)
@@ -5415,6 +5556,7 @@ def main(argv=None) -> int:
     export_phase(r50_server, gpu)
     del r50_server
     train_k1, train_k2, head_err = train_phase(fhi, gpu)
+    kernels_off_phase(fhi, iv, mm, cb, gpu)
     modes_k1, modes_k2, modes_errs = modes_phase(fhi, gpu)
     f32_train_k1, f32_train_k2 = fp32_train_phase(fhi, iv, gpu)
     k5f_n, k6f_n, (k5f_err, k6f_err) = fp32_fused_phase(fhi, iv, mm, cb, gpu)

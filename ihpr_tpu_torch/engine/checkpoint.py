@@ -148,9 +148,13 @@ class CheckpointManager:
         self._drain()
         self._prune(self.keep)
 
-    def latest_epoch(self) -> Optional[int]:
+    def epochs(self) -> list:
+        """The epochs of the snapshots on disk, oldest first."""
         self._drain()  # make the save in flight visible
-        epochs = self._epochs_on_disk()
+        return self._epochs_on_disk()
+
+    def latest_epoch(self) -> Optional[int]:
+        epochs = self.epochs()
         return epochs[-1] if epochs else None
 
     def load(self, epoch: int) -> Tuple[dict, int, int]:

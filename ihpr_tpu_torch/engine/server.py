@@ -37,6 +37,7 @@ from ihpr_tpu_torch.data import geometry, native, skeletons
 from ihpr_tpu_torch.data.augment import finalize_patch
 from ihpr_tpu_torch.data.warp import affine_warp_bilinear, gen_trans_np
 from ihpr_tpu_torch.models.pose_net import PoseNet, build_pose_net, inference_copy, on_grid
+from ihpr_tpu_torch.ops.integral_volume import use_kernels
 from ihpr_tpu_torch.parallel.mesh import DataParallel, all_gather_rows, make_grid, row_shard
 from ihpr_tpu_torch.parallel.train_step import flip_test_coords
 
@@ -87,6 +88,7 @@ class PoseServer:
                                 cfg.data.input_shape[0])
         self.cfg = cfg
         self.device = torch.device(device)
+        use_kernels(self.device)  # refuses IHPR_PALLAS=off on the card before anything is built
         self.skeleton = skeletons.get_skeleton(cfg.data.testset)
         joints = self.skeleton.joint_num
         if isinstance(model_or_state, PoseNet):

@@ -46,6 +46,7 @@ from ihpr_tpu_torch.data.warp import gen_trans_np
 from ihpr_tpu_torch.engine.checkpoint import load_snapshot
 from ihpr_tpu_torch.engine.logger import colorlogger
 from ihpr_tpu_torch.models.pose_net import PoseNet, build_pose_net, inference_copy, on_grid
+from ihpr_tpu_torch.ops.integral_volume import use_kernels
 from ihpr_tpu_torch.parallel.mesh import all_gather_rows, comm_device, data_parallel
 from ihpr_tpu_torch.parallel.train_step import TrainState, make_eval_step
 
@@ -107,6 +108,7 @@ class Tester:
         (``pose_net.inference_copy``) on ``device``."""
         self.cfg = cfg
         self.device = torch.device(device)
+        use_kernels(self.device)  # refuses IHPR_PALLAS=off on the card before anything is built
         self.dp = data_parallel(cfg)
         self.logger = colorlogger(f"{cfg.output_dir}/log", "test_logs.txt")
         if dataset is None:

@@ -41,6 +41,7 @@ from ihpr_tpu_torch.engine.checkpoint import CheckpointManager
 from ihpr_tpu_torch.engine.logger import colorlogger
 from ihpr_tpu_torch.models.pose_net import build_pose_net
 from ihpr_tpu_torch.models.pretrained import load_backbone
+from ihpr_tpu_torch.ops.integral_volume import kernel_mode, use_kernels
 from ihpr_tpu_torch.parallel.mesh import all_gather_rows, any_rank, barrier, comm_device, data_parallel
 from ihpr_tpu_torch.parallel.train_step import (
     TrainState,
@@ -79,6 +80,11 @@ class Trainer:
         self.rss_limit_mb = resolve_rss_limit_mb(rss_limit_mb)
         self.rss_check_interval_steps = int(rss_check_interval_steps)
         self.logger = colorlogger(f"{cfg.output_dir}/log", "train_logs.txt")
+        use_kernels(self.device)  # refuses IHPR_PALLAS=off on the card before anything is built
+        mode = kernel_mode()
+        if mode != "auto":
+            self.logger.info("IHPR_PALLAS=%s: %s", mode, "the fused head's no-plan route on the CPU"
+                             if mode == "off" else "routes as auto (the port has no interpreter)")
         if datasets is None:
             # Secondary datasets render in the primary skeleton's hue space,
             # so joint identity is coded alike across the mix.

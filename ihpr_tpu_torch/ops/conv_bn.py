@@ -32,7 +32,8 @@ beside the nine fp32 weight blocks: stage 3 at a 128x128 frame, none at
 
 ``FusedConv3x3BN`` is the autograd Function: a CUDA tensor goes to the
 kernels, which launch or raise; a CPU tensor goes to ``plain`` /
-``plain_bwd``. ``kernel_fwd`` and ``kernel_bwd`` count one launch per call,
+``plain_bwd`` (``integral_volume.use_kernels``, which refuses
+``IHPR_PALLAS=off`` on a CUDA tensor). ``kernel_fwd`` and ``kernel_bwd`` count one launch per call,
 however many CUDA kernels the call runs: bf16 in ``launches`` /
 ``bwd_launches``, fp32 in ``f32_launches`` / ``f32_bwd_launches``. ``supported`` and ``profitable``
 are JAX's route predicates, copied; as in ``matmul_bn`` they pick the
@@ -51,7 +52,7 @@ import torch.nn.functional as F
 
 from ihpr_tpu_torch.ops import _build
 from ihpr_tpu_torch.ops.fused_head_integral import no_tf32
-from ihpr_tpu_torch.ops.integral_volume import _acc_dtype
+from ihpr_tpu_torch.ops.integral_volume import _acc_dtype, use_kernels
 from ihpr_tpu_torch.ops.matmul_bn import (
     _VMEM_BUDGET, _planes_shape, _ptr, _stream, check_cotangents, check_kernel_inputs, fold_g, prologue,
     prologue_bwd,
@@ -287,15 +288,15 @@ class FusedConv3x3BN(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w9, mul, add):
-        run = kernel_fwd if x.is_cuda else plain
-        y, s1, s2 = run(x, w9, mul, add)
+        ctx.kernels = use_kernels(x.device)  # the backward takes the forward's route
+        y, s1, s2 = (kernel_fwd if ctx.kernels else plain)(x, w9, mul, add)
         ctx.save_for_backward(x, w9, mul, add, y)
         return y, s1, s2
 
     @staticmethod
     def backward(ctx, dy, ds1, ds2):
         x, w9, mul, add, y = ctx.saved_tensors
-        run = kernel_bwd if x.is_cuda else plain_bwd
+        run = kernel_bwd if ctx.kernels else plain_bwd
         dx, dw, dmul, dadd = run(x, w9, mul, add, y, dy.contiguous(), ds1, ds2)
         return dx, dw.to(w9.dtype), dmul, dadd
 

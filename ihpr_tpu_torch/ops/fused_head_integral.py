@@ -36,6 +36,12 @@ launch or raise; a CPU tensor goes to the plain PyTorch versions
 (``plain``, ``plain_bwd``), which are also what the kernels are held
 against on the card. Nothing falls back from one to the other.
 
+Under ``IHPR_PALLAS=off`` (``integral_volume.use_kernels``, JAX's triage
+switch) a CPU head takes the no-plan route: the fp32 logits, then
+``plain`` / ``plain_bwd`` of the integral, as JAX's ``_pad_plan`` is
+skipped (``j2 = None``) and its ``_dispatch`` runs the plain composition.
+A CUDA head refuses ``off`` before anything runs.
+
 Two measurement modes of JAX's kernels, read from the environment at each
 call (JAX reads them when it traces): ``IHPR_EXP2=1`` pre-scales W and b
 by log2 e (``base2_scale``: an fp32 multiply, one rounding to the compute
@@ -66,7 +72,7 @@ from typing import Tuple
 import torch
 
 from ihpr_tpu_torch.ops import _build, integral_volume
-from ihpr_tpu_torch.ops.integral_volume import _acc_dtype, fold_bwd_rows
+from ihpr_tpu_torch.ops.integral_volume import _acc_dtype, fold_bwd_rows, kernel_mode, use_kernels
 
 _LIB = "fused_head_integral_fwd"
 _BWD_LIB = "fused_head_integral_bwd"
@@ -464,7 +470,8 @@ class FusedHeadIntegral(torch.autograd.Function):
     @staticmethod
     def forward(ctx, feat, kernel, bias, joint_num: int, depth_dim: int, width: int,
                 grad_enabled: bool, modes: Tuple[bool, bool] = (False, False)):
-        run = kernel_stats if feat.is_cuda else plain
+        ctx.kernels = use_kernels(feat.device)  # the backward takes the forward's route
+        run = kernel_stats if ctx.kernels else plain
         coords, m, s = run(feat, kernel, bias, joint_num, depth_dim, width, modes[0])
         if grad_enabled and any(ctx.needs_input_grad[:3]):
             ctx.save_for_backward(feat, kernel, bias, m, s, coords)
@@ -474,7 +481,7 @@ class FusedHeadIntegral(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         feat, kernel, bias, m, s, coords = ctx.saved_tensors
-        run = kernel_bwd if feat.is_cuda else plain_bwd
+        run = kernel_bwd if ctx.kernels else plain_bwd
         grads = run(feat, kernel, bias, m, s, coords, g.to(m.dtype).contiguous(), *ctx.dims)
         return (*(d if need else None for d, need in zip(grads, ctx.needs_input_grad)),
                 None, None, None, None, None)
@@ -541,7 +548,8 @@ def fused_final_conv_integral(
     (``exp_modes``); any other head forms the fp32 logits
     (``_Logits``) and runs ``integral_volume.SoftArgmaxVolume`` (K3/K4 on
     CUDA tensors). CPU tensors take the same route through the plain
-    versions."""
+    versions. Under ``IHPR_PALLAS=off`` every CPU head takes the second
+    route (JAX's ``j2 = None``); a CUDA head refuses it."""
     b, h, w, c = features.shape
     if features.is_cuda:
         if not features.is_contiguous():
@@ -553,7 +561,8 @@ def fused_final_conv_integral(
     else:
         raise ValueError(f"no fused head integral for device {features.device}")
     _check(feat, kernel, bias, joint_num, depth_dim, w)
-    if fused_supported(joint_num, depth_dim, h * w, c, features.dtype):
+    plan = use_kernels(features.device) or kernel_mode() != "off"  # refuses off on a CUDA head
+    if plan and fused_supported(joint_num, depth_dim, h * w, c, features.dtype):
         return FusedHeadIntegral.apply(
             feat, kernel, bias, joint_num, depth_dim, w, torch.is_grad_enabled(), exp_modes()
         )

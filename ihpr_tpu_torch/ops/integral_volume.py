@@ -29,12 +29,32 @@ rows (a rank with an empty shard) launches neither kernel: its m is -inf
 and its s 0, which the merge adds as exactly 0, and its dv is empty. Under a spatial mesh JAX
 takes the plain-XLA soft-argmax (``coords_plain``: ``pallas_call`` has no
 GSPMD rule); this is the same function with the kernels.
+
+``use_kernels`` is the port of JAX's kernel switch ``IHPR_PALLAS``
+(``integral_pallas.py:_use_pallas``), read at each call; every op module
+of the port routes its autograd Functions through it:
+
+- ``auto`` (the default) and ``interpret``: the kernels on CUDA tensors,
+  the plain versions on CPU tensors. The port has no interpreter: its CPU
+  route is already the plain version, and ``interpret`` (which the test
+  suite sets for JAX's sake) routes as ``auto``;
+- ``off``: on CPU tensors, JAX's triage routes: the fused head takes the
+  no-plan route (``fused_head_integral.fused_final_conv_integral``), as
+  JAX's ``j2 = None`` does, and everything else its plain versions, as on
+  any CPU run. On a CUDA tensor ``off`` is refused (``ValueError``): on the
+  card every dispatch launches its kernel, so no run there can report the
+  plain versions' speed or accuracy as the port's;
+- anything else raises ``ValueError``, on either device.
+
+The kernel wrappers themselves (``kernel_stats``, ``kernel_bwd``, ...)
+always launch: the switch chooses between them and the plain versions.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import os
 from typing import Tuple
 
 import torch
@@ -50,6 +70,32 @@ _BWD_LIB = "integral_volume_bwd"
 # touches them.
 launches = 0
 bwd_launches = 0
+
+
+KERNEL_MODES = ("auto", "interpret", "off")
+
+
+def kernel_mode() -> str:
+    """``IHPR_PALLAS`` as the environment sets it now (``auto`` when unset);
+    raises ``ValueError`` for a value that is not one of ``KERNEL_MODES``."""
+    mode = os.environ.get("IHPR_PALLAS", "auto")
+    if mode not in KERNEL_MODES:
+        raise ValueError(f"IHPR_PALLAS={mode!r}: expected one of {', '.join(KERNEL_MODES)}")
+    return mode
+
+
+def use_kernels(device) -> bool:
+    """Whether a tensor on ``device`` goes to the hand-written kernels:
+    every CUDA tensor does, no CPU tensor. Raises ``ValueError`` for
+    ``IHPR_PALLAS=off`` on a CUDA device, and for an unknown value on
+    either (``kernel_mode``)."""
+    mode = kernel_mode()
+    if torch.device(device).type != "cuda":
+        return False
+    if mode == "off":
+        raise ValueError("IHPR_PALLAS=off is refused on CUDA tensors: the port runs its hand-written kernels "
+                         "on every CUDA tensor (off is a triage of the CPU routes; unset it or set auto)")
+    return True
 
 
 def _acc_dtype(t: torch.Tensor) -> torch.dtype:
@@ -273,8 +319,8 @@ class SoftArgmaxVolume(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, vol, joint_num: int, depth_dim: int, width: int, grad_enabled: bool):
-        run = kernel_stats if vol.is_cuda else plain
-        coords, m, s = run(vol, joint_num, depth_dim, width)
+        ctx.kernels = use_kernels(vol.device)  # the backward takes the forward's route
+        coords, m, s = (kernel_stats if ctx.kernels else plain)(vol, joint_num, depth_dim, width)
         if grad_enabled and ctx.needs_input_grad[0]:
             ctx.save_for_backward(vol, m, s, coords)
             ctx.dims = (joint_num, depth_dim, width)
@@ -283,7 +329,7 @@ class SoftArgmaxVolume(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         vol, m, s, coords = ctx.saved_tensors
-        run = kernel_bwd if vol.is_cuda else plain_bwd
+        run = kernel_bwd if ctx.kernels else plain_bwd
         return run(vol, m, s, coords, g.to(m.dtype).contiguous(), *ctx.dims), None, None, None, None
 
 
@@ -358,8 +404,8 @@ class SoftArgmaxRowShards(torch.autograd.Function):
     @staticmethod
     def forward(ctx, vol, joint_num: int, depth_dim: int, width: int, y0: int, rows: DataParallel,
                 grad_enabled: bool):
-        run = kernel_stats if vol.is_cuda else plain
-        local, m, s = run(vol, joint_num, depth_dim, width)
+        ctx.kernels = use_kernels(vol.device)
+        local, m, s = (kernel_stats if ctx.kernels else plain)(vol, joint_num, depth_dim, width)
         coords, big_m, total = merge_row_shards(local, m, s, y0, rows)
         if grad_enabled and ctx.needs_input_grad[0]:
             shift = torch.tensor([0.0, float(y0), 0.0], dtype=coords.dtype, device=coords.device)
@@ -370,7 +416,7 @@ class SoftArgmaxRowShards(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         vol, big_m, total, coords = ctx.saved_tensors
-        run = kernel_bwd if vol.is_cuda else plain_bwd
+        run = kernel_bwd if ctx.kernels else plain_bwd
         dv = run(vol, big_m, total, coords, g.to(big_m.dtype).contiguous(), *ctx.dims)
         return dv, None, None, None, None, None, None
 

@@ -38,7 +38,9 @@ w the same way in the same pre-pass kernel.
 ``FusedMatmulBN`` is the autograd Function around the pair: a CUDA tensor
 goes to the kernels, which launch or raise; a CPU tensor goes to the plain
 versions here (``plain``, ``plain_bwd``), which are also what the kernels
-are held against on the card.
+are held against on the card. ``integral_volume.use_kernels`` makes the
+choice, once at the forward, and refuses ``IHPR_PALLAS=off`` on a CUDA
+tensor.
 
 Data-parallel, each rank runs K5/K6 on its own rows, and the Bottleneck
 hands the local s1, s2 to ``BN.from_sums``, which sums them over the ranks
@@ -64,7 +66,7 @@ import torch
 
 from ihpr_tpu_torch.ops import _build
 from ihpr_tpu_torch.ops.fused_head_integral import no_tf32, tf32_split
-from ihpr_tpu_torch.ops.integral_volume import _acc_dtype
+from ihpr_tpu_torch.ops.integral_volume import _acc_dtype, use_kernels
 
 _FWD_LIB = "matmul_bn_fwd"
 _BWD_LIB = "matmul_bn_bwd"
@@ -359,15 +361,15 @@ class FusedMatmulBN(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w, mul, add):
-        run = kernel_fwd if x.is_cuda else plain
-        y, s1, s2 = run(x, w, mul, add)
+        ctx.kernels = use_kernels(x.device)  # the backward takes the forward's route
+        y, s1, s2 = (kernel_fwd if ctx.kernels else plain)(x, w, mul, add)
         ctx.save_for_backward(x, w, mul, add, y)
         return y, s1, s2
 
     @staticmethod
     def backward(ctx, dy, ds1, ds2):
         x, w, mul, add, y = ctx.saved_tensors
-        run = kernel_bwd if x.is_cuda else plain_bwd
+        run = kernel_bwd if ctx.kernels else plain_bwd
         dx, dw, dmul, dadd = run(x, w, mul, add, y, dy.contiguous(), ds1, ds2)
         return dx, dw.to(w.dtype), dmul, dadd
 

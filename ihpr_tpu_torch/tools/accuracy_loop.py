@@ -45,7 +45,9 @@ anything is rendered; the result records the mode the run used. ``--platform`` i
 
 Writes ``{output_dir}/accuracy_loop.json`` with JAX's keys plus the device
 (the card's name and power limit), the train loop's img/s and the share of
-its wall time spent waiting for the loader; prints the markdown row and
+its wall time spent waiting for the loader, and under ``"kernels"`` the
+kernel switch the run read (``IHPR_PALLAS``: ``auto``, or ``off`` for the
+plain versions of K1-K8 on the card); prints the markdown row and
 ``accuracy_loop: PASS`` or ``FAIL``, and exits 0 or 1 by JAX's rule:
 
     python -m ihpr_tpu_torch.tools.accuracy_loop --preset tiny
@@ -68,6 +70,7 @@ from ihpr_tpu_torch.data.pipeline import prefetch_to_device
 from ihpr_tpu_torch.engine.tester import metrics_from_voxel_preds
 from ihpr_tpu_torch.models.pose_net import build_pose_net, inference_copy
 from ihpr_tpu_torch.models.resnet import BN_MODES, bn_subsample
+from ihpr_tpu_torch.ops.integral_volume import kernel_mode
 from ihpr_tpu_torch.parallel.train_step import make_eval_step
 from ihpr_tpu_torch.tools._accuracy import (
     device_info,
@@ -248,6 +251,7 @@ def main(argv=None):
         "resnet": cfg.model.resnet_type,
         "bn_mode": cfg.model.bn_mode,
         "seed": cfg.seed,
+        "kernels": kernel_mode(),
         "input_shape": list(cfg.data.input_shape),
         "depth_dim": cfg.data.depth_dim,
         "train_size": train_size,

@@ -1258,3 +1258,46 @@ def test_probe_wrappers_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="CUDA"):
         mxu_int8_probe.kernel_mm(a.cpu(), b.cpu(), 128, 128, 64)
     assert mxu_int8_probe.launches == before
+
+
+# --- the kernel switch: IHPR_PALLAS=off on the card ---------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_kernel_switch_off_is_refused_on_the_card(cuda, monkeypatch, dtype):
+    """Under ``IHPR_PALLAS=off`` the fused head, the integral over a logits
+    volume and both fused BN ops refuse CUDA tensors with a ValueError
+    naming the switch, and none of K1-K8 (nor an fp32 instance) launches;
+    under ``auto`` each of them launches its kernel on the same inputs."""
+    shape = (2, 16, 16, 256, 18, 16)
+    b, h, w, c, j, d = shape
+    feat, kernel, bias = _head_inputs(shape, cuda, dtype, seed=24)
+    vol = torch.randn(b, h * w, j * d, generator=torch.Generator().manual_seed(25)).to(cuda, dtype)
+    x = torch.randn(300, 64, generator=torch.Generator().manual_seed(26)).to(cuda, dtype)
+    wm = torch.randn(64, 128, generator=torch.Generator().manual_seed(27)).to(cuda, dtype)
+    x4 = torch.randn(2, 8, 8, 64, generator=torch.Generator().manual_seed(28)).to(cuda, dtype)
+    w4 = torch.randn(3, 3, 64, 64, generator=torch.Generator().manual_seed(29)).to(cuda, dtype)
+    calls = [lambda: fhi.fused_final_conv_integral(feat.view(b, h, w, c), kernel, bias, j, d),
+             lambda: iv.soft_argmax_volume(vol, j, d, w),
+             lambda: matmul_bn.fused_matmul_bn(x, wm),
+             lambda: conv_bn.fused_conv3x3_bn(x4, w4)]
+    counters = [(fhi, "launches"), (fhi, "f32_launches"), (iv, "launches")] + [
+        (mod, name) for mod in (matmul_bn, conv_bn) for name in ("launches", "f32_launches")]
+
+    def count():
+        return [getattr(mod, name) for mod, name in counters]
+
+    monkeypatch.setenv("IHPR_PALLAS", "off")
+    before = count()
+    for call in calls:
+        with pytest.raises(ValueError, match="IHPR_PALLAS=off is refused"):
+            call()
+    torch.cuda.synchronize()
+    assert count() == before
+    monkeypatch.setenv("IHPR_PALLAS", "auto")
+    for call in calls:
+        was = sum(count())
+        call()
+        assert sum(count()) > was
+    torch.cuda.synchronize()
